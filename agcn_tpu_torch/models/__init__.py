@@ -1,0 +1,4 @@
+from agcn_tpu_torch.models.agcn import AGCN, STGCNBlock, UnitGCN, UnitTCN
+from agcn_tpu_torch.models.registry import build_model
+
+__all__ = ["AGCN", "STGCNBlock", "UnitGCN", "UnitTCN", "build_model"]

@@ -1,0 +1,4 @@
+from agcn_tpu_torch.ops.conv import PointwiseConv, TemporalConv
+from agcn_tpu_torch.ops.norm import BatchNorm
+
+__all__ = ["PointwiseConv", "TemporalConv", "BatchNorm"]

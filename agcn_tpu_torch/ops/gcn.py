@@ -1,0 +1,84 @@
+"""Graph-convolution compute primitives, channels-last
+(port of agcn_tpu/ops/gcn.py, the forms this slice serves).
+
+  aggregate-and-project: y[b,t,w,o] = sum_{k,v,c} x[b,t,v,c] * a1[b,k,v,w]
+                                                  * W[k,c,o]
+  attention logits:      S[b,k,v,w] = sum_{t,c} th_k[b,t,v,c]
+                                                 * ph_k[b,t,w,c] / (Ce*T)
+
+Layouts are the JAX package's: x (B, T, V, C), a1 (B, K, V, V) with
+a1[b, k, source, dest], W (K, C, Co). The other `apply_gcn` and
+`attention_logits` forms wait (ROADMAP, Queue 1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def adaptive_gcn_reference(x: torch.Tensor, a1: torch.Tensor,
+                           w: torch.Tensor) -> torch.Tensor:
+    """Aggregate-then-project ('agg', agcn_tpu ops/gcn.py:151-157)."""
+    b, t, v, c = x.shape
+    k = a1.shape[1]
+    agg = torch.einsum("btvc,bkvw->btwkc", x, a1).reshape(b, t, v, k * c)
+    return agg @ w.reshape(k * c, -1)
+
+
+def adaptive_gcn_agg_packed(x: torch.Tensor, a1: torch.Tensor,
+                            w: torch.Tensor) -> torch.Tensor:
+    """Aggregate-then-project with the aggregation as one (T*C, V) x
+    (V, K*V) batched matmul ('agg_packed', ops/gcn.py:173-183)."""
+    b, t, v, c = x.shape
+    k = a1.shape[1]
+    x2 = x.permute(0, 1, 3, 2).reshape(b, t * c, v)
+    a2 = a1.permute(0, 2, 1, 3).reshape(b, v, k * v)
+    z = torch.bmm(x2, a2).reshape(b, t, c, k, v)  # (B, T*C, K*V)
+    z = z.permute(0, 1, 4, 3, 2).reshape(b, t, v, k * c)
+    return z @ w.reshape(k * c, -1)
+
+
+def attention_logits(emb: torch.Tensor, num_subset: int, inter_c: int,
+                     form: str = "transposed") -> torch.Tensor:
+    """Per-subset embedding-attention logits from the fused theta|phi
+    embedding output (divisor Ce * T; softmax applied by the caller).
+
+    Args:
+      emb: (B, T, V, 2*K*Ce) — [theta_0..theta_{K-1}, phi_0..phi_{K-1}].
+    Returns:
+      (B, K, V, V) scaled logits.
+    """
+    if form != "transposed":
+        raise NotImplementedError(
+            f"attention_logits form {form!r} is not ported yet; only "
+            "'transposed' (ROADMAP, Queue 1)")
+    b, t, v, _ = emb.shape
+    k, ce = num_subset, inter_c
+    e = emb.reshape(b, t, v, 2, k, ce)
+    th = e[..., 0, :, :].permute(0, 3, 2, 1, 4).reshape(b, k, v, t * ce)
+    ph = e[..., 1, :, :].permute(0, 3, 2, 1, 4).reshape(b, k, v, t * ce)
+    return torch.matmul(th, ph.transpose(-1, -2)) / (ce * t)
+
+
+def apply_gcn(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
+              formulation: str = "agg") -> torch.Tensor:
+    """Dispatch between GCN formulations. 'pallas' and 'pallas_hybrid'
+    run the fused Hopper kernel at every C, the C=3 entry layer included
+    (the JAX package routes C < 8 to 'agg_packed' because Mosaic cannot
+    lay out a minor dim of 3; the result is the same function)."""
+    if formulation == "agg":
+        return adaptive_gcn_reference(x, a1, w)
+    if formulation == "agg_packed":
+        return adaptive_gcn_agg_packed(x, a1, w)
+    if formulation in ("pallas", "pallas_hybrid"):
+        from agcn_tpu_torch.ops.kernels import gcn_fused
+
+        fn = (gcn_fused.adaptive_gcn_pallas if formulation == "pallas"
+              else gcn_fused.adaptive_gcn_pallas_hybrid)
+        return fn(x, a1, w)
+    if formulation in ("pf", "custom", "pf_packed", "agg_packed2", "agg_dp",
+                       "fused_dyn", "hybrid"):
+        raise NotImplementedError(
+            f"GCN formulation {formulation!r} is not ported yet "
+            "(ROADMAP, Queue 1)")
+    raise ValueError(f"unknown GCN formulation {formulation!r}")
