@@ -1,4 +1,4 @@
-"""AGCN — the original 2s-AGCN model (CVPR'19), eval forward in PyTorch
+"""AGCN — the original 2s-AGCN model (CVPR'19) in PyTorch
 (port of agcn_tpu/models/agcn.py).
 
 Parity target: reference model/architecture/aagcn/agcn.py (unit_tcn
@@ -11,22 +11,29 @@ package's weights in with a strict load. The compute stays channels-last
 weights are cast to it at use while parameters, BN statistics and the
 attention softmax stay fp32.
 
-This slice serves: the model runs in eval mode (`model.eval()`); the
-training forward lands with the training slice.
+Train mode (`model.train()`, torch's default) normalizes with batch
+statistics and runs the configured GCN `formulation`; eval mode keeps the
+pallas formulations and takes the eval default 'agg' for the einsum
+forms, as the JAX package does (agcn.py:135-138). `remat` recomputes each
+block's forward in the backward (`torch.utils.checkpoint`), without
+updating the BN running statistics a second time.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from agcn_tpu_torch.ops import BatchNorm, PointwiseConv, TemporalConv
 from agcn_tpu_torch.ops import gcn as gcn_ops
 from agcn_tpu_torch.ops import initializers as init
+from agcn_tpu_torch.ops.norm import recomputing
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -107,11 +114,12 @@ class UnitGCN(nn.Module):
 
             y = fused_gcn(compute, a1, w_stack) + out_b
         else:
-            # the pallas formulations keep their fused forward kernel at
-            # eval; the einsum forms take the eval default 'agg'
+            # training runs the configured formulation; at eval the
+            # pallas formulations keep their fused forward kernel and the
+            # einsum forms take the eval default 'agg'
             # (agcn_tpu agcn.py:135-138)
             form = (self.formulation
-                    if self.formulation.startswith("pallas")
+                    if self.training or self.formulation.startswith("pallas")
                     else self.eval_formulation or "agg")
             y = gcn_ops.apply_gcn(compute, a1, w_stack, form) + out_b
         y = self.bn(y)
@@ -213,9 +221,7 @@ class AGCN(nn.Module):
                 "(ROADMAP, Queue 1: Parallel)")
         if adj is None:
             raise ValueError("adj: the (K, V, V) adjacency stack is required")
-        # remat trades FLOPs for memory in the backward only: no effect
-        # on the eval forward of this slice
-        del remat
+        self.remat = remat
         self.dtype = dtype
         self.data_bn = BatchNorm(num_person * num_point * in_channels)
         common = dict(dtype=self.dtype, use_pallas=use_pallas,
@@ -243,11 +249,17 @@ class AGCN(nn.Module):
         with torch.no_grad():
             self.fc.bias.zero_()
 
+    def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        block = getattr(self, name)
+        if not (self.remat and torch.is_grad_enabled()):
+            return block(x)
+        # the block's activations are recomputed in the backward (JAX
+        # nn.remat, agcn.py:341-342); the recompute leaves BN stats alone
+        return checkpoint(block, x, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              recomputing(block)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "the training forward lands with the training slice; call "
-                ".eval() on the model to serve")
         n, c, t, v, m = x.shape
         # (N, C, T, V, M) -> (N, T, M*V*C): channel order (m, v, c)
         # matches the reference's data_bn layout (agcn.py:163-165)
@@ -258,7 +270,7 @@ class AGCN(nn.Module):
             n * m, t, v, c)
         x = _cast(x, self.dtype)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = self._block(name, x)
         # global pooling: mean over (T, V), then persons (agcn.py:178-182)
         x = x.float().mean(dim=(1, 2)).reshape(n, m, -1).mean(dim=1)
         return self.fc(x)

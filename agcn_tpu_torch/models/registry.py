@@ -32,7 +32,7 @@ def build_model(name: str, model_args: Dict[str, Any],
     if key != "agcn":
         raise NotImplementedError(
             f"model {name!r} is not ported yet: the port serves AGCN; "
-            "AAGCN and the SGN family wait in ROADMAP Queue 1 (items 7-8)")
+            "AAGCN and the SGN family wait in ROADMAP Queue 1")
     args = dict(model_args)
     graph = args.pop("graph", "ntu_rgb_d")
     graph_args = args.pop("graph_args", {})

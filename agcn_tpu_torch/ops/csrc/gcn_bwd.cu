@@ -1,0 +1,467 @@
+// Fused adaptive graph convolution, weight and adjacency gradients, for
+// NVIDIA Hopper (sm_90a).
+//
+// For y[b,t,w,o] = sum_{k,v,c} x[b,t,v,c] * a1[b,k,v,w] * W[k,c,o] and its
+// cotangent g (B,T,V,Co):
+//
+//   dW[k,c,o]    = sum_{b,t,v} x[b,t,v,c] * u_k[b,t,v,o]
+//   u_k[b,t,v,o] = sum_w g[b,t,w,o] * a1[b,k,v,w]     rounded to g's type
+//   da1[b,k,v,w] = sum_{t,o} p_k[b,t,v,o] * g[b,t,w,o]
+//   p_k[b,t,v,o] = sum_c x[b,t,v,c] * W[k,c,o]        rounded to x's type
+//
+// Sums in fp32; dW and da1 are written in the inputs' type: x, a1, g and
+// W share one type (float or bf16); K = 3. The
+// input gradient dx is not computed here: it is the forward kernel
+// (gcn_fwd.cu) on (g, a1^T, W^T).
+//
+// Replaces the TPU kernel agcn_tpu/ops/pallas/gcn_fused.py _bwd_kernel
+// (reached through _backward, used by _vjp_bwd), with its rounding points
+// (gcn_fused.py:99-101 and :112-113).
+//
+// Order of the sums. The TPU kernel adds into dW across its whole
+// (B, nT) grid and into da1 across the time tiles of a sample, which is
+// safe there only because a TPU runs its grid in order. Here no block
+// adds into another's output: each reduces over T inside itself, the
+// per-sample-group dW partials are summed by a second kernel in a fixed
+// order, and every sum runs in an order fixed by the shapes alone. Two
+// calls on the same inputs give bitwise-equal results.
+//
+// What bounds it on an H100: per call it must read x, g (B*T*V*(C+Co)
+// values), a1 and W, and write dW and da1, and do
+// 4*K*B*T*V*Co*(V+C) flops. At the AGCN training shapes that is 100-290
+// flops per fp32 byte, above the fp32 ridge of 20 (67 TFLOP/s outside the
+// tensor cores over 3.35 TB/s): fp32 calls are bound by operations. In
+// bf16 the bytes halve and the ridge is 295 (989 TFLOP/s on the tensor
+// cores): bytes bound the narrow layers, operations the wide ones. All
+// math here is fp32 on the CUDA cores, so the kernel's own ceiling is the
+// fp32 rate for both types; tensor-core MMA is later work.
+//
+// What the design does about it: the intermediates u and p never go to
+// device memory (as on the TPU, where they stayed in VMEM); each lives in
+// shared memory for one tile of 4 frames.
+//
+//   gcn_dw_partial_kernel: one block of 128 threads per (64 output
+//     channels, 32 input channels, subset k, group of samples). For each
+//     sample of its group and each 4-frame tile it stages g, x and a1_k^T
+//     in shared memory, forms u (each thread a (t, o) column over all V
+//     joints, the a1 row read as float4 broadcasts), rounds it, and adds
+//     x^T u into a 4x4 fp32 register tile per thread. It writes one
+//     (C, Co) partial per group. The group count is chosen from the
+//     shapes so that about 264 blocks run (two waves of 132 SMs).
+//   gcn_dw_reduce_kernel: dW = sum over the groups, in group order.
+//   gcn_da1_kernel: one block per (k, sample). Per 4-frame tile and
+//     64-channel chunk it projects p = x W_k (the register tiling of the
+//     forward kernel's projection), rounds it, stages g, and adds
+//     p . g over (t, o) into the 625 (v, w) sums, about 5 per thread.
+//
+// Ragged edges (T not a multiple of 4, C of 32, Co of 64) are masked:
+// staged values beyond the edge are zero and stores beyond it are skipped.
+//
+// C interface: agcn_gcn_bwd(...) launches the three kernels on the given
+// stream of the current device and returns the first CUDA error (0 on
+// success). The caller allocates the (G, K, C, Co) fp32 partials.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int K = 3;             // spatial subsets
+constexpr int THREADS = 128;
+constexpr int TT = 4;            // frames per tile
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// ---------------------------------------------------------------- dW ----
+
+constexpr int DW_CT = 32;        // input channels per block
+constexpr int DW_OT = 64;        // output channels per block
+constexpr int DW_OG = DW_OT / 4; // 16 groups of 4 output channels
+// 128 threads = 16 output-channel groups x 8 input-channel groups of 4
+static_assert(DW_OG * (DW_CT / 4) == THREADS, "dW thread tiling");
+
+template <int V>
+struct DwLayout {
+  static constexpr int VP = (V + 3) / 4 * 4;  // a1 row, float4-padded
+  static constexpr int ROWS = TT * V;         // (t, v) rows of a tile
+  static constexpr int AT = V * VP;           // at_s[w][VP] = a1[b,k,:,w]
+  static constexpr int G = ROWS * DW_OT;      // g_s[t*V + w][DW_OT]
+  static constexpr int U = ROWS * DW_OT;      // u_s[t*V + v][DW_OT]
+  static constexpr int X = ROWS * DW_CT;      // x_s[t*V + v][DW_CT]
+  static constexpr size_t BYTES = sizeof(float) * (AT + G + U + X);
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+gcn_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ a1,
+                      const T* __restrict__ g, float* __restrict__ part,
+                      int B, int Tn, int C, int Co, int groups) {
+  using L = DwLayout<V>;
+  extern __shared__ __align__(16) float smem[];
+  float* at_s = smem;
+  float* g_s = at_s + L::AT;
+  float* u_s = g_s + L::G;
+  float* x_s = u_s + L::U;
+
+  const int o0 = blockIdx.x * DW_OT;
+  const int c0 = blockIdx.y * DW_CT;
+  const int k = blockIdx.z % K;
+  const int grp = blockIdx.z / K;
+  const int tid = threadIdx.x;
+  const int og = tid % DW_OG;   // output channels o0 + 4*og .. +3
+  const int cq = tid / DW_OG;   // input channels c0 + 4*cq .. +3
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  }
+
+  for (int b = grp; b < B; b += groups) {
+    __syncthreads();  // the previous sample's last tile has read at_s
+    const T* a_bk = a1 + ((size_t)b * K + k) * V * V;
+    for (int i = tid; i < L::AT; i += THREADS) {
+      const int v = i % L::VP;
+      const int w = i / L::VP;
+      at_s[i] = v < V ? to_f(a_bk[v * V + w]) : 0.f;
+    }
+    const T* g_b = g + (size_t)b * Tn * V * Co;
+    const T* x_b = x + (size_t)b * Tn * V * C;
+    for (int t0 = 0; t0 < Tn; t0 += TT) {
+      __syncthreads();  // the previous tile's dW step has read u_s, x_s
+      for (int i = tid; i < L::G; i += THREADS) {
+        const int o = i % DW_OT;
+        const int tw = i / DW_OT;
+        const int t = t0 + tw / V;
+        float val = 0.f;
+        if (t < Tn && o0 + o < Co) {
+          val = to_f(g_b[((size_t)t * V + tw % V) * Co + o0 + o]);
+        }
+        g_s[i] = val;
+      }
+      for (int i = tid; i < L::X; i += THREADS) {
+        const int c = i % DW_CT;
+        const int tv = i / DW_CT;
+        const int t = t0 + tv / V;
+        float val = 0.f;
+        if (t < Tn && c0 + c < C) {
+          val = to_f(x_b[((size_t)t * V + tv % V) * C + c0 + c]);
+        }
+        x_s[i] = val;
+      }
+      __syncthreads();
+
+      // u[t][v][o] = sum_w g[t][w][o] * a1[v][w], rounded to g's type
+      for (int item = tid; item < TT * DW_OT; item += THREADS) {
+        const int o = item % DW_OT;
+        const int t = item / DW_OT;
+        float s[L::VP];
+#pragma unroll
+        for (int j = 0; j < L::VP; ++j) s[j] = 0.f;
+#pragma unroll
+        for (int w = 0; w < V; ++w) {
+          const float gv = g_s[(t * V + w) * DW_OT + o];
+          const float4* arow =
+              reinterpret_cast<const float4*>(at_s + w * L::VP);
+#pragma unroll
+          for (int q = 0; q < L::VP / 4; ++q) {
+            const float4 a4 = arow[q];
+            s[4 * q + 0] += gv * a4.x;
+            s[4 * q + 1] += gv * a4.y;
+            s[4 * q + 2] += gv * a4.z;
+            s[4 * q + 3] += gv * a4.w;
+          }
+        }
+        float* dst = u_s + t * V * DW_OT + o;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          dst[v * DW_OT] = to_f(from_f<T>(s[v]));
+        }
+      }
+      __syncthreads();
+
+      // dW partial: acc[c][o] += sum_{t,v} x[t][v][c] * u[t][v][o]
+#pragma unroll 4
+      for (int r = 0; r < L::ROWS; ++r) {
+        const float4 xv =
+            *reinterpret_cast<const float4*>(x_s + r * DW_CT + cq * 4);
+        const float4 uv =
+            *reinterpret_cast<const float4*>(u_s + r * DW_OT + og * 4);
+        const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][0] += xa[i] * uv.x;
+          acc[i][1] += xa[i] * uv.y;
+          acc[i][2] += xa[i] * uv.z;
+          acc[i][3] += xa[i] * uv.w;
+        }
+      }
+    }
+  }
+
+  float* dst = part + ((size_t)grp * K + k) * C * Co;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = c0 + cq * 4 + i;
+    if (c >= C) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = o0 + og * 4 + j;
+      if (o < Co) dst[(size_t)c * Co + o] = acc[i][j];
+    }
+  }
+}
+
+// dW[i] = sum over the groups of the partials, in group order
+template <typename T>
+__global__ void __launch_bounds__(256)
+gcn_dw_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
+                     int n, int groups) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int gi = 0; gi < groups; ++gi) s += part[(size_t)gi * n + i];
+  dw[i] = from_f<T>(s);
+}
+
+// --------------------------------------------------------------- da1 ----
+
+constexpr int DA_CC = 32;                     // input-channel chunk of p
+constexpr int DA_OC = 64;                     // output-channel chunk
+constexpr int DA_COL_GROUPS = DA_OC / 4;      // 16
+constexpr int DA_ROW_GROUPS = THREADS / DA_COL_GROUPS;  // 8
+
+template <int V>
+struct DaLayout {
+  static constexpr int ROWS = TT * V;         // (t, v) rows of a tile
+  static constexpr int RM = (ROWS + DA_ROW_GROUPS - 1) / DA_ROW_GROUPS;
+  static constexpr int ROWS_P = RM * DA_ROW_GROUPS;  // incl. zero pad
+  static constexpr int LDX = DA_CC + 1;       // x_s row stride: no bank
+                                              // conflicts
+  static constexpr int LD = DA_OC + 4;        // p_s / g_s row stride:
+                                              // float4-aligned, rows 4
+                                              // banks apart
+  static constexpr int X = ROWS_P * LDX;      // x_s[ROWS_P][LDX]
+  static constexpr int W = DA_CC * DA_OC;     // w_s[DA_CC][DA_OC]
+  static constexpr int P = ROWS * LD;         // p_s[t*V + v][LD]
+  static constexpr int G = ROWS * LD;         // g_s[t*V + w][LD]
+  static constexpr int PAIRS = (V * V + THREADS - 1) / THREADS;
+  // W, P and G start on 16-byte boundaries (float4 access)
+  static constexpr int X_P = (X + 3) / 4 * 4;
+  static constexpr size_t BYTES = sizeof(float) * (X_P + W + P + G);
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+gcn_da1_kernel(const T* __restrict__ x, const T* __restrict__ w,
+               const T* __restrict__ g, T* __restrict__ da1, int Tn, int C,
+               int Co) {
+  using L = DaLayout<V>;
+  extern __shared__ __align__(16) float smem[];
+  float* x_s = smem;
+  float* w_s = x_s + L::X_P;
+  float* p_s = w_s + L::W;
+  float* g_s = p_s + L::P;
+
+  const int k = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int cg = tid % DA_COL_GROUPS;
+  const int rg = tid / DA_COL_GROUPS;
+
+  // the (v, w) pairs of this thread; the last ones of the last round are
+  // clamped to a valid pair and not stored
+  int pv[L::PAIRS], pw[L::PAIRS];
+  float s[L::PAIRS];
+#pragma unroll
+  for (int i = 0; i < L::PAIRS; ++i) {
+    const int j = min(tid + i * THREADS, V * V - 1);
+    pv[i] = j / V;
+    pw[i] = j % V;
+    s[i] = 0.f;
+  }
+
+  const T* x_b = x + (size_t)b * Tn * V * C;
+  const T* g_b = g + (size_t)b * Tn * V * Co;
+  const T* w_k = w + (size_t)k * C * Co;
+  for (int t0 = 0; t0 < Tn; t0 += TT) {
+    for (int o0 = 0; o0 < Co; o0 += DA_OC) {
+      // p = x[t0 .. t0+TT) @ W_k[:, o0 .. o0+DA_OC), fp32 over c
+      float acc[L::RM][4];
+#pragma unroll
+      for (int i = 0; i < L::RM; ++i) {
+        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+      }
+      for (int c0 = 0; c0 < C; c0 += DA_CC) {
+        __syncthreads();  // the previous chunk / tile is done with smem
+        for (int i = tid; i < L::ROWS_P * DA_CC; i += THREADS) {
+          const int c = i % DA_CC;
+          const int r = i / DA_CC;
+          const int t = t0 + r / V;
+          float val = 0.f;
+          if (r < L::ROWS && t < Tn && c0 + c < C) {
+            val = to_f(x_b[((size_t)t * V + r % V) * C + c0 + c]);
+          }
+          x_s[r * L::LDX + c] = val;
+        }
+        for (int i = tid; i < L::W; i += THREADS) {
+          const int o = i % DA_OC;
+          const int c = c0 + i / DA_OC;
+          float val = 0.f;
+          if (c < C && o0 + o < Co) {
+            val = to_f(w_k[(size_t)c * Co + o0 + o]);
+          }
+          w_s[i] = val;
+        }
+        __syncthreads();
+        const float* x_r = x_s + rg * L::LDX;
+#pragma unroll 4
+        for (int c = 0; c < DA_CC; ++c) {
+          const float4 wv =
+              *reinterpret_cast<const float4*>(w_s + c * DA_OC + cg * 4);
+#pragma unroll
+          for (int i = 0; i < L::RM; ++i) {
+            const float av = x_r[i * DA_ROW_GROUPS * L::LDX + c];
+            acc[i][0] += av * wv.x;
+            acc[i][1] += av * wv.y;
+            acc[i][2] += av * wv.z;
+            acc[i][3] += av * wv.w;
+          }
+        }
+      }
+      // p rounded to x's type; g staged beside it
+#pragma unroll
+      for (int i = 0; i < L::RM; ++i) {
+        const int r = rg + i * DA_ROW_GROUPS;
+        if (r < L::ROWS) {
+          float4 pv4;
+          pv4.x = to_f(from_f<T>(acc[i][0]));
+          pv4.y = to_f(from_f<T>(acc[i][1]));
+          pv4.z = to_f(from_f<T>(acc[i][2]));
+          pv4.w = to_f(from_f<T>(acc[i][3]));
+          *reinterpret_cast<float4*>(p_s + r * L::LD + cg * 4) = pv4;
+        }
+      }
+      for (int i = tid; i < L::ROWS * DA_OC; i += THREADS) {
+        const int o = i % DA_OC;
+        const int tw = i / DA_OC;
+        const int t = t0 + tw / V;
+        float val = 0.f;
+        if (t < Tn && o0 + o < Co) {
+          val = to_f(g_b[((size_t)t * V + tw % V) * Co + o0 + o]);
+        }
+        g_s[tw * L::LD + o] = val;
+      }
+      __syncthreads();
+
+      // da1[v][w] += sum_{t,o} p[t][v][o] * g[t][w][o]
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+#pragma unroll 4
+        for (int q = 0; q < DA_OC / 4; ++q) {
+#pragma unroll
+          for (int i = 0; i < L::PAIRS; ++i) {
+            const float4 p4 = *reinterpret_cast<const float4*>(
+                p_s + (t * V + pv[i]) * L::LD + 4 * q);
+            const float4 g4 = *reinterpret_cast<const float4*>(
+                g_s + (t * V + pw[i]) * L::LD + 4 * q);
+            s[i] += p4.x * g4.x;
+            s[i] += p4.y * g4.y;
+            s[i] += p4.z * g4.z;
+            s[i] += p4.w * g4.w;
+          }
+        }
+      }
+    }
+  }
+
+  T* dst = da1 + ((size_t)b * K + k) * V * V;
+#pragma unroll
+  for (int i = 0; i < L::PAIRS; ++i) {
+    const int j = tid + i * THREADS;
+    if (j < V * V) dst[j] = from_f<T>(s[i]);
+  }
+}
+
+// ------------------------------------------------------------ launch ----
+
+template <typename T, int V>
+cudaError_t launch(const void* x, const void* a1, const void* w,
+                   const void* g, void* dw, void* da1, void* part, int B,
+                   int Tn, int C, int Co, int groups, cudaStream_t stream) {
+  auto dw_kern = gcn_dw_partial_kernel<T, V>;
+  const size_t dw_bytes = DwLayout<V>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      dw_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dw_bytes);
+  if (err != cudaSuccess) return err;
+  dim3 dw_grid((Co + DW_OT - 1) / DW_OT, (C + DW_CT - 1) / DW_CT,
+               K * groups);
+  dw_kern<<<dw_grid, THREADS, dw_bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(a1),
+      static_cast<const T*>(g), static_cast<float*>(part), B, Tn, C, Co,
+      groups);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int n = K * C * Co;
+  gcn_dw_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<T*>(dw), n, groups);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto da_kern = gcn_da1_kernel<T, V>;
+  const size_t da_bytes = DaLayout<V>::BYTES;
+  err = cudaFuncSetAttribute(
+      da_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)da_bytes);
+  if (err != cudaSuccess) return err;
+  da_kern<<<dim3(K, B), THREADS, da_bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(g), static_cast<T*>(da1), Tn, C, Co);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_v(const void* x, const void* a1, const void* w,
+                     const void* g, void* dw, void* da1, void* part, int B,
+                     int Tn, int V, int C, int Co, int groups,
+                     cudaStream_t stream) {
+  switch (V) {  // the joint counts of the AGCN skeletons (NTU, Kinetics)
+    case 25:
+      return launch<T, 25>(x, a1, w, g, dw, da1, part, B, Tn, C, Co,
+                               groups, stream);
+    case 18:
+      return launch<T, 18>(x, a1, w, g, dw, da1, part, B, Tn, C, Co,
+                               groups, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" int agcn_gcn_bwd(const void* x, const void* a1, const void* w,
+                            const void* g, void* dw, void* da1, void* part,
+                            int B, int Tn, int V, int C, int Co, int groups,
+                            int bf16, void* stream) {
+  // launches on the caller's current device, which owns `stream`
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (groups < 1 || groups > B) return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    return (int)launch_v<__nv_bfloat16>(x, a1, w, g, dw, da1, part, B, Tn,
+                                        V, C, Co, groups, s);
+  }
+  return (int)launch_v<float>(x, a1, w, g, dw, da1, part, B, Tn, V, C, Co,
+                              groups, s);
+}

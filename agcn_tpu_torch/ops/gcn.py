@@ -1,5 +1,7 @@
 """Graph-convolution compute primitives, channels-last
-(port of agcn_tpu/ops/gcn.py, the forms this slice serves).
+(port of agcn_tpu/ops/gcn.py, the forms ported so far). Autograd of
+'agg' and 'agg_packed' is torch's own; the pallas forms carry their own
+backward (ops/kernels/gcn_fused.py).
 
   aggregate-and-project: y[b,t,w,o] = sum_{k,v,c} x[b,t,v,c] * a1[b,k,v,w]
                                                   * W[k,c,o]
@@ -36,6 +38,32 @@ def adaptive_gcn_agg_packed(x: torch.Tensor, a1: torch.Tensor,
     z = torch.bmm(x2, a2).reshape(b, t, c, k, v)  # (B, T*C, K*V)
     z = z.permute(0, 1, 4, 3, 2).reshape(b, t, v, k * c)
     return z @ w.reshape(k * c, -1)
+
+
+def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum` with JAX's type promotion (torch's einsum takes one
+    dtype only): the operands are cast to their common type."""
+    dtype = operands[0].dtype
+    for op in operands[1:]:
+        dtype = torch.promote_types(dtype, op.dtype)
+    return torch.einsum(eq, *(op.to(dtype) for op in operands))
+
+
+def adaptive_gcn_bwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
+                     g: torch.Tensor):
+    """(dx, da1, dW) of y = sum_k (x @_v a1_k) @_c W_k for the cotangent
+    g, each in the einsum order with the largest contractions
+    (agcn_tpu ops/gcn.py:130-145, the `pallas_hybrid` backward)."""
+    b, t, v, c = x.shape
+    k, _, co = w.shape
+    wc = w.permute(1, 0, 2).reshape(c, k * co)
+    p = (x @ wc).reshape(b, t, v, k, co)  # recomputed: one wide GEMM
+    da1 = einsum("btvko,btwo->bkvw", p, g)
+    u = einsum("btwo,kco->btwkc", g, w)
+    dx = einsum("btwkc,bkvw->btvc", u, a1)
+    agg = einsum("btvc,bkvw->btwkc", x, a1)
+    dw = einsum("btwkc,btwo->kco", agg, g)
+    return dx, da1, dw
 
 
 def attention_logits(emb: torch.Tensor, num_subset: int, inter_c: int,

@@ -1,39 +1,60 @@
-"""Fused adaptive graph convolution forward on a hand-written Hopper
-kernel (port of agcn_tpu/ops/pallas/gcn_fused.py).
+"""Fused adaptive graph convolution on hand-written Hopper kernels,
+forward and backward (port of agcn_tpu/ops/pallas/gcn_fused.py).
 
   y[b,t,w,o] = sum_{k,v,c} x[b,t,v,c] * a1[b,k,v,w] * W[k,c,o]
 
-`csrc/gcn_fwd.cu` computes it per (sample, 4 frames, 64 output channels)
-block with the per-subset aggregate kept in shared memory, never in
-device memory. One kernel serves both TPU forward kernels of the JAX
-package; a flag picks the one real numerical difference between them in
-bf16: `round_agg=True` rounds each per-subset aggregate to x's type
+Forward: `csrc/gcn_fwd.cu` computes it per (sample, 4 frames, 64 output
+channels) block with the per-subset aggregate kept in shared memory,
+never in device memory. One kernel serves both TPU forward kernels of the
+JAX package; a flag picks the one real numerical difference between them
+in bf16: `round_agg=True` rounds each per-subset aggregate to x's type
 before the projection (gcn_fused.py:58-60), `round_agg=False` keeps it in
 fp32 (gcn_kernel.py:45-49). The projection accumulates in fp32 over c and
 k; y comes out in x's type.
 
+Backward of `adaptive_gcn_pallas` (the JAX `_vjp_bwd`, gcn_fused.py:222):
+  dx      = the forward kernel on (g, a1^T, W^T) with round_agg=True;
+  dW, da1 = `csrc/gcn_bwd.cu` (`gcn_backward`): dW_k = sum x * u_k with
+            u_k = g a1_k^T rounded to g's type, da1_k = sum p_k g with
+            p_k = x W_k rounded to x's type; fp32 sums cast to W's and
+            a1's types. Each block reduces over T itself and the dW
+            partials of sample groups are summed in a fixed order, so the
+            result is deterministic (the TPU kernel's ordered-grid `+=`
+            has no GPU counterpart).
+`adaptive_gcn_pallas_hybrid` runs the same kernel forward with the
+einsum cotangents of `ops.gcn.adaptive_gcn_bwd` (the JAX `_hyb_bwd`).
+
 The TPU layout artefacts are not carried over: no zero-padding of the
 contractions to 128, no time tiles in multiples of 8 with T padded up,
-no routing of C < 8 elsewhere — the kernel masks its ragged edges and
-runs the C=3 entry layer too.
+no routing of C < 8 elsewhere — the kernels mask their ragged edges and
+run the C=3 entry layer too.
 
-`gcn_fwd_plain` is the same function in plain PyTorch, with the same
-rounding flag. A wrapper takes it only for CPU tensors; for CUDA tensors
-it launches the kernel or raises. The backward kernel lands with the
-training slice: until then a call that autograd would have to
-differentiate raises.
+`gcn_fwd_plain` and `gcn_bwd_plain` are the same functions in plain
+PyTorch, with the same rounding points. A wrapper takes them only for
+CPU tensors; for CUDA tensors it launches the kernel or raises.
+
+Launch counts: `adaptive_gcn_pallas.launches` counts the gcn_fwd
+launches with round_agg (forwards of both pallas forms and the dx of
+`pallas`), `gcn_backward.launches` the gcn_bwd calls (three kernels
+each).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
+from agcn_tpu_torch.ops import gcn as gcn_ops
 from agcn_tpu_torch.ops.kernels import build
 
 K = 3  # subset count is structural in this architecture (reference A/B/C)
 SUPPORTED_JOINTS = (18, 25)  # V of the AGCN skeletons (Kinetics, NTU)
+# gcn_bwd's dW kernel: blocks of (64 output x 32 input channels, one
+# subset, one group of samples); the group count is chosen so that about
+# this many blocks run (two waves on 132 SMs)
+_DW_TILE_O, _DW_TILE_C, _DW_TARGET_BLOCKS = 64, 32, 264
 
 
 def gcn_fwd_plain(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
@@ -52,12 +73,21 @@ def gcn_fwd_plain(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     return acc.to(x.dtype)
 
 
-def _forbid_grad(name: str, *tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} has no backward yet: the backward kernel lands with "
-            "the training slice. Call it under torch.no_grad() or "
-            "torch.inference_mode().")
+def gcn_bwd_plain(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
+                  g: torch.Tensor):
+    """Plain PyTorch version of gcn_bwd: (dW, da1) with u rounded to g's
+    type and p to x's type, fp32 sums, dW in w's type and da1 in a1's
+    (agcn_tpu gcn_fused.py:72-118, 200)."""
+    xf, gf = x.float(), g.float()
+    dw, da1 = [], []
+    for k in range(a1.shape[1]):
+        u = torch.einsum("btwo,bvw->btvo", gf, a1[:, k].float())
+        u = u.to(g.dtype).float()
+        dw.append(torch.einsum("btvc,btvo->co", xf, u))
+        p = (xf @ w[k].float()).to(x.dtype).float()
+        da1.append(torch.einsum("btvo,btwo->bvw", p, gf))
+    return (torch.stack(dw).to(w.dtype),
+            torch.stack(da1, dim=1).to(a1.dtype))
 
 
 def _check(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor) -> None:
@@ -82,6 +112,27 @@ def _check(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("x, a1 and w must be contiguous")
 
 
+def _check_cotangent(x: torch.Tensor, w: torch.Tensor,
+                     g: torch.Tensor) -> None:
+    want = tuple(x.shape[:3]) + (w.shape[-1],)
+    if g.dtype != x.dtype or tuple(g.shape) != want:
+        raise ValueError(f"g must be {x.dtype} {want}, got {g.dtype} "
+                         f"{tuple(g.shape)}")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+
+
+def _bind(name: str, symbol: str, n_ptr: int, n_int: int):
+    fn = getattr(build.load(name), symbol)
+    if fn.argtypes is None:
+        # without argtypes ctypes passes each int as a 32-bit C int and
+        # cuts the pointers
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def launch_gcn_fwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
                    round_agg: bool) -> torch.Tensor:
     """Launch `csrc/gcn_fwd.cu` on the current stream (CUDA tensors)."""
@@ -91,13 +142,7 @@ def launch_gcn_fwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     y = torch.empty((b, t, v, co), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    fn = build.load("gcn_fwd").agcn_gcn_fwd
-    if fn.argtypes is None:
-        # without argtypes ctypes passes each int as a 32-bit C int and
-        # cuts the pointers
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fn = _bind("gcn_fwd", "agcn_gcn_fwd", 4, 8)
     # the C entry launches on the current device: make it x's for the
     # call, and leave the caller's current device as it was
     with torch.cuda.device(x.device):
@@ -111,26 +156,133 @@ def launch_gcn_fwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def dw_groups(b: int, c: int, co: int) -> int:
+    """Sample groups of gcn_bwd's dW kernel (one fp32 (K, C, Co) partial
+    each): enough blocks to fill the card, fixed by the shapes alone."""
+    tiles = math.ceil(co / _DW_TILE_O) * math.ceil(c / _DW_TILE_C) * K
+    return max(1, min(b, math.ceil(_DW_TARGET_BLOCKS / tiles)))
+
+
+def launch_gcn_bwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
+                   g: torch.Tensor):
+    """Launch `csrc/gcn_bwd.cu` on the current stream (CUDA tensors):
+    returns (dW, da1) in x's dtype, which a1 must share (the models build
+    a1 in their compute dtype)."""
+    _check(x, a1, w)
+    _check_cotangent(x, w, g)
+    if a1.dtype != x.dtype:
+        raise TypeError(f"gcn_bwd takes a1 in x's dtype {x.dtype}, got "
+                        f"{a1.dtype}")
+    b, t, v, c = x.shape
+    co = w.shape[-1]
+    dw = torch.empty_like(w)
+    da1 = torch.empty_like(a1)
+    if x.numel() == 0 or g.numel() == 0:
+        return dw.zero_(), da1.zero_()
+    groups = dw_groups(b, c, co)
+    partial = torch.empty((groups, K, c, co), dtype=torch.float32,
+                          device=x.device)
+    fn = _bind("gcn_bwd", "agcn_gcn_bwd", 7, 7)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device)
+        err = fn(x.data_ptr(), a1.data_ptr(), w.data_ptr(), g.data_ptr(),
+                 dw.data_ptr(), da1.data_ptr(), partial.data_ptr(),
+                 b, t, v, c, co, groups, int(x.dtype == torch.bfloat16),
+                 stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gcn_bwd kernel launch failed: CUDA error {err}")
+    return dw, da1
+
+
+def _device_kind(name: str, *tensors: torch.Tensor) -> str:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    kind = tensors[0].device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
+    return kind
+
+
 def gcn_forward(name: str, x: torch.Tensor, a1: torch.Tensor,
                 w: torch.Tensor, round_agg: bool):
     """Dispatch on where the tensors lie: CPU -> plain version, CUDA ->
-    the kernel. Returns (y, launched)."""
-    _forbid_grad(name, x, a1, w)
-    devices = {x.device, a1.device, w.device}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: tensors on several devices {devices}")
-    kind = x.device.type
-    if kind == "cpu":
+    the kernel. Returns (y, launched). Not differentiable: autograd goes
+    through the Functions below."""
+    if _device_kind(name, x, a1, w) == "cpu":
         return gcn_fwd_plain(x, a1, w, round_agg), False
-    if kind == "cuda":
-        return launch_gcn_fwd(x, a1, w, round_agg), True
-    raise ValueError(f"{name}: unsupported device {x.device}")
+    return launch_gcn_fwd(x, a1, w, round_agg), True
+
+
+def gcn_backward(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
+                 g: torch.Tensor):
+    """(dW, da1) of the fused GCN for the cotangent g: CPU -> the plain
+    version, CUDA -> the gcn_bwd kernel."""
+    if _device_kind("gcn_backward", x, a1, w, g) == "cpu":
+        return gcn_bwd_plain(x, a1, w, g)
+    out = launch_gcn_bwd(x, a1, w, g)
+    gcn_backward.launches += 1
+    return out
+
+
+gcn_backward.launches = 0
+
+
+def _forward_rounded(x: torch.Tensor, a1: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    y, launched = gcn_forward("adaptive_gcn_pallas", x, a1, w, True)
+    if launched:
+        adaptive_gcn_pallas.launches += 1
+    return y
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _PallasGCN(torch.autograd.Function):
+    """The JAX `_vjp_fwd` / `_vjp_bwd` pair (gcn_fused.py:218-230)."""
+
+    @staticmethod
+    def forward(ctx, x, a1, w):
+        ctx.save_for_backward(x, a1, w)
+        return _forward_rounded(x, a1, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a1, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = da1 = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx[b,t,v,c] = sum_{k,w,o} g a1 W: the same trilinear kernel
+            # with the two small operands transposed
+            dx = _forward_rounded(g, a1.transpose(2, 3).contiguous(),
+                                  w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, da1 = gcn_backward(x, a1, w, g)
+        return dx, da1, dw
+
+
+class _PallasHybridGCN(torch.autograd.Function):
+    """The JAX `_hyb_fwd` / `_hyb_bwd` pair (gcn_fused.py:248-256)."""
+
+    @staticmethod
+    def forward(ctx, x, a1, w):
+        ctx.save_for_backward(x, a1, w)
+        return _forward_rounded(x, a1, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a1, w = ctx.saved_tensors
+        dx, da1, dw = gcn_ops.adaptive_gcn_bwd(x, a1, w, g.to(x.dtype))
+        return dx.to(x.dtype), da1.to(a1.dtype), dw.to(w.dtype)
 
 
 def adaptive_gcn_pallas(x: torch.Tensor, a1: torch.Tensor,
                         w: torch.Tensor) -> torch.Tensor:
     """Fused y = sum_k (x @_v a1_k) @_c W_k with the aggregate rounded to
-    x's type (the gcn_fused semantics).
+    x's type (the gcn_fused semantics), trainable: its backward runs the
+    forward kernel for dx and gcn_bwd for dW and da1.
 
     Args:
       x: (B, T, V, C) features (bf16 or f32).
@@ -139,10 +291,9 @@ def adaptive_gcn_pallas(x: torch.Tensor, a1: torch.Tensor,
     Returns:
       (B, T, V, Co) in x.dtype.
     """
-    y, launched = gcn_forward("adaptive_gcn_pallas", x, a1, w, True)
-    if launched:
-        adaptive_gcn_pallas.launches += 1
-    return y
+    if needs_grad(x, a1, w):
+        return _PallasGCN.apply(x, a1, w)
+    return _forward_rounded(x, a1, w)
 
 
 adaptive_gcn_pallas.launches = 0
@@ -150,7 +301,8 @@ adaptive_gcn_pallas.launches = 0
 
 def adaptive_gcn_pallas_hybrid(x: torch.Tensor, a1: torch.Tensor,
                                w: torch.Tensor) -> torch.Tensor:
-    """The same kernel forward; the JAX form differs from
-    `adaptive_gcn_pallas` only in its backward (einsum cotangents), which
-    lands with the training slice."""
-    return adaptive_gcn_pallas(x, a1, w)
+    """The same kernel forward with the einsum cotangents of
+    `ops.gcn.adaptive_gcn_bwd` for the backward."""
+    if needs_grad(x, a1, w):
+        return _PallasHybridGCN.apply(x, a1, w)
+    return _forward_rounded(x, a1, w)

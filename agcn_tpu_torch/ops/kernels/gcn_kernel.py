@@ -7,14 +7,45 @@ The TPU kernel works on joint-major (B, V, T, C) blocks and keeps the
 three subsets' aggregates in fp32 for one (V*Tt, 3C) @ (3C, Co)
 projection. Here it runs on the same Hopper kernel as `gcn_fused`
 (`csrc/gcn_fwd.cu`) with `round_agg=False`, in the model's own
-(B, T, V, C) layout: no host transpose, no padded time tiles.
+(B, T, V, C) layout: no host transpose, no padded time tiles. Its
+backward is the JAX package's einsum `_bwd` (gcn_kernel.py:107-117): the
+TPU package has no backward kernel here, so neither has the port.
 """
 
 from __future__ import annotations
 
 import torch
 
-from agcn_tpu_torch.ops.kernels.gcn_fused import gcn_forward
+from agcn_tpu_torch.ops.gcn import einsum
+from agcn_tpu_torch.ops.kernels.gcn_fused import gcn_forward, needs_grad
+
+
+def _forward(x: torch.Tensor, a1: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    z, launched = gcn_forward("fused_gcn", x, a1, w, False)
+    if launched:
+        fused_gcn.launches += 1
+    return z
+
+
+class _FusedGCN(torch.autograd.Function):
+    """The JAX `_fwd` / `_bwd` pair (gcn_kernel.py:103-117)."""
+
+    @staticmethod
+    def forward(ctx, x, a1, w):
+        ctx.save_for_backward(x, a1, w)
+        return _forward(x, a1, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a1, w = ctx.saved_tensors
+        # dz/dx: route g back through W^T then the transposed adjacency
+        gw = einsum("btwo,kco->btwkc", g, w)
+        dx = einsum("btwkc,bkvw->btvc", gw, a1)
+        da1 = einsum("btvc,btwkc->bkvw", x, gw)
+        agg = einsum("btvc,bkvw->btwkc", x, a1)
+        dw = einsum("btwkc,btwo->kco", agg, g)
+        return dx.to(x.dtype), da1.to(a1.dtype), dw.to(w.dtype)
 
 
 def fused_gcn(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
@@ -30,10 +61,9 @@ def fused_gcn(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     """
     if time_tile < 1:
         raise ValueError(f"time_tile must be positive, got {time_tile}")
-    z, launched = gcn_forward("fused_gcn", x, a1, w, False)
-    if launched:
-        fused_gcn.launches += 1
-    return z
+    if needs_grad(x, a1, w):
+        return _FusedGCN.apply(x, a1, w)
+    return _forward(x, a1, w)
 
 
 fused_gcn.launches = 0

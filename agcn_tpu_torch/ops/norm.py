@@ -3,20 +3,31 @@
 Channels-last, like the JAX package: the statistics are per channel of
 the last axis. The parameter and buffer names are torch's
 (`weight`, `bias`, `running_mean`, `running_var`, `num_batches_tracked`),
-so the reference state dicts load strictly. This slice serves, so only the
-eval affine exists; train-mode statistics land with the training slice.
+so the reference state dicts load strictly. Torch semantics in train
+mode: momentum 0.1, the biased batch variance normalizes, the unbiased
+one goes into the running statistics.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator, Optional
+
 import torch
 from torch import nn
 
+# torch convention: running = (1 - m) * running + m * batch
+MOMENTUM = 0.1
+
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch normalization: y = x * a + b with fp32
-    a = weight / sqrt(running_var + eps), b = bias - running_mean * a,
+    """Batch normalization, y = x * a + b with fp32 per-channel a, b and
     the output in x's dtype (agcn_tpu/ops/norm.py:67-77).
+
+    Train mode normalizes with the batch statistics, computed in fp32
+    (also under bf16) as E[x] and E[x^2] - E[x]^2 like the JAX package
+    (norm.py:112-127), and folds them into the running statistics; eval
+    mode uses the running statistics.
 
     Attributes:
       scale_init_value: initial weight (the last GCN BN starts at 1e-6,
@@ -26,10 +37,22 @@ class BatchNorm(nn.Module):
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  scale_init_value: float = 1.0,
-                 identity_at_eval: bool = False):
+                 identity_at_eval: bool = False, splits: int = 1,
+                 axis_name: Optional[str] = None):
         super().__init__()
+        if splits != 1:
+            raise NotImplementedError(
+                "Ghost BatchNorm (splits > 1) serves AAGCN, which is not "
+                "ported yet (ROADMAP Queue 1: AAGCN)")
+        if axis_name is not None:
+            raise NotImplementedError(
+                "SyncBN (axis_name) needs the data-parallel port "
+                "(ROADMAP Queue 1: Parallel)")
         self.eps = eps
         self.identity_at_eval = identity_at_eval
+        # set while a checkpointed block recomputes its forward for the
+        # backward: that pass must not update the running statistics again
+        self.recomputing = False
         self.weight = nn.Parameter(
             torch.full((num_features,), scale_init_value))
         self.bias = nn.Parameter(torch.zeros(num_features))
@@ -38,14 +61,44 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm train-mode statistics land with the training "
-                "slice; call .eval() on the model to serve")
-        if self.identity_at_eval:
-            return x
-        a = self.weight.float() * torch.rsqrt(
-            self.running_var.float() + self.eps)
-        b = self.bias.float() - self.running_mean.float() * a
+    def _affine(self, x: torch.Tensor, mean: torch.Tensor,
+                var: torch.Tensor) -> torch.Tensor:
+        a = self.weight.float() * torch.rsqrt(var + self.eps)
+        b = self.bias.float() - mean * a
         return (x * a + b).to(x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            if self.identity_at_eval:
+                return x
+            return self._affine(x, self.running_mean.float(),
+                                self.running_var.float())
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dim=dims)
+        var = (xf * xf).mean(dim=dims) - mean * mean
+        if not self.recomputing:
+            count = x.numel() // x.shape[-1]
+            m = MOMENTUM
+            with torch.no_grad():
+                unbiased = var * count / max(count - 1, 1)
+                self.running_mean.copy_(
+                    (1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_(
+                    (1 - m) * self.running_var + m * unbiased)
+                self.num_batches_tracked.add_(1)
+        return self._affine(x, mean, var)
+
+
+@contextlib.contextmanager
+def recomputing(module: nn.Module) -> Iterator[None]:
+    """Mark every BatchNorm under `module` as recomputing for the scope
+    (the recompute context of `torch.utils.checkpoint`)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recomputing = False

@@ -1,10 +1,11 @@
-"""Config recipes (copy of agcn_tpu/utils/config.py's `Config` and
-`load_config`), so the port loads the same YAML/JSON recipes: a flat
-namespace with nested dicts for model/feeder/dataloader args; unknown
-config keys are hard errors."""
+"""Config / flag system (copy of agcn_tpu/utils/config.py), so the port
+loads the same YAML/JSON recipes and takes the same command-line flags: a
+flat namespace with nested dicts for model/feeder/dataloader args,
+priority CLI > config > defaults, unknown config keys are hard errors."""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 from typing import Any, Dict, List, Optional
@@ -122,3 +123,49 @@ def load_config(path: Optional[str] = None,
     if path:
         cfg.config = path
     return cfg
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="agcn_tpu_torch: skeleton action recognition on "
+                    "PyTorch + CUDA")
+    p.add_argument("--config", type=str, default=None)
+    for f in dataclasses.fields(Config):
+        if f.name == "config":
+            continue
+        flag = "--" + f.name.replace("_", "-")
+        if f.type in ("bool", bool):
+            p.add_argument(flag, type=lambda s: s.lower() in
+                           ("1", "true", "yes"), default=None)
+        elif f.default_factory is not dataclasses.MISSING \
+                or f.type.startswith("Dict") or f.type.startswith("List") \
+                or f.type.startswith("Any"):
+            # Any-typed flags (e.g. --device 0 | cpu | cuda) parse as YAML
+            # in config_from_cli; typing them from the default would
+            # reject the string forms
+            p.add_argument(flag, type=str, default=None)
+        else:
+            p.add_argument(flag, type=type(f.default)
+                           if f.default is not None else str, default=None)
+    return p
+
+
+def config_from_cli(argv=None) -> Config:
+    args = build_argparser().parse_args(argv)
+    overrides = {}
+    for k, v in vars(args).items():
+        if k == "config" or v is None:
+            continue
+        field = next(f for f in dataclasses.fields(Config) if f.name == k)
+        if isinstance(v, str) and (field.type.startswith("Dict")
+                                   or field.type.startswith("List")
+                                   or field.type.startswith("Any")):
+            v = yaml.safe_load(v)
+        overrides[k] = v
+    return load_config(args.config, overrides)
+
+
+def save_config(cfg: Config, path: str):
+    """Snapshot the full arg dict (reference processor.py:79-94)."""
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f, sort_keys=False)

@@ -3,29 +3,50 @@
 
     python3 chip_smoke.py
 
-The quickest proof that the port builds and serves on the card. Phases,
-each of which fails the run (exit code 1, no result line) when it fails:
+The quickest proof that the port builds, serves and trains on the card.
+Phases, each of which fails the run (exit code 1, no result line) when it
+fails:
 
 1. environment: a CUDA GPU is required; prints its name and power limit.
 2. build: compiles every CUDA source of the port with nvcc (sm_90a), all
    started together, and prints the build time and ptxas' report.
-3. kernels against their plain versions, on the card, at every AGCN
-   layer shape of the served batch (16 streams x 2 persons = 32 samples),
-   fp32 and bf16, both aggregate-rounding modes; prints max error, kernel
-   / plain / library time and the roofline bound. At each shape, on bf16
+3. gcn_fwd against its plain version, on the card, at every AGCN layer
+   shape of the served batch (16 streams x 2 persons = 32 samples), fp32
+   and bf16, both aggregate-rounding modes; prints max error, kernel /
+   plain / library time and the roofline bound. At each shape, on bf16
    integer inputs where the two modes differ, each mode must match its
    own plain version and fail the other's.
-4. main path: the NTU-60 AGCN of configs/ntu60_xview/test_joint.yaml with
-   `formulation: pallas`, full width, T=300, seeded random weights,
-   serving 16 live streams through BatchedStreamServer (predict, then
-   predict_async + flush) in fp32 and bf16, and one tick with
-   `use_pallas=True`; the kernels' launch counts must equal
-   layers x forwards; the card's logits are held against the same model
-   and weights run with device="cpu" (the plain versions).
-5. device time of one served forward by kernel group (torch.profiler),
-   on the main path's models and input, with the card's busy share.
-6. the CLI: `python -m agcn_tpu_torch.infer --serve 16 --pipeline` on
-   recordings written to a temporary directory.
+4. the training kernels at the training batch (64 x 2 persons = 128
+   samples), fp32 and bf16: gcn_bwd (dW, da1) against its plain version
+   at every layer shape, two calls bitwise equal, and on bf16 integer
+   inputs equal to the plain version while dropping either rounding point
+   changes the result; the dx calls (gcn_fwd on g, a1^T, W^T) at the
+   transposed shapes. Prints kernel / plain / library (the einsum
+   backward) time and the bound.
+5. serving main path: the NTU-60 AGCN of configs/ntu60_xview/
+   test_joint.yaml with `formulation: pallas`, full width, T=300, seeded
+   random weights, serving 16 live streams through BatchedStreamServer
+   (predict, then predict_async + flush) in fp32 and bf16, and one tick
+   with `use_pallas=True`; the kernels' launch counts must equal layers x
+   forwards; the card's logits are held against the same model and
+   weights run with device="cpu" (the plain versions).
+6. device time of one served forward by kernel group (torch.profiler).
+7. the serving CLI: `python -m agcn_tpu_torch.infer --serve 16
+   --pipeline` on recordings written to a temporary directory.
+8. training main path, configs/ntu60_xview/train_joint.yaml with
+   `formulation: pallas`, full width, T=300: one step at batch 4 on the
+   card against the same step with the kernels' plain versions on the
+   card and against device="cpu" (fp32, TF32 off, the card replaying
+   the CPU's ReLU masks: every gradient 1e-3 of its scale, loss 1e-4
+   relative; bf16 loss 5e-2); 10 bf16 steps
+   at batch 64 on one repeated batch, whose loss must fall, with exactly
+   20 gcn_fwd and 10 gcn_bwd launches per step; ms per step, seq/s and
+   peak memory of pallas, pallas_hybrid and agg_packed, and the device
+   time of one pallas step by kernel group; then the entry point
+   `python -m agcn_tpu_torch.main` in subprocesses on synthetic data in a
+   temporary directory: train and evaluate one epoch at batch 64, save,
+   resume for a second epoch, and `--phase test` on the last checkpoint,
+   which must reproduce the run's last top-1.
 
 The last lines of standard output are the `kernels` JSON line, the
 card's `nvidia-smi` name and power limit, and
@@ -37,6 +58,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,6 +66,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "ntu60_xview", "test_joint.yaml")
+TRAIN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
+                            "train_joint.yaml")
+TRAIN_BATCH = 64  # samples per step; 128 after folding the persons
+TRAIN_STEPS = 10
 STREAMS = 16
 PERSONS = 2
 SEQ = 300
@@ -59,7 +85,8 @@ LAYERS = sum(n for _, n in LAYER_SHAPES)
 # tensor cores, HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
-SOURCE = "agcn_tpu_torch/ops/csrc/gcn_fwd.cu"
+SOURCES = {"gcn_fwd": "agcn_tpu_torch/ops/csrc/gcn_fwd.cu",
+           "gcn_bwd": "agcn_tpu_torch/ops/csrc/gcn_bwd.cu"}
 
 
 class SmokeFailure(RuntimeError):
@@ -209,6 +236,145 @@ def phase_kernels(torch, np, gcn_fused, gcn_kernel):
     return rows
 
 
+def gcn_bwd_work(b, t, c, co, dtype_name, v=25, k=3):
+    """(flops, bytes) one gcn_bwd call needs: x, g, a1 and W read once,
+    dW and da1 written once; u = g a1^T and p = x W are formed and used
+    (2 K B T V Co (V + C) flops each way)."""
+    size = 4 if dtype_name == "float32" else 2
+    flops = 4 * k * b * t * v * co * (v + c)
+    nbytes = (b * t * v * (c + co) + 2 * (b * k * v * v + k * c * co)) * size
+    return flops, nbytes
+
+
+def library_bwd(torch, x, a1, w, g):
+    """dW and da1 as ops.gcn.adaptive_gcn_bwd computes them (cuBLAS
+    einsums; the yardstick, used nowhere in the port)."""
+    b, t, v, c = x.shape
+    k, _, co = w.shape
+    p = (x @ w.permute(1, 0, 2).reshape(c, k * co)).reshape(b, t, v, k, co)
+    da1 = torch.einsum("btvko,btwo->bkvw", p, g)
+    agg = torch.einsum("btvc,bkvw->btwkc", x, a1)
+    return torch.einsum("btwkc,btwo->kco", agg, g), da1
+
+
+def check_bwd_rounding(torch, np, gcn_fused, c, co):
+    """bf16 integer inputs whose every sum is exact in fp32 in any order:
+    gcn_bwd must equal its plain version bit for bit, and the same sums
+    without the rounding of u (for dW) or of p (for da1) must differ."""
+    rng = np.random.default_rng(SEED + 5)
+    x, a1, w, g = (torch.from_numpy(a.astype(np.float32)).to(
+        "cuda", torch.bfloat16) for a in (
+        rng.integers(-4, 5, (2, 8, 25, c)),
+        rng.integers(-32, 33, (2, 3, 25, 25)),
+        rng.integers(-32, 33, (3, c, co)),
+        rng.integers(-32, 33, (2, 8, 25, co))))
+    dw, da1 = gcn_fused.launch_gcn_bwd(x, a1, w, g)
+    want = gcn_fused.gcn_bwd_plain(x, a1, w, g)
+    check(torch.equal(dw, want[0]) and torch.equal(da1, want[1]),
+          f"gcn_bwd C={c} Co={co}: integer inputs differ from the plain "
+          f"version")
+    xf, gf = x.float(), g.float()
+    dw_u = torch.stack([torch.einsum(
+        "btvc,btvo->co", xf, torch.einsum("btwo,bvw->btvo", gf,
+                                           a1[:, k].float()))
+        for k in range(3)]).to(torch.bfloat16)
+    da1_p = torch.stack([torch.einsum("btvo,btwo->bvw", xf @ w[k].float(),
+                                      gf)
+                         for k in range(3)], dim=1).to(torch.bfloat16)
+    check(not torch.equal(dw, dw_u) and not torch.equal(da1, da1_p),
+          f"gcn_bwd C={c} Co={co}: the rounding of u or p has no effect")
+
+
+def phase_bwd_kernels(torch, np, gcn_fused):
+    """gcn_bwd and the dx calls against their plain versions at the
+    training shapes (batch 128 after folding the persons)."""
+    b = TRAIN_BATCH * PERSONS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows, dx_rows = [], []
+    for (t, c, co), mult in LAYER_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x = torch.randn(b, t, 25, c, device="cuda", generator=gen)
+            a1 = torch.softmax(torch.randn(b, 3, 25, 25, device="cuda",
+                                           generator=gen), dim=-2)
+            a1 = a1 + 0.2 * torch.rand(3, 25, 25, device="cuda",
+                                       generator=gen)
+            w = torch.randn(3, c, co, device="cuda",
+                            generator=gen) / math.sqrt(3 * c)
+            g = torch.randn(b, t, 25, co, device="cuda", generator=gen)
+            x, a1, w, g = (a.to(dtype) for a in (x, a1, w, g))
+            dw, da1 = gcn_fused.gcn_backward(x, a1, w, g)
+            again = gcn_fused.gcn_backward(x, a1, w, g)
+            torch.cuda.synchronize()
+            check(torch.equal(dw, again[0]) and torch.equal(da1, again[1]),
+                  f"gcn_bwd {dname} T={t} C={c} Co={co}: two calls differ")
+            want = gcn_fused.gcn_bwd_plain(x, a1, w, g)
+            (ok_w, err_w, scale_w), (ok_a, err_a, scale_a) = (
+                within_tol(dw, want[0]), within_tol(da1, want[1]))
+            check(ok_w and ok_a,
+                  f"gcn_bwd {dname} T={t} C={c} Co={co}: dW max err "
+                  f"{err_w:.3e} (scale {scale_w:.3e}), da1 max err "
+                  f"{err_a:.3e} (scale {scale_a:.3e})")
+            del dw, da1, again, want
+            flops, nbytes = gcn_bwd_work(b, t, c, co, dname)
+            row = dict(
+                t=t, c=c, co=co, layers=mult, dtype=dname,
+                max_abs_err=max(err_w, err_a), scale_dw=scale_w,
+                scale_da1=scale_a,
+                ms=cuda_time_ms(lambda: gcn_fused.gcn_backward(x, a1, w, g),
+                                10),
+                plain_ms=cuda_time_ms(
+                    lambda: gcn_fused.gcn_bwd_plain(x, a1, w, g), 3),
+                library_ms=cuda_time_ms(
+                    lambda: library_bwd(torch, x, a1, w, g), 3),
+                flops=flops, bytes=nbytes,
+                flop_ms=flops / PEAK_FLOPS[dname] * 1e3,
+                byte_ms=nbytes / PEAK_BYTES * 1e3)
+            rows.append(row)
+            log(f"  gcn_bwd T={t:3d} C={c:3d} Co={co:3d} {dname:8s} "
+                f"err={row['max_abs_err']:.2e} kernel={row['ms']:.4f} ms "
+                f"plain={row['plain_ms']:.4f} ms einsum="
+                f"{row['library_ms']:.4f} ms bound="
+                f"{max(row['flop_ms'], row['byte_ms']):.4f} ms "
+                f"({'ops' if row['flop_ms'] > row['byte_ms'] else 'bytes'})")
+            # dx: the forward kernel on (g, a1^T, W^T), C and Co swapped
+            at = a1.transpose(2, 3).contiguous()
+            wt = w.transpose(1, 2).contiguous()
+            dx = gcn_fused.adaptive_gcn_pallas(g, at, wt)
+            torch.cuda.synchronize()
+            ok, err, scale = within_tol(
+                dx, gcn_fused.gcn_fwd_plain(g, at, wt, True))
+            check(ok, f"dx {dname} T={t} C={co} Co={c}: max err {err:.3e} "
+                      f"(scale {scale:.3e})")
+            del dx
+            flops, nbytes = gcn_work(b, t, co, c, dname)
+            row = dict(
+                t=t, c=co, co=c, layers=mult, dtype=dname, round_agg=True,
+                max_abs_err=err, scale=scale,
+                ms=cuda_time_ms(
+                    lambda: gcn_fused.adaptive_gcn_pallas(g, at, wt), 10),
+                plain_ms=cuda_time_ms(
+                    lambda: gcn_fused.gcn_fwd_plain(g, at, wt, True), 3),
+                library_ms=cuda_time_ms(lambda: torch.einsum(
+                    "btvc,bkvw,kco->btwo", g, at, wt), 3),
+                flops=flops, bytes=nbytes,
+                flop_ms=flops / PEAK_FLOPS[dname] * 1e3,
+                byte_ms=nbytes / PEAK_BYTES * 1e3)
+            dx_rows.append(row)
+            log(f"  dx      T={t:3d} C={co:3d} Co={c:3d} {dname:8s} "
+                f"err={err:.2e} kernel={row['ms']:.4f} ms plain="
+                f"{row['plain_ms']:.4f} ms einsum={row['library_ms']:.4f} "
+                f"ms bound={max(row['flop_ms'], row['byte_ms']):.4f} ms")
+            del x, a1, w, g, at, wt
+        if c >= 8:
+            # at C=3, p = x W has too few bits for its rounding to show
+            check_bwd_rounding(torch, np, gcn_fused, c, co)
+            log(f"  gcn_bwd C={c:3d} Co={co:3d} bfloat16 integer inputs: "
+                f"equal to the plain version; without the rounding of u or "
+                f"p the result differs")
+    return rows, dx_rows
+
+
 def kernel_entry(rows, round_agg, dname, launches, name, replaces):
     """One `kernels` entry: per-forward totals over the ten layers at
     the served shapes, in `dname`."""
@@ -217,7 +383,7 @@ def kernel_entry(rows, round_agg, dname, launches, name, replaces):
     tot = lambda key: sum(r[key] * r["layers"] for r in sel)  # noqa: E731
     flop_ms = tot("flops") / PEAK_FLOPS[dname] * 1e3
     byte_ms = tot("bytes") / PEAK_BYTES * 1e3
-    return {"name": name, "route": "cuda", "source": SOURCE,
+    return {"name": name, "route": "cuda", "source": SOURCES["gcn_fwd"],
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["round_agg"] == round_agg),
@@ -420,6 +586,8 @@ def phase_main_path(torch, np, summary):
 # match wins
 KERNEL_GROUPS = (
     ("gcn_fwd_kernel", "gcn_fwd (the port's CUDA kernel)"),
+    ("gcn_dw_", "gcn_bwd (the port's CUDA kernel)"),
+    ("gcn_da1_kernel", "gcn_bwd (the port's CUDA kernel)"),
     ("conv", "cuDNN convolution"), ("cudnn", "cuDNN convolution"),
     # cuDNN's FFT convolution algorithms (fp32 with TF32 off)
     ("fft", "cuDNN convolution"),
@@ -516,6 +684,322 @@ def phase_cli(torch, np, state, args):
     return launches
 
 
+def train_model(torch, cfg, form, dname, device="cuda"):
+    """The recipe's model at full width with `formulation: form`, seeded
+    weights, parameters fp32 and compute in `dname`."""
+    from agcn_tpu_torch.models.registry import build_model
+
+    return build_model(cfg.model, dict(cfg.model_args, formulation=form),
+                       device=device,
+                       dtype=None if dname == "float32" else torch.bfloat16,
+                       generator=torch.Generator().manual_seed(SEED))
+
+
+def train_batch(np, n, seed, num_class=60):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 3, SEQ, 25, PERSONS)).astype(np.float32)
+    return x, rng.integers(0, num_class, n)
+
+
+def make_step(torch, cfg, model, steps_per_epoch=1, keep=None):
+    """The trainer's step: the recipe's loss and SGD chain (clip ->
+    decay -> nesterov), with `keep` given the model's raw gradients."""
+    from agcn_tpu_torch.train import losses, optim
+    from agcn_tpu_torch.train.steps import make_train_step
+
+    schedule = optim.build_schedule(cfg.scheduler, cfg.base_lr,
+                                    steps_per_epoch, cfg.step,
+                                    cfg.warm_up_epoch)
+    opt = optim.build_optimizer(cfg.optimizer, model.parameters(), schedule,
+                                cfg.weight_decay, cfg.nesterov,
+                                grad_clip=cfg.grad_clip)
+    loss_fn = losses.build_loss(cfg.loss, cfg.model_args["num_class"])
+    return make_train_step(model, loss_fn, opt, grad_transform=keep)
+
+
+def phase_train_vs_cpu(torch, np, cfg, summary):
+    """(a) One step at batch 4: the card with the kernels against the card
+    with their plain versions (the kernels' own error) and against
+    device="cpu" (the whole step).
+
+    A ReLU input within rounding of zero may take either side in two fp32
+    computations, and one such flip moves the gradients of its layer and
+    of every layer below it by ~1% (agcn_tpu_torch/tools/grad_parity.py).
+    So the CPU's step records its ReLU inputs and masks and the card's
+    fp32 steps replay the masks: all three compute the same linear piece
+    of the network. The card's ReLU inputs must lie within 1e-3 of their
+    layer's mean |input| of the CPU's, so that the masks hide no fault."""
+    from agcn_tpu_torch.tools.grad_parity import (
+        ReluProbe, condition_bn, grad_errors, plain_versions_on_the_card,
+        relu_probe)
+
+    x, y = train_batch(np, 4, SEED + 4)
+    ref = train_model(torch, cfg, "pallas", "float32")
+    condition_bn(ref, SEED + 6)
+    state = {k: v.detach().cpu().clone() for k, v in ref.state_dict().items()}
+    del ref
+    out, probes = {}, {}
+    torch.set_num_threads(os.cpu_count() or 1)
+    runs = {"cpu fp32": ("cpu", "float32", False),
+            "card fp32": ("cuda", "float32", False),
+            "card fp32 plain": ("cuda", "float32", True),
+            "card bf16": ("cuda", "bfloat16", False)}
+    for label, (dev, dname, plain) in runs.items():
+        model = train_model(torch, cfg, "pallas", dname, device=dev)
+        model.load_state_dict(state, strict=True)
+        grads = {}
+
+        def keep(m):
+            # a copy: the optimizer then clips the gradients in place
+            grads.update((n, p.grad.double().cpu().clone())
+                         for n, p in m.named_parameters())
+
+        probes[label] = (
+            ReluProbe(keep_inputs=True) if label == "cpu fp32"
+            else ReluProbe(ref=probes["cpu fp32"]) if dname == "float32"
+            else ReluProbe())
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as scopes:
+            scopes.enter_context(relu_probe(probes[label]))
+            if plain:
+                scopes.enter_context(plain_versions_on_the_card())
+            loss = make_step(torch, cfg, model, keep=keep)(
+                torch.from_numpy(x).to(dev),
+                torch.from_numpy(y).to(dev))["loss"].item()
+        out[label] = (loss, grads, time.perf_counter() - t0)
+        del model
+    ref_loss, ref_grads, cpu_s = out["cpu fp32"]
+    rel = {k: abs(v[0] - ref_loss) / abs(ref_loss) for k, v in out.items()}
+    # fp32 (TF32 off), sums in another order: 1e-3 of each tensor's scale
+    kern = grad_errors(out["card fp32"][1], out["card fp32 plain"][1], 1e-3)
+    cpu = grad_errors(out["card fp32"][1], ref_grads, 1e-3)
+    flips = {k: (probes[k].disagree, probes[k].input_diff)
+             for k in ("card fp32", "card fp32 plain")}
+    log(f"  (a) batch 4: loss cpu fp32 {ref_loss:.6f}; relative to it "
+        + ", ".join(f"{k} {out[k][0]:.6f} ({rel[k]:.2e})"
+                    for k in runs if k != "cpu fp32")
+        + f"; cpu step {cpu_s:.1f} s; ReLU signs off the cpu's masks: "
+        + ", ".join(f"{k} {n} (inputs at most {m:.2e} of their layer's "
+                    f"mean |input| from the cpu's)"
+                    for k, (n, m) in flips.items()))
+    for k, rows in (("kernels vs plain on the card", kern),
+                    ("card vs cpu", cpu)):
+        log(f"      {k}: worst gradients (err / bar, name, err, scale): "
+            + "; ".join(f"{r:.2f} {n} {e:.3e} {sc:.3e}"
+                        for r, n, e, sc in rows[:3]))
+    check(all(m <= 1e-3 for _, m in flips.values()),
+          f"the card's ReLU inputs lie far from the CPU's: {flips}")
+    # bf16: ~3 digits per activation through ten layers, against the
+    # fp32 reference
+    check(rel["card fp32"] <= 1e-4 and rel["card fp32 plain"] <= 1e-4,
+          f"fp32 card loss off the CPU's: {rel}")
+    check(kern[0][0] <= 1.0, f"fp32 gradients with the kernels off those "
+                             f"with their plain versions: {kern[0]}")
+    check(cpu[0][0] <= 1.0, f"fp32 card gradients off the CPU's: {cpu[0]}")
+    check(rel["card bf16"] <= 5e-2, f"bf16 card loss off the CPU's: {rel}")
+    summary["train_vs_cpu"] = dict(
+        loss={k: v[0] for k, v in out.items()}, loss_rel=rel,
+        relu_sign_flips=flips,
+        kernels_vs_plain=[list(r) for r in kern[:5]],
+        card_vs_cpu=[list(r) for r in cpu[:5]])
+
+
+def phase_train_main_path(torch, np, cfg, summary):
+    """(c) Ten bf16 steps of the recipe's `pallas` model at batch 64 on
+    one repeated batch: the loss must fall, and each step must launch
+    gcn_fwd 20 times (10 forwards, 10 dx) and gcn_bwd 10 times."""
+    from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel
+
+    model = train_model(torch, cfg, "pallas", "bfloat16")
+    step = make_step(torch, cfg, model)
+    x, y = train_batch(np, TRAIN_BATCH, SEED + 7)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    gcn_fused.adaptive_gcn_pallas.launches = 0
+    gcn_kernel.fused_gcn.launches = 0
+    gcn_fused.gcn_backward.launches = 0
+    losses = [step(x, y)["loss"] for _ in range(TRAIN_STEPS)]
+    losses = [v.item() for v in losses]
+    launches = {"gcn_fwd_round_agg": gcn_fused.adaptive_gcn_pallas.launches,
+                "gcn_fwd_fp32_agg": gcn_kernel.fused_gcn.launches,
+                "gcn_bwd": gcn_fused.gcn_backward.launches}
+    log(f"  (c) {TRAIN_STEPS} steps on one batch: loss "
+        f"{' '.join(f'{v:.3f}' for v in losses)}; launches {launches}")
+    check(all(math.isfinite(v) for v in losses), "non-finite loss")
+    check(losses[-1] < losses[0],
+          f"the loss did not fall on a repeated batch: {losses}")
+    check(launches == {"gcn_fwd_round_agg": 2 * LAYERS * TRAIN_STEPS,
+                       "gcn_fwd_fp32_agg": 0,
+                       "gcn_bwd": LAYERS * TRAIN_STEPS},
+          f"launch counts {launches} for {TRAIN_STEPS} steps")
+    summary.update(train_losses=losses, train_launches=launches)
+    return launches
+
+
+def phase_train_speed(torch, np, cfg, summary, iters=5):
+    """(d) ms per step, seq/s and peak memory per formulation at batch
+    64, bf16; the device time of one pallas step by kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = train_batch(np, TRAIN_BATCH, SEED + 8)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    speed = {}
+    for form in ("pallas", "pallas_hybrid", "agg_packed"):
+        model = train_model(torch, cfg, form, "bfloat16")
+        step = make_step(torch, cfg, model)
+        for _ in range(2):
+            step(x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step(x, y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / iters
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        speed[form] = dict(ms_per_step=ms, seq_per_s=TRAIN_BATCH / ms * 1e3,
+                           peak_gib=peak)
+        log(f"  (d) {form:13s} {ms:8.2f} ms/step {TRAIN_BATCH / ms * 1e3:7.1f}"
+            f" seq/s, peak {peak:.2f} GiB")
+        if form == "pallas":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step(x, y)
+                torch.cuda.synchronize()
+            groups, ours = {}, {}
+            for ev in prof.events():
+                if ev.device_type == DeviceType.CUDA:
+                    g = kernel_group(ev.name)
+                    ms_ev = ev.device_time_total / 1e3
+                    groups[g] = groups.get(g, 0.0) + ms_ev
+                    mine = re.search(r"gcn_\w+_kernel", ev.name)
+                    if mine:  # the port's kernels one by one
+                        ours[mine[0]] = ours.get(mine[0], 0.0) + ms_ev
+            device_ms = sum(groups.values())
+            check(device_ms > 0, "the profiler saw no device time")
+            log(f"      one pallas step: device {device_ms:.3f} ms; the "
+                f"port's kernels: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(
+                    ours.items(), key=lambda kv: -kv[1])))
+            for g, gms in sorted(groups.items(), key=lambda kv: -kv[1]):
+                log(f"    {gms:9.3f} ms {100 * gms / device_ms:5.1f}%  {g}")
+            speed[form].update(device_ms=device_ms, groups=groups,
+                               kernels=ours)
+        del model, step
+    summary["train_speed"] = speed
+
+
+def run_entry_point(args, timeout=600):
+    """`python -m agcn_tpu_torch.main` in a subprocess; its output goes
+    to this run's log, and a failure fails the phase."""
+    proc = subprocess.run([sys.executable, "-m", "agcn_tpu_torch.main",
+                           *args], cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+    tail = (proc.stdout + proc.stderr).splitlines()[-8:]
+    for ln in tail:
+        log(f"      {ln}")
+    check(proc.returncode == 0,
+          f"agcn_tpu_torch.main {' '.join(args)} exited {proc.returncode}")
+
+
+def read_metrics(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def phase_train_cli(np, summary):
+    """(b) The entry point on a config derived from train_joint.yaml:
+    synthetic data, batch 64, T=300, bf16, `formulation: pallas`."""
+    import pickle
+
+    import yaml
+
+    with open(TRAIN_CONFIG) as f:
+        recipe = yaml.safe_load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for split, n in (("train", 2 * TRAIN_BATCH), ("val", TRAIN_BATCH)):
+            x, y = train_batch(np, n, SEED + 9 + n)
+            paths[split] = (os.path.join(tmp, f"{split}_data.npy"),
+                            os.path.join(tmp, f"{split}_label.pkl"))
+            np.save(paths[split][0], x)
+            with open(paths[split][1], "wb") as f:
+                pickle.dump(([f"{split}{i}" for i in range(n)],
+                             y.tolist()), f)
+        work = os.path.join(tmp, "work")
+        recipe.update(
+            work_dir=work, batch_size=TRAIN_BATCH,
+            test_batch_size=TRAIN_BATCH, num_epoch=1, num_worker=2,
+            log_interval=1,
+            save_interval=1, eval_interval=1, show_topk=[1, 5],
+            model_args=dict(recipe["model_args"], formulation="pallas"),
+            train_feeder_args=dict(recipe["train_feeder_args"],
+                                   data_path=paths["train"][0],
+                                   label_path=paths["train"][1]),
+            test_feeder_args=dict(recipe["test_feeder_args"],
+                                  data_path=paths["val"][0],
+                                  label_path=paths["val"][1]))
+        cfg_path = os.path.join(tmp, "train.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(recipe, f)
+        ckpt = os.path.join(work, "checkpoints")
+        log("  (b) train + eval + save, epoch 1")
+        run_entry_point(["--config", cfg_path])
+        log("      resume from epoch_1 for epoch 2")
+        run_entry_point(["--config", cfg_path, "--weights",
+                         os.path.join(ckpt, "epoch_1.pt"), "--start-epoch",
+                         "1", "--num-epoch", "2"])
+        log("      --phase test on epoch_2")
+        run_entry_point(["--config", cfg_path, "--phase", "test", "--weights",
+                         os.path.join(ckpt, "epoch_2.pt"), "--work-dir",
+                         os.path.join(tmp, "test")])
+        metrics = read_metrics(os.path.join(work, "metrics.jsonl"))
+        test = read_metrics(os.path.join(tmp, "test", "metrics.jsonl"))
+        with open(os.path.join(tmp, "test", "right.txt")) as f:
+            right = len(f.readlines())
+    trains = [m for m in metrics if m["kind"] == "train"]
+    evals = [m for m in metrics if m["kind"] == "eval"]
+    check([m["epoch"] for m in trains] == [0, 1]
+          and [m["epoch"] for m in evals] == [0, 1],
+          f"epochs trained / evaluated: {metrics}")
+    for m in trains:
+        check(math.isfinite(m["loss"]), f"non-finite loss: {m}")
+        check(m["steps"] == 2 * (m["epoch"] + 1),
+              f"optimizer steps after epoch {m['epoch']}: {m['steps']}")
+        check(m["launches"] == {"gcn_fwd_round_agg": 2 * 2 * LAYERS,
+                                "gcn_fwd_fp32_agg": 0,
+                                "gcn_bwd": 2 * LAYERS},
+              f"epoch {m['epoch']} launches {m['launches']} for 2 steps")
+    check(test[-1]["top1"] == evals[-1]["top1"]
+          and right == round(test[-1]["top1"] * TRAIN_BATCH),
+          f"--phase test top-1 {test[-1]['top1']} != the run's "
+          f"{evals[-1]['top1']}")
+    log(f"      epochs {[round(m['loss'], 4) for m in trains]} loss, "
+        f"{[round(m['seq_per_sec'], 1) for m in trains]} seq/s; eval top-1 "
+        f"{evals[-1]['top1']:.4f}, --phase test top-1 "
+        f"{test[-1]['top1']:.4f}")
+    summary["train_cli"] = dict(train=trains, eval=evals, test=test)
+
+
+def bwd_entry(rows, launches, dname="bfloat16"):
+    """The `kernels` entry of gcn_bwd: per training step, the sum over the
+    ten layers at batch 128 in `dname`."""
+    sel = [r for r in rows if r["dtype"] == dname]
+    tot = lambda key: sum(r[key] * r["layers"] for r in sel)  # noqa: E731
+    flop_ms = tot("flops") / PEAK_FLOPS[dname] * 1e3
+    byte_ms = tot("bytes") / PEAK_BYTES * 1e3
+    return {"name": "gcn_bwd (dW, da1)", "route": "cuda",
+            "source": SOURCES["gcn_bwd"],
+            "replaces": "agcn_tpu/ops/pallas/gcn_fused.py:72",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms > byte_ms else "bytes",
+            "library_ms": tot("library_ms"), "dtype": dname,
+            "per": "one training step (10 layers, 128 samples, T=300)"}
+
+
 def main():
     import torch
 
@@ -537,20 +1021,20 @@ def main():
     summary = {}
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/6] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/8] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/6] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/8] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
                 log(f"  {ln.strip()}")
     summary["build_s"] = build_s
 
-    log("[3/6] gcn_fwd kernel vs plain version. Tolerances: fp32 (TF32 "
+    log("[3/8] gcn_fwd kernel vs plain version. Tolerances: fp32 (TF32 "
         "off) max err <= 1e-4 x output scale (another summation order "
         "over up to 19,200 products); bf16 per element <= 2^-7 |ref| + "
         "2^-10 x scale (loose: one bf16 rounding of each output may land "
@@ -560,26 +1044,45 @@ def main():
         rows = phase_kernels(torch, np, gcn_fused, gcn_kernel)
     summary["kernel_rows"] = rows
 
-    log("[4/6] main path: 16 streams through BatchedStreamServer")
+    log("[4/8] gcn_bwd and the dx calls vs plain versions at the training "
+        "shapes (batch 128), same tolerances")
+    with torch.inference_mode():
+        bwd_rows, dx_rows = phase_bwd_kernels(torch, np, gcn_fused)
+    summary.update(bwd_rows=bwd_rows, dx_rows=dx_rows)
+
+    log("[5/8] serving main path: 16 streams through BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
 
-    log("[5/6] device time of one served forward by kernel group")
+    log("[6/8] device time of one served forward by kernel group")
     phase_profile(torch, models, x_check, summary)
     del models
 
-    log("[6/6] CLI: python -m agcn_tpu_torch.infer --serve 16 --pipeline")
+    log("[7/8] CLI: python -m agcn_tpu_torch.infer --serve 16 --pipeline")
     summary["cli_launches"] = phase_cli(torch, np, state, args)
 
+    log("[8/8] training main path: train_joint.yaml, formulation pallas, "
+        "T=300")
+    from agcn_tpu_torch.utils.config import load_config
+
+    train_cfg = load_config(TRAIN_CONFIG)
+    phase_train_vs_cpu(torch, np, train_cfg, summary)
+    train_launches = phase_train_main_path(torch, np, train_cfg, summary)
+    phase_train_speed(torch, np, train_cfg, summary)
+    phase_train_cli(np, summary)
+
+    fwd_launches = {"serve": launches["adaptive_gcn_pallas"],
+                    "train": train_launches["gcn_fwd_round_agg"]}
     kernels = [
-        kernel_entry(rows, True, "bfloat16",
-                     launches["adaptive_gcn_pallas"],
+        kernel_entry(rows, True, "bfloat16", sum(fwd_launches.values()),
                      "gcn_fwd (aggregate rounded to x's type)",
                      "agcn_tpu/ops/pallas/gcn_fused.py:52"),
         kernel_entry(rows, False, "bfloat16", launches["fused_gcn"],
                      "gcn_fwd (fp32 aggregate)",
                      "agcn_tpu/ops/pallas/gcn_kernel.py:27"),
+        bwd_entry(bwd_rows, train_launches["gcn_bwd"]),
     ]
+    kernels[0]["launches_by_path"] = fwd_launches
     summary.update(kernels=kernels, device=kind, nvidia_smi=smi)
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)

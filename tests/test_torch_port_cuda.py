@@ -1,11 +1,14 @@
-"""The port's CUDA kernel on the card (marker `cuda`; skipped without a
-GPU). Imports nothing of JAX, so it runs where JAX is not installed:
+"""The port's CUDA kernels on the card (marker `cuda`; skipped without a
+GPU): gcn_fwd and gcn_bwd against their plain versions, the fused-GCN
+autograd Functions and a train step against the same on the CPU. Imports
+nothing of JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: fp32 (TF32 off) 1e-4 of the output's scale — sums of up to
-K*V*C products in another order; bf16 one ulp (2^-7 relative) plus 2^-10
-of the scale — each output is one bf16 rounding of an fp32 sum.
+K*V*C (forward) or B*T*V*V (backward) products in another order; bf16 one
+ulp (2^-7 relative) plus 2^-10 of the scale — each output is one bf16
+rounding of an fp32 sum.
 """
 
 import math
@@ -92,17 +95,24 @@ def test_kernel_rounding_modes_in_bf16(cuda, t, c, co):
         assert not _close(got[r], gcn_fused.gcn_fwd_plain(x, a1, w, not r))
 
 
+def _launches():
+    return (gcn_fused.adaptive_gcn_pallas.launches,
+            gcn_kernel.fused_gcn.launches, gcn_fused.gcn_backward.launches)
+
+
 def test_wrappers_count_launches_and_refuse_grad(cuda):
+    """Forward launches count one each; with grad, 'pallas' launches
+    gcn_fwd again for dx and gcn_bwd once. Tensors on two devices are
+    refused."""
     x, a1, w = _inputs(cuda, 2, 16, 32, 64, torch.float32)
-    before = (gcn_fused.adaptive_gcn_pallas.launches,
-              gcn_kernel.fused_gcn.launches)
+    before = _launches()
     with torch.no_grad():
         gcn_fused.adaptive_gcn_pallas(x, a1, w)
         gcn_kernel.fused_gcn(x, a1, w)
-    assert (gcn_fused.adaptive_gcn_pallas.launches,
-            gcn_kernel.fused_gcn.launches) == (before[0] + 1, before[1] + 1)
-    with pytest.raises(RuntimeError, match="training slice"):
-        gcn_fused.adaptive_gcn_pallas(x, a1, w.requires_grad_(True))
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2])
+    gcn_fused.adaptive_gcn_pallas(x.requires_grad_(True), a1,
+                                  w.requires_grad_(True)).sum().backward()
+    assert _launches() == (before[0] + 3, before[1] + 1, before[2] + 1)
     with pytest.raises(ValueError, match="devices"):
         gcn_kernel.fused_gcn(x, a1.cpu(), w.detach())
 
@@ -130,3 +140,153 @@ def test_agcn_on_card_matches_cpu(cuda, kw):
         got = card(torch.from_numpy(x).to(cuda)).cpu()
         want = cpu(torch.from_numpy(x))
     torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
+
+
+def _cotangent(dev, b, t, co, dtype, v=25, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(b, t, v, co, device=dev, generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("t,c,co,v", [(48, 16, 32, 25), (50, 64, 64, 25),
+                                      (24, 128, 128, 25), (20, 3, 64, 25),
+                                      (7, 200, 72, 25), (30, 64, 128, 18)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gcn_bwd_matches_plain(cuda, t, c, co, v, dtype):
+    x, a1, w = _inputs(cuda, 3, t, c, co, dtype, v=v)
+    g = _cotangent(cuda, 3, t, co, dtype, v=v)
+    dw, da1 = gcn_fused.launch_gcn_bwd(x, a1, w, g)
+    torch.cuda.synchronize()
+    assert dw.dtype == dtype and da1.dtype == dtype
+    want_dw, want_da1 = gcn_fused.gcn_bwd_plain(x, a1, w, g)
+    assert _close(dw, want_dw) and _close(da1, want_da1)
+
+
+def test_gcn_bwd_is_deterministic(cuda):
+    """The dW partials are summed in a fixed order: two calls agree bit
+    for bit (the batch spans several sample groups)."""
+    x, a1, w = _inputs(cuda, 64, 40, 64, 64, torch.float32)
+    g = _cotangent(cuda, 64, 40, 64, torch.float32)
+    assert gcn_fused.dw_groups(64, 64, 64) > 1
+    first = gcn_fused.launch_gcn_bwd(x, a1, w, g)
+    second = gcn_fused.launch_gcn_bwd(x, a1, w, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _unrounded_bwd(x, a1, w, g, round_u, round_p):
+    xf, gf = x.float(), g.float()
+    dw, da1 = [], []
+    for k in range(3):
+        u = torch.einsum("btwo,bvw->btvo", gf, a1[:, k].float())
+        if round_u:
+            u = u.to(g.dtype).float()
+        dw.append(torch.einsum("btvc,btvo->co", xf, u))
+        p = xf @ w[k].float()
+        if round_p:
+            p = p.to(x.dtype).float()
+        da1.append(torch.einsum("btvo,btwo->bvw", p, gf))
+    return (torch.stack(dw).to(w.dtype),
+            torch.stack(da1, dim=1).to(a1.dtype))
+
+
+def test_gcn_bwd_rounding_points_in_bf16(cuda):
+    """Integer inputs whose every sum is exact in fp32 in any order: the
+    kernel equals the plain version bit for bit, and dropping the
+    rounding of u (dW) or of p (da1) changes most outputs."""
+    rng = np.random.default_rng(3)
+    b, t, c, co = 2, 8, 64, 16
+    x, a1, w, g = (torch.from_numpy(a.astype(np.float32)).to(
+        cuda, torch.bfloat16) for a in (
+        rng.integers(-4, 5, (b, t, 25, c)),
+        rng.integers(-32, 33, (b, 3, 25, 25)),
+        rng.integers(-32, 33, (3, c, co)),
+        rng.integers(-32, 33, (b, t, 25, co))))
+    dw, da1 = gcn_fused.launch_gcn_bwd(x, a1, w, g)
+    want = gcn_fused.gcn_bwd_plain(x, a1, w, g)
+    assert torch.equal(dw, want[0]) and torch.equal(da1, want[1])
+    no_u = _unrounded_bwd(x, a1, w, g, False, True)
+    no_p = _unrounded_bwd(x, a1, w, g, True, False)
+    assert (no_u[0] != dw).float().mean() > 0.2
+    assert (no_p[1] != da1).float().mean() > 0.2
+
+
+_FORMS = {"pallas": gcn_fused.adaptive_gcn_pallas,
+          "pallas_hybrid": gcn_fused.adaptive_gcn_pallas_hybrid,
+          "fused_gcn": gcn_kernel.fused_gcn}
+
+
+@pytest.mark.parametrize("form", list(_FORMS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,c,co", [(40, 32, 16), (30, 3, 64)])
+def test_autograd_functions_match_the_cpu(cuda, form, dtype, t, c, co):
+    """Value and the grads of x, a1 and W on the card (kernels) against
+    the same Function on the CPU (plain versions)."""
+    fn = _FORMS[form]
+    args = _inputs(cuda, 2, t, c, co, dtype)
+    g = _cotangent(cuda, 2, t, co, dtype)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [a.detach().to(dev).requires_grad_(True) for a in args]
+        y = fn(*leaves)
+        y.backward(g.to(dev))
+        outs.append([y.detach()] + [a.grad for a in leaves])
+    (y, *grads), (want_y, *want_grads) = outs
+    assert _close(y.cpu(), want_y)
+    # the grads at the CPU tests' bars (tests/test_torch_port_grad.py):
+    # the einsum cotangents round their intermediates to bf16 as well
+    rel = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for got, want in zip(grads, want_grads):
+        assert got.dtype == want.dtype
+        scale = want.float().abs().max().item()
+        assert (got.cpu().float() - want.float()).abs().max().item() \
+            <= rel * scale
+
+
+@pytest.mark.parametrize("form", ["pallas", "pallas_hybrid", "agg_packed"])
+def test_agcn_train_step_on_card_matches_cpu(cuda, form):
+    """One step on the card against the CPU's, the card replaying the
+    CPU's ReLU masks (agcn_tpu_torch/tools/grad_parity.py), its ReLU
+    inputs within 1e-3 of their layer's mean |input| of the CPU's: loss
+    1e-4 relative, every gradient within `grad_errors`' bar at 1e-3, the
+    updated state 2e-4."""
+    from agcn_tpu_torch.tools.grad_parity import (ReluProbe, condition_bn,
+                                                  grad_errors, relu_probe)
+    from agcn_tpu_torch.train import losses, optim
+    from agcn_tpu_torch.train.steps import make_train_step
+
+    adj = build_adjacency("ntu_rgb_d")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 3, 40, 25, 2)).astype(np.float32)
+    y = np.array([1, 5])
+    out = {}
+    state = cpu_probe = None
+    for dev in (torch.device("cpu"), cuda):
+        model = AGCN(num_class=7, adj=adj, device=dev, formulation=form)
+        if state is None:
+            condition_bn(model, 0)
+            # copies: the CPU step updates the model's tensors in place
+            state = {k: v.detach().clone()
+                     for k, v in model.state_dict().items()}
+        model.load_state_dict(state)
+        raw = {}
+        opt = optim.SGDNesterov(model.parameters(),
+                                optim.warmup_step_schedule(0.1, 1, []))
+        step = make_train_step(
+            model, losses.cross_entropy, opt,
+            grad_transform=lambda m: raw.update(
+                (n, p.grad.double().cpu().clone())
+                for n, p in m.named_parameters()))
+        probe = ReluProbe(ref=cpu_probe, keep_inputs=cpu_probe is None)
+        with relu_probe(probe):
+            m = step(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+        cpu_probe = cpu_probe or probe
+        out[dev.type] = (m["loss"].item(), raw, {
+            k: v.cpu() for k, v in model.state_dict().items()})
+    (loss, grads, after), (ref_loss, ref_grads, ref_after) = \
+        out["cuda"], out["cpu"]
+    assert probe.input_diff <= 1e-3
+    assert loss == pytest.approx(ref_loss, rel=1e-4)
+    worst = grad_errors(grads, ref_grads, 1e-3)[0]
+    assert worst[0] <= 1.0, worst
+    for name, want in ref_after.items():
+        torch.testing.assert_close(after[name], want, atol=2e-4, rtol=0,
+                                   msg=name)

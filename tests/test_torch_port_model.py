@@ -29,6 +29,7 @@ from agcn_tpu_torch.utils.config import load_config
 from agcn_tpu_torch.utils.weights import (agcn_state_dict,
                                           agcn_state_dict_from_variables,
                                           load_checkpoint)
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_CLASS = 7
@@ -142,11 +143,15 @@ def test_state_dict_names_are_the_reference_names(jax_agcn):
 
 
 def test_train_mode_and_unported_options_raise():
+    """Train mode runs (the training forward, batch statistics); the
+    options the port does not have yet raise."""
     adj = build_adjacency("ntu_rgb_d")
     model = AGCN(num_class=NUM_CLASS, adj=adj, device="cpu")
     assert model.training  # torch's default; serving calls .eval()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.zeros(1, 3, 8, 25, 2))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 3, 8, 25, 2)).astype(np.float32))
+    assert model(x).shape == (2, NUM_CLASS)
+    assert int(model.data_bn.num_batches_tracked) == 1
     with pytest.raises(NotImplementedError, match="scan_blocks"):
         AGCN(adj=adj, device="cpu", scan_blocks=True)
     with pytest.raises(NotImplementedError, match="edge_mesh"):
@@ -236,6 +241,11 @@ def test_skeleton_file_reading_matches_jax(tmp_path):
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "agcn_tpu")
+# the training path's modules, which the fresh-process check must reach
+_TRAINING_MODULES = tuple(f"agcn_tpu_torch.{m}" for m in (
+    "main", "train.trainer", "train.steps", "train.optim", "train.losses",
+    "train.checkpoint", "data.feeder", "data.pipeline", "data.transforms",
+    "tools.grad_parity"))
 
 
 def _imports(path):
@@ -270,8 +280,9 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
         "    'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN}]\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
+        f"missing = sorted(set({_TRAINING_MODULES}) - set(mods))\n"
+        "print(len(mods), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(mods) < 20 else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)

@@ -27,6 +27,7 @@ from agcn_tpu_torch.ops.kernels import gcn_fused as tfused
 from agcn_tpu_torch.ops.kernels import gcn_kernel as tkernel
 from agcn_tpu_torch.utils.device import resolve_device
 from agcn_tpu_torch.utils.weights import conv_to_torch, dense_to_pointwise
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 # the test_pallas_gcn.py shapes (t, c, co)
 KERNEL_SHAPES = [(48, 16, 32), (50, 64, 64), (24, 128, 128), (20, 3, 64)]
@@ -220,14 +221,19 @@ def test_rounding_modes_differ_in_bf16_only():
 
 
 def test_kernel_wrappers_refuse_autograd():
+    """The wrappers no longer refuse autograd: with a grad-requiring input
+    they run their autograd Function, and without one (or under no_grad)
+    the bare forward."""
     x, a1, w = (_t(a) for a in _gcn_inputs(t=8))
     w.requires_grad_(True)
-    for fn in (tfused.adaptive_gcn_pallas, tkernel.fused_gcn,
-               tfused.adaptive_gcn_pallas_hybrid):
-        with pytest.raises(RuntimeError, match="training slice"):
-            fn(x, a1, w)
+    for fn, function in ((tfused.adaptive_gcn_pallas, "_PallasGCN"),
+                         (tkernel.fused_gcn, "_FusedGCN"),
+                         (tfused.adaptive_gcn_pallas_hybrid,
+                          "_PallasHybridGCN")):
+        assert type(fn(x, a1, w).grad_fn).__name__ == function + "Backward"
     with torch.no_grad():
-        assert tkernel.fused_gcn(x, a1, w).shape == (2, 8, 25, 32)
+        y = tkernel.fused_gcn(x, a1, w)
+    assert y.shape == (2, 8, 25, 32) and y.grad_fn is None
 
 
 def test_kernel_input_checks():

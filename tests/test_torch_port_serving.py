@@ -18,6 +18,7 @@ from agcn_tpu_torch.infer import (ActionRecognition, BatchedStreamServer,
 from agcn_tpu_torch.infer.cli import main as cli_main
 from agcn_tpu_torch.models import AGCN
 from agcn_tpu_torch.utils.weights import agcn_state_dict_from_variables
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 NUM_CLASS = 7
 
