@@ -264,12 +264,13 @@ def main(argv=None):
 
     from agcn_tpu_torch.models.registry import build_model
     from agcn_tpu_torch.utils.config import load_config
-    from agcn_tpu_torch.utils.weights import agcn_state_dict, load_checkpoint
+    from agcn_tpu_torch.utils.weights import load_checkpoint, model_state_dict
 
     cfg = load_config(args.config)
     model = build_model(cfg.model, cfg.model_args, device=args.device)
     weights = args.weights or discover_weights(args.weights_dir)
-    model.load_state_dict(agcn_state_dict(load_checkpoint(weights)),
+    model.load_state_dict(model_state_dict(load_checkpoint(weights),
+                                           cfg.model, cfg.model_args),
                           strict=True)
     model.eval()
     if args.num_joint is None:

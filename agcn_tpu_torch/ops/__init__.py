@@ -1,4 +1,4 @@
 from agcn_tpu_torch.ops.conv import PointwiseConv, TemporalConv
-from agcn_tpu_torch.ops.norm import BatchNorm
+from agcn_tpu_torch.ops.norm import BatchNorm, LayerNorm
 
-__all__ = ["PointwiseConv", "TemporalConv", "BatchNorm"]
+__all__ = ["PointwiseConv", "TemporalConv", "BatchNorm", "LayerNorm"]

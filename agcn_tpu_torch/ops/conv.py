@@ -40,13 +40,15 @@ class PointwiseConv(nn.Module):
 
 class TemporalConv(nn.Module):
     """kx1 convolution along time for (B, T, V, C) tensors: kernel (k, 1),
-    stride (s, 1), symmetric time padding (k-1)/2 (agcn_tpu conv.py:64-75)."""
+    stride (s, 1), symmetric time padding (k-1)/2 when `pad`
+    (agcn_tpu conv.py:64-75)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 9,
-                 stride: int = 1, dtype: Optional[torch.dtype] = None):
+                 stride: int = 1, dtype: Optional[torch.dtype] = None,
+                 pad: bool = True):
         super().__init__()
         self.stride = stride
-        self.pad = (kernel_size - 1) // 2
+        self.pad = (kernel_size - 1) // 2 if pad else 0
         self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(features, in_features, kernel_size, 1))

@@ -9,8 +9,8 @@ backward (ops/kernels/gcn_fused.py).
                                                  * ph_k[b,t,w,c] / (Ce*T)
 
 Layouts are the JAX package's: x (B, T, V, C), a1 (B, K, V, V) with
-a1[b, k, source, dest], W (K, C, Co). The other `apply_gcn` and
-`attention_logits` forms wait (ROADMAP, Queue 1).
+a1[b, k, source, dest], W (K, C, Co). The other `apply_gcn` forms wait
+(ROADMAP, Queue 1).
 """
 
 from __future__ import annotations
@@ -70,22 +70,64 @@ def attention_logits(emb: torch.Tensor, num_subset: int, inter_c: int,
                      form: str = "transposed") -> torch.Tensor:
     """Per-subset embedding-attention logits from the fused theta|phi
     embedding output (divisor Ce * T; softmax applied by the caller).
+    The forms are one function summed in other orders and layouts
+    (agcn_tpu ops/gcn.py:213-258); the models run 'transposed'.
 
     Args:
       emb: (B, T, V, 2*K*Ce) — [theta_0..theta_{K-1}, phi_0..phi_{K-1}].
     Returns:
       (B, K, V, V) scaled logits.
     """
-    if form != "transposed":
-        raise NotImplementedError(
-            f"attention_logits form {form!r} is not ported yet; only "
-            "'transposed' (ROADMAP, Queue 1)")
     b, t, v, _ = emb.shape
     k, ce = num_subset, inter_c
     e = emb.reshape(b, t, v, 2, k, ce)
-    th = e[..., 0, :, :].permute(0, 3, 2, 1, 4).reshape(b, k, v, t * ce)
-    ph = e[..., 1, :, :].permute(0, 3, 2, 1, 4).reshape(b, k, v, t * ce)
+    theta, phi = e[..., 0, :, :], e[..., 1, :, :]
+    if form == "transposed":
+        # pack (T, Ce) per (B, K) batch element
+        th = theta.permute(0, 3, 2, 1, 4).reshape(b, k, v, t * ce)
+        ph = phi.permute(0, 3, 2, 1, 4).reshape(b, k, v, t * ce)
+    elif form == "transposed_tl":
+        # pack (Ce, T) instead of (T, Ce)
+        th = theta.permute(0, 3, 2, 4, 1).reshape(b, k, v, ce * t)
+        ph = phi.permute(0, 3, 2, 4, 1).reshape(b, k, v, ce * t)
+    elif form == "onepack":
+        # one transpose of the combined tensor
+        e2 = e.permute(0, 3, 4, 2, 1, 5).reshape(b, 2, k, v, t * ce)
+        th, ph = e2[:, 0], e2[:, 1]
+    elif form == "blockdiag":
+        # one (K*V, K*V) bilinear product, then its K diagonal blocks
+        e2 = e.permute(0, 3, 4, 2, 1, 5).reshape(b, 2, k * v, t * ce)
+        big = torch.matmul(e2[:, 0], e2[:, 1].transpose(-1, -2))
+        return torch.einsum("bkvkw->bkvw",
+                            big.reshape(b, k, v, k, v)) / (ce * t)
+    elif form == "naive":
+        return torch.einsum("btvkc,btwkc->bkvw", theta, phi) / (ce * t)
+    else:
+        raise ValueError(f"unknown attention form {form!r}")
     return torch.matmul(th, ph.transpose(-1, -2)) / (ce * t)
+
+
+def fused_static_operator(adj: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+    """Fold K-subset aggregation + per-subset projections into one
+    (V*Cin, V*Cout) operator (agcn_tpu ops/gcn.py:334-351):
+    M[(v,ci),(w,co)] = sum_k A_k[v,w] * W_k[ci,co].
+
+    Args:
+      adj: (K, V, V).
+      weights: (K, Cin, Cout).
+    """
+    k, v, _ = adj.shape
+    _, ci, co = weights.shape
+    return einsum("kvw,kio->viwo", adj, weights).reshape(v * ci, v * co)
+
+
+def apply_fused_static(x: torch.Tensor, operator: torch.Tensor,
+                       num_joints: int) -> torch.Tensor:
+    """Apply a fused (V*Cin, V*Cout) operator to (..., V, Cin) features."""
+    *lead, v, ci = x.shape
+    y = x.reshape(*lead, v * ci) @ operator
+    return y.reshape(*lead, num_joints, -1)
 
 
 def apply_gcn(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,

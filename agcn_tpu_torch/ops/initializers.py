@@ -32,6 +32,24 @@ def kaiming_normal_fan_out(tensor: torch.Tensor,
                    generator)
 
 
+def kaiming_normal_fan_in(tensor: torch.Tensor,
+                          generator: torch.Generator) -> torch.Tensor:
+    """He normal, fan_in mode (reference aagcn.py:104, the channel
+    attention's fc1c): std = sqrt(2 / (in * receptive))."""
+    receptive = math.prod(tensor.shape[2:])
+    return _normal(tensor, math.sqrt(2.0 / (tensor.shape[1] * receptive)),
+                   generator)
+
+
+def xavier_normal(tensor: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Glorot normal (reference aagcn.py:68, the spatial attention's conv):
+    std = sqrt(2 / ((in + out) * receptive))."""
+    receptive = math.prod(tensor.shape[2:])
+    fans = (tensor.shape[0] + tensor.shape[1]) * receptive
+    return _normal(tensor, math.sqrt(2.0 / fans), generator)
+
+
 def conv_branch_init(branches: int) -> Init:
     """Branch-scaled normal for the subset output projections:
     std = sqrt(2 / (out * in * kh * branches)) (reference agcn.py:17-23)."""

@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "build"
 # one shared library per source
-SOURCES = {"gcn_fwd": "gcn_fwd.cu", "gcn_bwd": "gcn_bwd.cu"}
+SOURCES = {"gcn_fwd": "gcn_fwd.cu", "gcn_bwd": "gcn_bwd.cu",
+           "logits": "logits.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

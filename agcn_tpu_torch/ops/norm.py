@@ -1,4 +1,5 @@
-"""BatchNorm over the trailing channel axis (port of agcn_tpu/ops/norm.py).
+"""BatchNorm (+ Ghost splits) and LayerNorm over the trailing channel
+axis (port of agcn_tpu/ops/norm.py).
 
 Channels-last, like the JAX package: the statistics are per channel of
 the last axis. The parameter and buffer names are torch's
@@ -33,6 +34,11 @@ class BatchNorm(nn.Module):
       scale_init_value: initial weight (the last GCN BN starts at 1e-6,
         reference agcn.py:88).
       identity_at_eval: skip the op at eval (BN-folded weights only).
+      splits: Ghost BatchNorm with this many virtual batches when > 1
+        (reference ghostbatchnorm.py; 0 and 1 are plain BatchNorm, as in
+        the JAX package): in train mode split s normalizes samples
+        {s, S+s, 2S+s, ...} with its own statistics, and the running
+        statistics take the mean of the splits' (norm.py:82-107).
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
@@ -40,15 +46,12 @@ class BatchNorm(nn.Module):
                  identity_at_eval: bool = False, splits: int = 1,
                  axis_name: Optional[str] = None):
         super().__init__()
-        if splits != 1:
-            raise NotImplementedError(
-                "Ghost BatchNorm (splits > 1) serves AAGCN, which is not "
-                "ported yet (ROADMAP Queue 1: AAGCN)")
         if axis_name is not None:
             raise NotImplementedError(
                 "SyncBN (axis_name) needs the data-parallel port "
                 "(ROADMAP Queue 1: Parallel)")
         self.eps = eps
+        self.splits = splits
         self.identity_at_eval = identity_at_eval
         # set while a checkpointed block recomputes its forward for the
         # backward: that pass must not update the running statistics again
@@ -73,21 +76,61 @@ class BatchNorm(nn.Module):
                 return x
             return self._affine(x, self.running_mean.float(),
                                 self.running_var.float())
+        if self.splits > 1:
+            return self._ghost(x)
         xf = x.float()
         dims = tuple(range(x.dim() - 1))
         mean = xf.mean(dim=dims)
         var = (xf * xf).mean(dim=dims) - mean * mean
-        if not self.recomputing:
-            count = x.numel() // x.shape[-1]
-            m = MOMENTUM
-            with torch.no_grad():
-                unbiased = var * count / max(count - 1, 1)
-                self.running_mean.copy_(
-                    (1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_(
-                    (1 - m) * self.running_var + m * unbiased)
-                self.num_batches_tracked.add_(1)
+        self._track(mean, var, x.numel() // x.shape[-1])
         return self._affine(x, mean, var)
+
+    def _track(self, mean: torch.Tensor, var: torch.Tensor,
+               count: int) -> None:
+        """Fold batch statistics into the running ones (not while a
+        checkpointed block recomputes its forward)."""
+        if self.recomputing:
+            return
+        m = MOMENTUM
+        with torch.no_grad():
+            unbiased = var * count / max(count - 1, 1)
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+            self.num_batches_tracked.add_(1)
+
+    def _ghost(self, x: torch.Tensor) -> torch.Tensor:
+        """Ghost BatchNorm in train mode, in fp32 (norm.py:82-107, 141)."""
+        n, c, s = x.shape[0], x.shape[-1], self.splits
+        if n % s:
+            raise ValueError(f"batch {n} not divisible by gbn splits {s}")
+        xs = x.float().reshape((n // s, s) + tuple(x.shape[1:]))
+        dims = (0,) + tuple(range(2, xs.dim() - 1))
+        mean_s = xs.mean(dim=dims)  # (S, C)
+        var_s = (xs * xs).mean(dim=dims) - mean_s * mean_s
+        shape = (1, s) + (1,) * (x.dim() - 2) + (c,)
+        y = (xs - mean_s.reshape(shape)) * torch.rsqrt(
+            var_s.reshape(shape) + self.eps)
+        self._track(mean_s.mean(dim=0), var_s.mean(dim=0),
+                    xs.numel() // (s * c))
+        y = y.reshape(x.shape) * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing axis (agcn_tpu/ops/norm.py:144-157;
+    torch nn.LayerNorm semantics and names)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x - mean).square().mean(dim=-1, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
 
 
 @contextlib.contextmanager

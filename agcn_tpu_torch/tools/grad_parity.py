@@ -1,10 +1,11 @@
 """Where the card's fp32 training gradients part from the CPU's.
 
-    python -m agcn_tpu_torch.tools.grad_parity [--batch 4] [--seq 300]
-        [--out FILE] [--card cuda] [--threads N]
+    python -m agcn_tpu_torch.tools.grad_parity [--model agcn|aagcn]
+        [--batch 4] [--seq 300] [--out FILE] [--card cuda] [--threads N]
 
 One training step (forward, the recipe's loss, backward) of the NTU-60
-AGCN of configs/ntu60_xview/train_joint.yaml at full width with
+AGCN of configs/ntu60_xview/train_joint.yaml (or, with --model aagcn,
+the AAGCN of train_joint_aagcn.yaml) at full width with
 `formulation: pallas`, seeded random weights and conditioned BatchNorm
 (`condition_bn`), on the card and on the CPU, each held against a
 float64 CPU step. The BatchNorm train-mode arithmetic is varied, all
@@ -47,8 +48,12 @@ from agcn_tpu_torch.ops.norm import BatchNorm
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-TRAIN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
-                            "train_joint.yaml")
+TRAIN_CONFIGS = {m: os.path.join(REPO, "configs", "ntu60_xview", f)
+                 for m, f in (("agcn", "train_joint.yaml"),
+                              ("aagcn", "train_joint_aagcn.yaml"))}
+# the ReLUs of one block, in the order a forward calls them
+BLOCK_RELUS = {"agcn": ("gcn1", "out"),
+               "aagcn": ("gcn1", "attn_c", "out")}
 SEED = 0
 
 
@@ -91,10 +96,10 @@ def condition_bn(model: torch.nn.Module, seed: int) -> None:
                 m.bias.copy_(0.5 + 0.2 * torch.rand(n, generator=g))
 
 
-def relu_name(i: int) -> str:
-    """The i-th ReLU of an AGCN forward: each block's GCN unit, then the
-    block's output."""
-    return f"l{i // 2 + 1}.{'gcn1' if i % 2 == 0 else 'out'}"
+def relu_name(i: int, block: Tuple[str, ...] = BLOCK_RELUS["agcn"]) -> str:
+    """The i-th ReLU of a forward whose blocks call `block`'s ReLUs in
+    turn (AGCN: each block's GCN unit, then the block's output)."""
+    return f"l{i // len(block) + 1}.{block[i % len(block)]}"
 
 
 class ReluProbe:
@@ -153,7 +158,8 @@ def relu_probe(probe: ReluProbe):
 
 
 def flips(masks: List[torch.Tensor], ref: List[torch.Tensor],
-          margins: List[torch.Tensor]) -> Dict[str, object]:
+          margins: List[torch.Tensor],
+          block: Tuple[str, ...] = BLOCK_RELUS["agcn"]) -> Dict[str, object]:
     """The ReLU inputs whose sign differs from `ref`'s, with the largest
     float64 margin among them and where it lies (b, t, v, c)."""
     count, worst, where = 0, 0.0, None
@@ -167,17 +173,19 @@ def flips(masks: List[torch.Tensor], ref: List[torch.Tensor],
         j = int(mg.argmax())
         if mg.flatten()[j] >= worst:
             worst = float(mg.flatten()[j])
-            where = [relu_name(i)] + [int(k) for k in np.unravel_index(
+            where = [relu_name(i, block)] + [int(k) for k in np.unravel_index(
                 j, tuple(mg.shape))]
     return dict(flips=count, max_margin=worst, at=where)
 
 
-def near_zero(margins: List[torch.Tensor],
-              within: float = 1e-6) -> Dict[str, object]:
+def near_zero(margins: List[torch.Tensor], within: float = 1e-6,
+              block: Tuple[str, ...] = BLOCK_RELUS["agcn"]
+              ) -> Dict[str, object]:
     """The float64 ReLU inputs within `within` of their layer's mean
     |input| of zero, and the smallest margin."""
     n = sum(int((m < within).sum()) for m in margins)
-    low = min((float(m.min()), relu_name(i)) for i, m in enumerate(margins))
+    low = min((float(m.min()), relu_name(i, block))
+              for i, m in enumerate(margins))
     return dict(within=within, count=n, min_margin=low[0], at=low[1],
                 inputs=sum(m.numel() for m in margins))
 
@@ -271,6 +279,7 @@ def main(argv=None) -> int:
     from agcn_tpu_torch.utils.config import load_config
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(TRAIN_CONFIGS), default="agcn")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=300)
     ap.add_argument("--card", default="cuda",
@@ -283,7 +292,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(args.threads)
-    cfg = load_config(TRAIN_CONFIG)
+    cfg = load_config(TRAIN_CONFIGS[args.model])
+    block = BLOCK_RELUS[args.model]
     model_args = dict(cfg.model_args, formulation="pallas")
     loss_fn = losses.build_loss(cfg.loss, model_args["num_class"])
     rng = np.random.default_rng(SEED + 4)
@@ -319,7 +329,8 @@ def main(argv=None) -> int:
 
     truth = run("cpu", torch.float64, "jax", ReluProbe(keep_margin=True))
     margins = truth["probe"].margins
-    rows = [dict(run="cpu float64", near_zero=near_zero(margins),
+    rows = [dict(run="cpu float64", near_zero=near_zero(margins,
+                                                        block=block),
                  seconds=truth["seconds"])]
     print(f"cpu float64: ReLU inputs near zero {rows[0]['near_zero']}",
           flush=True)
@@ -335,7 +346,8 @@ def main(argv=None) -> int:
                    tensors=len(errs), top3=[list(r) for r in errs[:3]],
                    seconds=got["seconds"])
         if got["probe"].ref is None:
-            row.update(flips(got["probe"].masks, ref["probe"].masks, margins))
+            row.update(flips(got["probe"].masks, ref["probe"].masks, margins,
+                             block))
         else:
             row.update(flips=got["probe"].disagree, replayed=True,
                        input_diff=got["probe"].input_diff)
@@ -376,8 +388,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(device=smi, batch=args.batch, seq=args.seq,
-                           rows=rows), f, indent=1)
+            json.dump(dict(device=smi, model=args.model, batch=args.batch,
+                           seq=args.seq, rows=rows), f, indent=1)
     return 0
 
 

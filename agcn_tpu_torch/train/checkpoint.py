@@ -54,14 +54,18 @@ def resolve_path(path: str) -> str:
     return path
 
 
-def load_checkpoint(path: str) -> Dict[str, Any]:
-    """Read a checkpoint into {"model": state dict, and for the port's own
-    files "optimizer", "step", "epoch", "steps_per_epoch"}."""
+def load_checkpoint(path: str, model: str = "agcn",
+                    model_args: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
+    """Read a checkpoint of a recipe's `model` and `model_args` into
+    {"model": state dict, and for the port's own files "optimizer",
+    "step", "epoch", "steps_per_epoch"}."""
     path = resolve_path(path)
     raw = weights.load_checkpoint(path)
     if isinstance(raw, dict) and raw.get("kind") == _KIND:
         return raw
-    out: Dict[str, Any] = {"model": weights.agcn_state_dict(raw)}
+    out: Dict[str, Any] = {"model": weights.model_state_dict(raw, model,
+                                                             model_args)}
     if isinstance(raw, dict) and "steps_per_epoch" in raw:
         out["steps_per_epoch"] = int(raw["steps_per_epoch"])
     return out

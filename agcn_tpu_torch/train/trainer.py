@@ -1,4 +1,5 @@
-"""Trainer — the dense AGCN path of agcn_tpu/train/trainer.py's `Trainer`
+"""Trainer — the dense AGCN / AAGCN path of agcn_tpu/train/trainer.py's
+`Trainer`
 (`__init__` :50-92, `_load_data` :128-168, `_load_model` :170-197,
 `_load_optimizer` :271-314, `_build_steps` :464-533, `start` :537-559,
 `train_epoch` :561-632, `evaluate` :711-821, `save_checkpoint` :823-856;
@@ -13,7 +14,7 @@ the config says `device: cpu` (an integer picks that CUDA card).
 Not here yet, each refused with its ROADMAP item: the TensorBoard event
 files (log.txt and metrics.jsonl carry the same scalars), auto-resume,
 async checkpoints, the profiler window, steps_per_call, multi-device and
-multi-host runs, the SGN families.
+multi-host runs, the SGN families, the other AAGCN models.
 """
 
 from __future__ import annotations
@@ -171,7 +172,8 @@ class Trainer:
         self._snapshot_model_source()
         self._ckpt = None
         if cfg.weights:
-            self._ckpt = ckpt.load_checkpoint(cfg.weights)
+            self._ckpt = ckpt.load_checkpoint(cfg.weights, cfg.model,
+                                              cfg.model_args)
             ckpt.load_model_weights(self.model, self._ckpt["model"],
                                     cfg.ignore_weights, log=self.print_log)
             self.print_log(f"Loaded weights from {cfg.weights}")

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (marker `cuda`; skipped without a
-GPU): gcn_fwd and gcn_bwd against their plain versions, the fused-GCN
-autograd Functions and a train step against the same on the CPU. Imports
+GPU): gcn_fwd, gcn_bwd and the attention-logits kernel against their
+plain versions, the fused-GCN autograd Functions, AGCN and AAGCN logits
+and an AGCN train step against the same on the CPU. Imports
 nothing of JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -290,3 +291,74 @@ def test_agcn_train_step_on_card_matches_cpu(cuda, form):
     for name, want in ref_after.items():
         torch.testing.assert_close(after[name], want, atol=2e-4, rtol=0,
                                    msg=name)
+
+
+@pytest.mark.parametrize("b,t,ce", [(32, 300, 16), (8, 75, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_logits_kernel_matches_plain(cuda, b, t, ce, dtype):
+    """Two layer shapes of the served AAGCN/AGCN forward (l1-l4 at batch
+    32, l9-l10 at batch 8): theta/phi as views of the fused embedding,
+    within 1e-5 of the output scale (fp32 sums of T*Ce products in
+    another order), two calls and a contiguous copy bitwise equal."""
+    from agcn_tpu_torch.ops.kernels import logits_kernel
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    emb = torch.randn(b, t, 25, 6 * ce, device=cuda, generator=g).to(dtype)
+    e = emb.view(b, t, 25, 2, 3, ce)
+    th, ph = e[..., 0, :, :], e[..., 1, :, :]
+    got = logits_kernel.launch_logits(th, ph, ce * t)
+    again = logits_kernel.launch_logits(th.contiguous(), ph.contiguous(),
+                                        ce * t)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (b, 3, 25, 25)
+    assert torch.equal(got, again)
+    want = logits_kernel.attention_logits_plain(th, ph, ce * t)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_logits_wrapper_counts_launches(cuda):
+    from agcn_tpu_torch.ops.kernels import logits_kernel
+
+    th = torch.randn(2, 10, 25, 3, 8, device=cuda)
+    before = logits_kernel.attention_logits_pallas.launches
+    logits_kernel.attention_logits_pallas(th, th, 80)
+    logits_kernel.attention_logits_pallas(th.cpu(), th.cpu(), 80)
+    assert logits_kernel.attention_logits_pallas.launches == before + 1
+    with pytest.raises(ValueError, match="devices"):
+        logits_kernel.attention_logits_pallas(th, th.cpu(), 80)
+
+
+@pytest.mark.parametrize("kw", [{"formulation": "pallas",
+                                 "eval_formulation": "pallas"}, {}])
+def test_aagcn_on_card_matches_cpu(cuda, kw):
+    """The full-depth AAGCN with a live attention branch and BN statistics
+    taken from a train-mode forward: card logits within 1e-4 of the logit
+    scale of the CPU's (fp32, TF32 off, sums in another order)."""
+    from agcn_tpu_torch.models.aagcn import AAGCN
+    from agcn_tpu_torch.ops.norm import BatchNorm
+
+    adj = build_adjacency("ntu_rgb_d")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 3, 40, 25, 2)).astype(np.float32))
+    card = AAGCN(num_class=7, adj=adj, device=cuda, **kw)
+    g = torch.Generator().manual_seed(1)
+    norms = [m for m in card.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        for name, p in card.named_parameters():
+            if name.endswith(".alpha") or name.endswith("bn.weight"):
+                p.copy_((torch.rand(p.shape, generator=g) + 0.5).to(cuda))
+            elif ".conv_ta." in name or ".fc2c." in name:
+                p.copy_((torch.randn(p.shape, generator=g) * 0.1).to(cuda))
+        for m in norms:
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        card.train()(x.to(cuda))
+        for m in norms:  # the batch statistics of that forward
+            m.running_mean.div_(0.1)
+            m.running_var.sub_(0.9).div_(0.1).clamp_(min=1e-3)
+    cpu = AAGCN(num_class=7, adj=adj, device="cpu", **kw).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    with torch.no_grad():
+        got = card.eval()(x.to(cuda)).cpu()
+        want = cpu(x)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()

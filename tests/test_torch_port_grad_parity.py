@@ -88,10 +88,12 @@ def test_exact_zero_gradients_are_zero_in_float64():
     assert min(others) > 1e-9 * top
 
 
-def test_tool_runs_end_to_end(tmp_path):
+@pytest.mark.parametrize("model", ["agcn", "aagcn"])
+def test_tool_runs_end_to_end(tmp_path, model):
     out = tmp_path / "gp.json"
-    assert gp.main(["--batch", "2", "--seq", "8", "--card", "cpu",
-                    "--threads", "1", "--out", str(out)]) == 0
+    assert gp.main(["--model", model, "--batch", "2", "--seq", "8",
+                    "--card", "cpu", "--threads", "1", "--out",
+                    str(out)]) == 0
     rows = json.loads(out.read_text())["rows"]
     assert rows[0]["near_zero"]["inputs"] > 0
     # the "card" is the CPU here: every run equals its CPU counterpart

@@ -26,9 +26,8 @@ from agcn_tpu_torch.data.gen.preprocess import pre_normalization
 from agcn_tpu_torch.graph import build_adjacency
 from agcn_tpu_torch.models import AGCN, build_model
 from agcn_tpu_torch.utils.config import load_config
-from agcn_tpu_torch.utils.weights import (agcn_state_dict,
-                                          agcn_state_dict_from_variables,
-                                          load_checkpoint)
+from agcn_tpu_torch.utils.weights import (agcn_state_dict_from_variables,
+                                          load_checkpoint, model_state_dict)
 from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -157,7 +156,7 @@ def test_train_mode_and_unported_options_raise():
     with pytest.raises(NotImplementedError, match="edge_mesh"):
         AGCN(adj=adj, device="cpu", edge_mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("aagcn", {}, device="cpu")
+        build_model("aagcn_transformer", {}, device="cpu")
 
 
 def test_default_device_entry_points_raise_without_gpu():
@@ -192,10 +191,10 @@ def test_checkpoint_files_load_strict(jax_agcn, tmp_path):
     base = _port(adj, variables)
     # the JAX package's npz checkpoint
     save_checkpoint(str(tmp_path / "ckpt"), variables, use_orbax=False)
-    npz = agcn_state_dict(load_checkpoint(str(tmp_path / "ckpt")))
+    npz = model_state_dict(load_checkpoint(str(tmp_path / "ckpt")))
     # a reference .pt state dict
     torch.save(base.state_dict(), tmp_path / "w.pt")
-    pt = agcn_state_dict(load_checkpoint(str(tmp_path / "w.pt")))
+    pt = model_state_dict(load_checkpoint(str(tmp_path / "w.pt")))
     for sd in (npz, pt):
         model = AGCN(num_class=NUM_CLASS, adj=adj, device="cpu")
         model.load_state_dict(sd, strict=True)

@@ -135,8 +135,8 @@ def test_attention_logits_matches_jax():
     want = jgcn.attention_logits(jnp.asarray(emb), k, ce, "transposed")
     got = tgcn.attention_logits(_t(emb), k, ce, "transposed")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgcn.attention_logits(_t(emb), k, ce, "naive")
+    with pytest.raises(ValueError, match="unknown attention form"):
+        tgcn.attention_logits(_t(emb), k, ce, "nope")
 
 
 @pytest.mark.parametrize("form", ["agg", "agg_packed", "pallas",

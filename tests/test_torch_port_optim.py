@@ -101,10 +101,11 @@ def test_batchnorm_train_grads_match_jax():
 
 
 def test_batchnorm_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="AAGCN"):
-        BatchNorm(8, splits=2)
     with pytest.raises(NotImplementedError, match="Parallel"):
         BatchNorm(8, axis_name="data")
+    # Ghost BN: the batch must divide into the splits
+    with pytest.raises(ValueError, match="divisible"):
+        BatchNorm(8, splits=2).train()(torch.zeros(3, 4, 8))
 
 
 @pytest.mark.parametrize("name,kw", [
