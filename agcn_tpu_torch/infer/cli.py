@@ -263,14 +263,16 @@ def main(argv=None):
         p.error("--serve requires --input to be a directory")
 
     from agcn_tpu_torch.models.registry import build_model
+    from agcn_tpu_torch.train.checkpoint import load_checkpoint
     from agcn_tpu_torch.utils.config import load_config
-    from agcn_tpu_torch.utils.weights import load_checkpoint, model_state_dict
 
     cfg = load_config(args.config)
     model = build_model(cfg.model, cfg.model_args, device=args.device)
     weights = args.weights or discover_weights(args.weights_dir)
-    model.load_state_dict(model_state_dict(load_checkpoint(weights),
-                                           cfg.model, cfg.model_args),
+    # the port trainer's own checkpoints, the JAX package's and reference
+    # state dicts alike
+    model.load_state_dict(load_checkpoint(weights, cfg.model,
+                                          cfg.model_args)["model"],
                           strict=True)
     model.eval()
     if args.num_joint is None:

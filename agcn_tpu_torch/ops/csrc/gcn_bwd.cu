@@ -22,7 +22,7 @@
 // (B, nT) grid and into da1 across the time tiles of a sample, which is
 // safe there only because a TPU runs its grid in order. Here no block
 // adds into another's output: each reduces over T inside itself, the
-// per-sample-group dW partials are summed by a second kernel in a fixed
+// per-group dW partials are summed by a second kernel in a fixed
 // order, and every sum runs in an order fixed by the shapes alone. Two
 // calls on the same inputs give bitwise-equal results.
 //
@@ -32,13 +32,11 @@
 // flops per fp32 byte, above the fp32 ridge of 20 (67 TFLOP/s outside the
 // tensor cores over 3.35 TB/s): fp32 calls are bound by operations. In
 // bf16 the bytes halve and the ridge is 295 (989 TFLOP/s on the tensor
-// cores): bytes bound the narrow layers, operations the wide ones. All
-// math here is fp32 on the CUDA cores, so the kernel's own ceiling is the
-// fp32 rate for both types; tensor-core MMA is later work.
+// cores): bytes bound the narrow layers, operations the wide ones.
 //
-// What the design does about it: the intermediates u and p never go to
-// device memory (as on the TPU, where they stayed in VMEM); each lives in
-// shared memory for one tile of 4 frames.
+// dW in fp32 stays on the CUDA cores (the tensor cores' fp32 is TF32,
+// which would miss the fp32 bar), with u kept out of device memory as on
+// the TPU, where it stayed in VMEM:
 //
 //   gcn_dw_partial_kernel: one block of 128 threads per (64 output
 //     channels, 32 input channels, subset k, group of samples). For each
@@ -48,7 +46,36 @@
 //     x^T u into a 4x4 fp32 register tile per thread. It writes one
 //     (C, Co) partial per group. The group count is chosen from the
 //     shapes so that about 264 blocks run (two waves of 132 SMs).
-//   gcn_dw_reduce_kernel: dW = sum over the groups, in group order.
+//
+// dW in bf16 makes two passes through device memory: u is formed once
+// (the kernel above forms it again for every 32-channel tile of C), and
+// the product runs on the tensor cores:
+//
+//   gcn_u_kernel: one block of 256 threads per (8 frames, sample). a1 of
+//     the sample, all three subsets, sits in shared memory; each thread
+//     holds the g column of one (frame, output-channel pair) in registers
+//     and forms its u for every (k, v): fp32 sums in the order
+//     w = 0 .. V-1, rounded to bf16 once, into a (K, B*T*V, Co) bf16
+//     buffer. Bound by bytes: it reads g once and writes 3x its size.
+//   gcn_dw_mma_kernel: dW_k = x^T u_k over the rows r = (b, t, v), with
+//     nvcuda::wmma bf16 16x16x16 fragments and fp32 accumulators. One
+//     block of 4 warps per (64 input x 64 output channels, subset k,
+//     group of rows); each warp owns a 32x32 quarter (2x2 fragments).
+//     The block walks its rows in chunks of 32: an x chunk (read as x^T,
+//     col_major) and a u chunk (row_major) staged in shared memory, rows
+//     padded by 8 bf16 against bank conflicts, the next chunk's loads
+//     held in registers while the current one is multiplied. Rows past
+//     the group's end and channels past C or Co are zeros in shared
+//     memory (C=3 is padded to 64 that way). A group is a range of whole
+//     32-row chunks of the B*T*V rows; the group count is chosen from the
+//     shapes so that about 1,056 blocks run (8 per SM). Each writes one
+//     fp32 (C, Co) partial.
+//
+//   gcn_dw_reduce_kernel: dW = sum over the groups, in group order,
+//     rounded to dW's type once.
+//
+// da1, both types:
+//
 //   gcn_da1_kernel: one block per (k, sample). Per 4-frame tile and
 //     64-channel chunk it projects p = x W_k (the register tiling of the
 //     forward kernel's projection), rounds it, stages g, and adds
@@ -57,12 +84,18 @@
 // Ragged edges (T not a multiple of 4, C of 32, Co of 64) are masked:
 // staged values beyond the edge are zero and stores beyond it are skipped.
 //
-// C interface: agcn_gcn_bwd(...) launches the three kernels on the given
-// stream of the current device and returns the first CUDA error (0 on
-// success). The caller allocates the (G, K, C, Co) fp32 partials.
+// C interface, each on the given stream of the current device, returning
+// the first CUDA error (0 on success):
+//   agcn_gcn_bwd_dw launches the dW kernels and the ordered reduce; the
+//     caller allocates the (G, K, C, Co) fp32 partials and, in bf16, the
+//     (K, B*T*V, Co) bf16 buffer of u.
+//   agcn_gcn_bwd_da1 launches gcn_da1_kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -236,6 +269,234 @@ gcn_dw_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
   dw[i] = from_f<T>(s);
 }
 
+// ------------------------------------------- dW in bf16: u, then MMA ----
+
+constexpr int U_THREADS = 256;
+constexpr int U_FRAMES = 8;      // frames per block
+
+// u[k, (b,t,v), o] = sum_w g[b,t,w,o] * a1[b,k,v,w], rounded to bf16.
+// g_pairs: Co is even and g 4-byte aligned, so an output-channel pair
+// loads and stores as one __nv_bfloat162.
+template <int V>
+__global__ void __launch_bounds__(U_THREADS)
+gcn_u_kernel(const __nv_bfloat16* __restrict__ a1,
+             const __nv_bfloat16* __restrict__ g,
+             __nv_bfloat16* __restrict__ u, int B, int Tn, int Co,
+             bool g_pairs) {
+  constexpr int VP = (V + 3) / 4 * 4;          // a1 row, float4-padded
+  __shared__ __align__(16) float a_s[K * V * VP];  // a_s[k][v][w]
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * U_FRAMES;
+  const int tid = threadIdx.x;
+  const __nv_bfloat16* a_b = a1 + (size_t)b * K * V * V;
+  for (int i = tid; i < K * V * VP; i += U_THREADS) {
+    const int w = i % VP;
+    a_s[i] = w < V ? to_f(a_b[(i / VP) * V + w]) : 0.f;
+  }
+  __syncthreads();
+
+  const int pairs = (Co + 1) / 2;
+  const int frames = min(U_FRAMES, Tn - t0);
+  const size_t slab = (size_t)B * Tn * V * Co;  // one subset's u
+  for (int item = tid; item < frames * pairs; item += U_THREADS) {
+    const int o = 2 * (item % pairs);
+    const bool two = o + 1 < Co;
+    const size_t base = ((size_t)b * Tn + t0 + item / pairs) * V * Co + o;
+    float2 gv[VP];
+#pragma unroll
+    for (int w = 0; w < VP; ++w) {
+      float2 f = make_float2(0.f, 0.f);
+      if (w < V) {
+        const __nv_bfloat16* src = g + base + (size_t)w * Co;
+        if (g_pairs) {
+          f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(src));
+        } else {
+          f.x = to_f(src[0]);
+          if (two) f.y = to_f(src[1]);
+        }
+      }
+      gv[w] = f;
+    }
+    for (int k = 0; k < K; ++k) {
+      __nv_bfloat16* dst = u + k * slab + base;
+#pragma unroll 1
+      for (int v = 0; v < V; ++v) {
+        const float4* arow =
+            reinterpret_cast<const float4*>(a_s + (k * V + v) * VP);
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int q = 0; q < VP / 4; ++q) {  // w = 4q .. 4q+3, in order
+          const float4 a4 = arow[q];
+          s0 += gv[4 * q + 0].x * a4.x;
+          s1 += gv[4 * q + 0].y * a4.x;
+          s0 += gv[4 * q + 1].x * a4.y;
+          s1 += gv[4 * q + 1].y * a4.y;
+          s0 += gv[4 * q + 2].x * a4.z;
+          s1 += gv[4 * q + 2].y * a4.z;
+          s0 += gv[4 * q + 3].x * a4.w;
+          s1 += gv[4 * q + 3].y * a4.w;
+        }
+        __nv_bfloat16* d = dst + (size_t)v * Co;
+        if (g_pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(d) =
+              __floats2bfloat162_rn(s0, s1);
+        } else {
+          d[0] = __float2bfloat16_rn(s0);
+          if (two) d[1] = __float2bfloat16_rn(s1);
+        }
+      }
+    }
+  }
+}
+
+namespace wmma = nvcuda::wmma;
+
+constexpr int MM_THREADS = 128;    // 4 warps, each a 32 x 32 quarter
+constexpr int MM_CT = 64;          // input channels (rows of dW) per block
+constexpr int MM_OT = 64;          // output channels per block
+constexpr int MM_RK = 32;          // (b, t, v) rows per chunk
+constexpr int MM_LD = 64 + 8;      // bf16 row stride of a staged chunk
+constexpr int MM_LDC = MM_OT + 4;  // fp32 row stride of the staged tile
+constexpr int MM_CHUNK_BYTES = 2 * MM_RK * MM_LD * 2;  // x_s and u_s
+constexpr int MM_TILE_BYTES = MM_CT * MM_LDC * 4;      // c_s
+constexpr int MM_SMEM = MM_CHUNK_BYTES > MM_TILE_BYTES ? MM_CHUNK_BYTES
+                                                       : MM_TILE_BYTES;
+// each thread stages two 8-wide vectors of each 32 x 64 chunk
+static_assert(MM_RK * MM_CT / 8 == 2 * MM_THREADS, "x staging");
+static_assert(MM_RK * MM_OT / 8 == 2 * MM_THREADS, "u staging");
+
+// 8 bf16 of row `row` of the row-major (rows, n) matrix m from column
+// `col` on: zeros for a row past the group's end or columns past n.
+// `vec`: n % 8 == 0 and m 16-byte aligned, so the 8 load as one uint4.
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ m,
+                                       size_t row, bool row_ok, int col,
+                                       int n, bool vec) {
+  uint4 out = make_uint4(0u, 0u, 0u, 0u);
+  if (!row_ok || col >= n) return out;
+  const __nv_bfloat16* src = m + row * n + col;
+  if (vec) return *reinterpret_cast<const uint4*>(src);
+  unsigned int h[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    h[i] = col + i < n ? __bfloat16_as_ushort(src[i]) : 0u;
+  }
+  out.x = h[0] | (h[1] << 16);
+  out.y = h[2] | (h[3] << 16);
+  out.z = h[4] | (h[5] << 16);
+  out.w = h[6] | (h[7] << 16);
+  return out;
+}
+
+// part[grp, k, c, o] = sum over the group's rows r of x[r, c] * u_k[r, o]
+__global__ void __launch_bounds__(MM_THREADS)
+gcn_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ u,
+                  float* __restrict__ part, int rows, int C, int Co,
+                  int groups, bool x_vec) {
+  __shared__ __align__(128) unsigned char smem[MM_SMEM];
+  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [RK][LD]
+  __nv_bfloat16* u_s = x_s + MM_RK * MM_LD;                     // [RK][LD]
+  float* c_s = reinterpret_cast<float*>(smem);  // [CT][LDC], after the loop
+
+  const int o0 = blockIdx.x * MM_OT;
+  const int c0 = blockIdx.y * MM_CT;
+  const int k = blockIdx.z % K;
+  const int grp = blockIdx.z / K;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wc = (warp / 2) * 32;  // the warp's 32 input channels
+  const int wo = (warp % 2) * 32;  // and 32 output channels
+  // a warp wholly past C or Co has nothing to add (layer 1: C=3)
+  const bool active = c0 + wc < C && o0 + wo < Co;
+
+  // the group's rows: whole chunks [chunks*grp/groups, chunks*(grp+1)/groups)
+  const long long chunks = ((long long)rows + MM_RK - 1) / MM_RK;
+  const size_t r_begin = (size_t)(chunks * grp / groups) * MM_RK;
+  const size_t r_last = (size_t)(chunks * (grp + 1) / groups) * MM_RK;
+  const size_t r_end = r_last < (size_t)rows ? r_last : (size_t)rows;
+  const __nv_bfloat16* u_k = u + (size_t)k * rows * Co;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  }
+
+  // this thread's vectors: row vi / 8, columns 8 * (vi % 8) .. +7
+  uint4 x_r[2], u_r[2];
+  auto fetch = [&](size_t r0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int vi = tid + j * MM_THREADS;
+      const size_t r = r0 + vi / 8;
+      const int col = (vi % 8) * 8;
+      x_r[j] = load8(x, r, r < r_end, c0 + col, C, x_vec);
+      u_r[j] = load8(u_k, r, r < r_end, o0 + col, Co, Co % 8 == 0);
+    }
+  };
+
+  fetch(r_begin);
+  for (size_t r0 = r_begin; r0 < r_end; r0 += MM_RK) {
+    __syncthreads();  // the previous chunk's fragments are loaded
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int vi = tid + j * MM_THREADS;
+      const int at = (vi / 8) * MM_LD + (vi % 8) * 8;
+      *reinterpret_cast<uint4*>(x_s + at) = x_r[j];
+      *reinterpret_cast<uint4*>(u_s + at) = u_r[j];
+    }
+    __syncthreads();
+    if (r0 + MM_RK < r_end) fetch(r0 + MM_RK);  // in flight during the MMAs
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < MM_RK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major> fa[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fb[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // A = x^T: element (c, r) at x_s[r * LD + c]
+          wmma::load_matrix_sync(fa[i], x_s + kk * MM_LD + wc + 16 * i,
+                                 MM_LD);
+          wmma::load_matrix_sync(fb[i], u_s + kk * MM_LD + wo + 16 * i,
+                                 MM_LD);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // every warp is done with x_s, u_s: c_s takes them
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        wmma::store_matrix_sync(c_s + (wc + 16 * i) * MM_LDC + wo + 16 * j,
+                                acc[i][j], MM_LDC, wmma::mem_row_major);
+      }
+    }
+  }
+  __syncthreads();
+  float* dst = part + ((size_t)grp * K + k) * C * Co;
+  for (int i = tid; i < MM_CT * MM_OT; i += MM_THREADS) {
+    const int c = c0 + i / MM_OT;
+    const int o = o0 + i % MM_OT;
+    if (c < C && o < Co) {
+      dst[(size_t)c * Co + o] = c_s[(i / MM_OT) * MM_LDC + i % MM_OT];
+    }
+  }
+}
+
 // --------------------------------------------------------------- da1 ----
 
 constexpr int DA_CC = 32;                     // input-channel chunk of p
@@ -397,11 +658,20 @@ gcn_da1_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 // ------------------------------------------------------------ launch ----
 
-template <typename T, int V>
-cudaError_t launch(const void* x, const void* a1, const void* w,
-                   const void* g, void* dw, void* da1, void* part, int B,
-                   int Tn, int C, int Co, int groups, cudaStream_t stream) {
-  auto dw_kern = gcn_dw_partial_kernel<T, V>;
+template <typename T>
+cudaError_t launch_reduce(const float* part, void* dw, int C, int Co,
+                          int groups, cudaStream_t stream) {
+  const int n = K * C * Co;
+  gcn_dw_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(
+      part, static_cast<T*>(dw), n, groups);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_dw_fp32(const void* x, const void* a1, const void* g,
+                           void* dw, void* part, int B, int Tn, int C,
+                           int Co, int groups, cudaStream_t stream) {
+  auto dw_kern = gcn_dw_partial_kernel<float, V>;
   const size_t dw_bytes = DwLayout<V>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       dw_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dw_bytes);
@@ -409,21 +679,48 @@ cudaError_t launch(const void* x, const void* a1, const void* w,
   dim3 dw_grid((Co + DW_OT - 1) / DW_OT, (C + DW_CT - 1) / DW_CT,
                K * groups);
   dw_kern<<<dw_grid, THREADS, dw_bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a1),
-      static_cast<const T*>(g), static_cast<float*>(part), B, Tn, C, Co,
+      static_cast<const float*>(x), static_cast<const float*>(a1),
+      static_cast<const float*>(g), static_cast<float*>(part), B, Tn, C, Co,
       groups);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  return launch_reduce<float>(static_cast<const float*>(part), dw, C, Co,
+                              groups, stream);
+}
 
-  const int n = K * C * Co;
-  gcn_dw_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<T*>(dw), n, groups);
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<std::uintptr_t>(p) % bytes == 0;
+}
+
+template <int V>
+cudaError_t launch_dw_bf16(const void* x, const void* a1, const void* g,
+                           void* dw, void* part, void* u, int B, int Tn,
+                           int C, int Co, int groups, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  gcn_u_kernel<V><<<dim3((Tn + U_FRAMES - 1) / U_FRAMES, B), U_THREADS, 0,
+                    stream>>>(
+      static_cast<const bf16*>(a1), static_cast<const bf16*>(g),
+      static_cast<bf16*>(u), B, Tn, Co, Co % 2 == 0 && aligned(g, 4));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid((Co + MM_OT - 1) / MM_OT, (C + MM_CT - 1) / MM_CT, K * groups);
+  gcn_dw_mma_kernel<<<grid, MM_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(u),
+      static_cast<float*>(part), B * Tn * V, C, Co, groups,
+      C % 8 == 0 && aligned(x, 16));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  return launch_reduce<bf16>(static_cast<const float*>(part), dw, C, Co,
+                             groups, stream);
+}
 
+template <typename T, int V>
+cudaError_t launch_da1(const void* x, const void* w, const void* g,
+                       void* da1, int B, int Tn, int C, int Co,
+                       cudaStream_t stream) {
   auto da_kern = gcn_da1_kernel<T, V>;
   const size_t da_bytes = DaLayout<V>::BYTES;
-  err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       da_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)da_bytes);
   if (err != cudaSuccess) return err;
   da_kern<<<dim3(K, B), THREADS, da_bytes, stream>>>(
@@ -432,36 +729,52 @@ cudaError_t launch(const void* x, const void* a1, const void* w,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_v(const void* x, const void* a1, const void* w,
-                     const void* g, void* dw, void* da1, void* part, int B,
-                     int Tn, int V, int C, int Co, int groups,
-                     cudaStream_t stream) {
+}  // namespace
+
+// the dW kernels: in fp32 `groups` splits the samples (at most B), in bf16
+// the 32-row chunks of the B*T*V rows (at most their count); `u` is the
+// bf16 path's (K, B*T*V, Co) buffer and unused in fp32
+extern "C" int agcn_gcn_bwd_dw(const void* x, const void* a1, const void* g,
+                               void* dw, void* part, void* u, int B, int Tn,
+                               int V, int C, int Co, int groups, int bf16,
+                               void* stream) {
+  // launches on the caller's current device, which owns `stream`
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long most =
+      bf16 ? ((long long)B * Tn * V + MM_RK - 1) / MM_RK : B;
+  if (groups < 1 || groups > most) return (int)cudaErrorInvalidValue;
   switch (V) {  // the joint counts of the AGCN skeletons (NTU, Kinetics)
     case 25:
-      return launch<T, 25>(x, a1, w, g, dw, da1, part, B, Tn, C, Co,
-                               groups, stream);
+      return (int)(bf16 ? launch_dw_bf16<25>(x, a1, g, dw, part, u, B, Tn,
+                                              C, Co, groups, s)
+                        : launch_dw_fp32<25>(x, a1, g, dw, part, B, Tn, C,
+                                             Co, groups, s));
     case 18:
-      return launch<T, 18>(x, a1, w, g, dw, da1, part, B, Tn, C, Co,
-                               groups, stream);
+      return (int)(bf16 ? launch_dw_bf16<18>(x, a1, g, dw, part, u, B, Tn,
+                                              C, Co, groups, s)
+                        : launch_dw_fp32<18>(x, a1, g, dw, part, B, Tn, C,
+                                             Co, groups, s));
     default:
-      return cudaErrorInvalidValue;
+      return (int)cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-extern "C" int agcn_gcn_bwd(const void* x, const void* a1, const void* w,
-                            const void* g, void* dw, void* da1, void* part,
-                            int B, int Tn, int V, int C, int Co, int groups,
-                            int bf16, void* stream) {
-  // launches on the caller's current device, which owns `stream`
+extern "C" int agcn_gcn_bwd_da1(const void* x, const void* w, const void* g,
+                                void* da1, int B, int Tn, int V, int C,
+                                int Co, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (groups < 1 || groups > B) return (int)cudaErrorInvalidValue;
-  if (bf16) {
-    return (int)launch_v<__nv_bfloat16>(x, a1, w, g, dw, da1, part, B, Tn,
-                                        V, C, Co, groups, s);
+  switch (V) {
+    case 25:
+      return (int)(bf16 ? launch_da1<__nv_bfloat16, 25>(x, w, g, da1, B, Tn,
+                                                        C, Co, s)
+                        : launch_da1<float, 25>(x, w, g, da1, B, Tn, C, Co,
+                                                s));
+    case 18:
+      return (int)(bf16 ? launch_da1<__nv_bfloat16, 18>(x, w, g, da1, B, Tn,
+                                                        C, Co, s)
+                        : launch_da1<float, 18>(x, w, g, da1, B, Tn, C, Co,
+                                                s));
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)launch_v<float>(x, a1, w, g, dw, da1, part, B, Tn, V, C, Co,
-                              groups, s);
 }

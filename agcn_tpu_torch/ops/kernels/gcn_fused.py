@@ -17,10 +17,12 @@ Backward of `adaptive_gcn_pallas` (the JAX `_vjp_bwd`, gcn_fused.py:222):
   dW, da1 = `csrc/gcn_bwd.cu` (`gcn_backward`): dW_k = sum x * u_k with
             u_k = g a1_k^T rounded to g's type, da1_k = sum p_k g with
             p_k = x W_k rounded to x's type; fp32 sums cast to W's and
-            a1's types. Each block reduces over T itself and the dW
-            partials of sample groups are summed in a fixed order, so the
-            result is deterministic (the TPU kernel's ordered-grid `+=`
-            has no GPU counterpart).
+            a1's types. In bf16, u is formed once into device memory and
+            x^T u runs on the tensor cores (nvcuda::wmma). Each block
+            reduces over its rows itself and the dW partials of its
+            groups are summed in a fixed order, so the result is
+            deterministic (the TPU kernel's ordered-grid `+=` has no GPU
+            counterpart).
 `adaptive_gcn_pallas_hybrid` runs the same kernel forward with the
 einsum cotangents of `ops.gcn.adaptive_gcn_bwd` (the JAX `_hyb_bwd`).
 
@@ -36,7 +38,7 @@ CPU tensors; for CUDA tensors it launches the kernel or raises.
 Launch counts: `adaptive_gcn_pallas.launches` counts the gcn_fwd
 launches with round_agg (forwards of both pallas forms and the dx of
 `pallas`), `gcn_backward.launches` the gcn_bwd calls (three kernels
-each).
+each in fp32, four in bf16).
 """
 
 from __future__ import annotations
@@ -51,10 +53,13 @@ from agcn_tpu_torch.ops.kernels import build
 
 K = 3  # subset count is structural in this architecture (reference A/B/C)
 SUPPORTED_JOINTS = (18, 25)  # V of the AGCN skeletons (Kinetics, NTU)
-# gcn_bwd's dW kernel: blocks of (64 output x 32 input channels, one
+# gcn_bwd's fp32 dW kernel: blocks of (64 output x 32 input channels, one
 # subset, one group of samples); the group count is chosen so that about
 # this many blocks run (two waves on 132 SMs)
 _DW_TILE_O, _DW_TILE_C, _DW_TARGET_BLOCKS = 64, 32, 264
+# its bf16 tensor-core kernel: blocks of (64 x 64 channels, one subset, one
+# group of 32-row chunks), about this many (8 per SM)
+_MMA_TILE, _MMA_ROWS, _MMA_TARGET_BLOCKS = 64, 32, 1056
 
 
 def gcn_fwd_plain(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
@@ -157,10 +162,85 @@ def launch_gcn_fwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
 
 
 def dw_groups(b: int, c: int, co: int) -> int:
-    """Sample groups of gcn_bwd's dW kernel (one fp32 (K, C, Co) partial
-    each): enough blocks to fill the card, fixed by the shapes alone."""
+    """Sample groups of gcn_bwd's fp32 dW kernel (one fp32 (K, C, Co)
+    partial each): enough blocks to fill the card, fixed by the shapes
+    alone."""
     tiles = math.ceil(co / _DW_TILE_O) * math.ceil(c / _DW_TILE_C) * K
     return max(1, min(b, math.ceil(_DW_TARGET_BLOCKS / tiles)))
+
+
+def dw_mma_groups(rows: int, c: int, co: int) -> int:
+    """Row groups of gcn_bwd's bf16 dW kernel: ranges of whole 32-row
+    chunks of the B*T*V rows, one fp32 (K, C, Co) partial each, fixed by
+    the shapes alone."""
+    tiles = math.ceil(co / _MMA_TILE) * math.ceil(c / _MMA_TILE) * K
+    return max(1, min(math.ceil(rows / _MMA_ROWS),
+                      math.ceil(_MMA_TARGET_BLOCKS / tiles)))
+
+
+def _check_bwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
+               g: torch.Tensor) -> None:
+    _check(x, a1, w)
+    _check_cotangent(x, w, g)
+    if a1.dtype != x.dtype:
+        raise TypeError(f"gcn_bwd takes a1 in x's dtype {x.dtype}, got "
+                        f"{a1.dtype}")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def launch_gcn_bwd_dw(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
+                      g: torch.Tensor) -> torch.Tensor:
+    """dW of `csrc/gcn_bwd.cu` on the current stream (CUDA tensors), in
+    w's dtype: fp32 on the CUDA cores; bf16 as u = g a1^T, formed once
+    into a (K, B*T*V, Co) bf16 buffer, then x^T u on the tensor cores."""
+    _check_bwd(x, a1, w, g)
+    b, t, v, c = x.shape
+    co = w.shape[-1]
+    dw = torch.empty_like(w)
+    if x.numel() == 0 or g.numel() == 0:
+        return dw.zero_()
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        groups = dw_mma_groups(b * t * v, c, co)
+        u = torch.empty((K, b * t * v, co), dtype=x.dtype, device=x.device)
+    else:
+        groups, u = dw_groups(b, c, co), None
+    partial = torch.empty((groups, K, c, co), dtype=torch.float32,
+                          device=x.device)
+    fn = _bind("gcn_bwd", "agcn_gcn_bwd_dw", 6, 7)
+    # the C entry launches on the current device: make it x's for the
+    # call, and leave the caller's current device as it was
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device)
+        err = fn(x.data_ptr(), a1.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                 partial.data_ptr(), None if u is None else u.data_ptr(),
+                 b, t, v, c, co, groups, int(bf16), stream.cuda_stream)
+    _raise_on(err, "gcn_bwd dW")
+    return dw
+
+
+def launch_gcn_bwd_da1(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
+                       g: torch.Tensor) -> torch.Tensor:
+    """da1 of `csrc/gcn_bwd.cu` on the current stream (CUDA tensors), in
+    a1's dtype."""
+    _check_bwd(x, a1, w, g)
+    b, t, v, c = x.shape
+    co = w.shape[-1]
+    da1 = torch.empty_like(a1)
+    if x.numel() == 0 or g.numel() == 0:
+        return da1.zero_()
+    fn = _bind("gcn_bwd", "agcn_gcn_bwd_da1", 4, 6)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device)
+        err = fn(x.data_ptr(), w.data_ptr(), g.data_ptr(), da1.data_ptr(),
+                 b, t, v, c, co, int(x.dtype == torch.bfloat16),
+                 stream.cuda_stream)
+    _raise_on(err, "gcn_bwd da1")
+    return da1
 
 
 def launch_gcn_bwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
@@ -168,30 +248,7 @@ def launch_gcn_bwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     """Launch `csrc/gcn_bwd.cu` on the current stream (CUDA tensors):
     returns (dW, da1) in x's dtype, which a1 must share (the models build
     a1 in their compute dtype)."""
-    _check(x, a1, w)
-    _check_cotangent(x, w, g)
-    if a1.dtype != x.dtype:
-        raise TypeError(f"gcn_bwd takes a1 in x's dtype {x.dtype}, got "
-                        f"{a1.dtype}")
-    b, t, v, c = x.shape
-    co = w.shape[-1]
-    dw = torch.empty_like(w)
-    da1 = torch.empty_like(a1)
-    if x.numel() == 0 or g.numel() == 0:
-        return dw.zero_(), da1.zero_()
-    groups = dw_groups(b, c, co)
-    partial = torch.empty((groups, K, c, co), dtype=torch.float32,
-                          device=x.device)
-    fn = _bind("gcn_bwd", "agcn_gcn_bwd", 7, 7)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device)
-        err = fn(x.data_ptr(), a1.data_ptr(), w.data_ptr(), g.data_ptr(),
-                 dw.data_ptr(), da1.data_ptr(), partial.data_ptr(),
-                 b, t, v, c, co, groups, int(x.dtype == torch.bfloat16),
-                 stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gcn_bwd kernel launch failed: CUDA error {err}")
-    return dw, da1
+    return (launch_gcn_bwd_dw(x, a1, w, g), launch_gcn_bwd_da1(x, a1, w, g))
 
 
 def _device_kind(name: str, *tensors: torch.Tensor) -> str:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -196,11 +197,13 @@ def model_state_dict(checkpoint: Mapping[str, Any], model: str = "agcn",
     """The port's state dict of a recipe's `model` (short name or
     reference path) and `model_args` from what `load_checkpoint` read: a
     JAX variables tree is converted by the model's map, a reference state
-    dict passes as is."""
+    dict passes with DDP's `module.` prefix dropped (reference
+    processor.py:242-249)."""
     if "params" in checkpoint:
         if model_key(model) == "aagcn":
             return aagcn_state_dict_from_variables(
                 checkpoint, adaptive=(model_args or {}).get("adaptive",
                                                             True))
         return agcn_state_dict_from_variables(checkpoint)
-    return {k: torch.as_tensor(v) for k, v in checkpoint.items()}
+    return {re.sub(r"^module\.", "", k): torch.as_tensor(v)
+            for k, v in checkpoint.items()}

@@ -22,7 +22,9 @@ fails:
    inputs equal to the plain version while dropping either rounding point
    changes the result; the dx calls (gcn_fwd on g, a1^T, W^T) at the
    transposed shapes. Prints kernel / plain / library (the einsum
-   backward) time and the bound.
+   backward) time and the bound, for gcn_bwd also dW and da1 apart. The
+   code is agcn_tpu_torch/tools/bwd_check.py, which runs the gcn_bwd part
+   alone in about a minute: `python -m agcn_tpu_torch.tools.bwd_check`.
 5. the attention-logits kernel against its plain version (the packed
    128 x 128 formulation) at the ten layer shapes of the served (32) and
    training (128) batches, fp32 and bf16, theta/phi as views of the
@@ -87,6 +89,18 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+try:
+    # phase 4 and the card-check helpers shared with it
+    from agcn_tpu_torch.tools.bwd_check import (
+        LAYER_SHAPES, LAYERS, PEAK_BYTES, PEAK_FLOPS, PERSONS, SEED,
+        TRAIN_BATCH, bwd_entry, check, cuda_time_ms, gcn_work, log,
+        nvidia_smi_line, phase_bwd_kernels, within_tol)
+    from agcn_tpu_torch.tools.bwd_check import SOURCE as BWD_SOURCE
+except ImportError as e:
+    print(f"chip_smoke: the port is not importable here ({e}); run from a "
+          "checkout of the repository", file=sys.stderr)
+    sys.exit(1)
 CONFIG = os.path.join(REPO, "configs", "ntu60_xview", "test_joint.yaml")
 TRAIN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
                             "train_joint.yaml")
@@ -94,92 +108,17 @@ AAGCN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
                             "test_joint_aagcn.yaml")
 AAGCN_TRAIN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
                                   "train_joint_aagcn.yaml")
-TRAIN_BATCH = 64  # samples per step; 128 after folding the persons
 TRAIN_STEPS = 10
 STREAMS = 16
-PERSONS = 2
 SEQ = 300
 TICK_FRAMES = 10
-SEED = 0
-# (T, C, Co) of the ten GCN calls of one AGCN forward at T=300, with how
-# many layers run each shape (l1; l2-l4; l5; l6-l7; l8; l9-l10)
-LAYER_SHAPES = [((300, 3, 64), 1), ((300, 64, 64), 3), ((300, 64, 128), 1),
-                ((150, 128, 128), 2), ((150, 128, 256), 1),
-                ((75, 256, 256), 2)]
-LAYERS = sum(n for _, n in LAYER_SHAPES)
 # (T, Ce) of the ten attention-logits calls of one AGCN / AAGCN forward
 # (Ce = Co / 4; the stride-2 blocks shorten T after their GCN)
 LOGITS_SHAPES = [((300, 16), 4), ((300, 32), 1), ((150, 32), 2),
                  ((150, 64), 1), ((75, 64), 2)]
-# H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16
-# tensor cores, HBM3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-PEAK_BYTES = 3.35e12
 SOURCES = {"gcn_fwd": "agcn_tpu_torch/ops/csrc/gcn_fwd.cu",
-           "gcn_bwd": "agcn_tpu_torch/ops/csrc/gcn_bwd.cu",
+           "gcn_bwd": BWD_SOURCE,
            "logits": "agcn_tpu_torch/ops/csrc/logits.cu"}
-
-
-class SmokeFailure(RuntimeError):
-    pass
-
-
-def check(cond, msg):
-    if not cond:
-        raise SmokeFailure(msg)
-
-
-def log(msg=""):
-    print(msg, flush=True)
-
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, iters, warmup=2):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def gcn_work(b, t, c, co, dtype_name, v=25, k=3):
-    """(flops, bytes) one gcn_fwd call needs: each input read once, the
-    output written once."""
-    size = 4 if dtype_name == "float32" else 2
-    flops = 2 * b * t * k * v * c * (v + co)
-    nbytes = (b * t * v * (c + co) + b * k * v * v + k * c * co) * size
-    return flops, nbytes
-
-
-def within_tol(got, want):
-    """(ok, max abs err, output scale) of a kernel output against its
-    plain version, at the tolerance stated in phase 3's header."""
-    diff = (got.float() - want.float()).abs()
-    ref = want.float().abs()
-    scale = ref.max().item()
-    if want.element_size() == 4:
-        # fp32 sums of up to K*V*C = 19,200 products in another order:
-        # 1e-4 of the output's scale
-        ok = diff.max().item() <= 1e-4 * scale
-    else:
-        # bf16: one rounding of each output may land one ulp apart:
-        # 2^-7 relative plus 2^-10 of the scale
-        ok = bool((diff <= 2 ** -7 * ref + 2 ** -10 * scale).all())
-    return ok, diff.max().item(), scale
 
 
 def check_rounding_modes(torch, np, wrappers, gcn_fused, b, t, c, co):
@@ -265,145 +204,6 @@ def phase_kernels(torch, np, gcn_fused, gcn_kernel):
             f"(scale {scale:.3e}): each round_agg mode matches its own "
             f"plain version and fails the other's")
     return rows
-
-
-def gcn_bwd_work(b, t, c, co, dtype_name, v=25, k=3):
-    """(flops, bytes) one gcn_bwd call needs: x, g, a1 and W read once,
-    dW and da1 written once; u = g a1^T and p = x W are formed and used
-    (2 K B T V Co (V + C) flops each way)."""
-    size = 4 if dtype_name == "float32" else 2
-    flops = 4 * k * b * t * v * co * (v + c)
-    nbytes = (b * t * v * (c + co) + 2 * (b * k * v * v + k * c * co)) * size
-    return flops, nbytes
-
-
-def library_bwd(torch, x, a1, w, g):
-    """dW and da1 as ops.gcn.adaptive_gcn_bwd computes them (cuBLAS
-    einsums; the yardstick, used nowhere in the port)."""
-    b, t, v, c = x.shape
-    k, _, co = w.shape
-    p = (x @ w.permute(1, 0, 2).reshape(c, k * co)).reshape(b, t, v, k, co)
-    da1 = torch.einsum("btvko,btwo->bkvw", p, g)
-    agg = torch.einsum("btvc,bkvw->btwkc", x, a1)
-    return torch.einsum("btwkc,btwo->kco", agg, g), da1
-
-
-def check_bwd_rounding(torch, np, gcn_fused, c, co):
-    """bf16 integer inputs whose every sum is exact in fp32 in any order:
-    gcn_bwd must equal its plain version bit for bit, and the same sums
-    without the rounding of u (for dW) or of p (for da1) must differ."""
-    rng = np.random.default_rng(SEED + 5)
-    x, a1, w, g = (torch.from_numpy(a.astype(np.float32)).to(
-        "cuda", torch.bfloat16) for a in (
-        rng.integers(-4, 5, (2, 8, 25, c)),
-        rng.integers(-32, 33, (2, 3, 25, 25)),
-        rng.integers(-32, 33, (3, c, co)),
-        rng.integers(-32, 33, (2, 8, 25, co))))
-    dw, da1 = gcn_fused.launch_gcn_bwd(x, a1, w, g)
-    want = gcn_fused.gcn_bwd_plain(x, a1, w, g)
-    check(torch.equal(dw, want[0]) and torch.equal(da1, want[1]),
-          f"gcn_bwd C={c} Co={co}: integer inputs differ from the plain "
-          f"version")
-    xf, gf = x.float(), g.float()
-    dw_u = torch.stack([torch.einsum(
-        "btvc,btvo->co", xf, torch.einsum("btwo,bvw->btvo", gf,
-                                           a1[:, k].float()))
-        for k in range(3)]).to(torch.bfloat16)
-    da1_p = torch.stack([torch.einsum("btvo,btwo->bvw", xf @ w[k].float(),
-                                      gf)
-                         for k in range(3)], dim=1).to(torch.bfloat16)
-    check(not torch.equal(dw, dw_u) and not torch.equal(da1, da1_p),
-          f"gcn_bwd C={c} Co={co}: the rounding of u or p has no effect")
-
-
-def phase_bwd_kernels(torch, np, gcn_fused):
-    """gcn_bwd and the dx calls against their plain versions at the
-    training shapes (batch 128 after folding the persons)."""
-    b = TRAIN_BATCH * PERSONS
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    rows, dx_rows = [], []
-    for (t, c, co), mult in LAYER_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
-            x = torch.randn(b, t, 25, c, device="cuda", generator=gen)
-            a1 = torch.softmax(torch.randn(b, 3, 25, 25, device="cuda",
-                                           generator=gen), dim=-2)
-            a1 = a1 + 0.2 * torch.rand(3, 25, 25, device="cuda",
-                                       generator=gen)
-            w = torch.randn(3, c, co, device="cuda",
-                            generator=gen) / math.sqrt(3 * c)
-            g = torch.randn(b, t, 25, co, device="cuda", generator=gen)
-            x, a1, w, g = (a.to(dtype) for a in (x, a1, w, g))
-            dw, da1 = gcn_fused.gcn_backward(x, a1, w, g)
-            again = gcn_fused.gcn_backward(x, a1, w, g)
-            torch.cuda.synchronize()
-            check(torch.equal(dw, again[0]) and torch.equal(da1, again[1]),
-                  f"gcn_bwd {dname} T={t} C={c} Co={co}: two calls differ")
-            want = gcn_fused.gcn_bwd_plain(x, a1, w, g)
-            (ok_w, err_w, scale_w), (ok_a, err_a, scale_a) = (
-                within_tol(dw, want[0]), within_tol(da1, want[1]))
-            check(ok_w and ok_a,
-                  f"gcn_bwd {dname} T={t} C={c} Co={co}: dW max err "
-                  f"{err_w:.3e} (scale {scale_w:.3e}), da1 max err "
-                  f"{err_a:.3e} (scale {scale_a:.3e})")
-            del dw, da1, again, want
-            flops, nbytes = gcn_bwd_work(b, t, c, co, dname)
-            row = dict(
-                t=t, c=c, co=co, layers=mult, dtype=dname,
-                max_abs_err=max(err_w, err_a), scale_dw=scale_w,
-                scale_da1=scale_a,
-                ms=cuda_time_ms(lambda: gcn_fused.gcn_backward(x, a1, w, g),
-                                10),
-                plain_ms=cuda_time_ms(
-                    lambda: gcn_fused.gcn_bwd_plain(x, a1, w, g), 3),
-                library_ms=cuda_time_ms(
-                    lambda: library_bwd(torch, x, a1, w, g), 3),
-                flops=flops, bytes=nbytes,
-                flop_ms=flops / PEAK_FLOPS[dname] * 1e3,
-                byte_ms=nbytes / PEAK_BYTES * 1e3)
-            rows.append(row)
-            log(f"  gcn_bwd T={t:3d} C={c:3d} Co={co:3d} {dname:8s} "
-                f"err={row['max_abs_err']:.2e} kernel={row['ms']:.4f} ms "
-                f"plain={row['plain_ms']:.4f} ms einsum="
-                f"{row['library_ms']:.4f} ms bound="
-                f"{max(row['flop_ms'], row['byte_ms']):.4f} ms "
-                f"({'ops' if row['flop_ms'] > row['byte_ms'] else 'bytes'})")
-            # dx: the forward kernel on (g, a1^T, W^T), C and Co swapped
-            at = a1.transpose(2, 3).contiguous()
-            wt = w.transpose(1, 2).contiguous()
-            dx = gcn_fused.adaptive_gcn_pallas(g, at, wt)
-            torch.cuda.synchronize()
-            ok, err, scale = within_tol(
-                dx, gcn_fused.gcn_fwd_plain(g, at, wt, True))
-            check(ok, f"dx {dname} T={t} C={co} Co={c}: max err {err:.3e} "
-                      f"(scale {scale:.3e})")
-            del dx
-            flops, nbytes = gcn_work(b, t, co, c, dname)
-            row = dict(
-                t=t, c=co, co=c, layers=mult, dtype=dname, round_agg=True,
-                max_abs_err=err, scale=scale,
-                ms=cuda_time_ms(
-                    lambda: gcn_fused.adaptive_gcn_pallas(g, at, wt), 10),
-                plain_ms=cuda_time_ms(
-                    lambda: gcn_fused.gcn_fwd_plain(g, at, wt, True), 3),
-                library_ms=cuda_time_ms(lambda: torch.einsum(
-                    "btvc,bkvw,kco->btwo", g, at, wt), 3),
-                flops=flops, bytes=nbytes,
-                flop_ms=flops / PEAK_FLOPS[dname] * 1e3,
-                byte_ms=nbytes / PEAK_BYTES * 1e3)
-            dx_rows.append(row)
-            log(f"  dx      T={t:3d} C={co:3d} Co={c:3d} {dname:8s} "
-                f"err={err:.2e} kernel={row['ms']:.4f} ms plain="
-                f"{row['plain_ms']:.4f} ms einsum={row['library_ms']:.4f} "
-                f"ms bound={max(row['flop_ms'], row['byte_ms']):.4f} ms")
-            del x, a1, w, g, at, wt
-        if c >= 8:
-            # at C=3, p = x W has too few bits for its rounding to show
-            check_bwd_rounding(torch, np, gcn_fused, c, co)
-            log(f"  gcn_bwd C={c:3d} Co={co:3d} bfloat16 integer inputs: "
-                f"equal to the plain version; without the rounding of u or "
-                f"p the result differs")
-    return rows, dx_rows
 
 
 def logits_work(b, t, ce, dname, v=25, k=3):
@@ -889,6 +689,7 @@ KERNEL_GROUPS = (
     ("gcn_fwd_kernel", "gcn_fwd (the port's CUDA kernel)"),
     ("logits_", "attention logits (the port's CUDA kernel)"),
     ("gcn_dw_", "gcn_bwd (the port's CUDA kernel)"),
+    ("gcn_u_kernel", "gcn_bwd (the port's CUDA kernel)"),
     ("gcn_da1_kernel", "gcn_bwd (the port's CUDA kernel)"),
     ("conv", "cuDNN convolution"), ("cudnn", "cuDNN convolution"),
     # cuDNN's FFT convolution algorithms (fp32 with TF32 off)
@@ -950,11 +751,16 @@ def phase_profile(torch, models, x_np, summary, label, iters=5):
             wall_ms=wall_ms, device_ms=device_ms, groups=groups)
 
 
-def phase_cli(torch, np, state, model_name, args):
+def phase_cli(torch, np, state, model_name, args, trainer_checkpoint=False):
+    """The serving CLI on 16 recordings, its weights a bare state dict or,
+    with `trainer_checkpoint`, a file of the port trainer's
+    `save_checkpoint` (the model, optimizer state, step and epoch)."""
     import yaml
 
     from agcn_tpu_torch.infer import cli
+    from agcn_tpu_torch.models.registry import build_model
     from agcn_tpu_torch.ops.kernels import gcn_fused
+    from agcn_tpu_torch.train.checkpoint import save_checkpoint
 
     seq = make_streams(np)[:, :4 * TICK_FRAMES]  # 4 ticks per stream
     with tempfile.TemporaryDirectory() as tmp:
@@ -965,7 +771,15 @@ def phase_cli(torch, np, state, model_name, args):
             arr = np.transpose(seq[sid, :, :, 0], (3, 0, 2, 1))
             np.save(os.path.join(rec, f"cam{sid:02d}.npy"), arr)
         weights = os.path.join(tmp, f"{model_name}.pt")
-        torch.save({k: v.cpu() for k, v in state.items()}, weights)
+        if trainer_checkpoint:
+            model = build_model(model_name, args, device="cpu")
+            model.load_state_dict({k: v.cpu() for k, v in state.items()},
+                                  strict=True)
+            save_checkpoint(weights, model, {}, step=1, epoch=1,
+                            steps_per_epoch=1)
+            del model
+        else:
+            torch.save({k: v.cpu() for k, v in state.items()}, weights)
         cfg_path = os.path.join(tmp, "serve.yaml")
         with open(cfg_path, "w") as f:
             yaml.safe_dump({"model": model_name, "model_args": args}, f)
@@ -979,7 +793,9 @@ def phase_cli(torch, np, state, model_name, args):
     lines = out.getvalue().splitlines()
     answers = [ln for ln in lines if ln.startswith("[cam")]
     ticks = [ln for ln in lines if ln.startswith("tick:")]
-    log(f"  {model_name} cli: {len(answers)} answers, {len(ticks)} ticks, "
+    source = "trainer checkpoint" if trainer_checkpoint else "state dict"
+    log(f"  {model_name} cli ({source}): {len(answers)} answers, "
+        f"{len(ticks)} ticks, "
         f"{launches} launches; last: {ticks[-1] if ticks else None}")
     check(len(answers) == STREAMS * 4 and launches == LAYERS * 4,
           f"cli served {len(answers)} answers with {launches} launches")
@@ -1309,41 +1125,16 @@ def phase_train_cli(np, summary, config, label, resume=True,
     summary[f"{label}_train_cli"] = dict(train=trains, eval=evals, test=test)
 
 
-def bwd_entry(rows, launches, dname="bfloat16"):
-    """The `kernels` entry of gcn_bwd: per training step, the sum over the
-    ten layers at batch 128 in `dname`."""
-    sel = [r for r in rows if r["dtype"] == dname]
-    tot = lambda key: sum(r[key] * r["layers"] for r in sel)  # noqa: E731
-    flop_ms = tot("flops") / PEAK_FLOPS[dname] * 1e3
-    byte_ms = tot("bytes") / PEAK_BYTES * 1e3
-    return {"name": "gcn_bwd (dW, da1)", "route": "cuda",
-            "source": SOURCES["gcn_bwd"],
-            "replaces": "agcn_tpu/ops/pallas/gcn_fused.py:72",
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
-            "bound_ms": max(flop_ms, byte_ms),
-            "bound_by": "operations" if flop_ms > byte_ms else "bytes",
-            "library_ms": tot("library_ms"), "dtype": dname,
-            "per": "one training step (10 layers, 128 samples, T=300)"}
-
-
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
-    try:
-        import numpy as np
+    import numpy as np
 
-        from agcn_tpu_torch.ops.kernels import (build, gcn_fused, gcn_kernel,
-                                                logits_kernel)
-    except ImportError as e:
-        print(f"chip_smoke: the port is not importable here ({e}); run "
-              "from a checkout of the repository", file=sys.stderr)
-        return 1
+    from agcn_tpu_torch.ops.kernels import (build, gcn_fused, gcn_kernel,
+                                            logits_kernel)
     from agcn_tpu_torch.utils.config import load_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1398,7 +1189,8 @@ def main():
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
     del models
-    summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args)
+    summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
+                                             trainer_checkpoint=True)
 
     log("[8/11] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")

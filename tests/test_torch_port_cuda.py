@@ -162,15 +162,41 @@ def test_gcn_bwd_matches_plain(cuda, t, c, co, v, dtype):
     assert _close(dw, want_dw) and _close(da1, want_da1)
 
 
-def test_gcn_bwd_is_deterministic(cuda):
+def _dw_groups(b, t, c, co, dtype, v=25):
+    if dtype == torch.bfloat16:
+        return gcn_fused.dw_mma_groups(b * t * v, c, co)
+    return gcn_fused.dw_groups(b, c, co)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gcn_bwd_is_deterministic(cuda, dtype):
     """The dW partials are summed in a fixed order: two calls agree bit
-    for bit (the batch spans several sample groups)."""
-    x, a1, w = _inputs(cuda, 64, 40, 64, 64, torch.float32)
-    g = _cotangent(cuda, 64, 40, 64, torch.float32)
-    assert gcn_fused.dw_groups(64, 64, 64) > 1
+    for bit (the batch spans several groups)."""
+    x, a1, w = _inputs(cuda, 64, 40, 64, 64, dtype)
+    g = _cotangent(cuda, 64, 40, 64, dtype)
+    assert _dw_groups(64, 40, 64, 64, dtype) > 1
     first = gcn_fused.launch_gcn_bwd(x, a1, w, g)
     second = gcn_fused.launch_gcn_bwd(x, a1, w, g)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("b,t,c,co", [(48, 13, 192, 160), (20, 11, 20, 37)])
+def test_gcn_bwd_bf16_spans_row_groups(cuda, b, t, c, co):
+    """bf16 dW over groups of 32-row chunks that cut across samples and
+    end mid-sample (T*V = 325, 275: not multiples of 32), ragged 64-channel
+    tiles of C and Co, and (second case) C and Co off the 8-wide vector
+    loads, Co odd: within the bf16 bar of the plain version, and dW and
+    da1 launched alone equal the pair."""
+    x, a1, w = _inputs(cuda, b, t, c, co, torch.bfloat16)
+    g = _cotangent(cuda, b, t, co, torch.bfloat16)
+    groups = _dw_groups(b, t, c, co, torch.bfloat16)
+    assert groups > 1 and (b * t * 25) % 32
+    dw, da1 = gcn_fused.launch_gcn_bwd(x, a1, w, g)
+    torch.cuda.synchronize()
+    want_dw, want_da1 = gcn_fused.gcn_bwd_plain(x, a1, w, g)
+    assert _close(dw, want_dw) and _close(da1, want_da1)
+    assert torch.equal(gcn_fused.launch_gcn_bwd_dw(x, a1, w, g), dw)
+    assert torch.equal(gcn_fused.launch_gcn_bwd_da1(x, a1, w, g), da1)
 
 
 def _unrounded_bwd(x, a1, w, g, round_u, round_p):

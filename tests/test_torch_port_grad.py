@@ -179,6 +179,56 @@ def test_dw_groups_fill_the_card_and_stay_within_the_batch():
     assert tfused.dw_groups(1, 3, 64) == 1
 
 
+def test_dw_mma_groups_fill_the_card_within_the_row_chunks():
+    """The bf16 dW kernel's groups of 32-row chunks: about 1,056 blocks at
+    the training shapes, never more groups than chunks."""
+    assert tfused.dw_mma_groups(128 * 300 * 25, 3, 64) == 352
+    assert tfused.dw_mma_groups(128 * 75 * 25, 256, 256) == 22
+    assert tfused.dw_mma_groups(2 * 8 * 25, 64, 16) == 13  # 400 rows
+    assert tfused.dw_mma_groups(10, 3, 64) == 1
+
+
+@pytest.mark.parametrize("launch", ["launch_gcn_bwd_dw",
+                                    "launch_gcn_bwd_da1"])
+def test_gcn_bwd_halves_refuse_mixed_dtypes(launch):
+    """dW and da1 launched alone check their inputs as the pair does,
+    before anything is built or launched."""
+    x, a1, w, g = (_t(a, torch.bfloat16) for a in _inputs(8, 16, 16))
+    with pytest.raises(TypeError, match="a1 in x's dtype"):
+        getattr(tfused, launch)(x, a1.float(), w, g)
+    with pytest.raises(ValueError, match="g must be"):
+        getattr(tfused, launch)(x, a1, w, g[..., :8].contiguous())
+
+
+def test_bwd_check_yardsticks_and_work():
+    """The card check's library yardsticks compute dW and da1 (fp32, on
+    the CPU against the plain version), and the work of the two halves
+    adds up to the whole call's operations."""
+    from agcn_tpu_torch.tools import bwd_check
+
+    x, a1, w, g = (_t(a) for a in _inputs(6, 16, 24, seed=5))
+    want_dw, want_da1 = tfused.gcn_bwd_plain(x, a1, w, g)
+    _close(bwd_check.library_dw(torch, x, a1, g).numpy(), want_dw.numpy(),
+           1e-4)
+    _close(bwd_check.library_da1(torch, x, w, g).numpy(), want_da1.numpy(),
+           1e-4)
+    half = bwd_check.gcn_bwd_half_work(128, 300, 64, 128, "bfloat16")
+    whole = bwd_check.gcn_bwd_work(128, 300, 64, 128, "bfloat16")
+    assert 2 * half[0] == whole[0] and half[1] < whole[1] < 2 * half[1]
+
+
+def test_bwd_check_refuses_without_gpu(capsys):
+    """`python -m agcn_tpu_torch.tools.bwd_check` times the card: without
+    one it exits 1 and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from agcn_tpu_torch.tools import bwd_check
+
+    assert bwd_check.main([]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA GPU" in out.err
+
+
 def test_gcn_bwd_kernel_takes_a1_in_x_dtype():
     """The kernel is built for one dtype across x, a1, W and g: a mixed
     call is refused before anything is launched."""

@@ -206,6 +206,28 @@ def test_checkpoint_files_load_strict(jax_agcn, tmp_path):
         load_checkpoint(str(tmp_path / "orbax_dir"))
 
 
+def test_ddp_saved_state_dict_loads_every_weight(jax_agcn, tmp_path):
+    """A reference .pt saved from a DDP-wrapped model (`module.` names)
+    loads through the trainer's path: every tensor equals the source and
+    nothing is skipped or left at its init."""
+    from agcn_tpu_torch.train.checkpoint import load_checkpoint as load_ckpt
+    from agcn_tpu_torch.train.checkpoint import load_model_weights
+
+    adj, variables, _ = jax_agcn
+    source = _port(adj, variables).state_dict()
+    torch.save({f"module.{k}": v for k, v in source.items()},
+               tmp_path / "ddp.pt")
+    model = AGCN(num_class=NUM_CLASS, adj=adj, device="cpu")
+    logged = []
+    load_model_weights(model, load_ckpt(str(tmp_path / "ddp.pt"))["model"],
+                       log=logged.append)
+    assert logged == []
+    loaded = model.state_dict()
+    assert set(loaded) == set(source)
+    for name, want in source.items():
+        assert torch.equal(loaded[name], want), name
+
+
 def test_pre_normalization_matches_jax_numpy_path():
     rng = np.random.default_rng(0)
     data = rng.standard_normal((3, 3, 20, 25, 2)).astype(np.float32)

@@ -250,3 +250,37 @@ def test_cli_serves_a_directory_on_cpu(models, tmp_path, capsys):
     with pytest.raises(SystemExit):  # --serve N is required
         cli_main(["--config", str(cfg), "--weights", str(tmp_path / "w.pt"),
                   "--input", str(rec), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--weights", "--weights-dir"])
+def test_cli_serves_a_trainer_checkpoint_on_cpu(models, tmp_path, capsys,
+                                                flag):
+    """The serving CLI on the port trainer's own checkpoint file (the
+    `kind` dict of train/checkpoint.save_checkpoint), named directly or
+    found under the trainer's work dir; it answers as the same weights
+    given as a bare state dict do."""
+    from agcn_tpu_torch.train.checkpoint import save_checkpoint
+
+    rec = tmp_path / "rec"
+    rec.mkdir()
+    rng = np.random.default_rng(1)
+    np.save(rec / "cam0.npy",
+            rng.standard_normal((3, 20, 25, 2)).astype(np.float32))
+    work = tmp_path / "work"
+    (work / "checkpoints").mkdir(parents=True)
+    ckpt = save_checkpoint(str(work / "checkpoints" / "epoch_1"), models[2],
+                           {"count": torch.tensor(3)}, step=3, epoch=1,
+                           steps_per_epoch=3)
+    torch.save(models[2].state_dict(), tmp_path / "w.pt")
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text("model: agcn\nmodel_args: {num_class: 7, "
+                   "formulation: pallas}\n")
+    answers = []
+    for weights in ((flag, ckpt if flag == "--weights" else str(work)),
+                    ("--weights", str(tmp_path / "w.pt"))):
+        cli_main(["--config", str(cfg), *weights, "--input", str(rec),
+                  "--serve", "1", "--interval", "10", "--max-frame", "32",
+                  "--device", "cpu"])
+        answers.append([ln for ln in capsys.readouterr().out.splitlines()
+                        if ln.startswith("[cam")])
+    assert len(answers[0]) == 2 and answers[0] == answers[1]
