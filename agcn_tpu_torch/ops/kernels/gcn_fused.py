@@ -10,7 +10,13 @@ JAX package; a flag picks the one real numerical difference between them
 in bf16: `round_agg=True` rounds each per-subset aggregate to x's type
 before the projection (gcn_fused.py:58-60), `round_agg=False` keeps it in
 fp32 (gcn_kernel.py:45-49). The projection accumulates in fp32 over c and
-k; y comes out in x's type.
+k; y comes out in x's type. Inside the C entry `agcn_gcn_fwd`, bf16 x and
+a1 with `round_agg=True` (the served forward and the dx of training) go
+to `gcn_fwd_mma_kernel`, which runs both products on the tensor cores
+(`nvcuda::wmma` bf16, fp32 sums, the aggregate rounded to bf16 in shared
+memory between them); every other combination (fp32, `round_agg=False`,
+bf16 x with fp32 a1) goes to `gcn_fwd_kernel` on the CUDA cores. There is
+no fallback between the two: a failed launch raises.
 
 Backward of `adaptive_gcn_pallas` (the JAX `_vjp_bwd`, gcn_fused.py:222):
   dx      = the forward kernel on (g, a1^T, W^T) with round_agg=True;

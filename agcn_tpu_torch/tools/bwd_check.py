@@ -11,7 +11,8 @@ yardstick (the einsums of `ops.gcn.adaptive_gcn_bwd`) and its bound, and
 on bf16 integer inputs holds the kernel bit for bit against the plain
 version while dropping the rounding of u or of p changes the result.
 Last it prints the per-step sums (ten layers). `chip_smoke.py` phase 4
-runs the same functions, with the dx calls (gcn_fwd on g, a1^T, W^T).
+runs the same functions; the dx calls (gcn_fwd on g, a1^T, W^T) are
+`fwd_check.py`'s.
 
 Tolerances (`within_tol`): fp32 (TF32 off) max err <= 1e-4 of the
 output's scale (fp32 sums of up to B*T*V products in another order);
@@ -19,7 +20,8 @@ bf16 per element <= 2^-7 |ref| + 2^-10 of the scale (one bf16 rounding of
 each output may land one ulp apart).
 
 The card-check helpers here (`check`, `cuda_time_ms`, `within_tol`, the
-published peaks and the layer shapes) are `chip_smoke.py`'s too.
+published peaks and the layer shapes) are `fwd_check.py`'s and
+`chip_smoke.py`'s too.
 """
 
 from __future__ import annotations
@@ -182,13 +184,12 @@ def check_bwd_rounding(torch, np, gcn_fused, c, co):
           f"gcn_bwd C={c} Co={co}: the rounding of u or p has no effect")
 
 
-def phase_bwd_kernels(torch, np, gcn_fused, dx=True):
-    """gcn_bwd (and, with `dx`, the dx calls) against their plain
-    versions at the training shapes (batch 128 after folding the
-    persons). Returns (gcn_bwd rows, dx rows)."""
+def phase_bwd_kernels(torch, np, gcn_fused):
+    """gcn_bwd against its plain version at the training shapes (batch
+    128 after folding the persons). Returns the rows."""
     b = TRAIN_BATCH * PERSONS
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    rows, dx_rows = [], []
+    rows = []
     for (t, c, co), mult in LAYER_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -249,9 +250,6 @@ def phase_bwd_kernels(torch, np, gcn_fused, dx=True):
                 f"; da1 {row['da1_ms']:.4f} ms (einsums "
                 f"{row['da1_library_ms']:.4f}, bound {half[0]:.4f} "
                 f"{half[1]})")
-            if dx:
-                dx_rows.append(_dx_row(torch, gcn_fused, x, a1, w, g, t, c,
-                                       co, mult, dname))
             del x, a1, w, g
         if c >= 8:
             # at C=3, p = x W has too few bits for its rounding to show
@@ -259,38 +257,7 @@ def phase_bwd_kernels(torch, np, gcn_fused, dx=True):
             log(f"  gcn_bwd C={c:3d} Co={co:3d} bfloat16 integer inputs: "
                 f"equal to the plain version; without the rounding of u or "
                 f"p the result differs")
-    return rows, dx_rows
-
-
-def _dx_row(torch, gcn_fused, x, a1, w, g, t, c, co, mult, dname):
-    """dx: the forward kernel on (g, a1^T, W^T), C and Co swapped."""
-    b = x.shape[0]
-    at = a1.transpose(2, 3).contiguous()
-    wt = w.transpose(1, 2).contiguous()
-    dx = gcn_fused.adaptive_gcn_pallas(g, at, wt)
-    torch.cuda.synchronize()
-    ok, err, scale = within_tol(dx, gcn_fused.gcn_fwd_plain(g, at, wt, True))
-    check(ok, f"dx {dname} T={t} C={co} Co={c}: max err {err:.3e} "
-              f"(scale {scale:.3e})")
-    del dx
-    flops, nbytes = gcn_work(b, t, co, c, dname)
-    row = dict(
-        t=t, c=co, co=c, layers=mult, dtype=dname, round_agg=True,
-        max_abs_err=err, scale=scale,
-        ms=cuda_time_ms(lambda: gcn_fused.adaptive_gcn_pallas(g, at, wt),
-                        10),
-        plain_ms=cuda_time_ms(
-            lambda: gcn_fused.gcn_fwd_plain(g, at, wt, True), 3),
-        library_ms=cuda_time_ms(lambda: torch.einsum(
-            "btvc,bkvw,kco->btwo", g, at, wt), 3),
-        flops=flops, bytes=nbytes,
-        flop_ms=flops / PEAK_FLOPS[dname] * 1e3,
-        byte_ms=nbytes / PEAK_BYTES * 1e3)
-    log(f"  dx      T={t:3d} C={co:3d} Co={c:3d} {dname:8s} "
-        f"err={err:.2e} kernel={row['ms']:.4f} ms plain="
-        f"{row['plain_ms']:.4f} ms einsum={row['library_ms']:.4f} "
-        f"ms bound={max(row['flop_ms'], row['byte_ms']):.4f} ms")
-    return row
+    return rows
 
 
 def bwd_entry(rows, launches, dname="bfloat16"):
@@ -345,7 +312,7 @@ def main(argv=None) -> int:
     log("gcn_bwd vs its plain version at the training shapes (batch 128)")
     try:
         with torch.inference_mode():
-            rows, _ = phase_bwd_kernels(torch, np, gcn_fused, dx=False)
+            rows = phase_bwd_kernels(torch, np, gcn_fused)
     except SmokeFailure as e:
         print(f"bwd_check: FAILED: {e}", file=sys.stderr)
         return 1

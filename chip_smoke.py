@@ -12,19 +12,23 @@ fails:
    started together, and prints the build time and ptxas' report.
 3. gcn_fwd against its plain version, on the card, at every AGCN layer
    shape of the served batch (16 streams x 2 persons = 32 samples), fp32
-   and bf16, both aggregate-rounding modes; prints max error, kernel /
-   plain / library time and the roofline bound. At each shape, on bf16
-   integer inputs where the two modes differ, each mode must match its
-   own plain version and fail the other's.
-4. the training kernels at the training batch (64 x 2 persons = 128
-   samples), fp32 and bf16: gcn_bwd (dW, da1) against its plain version
-   at every layer shape, two calls bitwise equal, and on bf16 integer
-   inputs equal to the plain version while dropping either rounding point
-   changes the result; the dx calls (gcn_fwd on g, a1^T, W^T) at the
-   transposed shapes. Prints kernel / plain / library (the einsum
-   backward) time and the bound, for gcn_bwd also dW and da1 apart. The
-   code is agcn_tpu_torch/tools/bwd_check.py, which runs the gcn_bwd part
-   alone in about a minute: `python -m agcn_tpu_torch.tools.bwd_check`.
+   and bf16, both aggregate-rounding modes, and as dx (gcn_fwd on g,
+   a1^T, W^T) at the training batch (64 x 2 persons = 128 samples);
+   prints max error, kernel / plain / library time and the roofline
+   bound. At each served shape, on bf16 integer inputs where the two
+   modes differ, each mode must match its own plain version and fail the
+   other's; at every shape the bf16 round_agg=1 path (the tensor cores)
+   equals its plain version bit for bit on small-integer inputs, and two
+   calls are bitwise equal. The code is
+   agcn_tpu_torch/tools/fwd_check.py, which runs it alone in about a
+   minute: `python -m agcn_tpu_torch.tools.fwd_check`.
+4. gcn_bwd (dW, da1) at the training batch, fp32 and bf16, against its
+   plain version at every layer shape, two calls bitwise equal, and on
+   bf16 integer inputs equal to the plain version while dropping either
+   rounding point changes the result. Prints kernel / plain / library
+   (the einsum backward) time and the bound, dW and da1 apart. The code
+   is agcn_tpu_torch/tools/bwd_check.py, which runs it alone in about a
+   minute: `python -m agcn_tpu_torch.tools.bwd_check`.
 5. the attention-logits kernel against its plain version (the packed
    128 x 128 formulation) at the ten layer shapes of the served (32) and
    training (128) batches, fp32 and bf16, theta/phi as views of the
@@ -91,12 +95,15 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 try:
-    # phase 4 and the card-check helpers shared with it
+    # phases 3 and 4 and the card-check helpers shared with them
     from agcn_tpu_torch.tools.bwd_check import (
-        LAYER_SHAPES, LAYERS, PEAK_BYTES, PEAK_FLOPS, PERSONS, SEED,
-        TRAIN_BATCH, bwd_entry, check, cuda_time_ms, gcn_work, log,
-        nvidia_smi_line, phase_bwd_kernels, within_tol)
+        LAYERS, PEAK_BYTES, PEAK_FLOPS, PERSONS, SEED, TRAIN_BATCH,
+        bwd_entry, check, cuda_time_ms, log, nvidia_smi_line,
+        phase_bwd_kernels)
     from agcn_tpu_torch.tools.bwd_check import SOURCE as BWD_SOURCE
+    from agcn_tpu_torch.tools.fwd_check import (
+        fwd_entry, phase_dx, phase_fwd_kernels)
+    from agcn_tpu_torch.tools.fwd_check import SOURCE as FWD_SOURCE
 except ImportError as e:
     print(f"chip_smoke: the port is not importable here ({e}); run from a "
           "checkout of the repository", file=sys.stderr)
@@ -116,94 +123,9 @@ TICK_FRAMES = 10
 # (Ce = Co / 4; the stride-2 blocks shorten T after their GCN)
 LOGITS_SHAPES = [((300, 16), 4), ((300, 32), 1), ((150, 32), 2),
                  ((150, 64), 1), ((75, 64), 2)]
-SOURCES = {"gcn_fwd": "agcn_tpu_torch/ops/csrc/gcn_fwd.cu",
+SOURCES = {"gcn_fwd": FWD_SOURCE,
            "gcn_bwd": BWD_SOURCE,
            "logits": "agcn_tpu_torch/ops/csrc/logits.cu"}
-
-
-def check_rounding_modes(torch, np, wrappers, gcn_fused, b, t, c, co):
-    """bf16 inputs on which the two rounding modes differ beyond the
-    tolerance: x and a1 signed integers in [-64, 64], exact in bf16, whose
-    aggregates (17 significant bits, exact in fp32 in any order) lose 9
-    bits when rounded to bf16. Each mode must match the plain version of
-    its own mode and fail the other's, so a kernel that ignored or
-    inverted round_agg fails here."""
-    rng = np.random.default_rng(SEED + 2)
-    x, a1, w = (torch.from_numpy(a.astype(np.float32)).to(
-        "cuda", torch.bfloat16) for a in (
-        rng.integers(-64, 65, (b, t, 25, c)),
-        rng.integers(-64, 65, (b, 3, 25, 25)),
-        rng.standard_normal((3, c, co)) / np.sqrt(3 * c)))
-    got = {r: wrappers[r](x, a1, w) for r in (True, False)}
-    check(not torch.equal(got[True], got[False]),
-          f"T={t} C={c} Co={co}: round_agg has no effect in bf16")
-    for r in (True, False):
-        own = within_tol(got[r], gcn_fused.gcn_fwd_plain(x, a1, w, r))
-        other = within_tol(got[r], gcn_fused.gcn_fwd_plain(x, a1, w, not r))
-        check(own[0] and not other[0],
-              f"T={t} C={c} Co={co} round_agg={r}: max err {own[1]:.3e} "
-              f"against its own mode, {other[1]:.3e} against the other "
-              f"(tolerance must pass the first and fail the second)")
-    return own[2]
-
-
-def phase_kernels(torch, np, gcn_fused, gcn_kernel):
-    """Each kernel wrapper against its plain version at the served layer
-    shapes (the wrappers' launch counts are reset before the main
-    path)."""
-    wrappers = {True: gcn_fused.adaptive_gcn_pallas,
-                False: gcn_kernel.fused_gcn}
-    b = STREAMS * PERSONS
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = []
-    for (t, c, co), mult in LAYER_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
-            x = torch.randn(b, t, 25, c, device="cuda", generator=gen)
-            a1 = torch.softmax(torch.randn(b, 3, 25, 25, device="cuda",
-                                           generator=gen), dim=-2)
-            a1 = a1 + 0.2 * torch.rand(3, 25, 25, device="cuda",
-                                       generator=gen)
-            w = torch.randn(3, c, co, device="cuda",
-                            generator=gen) / math.sqrt(3 * c)
-            x, a1, w = x.to(dtype), a1.to(dtype), w.to(dtype)
-            flops, nbytes = gcn_work(b, t, c, co, dname)
-            for round_agg in (True, False):
-                kernel = wrappers[round_agg]
-                got = kernel(x, a1, w)
-                torch.cuda.synchronize()
-                want = gcn_fused.gcn_fwd_plain(x, a1, w, round_agg)
-                ok, err, scale = within_tol(got, want)
-                check(ok, f"gcn_fwd {dname} round_agg={round_agg} "
-                          f"T={t} C={c} Co={co}: max err "
-                          f"{err:.3e} (scale {scale:.3e})")
-                ms = cuda_time_ms(lambda: kernel(x, a1, w), 20)
-                plain_ms = cuda_time_ms(
-                    lambda: gcn_fused.gcn_fwd_plain(x, a1, w, round_agg), 5)
-                lib_ms = cuda_time_ms(
-                    lambda: torch.einsum("btvc,bkvw,kco->btwo", x, a1, w),
-                    5)
-                row = dict(t=t, c=c, co=co, layers=mult, dtype=dname,
-                           round_agg=round_agg,
-                           max_abs_err=err, scale=scale,
-                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           flops=flops, bytes=nbytes,
-                           flop_ms=flops / PEAK_FLOPS[dname] * 1e3,
-                           byte_ms=nbytes / PEAK_BYTES * 1e3)
-                rows.append(row)
-                log(f"  T={t:3d} C={c:3d} Co={co:3d} {dname:8s} "
-                    f"round_agg={int(round_agg)} err={row['max_abs_err']:.2e}"
-                    f" kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-                    f"einsum={lib_ms:.4f} ms bound="
-                    f"{max(row['flop_ms'], row['byte_ms']):.4f} ms "
-                    f"({'ops' if row['flop_ms'] > row['byte_ms'] else 'bytes'})")
-            del x, a1, w
-        scale = check_rounding_modes(torch, np, wrappers, gcn_fused, b, t,
-                                     c, co)
-        log(f"  T={t:3d} C={c:3d} Co={co:3d} bfloat16 integer inputs "
-            f"(scale {scale:.3e}): each round_agg mode matches its own "
-            f"plain version and fails the other's")
-    return rows
 
 
 def logits_work(b, t, ce, dname, v=25, k=3):
@@ -300,25 +222,6 @@ def logits_entry(rows, launches, dname="bfloat16"):
             "library_ms": tot("library_ms"), "dtype": dname,
             "library_call": "ops.gcn.attention_logits(emb_fp32, 3, Ce, "
                             "'transposed') (torch.matmul)",
-            "per": "one served forward (10 layers, 32 samples, T=300)"}
-
-
-def kernel_entry(rows, round_agg, dname, launches, name, replaces):
-    """One `kernels` entry: per-forward totals over the ten layers at
-    the served shapes, in `dname`."""
-    sel = [r for r in rows if r["round_agg"] == round_agg
-           and r["dtype"] == dname]
-    tot = lambda key: sum(r[key] * r["layers"] for r in sel)  # noqa: E731
-    flop_ms = tot("flops") / PEAK_FLOPS[dname] * 1e3
-    byte_ms = tot("bytes") / PEAK_BYTES * 1e3
-    return {"name": name, "route": "cuda", "source": SOURCES["gcn_fwd"],
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["round_agg"] == round_agg),
-            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
-            "bound_ms": max(flop_ms, byte_ms),
-            "bound_by": "operations" if flop_ms > byte_ms else "bytes",
-            "library_ms": tot("library_ms"), "dtype": dname,
             "per": "one served forward (10 layers, 32 samples, T=300)"}
 
 
@@ -686,7 +589,7 @@ def phase_aagcn_serving(torch, np, summary):
 # kernel-name substrings -> group of the device-time breakdown, first
 # match wins
 KERNEL_GROUPS = (
-    ("gcn_fwd_kernel", "gcn_fwd (the port's CUDA kernel)"),
+    ("gcn_fwd_", "gcn_fwd (the port's CUDA kernel)"),
     ("logits_", "attention logits (the port's CUDA kernel)"),
     ("gcn_dw_", "gcn_bwd (the port's CUDA kernel)"),
     ("gcn_u_kernel", "gcn_bwd (the port's CUDA kernel)"),
@@ -1156,21 +1059,25 @@ def main():
                 log(f"  {ln.strip()}")
     summary["build_s"] = build_s
 
-    log("[3/11] gcn_fwd kernel vs plain version. Tolerances: fp32 (TF32 "
-        "off) max err <= 1e-4 x output scale (another summation order "
-        "over up to 19,200 products); bf16 per element <= 2^-7 |ref| + "
-        "2^-10 x scale (loose: one bf16 rounding of each output may land "
-        "one ulp apart), yet tight enough that each round_agg mode fails "
-        "the other mode's plain version on integer inputs")
+    log("[3/11] gcn_fwd kernel vs plain version at the served shapes "
+        "(batch 32) and as dx at the training shapes (batch 128). "
+        "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
+        "(another summation order over up to 19,200 products); bf16 per "
+        "element <= 2^-7 |ref| + 2^-10 x scale (loose: one bf16 rounding "
+        "of each output may land one ulp apart), yet tight enough that "
+        "each round_agg mode fails the other mode's plain version on "
+        "integer inputs; bf16 round_agg=1 bit for bit on small-integer "
+        "inputs, two calls bitwise equal")
     with torch.inference_mode():
-        rows = phase_kernels(torch, np, gcn_fused, gcn_kernel)
-    summary["kernel_rows"] = rows
+        rows = phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel)
+        dx_rows = phase_dx(torch, np, gcn_fused)
+    summary.update(kernel_rows=rows, dx_rows=dx_rows)
 
-    log("[4/11] gcn_bwd and the dx calls vs plain versions at the training "
-        "shapes (batch 128), same tolerances")
+    log("[4/11] gcn_bwd vs its plain version at the training shapes "
+        "(batch 128), same tolerances")
     with torch.inference_mode():
-        bwd_rows, dx_rows = phase_bwd_kernels(torch, np, gcn_fused)
-    summary.update(bwd_rows=bwd_rows, dx_rows=dx_rows)
+        bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
+    summary["bwd_rows"] = bwd_rows
 
     log("[5/11] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
@@ -1231,12 +1138,12 @@ def main():
     bwd_launches = {"agcn_train": train_launches["gcn_bwd"],
                     "aagcn_train": aagcn_train_launches["gcn_bwd"]}
     kernels = [
-        kernel_entry(rows, True, "bfloat16", sum(fwd_launches.values()),
-                     "gcn_fwd (aggregate rounded to x's type)",
-                     "agcn_tpu/ops/pallas/gcn_fused.py:52"),
-        kernel_entry(rows, False, "bfloat16", launches["fused_gcn"],
-                     "gcn_fwd (fp32 aggregate)",
-                     "agcn_tpu/ops/pallas/gcn_kernel.py:27"),
+        fwd_entry(rows, True, "bfloat16", sum(fwd_launches.values()),
+                  "gcn_fwd (aggregate rounded to x's type)",
+                  "agcn_tpu/ops/pallas/gcn_fused.py:52", dx_rows),
+        fwd_entry(rows, False, "bfloat16", launches["fused_gcn"],
+                  "gcn_fwd (fp32 aggregate)",
+                  "agcn_tpu/ops/pallas/gcn_kernel.py:27"),
         bwd_entry(bwd_rows, sum(bwd_launches.values())),
         logits_entry(logits_rows, logits_launches),
     ]

@@ -96,6 +96,53 @@ def test_kernel_rounding_modes_in_bf16(cuda, t, c, co):
         assert not _close(got[r], gcn_fused.gcn_fwd_plain(x, a1, w, not r))
 
 
+def _exact_inputs(dev, b, t, c, co, v=25, seed=4):
+    """bf16 integer inputs on which every sum of the tensor-core path is
+    exact in fp32 in any order: x and a1 in [-8, 8] make each aggregate
+    an integer of at most 25 * 64 = 1,600; W in [-2, 2] keeps each fp32
+    sum of the projection (at most 3 * 200 * 1,600 * 2 here) below 2^22.
+    Only the two rounding points (aggregate, y) then decide the result."""
+    rng = np.random.default_rng(seed)
+    arrs = (rng.integers(-8, 9, (b, t, v, c)),
+            rng.integers(-8, 9, (b, 3, v, v)),
+            rng.integers(-2, 3, (3, c, co)))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev,
+                                                           torch.bfloat16)
+                 for a in arrs)
+
+
+# the shapes of test_kernel_matches_plain, a dx-like Co = 3, a last
+# 3-frame tile (T = 75, as at l9-l10), and C, Co not multiples of 8 (the
+# kernel's element-wise loads and stores)
+_MMA_SHAPES = [(48, 16, 32, 25), (50, 64, 64, 25), (24, 128, 128, 25),
+               (20, 3, 64, 25), (7, 200, 72, 25), (30, 64, 128, 18),
+               (20, 3, 64, 18), (30, 64, 3, 25), (75, 64, 64, 25),
+               (11, 20, 37, 25)]
+
+
+@pytest.mark.parametrize("t,c,co,v", _MMA_SHAPES)
+def test_mma_path_bit_exact_on_integer_inputs(cuda, t, c, co, v):
+    """bf16 round_agg=1 (the tensor cores' kernel) equals the plain
+    version bit for bit where no sum rounds: the aggregate is rounded to
+    bf16 exactly where the plain version (and the TPU kernel) rounds it."""
+    x, a1, w = _exact_inputs(cuda, 3, t, c, co, v=v)
+    got = gcn_fused.launch_gcn_fwd(x, a1, w, True)
+    torch.cuda.synchronize()
+    want = gcn_fused.gcn_fwd_plain(x, a1, w, True)
+    assert got.shape == (3, t, v, co)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, gcn_fused.gcn_fwd_plain(x, a1, w, False))
+
+
+@pytest.mark.parametrize("t,c,co", [(75, 256, 256), (30, 64, 3)])
+def test_mma_path_is_deterministic(cuda, t, c, co):
+    x, a1, w = _inputs(cuda, 4, t, c, co, torch.bfloat16)
+    first = gcn_fused.launch_gcn_fwd(x, a1, w, True)
+    again = gcn_fused.launch_gcn_fwd(x, a1, w, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
 def _launches():
     return (gcn_fused.adaptive_gcn_pallas.launches,
             gcn_kernel.fused_gcn.launches, gcn_fused.gcn_backward.launches)
