@@ -26,11 +26,12 @@
 // per byte): bytes bound the C = 64 layers, operations the C = 256 ones.
 //
 // Two kernels:
-//   gcn_fwd_mma_kernel: bf16 x and a1 with round_agg = 1 (the served
-//     forward and the dx of training), on the tensor cores;
-//   gcn_fwd_kernel: every other combination (fp32, round_agg = 0, bf16 x
-//     with fp32 a1), all math in fp32 on the CUDA cores, so its ceiling
-//     is the fp32 rate for both types.
+//   gcn_fwd_mma_kernel: bf16 x and a1, both round_agg modes, on the tensor
+//     cores: round_agg = 1 (the served forward and the dx of training) as
+//     SPLIT = false, round_agg = 0 (gcn_kernel's fused_gcn) as SPLIT = true;
+//   gcn_fwd_kernel: every other combination (fp32, bf16 x with fp32 a1),
+//     all math in fp32 on the CUDA cores, so its ceiling is the fp32 rate
+//     for both types.
 //
 // gcn_fwd_mma_kernel: in bf16 the function is two chained products of
 // bf16 operands with fp32 sums, which nvcuda::wmma bf16 16x16x16 does
@@ -46,10 +47,24 @@
 // per-warp fp32 scratch tile, are rounded to bf16 (RN: the rounding
 // point of _fwd_kernel, gcn_fused.py:58-60) into agg_s[k][t*32+w][c],
 // and the projection adds agg_s[k] . W_k into the warp's fp32 fragments,
-// which stay in registers across all chunks. Rows of w >= V come out
-// zero (aT's pad rows are zero); a warp whose tile lies past T or Co
-// skips its MMAs. Every sum runs in an order fixed by the shapes, with
-// no atomics, so two calls are bitwise equal.
+// which stay in registers across all chunks.
+//
+// SPLIT (round_agg = 0, the aggregate kept in fp32 as in _kernel,
+// gcn_kernel.py:45-53): each fp32 aggregate value a is split into two
+// bf16 parts, hi = bf16_rn(a) into agg_s and lo = bf16_rn(a - hi) into
+// agg_lo_s, and the projection adds agg_s[k] . W_k and then
+// agg_lo_s[k] . W_k for each 16-deep step. Since W is bf16, hi * W and
+// lo * W are exact products, and |a - hi - lo| <= 2^-16 |a| against the
+// 2^-9 to which y is rounded; every integer |n| < 2^17 is hi + lo exactly.
+// The split doubles the projection's MMAs and adds agg_lo_s (K * 128 rows
+// of CC + 8 bf16) to the block's shared memory. To stay within the 128
+// registers of two blocks an SM without spilling, SPLIT loads each chunk
+// at the top of its own iteration (no loads in flight during the MMAs)
+// and keeps the projection's loop over k rolled.
+//
+// Rows of w >= V come out zero (aT's pad rows are zero); a warp whose
+// tile lies past T or Co skips its MMAs. Every sum runs in an order fixed
+// by the shapes, with no atomics, so two calls are bitwise equal.
 //
 // What the design does about it (gcn_fwd_kernel): the aggregate never
 // goes to device memory (as on the TPU, where it stayed in VMEM). One
@@ -289,7 +304,7 @@ cudaError_t launch_v(const void* x, const void* a1, const void* w, void* y,
   }
 }
 
-// ---- bf16 with round_agg = 1 on the tensor cores ----
+// ---- bf16 x and a1 on the tensor cores (round_agg = 0 as SPLIT) ----
 
 namespace wmma = nvcuda::wmma;
 
@@ -302,14 +317,17 @@ constexpr int W_LD = OT + 8;      // bf16 row stride of w_s
 constexpr int C_LD = OT + 4;      // fp32 row stride of the output tile
 
 // Shared-memory layout, in bytes, for an input-channel chunk of CC; the
-// +8 bf16 on each row keeps the fragment loads off one bank.
-template <int CC>
+// +8 bf16 on each row keeps the fragment loads off one bank. agg_lo_s
+// exists only with SPLIT.
+template <int CC, bool SPLIT>
 struct MmaLayout {
   static constexpr int LD = CC + 8;  // bf16 row stride of x_s and agg_s
   static constexpr int X_OFF = K * VP * A_LD * 2;        // aT_s[K][VP][A_LD]
   static constexpr int W_OFF = X_OFF + TT * VP * LD * 2;  // x_s[TT][VP][LD]
   static constexpr int AGG_OFF = W_OFF + K * CC * W_LD * 2;  // w_s[K][CC][W_LD]
-  static constexpr int S_OFF = AGG_OFF + K * MMA_ROWS * LD * 2;  // agg_s[K][ROWS][LD]
+  static constexpr int AGG_BYTES = K * MMA_ROWS * LD * 2;  // agg_s[K][ROWS][LD]
+  static constexpr int AGG_LO_OFF = AGG_OFF + AGG_BYTES;
+  static constexpr int S_OFF = AGG_LO_OFF + (SPLIT ? AGG_BYTES : 0);  // agg_lo_s
   static constexpr int STAGE = S_OFF + MMA_WARPS * 16 * 16 * 4;  // s_s[warps][16][16]
   static constexpr int OUT = MMA_ROWS * C_LD * 4;  // c_s[ROWS][C_LD], at the end
   static constexpr int BYTES = STAGE > OUT ? STAGE : OUT;
@@ -319,7 +337,7 @@ struct MmaLayout {
   static constexpr int WR = (WV + MMA_THREADS - 1) / MMA_THREADS;
   static constexpr int TASKS = K * TT * 2 * (CC / 16);  // 16x16 aggregate tiles
   static_assert(X_OFF % 32 == 0 && W_OFF % 32 == 0 && AGG_OFF % 32 == 0 &&
-                    S_OFF % 32 == 0,
+                    AGG_LO_OFF % 32 == 0 && S_OFF % 32 == 0,
                 "wmma tiles must start on 256-bit boundaries");
   static_assert(CC % 16 == 0, "chunks are whole 16-deep MMA steps");
 };
@@ -361,18 +379,33 @@ __device__ __forceinline__ uint4 pack8(const float* __restrict__ src) {
                     pack2(hi.z, hi.w));
 }
 
-// Two blocks per SM: registers, not shared memory (~69 KB a block), set
-// the limit. Without the bound ptxas takes 142 registers and one block
-// fits; with three (80 registers) it spills, and both ran slower on the
-// H100 (PERF.md section 6).
-template <int V, int CC>
+// what bf16 rounding leaves of v: v - bf16_rn(v), exact in fp32
+__device__ __forceinline__ float residue(float v) {
+  return v - __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// pack8's twin for the split: the 8 residues, each rounded to bf16 (RN)
+__device__ __forceinline__ uint4 pack8_lo(const float* __restrict__ src) {
+  const float4 lo = *reinterpret_cast<const float4*>(src);
+  const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+  return make_uint4(pack2(residue(lo.x), residue(lo.y)),
+                    pack2(residue(lo.z), residue(lo.w)),
+                    pack2(residue(hi.x), residue(hi.y)),
+                    pack2(residue(hi.z), residue(hi.w)));
+}
+
+// Two blocks per SM: registers, not shared memory (~69 KB a block, ~99 KB
+// with SPLIT), set the limit. Without the bound ptxas takes 142 registers
+// and one block fits; with three (80 registers) it spills, and both ran
+// slower on the H100 (PERF.md section 6).
+template <int V, int CC, bool SPLIT>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
 gcn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ a1,
                    const __nv_bfloat16* __restrict__ w,
                    __nv_bfloat16* __restrict__ y, int Tn, int C, int Co,
                    bool x_vec, bool w_vec, bool y_vec) {
-  using L = MmaLayout<CC>;
+  using L = MmaLayout<CC, SPLIT>;
   static_assert(V <= VP, "joints fit one 32-row tile");
   extern __shared__ __align__(128) unsigned char smem_mma[];
   __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem_mma);
@@ -380,6 +413,8 @@ gcn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_mma + L::W_OFF);
   __nv_bfloat16* agg_s =
       reinterpret_cast<__nv_bfloat16*>(smem_mma + L::AGG_OFF);
+  __nv_bfloat16* agg_lo_s =
+      reinterpret_cast<__nv_bfloat16*>(smem_mma + L::AGG_LO_OFF);
   float* c_s = reinterpret_cast<float*>(smem_mma);  // after the last chunk
 
   const int t0 = blockIdx.x * TT;
@@ -437,8 +472,13 @@ gcn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
   }
 
-  fetch(0);
+  // with SPLIT a chunk's loads are issued at the top of its own
+  // iteration, not during the previous chunk's MMAs: the registers that
+  // would hold them across the MMAs are what the split needs to stay
+  // within 128 without spilling (PERF.md section 6)
+  if constexpr (!SPLIT) fetch(0);
   for (int c0 = 0; c0 < C; c0 += CC) {
+    if constexpr (SPLIT) fetch(c0);
     __syncthreads();  // the previous chunk's MMAs have read x_s, w_s, agg_s
 #pragma unroll
     for (int j = 0; j < L::XR; ++j) {
@@ -457,9 +497,10 @@ gcn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
     __syncthreads();
-    if (c0 + CC < C) fetch(c0 + CC);  // in flight during the MMAs
+    if (!SPLIT && c0 + CC < C) fetch(c0 + CC);  // in flight during the MMAs
 
-    // aggregate: agg_s[k][t*32 + w][c] = bf16(sum_v aT_k[w][v] x_s[t][v][c])
+    // aggregate: agg_s[k][t*32 + w][c] = bf16(sum_v aT_k[w][v] x_s[t][v][c]),
+    // with SPLIT agg_lo_s the same place of what that rounding left
     for (int task = warp; task < L::TASKS; task += MMA_WARPS) {
       const int ni = task % (CC / 16);
       const int mi = task / (CC / 16) % 2;
@@ -483,17 +524,22 @@ gcn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
       wmma::store_matrix_sync(scratch, f, 16, wmma::mem_row_major);
       __syncwarp();
       // lane: row lane / 2 of the tile, columns 8 * (lane % 2) .. +7
-      *reinterpret_cast<uint4*>(
-          agg_s + (k * MMA_ROWS + t * VP + 16 * mi + lane / 2) * L::LD +
-          16 * ni + (lane % 2) * 8) =
-          pack8(scratch + (lane / 2) * 16 + (lane % 2) * 8);
+      const int at = (k * MMA_ROWS + t * VP + 16 * mi + lane / 2) * L::LD +
+                     16 * ni + (lane % 2) * 8;
+      const float* src = scratch + (lane / 2) * 16 + (lane % 2) * 8;
+      *reinterpret_cast<uint4*>(agg_s + at) = pack8(src);
+      if constexpr (SPLIT) {
+        *reinterpret_cast<uint4*>(agg_lo_s + at) = pack8_lo(src);
+      }
       __syncwarp();  // the scratch tile is free for the warp's next one
     }
     __syncthreads();
 
-    // project: acc += agg_k[rows][c] . W_k[c][cols], summed over k
+    // project: acc += agg_k[rows][c] . W_k[c][cols], summed over k; with
+    // SPLIT each step adds the hi parts, then the lo parts on the same W
+    // (the k loop rolled, again for the registers)
     if (active) {
-#pragma unroll
+#pragma unroll (SPLIT ? 1 : K)
       for (int k = 0; k < K; ++k) {
 #pragma unroll
         for (int kk = 0; kk < CC; kk += 16) {
@@ -514,6 +560,21 @@ gcn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
               wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+            }
+          }
+          if constexpr (SPLIT) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              wmma::load_matrix_sync(
+                  fa[i], agg_lo_s + (k * MMA_ROWS + wr + 16 * i) * L::LD + kk,
+                  L::LD);
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+              }
             }
           }
         }
@@ -553,12 +614,12 @@ gcn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int V, int CC>
+template <int V, int CC, bool SPLIT>
 cudaError_t launch_mma(const void* x, const void* a1, const void* w,
                        void* y, int B, int Tn, int C, int Co,
                        cudaStream_t stream) {
-  auto kern = gcn_fwd_mma_kernel<V, CC>;
-  const int bytes = MmaLayout<CC>::BYTES;
+  auto kern = gcn_fwd_mma_kernel<V, CC, SPLIT>;
+  const int bytes = MmaLayout<CC, SPLIT>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -575,23 +636,26 @@ cudaError_t launch_mma(const void* x, const void* a1, const void* w,
   return cudaGetLastError();
 }
 
-template <int V>
+template <int V, bool SPLIT>
 cudaError_t launch_mma_cc(const void* x, const void* a1, const void* w,
                           void* y, int B, int Tn, int C, int Co,
                           cudaStream_t stream) {
   // the C=3 entry layer takes one 16-deep chunk instead of 32
-  if (C <= 16) return launch_mma<V, 16>(x, a1, w, y, B, Tn, C, Co, stream);
-  return launch_mma<V, 32>(x, a1, w, y, B, Tn, C, Co, stream);
+  if (C <= 16) {
+    return launch_mma<V, 16, SPLIT>(x, a1, w, y, B, Tn, C, Co, stream);
+  }
+  return launch_mma<V, 32, SPLIT>(x, a1, w, y, B, Tn, C, Co, stream);
 }
 
+template <bool SPLIT>
 cudaError_t launch_mma_v(const void* x, const void* a1, const void* w,
                          void* y, int B, int Tn, int V, int C, int Co,
                          cudaStream_t stream) {
   switch (V) {
     case 25:
-      return launch_mma_cc<25>(x, a1, w, y, B, Tn, C, Co, stream);
+      return launch_mma_cc<25, SPLIT>(x, a1, w, y, B, Tn, C, Co, stream);
     case 18:
-      return launch_mma_cc<18>(x, a1, w, y, B, Tn, C, Co, stream);
+      return launch_mma_cc<18, SPLIT>(x, a1, w, y, B, Tn, C, Co, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -608,11 +672,9 @@ extern "C" int agcn_gcn_fwd(const void* x, const void* a1, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!x_bf16 && !a_bf16) {
     err = launch_v<float, float>(x, a1, w, y, B, Tn, V, C, Co, round_agg, s);
-  } else if (x_bf16 && a_bf16 && round_agg) {
-    err = launch_mma_v(x, a1, w, y, B, Tn, V, C, Co, s);  // tensor cores
-  } else if (x_bf16 && a_bf16) {
-    err = launch_v<__nv_bfloat16, __nv_bfloat16>(x, a1, w, y, B, Tn, V, C,
-                                                 Co, round_agg, s);
+  } else if (x_bf16 && a_bf16) {  // tensor cores
+    err = round_agg ? launch_mma_v<false>(x, a1, w, y, B, Tn, V, C, Co, s)
+                    : launch_mma_v<true>(x, a1, w, y, B, Tn, V, C, Co, s);
   } else if (x_bf16) {
     err = launch_v<__nv_bfloat16, float>(x, a1, w, y, B, Tn, V, C, Co,
                                          round_agg, s);

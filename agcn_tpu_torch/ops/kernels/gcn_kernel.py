@@ -5,9 +5,12 @@ aggregate (port of agcn_tpu/ops/pallas/gcn_kernel.py).
 
 The TPU kernel works on joint-major (B, V, T, C) blocks and keeps the
 three subsets' aggregates in fp32 for one (V*Tt, 3C) @ (3C, Co)
-projection. Here it runs on the same Hopper kernel as `gcn_fused`
+projection. Here it runs on the same Hopper kernels as `gcn_fused`
 (`csrc/gcn_fwd.cu`) with `round_agg=False`, in the model's own
-(B, T, V, C) layout: no host transpose, no padded time tiles. Its
+(B, T, V, C) layout: no host transpose, no padded time tiles. In bf16
+that is `gcn_fwd_mma_kernel` on the tensor cores, with each fp32
+aggregate projected as two bf16 parts (hi + lo, within 2^-16 of it);
+in fp32 `gcn_fwd_kernel` on the CUDA cores. Its
 backward is the JAX package's einsum `_bwd` (gcn_kernel.py:107-117): the
 TPU package has no backward kernel here, so neither has the port.
 """

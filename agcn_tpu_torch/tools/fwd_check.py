@@ -3,7 +3,8 @@
     python -m agcn_tpu_torch.tools.fwd_check [--out FILE]
 
 The quick card check of `ops/csrc/gcn_fwd.cu`, about a minute: it builds
-that source alone, then
+that source alone (and fails if ptxas reports a spill in any
+instantiation of `gcn_fwd_mma_kernel`), then
 
 1. at each AGCN layer shape of the served batch (16 streams x 2 persons =
    32 samples, T=300), fp32 and bf16, both aggregate-rounding modes,
@@ -14,20 +15,31 @@ that source alone, then
 2. at each layer shape of a training step (batch 64 x 2 persons = 128
    samples) the dx call, gcn_fwd on (g, a1^T, W^T) with C and Co
    swapped, the same way (bf16 and fp32, round_agg=1);
-3. at every served and dx shape, the bf16 round_agg=1 path (the tensor
-   cores' kernel) on small-integer inputs equal to the plain version bit
-   for bit, and two calls on the same inputs bitwise equal.
+3. on small-integer inputs, bf16 equal to the plain version bit for bit
+   and two calls on the same inputs bitwise equal: both round_agg modes
+   at every served shape (where the two modes' results must differ),
+   round_agg=1 at every dx shape.
 
 Last it prints the per-forward and per-step sums. `chip_smoke.py` phase 3
 runs the same functions.
+
+Which kernel serves which call (the C entry `agcn_gcn_fwd`): bf16 x and
+a1 go to `gcn_fwd_mma_kernel` on the tensor cores, round_agg=1 (the
+aggregate rounded to bf16, `gcn_fused`'s `_fwd_kernel`) as it is,
+round_agg=0 (the aggregate kept in fp32, `gcn_kernel`'s `_kernel`) with
+each aggregate split into two bf16 parts, hi + lo, both projected; fp32
+calls, and bf16 x with fp32 a1, go to `gcn_fwd_kernel` on the CUDA
+cores.
 
 Tolerances (`bwd_check.within_tol`): fp32 (TF32 off) max err <= 1e-4 of
 the output's scale; bf16 per element <= 2^-7 |ref| + 2^-10 of the scale.
 Bit-exact inputs: x and a1 integers in [-8, 8], W in [-2, 2], all exact in
 bf16. Every aggregate (|agg| <= 25 * 64 = 1,600) and every fp32 sum of
 the projection (< 2^22) is an integer below 2^24, so it is exact in fp32
-in any summation order; only the two rounding points (the aggregate to
-bf16, y to bf16) decide the result.
+in any summation order; only the rounding points (the aggregate to bf16
+with round_agg=1, y to bf16) decide the result. With round_agg=0 each
+aggregate, an integer below 2^17, is exactly the sum of its two bf16
+parts, so the split projection adds the same integers.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import sys
 import time
 
@@ -45,6 +58,24 @@ from agcn_tpu_torch.tools.bwd_check import (
 
 SERVE_BATCH = 32  # 16 streams x 2 persons
 SOURCE = "agcn_tpu_torch/ops/csrc/gcn_fwd.cu"
+
+
+def spilling(ptxas_log, kernel="gcn_fwd_mma_kernel"):
+    """The entry functions of `kernel` (a substring of the mangled name)
+    for which `nvcc -Xptxas -v` reports spill stores or loads, each as
+    (name, store bytes, load bytes)."""
+    out, name = [], None
+    for ln in ptxas_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name and kernel in name and (int(m.group(1))
+                                              or int(m.group(2))):
+            out.append((name, int(m.group(1)), int(m.group(2))))
+    return out
 
 
 def library_fwd(torch, x, a1, w):
@@ -64,20 +95,27 @@ def exact_inputs(torch, np, b, t, c, co, seed):
         rng.integers(-2, 3, (3, c, co))))
 
 
-def check_exact(torch, np, gcn_fused, b, t, c, co, label):
-    """bf16 round_agg=1 on integer inputs equals the plain version bit
-    for bit, and two calls are bitwise equal."""
+def check_exact(torch, np, gcn_fused, b, t, c, co, label, modes):
+    """bf16 on integer inputs, in each round_agg mode of `modes`, equals
+    the plain version bit for bit, and two calls are bitwise equal; with
+    both modes, their results differ."""
     x, a1, w = exact_inputs(torch, np, b, t, c, co, SEED + 11)
-    got = gcn_fused.launch_gcn_fwd(x, a1, w, True)
-    again = gcn_fused.launch_gcn_fwd(x, a1, w, True)
-    torch.cuda.synchronize()
-    want = gcn_fused.gcn_fwd_plain(x, a1, w, True)
-    check(torch.equal(got, again),
-          f"{label} T={t} C={c} Co={co} bf16: two calls differ")
-    check(torch.equal(got, want),
-          f"{label} T={t} C={c} Co={co} bf16: integer inputs differ from "
-          f"the plain version ({(got != want).sum().item()} elements, max "
-          f"{(got.float() - want.float()).abs().max().item():.3e})")
+    got = {}
+    for r in modes:
+        got[r] = gcn_fused.launch_gcn_fwd(x, a1, w, r)
+        again = gcn_fused.launch_gcn_fwd(x, a1, w, r)
+        torch.cuda.synchronize()
+        want = gcn_fused.gcn_fwd_plain(x, a1, w, r)
+        what = f"{label} T={t} C={c} Co={co} bf16 round_agg={int(r)}"
+        check(torch.equal(got[r], again), f"{what}: two calls differ")
+        check(torch.equal(got[r], want),
+              f"{what}: integer inputs differ from the plain version "
+              f"({(got[r] != want).sum().item()} elements, max "
+              f"{(got[r].float() - want.float()).abs().max().item():.3e})")
+    if len(got) == 2:
+        check(not torch.equal(got[True], got[False]),
+              f"{label} T={t} C={c} Co={co}: the round_agg modes agree on "
+              f"integer inputs")
 
 
 def check_rounding_modes(torch, np, wrappers, gcn_fused, b, t, c, co):
@@ -169,10 +207,11 @@ def phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel):
         log(f"  T={t:3d} C={c:3d} Co={co:3d} bfloat16 integer inputs "
             f"(scale {scale:.3e}): each round_agg mode matches its own "
             f"plain version and fails the other's")
-        check_exact(torch, np, gcn_fused, b, t, c, co, "served")
-        log(f"  T={t:3d} C={c:3d} Co={co:3d} bfloat16 round_agg=1 on "
-            f"integer inputs: equal to the plain version bit for bit; two "
-            f"calls bitwise equal")
+        check_exact(torch, np, gcn_fused, b, t, c, co, "served",
+                    (True, False))
+        log(f"  T={t:3d} C={c:3d} Co={co:3d} bfloat16 round_agg=1 and 0 on "
+            f"integer inputs: each equal to its plain version bit for bit, "
+            f"the two apart; two calls bitwise equal")
     return rows
 
 
@@ -200,7 +239,7 @@ def phase_dx(torch, np, gcn_fused):
                 lambda: gcn_fused.gcn_fwd_plain(g, at, wt, True),
                 g, at, wt, "dx", t, co, c, mult, dname, True, 10, 3))
             del g, a1, w, at, wt
-        check_exact(torch, np, gcn_fused, b, t, co, c, "dx")
+        check_exact(torch, np, gcn_fused, b, t, co, c, "dx", (True,))
         log(f"  dx T={t:3d} C={co:3d} Co={c:3d} bfloat16 on integer inputs: "
             f"equal to the plain version bit for bit; two calls bitwise "
             f"equal")
@@ -263,6 +302,8 @@ def main(argv=None) -> int:
         if "registers" in ln or "spill" in ln or "smem" in ln:
             log(f"  {ln.strip()}")
     try:
+        spills = spilling(built.log)
+        check(not spills, f"gcn_fwd_mma_kernel spills: {spills}")
         with torch.inference_mode():
             log("gcn_fwd vs its plain version at the served shapes "
                 "(batch 32)")

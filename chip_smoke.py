@@ -17,9 +17,10 @@ fails:
    prints max error, kernel / plain / library time and the roofline
    bound. At each served shape, on bf16 integer inputs where the two
    modes differ, each mode must match its own plain version and fail the
-   other's; at every shape the bf16 round_agg=1 path (the tensor cores)
-   equals its plain version bit for bit on small-integer inputs, and two
-   calls are bitwise equal. The code is
+   other's; on small-integer inputs bf16 (the tensor cores) equals its
+   plain version bit for bit in both modes at every served shape and with
+   round_agg=1 at every dx shape, and two calls are bitwise equal. The
+   code is
    agcn_tpu_torch/tools/fwd_check.py, which runs it alone in about a
    minute: `python -m agcn_tpu_torch.tools.fwd_check`.
 4. gcn_bwd (dW, da1) at the training batch, fp32 and bf16, against its
@@ -39,9 +40,11 @@ fails:
    test_joint.yaml with `formulation: pallas`, full width, T=300, seeded
    random weights, serving 16 live streams through BatchedStreamServer
    (predict, then predict_async + flush) in fp32 and bf16, and one tick
-   with `use_pallas=True`; the kernels' launch counts must equal layers x
-   forwards; the card's logits are held against the same model and
-   weights run with device="cpu" (the plain versions).
+   with `use_pallas=True` (gcn_kernel's `fused_gcn`, the fp32 aggregate)
+   in each of fp32 and bf16; the kernels' launch counts must equal layers
+   x forwards for each dtype; the card's logits, those of the bf16
+   `use_pallas` tick too, are held against the same model and weights run
+   with device="cpu" (the plain versions).
 7. AGCN: device time of one served forward by kernel group
    (torch.profiler); the serving CLI `python -m agcn_tpu_torch.infer
    --serve 16 --pipeline` on recordings written to a temporary directory.
@@ -102,7 +105,7 @@ try:
         phase_bwd_kernels)
     from agcn_tpu_torch.tools.bwd_check import SOURCE as BWD_SOURCE
     from agcn_tpu_torch.tools.fwd_check import (
-        fwd_entry, phase_dx, phase_fwd_kernels)
+        fwd_entry, phase_dx, phase_fwd_kernels, spilling)
     from agcn_tpu_torch.tools.fwd_check import SOURCE as FWD_SOURCE
 except ImportError as e:
     print(f"chip_smoke: the port is not importable here ({e}); run from a "
@@ -354,7 +357,8 @@ def check_against_cpu(torch, np, model_name, args, state, x_check,
     """The same weights and input through the plain versions on the CPU:
     fp32 (TF32 off) within 1e-3 of the logit scale (another summation
     order through ten layers), bf16 within 5e-2 (~3 significant digits
-    per activation through ten layers)."""
+    per activation through ten layers). `card_logits` maps a name that
+    starts with its dtype to the card's logits on `x_check`."""
     from agcn_tpu_torch.models.registry import build_model
 
     torch.set_num_threads(os.cpu_count() or 1)
@@ -372,12 +376,11 @@ def check_against_cpu(torch, np, model_name, args, state, x_check,
             for d in card_logits}
     log(f"  {label} card vs cpu logits: max err {errs} (logit scale "
         f"{scale:.3f}), top-1 agreement {top1}, cpu forward {cpu_s:.1f} s")
-    check(errs["float32"] <= 1e-3 * max(scale, 1.0),
-          f"{label} fp32 card logits off the CPU reference by "
-          f"{errs['float32']:.3e}")
-    check(errs["bfloat16"] <= 5e-2 * max(scale, 1.0),
-          f"{label} bf16 card logits off the CPU reference by "
-          f"{errs['bfloat16']:.3e}")
+    for name, err in errs.items():
+        bar = 1e-3 if name.startswith("float32") else 5e-2
+        check(err <= bar * max(scale, 1.0),
+              f"{label} {name} card logits off the CPU reference by "
+              f"{err:.3e}")
     summary[f"{label}_card_vs_cpu"] = dict(logit_err=errs, logit_scale=scale,
                                            top1_agreement=top1)
 
@@ -399,28 +402,48 @@ def phase_main_path(torch, np, summary):
         randomize_eval_state(torch, m, SEED + 1)
         models[dname] = m.eval()
     state = models["float32"].state_dict()
-    up = build_model(cfg.model, dict(args, use_pallas=True), device="cuda")
-    up.load_state_dict(state, strict=True)
-    up.eval()
+    ups = {}
+    for dname in ("float32", "bfloat16"):
+        m = build_model(cfg.model, dict(args, use_pallas=True), device="cuda",
+                        dtype=getattr(torch, dname))
+        m.load_state_dict(state, strict=True)
+        ups[dname] = m.eval()
 
     gcn_fused.adaptive_gcn_pallas.launches = 0
     gcn_kernel.fused_gcn.launches = 0
     served, card_logits, x_check = serve_streams(torch, np, models, summary,
                                                  "agcn", num_class)
-    forwards = {"pallas": served, "use_pallas": 0}
+    forwards = {"pallas": served, "use_pallas": {}}
+    fused_gcn_launches = {}
 
-    # one served tick with use_pallas=True (the gcn_kernel entry)
+    # one served tick with use_pallas=True (the gcn_kernel entry) in each
+    # dtype, on the input of serve_streams' last tick (x_check); a hook
+    # keeps the tick's logits
     seq = make_streams(np)
-    server = BatchedStreamServer(up, max_streams=STREAMS, max_seq_length=SEQ)
-    for sid in range(STREAMS):
-        server.add_stream()
-    for i in range(SEQ + 9 * TICK_FRAMES):
+    for dname, up in ups.items():
+        server = BatchedStreamServer(up, max_streams=STREAMS,
+                                     max_seq_length=SEQ)
         for sid in range(STREAMS):
-            server.append_frame(sid, seq[sid, i])
-    up_ans = server.predict()
-    forwards["use_pallas"] += 1
-    check_answers(np, [up_ans], num_class)
-    up_probs = np.stack([up_ans[sid][1] for sid in range(STREAMS)])
+            server.add_stream()
+        for i in range(SEQ + 9 * TICK_FRAMES):
+            for sid in range(STREAMS):
+                server.append_frame(sid, seq[sid, i])
+        kept = []
+        hook = up.register_forward_hook(
+            lambda mod, inp, out: kept.append(out.float().cpu().numpy()))
+        before = gcn_kernel.fused_gcn.launches
+        up_ans = server.predict()
+        fused_gcn_launches[dname] = gcn_kernel.fused_gcn.launches - before
+        hook.remove()
+        forwards["use_pallas"][dname] = len(kept)
+        check_answers(np, [up_ans], num_class)
+        check(len(kept) == 1, f"use_pallas {dname} tick ran {len(kept)} "
+                              f"forwards")
+        card_logits[f"{dname} use_pallas"] = kept[0][:STREAMS]
+    # fp32: the use_pallas form against the pallas form on the card, in
+    # probability (in fp32 the two forms are the same function)
+    up_probs = torch.softmax(torch.from_numpy(
+        card_logits["float32 use_pallas"]), -1).numpy()
     ref_probs = torch.softmax(torch.from_numpy(card_logits["float32"]),
                               -1).numpy()
     uerr = float(np.abs(up_probs - ref_probs).max())
@@ -428,11 +451,15 @@ def phase_main_path(torch, np, summary):
                        f"formulation by {uerr:.2e} in probability")
 
     launches = {"adaptive_gcn_pallas": gcn_fused.adaptive_gcn_pallas.launches,
-                "fused_gcn": gcn_kernel.fused_gcn.launches}
+                "fused_gcn": fused_gcn_launches}
     log(f"  launches {launches} for forwards {forwards}")
     check(launches["adaptive_gcn_pallas"] == LAYERS * forwards["pallas"]
-          and launches["fused_gcn"] == LAYERS * forwards["use_pallas"],
+          and all(fused_gcn_launches.get(d) == LAYERS * n
+                  for d, n in forwards["use_pallas"].items()),
           f"launch counts {launches} != {LAYERS} layers x {forwards}")
+    # the CPU reference of every entry: on the CPU in fp32 the pallas and
+    # use_pallas forms run the same plain function (gcn_fwd_plain, whose
+    # aggregate rounding is a no-op in fp32)
     check_against_cpu(torch, np, cfg.model, args, state, x_check,
                       card_logits, summary, "agcn")
     summary.update(launches=launches, forwards=forwards)
@@ -1057,6 +1084,8 @@ def main():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
                 log(f"  {ln.strip()}")
+    spills = spilling(built["gcn_fwd"].log)
+    check(not spills, f"gcn_fwd_mma_kernel spills: {spills}")
     summary["build_s"] = build_s
 
     log("[3/11] gcn_fwd kernel vs plain version at the served shapes "
@@ -1141,13 +1170,16 @@ def main():
         fwd_entry(rows, True, "bfloat16", sum(fwd_launches.values()),
                   "gcn_fwd (aggregate rounded to x's type)",
                   "agcn_tpu/ops/pallas/gcn_fused.py:52", dx_rows),
-        fwd_entry(rows, False, "bfloat16", launches["fused_gcn"],
+        fwd_entry(rows, False, "bfloat16", sum(launches["fused_gcn"].values()),
                   "gcn_fwd (fp32 aggregate)",
                   "agcn_tpu/ops/pallas/gcn_kernel.py:27"),
         bwd_entry(bwd_rows, sum(bwd_launches.values())),
         logits_entry(logits_rows, logits_launches),
     ]
     kernels[0]["launches_by_path"] = fwd_launches
+    kernels[1]["launches_by_path"] = {
+        f"agcn_serve_use_pallas_{d}": n
+        for d, n in launches["fused_gcn"].items()}
     kernels[2]["launches_by_path"] = bwd_launches
     summary.update(kernels=kernels, device=kind, nvidia_smi=smi,
                    seconds=time.perf_counter() - t_start)

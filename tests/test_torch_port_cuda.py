@@ -120,27 +120,51 @@ _MMA_SHAPES = [(48, 16, 32, 25), (50, 64, 64, 25), (24, 128, 128, 25),
                (11, 20, 37, 25)]
 
 
+@pytest.mark.parametrize("round_agg", [True, False])
 @pytest.mark.parametrize("t,c,co,v", _MMA_SHAPES)
-def test_mma_path_bit_exact_on_integer_inputs(cuda, t, c, co, v):
-    """bf16 round_agg=1 (the tensor cores' kernel) equals the plain
-    version bit for bit where no sum rounds: the aggregate is rounded to
-    bf16 exactly where the plain version (and the TPU kernel) rounds it."""
+def test_mma_path_bit_exact_on_integer_inputs(cuda, t, c, co, v, round_agg):
+    """bf16 on the tensor cores equals the plain version of its mode bit
+    for bit where no sum rounds, and not the other mode's: with round_agg
+    the aggregate is rounded to bf16 exactly where the plain version (and
+    the TPU kernel) rounds it; without, its hi + lo split (each aggregate
+    an integer below 2^17) projects the fp32 aggregate exactly."""
     x, a1, w = _exact_inputs(cuda, 3, t, c, co, v=v)
-    got = gcn_fused.launch_gcn_fwd(x, a1, w, True)
+    got = gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)
     torch.cuda.synchronize()
-    want = gcn_fused.gcn_fwd_plain(x, a1, w, True)
+    want = gcn_fused.gcn_fwd_plain(x, a1, w, round_agg)
     assert got.shape == (3, t, v, co)
     assert torch.equal(got, want)
-    assert not torch.equal(got, gcn_fused.gcn_fwd_plain(x, a1, w, False))
+    assert not torch.equal(got,
+                           gcn_fused.gcn_fwd_plain(x, a1, w, not round_agg))
 
 
+@pytest.mark.parametrize("round_agg", [True, False])
 @pytest.mark.parametrize("t,c,co", [(75, 256, 256), (30, 64, 3)])
-def test_mma_path_is_deterministic(cuda, t, c, co):
+def test_mma_path_is_deterministic(cuda, t, c, co, round_agg):
     x, a1, w = _inputs(cuda, 4, t, c, co, torch.bfloat16)
-    first = gcn_fused.launch_gcn_fwd(x, a1, w, True)
-    again = gcn_fused.launch_gcn_fwd(x, a1, w, True)
+    first = gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)
+    again = gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("round_agg", [True, False])
+def test_bf16_runs_on_the_tensor_cores_kernel(cuda, round_agg):
+    """bf16 x and a1 launch gcn_fwd_mma_kernel in both modes, with the
+    split (SPLIT = true) exactly when the aggregate stays fp32, and never
+    the CUDA-core gcn_fwd_kernel."""
+    x, a1, w = _inputs(cuda, 2, 12, 64, 64, torch.bfloat16)
+    gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)  # built and warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "gcn_fwd" in e.name]
+    assert names and all("gcn_fwd_mma_kernel" in n for n in names), names
+    split = "false" if round_agg else "true"
+    assert all(f"{split}>" in n or f"Lb{int(not round_agg)}E" in n
+               for n in names), names
 
 
 def _launches():

@@ -1,15 +1,23 @@
-"""The premise of the card's bit-exact check of gcn_fwd's bf16 path.
+"""The premise of the card's bit-exact check of gcn_fwd's bf16 paths.
 
 On the card, `tests/test_torch_port_cuda.py` and
 `agcn_tpu_torch/tools/fwd_check.py` hold the tensor cores' kernel
-(bf16, round_agg=1) equal to the port's plain version `gcn_fwd_plain` bit
-for bit on small-integer inputs. Here, on the CPU, the same kind of
-inputs go through the JAX package's Pallas kernel
-(`adaptive_gcn_pallas(..., interpret=True)`, as tests/test_pallas_gcn.py
-runs it) and through `gcn_fwd_plain`: the two must be bit for bit equal,
-and the same sums without the rounding of the aggregate must differ. So
-the chain reads: TPU kernel == plain version (here), CUDA kernel == plain
-version (on the card).
+(bf16, both round_agg modes) equal to the port's plain version
+`gcn_fwd_plain` bit for bit on small-integer inputs. Here, on the CPU,
+the same kind of inputs go through the JAX package's Pallas kernels, as
+tests/test_pallas_gcn.py runs them (interpret mode), and through
+`gcn_fwd_plain`: `adaptive_gcn_pallas(..., interpret=True)` (the
+aggregate rounded to bf16) must equal round_agg=True bit for bit, and the
+same sums without that rounding must differ; `gcn_kernel.fused_gcn(...,
+interpret=True)` (the aggregate kept in fp32) must equal round_agg=False
+bit for bit. So the chain reads: TPU kernel == plain version (here), CUDA
+kernel == plain version (on the card).
+
+With round_agg=False the card's kernel projects each fp32 aggregate as
+two bf16 parts, hi = bf16(a) and lo = bf16(a - hi). Every integer
+|n| < 2^17 is exactly hi + lo (checked here for all of them), so on
+these inputs the split adds the same integers as the plain version; an
+emulation of the split in PyTorch is held against it here too.
 
 Inputs: x and a1 integers in [-8, 8], W in [-2, 2], exact in bf16. Each
 aggregate is an integer of at most 25 * 64 = 1,600 and each fp32 sum of
@@ -26,6 +34,7 @@ import pytest
 import torch
 
 from agcn_tpu.ops.pallas.gcn_fused import adaptive_gcn_pallas
+from agcn_tpu.ops.pallas.gcn_kernel import fused_gcn
 from agcn_tpu_torch.ops.kernels import gcn_fused as tfused
 from agcn_tpu_torch.tools import fwd_check
 from tests.torch_port_threads import one_torch_thread  # noqa: F401
@@ -43,13 +52,31 @@ def _integer_inputs(b, t, c, co, v, seed=0):
             rng.integers(-2, 3, (3, c, co)).astype(np.float32))
 
 
-def _both(b, t, c, co, v):
+def _both(b, t, c, co, v, tpu_kernel=adaptive_gcn_pallas):
+    """The JAX Pallas kernel's result (interpret mode) as fp32, and the
+    same inputs as bf16 tensors."""
     arrs = _integer_inputs(b, t, c, co, v)
-    ref = adaptive_gcn_pallas(*(jnp.asarray(a, jnp.bfloat16) for a in arrs),
-                              True)
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in arrs]
+    if tpu_kernel is fused_gcn:
+        ref = fused_gcn(*bf, 64, True)
+    else:
+        ref = tpu_kernel(*bf, True)
     ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
     x, a1, w = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
     return ref, x, a1, w
+
+
+def _split_projection(x, a1, w):
+    """The card's round_agg=False arithmetic in PyTorch: each fp32
+    aggregate a as hi = bf16(a) and lo = bf16(a - hi), both projected on
+    the bf16 W with fp32 sums; y rounded to bf16."""
+    acc = torch.zeros(x.shape[:3] + (w.shape[-1],))
+    for k in range(a1.shape[1]):
+        agg = torch.einsum("btvc,bvw->btwc", x.float(), a1[:, k].float())
+        hi = agg.to(torch.bfloat16).float()
+        lo = (agg - hi).to(torch.bfloat16).float()
+        acc = acc + hi @ w[k].float() + lo @ w[k].float()
+    return acc.to(x.dtype)
 
 
 @pytest.mark.parametrize("b,t,c,co,v", SHAPES)
@@ -67,6 +94,39 @@ def test_the_aggregate_rounding_shows_on_these_inputs(b, t, c, co, v):
     ref, x, a1, w = _both(b, t, c, co, v)
     assert not torch.equal(tfused.gcn_fwd_plain(x, a1, w, False).float(),
                            ref)
+
+
+@pytest.mark.parametrize("b,t,c,co,v", SHAPES)
+def test_plain_version_equals_the_fp32_aggregate_tpu_kernel_bit_for_bit(
+        b, t, c, co, v):
+    """gcn_kernel's `_kernel` (the aggregate kept in fp32) is the plain
+    version with round_agg=False."""
+    ref, x, a1, w = _both(b, t, c, co, v, tpu_kernel=fused_gcn)
+    got = tfused.gcn_fwd_plain(x, a1, w, False)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, t, v, co)
+    assert torch.equal(got.float(), ref)
+
+
+@pytest.mark.parametrize("b,t,c,co,v", SHAPES)
+def test_split_aggregate_equals_the_plain_version_bit_for_bit(
+        b, t, c, co, v):
+    """On integer inputs the hi + lo split of the card's round_agg=False
+    path changes nothing, and it is not the round_agg=True result."""
+    _, x, a1, w = _both(b, t, c, co, v)
+    got = _split_projection(x, a1, w)
+    assert torch.equal(got, tfused.gcn_fwd_plain(x, a1, w, False))
+    assert not torch.equal(got, tfused.gcn_fwd_plain(x, a1, w, True))
+
+
+def test_every_integer_below_2_17_is_its_two_bf16_parts():
+    """The premise of the split's bit-exact check, for every integer
+    |n| < 2^17 (the rounding-modes inputs' aggregates reach 102,400):
+    n == bf16(n) + bf16(n - bf16(n)) exactly."""
+    n = torch.arange(-(2 ** 17) + 1, 2 ** 17, dtype=torch.float32)
+    hi = n.to(torch.bfloat16).float()
+    lo = (n - hi).to(torch.bfloat16).float()
+    assert torch.equal(hi + lo, n)
+    assert not torch.equal(hi, n)  # one part alone would not do
 
 
 def test_integer_inputs_keep_every_sum_exact():
@@ -124,3 +184,19 @@ def test_fwd_check_refuses_without_gpu(capsys):
     assert fwd_check.main([]) == 1
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA GPU" in out.err
+
+
+def test_fwd_check_finds_spills_of_the_mma_kernel():
+    """`spilling` reads `nvcc -Xptxas -v`: spill stores or loads of a
+    gcn_fwd_mma_kernel instantiation are found, other kernels' ignored."""
+    mma = "_ZN12_GLOBAL__N_118gcn_fwd_mma_kernelILi25ELi32ELb1EEEvPKii"
+    other = "_ZN12_GLOBAL__N_114gcn_fwd_kernelIffLi25ELi32EEEvPKii"
+    entry = ("ptxas info    : Compiling entry function '{0}' for 'sm_90a'\n"
+             "ptxas info    : Function properties for {0}\n"
+             "    0 bytes stack frame, {1} bytes spill stores, {2} bytes "
+             "spill loads\n"
+             "ptxas info    : Used 128 registers, 101376 bytes smem\n")
+    clean = entry.format(mma, 0, 0) + entry.format(other, 8, 8)
+    assert fwd_check.spilling(clean) == []
+    assert fwd_check.spilling(clean + entry.format(mma, 4, 12)) == [
+        (mma, 4, 12)]
