@@ -74,12 +74,50 @@
 //   gcn_dw_reduce_kernel: dW = sum over the groups, in group order,
 //     rounded to dW's type once.
 //
-// da1, both types:
+// da1 in fp32 stays on the CUDA cores:
 //
 //   gcn_da1_kernel: one block per (k, sample). Per 4-frame tile and
 //     64-channel chunk it projects p = x W_k (the register tiling of the
 //     forward kernel's projection), rounds it, stages g, and adds
 //     p . g over (t, o) into the 625 (v, w) sums, about 5 per thread.
+//
+// da1 in bf16 is two chained products on the tensor cores (nvcuda::wmma
+// bf16 16x16x16, fp32 accumulators), as gcn_fwd_mma_kernel chains the
+// forward's:
+//
+//   gcn_da1_mma_kernel: one block of 8 warps per (group of frames,
+//     subset k, sample b). A group is a range of whole 4-frame tiles of
+//     the sample; the group count is chosen from the shapes so that
+//     several waves of blocks fill the card. Each frame takes a 32-row
+//     slot (v at rows f*32 + v, zero for v >= V), so a tile is 128 rows.
+//     Per tile and 64-channel o chunk, warp w owns frame f = w % 4 and
+//     the 32 channels 32 * (w / 4) of the chunk:
+//       1. p = x_tile . W_k[:, chunk] over C in chunks of CC (16 for the
+//          C = 3 entry layer, else 64; x and W staged in shared memory by
+//          the whole block with cp.async, C padded with zeros); the
+//          warp's 2 x 2 fp32 fragments go through a per-warp scratch
+//          tile and are rounded to bf16 (RN) once into p_s: the rounding
+//          point of _bwd_kernel (gcn_fused.py:112-113);
+//       2. the warp stages its own (frame, w, 32 channels) of g in g_s,
+//          rows w >= V zero, its loads in flight while p is rounded;
+//       3. da1 += p_s[f] (32 x 32, row_major) . g_s[f]^T, the transposed
+//          operand loaded col_major straight from g's (w, o) layout.
+//     p_s and g_s regions are private to their warp, so steps 1-3 need
+//     no block barrier. Each warp keeps one 32 x 32 fp32 accumulator for
+//     the whole block; at the end the 8 are summed in warp order and the
+//     block writes one fp32 (V, V) partial (rows and columns >= V
+//     dropped) into a (B, K, G, V, V) buffer.
+//     Registers: both accumulators (64 of the 128 that two blocks an SM
+//     leave a thread) are live while x and W are staged; staging them
+//     through registers spilled (72-80 bytes at CC = 64), cp.async takes
+//     none, and g is loaded after the C loop, where x and W are done.
+//   gcn_da1_reduce_kernel: da1 = the sum of the group partials in group
+//     order, rounded to bf16 once.
+//   What bounds it: the function needs x and g read once, 0.77 ms a
+//   training step at 3.35 TB/s; the MMAs it runs, padded (V to 32,
+//   C = 3 to 16), are ~830 GFLOP a step, 0.84 ms at the bf16 peak. The
+//   wmma fragment loads from shared memory and a barrier per C chunk
+//   keep it well below that peak.
 //
 // Ragged edges (T not a multiple of 4, C of 32, Co of 64) are masked:
 // staged values beyond the edge are zero and stores beyond it are skipped.
@@ -89,7 +127,9 @@
 //   agcn_gcn_bwd_dw launches the dW kernels and the ordered reduce; the
 //     caller allocates the (G, K, C, Co) fp32 partials and, in bf16, the
 //     (K, B*T*V, Co) bf16 buffer of u.
-//   agcn_gcn_bwd_da1 launches gcn_da1_kernel.
+//   agcn_gcn_bwd_da1 launches gcn_da1_kernel (fp32), or in bf16
+//     gcn_da1_mma_kernel and its ordered reduce into the caller's
+//     (B, K, G, V, V) fp32 partials.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -656,6 +696,283 @@ gcn_da1_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ------------------------------------------ da1 in bf16: p, then MMA ----
+
+constexpr int DM_THREADS = 256;          // 8 warps: (frame, channel half)
+constexpr int DM_WARPS = DM_THREADS / 32;
+constexpr int DM_VP = 32;                // joints padded to two 16-row tiles
+constexpr int DM_ROWS = TT * DM_VP;      // (t, v) rows of a tile: 128
+constexpr int DM_OC = 64;                // output channels per chunk
+constexpr int DM_LD = DM_OC + 8;         // bf16 row stride of w_s, p_s, g_s
+
+// Shared-memory layout, in bytes, for an input-channel chunk of CC; the
+// +8 bf16 on each row keeps the fragment loads off one bank.
+template <int CC>
+struct DaMmaLayout {
+  static constexpr int LD = CC + 8;                    // x_s row stride
+  static constexpr int W_OFF = DM_ROWS * LD * 2;       // x_s[ROWS][LD]
+  static constexpr int P_OFF = W_OFF + CC * DM_LD * 2;     // w_s[CC][DM_LD]
+  static constexpr int G_OFF = P_OFF + DM_ROWS * DM_LD * 2;  // p_s[ROWS][DM_LD]
+  static constexpr int S_OFF = G_OFF + DM_ROWS * DM_LD * 2;  // g_s[ROWS][DM_LD]
+  static constexpr int STAGE = S_OFF + DM_WARPS * 16 * 16 * 4;  // s_s[warps][16][16]
+  static constexpr int RED = DM_WARPS * DM_VP * DM_VP * 4;  // r_s[warps][32][32], at the end
+  static constexpr int BYTES = STAGE > RED ? STAGE : RED;
+  static constexpr int XV = DM_ROWS * CC / 8;  // 8-bf16 vectors of an x chunk
+  static constexpr int WV = CC * DM_OC / 8;    // and of a W chunk
+  static_assert(W_OFF % 32 == 0 && P_OFF % 32 == 0 && G_OFF % 32 == 0 &&
+                    S_OFF % 32 == 0,
+                "wmma tiles must start on 256-bit boundaries");
+  static_assert(CC % 16 == 0, "chunks are whole 16-deep MMA steps");
+};
+
+// two floats rounded to bf16 (RN), packed low then high
+__device__ __forceinline__ unsigned int pack2(float lo, float hi) {
+  return (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+// 8 consecutive floats rounded to bf16 as one 16-byte vector (the same
+// helper as in gcn_fwd.cu: each source builds alone)
+__device__ __forceinline__ uint4 pack8(const float* __restrict__ src) {
+  const float4 lo = *reinterpret_cast<const float4*>(src);
+  const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+  return make_uint4(pack2(lo.x, lo.y), pack2(lo.z, lo.w), pack2(hi.x, hi.y),
+                    pack2(hi.z, hi.w));
+}
+
+// load8's values of row `row` of m from column `col` on, into shared
+// memory at dst (16-byte aligned). With `vec` the copy is asynchronous
+// and takes no registers (cp.async; rows not `row_ok` and columns past n
+// are zero-filled: source size 0); wait for it with cp_async_wait_all.
+// Without, it goes through one register vector, one call at a time.
+__device__ __forceinline__ void stage8(__nv_bfloat16* dst,
+                                       const __nv_bfloat16* __restrict__ m,
+                                       size_t row, bool row_ok, int col,
+                                       int n, bool vec) {
+  if (vec) {
+    const bool ok = row_ok && col < n;
+    const unsigned int s =
+        static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(ok ? m + row * n + col : m), "r"(ok ? 16 : 0)
+                 : "memory");
+  } else {
+    *reinterpret_cast<uint4*>(dst) = load8(m, row, row_ok, col, n, false);
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// part[b, k, grp, v, w] = sum over the group's frames t and all o of
+// bf16(x[b,t,v,:] . W_k[:,o]) * g[b,t,w,o]. Two blocks an SM (~71 KB of
+// shared memory each at CC = 64): the bound caps the registers at 128.
+template <int V, int CC>
+__global__ void __launch_bounds__(DM_THREADS, 2)
+gcn_da1_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ w,
+                   const __nv_bfloat16* __restrict__ g,
+                   float* __restrict__ part, int Tn, int C, int Co,
+                   int groups, bool x_vec, bool w_vec, bool g_vec) {
+  using L = DaMmaLayout<CC>;
+  static_assert(V <= DM_VP, "joints fit one 32-row slot");
+  extern __shared__ __align__(128) unsigned char smem_da[];
+  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem_da);
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_da + L::W_OFF);
+  __nv_bfloat16* p_s = reinterpret_cast<__nv_bfloat16*>(smem_da + L::P_OFF);
+  __nv_bfloat16* g_s = reinterpret_cast<__nv_bfloat16*>(smem_da + L::G_OFF);
+  float* r_s = reinterpret_cast<float*>(smem_da);  // after the last tile
+
+  const int grp = blockIdx.x;
+  const int k = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int f = warp % TT;            // the warp's frame of each tile
+  const int wo = (warp / TT) * 32;    // and its 32 channels of each chunk
+  const int pr = f * DM_VP;           // the frame's first row in p_s, g_s
+  float* scratch = reinterpret_cast<float*>(smem_da + L::S_OFF) + warp * 256;
+
+  // the group's frames: whole tiles [tiles*grp/groups, tiles*(grp+1)/groups)
+  const long long tiles = (Tn + TT - 1) / TT;
+  const int tile_begin = (int)(tiles * grp / groups);
+  const int tile_end = (int)(tiles * (grp + 1) / groups);
+  const int nc = (C + CC - 1) / CC;
+  const int no = (Co + DM_OC - 1) / DM_OC;
+  const size_t row_b = (size_t)b * Tn * V;  // x, g as (B*T*V, C or Co)
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> da[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(da[i][j], 0.f);
+  }
+
+  for (int tile = tile_begin; tile < tile_end; ++tile) {
+    const int t0 = tile * TT;
+    const bool frame_ok = t0 + f < Tn;
+    for (int oc = 0; oc < no; ++oc) {
+      const int o0 = oc * DM_OC;
+      // a warp whose frame lies past T or channels past Co adds nothing
+      const bool active = frame_ok && o0 + wo < Co;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> p[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::fill_fragment(p[i][j], 0.f);
+      }
+      for (int ci = 0; ci < nc; ++ci) {
+        const int c0 = ci * CC;
+        // with one C chunk x_s keeps the tile across the o chunks, and
+        // with one o chunk too w_s keeps W_k across the tiles
+        const bool new_x = nc > 1 || oc == 0;
+        const bool new_w = nc > 1 || no > 1 || tile == tile_begin;
+        __syncthreads();  // the previous step's MMAs have read x_s, w_s
+        // x and W through cp.async (the registers are short here: both
+        // accumulators are live), one vector a thread at a time
+        if (new_x) {
+#pragma unroll 1
+          for (int vi = tid; vi < L::XV; vi += DM_THREADS) {
+            const int r = vi / (CC / 8);  // row t * 32 + v
+            const int t = t0 + r / DM_VP;
+            const int v = r % DM_VP;
+            stage8(x_s + r * L::LD + (vi % (CC / 8)) * 8, x,
+                   row_b + (size_t)t * V + v, t < Tn && v < V,
+                   c0 + (vi % (CC / 8)) * 8, C, x_vec);
+          }
+        }
+        if (new_w) {
+#pragma unroll 1
+          for (int vi = tid; vi < L::WV; vi += DM_THREADS) {
+            const int c = c0 + vi / (DM_OC / 8);
+            stage8(w_s + (vi / (DM_OC / 8)) * DM_LD + (vi % (DM_OC / 8)) * 8,
+                   w, (size_t)k * C + c, c < C, o0 + (vi % (DM_OC / 8)) * 8,
+                   Co, w_vec);
+          }
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        if (active) {
+          // p[rows of frame f][the warp's channels] += x_s . w_s
+#pragma unroll
+          for (int kk = 0; kk < CC; kk += 16) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                           wmma::row_major> fa[2];
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                           wmma::row_major> fb[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              wmma::load_matrix_sync(fa[i], x_s + (pr + 16 * i) * L::LD + kk,
+                                     L::LD);
+              wmma::load_matrix_sync(fb[i], w_s + kk * DM_LD + wo + 16 * i,
+                                     DM_LD);
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                wmma::mma_sync(p[i][j], fa[i], fb[j], p[i][j]);
+              }
+            }
+          }
+        }
+      }
+      if (!active) continue;
+      // the warp's own g: rows w of frame f, its 32 channels, 4 vectors a
+      // lane, rows w >= V zero; loaded here, not with x and W, where the
+      // registers are short, and in flight while p is rounded
+      uint4 g_r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int vi = lane + 32 * j;
+        g_r[j] = load8(g, row_b + (size_t)(t0 + f) * V + vi / 4, vi / 4 < V,
+                       o0 + wo + (vi % 4) * 8, Co, g_vec);
+      }
+      // p rounded to bf16 (RN) once, through the warp's scratch tile;
+      // lane: row lane / 2 of a tile, columns 8 * (lane % 2) .. +7
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          wmma::store_matrix_sync(scratch, p[i][j], 16, wmma::mem_row_major);
+          __syncwarp();
+          *reinterpret_cast<uint4*>(
+              p_s + (pr + 16 * i + lane / 2) * DM_LD + wo + 16 * j +
+              (lane % 2) * 8) =
+              pack8(scratch + (lane / 2) * 16 + (lane % 2) * 8);
+          __syncwarp();  // the scratch tile is free, p_s written
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int vi = lane + 32 * j;
+        *reinterpret_cast<uint4*>(g_s + (pr + vi / 4) * DM_LD + wo +
+                                  (vi % 4) * 8) = g_r[j];
+      }
+      __syncwarp();  // g_s written
+      // da1[v][w] += sum over the warp's channels of p[v][o] * g[w][o]
+#pragma unroll
+      for (int kk = 0; kk < 32; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fa[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major> fb[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          wmma::load_matrix_sync(fa[i], p_s + (pr + 16 * i) * DM_LD + wo + kk,
+                                 DM_LD);
+          // B = g^T: element (o, w) at g_s[(pr + w) * DM_LD + o]
+          wmma::load_matrix_sync(fb[i], g_s + (pr + 16 * i) * DM_LD + wo + kk,
+                                 DM_LD);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            wmma::mma_sync(da[i][j], fa[i], fb[j], da[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // every warp is done with the staging: r_s takes it
+  float* mine = r_s + warp * DM_VP * DM_VP;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(mine + 16 * i * DM_VP + 16 * j, da[i][j],
+                              DM_VP, wmma::mem_row_major);
+    }
+  }
+  __syncthreads();
+  float* dst = part + (((size_t)b * K + k) * groups + grp) * V * V;
+  for (int i = tid; i < V * V; i += DM_THREADS) {
+    const int at = (i / V) * DM_VP + i % V;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < DM_WARPS; ++q) s += r_s[q * DM_VP * DM_VP + at];
+    dst[i] = s;
+  }
+}
+
+// da1[bk, i] = sum over the groups of part[bk, grp, i], in group order,
+// rounded to bf16 once
+__global__ void __launch_bounds__(256)
+gcn_da1_reduce_kernel(const float* __restrict__ part,
+                      __nv_bfloat16* __restrict__ da1, int n, int vv,
+                      int groups) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* src = part + (size_t)(i / vv) * groups * vv + i % vv;
+  float s = 0.f;
+  for (int gi = 0; gi < groups; ++gi) s += src[(size_t)gi * vv];
+  da1[i] = __float2bfloat16_rn(s);
+}
+
 // ------------------------------------------------------------ launch ----
 
 template <typename T>
@@ -729,6 +1046,43 @@ cudaError_t launch_da1(const void* x, const void* w, const void* g,
   return cudaGetLastError();
 }
 
+template <int V, int CC>
+cudaError_t launch_da1_mma(const void* x, const void* w, const void* g,
+                           void* da1, void* part, int B, int Tn, int C,
+                           int Co, int groups, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  auto kern = gcn_da1_mma_kernel<V, CC>;
+  const int bytes = DaMmaLayout<CC>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(groups, K, B), DM_THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(g), static_cast<float*>(part), Tn, C, Co,
+      groups, C % 8 == 0 && aligned(x, 16), Co % 8 == 0 && aligned(w, 16),
+      Co % 8 == 0 && aligned(g, 16));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = B * K * V * V;
+  gcn_da1_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<bf16*>(da1), n, V * V,
+      groups);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_da1_bf16(const void* x, const void* w, const void* g,
+                            void* da1, void* part, int B, int Tn, int C,
+                            int Co, int groups, cudaStream_t stream) {
+  // the C=3 entry layer takes one 16-deep chunk instead of 64
+  if (C <= 16) {
+    return launch_da1_mma<V, 16>(x, w, g, da1, part, B, Tn, C, Co, groups,
+                                 stream);
+  }
+  return launch_da1_mma<V, 64>(x, w, g, da1, part, B, Tn, C, Co, groups,
+                               stream);
+}
+
 }  // namespace
 
 // the dW kernels: in fp32 `groups` splits the samples (at most B), in bf16
@@ -760,18 +1114,25 @@ extern "C" int agcn_gcn_bwd_dw(const void* x, const void* a1, const void* g,
 }
 
 extern "C" int agcn_gcn_bwd_da1(const void* x, const void* w, const void* g,
-                                void* da1, int B, int Tn, int V, int C,
-                                int Co, int bf16, void* stream) {
+                                void* da1, void* part, int B, int Tn, int V,
+                                int C, int Co, int groups, int bf16,
+                                void* stream) {
+  // in bf16 `groups` splits each sample's 4-frame tiles (at most their
+  // count) and `part` is the (B, K, groups, V, V) fp32 partials; fp32
+  // takes neither
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16 && (groups < 1 || groups > (Tn + TT - 1) / TT)) {
+    return (int)cudaErrorInvalidValue;
+  }
   switch (V) {
     case 25:
-      return (int)(bf16 ? launch_da1<__nv_bfloat16, 25>(x, w, g, da1, B, Tn,
-                                                        C, Co, s)
+      return (int)(bf16 ? launch_da1_bf16<25>(x, w, g, da1, part, B, Tn, C,
+                                              Co, groups, s)
                         : launch_da1<float, 25>(x, w, g, da1, B, Tn, C, Co,
                                                 s));
     case 18:
-      return (int)(bf16 ? launch_da1<__nv_bfloat16, 18>(x, w, g, da1, B, Tn,
-                                                        C, Co, s)
+      return (int)(bf16 ? launch_da1_bf16<18>(x, w, g, da1, part, B, Tn, C,
+                                              Co, groups, s)
                         : launch_da1<float, 18>(x, w, g, da1, B, Tn, C, Co,
                                                 s));
     default:

@@ -26,9 +26,10 @@ Backward of `adaptive_gcn_pallas` (the JAX `_vjp_bwd`, gcn_fused.py:222):
             u_k = g a1_k^T rounded to g's type, da1_k = sum p_k g with
             p_k = x W_k rounded to x's type; fp32 sums cast to W's and
             a1's types. In bf16, u is formed once into device memory and
-            x^T u runs on the tensor cores (nvcuda::wmma). Each block
-            reduces over its rows itself and the dW partials of its
-            groups are summed in a fixed order, so the result is
+            x^T u runs on the tensor cores (nvcuda::wmma), and da1 too:
+            p = x W_k, rounded, then p g^T per frame. Each block
+            reduces over its rows itself and the dW and da1 partials of
+            its groups are summed in a fixed order, so the result is
             deterministic (the TPU kernel's ordered-grid `+=` has no GPU
             counterpart).
 `adaptive_gcn_pallas_hybrid` runs the same kernel forward with the
@@ -46,7 +47,7 @@ CPU tensors; for CUDA tensors it launches the kernel or raises.
 Launch counts: `adaptive_gcn_pallas.launches` counts the gcn_fwd
 launches with round_agg (forwards of both pallas forms and the dx of
 `pallas`), `gcn_backward.launches` the gcn_bwd calls (three kernels
-each in fp32, four in bf16).
+each in fp32, five in bf16).
 """
 
 from __future__ import annotations
@@ -68,6 +69,9 @@ _DW_TILE_O, _DW_TILE_C, _DW_TARGET_BLOCKS = 64, 32, 264
 # its bf16 tensor-core kernel: blocks of (64 x 64 channels, one subset, one
 # group of 32-row chunks), about this many (8 per SM)
 _MMA_TILE, _MMA_ROWS, _MMA_TARGET_BLOCKS = 64, 32, 1056
+# gcn_bwd's bf16 da1 kernel: blocks of (one group of 4-frame tiles, one
+# subset, one sample), at least this many (8 waves of two blocks an SM)
+_DA1_TILE, _DA1_TARGET_BLOCKS = 4, 2112
 
 
 def gcn_fwd_plain(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
@@ -86,21 +90,37 @@ def gcn_fwd_plain(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     return acc.to(x.dtype)
 
 
+def gcn_dw_plain(x: torch.Tensor, a1: torch.Tensor,
+                 g: torch.Tensor) -> torch.Tensor:
+    """dW of `gcn_bwd_plain` as fp32 sums: dW_k = x^T u_k with u_k = g
+    a1_k^T rounded to g's type."""
+    xf, gf = x.float(), g.float()
+    dw = []
+    for k in range(a1.shape[1]):
+        u = torch.einsum("btwo,bvw->btvo", gf, a1[:, k].float())
+        dw.append(torch.einsum("btvc,btvo->co", xf, u.to(g.dtype).float()))
+    return torch.stack(dw)
+
+
+def gcn_da1_plain(x: torch.Tensor, w: torch.Tensor,
+                  g: torch.Tensor) -> torch.Tensor:
+    """da1 of `gcn_bwd_plain` as fp32 sums: da1_k = sum_{t,o} p_k g with
+    p_k = x W_k rounded to x's type."""
+    xf, gf = x.float(), g.float()
+    da1 = []
+    for k in range(w.shape[0]):
+        p = (xf @ w[k].float()).to(x.dtype).float()
+        da1.append(torch.einsum("btvo,btwo->bvw", p, gf))
+    return torch.stack(da1, dim=1)
+
+
 def gcn_bwd_plain(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
                   g: torch.Tensor):
     """Plain PyTorch version of gcn_bwd: (dW, da1) with u rounded to g's
     type and p to x's type, fp32 sums, dW in w's type and da1 in a1's
     (agcn_tpu gcn_fused.py:72-118, 200)."""
-    xf, gf = x.float(), g.float()
-    dw, da1 = [], []
-    for k in range(a1.shape[1]):
-        u = torch.einsum("btwo,bvw->btvo", gf, a1[:, k].float())
-        u = u.to(g.dtype).float()
-        dw.append(torch.einsum("btvc,btvo->co", xf, u))
-        p = (xf @ w[k].float()).to(x.dtype).float()
-        da1.append(torch.einsum("btvo,btwo->bvw", p, gf))
-    return (torch.stack(dw).to(w.dtype),
-            torch.stack(da1, dim=1).to(a1.dtype))
+    return (gcn_dw_plain(x, a1, g).to(w.dtype),
+            gcn_da1_plain(x, w, g).to(a1.dtype))
 
 
 def _check(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor) -> None:
@@ -186,6 +206,14 @@ def dw_mma_groups(rows: int, c: int, co: int) -> int:
                       math.ceil(_MMA_TARGET_BLOCKS / tiles)))
 
 
+def da1_groups(b: int, t: int) -> int:
+    """Frame groups of gcn_bwd's bf16 da1 kernel: ranges of whole 4-frame
+    tiles of a sample, one fp32 (V, V) partial per (sample, subset,
+    group), fixed by the shapes alone."""
+    tiles = math.ceil(t / _DA1_TILE)
+    return max(1, min(tiles, math.ceil(_DA1_TARGET_BLOCKS / (K * b))))
+
+
 def _check_bwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
                g: torch.Tensor) -> None:
     _check(x, a1, w)
@@ -234,19 +262,28 @@ def launch_gcn_bwd_dw(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
 def launch_gcn_bwd_da1(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
                        g: torch.Tensor) -> torch.Tensor:
     """da1 of `csrc/gcn_bwd.cu` on the current stream (CUDA tensors), in
-    a1's dtype."""
+    a1's dtype: fp32 on the CUDA cores; bf16 as p = x W_k, then p g^T per
+    frame on the tensor cores, one fp32 (V, V) partial per (sample,
+    subset, frame group) into a (B, K, G, V, V) buffer, summed in group
+    order."""
     _check_bwd(x, a1, w, g)
     b, t, v, c = x.shape
     co = w.shape[-1]
     da1 = torch.empty_like(a1)
     if x.numel() == 0 or g.numel() == 0:
         return da1.zero_()
-    fn = _bind("gcn_bwd", "agcn_gcn_bwd_da1", 4, 6)
+    bf16 = x.dtype == torch.bfloat16
+    groups, partial = 1, None
+    if bf16:
+        groups = da1_groups(b, t)
+        partial = torch.empty((b, K, groups, v, v), dtype=torch.float32,
+                              device=x.device)
+    fn = _bind("gcn_bwd", "agcn_gcn_bwd_da1", 5, 7)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device)
         err = fn(x.data_ptr(), w.data_ptr(), g.data_ptr(), da1.data_ptr(),
-                 b, t, v, c, co, int(x.dtype == torch.bfloat16),
-                 stream.cuda_stream)
+                 None if partial is None else partial.data_ptr(),
+                 b, t, v, c, co, groups, int(bf16), stream.cuda_stream)
     _raise_on(err, "gcn_bwd da1")
     return da1
 

@@ -10,7 +10,9 @@ each other (bitwise), times dW and da1 apart, each beside its library
 yardstick (the einsums of `ops.gcn.adaptive_gcn_bwd`) and its bound, and
 on bf16 integer inputs holds the kernel bit for bit against the plain
 version while dropping the rounding of u or of p changes the result.
-Last it prints the per-step sums (ten layers). `chip_smoke.py` phase 4
+It fails if ptxas reports a spill in `gcn_da1_mma_kernel` (bf16 da1 on
+the tensor cores). Last it prints the per-step sums (ten layers), dW and
+da1 each as kernel / einsums / plain / bound. `chip_smoke.py` phase 4
 runs the same functions; the dx calls (gcn_fwd on g, a1^T, W^T) are
 `fwd_check.py`'s.
 
@@ -47,6 +49,13 @@ LAYERS = sum(n for _, n in LAYER_SHAPES)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 SOURCE = "agcn_tpu_torch/ops/csrc/gcn_bwd.cu"
+# the CUDA kernels of gcn_bwd's route in each dtype: (dW, da1)
+ROUTE_KERNELS = {
+    "bfloat16": (["gcn_u_kernel", "gcn_dw_mma_kernel",
+                  "gcn_dw_reduce_kernel"],
+                 ["gcn_da1_mma_kernel", "gcn_da1_reduce_kernel"]),
+    "float32": (["gcn_dw_partial_kernel", "gcn_dw_reduce_kernel"],
+                ["gcn_da1_kernel"])}
 
 
 class SmokeFailure(RuntimeError):
@@ -229,6 +238,10 @@ def phase_bwd_kernels(torch, np, gcn_fused):
                     lambda: gcn_fused.launch_gcn_bwd_da1(x, a1, w, g), 10),
                 plain_ms=cuda_time_ms(
                     lambda: gcn_fused.gcn_bwd_plain(x, a1, w, g), 3),
+                dw_plain_ms=cuda_time_ms(
+                    lambda: gcn_fused.gcn_dw_plain(x, a1, g).to(dtype), 3),
+                da1_plain_ms=cuda_time_ms(
+                    lambda: gcn_fused.gcn_da1_plain(x, w, g).to(dtype), 3),
                 dw_library_ms=cuda_time_ms(
                     lambda: library_dw(torch, x, a1, g), 3),
                 da1_library_ms=cuda_time_ms(
@@ -245,11 +258,11 @@ def phase_bwd_kernels(torch, np, gcn_fused):
                 f"{row['library_ms']:.4f} ms bound="
                 f"{max(row['flop_ms'], row['byte_ms']):.4f} ms "
                 f"({'ops' if row['flop_ms'] > row['byte_ms'] else 'bytes'})")
-            log(f"          dW  {row['dw_ms']:.4f} ms (einsums "
-                f"{row['dw_library_ms']:.4f}, bound {half[0]:.4f} {half[1]})"
-                f"; da1 {row['da1_ms']:.4f} ms (einsums "
-                f"{row['da1_library_ms']:.4f}, bound {half[0]:.4f} "
-                f"{half[1]})")
+            for p in ("dw", "da1"):
+                log(f"          {p:3s} {row[f'{p}_ms']:.4f} ms (einsums "
+                    f"{row[f'{p}_library_ms']:.4f}, plain "
+                    f"{row[f'{p}_plain_ms']:.4f}, bound {half[0]:.4f} "
+                    f"{half[1]})")
             del x, a1, w, g
         if c >= 8:
             # at C=3, p = x W has too few bits for its rounding to show
@@ -273,9 +286,11 @@ def bwd_entry(rows, launches, dname="bfloat16"):
         sum(gcn_bwd_half_work(b, r["t"], r["c"], r["co"], dname)[1]
             * r["layers"] for r in sel), dname)
     parts = {p: {"ms": tot(f"{p}_ms"), "library_ms": tot(f"{p}_library_ms"),
+                 "plain_ms": tot(f"{p}_plain_ms"),
                  "bound_ms": half[0], "bound_by": half[1],
                  "max_abs_err": max(r[f"err_{p}"] for r in rows)}
              for p in ("dw", "da1")}
+    parts["dw"]["kernels"], parts["da1"]["kernels"] = ROUTE_KERNELS[dname]
     return {"name": "gcn_bwd (dW, da1)", "route": "cuda", "source": SOURCE,
             "replaces": "agcn_tpu/ops/pallas/gcn_fused.py:72",
             "launches": launches,
@@ -292,6 +307,7 @@ def main(argv=None) -> int:
     import torch
 
     from agcn_tpu_torch.ops.kernels import build, gcn_fused
+    from agcn_tpu_torch.tools.fwd_check import spilling
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the rows as JSON")
@@ -311,6 +327,8 @@ def main(argv=None) -> int:
             log(f"  {ln.strip()}")
     log("gcn_bwd vs its plain version at the training shapes (batch 128)")
     try:
+        spills = spilling(built.log, kernel="gcn_da1_mma_kernel")
+        check(not spills, f"gcn_da1_mma_kernel spills: {spills}")
         with torch.inference_mode():
             rows = phase_bwd_kernels(torch, np, gcn_fused)
     except SmokeFailure as e:
@@ -322,13 +340,15 @@ def main(argv=None) -> int:
             f"{e['plain_ms']:.3f}, einsums {e['library_ms']:.3f}, bound "
             f"{e['bound_ms']:.3f} {e['bound_by']}); "
             + "; ".join(f"{p} {e[p]['ms']:.3f} ms (einsums "
-                        f"{e[p]['library_ms']:.3f}, bound "
+                        f"{e[p]['library_ms']:.3f}, plain "
+                        f"{e[p]['plain_ms']:.3f}, bound "
                         f"{e[p]['bound_ms']:.3f} {e[p]['bound_by']})"
                         for p in ("dw", "da1")))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": torch.cuda.get_device_name(0),
-                       "nvidia_smi": smi, "rows": rows, "per_step": entries},
+                       "nvidia_smi": smi, "ptxas": built.log, "rows": rows,
+                       "per_step": entries},
                       f, indent=1)
     log(smi)
     return 0

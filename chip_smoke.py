@@ -9,7 +9,8 @@ fails:
 
 1. environment: a CUDA GPU is required; prints its name and power limit.
 2. build: compiles every CUDA source of the port with nvcc (sm_90a), all
-   started together, and prints the build time and ptxas' report.
+   started together, and prints the build time and ptxas' report; a
+   spill in gcn_fwd_mma_kernel or gcn_da1_mma_kernel fails it.
 3. gcn_fwd against its plain version, on the card, at every AGCN layer
    shape of the served batch (16 streams x 2 persons = 32 samples), fp32
    and bf16, both aggregate-rounding modes, and as dx (gcn_fwd on g,
@@ -27,7 +28,8 @@ fails:
    plain version at every layer shape, two calls bitwise equal, and on
    bf16 integer inputs equal to the plain version while dropping either
    rounding point changes the result. Prints kernel / plain / library
-   (the einsum backward) time and the bound, dW and da1 apart. The code
+   (the einsum backward) time and the bound, dW and da1 apart (in bf16
+   da1 is gcn_da1_mma_kernel on the tensor cores). The code
    is agcn_tpu_torch/tools/bwd_check.py, which runs it alone in about a
    minute: `python -m agcn_tpu_torch.tools.bwd_check`.
 5. the attention-logits kernel against its plain version (the packed
@@ -57,7 +59,9 @@ fails:
    at batch 64 on one repeated batch, whose loss must fall, with exactly
    20 gcn_fwd and 10 gcn_bwd launches per step; ms per step, seq/s and
    peak memory of pallas, pallas_hybrid and agg_packed, and the device
-   time of one pallas step by kernel group; then the entry point
+   time of one pallas step by kernel group, in which bf16 da1 must run
+   gcn_da1_mma_kernel (the tensor cores) and not the fp32 gcn_da1_kernel;
+   then the entry point
    `python -m agcn_tpu_torch.main` in subprocesses on synthetic data in a
    temporary directory: train and evaluate one epoch at batch 64, save,
    resume for a second epoch, and `--phase test` on the last checkpoint,
@@ -620,7 +624,9 @@ KERNEL_GROUPS = (
     ("logits_", "attention logits (the port's CUDA kernel)"),
     ("gcn_dw_", "gcn_bwd (the port's CUDA kernel)"),
     ("gcn_u_kernel", "gcn_bwd (the port's CUDA kernel)"),
-    ("gcn_da1_kernel", "gcn_bwd (the port's CUDA kernel)"),
+    # gcn_da1_kernel (fp32), gcn_da1_mma_kernel and gcn_da1_reduce_kernel
+    # (bf16): before "reduce" below
+    ("gcn_da1_", "gcn_bwd (the port's CUDA kernel)"),
     ("conv", "cuDNN convolution"), ("cudnn", "cuDNN convolution"),
     # cuDNN's FFT convolution algorithms (fp32 with TF32 off)
     ("fft", "cuDNN convolution"),
@@ -944,6 +950,11 @@ def phase_train_speed(torch, np, cfg, summary, label, iters=5):
                         ours[mine[0]] = ours.get(mine[0], 0.0) + ms_ev
             device_ms = sum(groups.values())
             check(device_ms > 0, "the profiler saw no device time")
+            # bf16 da1 runs on the tensor cores, never the fp32 kernel
+            check("gcn_da1_mma_kernel" in ours
+                  and "gcn_da1_kernel" not in ours,
+                  f"{label}: da1 kernels of a bf16 pallas step: "
+                  f"{sorted(k for k in ours if 'da1' in k)}")
             log(f"      one pallas step: device {device_ms:.3f} ms; the "
                 f"port's kernels: "
                 + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(
@@ -1086,6 +1097,8 @@ def main():
                 log(f"  {ln.strip()}")
     spills = spilling(built["gcn_fwd"].log)
     check(not spills, f"gcn_fwd_mma_kernel spills: {spills}")
+    spills = spilling(built["gcn_bwd"].log, kernel="gcn_da1_mma_kernel")
+    check(not spills, f"gcn_da1_mma_kernel spills: {spills}")
     summary["build_s"] = build_s
 
     log("[3/11] gcn_fwd kernel vs plain version at the served shapes "

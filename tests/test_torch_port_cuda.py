@@ -219,9 +219,11 @@ def _cotangent(dev, b, t, co, dtype, v=25, seed=3):
     return torch.randn(b, t, v, co, device=dev, generator=g).to(dtype)
 
 
+# with a ragged last 4-frame tile (T = 37) at V = 25 and 18, and C = 3
 @pytest.mark.parametrize("t,c,co,v", [(48, 16, 32, 25), (50, 64, 64, 25),
                                       (24, 128, 128, 25), (20, 3, 64, 25),
-                                      (7, 200, 72, 25), (30, 64, 128, 18)])
+                                      (7, 200, 72, 25), (30, 64, 128, 18),
+                                      (37, 64, 96, 25), (37, 3, 64, 18)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gcn_bwd_matches_plain(cuda, t, c, co, v, dtype):
     x, a1, w = _inputs(cuda, 3, t, c, co, dtype, v=v)
@@ -241,11 +243,13 @@ def _dw_groups(b, t, c, co, dtype, v=25):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gcn_bwd_is_deterministic(cuda, dtype):
-    """The dW partials are summed in a fixed order: two calls agree bit
-    for bit (the batch spans several groups)."""
+    """The dW partials, and in bf16 the da1 partials, are summed in a
+    fixed order: two calls agree bit for bit (the batch spans several dW
+    groups, each sample several da1 frame groups)."""
     x, a1, w = _inputs(cuda, 64, 40, 64, 64, dtype)
     g = _cotangent(cuda, 64, 40, 64, dtype)
     assert _dw_groups(64, 40, 64, 64, dtype) > 1
+    assert gcn_fused.da1_groups(64, 40) > 1
     first = gcn_fused.launch_gcn_bwd(x, a1, w, g)
     second = gcn_fused.launch_gcn_bwd(x, a1, w, g)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -254,14 +258,16 @@ def test_gcn_bwd_is_deterministic(cuda, dtype):
 @pytest.mark.parametrize("b,t,c,co", [(48, 13, 192, 160), (20, 11, 20, 37)])
 def test_gcn_bwd_bf16_spans_row_groups(cuda, b, t, c, co):
     """bf16 dW over groups of 32-row chunks that cut across samples and
-    end mid-sample (T*V = 325, 275: not multiples of 32), ragged 64-channel
-    tiles of C and Co, and (second case) C and Co off the 8-wide vector
-    loads, Co odd: within the bf16 bar of the plain version, and dW and
-    da1 launched alone equal the pair."""
+    end mid-sample (T*V = 325, 275: not multiples of 32), bf16 da1 over
+    frame groups whose last 4-frame tile is ragged (T = 13, 11), ragged
+    64-channel tiles of C and Co, and (second case) C and Co off the
+    8-wide vector loads, Co odd: within the bf16 bar of the plain
+    version, and dW and da1 launched alone equal the pair."""
     x, a1, w = _inputs(cuda, b, t, c, co, torch.bfloat16)
     g = _cotangent(cuda, b, t, co, torch.bfloat16)
     groups = _dw_groups(b, t, c, co, torch.bfloat16)
     assert groups > 1 and (b * t * 25) % 32
+    assert gcn_fused.da1_groups(b, t) > 1 and t % 4
     dw, da1 = gcn_fused.launch_gcn_bwd(x, a1, w, g)
     torch.cuda.synchronize()
     want_dw, want_da1 = gcn_fused.gcn_bwd_plain(x, a1, w, g)
@@ -286,25 +292,54 @@ def _unrounded_bwd(x, a1, w, g, round_u, round_p):
             torch.stack(da1, dim=1).to(a1.dtype))
 
 
-def test_gcn_bwd_rounding_points_in_bf16(cuda):
+# (b, t, c, co, v, shows): the case of PR 2, where dropping either
+# rounding changes most outputs; then bit for bit alone at a ragged T
+# (37) with C, Co off the 64-channel chunks at V = 18, and at the C = 3
+# entry layer (sums over more terms, whose rounding errors may cancel)
+@pytest.mark.parametrize("b,t,c,co,v,shows", [(2, 8, 64, 16, 25, True),
+                                              (2, 37, 96, 72, 18, False),
+                                              (3, 37, 3, 64, 25, False)])
+def test_gcn_bwd_rounding_points_in_bf16(cuda, b, t, c, co, v, shows):
     """Integer inputs whose every sum is exact in fp32 in any order: the
     kernel equals the plain version bit for bit, and dropping the
-    rounding of u (dW) or of p (da1) changes most outputs."""
+    rounding of u (dW) or of p (da1) changes most outputs. Each sample's
+    da1 spans several frame groups."""
     rng = np.random.default_rng(3)
-    b, t, c, co = 2, 8, 64, 16
     x, a1, w, g = (torch.from_numpy(a.astype(np.float32)).to(
         cuda, torch.bfloat16) for a in (
-        rng.integers(-4, 5, (b, t, 25, c)),
-        rng.integers(-32, 33, (b, 3, 25, 25)),
+        rng.integers(-4, 5, (b, t, v, c)),
+        rng.integers(-32, 33, (b, 3, v, v)),
         rng.integers(-32, 33, (3, c, co)),
-        rng.integers(-32, 33, (b, t, 25, co))))
+        rng.integers(-32, 33, (b, t, v, co))))
+    assert gcn_fused.da1_groups(b, t) > 1
     dw, da1 = gcn_fused.launch_gcn_bwd(x, a1, w, g)
     want = gcn_fused.gcn_bwd_plain(x, a1, w, g)
     assert torch.equal(dw, want[0]) and torch.equal(da1, want[1])
-    no_u = _unrounded_bwd(x, a1, w, g, False, True)
-    no_p = _unrounded_bwd(x, a1, w, g, True, False)
-    assert (no_u[0] != dw).float().mean() > 0.2
-    assert (no_p[1] != da1).float().mean() > 0.2
+    if shows:
+        no_u = _unrounded_bwd(x, a1, w, g, False, True)
+        no_p = _unrounded_bwd(x, a1, w, g, True, False)
+        assert (no_u[0] != dw).float().mean() > 0.2
+        assert (no_p[1] != da1).float().mean() > 0.2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bf16_da1_runs_on_the_tensor_cores_kernel(cuda, dtype):
+    """bf16 da1 launches gcn_da1_mma_kernel and its ordered reduce, never
+    the CUDA-core gcn_da1_kernel; fp32 da1 launches gcn_da1_kernel alone."""
+    x, a1, w = _inputs(cuda, 2, 12, 64, 64, dtype)
+    g = _cotangent(cuda, 2, 12, 64, dtype)
+    gcn_fused.launch_gcn_bwd_da1(x, a1, w, g)  # built and warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        gcn_fused.launch_gcn_bwd_da1(x, a1, w, g)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "gcn_da1" in e.name]
+    want = ({"gcn_da1_mma_kernel", "gcn_da1_reduce_kernel"}
+            if dtype == torch.bfloat16 else {"gcn_da1_kernel"})
+    found = {k for k in ("gcn_da1_mma_kernel", "gcn_da1_reduce_kernel",
+                         "gcn_da1_kernel") if any(k in n for n in names)}
+    assert found == want, names
 
 
 _FORMS = {"pallas": gcn_fused.adaptive_gcn_pallas,
