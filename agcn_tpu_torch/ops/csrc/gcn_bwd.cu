@@ -34,42 +34,48 @@
 // bf16 the bytes halve and the ridge is 295 (989 TFLOP/s on the tensor
 // cores): bytes bound the narrow layers, operations the wide ones.
 //
-// dW in fp32 stays on the CUDA cores (the tensor cores' fp32 is TF32,
-// which would miss the fp32 bar), with u kept out of device memory as on
-// the TPU, where it stayed in VMEM:
+// dW makes two passes through device memory in both types: u is formed
+// once, then dW_k = x^T u_k is a GEMM over the rows r = (b, t, v):
 //
-//   gcn_dw_partial_kernel: one block of 128 threads per (64 output
-//     channels, 32 input channels, subset k, group of samples). For each
-//     sample of its group and each 4-frame tile it stages g, x and a1_k^T
-//     in shared memory, forms u (each thread a (t, o) column over all V
-//     joints, the a1 row read as float4 broadcasts), rounds it, and adds
-//     x^T u into a 4x4 fp32 register tile per thread. It writes one
-//     (C, Co) partial per group. The group count is chosen from the
-//     shapes so that about 264 blocks run (two waves of 132 SMs).
+//   gcn_u_kernel<T, V>: one block of 256 threads per (8 frames, sample).
+//     a1 of the sample, all three subsets, sits in shared memory; each
+//     thread holds the g column of one (frame, output-channel pair) in
+//     registers and forms its u for every (k, v): fp32 sums in the order
+//     w = 0 .. V-1, rounded to T once (the identity in fp32), into a
+//     (K, B*T*V, Co) buffer of T. Bound by bytes: it reads g once and
+//     writes 3x its size.
+//   gcn_dw_mma_kernel (bf16): x^T u_k with nvcuda::wmma bf16 16x16x16
+//     fragments and fp32 accumulators. One block of 4 warps per (64 input
+//     x 64 output channels, subset k, group of rows); each warp owns a
+//     32x32 quarter (2x2 fragments). The block walks its rows in chunks
+//     of 32: an x chunk (read as x^T, col_major) and a u chunk
+//     (row_major) staged in shared memory, rows padded by 8 bf16 against
+//     bank conflicts, the next chunk's loads held in registers while the
+//     current one is multiplied. Rows past the group's end and channels
+//     past C or Co are zeros in shared memory (C=3 is padded to 64 that
+//     way).
+//   gcn_dw_fp32_kernel<CT, TM> (fp32): x^T u_k in exact fp32 FMAs on the
+//     CUDA cores (the tensor cores' fp32 is TF32, which would miss the
+//     fp32 bar). One block of 128 threads per (CT input x 64 output
+//     channels, subset k, group of rows); CT = 64, or 8 for the C <= 8
+//     entry layer. The block walks its rows in chunks of 32 through a
+//     ring of three shared-memory slots filled by cp.async: two chunks
+//     in flight while one is multiplied, one barrier a chunk, rows
+//     padded by 4 floats, 16-byte copies where the width is a multiple
+//     of 4 and the base aligned, else 4-byte ones; rows past the group's
+//     end and channels past C or Co are zero-filled. Each thread keeps a
+//     TM x 8 fp32 register tile (8 x 8 at CT = 64, 4 x 8 at CT = 8): per
+//     row, TM/4 + 2 float4 loads from shared memory feed 8 TM FMAs. The
+//     128 threads form row slices (2 at CT = 64, 8 at CT = 8), each a
+//     fixed part of every chunk, summed in slice order at the end. The
+//     grid puts the Co tile, the C tile and k fastest and the row group
+//     slowest, so the blocks that read the same rows run together and
+//     find them in L2 after their first read.
 //
-// dW in bf16 makes two passes through device memory: u is formed once
-// (the kernel above forms it again for every 32-channel tile of C), and
-// the product runs on the tensor cores:
-//
-//   gcn_u_kernel: one block of 256 threads per (8 frames, sample). a1 of
-//     the sample, all three subsets, sits in shared memory; each thread
-//     holds the g column of one (frame, output-channel pair) in registers
-//     and forms its u for every (k, v): fp32 sums in the order
-//     w = 0 .. V-1, rounded to bf16 once, into a (K, B*T*V, Co) bf16
-//     buffer. Bound by bytes: it reads g once and writes 3x its size.
-//   gcn_dw_mma_kernel: dW_k = x^T u_k over the rows r = (b, t, v), with
-//     nvcuda::wmma bf16 16x16x16 fragments and fp32 accumulators. One
-//     block of 4 warps per (64 input x 64 output channels, subset k,
-//     group of rows); each warp owns a 32x32 quarter (2x2 fragments).
-//     The block walks its rows in chunks of 32: an x chunk (read as x^T,
-//     col_major) and a u chunk (row_major) staged in shared memory, rows
-//     padded by 8 bf16 against bank conflicts, the next chunk's loads
-//     held in registers while the current one is multiplied. Rows past
-//     the group's end and channels past C or Co are zeros in shared
-//     memory (C=3 is padded to 64 that way). A group is a range of whole
-//     32-row chunks of the B*T*V rows; the group count is chosen from the
-//     shapes so that about 1,056 blocks run (8 per SM). Each writes one
-//     fp32 (C, Co) partial.
+//   In both types a group is a range of whole 32-row chunks of the
+//   B*T*V rows; the group count is chosen from the shapes so that about
+//   1,056 blocks run (8 per SM). Each block writes one fp32 (C, Co)
+//   partial.
 //
 //   gcn_dw_reduce_kernel: dW = sum over the groups, in group order,
 //     rounded to dW's type once.
@@ -124,9 +130,10 @@
 //
 // C interface, each on the given stream of the current device, returning
 // the first CUDA error (0 on success):
-//   agcn_gcn_bwd_dw launches the dW kernels and the ordered reduce; the
-//     caller allocates the (G, K, C, Co) fp32 partials and, in bf16, the
-//     (K, B*T*V, Co) bf16 buffer of u.
+//   agcn_gcn_bwd_dw launches the dW kernels (gcn_u_kernel, then
+//     gcn_dw_fp32_kernel or in bf16 gcn_dw_mma_kernel) and the ordered
+//     reduce; the caller allocates the (G, K, C, Co) fp32 partials and
+//     the (K, B*T*V, Co) buffer of u in x's type.
 //   agcn_gcn_bwd_da1 launches gcn_da1_kernel (fp32), or in bf16
 //     gcn_da1_mma_kernel and its ordered reduce into the caller's
 //     (B, K, G, V, V) fp32 partials.
@@ -159,144 +166,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 
 // ---------------------------------------------------------------- dW ----
 
-constexpr int DW_CT = 32;        // input channels per block
-constexpr int DW_OT = 64;        // output channels per block
-constexpr int DW_OG = DW_OT / 4; // 16 groups of 4 output channels
-// 128 threads = 16 output-channel groups x 8 input-channel groups of 4
-static_assert(DW_OG * (DW_CT / 4) == THREADS, "dW thread tiling");
-
-template <int V>
-struct DwLayout {
-  static constexpr int VP = (V + 3) / 4 * 4;  // a1 row, float4-padded
-  static constexpr int ROWS = TT * V;         // (t, v) rows of a tile
-  static constexpr int AT = V * VP;           // at_s[w][VP] = a1[b,k,:,w]
-  static constexpr int G = ROWS * DW_OT;      // g_s[t*V + w][DW_OT]
-  static constexpr int U = ROWS * DW_OT;      // u_s[t*V + v][DW_OT]
-  static constexpr int X = ROWS * DW_CT;      // x_s[t*V + v][DW_CT]
-  static constexpr size_t BYTES = sizeof(float) * (AT + G + U + X);
-};
-
-template <typename T, int V>
-__global__ void __launch_bounds__(THREADS)
-gcn_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ a1,
-                      const T* __restrict__ g, float* __restrict__ part,
-                      int B, int Tn, int C, int Co, int groups) {
-  using L = DwLayout<V>;
-  extern __shared__ __align__(16) float smem[];
-  float* at_s = smem;
-  float* g_s = at_s + L::AT;
-  float* u_s = g_s + L::G;
-  float* x_s = u_s + L::U;
-
-  const int o0 = blockIdx.x * DW_OT;
-  const int c0 = blockIdx.y * DW_CT;
-  const int k = blockIdx.z % K;
-  const int grp = blockIdx.z / K;
-  const int tid = threadIdx.x;
-  const int og = tid % DW_OG;   // output channels o0 + 4*og .. +3
-  const int cq = tid / DW_OG;   // input channels c0 + 4*cq .. +3
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
-
-  for (int b = grp; b < B; b += groups) {
-    __syncthreads();  // the previous sample's last tile has read at_s
-    const T* a_bk = a1 + ((size_t)b * K + k) * V * V;
-    for (int i = tid; i < L::AT; i += THREADS) {
-      const int v = i % L::VP;
-      const int w = i / L::VP;
-      at_s[i] = v < V ? to_f(a_bk[v * V + w]) : 0.f;
-    }
-    const T* g_b = g + (size_t)b * Tn * V * Co;
-    const T* x_b = x + (size_t)b * Tn * V * C;
-    for (int t0 = 0; t0 < Tn; t0 += TT) {
-      __syncthreads();  // the previous tile's dW step has read u_s, x_s
-      for (int i = tid; i < L::G; i += THREADS) {
-        const int o = i % DW_OT;
-        const int tw = i / DW_OT;
-        const int t = t0 + tw / V;
-        float val = 0.f;
-        if (t < Tn && o0 + o < Co) {
-          val = to_f(g_b[((size_t)t * V + tw % V) * Co + o0 + o]);
-        }
-        g_s[i] = val;
-      }
-      for (int i = tid; i < L::X; i += THREADS) {
-        const int c = i % DW_CT;
-        const int tv = i / DW_CT;
-        const int t = t0 + tv / V;
-        float val = 0.f;
-        if (t < Tn && c0 + c < C) {
-          val = to_f(x_b[((size_t)t * V + tv % V) * C + c0 + c]);
-        }
-        x_s[i] = val;
-      }
-      __syncthreads();
-
-      // u[t][v][o] = sum_w g[t][w][o] * a1[v][w], rounded to g's type
-      for (int item = tid; item < TT * DW_OT; item += THREADS) {
-        const int o = item % DW_OT;
-        const int t = item / DW_OT;
-        float s[L::VP];
-#pragma unroll
-        for (int j = 0; j < L::VP; ++j) s[j] = 0.f;
-#pragma unroll
-        for (int w = 0; w < V; ++w) {
-          const float gv = g_s[(t * V + w) * DW_OT + o];
-          const float4* arow =
-              reinterpret_cast<const float4*>(at_s + w * L::VP);
-#pragma unroll
-          for (int q = 0; q < L::VP / 4; ++q) {
-            const float4 a4 = arow[q];
-            s[4 * q + 0] += gv * a4.x;
-            s[4 * q + 1] += gv * a4.y;
-            s[4 * q + 2] += gv * a4.z;
-            s[4 * q + 3] += gv * a4.w;
-          }
-        }
-        float* dst = u_s + t * V * DW_OT + o;
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          dst[v * DW_OT] = to_f(from_f<T>(s[v]));
-        }
-      }
-      __syncthreads();
-
-      // dW partial: acc[c][o] += sum_{t,v} x[t][v][c] * u[t][v][o]
-#pragma unroll 4
-      for (int r = 0; r < L::ROWS; ++r) {
-        const float4 xv =
-            *reinterpret_cast<const float4*>(x_s + r * DW_CT + cq * 4);
-        const float4 uv =
-            *reinterpret_cast<const float4*>(u_s + r * DW_OT + og * 4);
-        const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][0] += xa[i] * uv.x;
-          acc[i][1] += xa[i] * uv.y;
-          acc[i][2] += xa[i] * uv.z;
-          acc[i][3] += xa[i] * uv.w;
-        }
-      }
-    }
-  }
-
-  float* dst = part + ((size_t)grp * K + k) * C * Co;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + cq * 4 + i;
-    if (c >= C) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + og * 4 + j;
-      if (o < Co) dst[(size_t)c * Co + o] = acc[i][j];
-    }
-  }
-}
-
 // dW[i] = sum over the groups of the partials, in group order
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -309,26 +178,38 @@ gcn_dw_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
   dw[i] = from_f<T>(s);
 }
 
-// ------------------------------------------- dW in bf16: u, then MMA ----
-
 constexpr int U_THREADS = 256;
 constexpr int U_FRAMES = 8;      // frames per block
 
-// u[k, (b,t,v), o] = sum_w g[b,t,w,o] * a1[b,k,v,w], rounded to bf16.
-// g_pairs: Co is even and g 4-byte aligned, so an output-channel pair
-// loads and stores as one __nv_bfloat162.
-template <int V>
+// two consecutive values as one 2-vector, in fp32
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// u[k, (b,t,v), o] = sum_w g[b,t,w,o] * a1[b,k,v,w], rounded to T (the
+// identity in fp32). g_pairs: Co is even and g aligned to two elements,
+// so an output-channel pair loads and stores as one 2-vector
+// (__nv_bfloat162 or float2).
+template <typename T, int V>
 __global__ void __launch_bounds__(U_THREADS)
-gcn_u_kernel(const __nv_bfloat16* __restrict__ a1,
-             const __nv_bfloat16* __restrict__ g,
-             __nv_bfloat16* __restrict__ u, int B, int Tn, int Co,
-             bool g_pairs) {
+gcn_u_kernel(const T* __restrict__ a1, const T* __restrict__ g,
+             T* __restrict__ u, int B, int Tn, int Co, bool g_pairs) {
   constexpr int VP = (V + 3) / 4 * 4;          // a1 row, float4-padded
   __shared__ __align__(16) float a_s[K * V * VP];  // a_s[k][v][w]
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * U_FRAMES;
   const int tid = threadIdx.x;
-  const __nv_bfloat16* a_b = a1 + (size_t)b * K * V * V;
+  const T* a_b = a1 + (size_t)b * K * V * V;
   for (int i = tid; i < K * V * VP; i += U_THREADS) {
     const int w = i % VP;
     a_s[i] = w < V ? to_f(a_b[(i / VP) * V + w]) : 0.f;
@@ -347,10 +228,9 @@ gcn_u_kernel(const __nv_bfloat16* __restrict__ a1,
     for (int w = 0; w < VP; ++w) {
       float2 f = make_float2(0.f, 0.f);
       if (w < V) {
-        const __nv_bfloat16* src = g + base + (size_t)w * Co;
+        const T* src = g + base + (size_t)w * Co;
         if (g_pairs) {
-          f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(src));
+          f = load_pair(src);
         } else {
           f.x = to_f(src[0]);
           if (two) f.y = to_f(src[1]);
@@ -359,7 +239,7 @@ gcn_u_kernel(const __nv_bfloat16* __restrict__ a1,
       gv[w] = f;
     }
     for (int k = 0; k < K; ++k) {
-      __nv_bfloat16* dst = u + k * slab + base;
+      T* dst = u + k * slab + base;
 #pragma unroll 1
       for (int v = 0; v < V; ++v) {
         const float4* arow =
@@ -377,18 +257,247 @@ gcn_u_kernel(const __nv_bfloat16* __restrict__ a1,
           s0 += gv[4 * q + 3].x * a4.w;
           s1 += gv[4 * q + 3].y * a4.w;
         }
-        __nv_bfloat16* d = dst + (size_t)v * Co;
+        T* d = dst + (size_t)v * Co;
         if (g_pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(d) =
-              __floats2bfloat162_rn(s0, s1);
+          store_pair(d, s0, s1);
         } else {
-          d[0] = __float2bfloat16_rn(s0);
-          if (two) d[1] = __float2bfloat16_rn(s1);
+          d[0] = from_f<T>(s0);
+          if (two) d[1] = from_f<T>(s1);
         }
       }
     }
   }
 }
+
+// cp.async of 16 (or 4) bytes from src to shared memory at dst; with !ok
+// nothing is read (source size 0: src may be any valid address) and dst
+// is zero-filled. Wait for them with cp_async_wait_group / _all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned int s =
+      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned int s =
+      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// all but the newest N committed groups of this thread have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+constexpr int F_THREADS = 128;
+constexpr int F_OT = 64;         // output channels per block
+constexpr int F_RK = 32;         // (b, t, v) rows per chunk
+constexpr int F_STAGES = 3;      // ring slots: two chunks in flight
+constexpr int F_LDU = F_OT + 4;  // float row stride of a staged u chunk
+constexpr int F_NARROW_C = 8;    // C up to this takes the CT = 8 tile
+
+// The tiling of gcn_dw_fp32_kernel<CT, TM>, in floats: a thread owns TM
+// input channels (TM / 4 quads, CT / (TM / 4) apart) x 8 output channels
+// (two quads, 32 apart), 8 threads across the 64 output channels.
+template <int CT, int TM>
+struct Dw32Layout {
+  static constexpr int CY = CT / TM;            // threads across the C tile
+  static constexpr int SLICE = 8 * CY;          // threads of a row slice
+  static constexpr int RS = F_THREADS / SLICE;  // row slices
+  static constexpr int ROWS = F_RK / RS;        // rows of a chunk a slice
+  static constexpr int CQ = TM / 4;             // c quads of a thread
+  static constexpr int LDX = CT + 4;            // row stride of an x chunk
+  static constexpr int X = F_RK * LDX;          // x_s[F_RK][LDX]
+  static constexpr int STAGE = X + F_RK * F_LDU;  // then u_s[F_RK][F_LDU]
+  static constexpr int RED = (RS - 1) * CT * F_LDU;  // slices 1.., at the end
+  static constexpr int FLOATS =
+      F_STAGES * STAGE > RED ? F_STAGES * STAGE : RED;
+  static constexpr int BYTES = FLOATS * 4;
+  static_assert(TM % 4 == 0 && CT % TM == 0 && F_THREADS % SLICE == 0 &&
+                    F_RK % RS == 0 && CT % 4 == 0,
+                "dW fp32 tiling");
+};
+
+// Rows [r0, r0 + F_RK) of the row-major (rows, n) matrix m, columns
+// [col0, col0 + W), into dst (row stride LD) by cp.async: zeros for rows
+// at or past r_end and columns past n. `vec`: n % 4 == 0 and m 16-byte
+// aligned (col0 is a multiple of 4), so four columns copy as 16 bytes.
+template <int W, int LD>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ m,
+                                           size_t r0, size_t r_end, int col0,
+                                           int n, bool vec, int tid) {
+  constexpr int NV = F_RK * W / 4;  // 16-byte copies of a chunk
+  constexpr int NS = F_RK * W;      // or 4-byte ones
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < (NV + F_THREADS - 1) / F_THREADS; ++j) {
+      const int i = tid + j * F_THREADS;
+      if (NV % F_THREADS != 0 && i >= NV) break;
+      const int r = i / (W / 4);
+      const int c = (i % (W / 4)) * 4;
+      const bool ok = r0 + r < r_end && col0 + c < n;
+      cp_async16(dst + r * LD + c, ok ? m + (r0 + r) * n + col0 + c : m, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < (NS + F_THREADS - 1) / F_THREADS; ++j) {
+      const int i = tid + j * F_THREADS;
+      if (NS % F_THREADS != 0 && i >= NS) break;
+      const int r = i / W;
+      const int c = i % W;
+      const bool ok = r0 + r < r_end && col0 + c < n;
+      cp_async4(dst + r * LD + c, ok ? m + (r0 + r) * n + col0 + c : m, ok);
+    }
+  }
+}
+
+// part[grp, k, c, o] = sum over the group's rows r of x[r, c] * u_k[r, o],
+// exact fp32 FMAs. Four blocks an SM (52,224 bytes of shared memory each
+// at CT = 64): the bound caps the registers at 128.
+template <int CT, int TM>
+__global__ void __launch_bounds__(F_THREADS, 4)
+gcn_dw_fp32_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                   float* __restrict__ part, int rows, int C, int Co,
+                   int groups, bool x_vec, bool o_vec) {
+  using L = Dw32Layout<CT, TM>;
+  extern __shared__ __align__(16) float smem_dw[];
+
+  const int o0 = blockIdx.x * F_OT;
+  const int c0 = blockIdx.y * CT;
+  const int k = blockIdx.z % K;
+  const int grp = blockIdx.z / K;
+  const int tid = threadIdx.x;
+  const int slice = tid / L::SLICE;
+  const int ty = (tid % L::SLICE) / 8;  // c quads at q * CT / CQ + 4 ty
+  const int tx = tid % 8;               // o quads at h * 32 + 4 tx
+
+  // the group's rows: whole chunks [chunks*grp/groups, chunks*(grp+1)/groups)
+  const long long chunks = ((long long)rows + F_RK - 1) / F_RK;
+  const size_t r_begin = (size_t)(chunks * grp / groups) * F_RK;
+  const size_t r_last = (size_t)(chunks * (grp + 1) / groups) * F_RK;
+  const size_t r_end = r_last < (size_t)rows ? r_last : (size_t)rows;
+  const int n = (int)((r_end - r_begin + F_RK - 1) / F_RK);
+  const float* u_k = u + (size_t)k * rows * Co;
+
+  auto stage = [&](int i) {
+    float* slot = smem_dw + (i % F_STAGES) * L::STAGE;
+    const size_t r0 = r_begin + (size_t)i * F_RK;
+    stage_rows<CT, L::LDX>(slot, x, r0, r_end, c0, C, x_vec, tid);
+    stage_rows<F_OT, F_LDU>(slot + L::X, u_k, r0, r_end, o0, Co, o_vec, tid);
+  };
+
+  float acc[TM][8];
+#pragma unroll
+  for (int a = 0; a < TM; ++a) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[a][j] = 0.f;
+  }
+
+  stage(0);
+  cp_async_commit();
+  if (n > 1) stage(1);
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait_group<1>();  // this thread's copies of chunk i are in
+    __syncthreads();           // everyone's; and chunk i - 1 is multiplied
+    if (i + 2 < n) stage(i + 2);  // into chunk i - 1's slot
+    cp_async_commit();            // (an empty group past the end)
+    const float* slot = smem_dw + (i % F_STAGES) * L::STAGE;
+    const float* xs = slot + slice * L::ROWS * L::LDX + 4 * ty;
+    const float* us = slot + L::X + slice * L::ROWS * F_LDU + 4 * tx;
+#pragma unroll
+    for (int r = 0; r < L::ROWS; ++r) {  // the slice's rows, in order
+      float xv[TM], uv[8];
+#pragma unroll
+      for (int q = 0; q < L::CQ; ++q) {
+        const float4 a4 = *reinterpret_cast<const float4*>(
+            xs + r * L::LDX + q * (CT / L::CQ));
+        xv[4 * q + 0] = a4.x;
+        xv[4 * q + 1] = a4.y;
+        xv[4 * q + 2] = a4.z;
+        xv[4 * q + 3] = a4.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(us + r * F_LDU + 32 * h);
+        uv[4 * h + 0] = b4.x;
+        uv[4 * h + 1] = b4.y;
+        uv[4 * h + 2] = b4.z;
+        uv[4 * h + 3] = b4.w;
+      }
+#pragma unroll
+      for (int a = 0; a < TM; ++a) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[a][j] = fmaf(xv[a], uv[j], acc[a][j]);
+      }
+    }
+  }
+
+  cp_async_wait_all();
+  __syncthreads();  // every slice is done with the ring: red_s takes it
+  float* red_s = smem_dw;  // [slice - 1][CT][F_LDU]
+  // the tile row of acc[a]: c = q * CT / CQ + 4 ty + i for a = 4 q + i
+  auto c_of = [&](int a) { return (a / 4) * (CT / L::CQ) + 4 * ty + a % 4; };
+  if (slice > 0) {
+    float* mine = red_s + (slice - 1) * CT * F_LDU;
+#pragma unroll
+    for (int a = 0; a < TM; ++a) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float4*>(mine + c_of(a) * F_LDU + 32 * h + 4 * tx) =
+            make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2],
+                        acc[a][4 * h + 3]);
+      }
+    }
+  }
+  __syncthreads();
+  if (slice > 0) return;
+  float* dst = part + ((size_t)grp * K + k) * C * Co;
+#pragma unroll
+  for (int a = 0; a < TM; ++a) {
+    const int c = c0 + c_of(a);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] = acc[a][4 * h + j];
+      for (int q = 1; q < L::RS; ++q) {  // the slices, in order
+        const float4 p4 = *reinterpret_cast<const float4*>(
+            red_s + ((q - 1) * CT + c_of(a)) * F_LDU + 32 * h + 4 * tx);
+        s[0] += p4.x;
+        s[1] += p4.y;
+        s[2] += p4.z;
+        s[3] += p4.w;
+      }
+      const int o = o0 + 32 * h + 4 * tx;
+      if (c >= C || o >= Co) continue;
+      float* d = dst + (size_t)c * Co + o;
+      if (o_vec) {  // Co % 4 == 0: the whole quad lies inside
+        *reinterpret_cast<float4*>(d) = make_float4(s[0], s[1], s[2], s[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (o + j < Co) d[j] = s[j];
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------- dW in bf16: MMA ----
 
 namespace wmma = nvcuda::wmma;
 
@@ -761,10 +870,6 @@ __device__ __forceinline__ void stage8(__nv_bfloat16* dst,
   }
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // part[b, k, grp, v, w] = sum over the group's frames t and all o of
 // bf16(x[b,t,v,:] . W_k[:,o]) * g[b,t,w,o]. Two blocks an SM (~71 KB of
 // shared memory each at CC = 64): the bound caps the registers at 128.
@@ -984,29 +1089,47 @@ cudaError_t launch_reduce(const float* part, void* dw, int C, int Co,
   return cudaGetLastError();
 }
 
-template <int V>
-cudaError_t launch_dw_fp32(const void* x, const void* a1, const void* g,
-                           void* dw, void* part, int B, int Tn, int C,
-                           int Co, int groups, cudaStream_t stream) {
-  auto dw_kern = gcn_dw_partial_kernel<float, V>;
-  const size_t dw_bytes = DwLayout<V>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      dw_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dw_bytes);
-  if (err != cudaSuccess) return err;
-  dim3 dw_grid((Co + DW_OT - 1) / DW_OT, (C + DW_CT - 1) / DW_CT,
-               K * groups);
-  dw_kern<<<dw_grid, THREADS, dw_bytes, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(a1),
-      static_cast<const float*>(g), static_cast<float*>(part), B, Tn, C, Co,
-      groups);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_reduce<float>(static_cast<const float*>(part), dw, C, Co,
-                              groups, stream);
-}
-
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<std::uintptr_t>(p) % bytes == 0;
+}
+
+template <int CT, int TM>
+cudaError_t launch_dw_gemm_fp32(const float* x, const float* u, float* part,
+                                int rows, int C, int Co, int groups,
+                                cudaStream_t stream) {
+  auto kern = gcn_dw_fp32_kernel<CT, TM>;
+  const int bytes = Dw32Layout<CT, TM>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Co + F_OT - 1) / F_OT, (C + CT - 1) / CT, K * groups);
+  kern<<<grid, F_THREADS, bytes, stream>>>(
+      x, u, part, rows, C, Co, groups, C % 4 == 0 && aligned(x, 16),
+      Co % 4 == 0 && aligned(u, 16) && aligned(part, 16));
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_dw_fp32(const void* x, const void* a1, const void* g,
+                           void* dw, void* part, void* u, int B, int Tn,
+                           int C, int Co, int groups, cudaStream_t stream) {
+  gcn_u_kernel<float, V><<<dim3((Tn + U_FRAMES - 1) / U_FRAMES, B),
+                           U_THREADS, 0, stream>>>(
+      static_cast<const float*>(a1), static_cast<const float*>(g),
+      static_cast<float*>(u), B, Tn, Co, Co % 2 == 0 && aligned(g, 8));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float* xf = static_cast<const float*>(x);
+  const float* uf = static_cast<const float*>(u);
+  float* pf = static_cast<float*>(part);
+  // the C <= 8 entry layer takes an 8-channel C tile instead of 64
+  err = C <= F_NARROW_C
+            ? launch_dw_gemm_fp32<F_NARROW_C, 4>(xf, uf, pf, B * Tn * V, C,
+                                                 Co, groups, stream)
+            : launch_dw_gemm_fp32<64, 8>(xf, uf, pf, B * Tn * V, C, Co,
+                                         groups, stream);
+  if (err != cudaSuccess) return err;
+  return launch_reduce<float>(pf, dw, C, Co, groups, stream);
 }
 
 template <int V>
@@ -1014,8 +1137,8 @@ cudaError_t launch_dw_bf16(const void* x, const void* a1, const void* g,
                            void* dw, void* part, void* u, int B, int Tn,
                            int C, int Co, int groups, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  gcn_u_kernel<V><<<dim3((Tn + U_FRAMES - 1) / U_FRAMES, B), U_THREADS, 0,
-                    stream>>>(
+  gcn_u_kernel<bf16, V><<<dim3((Tn + U_FRAMES - 1) / U_FRAMES, B),
+                          U_THREADS, 0, stream>>>(
       static_cast<const bf16*>(a1), static_cast<const bf16*>(g),
       static_cast<bf16*>(u), B, Tn, Co, Co % 2 == 0 && aligned(g, 4));
   cudaError_t err = cudaGetLastError();
@@ -1085,29 +1208,30 @@ cudaError_t launch_da1_bf16(const void* x, const void* w, const void* g,
 
 }  // namespace
 
-// the dW kernels: in fp32 `groups` splits the samples (at most B), in bf16
-// the 32-row chunks of the B*T*V rows (at most their count); `u` is the
-// bf16 path's (K, B*T*V, Co) buffer and unused in fp32
+// the dW kernels: `groups` splits the 32-row chunks of the B*T*V rows (at
+// most their count); `u` is the (K, B*T*V, Co) buffer of u in x's type
 extern "C" int agcn_gcn_bwd_dw(const void* x, const void* a1, const void* g,
                                void* dw, void* part, void* u, int B, int Tn,
                                int V, int C, int Co, int groups, int bf16,
                                void* stream) {
   // launches on the caller's current device, which owns `stream`
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long most =
-      bf16 ? ((long long)B * Tn * V + MM_RK - 1) / MM_RK : B;
-  if (groups < 1 || groups > most) return (int)cudaErrorInvalidValue;
+  const long long most = ((long long)B * Tn * V + MM_RK - 1) / MM_RK;
+  static_assert(MM_RK == F_RK, "both dW kernels take 32-row chunks");
+  if (groups < 1 || groups > most || (long long)K * groups > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
   switch (V) {  // the joint counts of the AGCN skeletons (NTU, Kinetics)
     case 25:
       return (int)(bf16 ? launch_dw_bf16<25>(x, a1, g, dw, part, u, B, Tn,
                                               C, Co, groups, s)
-                        : launch_dw_fp32<25>(x, a1, g, dw, part, B, Tn, C,
-                                             Co, groups, s));
+                        : launch_dw_fp32<25>(x, a1, g, dw, part, u, B, Tn,
+                                             C, Co, groups, s));
     case 18:
       return (int)(bf16 ? launch_dw_bf16<18>(x, a1, g, dw, part, u, B, Tn,
                                               C, Co, groups, s)
-                        : launch_dw_fp32<18>(x, a1, g, dw, part, B, Tn, C,
-                                             Co, groups, s));
+                        : launch_dw_fp32<18>(x, a1, g, dw, part, u, B, Tn,
+                                             C, Co, groups, s));
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -25,9 +25,11 @@ Backward of `adaptive_gcn_pallas` (the JAX `_vjp_bwd`, gcn_fused.py:222):
   dW, da1 = `csrc/gcn_bwd.cu` (`gcn_backward`): dW_k = sum x * u_k with
             u_k = g a1_k^T rounded to g's type, da1_k = sum p_k g with
             p_k = x W_k rounded to x's type; fp32 sums cast to W's and
-            a1's types. In bf16, u is formed once into device memory and
-            x^T u runs on the tensor cores (nvcuda::wmma), and da1 too:
-            p = x W_k, rounded, then p g^T per frame. Each block
+            a1's types. u is formed once into device memory, then x^T u
+            runs on the tensor cores (nvcuda::wmma) in bf16 and as a
+            register-tiled GEMM on the CUDA cores in fp32; bf16 da1 runs
+            on the tensor cores too: p = x W_k, rounded, then p g^T per
+            frame. Each block
             reduces over its rows itself and the dW and da1 partials of
             its groups are summed in a fixed order, so the result is
             deterministic (the TPU kernel's ordered-grid `+=` has no GPU
@@ -46,7 +48,7 @@ CPU tensors; for CUDA tensors it launches the kernel or raises.
 
 Launch counts: `adaptive_gcn_pallas.launches` counts the gcn_fwd
 launches with round_agg (forwards of both pallas forms and the dx of
-`pallas`), `gcn_backward.launches` the gcn_bwd calls (three kernels
+`pallas`), `gcn_backward.launches` the gcn_bwd calls (four kernels
 each in fp32, five in bf16).
 """
 
@@ -62,13 +64,14 @@ from agcn_tpu_torch.ops.kernels import build
 
 K = 3  # subset count is structural in this architecture (reference A/B/C)
 SUPPORTED_JOINTS = (18, 25)  # V of the AGCN skeletons (Kinetics, NTU)
-# gcn_bwd's fp32 dW kernel: blocks of (64 output x 32 input channels, one
-# subset, one group of samples); the group count is chosen so that about
-# this many blocks run (two waves on 132 SMs)
-_DW_TILE_O, _DW_TILE_C, _DW_TARGET_BLOCKS = 64, 32, 264
-# its bf16 tensor-core kernel: blocks of (64 x 64 channels, one subset, one
-# group of 32-row chunks), about this many (8 per SM)
+# gcn_bwd's bf16 dW tensor-core kernel: blocks of (64 x 64 channels, one
+# subset, one group of 32-row chunks), about this many (8 per SM)
 _MMA_TILE, _MMA_ROWS, _MMA_TARGET_BLOCKS = 64, 32, 1056
+# its fp32 CUDA-core GEMM: blocks of (64 output x 64 input channels, or 8
+# input channels for C <= 8, one subset, one group of 32-row chunks),
+# about this many (8 per SM: two waves of four)
+_DW32_TILE_O, _DW32_TILE_C, _DW32_NARROW_C = 64, 64, 8
+_DW32_ROWS, _DW32_TARGET_BLOCKS = 32, 1056
 # gcn_bwd's bf16 da1 kernel: blocks of (one group of 4-frame tiles, one
 # subset, one sample), at least this many (8 waves of two blocks an SM)
 _DA1_TILE, _DA1_TARGET_BLOCKS = 4, 2112
@@ -189,14 +192,6 @@ def launch_gcn_fwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     return y
 
 
-def dw_groups(b: int, c: int, co: int) -> int:
-    """Sample groups of gcn_bwd's fp32 dW kernel (one fp32 (K, C, Co)
-    partial each): enough blocks to fill the card, fixed by the shapes
-    alone."""
-    tiles = math.ceil(co / _DW_TILE_O) * math.ceil(c / _DW_TILE_C) * K
-    return max(1, min(b, math.ceil(_DW_TARGET_BLOCKS / tiles)))
-
-
 def dw_mma_groups(rows: int, c: int, co: int) -> int:
     """Row groups of gcn_bwd's bf16 dW kernel: ranges of whole 32-row
     chunks of the B*T*V rows, one fp32 (K, C, Co) partial each, fixed by
@@ -204,6 +199,17 @@ def dw_mma_groups(rows: int, c: int, co: int) -> int:
     tiles = math.ceil(co / _MMA_TILE) * math.ceil(c / _MMA_TILE) * K
     return max(1, min(math.ceil(rows / _MMA_ROWS),
                       math.ceil(_MMA_TARGET_BLOCKS / tiles)))
+
+
+def dw_fp32_groups(rows: int, c: int, co: int) -> int:
+    """Row groups of gcn_bwd's fp32 dW GEMM (`gcn_dw_fp32_kernel`):
+    ranges of whole 32-row chunks of the B*T*V rows, one fp32 (K, C, Co)
+    partial each, fixed by the shapes alone. C <= 8 takes the 8-channel
+    C tile."""
+    tile_c = _DW32_NARROW_C if c <= _DW32_NARROW_C else _DW32_TILE_C
+    tiles = math.ceil(co / _DW32_TILE_O) * math.ceil(c / tile_c) * K
+    return max(1, min(math.ceil(rows / _DW32_ROWS),
+                      math.ceil(_DW32_TARGET_BLOCKS / tiles)))
 
 
 def da1_groups(b: int, t: int) -> int:
@@ -231,8 +237,10 @@ def _raise_on(err: int, what: str) -> None:
 def launch_gcn_bwd_dw(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
                       g: torch.Tensor) -> torch.Tensor:
     """dW of `csrc/gcn_bwd.cu` on the current stream (CUDA tensors), in
-    w's dtype: fp32 on the CUDA cores; bf16 as u = g a1^T, formed once
-    into a (K, B*T*V, Co) bf16 buffer, then x^T u on the tensor cores."""
+    w's dtype: u = g a1^T formed once into a (K, B*T*V, Co) buffer of x's
+    dtype, then x^T u on the tensor cores (bf16) or as a register-tiled
+    GEMM on the CUDA cores (fp32), one fp32 partial per row group summed
+    in group order."""
     _check_bwd(x, a1, w, g)
     b, t, v, c = x.shape
     co = w.shape[-1]
@@ -240,11 +248,8 @@ def launch_gcn_bwd_dw(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     if x.numel() == 0 or g.numel() == 0:
         return dw.zero_()
     bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        groups = dw_mma_groups(b * t * v, c, co)
-        u = torch.empty((K, b * t * v, co), dtype=x.dtype, device=x.device)
-    else:
-        groups, u = dw_groups(b, c, co), None
+    groups = (dw_mma_groups if bf16 else dw_fp32_groups)(b * t * v, c, co)
+    u = torch.empty((K, b * t * v, co), dtype=x.dtype, device=x.device)
     partial = torch.empty((groups, K, c, co), dtype=torch.float32,
                           device=x.device)
     fn = _bind("gcn_bwd", "agcn_gcn_bwd_dw", 6, 7)
@@ -253,7 +258,7 @@ def launch_gcn_bwd_dw(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device)
         err = fn(x.data_ptr(), a1.data_ptr(), g.data_ptr(), dw.data_ptr(),
-                 partial.data_ptr(), None if u is None else u.data_ptr(),
+                 partial.data_ptr(), u.data_ptr(),
                  b, t, v, c, co, groups, int(bf16), stream.cuda_stream)
     _raise_on(err, "gcn_bwd dW")
     return dw

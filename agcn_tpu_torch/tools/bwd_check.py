@@ -9,10 +9,13 @@ gcn_bwd against its plain version (`gcn_bwd_plain`) and two calls against
 each other (bitwise), times dW and da1 apart, each beside its library
 yardstick (the einsums of `ops.gcn.adaptive_gcn_bwd`) and its bound, and
 on bf16 integer inputs holds the kernel bit for bit against the plain
-version while dropping the rounding of u or of p changes the result.
-It fails if ptxas reports a spill in `gcn_da1_mma_kernel` (bf16 da1 on
-the tensor cores). Last it prints the per-step sums (ten layers), dW and
-da1 each as kernel / einsums / plain / bound. `chip_smoke.py` phase 4
+version while dropping the rounding of u or of p changes the result; on
+fp32 integer inputs whose dW sums are exact in any order (the batch cut
+where needed) it holds fp32 dW bit for bit. It fails if ptxas reports a
+spill in `gcn_da1_mma_kernel` (bf16 da1 on the tensor cores),
+`gcn_dw_fp32_kernel` (the fp32 dW GEMM) or `gcn_u_kernel` (u, both
+types). Last it prints the per-step sums (ten layers), dW and da1 each as
+kernel / einsums / plain / bound. `chip_smoke.py` phase 4
 runs the same functions; the dx calls (gcn_fwd on g, a1^T, W^T) are
 `fwd_check.py`'s.
 
@@ -54,8 +57,11 @@ ROUTE_KERNELS = {
     "bfloat16": (["gcn_u_kernel", "gcn_dw_mma_kernel",
                   "gcn_dw_reduce_kernel"],
                  ["gcn_da1_mma_kernel", "gcn_da1_reduce_kernel"]),
-    "float32": (["gcn_dw_partial_kernel", "gcn_dw_reduce_kernel"],
+    "float32": (["gcn_u_kernel", "gcn_dw_fp32_kernel",
+                 "gcn_dw_reduce_kernel"],
                 ["gcn_da1_kernel"])}
+# the kernels of the source whose ptxas spills fail the card checks
+SPILL_CHECKED = ("gcn_da1_mma_kernel", "gcn_dw_fp32_kernel", "gcn_u_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -165,6 +171,43 @@ def library_da1(torch, x, w, g):
     return torch.einsum("btvko,btwo->bkvw", p, g)
 
 
+def bwd_spills(ptxas_log):
+    """The spills that ptxas reports in the kernels of SPILL_CHECKED,
+    each as (mangled name, store bytes, load bytes)."""
+    from agcn_tpu_torch.tools.fwd_check import spilling
+
+    return [s for k in SPILL_CHECKED for s in spilling(ptxas_log, kernel=k)]
+
+
+def exact_dw_batch(t, v=25, batch=TRAIN_BATCH * PERSONS):
+    """The batch (at most `batch`) of check_dw_fp32_exact at T frames:
+    x and g in [-2, 2], a1 in [-1, 1] bound each term |x u| by 2 * 2V,
+    so B*T*V of them sum below 2^24."""
+    return min(batch, (2 ** 24 - 1) // (t * v * 2 * 2 * v))
+
+
+def check_dw_fp32_exact(torch, np, gcn_fused, t, c, co):
+    """fp32 integer inputs whose every dW sum is exact in fp32 in any
+    order (sum |x| |u| < 2^24, checked): gcn_bwd's fp32 dW must equal its
+    plain version bit for bit. Returns the batch."""
+    b = exact_dw_batch(t)
+    rng = np.random.default_rng(SEED + 11)
+    x, a1, g = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+        rng.integers(-2, 3, (b, t, 25, c)),
+        rng.integers(-1, 2, (b, 3, 25, 25)),
+        rng.integers(-2, 3, (b, t, 25, co))))
+    w = torch.zeros(3, c, co, device="cuda")
+    terms = gcn_fused.gcn_dw_plain(x.abs(), a1.abs(), g.abs())
+    check(terms.max().item() < 2 ** 24,
+          f"fp32 dW T={t} C={c} Co={co}: sum |terms| {terms.max().item()} "
+          f"reaches 2^24")
+    dw = gcn_fused.launch_gcn_bwd_dw(x, a1, w, g)
+    check(torch.equal(dw, gcn_fused.gcn_dw_plain(x, a1, g)),
+          f"fp32 dW T={t} C={c} Co={co} batch {b}: integer inputs differ "
+          f"from the plain version")
+    return b
+
+
 def check_bwd_rounding(torch, np, gcn_fused, c, co):
     """bf16 integer inputs whose every sum is exact in fp32 in any order:
     gcn_bwd must equal its plain version bit for bit, and the same sums
@@ -270,6 +313,9 @@ def phase_bwd_kernels(torch, np, gcn_fused):
             log(f"  gcn_bwd C={c:3d} Co={co:3d} bfloat16 integer inputs: "
                 f"equal to the plain version; without the rounding of u or "
                 f"p the result differs")
+        exact_b = check_dw_fp32_exact(torch, np, gcn_fused, t, c, co)
+        log(f"  gcn_bwd T={t:3d} C={c:3d} Co={co:3d} float32 dW on integer "
+            f"inputs (batch {exact_b}): equal to the plain version")
     return rows
 
 
@@ -288,13 +334,13 @@ def bwd_entry(rows, launches, dname="bfloat16"):
     parts = {p: {"ms": tot(f"{p}_ms"), "library_ms": tot(f"{p}_library_ms"),
                  "plain_ms": tot(f"{p}_plain_ms"),
                  "bound_ms": half[0], "bound_by": half[1],
-                 "max_abs_err": max(r[f"err_{p}"] for r in rows)}
+                 "max_abs_err": max(r[f"err_{p}"] for r in sel)}
              for p in ("dw", "da1")}
     parts["dw"]["kernels"], parts["da1"]["kernels"] = ROUTE_KERNELS[dname]
     return {"name": "gcn_bwd (dW, da1)", "route": "cuda", "source": SOURCE,
             "replaces": "agcn_tpu/ops/pallas/gcn_fused.py:72",
             "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in sel),
             "ms": tot("ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": whole[0], "bound_by": whole[1],
             "library_ms": tot("library_ms"), "dtype": dname,
@@ -307,7 +353,6 @@ def main(argv=None) -> int:
     import torch
 
     from agcn_tpu_torch.ops.kernels import build, gcn_fused
-    from agcn_tpu_torch.tools.fwd_check import spilling
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the rows as JSON")
@@ -327,8 +372,8 @@ def main(argv=None) -> int:
             log(f"  {ln.strip()}")
     log("gcn_bwd vs its plain version at the training shapes (batch 128)")
     try:
-        spills = spilling(built.log, kernel="gcn_da1_mma_kernel")
-        check(not spills, f"gcn_da1_mma_kernel spills: {spills}")
+        spills = bwd_spills(built.log)
+        check(not spills, f"gcn_bwd kernels spill: {spills}")
         with torch.inference_mode():
             rows = phase_bwd_kernels(torch, np, gcn_fused)
     except SmokeFailure as e:

@@ -10,7 +10,8 @@ fails:
 1. environment: a CUDA GPU is required; prints its name and power limit.
 2. build: compiles every CUDA source of the port with nvcc (sm_90a), all
    started together, and prints the build time and ptxas' report; a
-   spill in gcn_fwd_mma_kernel or gcn_da1_mma_kernel fails it.
+   spill in gcn_fwd_mma_kernel, gcn_da1_mma_kernel, gcn_dw_fp32_kernel
+   or gcn_u_kernel fails it.
 3. gcn_fwd against its plain version, on the card, at every AGCN layer
    shape of the served batch (16 streams x 2 persons = 32 samples), fp32
    and bf16, both aggregate-rounding modes, and as dx (gcn_fwd on g,
@@ -27,9 +28,13 @@ fails:
 4. gcn_bwd (dW, da1) at the training batch, fp32 and bf16, against its
    plain version at every layer shape, two calls bitwise equal, and on
    bf16 integer inputs equal to the plain version while dropping either
-   rounding point changes the result. Prints kernel / plain / library
+   rounding point changes the result; fp32 dW equal to its plain version
+   bit for bit on integer inputs whose sums are exact in any order (the
+   batch cut to keep them below 2^24). Prints kernel / plain / library
    (the einsum backward) time and the bound, dW and da1 apart (in bf16
-   da1 is gcn_da1_mma_kernel on the tensor cores). The code
+   da1 is gcn_da1_mma_kernel on the tensor cores; dW in both types is
+   gcn_u_kernel, then gcn_dw_mma_kernel in bf16 or the CUDA-core GEMM
+   gcn_dw_fp32_kernel in fp32). The code
    is agcn_tpu_torch/tools/bwd_check.py, which runs it alone in about a
    minute: `python -m agcn_tpu_torch.tools.bwd_check`.
 5. the attention-logits kernel against its plain version (the packed
@@ -61,7 +66,9 @@ fails:
    peak memory of pallas, pallas_hybrid and agg_packed, and the device
    time of one pallas step by kernel group, in which bf16 da1 must run
    gcn_da1_mma_kernel (the tensor cores) and not the fp32 gcn_da1_kernel;
-   then the entry point
+   the same for pallas and agg_packed in fp32 (TF32 off; 1 warm-up, 3
+   timed steps), one fp32 pallas step profiled, in which dW must run
+   gcn_u_kernel and gcn_dw_fp32_kernel; then the entry point
    `python -m agcn_tpu_torch.main` in subprocesses on synthetic data in a
    temporary directory: train and evaluate one epoch at batch 64, save,
    resume for a second epoch, and `--phase test` on the last checkpoint,
@@ -105,7 +112,7 @@ try:
     # phases 3 and 4 and the card-check helpers shared with them
     from agcn_tpu_torch.tools.bwd_check import (
         LAYERS, PEAK_BYTES, PEAK_FLOPS, PERSONS, SEED, TRAIN_BATCH,
-        bwd_entry, check, cuda_time_ms, log, nvidia_smi_line,
+        bwd_entry, bwd_spills, check, cuda_time_ms, log, nvidia_smi_line,
         phase_bwd_kernels)
     from agcn_tpu_torch.tools.bwd_check import SOURCE as BWD_SOURCE
     from agcn_tpu_torch.tools.fwd_check import (
@@ -907,31 +914,39 @@ def phase_train_main_path(torch, np, cfg, summary, label):
     return launches
 
 
-def phase_train_speed(torch, np, cfg, summary, label, iters=5):
+def phase_train_speed(torch, np, cfg, summary, label, iters=5,
+                      fp32=False):
     """(d) ms per step, seq/s and peak memory per formulation at batch
-    64, bf16; the device time of one pallas step by kernel group."""
+    64, bf16; the device time of one pallas step by kernel group. With
+    `fp32`, then pallas and agg_packed in fp32 (TF32 off), 1 warm-up and
+    3 timed steps each, and one fp32 pallas step profiled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     x, y = train_batch(np, TRAIN_BATCH, SEED + 8)
     x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    runs = [(form, "bfloat16", 2, iters)
+            for form in ("pallas", "pallas_hybrid", "agg_packed")]
+    if fp32:
+        runs += [(form, "float32", 1, 3) for form in ("pallas", "agg_packed")]
     speed = {}
-    for form in ("pallas", "pallas_hybrid", "agg_packed"):
-        model = train_model(torch, cfg, form, "bfloat16")
+    for form, dname, warm, n in runs:
+        key = form if dname == "bfloat16" else f"{form}_fp32"
+        model = train_model(torch, cfg, form, dname)
         step = make_step(torch, cfg, model)
-        for _ in range(2):
+        for _ in range(warm):
             step(x, y)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for _ in range(iters):
+        for _ in range(n):
             step(x, y)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / iters
+        ms = (time.perf_counter() - t0) * 1e3 / n
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        speed[form] = dict(ms_per_step=ms, seq_per_s=TRAIN_BATCH / ms * 1e3,
-                           peak_gib=peak)
-        log(f"  {label} (d) {form:13s} {ms:8.2f} ms/step "
+        speed[key] = dict(ms_per_step=ms, seq_per_s=TRAIN_BATCH / ms * 1e3,
+                          peak_gib=peak, timed_steps=n)
+        log(f"  {label} (d) {key:15s} {ms:8.2f} ms/step "
             f"{TRAIN_BATCH / ms * 1e3:7.1f}"
             f" seq/s, peak {peak:.2f} GiB")
         if form == "pallas":
@@ -950,19 +965,27 @@ def phase_train_speed(torch, np, cfg, summary, label, iters=5):
                         ours[mine[0]] = ours.get(mine[0], 0.0) + ms_ev
             device_ms = sum(groups.values())
             check(device_ms > 0, "the profiler saw no device time")
-            # bf16 da1 runs on the tensor cores, never the fp32 kernel
-            check("gcn_da1_mma_kernel" in ours
-                  and "gcn_da1_kernel" not in ours,
-                  f"{label}: da1 kernels of a bf16 pallas step: "
-                  f"{sorted(k for k in ours if 'da1' in k)}")
-            log(f"      one pallas step: device {device_ms:.3f} ms; the "
+            if dname == "bfloat16":
+                # bf16 da1 runs on the tensor cores, never the fp32 kernel
+                check("gcn_da1_mma_kernel" in ours
+                      and "gcn_da1_kernel" not in ours,
+                      f"{label}: da1 kernels of a bf16 pallas step: "
+                      f"{sorted(k for k in ours if 'da1' in k)}")
+            else:
+                # fp32 dW: u formed once, then the CUDA-core GEMM
+                check({"gcn_u_kernel", "gcn_dw_fp32_kernel"} <= set(ours)
+                      and "gcn_dw_mma_kernel" not in ours
+                      and "gcn_dw_partial_kernel" not in ours,
+                      f"{label}: dW kernels of an fp32 pallas step: "
+                      f"{sorted(k for k in ours if 'dw' in k or 'u_' in k)}")
+            log(f"      one {key} step: device {device_ms:.3f} ms; the "
                 f"port's kernels: "
                 + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(
                     ours.items(), key=lambda kv: -kv[1])))
             for g, gms in sorted(groups.items(), key=lambda kv: -kv[1]):
                 log(f"    {gms:9.3f} ms {100 * gms / device_ms:5.1f}%  {g}")
-            speed[form].update(device_ms=device_ms, groups=groups,
-                               kernels=ours)
+            speed[key].update(device_ms=device_ms, groups=groups,
+                              kernels=ours)
         del model, step
     summary[f"{label}_train_speed"] = speed
 
@@ -1097,8 +1120,8 @@ def main():
                 log(f"  {ln.strip()}")
     spills = spilling(built["gcn_fwd"].log)
     check(not spills, f"gcn_fwd_mma_kernel spills: {spills}")
-    spills = spilling(built["gcn_bwd"].log, kernel="gcn_da1_mma_kernel")
-    check(not spills, f"gcn_da1_mma_kernel spills: {spills}")
+    spills = bwd_spills(built["gcn_bwd"].log)
+    check(not spills, f"gcn_bwd kernels spill: {spills}")
     summary["build_s"] = build_s
 
     log("[3/11] gcn_fwd kernel vs plain version at the served shapes "
@@ -1147,7 +1170,7 @@ def main():
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
     train_launches = phase_train_main_path(torch, np, train_cfg, summary,
                                            "agcn")
-    phase_train_speed(torch, np, train_cfg, summary, "agcn")
+    phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
     log("[9/11] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
@@ -1194,6 +1217,10 @@ def main():
         f"agcn_serve_use_pallas_{d}": n
         for d, n in launches["fused_gcn"].items()}
     kernels[2]["launches_by_path"] = bwd_launches
+    # the fp32 route's per-step numbers beside the bf16 ones
+    kernels[2]["float32"] = {
+        k: v for k, v in bwd_entry(bwd_rows, 0, "float32").items()
+        if k not in ("name", "route", "source", "replaces", "launches")}
     summary.update(kernels=kernels, device=kind, nvidia_smi=smi,
                    seconds=time.perf_counter() - t_start)
     log(f"  all phases in {summary['seconds']:.1f} s")

@@ -181,7 +181,11 @@ def test_da1_groups_are_whole_tiles_within_t(b, t):
     "void (anonymous namespace)::gcn_da1_kernel<float, 25>(float const*, "
     "float const*, float const*, float*, int, int, int)",
     "void (anonymous namespace)::gcn_dw_reduce_kernel<__nv_bfloat16>"
-    "(float const*, __nv_bfloat16*, int, int)"])
+    "(float const*, __nv_bfloat16*, int, int)",
+    "void (anonymous namespace)::gcn_dw_fp32_kernel<64, 8>(float const*, "
+    "float const*, float*, int, int, int, int, bool, bool)",
+    "void (anonymous namespace)::gcn_u_kernel<float, 25>(float const*, "
+    "float const*, float*, int, int, int, bool)"])
 def test_profile_groups_count_the_bwd_kernels_under_gcn_bwd(name):
     """chip_smoke's device-time breakdown puts every gcn_bwd kernel, the
     ordered reduces too, under gcn_bwd and not under "reductions"."""
@@ -214,6 +218,15 @@ def test_bwd_check_entry_names_each_halfs_kernels():
     assert "gcn_dw_mma_kernel" in entry["dw"]["kernels"]
     fp32 = bwd_check.bwd_entry([dict(row, dtype="float32")], 0, "float32")
     assert fp32["da1"]["kernels"] == ["gcn_da1_kernel"]
+    assert fp32["dw"]["kernels"] == ["gcn_u_kernel", "gcn_dw_fp32_kernel",
+                                      "gcn_dw_reduce_kernel"]
+    # each dtype's entry reads its own rows' errors
+    both = [row, dict(row, dtype="float32", max_abs_err=0.01, err_dw=0.01,
+                      err_da1=0.005)]
+    fp32 = bwd_check.bwd_entry(both, 0, "float32")
+    assert (fp32["max_abs_err"], fp32["dw"]["max_abs_err"],
+            fp32["da1"]["max_abs_err"]) == (0.01, 0.01, 0.005)
+    assert bwd_check.bwd_entry(both, 0)["dw"]["max_abs_err"] == 0.5
 
 
 def test_bwd_check_finds_spills_of_the_da1_kernel():
@@ -221,7 +234,7 @@ def test_bwd_check_finds_spills_of_the_da1_kernel():
     -v`: the da1 kernel's spills are found, the other kernels' ignored."""
     mma = ("_ZN12_GLOBAL__N_118gcn_da1_mma_kernelILi25ELi64EEEvPK13"
            "__nv_bfloat16S3_S3_Pfiiiibbb")
-    other = "_ZN12_GLOBAL__N_121gcn_dw_partial_kernelIfLi25EEEvPKT_"
+    other = "_ZN12_GLOBAL__N_114gcn_da1_kernelIfLi25EEEvPKT_S3_S3_PS1_iii"
     entry = ("ptxas info    : Compiling entry function '{0}' for 'sm_90a'\n"
              "ptxas info    : Function properties for {0}\n"
              "    0 bytes stack frame, {1} bytes spill stores, {2} bytes "
@@ -231,3 +244,41 @@ def test_bwd_check_finds_spills_of_the_da1_kernel():
     assert fwd_check.spilling(clean, kernel="gcn_da1_mma_kernel") == []
     assert fwd_check.spilling(clean + entry.format(mma, 8, 8),
                               kernel="gcn_da1_mma_kernel") == [(mma, 8, 8)]
+
+
+_PTXAS_ENTRY = (
+    "ptxas info    : Compiling entry function '{0}' for 'sm_90a'\n"
+    "ptxas info    : Function properties for {0}\n"
+    "    0 bytes stack frame, {1} bytes spill stores, {2} bytes "
+    "spill loads\n"
+    "ptxas info    : Used 128 registers, used 1 barriers\n")
+
+
+@pytest.mark.parametrize("name", [
+    "_ZN12_GLOBAL__N_118gcn_dw_fp32_kernelILi64ELi8EEEvPKfS2_Pfiiiibb",
+    "_ZN12_GLOBAL__N_118gcn_dw_fp32_kernelILi8ELi4EEEvPKfS2_Pfiiiibb",
+    "_ZN12_GLOBAL__N_112gcn_u_kernelIfLi25EEEvPKT_S3_PS1_iiib",
+    "_ZN12_GLOBAL__N_118gcn_da1_mma_kernelILi25ELi64EEEvPK13"
+    "__nv_bfloat16S3_S3_Pfiiiibbb"])
+def test_bwd_check_fails_on_spills_of_the_fp32_dw_kernels(name):
+    """`bwd_check.bwd_spills` (the check of bwd_check and chip_smoke's
+    phase 2) reports a spill in the fp32 dW GEMM, in u's kernel and in the
+    bf16 da1 kernel, and ignores the other kernels' (fp32 da1 here)."""
+    other = "_ZN12_GLOBAL__N_114gcn_da1_kernelIfLi25EEEvPKT_S3_S3_PS1_iii"
+    clean = _PTXAS_ENTRY.format(name, 0, 0) + _PTXAS_ENTRY.format(other, 24,
+                                                                  24)
+    assert bwd_check.bwd_spills(clean) == []
+    assert bwd_check.bwd_spills(clean + _PTXAS_ENTRY.format(name, 8, 4)) \
+        == [(name, 8, 4)]
+
+
+@pytest.mark.parametrize("t", sorted({t for (t, _, _), _ in
+                                      bwd_check.LAYER_SHAPES}))
+def test_bwd_check_exact_dw_batch_keeps_the_sums_below_2_24(t):
+    """The fp32 integer dW check's batch at each training T: at most the
+    training batch (128), and B*T*V terms of at most |x| |u| = 2 * (2 *
+    25) sum below 2^24, so every order of the sums is exact."""
+    b = bwd_check.exact_dw_batch(t)
+    assert 1 <= b <= 128
+    assert b * t * 25 * 2 * 2 * 25 < 2 ** 24
+    assert b == 128 or (b + 1) * t * 25 * 2 * 2 * 25 >= 2 ** 24

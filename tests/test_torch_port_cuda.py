@@ -238,7 +238,7 @@ def test_gcn_bwd_matches_plain(cuda, t, c, co, v, dtype):
 def _dw_groups(b, t, c, co, dtype, v=25):
     if dtype == torch.bfloat16:
         return gcn_fused.dw_mma_groups(b * t * v, c, co)
-    return gcn_fused.dw_groups(b, c, co)
+    return gcn_fused.dw_fp32_groups(b * t * v, c, co)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -256,16 +256,18 @@ def test_gcn_bwd_is_deterministic(cuda, dtype):
 
 
 @pytest.mark.parametrize("b,t,c,co", [(48, 13, 192, 160), (20, 11, 20, 37)])
-def test_gcn_bwd_bf16_spans_row_groups(cuda, b, t, c, co):
-    """bf16 dW over groups of 32-row chunks that cut across samples and
-    end mid-sample (T*V = 325, 275: not multiples of 32), bf16 da1 over
-    frame groups whose last 4-frame tile is ragged (T = 13, 11), ragged
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gcn_bwd_spans_row_groups(cuda, b, t, c, co, dtype):
+    """dW over groups of 32-row chunks that cut across samples and end
+    mid-sample (T*V = 325, 275: not multiples of 32), bf16 da1 over frame
+    groups whose last 4-frame tile is ragged (T = 13, 11), ragged
     64-channel tiles of C and Co, and (second case) C and Co off the
-    8-wide vector loads, Co odd: within the bf16 bar of the plain
-    version, and dW and da1 launched alone equal the pair."""
-    x, a1, w = _inputs(cuda, b, t, c, co, torch.bfloat16)
-    g = _cotangent(cuda, b, t, co, torch.bfloat16)
-    groups = _dw_groups(b, t, c, co, torch.bfloat16)
+    vector loads (8-wide in bf16, 4-wide in fp32), Co odd: within the
+    bar of the plain version, and dW and da1 launched alone equal the
+    pair."""
+    x, a1, w = _inputs(cuda, b, t, c, co, dtype)
+    g = _cotangent(cuda, b, t, co, dtype)
+    groups = _dw_groups(b, t, c, co, dtype)
     assert groups > 1 and (b * t * 25) % 32
     assert gcn_fused.da1_groups(b, t) > 1 and t % 4
     dw, da1 = gcn_fused.launch_gcn_bwd(x, a1, w, g)
@@ -274,6 +276,50 @@ def test_gcn_bwd_bf16_spans_row_groups(cuda, b, t, c, co):
     assert _close(dw, want_dw) and _close(da1, want_da1)
     assert torch.equal(gcn_fused.launch_gcn_bwd_dw(x, a1, w, g), dw)
     assert torch.equal(gcn_fused.launch_gcn_bwd_da1(x, a1, w, g), da1)
+
+
+# (b, t, c, co, v): the C = 3 entry layer (the 8-channel C tile) at a
+# ragged T, C and Co off the 4-wide loads at V = 18, a 64-channel
+# layer, and two C and Co tiles; each spans several row groups
+@pytest.mark.parametrize("b,t,c,co,v", [(3, 37, 3, 64, 25),
+                                        (3, 13, 20, 37, 18),
+                                        (2, 20, 64, 64, 25),
+                                        (2, 11, 128, 96, 25)])
+def test_gcn_bwd_fp32_dw_bit_for_bit_on_integers(cuda, b, t, c, co, v):
+    """fp32 integer inputs whose every dW sum is exact in fp32 in any
+    order (sum |x| |u| < 2^24, checked): the CUDA-core GEMM over u formed
+    once equals gcn_dw_plain bit for bit."""
+    rng = np.random.default_rng(6)
+    x, a1, g = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.integers(-4, 5, (b, t, v, c)),
+        rng.integers(-8, 9, (b, 3, v, v)),
+        rng.integers(-8, 9, (b, t, v, co))))
+    w = torch.zeros(3, c, co, device=cuda)
+    assert gcn_fused.dw_fp32_groups(b * t * v, c, co) > 1
+    assert gcn_fused.gcn_dw_plain(x.abs(), a1.abs(), g.abs()).max() < 2 ** 24
+    dw = gcn_fused.launch_gcn_bwd_dw(x, a1, w, g)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, gcn_fused.gcn_dw_plain(x, a1, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dw_runs_u_then_the_gemm_of_its_dtype(cuda, dtype):
+    """dW launches gcn_u_kernel, then gcn_dw_mma_kernel (bf16) or the
+    CUDA-core gcn_dw_fp32_kernel (fp32), then the ordered reduce."""
+    x, a1, w = _inputs(cuda, 2, 12, 64, 64, dtype)
+    g = _cotangent(cuda, 2, 12, 64, dtype)
+    gcn_fused.launch_gcn_bwd_dw(x, a1, w, g)  # built and warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        gcn_fused.launch_gcn_bwd_dw(x, a1, w, g)
+        torch.cuda.synchronize()
+    kinds = ("gcn_u_kernel", "gcn_dw_mma_kernel", "gcn_dw_fp32_kernel",
+             "gcn_dw_reduce_kernel")
+    found = {k for k in kinds if any(k in e.name for e in prof.events())}
+    gemm = ("gcn_dw_mma_kernel" if dtype == torch.bfloat16
+            else "gcn_dw_fp32_kernel")
+    assert found == {"gcn_u_kernel", gemm, "gcn_dw_reduce_kernel"}, found
 
 
 def _unrounded_bwd(x, a1, w, g, round_u, round_p):

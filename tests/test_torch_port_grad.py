@@ -10,6 +10,8 @@ integer inputs whose every sum is exact in fp32, the plain version must
 equal JAX's bit for bit, and dropping the rounding of u or of p must not.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,11 +174,36 @@ def test_einsum_backward_matches_jax():
         _close(a.numpy(), b, 1e-4)
 
 
-def test_dw_groups_fill_the_card_and_stay_within_the_batch():
-    assert tfused.dw_groups(128, 64, 64) == 44
-    assert tfused.dw_groups(128, 256, 256) == 3
-    assert tfused.dw_groups(2, 64, 64) == 2
-    assert tfused.dw_groups(1, 3, 64) == 1
+def test_dw_fp32_groups_fill_the_card_within_the_row_chunks():
+    """The fp32 dW GEMM's groups of 32-row chunks: 1,056 blocks (8 per
+    SM on 132 SMs) at each training layer shape (C = 3 on the 8-channel
+    C tile), never more groups than chunks."""
+    rows = {300: 128 * 300 * 25, 150: 128 * 150 * 25, 75: 128 * 75 * 25}
+    for (t, c, co), groups in [((300, 3, 64), 352), ((300, 64, 64), 352),
+                               ((300, 64, 128), 176), ((150, 128, 128), 88),
+                               ((150, 128, 256), 44), ((75, 256, 256), 22)]:
+        assert tfused.dw_fp32_groups(rows[t], c, co) == groups
+        tile_c = 8 if c <= 8 else 64
+        assert groups * 3 * math.ceil(c / tile_c) * (co // 64) == 1056
+    assert tfused.dw_fp32_groups(2 * 8 * 25, 64, 16) == 13  # 400 rows
+    assert tfused.dw_fp32_groups(13 * 25, 20, 37) == 11     # 325 rows
+    assert tfused.dw_fp32_groups(10, 3, 64) == 1
+
+
+@pytest.mark.parametrize("rows,c,co", [(128 * 300 * 25, 3, 64),
+                                       (128 * 75 * 25, 256, 256),
+                                       (48 * 13 * 25, 192, 160),
+                                       (20 * 11 * 25, 20, 37), (10, 3, 64)])
+def test_dw_fp32_groups_are_whole_chunks_within_the_rows(rows, c, co):
+    """Each group is a non-empty range of whole 32-row chunks that starts
+    inside the rows (none lies past them), and the groups cover every row
+    once, in order: the ranges gcn_dw_fp32_kernel computes."""
+    chunks = math.ceil(rows / 32)
+    groups = tfused.dw_fp32_groups(rows, c, co)
+    bounds = [chunks * grp // groups for grp in range(groups + 1)]
+    assert bounds[0] == 0 and bounds[-1] == chunks
+    assert all(lo < hi and 32 * lo < rows
+               for lo, hi in zip(bounds, bounds[1:]))
 
 
 def test_dw_mma_groups_fill_the_card_within_the_row_chunks():
