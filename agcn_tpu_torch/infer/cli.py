@@ -108,7 +108,7 @@ def _serve(args, model, labels=None):
             f = backlog.pop(0)
             try:
                 attach(f)
-            except (OSError, ValueError) as e:
+            except Exception as e:
                 # a half-written or corrupt recording must not take the
                 # whole multi-camera server down; drop it and move on
                 print(f"!! skipping {os.path.basename(f)}: {e}",
@@ -150,7 +150,7 @@ def _serve(args, model, labels=None):
             for sid, (tag, frames) in streams.items():
                 try:
                     frame = next(frames, None)
-                except (OSError, ValueError) as e:
+                except Exception as e:
                     # half-written/corrupt recording: end THIS stream,
                     # keep serving the others
                     print(f"!! stream [{tag}] read error: {e}", flush=True)

@@ -29,9 +29,9 @@
 //   gcn_fwd_mma_kernel: bf16 x and a1, both round_agg modes, on the tensor
 //     cores: round_agg = 1 (the served forward and the dx of training) as
 //     SPLIT = false, round_agg = 0 (gcn_kernel's fused_gcn) as SPLIT = true;
-//   gcn_fwd_kernel: every other combination (fp32, bf16 x with fp32 a1),
-//     all math in fp32 on the CUDA cores, so its ceiling is the fp32 rate
-//     for both types.
+//   gcn_fwd_fp32_kernel: every other combination (fp32, bf16 x with fp32
+//     a1), all math in exact fp32 FMAs on the CUDA cores, so its ceiling
+//     is the fp32 rate for both types.
 //
 // gcn_fwd_mma_kernel: in bf16 the function is two chained products of
 // bf16 operands with fp32 sums, which nvcuda::wmma bf16 16x16x16 does
@@ -66,22 +66,40 @@
 // tile lies past T or Co skips its MMAs. Every sum runs in an order fixed
 // by the shapes, with no atomics, so two calls are bitwise equal.
 //
-// What the design does about it (gcn_fwd_kernel): the aggregate never
-// goes to device memory (as on the TPU, where it stayed in VMEM). One
-// block of 128
-// threads owns (sample b, 4 frames, 64 output channels). It stages a1[b]
-// once, then walks the input channels in chunks of CC: it stages the x
-// chunk and the W chunk in shared memory, forms the K aggregates of the
-// chunk in shared memory (each thread one (k, t, c) column over all V
-// destinations, the a1 row read as float4 broadcasts), and accumulates
-// agg_k @ W_k into a 13x4 fp32 register tile per thread. y is written
-// once. x is read once per 64-channel output tile. The math runs on the
-// CUDA cores in fp32; wgmma/TMA pipelines are later work.
+// gcn_fwd_fp32_kernel<T, V, OT, CC>: the aggregate never goes to device
+// memory (as on the TPU, where it stayed in VMEM), and it is formed once
+// per block for all OT output channels. One block of 256 threads owns
+// (sample b, TT whole frames, OT output channels); its rows are (t, w)
+// flattened without padding w. OT = 64 when Co <= 64 (256 rows: 10
+// frames at V = 25, 14 at V = 18), OT = 128 above (128 rows: 5 or 7
+// frames), OT = 8 when Co <= 8 (the dx of the C = 3 entry layer, Co = 3;
+// 1,024 rows: 40 or 56 frames). It stages a1[b] once, then walks C in
+// chunks of CC (16; 4 when C <= 8 or Co <= 8), per chunk:
+//   1. the aggregate aggT_k[c][t V + w] = sum_v x[t][v][c] a1_k[v][w],
+//      transposed in shared memory, for every k and row of the tile:
+//      each thread forms 4 (c) x 4 (w) tiles from a float4 of x and a
+//      float4 of the staged a1 row per v (16 FMAs per 2 loads), rounded
+//      to x's type with round_agg (the identity in fp32);
+//   2. the projection acc += aggT_k[c][rows] (x) W_k[c][cols] over k and
+//      c: each thread keeps an 8 x 8 fp32 register tile (4 x 8 at OT =
+//      8), two row quads 4 RY rows apart and two column quads 4 CX
+//      channels apart, so a warp's float4 loads of a staged row hit
+//      distinct banks or broadcast; two float4 loads of each operand
+//      feed 64 FMAs.
+// x and W go to shared memory by cp.async (16-byte copies where the
+// width is a multiple of 16 bytes and the base aligned, else 4-byte
+// ones; bf16 staged raw and converted where it is read, its pieces of
+// less than 16 bytes through registers; past the edges zero-filled):
+// the W chunk is in flight during the aggregate, the next x chunk during
+// the projection, two barriers a chunk. 128 registers at most
+// (__launch_bounds__(256, 2)). y is written once, from registers.
 //
-// Ragged edges (T not a multiple of 4, C not a multiple of CC, Co not a
-// multiple of 64) are masked: staged values beyond the edge are zero and
-// stores beyond it are skipped. No padding of T, C or Co is needed in
-// device memory.
+// Ragged edges (T not a multiple of the block's frames, C not a multiple
+// of the chunk, Co not a multiple of the output tile) are masked: staged
+// values beyond the edge are zero and stores beyond it are skipped. No
+// padding of T, C or Co is needed in device memory. Every sum runs in an
+// order fixed by the shapes, with no atomics, so two calls are bitwise
+// equal.
 //
 // C interface: agcn_gcn_fwd(...) launches on the given stream of the
 // current device and returns cudaGetLastError() (0 on success).
@@ -95,11 +113,8 @@
 namespace {
 
 constexpr int K = 3;             // spatial subsets
-constexpr int TT = 4;            // frames per block
-constexpr int OT = 64;           // output channels per block
-constexpr int THREADS = 128;
-constexpr int COL_GROUPS = OT / 4;                // 4 columns per thread
-constexpr int ROW_GROUPS = THREADS / COL_GROUPS;  // 8
+constexpr int TT = 4;            // frames per block (tensor cores)
+constexpr int OT = 64;           // output channels per block (tensor cores)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -113,195 +128,6 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// Shared-memory layout, in floats, for V joints and an input-channel
-// chunk of CC.
-template <int V, int CC>
-struct Layout {
-  static constexpr int VP = (V + 3) / 4 * 4;       // a1 row, float4-padded
-  static constexpr int ROWS = TT * V;              // (t, w) output rows
-  static constexpr int RM = (ROWS + ROW_GROUPS - 1) / ROW_GROUPS;
-  static constexpr int ROWS_P = RM * ROW_GROUPS;   // rows incl. zero pad
-  static constexpr int LD = CC + 1;                // agg row stride: no
-                                                   // bank conflicts
-  static constexpr int A = K * V * VP;             // a_s[K][V][VP]
-  static constexpr int X = TT * V * CC;            // x_s[TT][V][CC]
-  static constexpr int AGG = (K * ROWS_P * LD + 3) / 4 * 4;  // agg_s[K][ROWS_P][LD]
-  static constexpr int W = K * CC * OT;            // w_s[K][CC][OT]
-  static constexpr size_t BYTES = sizeof(float) * (A + X + AGG + W);
-};
-
-template <typename T, typename TA, int V, int CC>
-__global__ void __launch_bounds__(THREADS)
-gcn_fwd_kernel(const T* __restrict__ x, const TA* __restrict__ a1,
-               const T* __restrict__ w, T* __restrict__ y,
-               int Tn, int C, int Co, int round_agg) {
-  using L = Layout<V, CC>;
-  extern __shared__ __align__(16) float smem[];
-  float* a_s = smem;
-  float* x_s = a_s + L::A;
-  float* agg_s = x_s + L::X;
-  float* w_s = agg_s + L::AGG;
-
-  const int t0 = blockIdx.x * TT;
-  const int o0 = blockIdx.y * OT;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-
-  // a1[b] once per block, rows zero-padded to VP
-  const TA* a_b = a1 + (size_t)b * K * V * V;
-  for (int i = tid; i < L::A; i += THREADS) {
-    const int col = i % L::VP;
-    const int kv = i / L::VP;
-    a_s[i] = col < V ? to_f(a_b[kv * V + col]) : 0.f;
-  }
-  // the pad rows of agg_s are read by the projection but never written
-  for (int i = tid; i < K * (L::ROWS_P - L::ROWS) * L::LD; i += THREADS) {
-    const int per = (L::ROWS_P - L::ROWS) * L::LD;
-    agg_s[((i / per) * L::ROWS_P + L::ROWS) * L::LD + i % per] = 0.f;
-  }
-
-  const int cg = tid % COL_GROUPS;
-  const int rg = tid / COL_GROUPS;
-  float acc[L::RM][4];
-#pragma unroll
-  for (int i = 0; i < L::RM; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
-
-  const T* x_b = x + (size_t)b * Tn * V * C;
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    __syncthreads();  // the previous chunk's projection has read agg_s/w_s
-    for (int i = tid; i < L::X; i += THREADS) {
-      const int c = i % CC;
-      const int tv = i / CC;
-      const int t = t0 + tv / V;
-      float val = 0.f;
-      if (t < Tn && c0 + c < C) {
-        val = to_f(x_b[((size_t)t * V + tv % V) * C + c0 + c]);
-      }
-      x_s[i] = val;
-    }
-    for (int i = tid; i < L::W; i += THREADS) {
-      const int o = i % OT;
-      const int kc = i / OT;
-      const int c = c0 + kc % CC;
-      float val = 0.f;
-      if (c < C && o0 + o < Co) {
-        val = to_f(w[((size_t)(kc / CC) * C + c) * Co + o0 + o]);
-      }
-      w_s[i] = val;
-    }
-    __syncthreads();
-
-    // aggregate: agg_s[k][t*V + j][c] = sum_v x_s[t][v][c] * a_s[k][v][j]
-    for (int item = tid; item < K * TT * CC; item += THREADS) {
-      const int c = item % CC;
-      const int t = (item / CC) % TT;
-      const int k = item / (CC * TT);
-      float s[L::VP];
-#pragma unroll
-      for (int j = 0; j < L::VP; ++j) s[j] = 0.f;
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const float xv = x_s[(t * V + v) * CC + c];
-        const float4* arow =
-            reinterpret_cast<const float4*>(a_s + (k * V + v) * L::VP);
-#pragma unroll
-        for (int q = 0; q < L::VP / 4; ++q) {
-          const float4 a4 = arow[q];
-          s[4 * q + 0] += xv * a4.x;
-          s[4 * q + 1] += xv * a4.y;
-          s[4 * q + 2] += xv * a4.z;
-          s[4 * q + 3] += xv * a4.w;
-        }
-      }
-      float* dst = agg_s + (k * L::ROWS_P + t * V) * L::LD + c;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        // gcn_fused semantics: the aggregate is rounded to x's type
-        dst[j * L::LD] = round_agg ? to_f(from_f<T>(s[j])) : s[j];
-      }
-    }
-    __syncthreads();
-
-    // project: acc[row][col] += agg_k[row][c] * W_k[c][col]
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float* agg_k = agg_s + (k * L::ROWS_P + rg) * L::LD;
-#pragma unroll 4
-      for (int c = 0; c < CC; ++c) {
-        const float4 wv = *reinterpret_cast<const float4*>(
-            w_s + (k * CC + c) * OT + cg * 4);
-#pragma unroll
-        for (int i = 0; i < L::RM; ++i) {
-          const float av = agg_k[i * ROW_GROUPS * L::LD + c];
-          acc[i][0] += av * wv.x;
-          acc[i][1] += av * wv.y;
-          acc[i][2] += av * wv.z;
-          acc[i][3] += av * wv.w;
-        }
-      }
-    }
-  }
-
-  T* y_b = y + (size_t)b * Tn * V * Co;
-#pragma unroll
-  for (int i = 0; i < L::RM; ++i) {
-    const int r = rg + i * ROW_GROUPS;
-    const int t = t0 + r / V;
-    if (r >= L::ROWS || t >= Tn) continue;
-    T* dst = y_b + ((size_t)t * V + r % V) * Co + o0 + cg * 4;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (o0 + cg * 4 + j < Co) dst[j] = from_f<T>(acc[i][j]);
-    }
-  }
-}
-
-template <typename T, typename TA, int V, int CC>
-cudaError_t launch(const void* x, const void* a1, const void* w, void* y,
-                   int B, int Tn, int C, int Co, int round_agg,
-                   cudaStream_t stream) {
-  auto kern = gcn_fwd_kernel<T, TA, V, CC>;
-  const size_t bytes = Layout<V, CC>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tn + TT - 1) / TT, (Co + OT - 1) / OT, B);
-  kern<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const TA*>(a1),
-      static_cast<const T*>(w), static_cast<T*>(y), Tn, C, Co, round_agg);
-  return cudaGetLastError();
-}
-
-template <typename T, typename TA, int V>
-cudaError_t launch_cc(const void* x, const void* a1, const void* w, void* y,
-                      int B, int Tn, int C, int Co, int round_agg,
-                      cudaStream_t stream) {
-  // narrow inputs (the C=3 entry layer) take a narrow chunk instead of
-  // computing 29 channels of zeros out of 32
-  if (C <= 8) {
-    return launch<T, TA, V, 8>(x, a1, w, y, B, Tn, C, Co, round_agg, stream);
-  }
-  return launch<T, TA, V, 32>(x, a1, w, y, B, Tn, C, Co, round_agg, stream);
-}
-
-template <typename T, typename TA>
-cudaError_t launch_v(const void* x, const void* a1, const void* w, void* y,
-                     int B, int Tn, int V, int C, int Co, int round_agg,
-                     cudaStream_t stream) {
-  switch (V) {  // the joint counts of the AGCN skeletons (NTU, Kinetics)
-    case 25:
-      return launch_cc<T, TA, 25>(x, a1, w, y, B, Tn, C, Co, round_agg,
-                                  stream);
-    case 18:
-      return launch_cc<T, TA, 18>(x, a1, w, y, B, Tn, C, Co, round_agg,
-                                  stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 // ---- bf16 x and a1 on the tensor cores (round_agg = 0 as SPLIT) ----
@@ -661,6 +487,399 @@ cudaError_t launch_mma_v(const void* x, const void* a1, const void* w,
   }
 }
 
+// ---- fp32, and bf16 x with fp32 a1, on the CUDA cores ----
+
+// cp.async of 16 (or 4) bytes from src to shared memory at dst; with !ok
+// nothing is read (source size 0: src may be any valid address) and dst
+// is zero-filled. Wait for them with cp_async_wait_all. (The same
+// helpers as in gcn_bwd.cu: each source builds alone.)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned int s =
+      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned int s =
+      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// four consecutive values of a staged row as floats (a 16-byte load of
+// fp32, an 8-byte one of bf16)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+constexpr int F_THREADS = 256;
+constexpr int F_NARROW = 8;  // Co up to this takes the 8-channel tile
+constexpr int F_NARROW_C = 4;  // C up to 8, or Co up to 8, takes CC = 4
+
+// The tiling of gcn_fwd_fp32_kernel for V joints, OT output channels per
+// block and input-channel chunks of CC. A thread owns RQ row quads (4 RY
+// rows apart) x two column quads (4 CX channels apart) of the output
+// tile: 8 x 8 at OT = 64 (rows 256, 10 frames at V = 25) and OT = 128
+// (rows 128, 5 frames), 4 x 8 at OT = 8 (rows 1,024, 40 frames). Rows are
+// (t, w) flattened without padding w; the ROWS_P - TT V rows past the
+// last frame are never stored.
+template <int V, int OT, int CC>
+struct F32Tile {
+  static constexpr int CX = OT / 8;                // threads across columns
+  static constexpr int RY = F_THREADS / CX;        // threads across rows
+  static constexpr int RQ = OT == F_NARROW ? 1 : 2;  // row quads a thread
+  static constexpr int ROWS_P = 4 * RY * RQ;       // 1,024, 256 or 128
+  static constexpr int TT = ROWS_P / V;            // frames a block
+  static constexpr int ROWS = TT * V;
+  static constexpr int VP = (V + 3) / 4 * 4;       // a1 row, float4-padded
+  static constexpr int WQ = VP / 4;                // w quads of a frame
+  static constexpr int CQ = CC / 4;                // c quads of a chunk
+  static constexpr int ITEMS = K * TT * CQ * WQ;   // aggregate 4 x 4 tiles
+  static constexpr int LDA = ROWS_P + 4;           // row stride of aggT_s
+  static_assert(OT % 8 == 0 && F_THREADS % CX == 0 && CC % 4 == 0,
+                "fp32 forward tiling");
+};
+
+// Shared-memory layout in bytes: a_s[K][V][VP] and aggT_s[K][CC][LDA] in
+// fp32, then x_s[ROWS][CC] and w_s[K][CC][OT] in x's type (bf16 is
+// staged raw and converted where it is read).
+template <typename T, int V, int OT, int CC>
+struct F32Layout : F32Tile<V, OT, CC> {
+  using B = F32Tile<V, OT, CC>;
+  static constexpr int AGG_OFF = K * V * B::VP * 4;
+  static constexpr int X_OFF = AGG_OFF + K * CC * B::LDA * 4;
+  static constexpr int W_OFF =
+      X_OFF + (B::ROWS * CC * (int)sizeof(T) + 15) / 16 * 16;
+  static constexpr int BYTES = W_OFF + K * CC * OT * (int)sizeof(T);
+};
+
+// Rows [0, NR) x columns [0, W) of a tile, element (r, c) =
+// m[(row0 + r) * n + col0 + c] where r < rows_ok and col0 + c < n, else
+// zero, into dst (row stride W) by cp.async. `vec`: n and col0 are
+// multiples of 16 / sizeof(T) and m is 16-byte aligned, so each piece
+// of 16 bytes is wholly inside or wholly outside. bf16 pieces of less
+// than 16 bytes (cp.async copies 4 bytes at least) go through registers.
+// The loops stay rolled: unrolled, their index math, which depends on
+// the thread alone, was hoisted out of the caller's chunk loop and held
+// in registers across it, and ptxas spilled.
+template <typename T, int NR, int W>
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ m,
+                                           size_t row0, int rows_ok,
+                                           int col0, int n, bool vec,
+                                           int tid) {
+  constexpr int E = 16 / (int)sizeof(T);  // elements of a 16-byte copy
+  if constexpr (W % E == 0) {
+    if (vec) {
+      constexpr int NV = NR * W / E;
+#pragma unroll 1
+      for (int i = tid; i < NV; i += F_THREADS) {
+        const int r = i / (W / E);
+        const int c = (i % (W / E)) * E;
+        const bool ok = r < rows_ok && col0 + c < n;
+        cp_async16(dst + r * W + c, ok ? m + (row0 + r) * n + col0 + c : m,
+                   ok);
+      }
+      return;
+    }
+  }
+#pragma unroll 1
+  for (int i = tid; i < NR * W; i += F_THREADS) {
+    const int r = i / W;
+    const int c = i % W;
+    const bool ok = r < rows_ok && col0 + c < n;
+    if constexpr (sizeof(T) == 4) {
+      cp_async4(dst + i, ok ? m + (row0 + r) * n + col0 + c : m, ok);
+    } else {
+      dst[i] = ok ? m[(row0 + r) * n + col0 + c] : from_f<T>(0.f);
+    }
+  }
+}
+
+// s[c][j] += x[c] a[j]: one step of an aggregate item, 16 FMAs
+__device__ __forceinline__ void fma4x4(float (&s)[4][4], const float4& x,
+                                       const float4& a) {
+  const float xv[4] = {x.x, x.y, x.z, x.w};
+  const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[c][j] = fmaf(xv[c], av[j], s[c][j]);
+  }
+}
+
+// acc[r][j] += a[r] w[j]: one (k, c) step of the projection, RQ row quads
+// x two column quads, 32 RQ FMAs
+template <int RQ>
+__device__ __forceinline__ void fma_step(float (&acc)[4 * RQ][8],
+                                         const float4 (&a)[RQ],
+                                         const float4 (&w)[2]) {
+#pragma unroll
+  for (int q = 0; q < RQ; ++q) {
+    const float av[4] = {a[q].x, a[q].y, a[q].z, a[q].w};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float wv[4] = {w[h].x, w[h].y, w[h].z, w[h].w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[4 * q + i][4 * h + j] =
+              fmaf(av[i], wv[j], acc[4 * q + i][4 * h + j]);
+        }
+      }
+    }
+  }
+}
+
+// y = sum_k round(x a1_k) W_k on the CUDA cores in exact fp32 FMAs (the
+// tensor cores' fp32 is TF32, which would miss the fp32 bar). Two blocks
+// an SM: the bound caps the registers at 128.
+template <typename T, int V, int OT, int CC>
+__global__ void __launch_bounds__(F_THREADS, 2)
+gcn_fwd_fp32_kernel(const T* __restrict__ x, const float* __restrict__ a1,
+                    const T* __restrict__ w, T* __restrict__ y, int Tn,
+                    int C, int Co, int round_agg, bool x_vec, bool w_vec,
+                    bool y_vec) {
+  using L = F32Layout<T, V, OT, CC>;
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float* a_s = reinterpret_cast<float*>(smem_f32);
+  float* agg_s = reinterpret_cast<float*>(smem_f32 + L::AGG_OFF);
+  T* x_s = reinterpret_cast<T*>(smem_f32 + L::X_OFF);
+  T* w_s = reinterpret_cast<T*>(smem_f32 + L::W_OFF);
+
+  const int t0 = blockIdx.x * L::TT;
+  const int o0 = blockIdx.y * OT;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tx = tid % L::CX;  // column quads at 4 tx + 4 CX j
+  const int ty = tid / L::CX;  // row quads at 4 ty + 4 RY i
+  // frames of the tile inside T, and their (t, w) rows
+  const int t_ok = Tn - t0 < L::TT ? Tn - t0 : L::TT;
+  const int rows_ok = t_ok * V;
+  const size_t row0 = ((size_t)b * Tn + t0) * V;  // x and y as (B T V, .)
+  const int n = (C + CC - 1) / CC;
+
+  auto stage_x = [&](int c0) {
+    stage_tile<T, L::ROWS, CC>(x_s, x, row0, rows_ok, c0, C, x_vec, tid);
+    cp_async_commit();
+  };
+  auto stage_w = [&](int c0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      stage_tile<T, CC, OT>(w_s + k * CC * OT, w + (size_t)k * C * Co, c0,
+                            C - c0, o0, Co, w_vec, tid);
+    }
+    cp_async_commit();
+  };
+
+  stage_x(0);
+  // a1[b] once per block, rows zero-padded to VP
+  const float* a_b = a1 + (size_t)b * K * V * V;
+  for (int i = tid; i < K * V * L::VP; i += F_THREADS) {
+    const int col = i % L::VP;
+    a_s[i] = col < V ? a_b[(i / L::VP) * V + col] : 0.f;
+  }
+
+  float acc[4 * L::RQ][8];
+#pragma unroll
+  for (int a = 0; a < 4 * L::RQ; ++a) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[a][j] = 0.f;
+  }
+
+  for (int i = 0; i < n; ++i) {
+    const int c0 = i * CC;
+    cp_async_wait_all();  // this thread's copies of x chunk i are in
+    __syncthreads();      // everyone's (and a_s); the projection of chunk
+                          // i - 1 is done with w_s and agg_s
+    stage_w(c0);          // in flight during the aggregate
+
+    // aggregate: aggT_k[c][t V + w] = sum_v x[t][v][c] a1_k[v][w], a 4 (c)
+    // x 4 (w) tile an item, v in order from 0
+#pragma unroll 1
+    for (int item = tid; item < L::ITEMS; item += F_THREADS) {
+      const int wq = item % L::WQ;
+      const int cq = item / L::WQ % L::CQ;
+      const int t = item / (L::WQ * L::CQ) % L::TT;
+      const int k = item / (L::WQ * L::CQ * L::TT);
+      if (t >= t_ok) continue;  // rows past T are never stored
+      const T* xr = x_s + t * V * CC + 4 * cq;
+      const float* ar = a_s + k * V * L::VP + 4 * wq;
+      float s[4][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[c][j] = 0.f;
+      }
+      // v in order from 0; the loads of step v + 1 are in flight during
+      // the FMAs of step v, in a second register set (unrolled twice:
+      // faster on the H100 than once or fully, PERF.md section 6)
+      float4 xa = ld4(xr), aa = ld4(ar);
+#pragma unroll 2
+      for (int v = 0; v + 1 < V; v += 2) {
+        const float4 xb = ld4(xr + (v + 1) * CC);
+        const float4 ab = ld4(ar + (v + 1) * L::VP);
+        fma4x4(s, xa, aa);
+        const int nv = v + 2 < V ? v + 2 : v;  // past the end: reloaded
+        xa = ld4(xr + nv * CC);
+        aa = ld4(ar + nv * L::VP);
+        fma4x4(s, xb, ab);
+      }
+      if constexpr (V % 2 == 1) fma4x4(s, xa, aa);
+      float* dst = agg_s + (k * CC + 4 * cq) * L::LDA + t * V + 4 * wq;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (4 * wq + j >= V) continue;  // the pad columns of a1
+          // gcn_fused semantics: the aggregate is rounded to x's type
+          // (the identity in fp32)
+          dst[c * L::LDA + j] =
+              round_agg ? to_f(from_f<T>(s[c][j])) : s[c][j];
+        }
+      }
+    }
+    cp_async_wait_all();  // this thread's copies of W chunk i are in
+    __syncthreads();      // everyone's, and every aggregate of the chunk
+    if (i + 1 < n) stage_x(c0 + CC);  // in flight during the projection
+
+    // project: acc[rows][cols] += aggT_k[c][rows] W_k[c][cols], (k, c) in
+    // order, one staged row of each a step; the loads of step kc + 1 in
+    // flight during the FMAs of step kc (two register sets, K CC even;
+    // unrolled fully)
+    {
+      const float* ar = agg_s + 4 * ty;
+      const T* wr = w_s + 4 * tx;
+      float4 pa[L::RQ], pw[2], qa[L::RQ], qw[2];
+      auto fetch = [&](float4 (&a)[L::RQ], float4 (&w)[2], int kc) {
+#pragma unroll
+        for (int q = 0; q < L::RQ; ++q) {
+          a[q] = ld4(ar + kc * L::LDA + q * 4 * L::RY);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) w[h] = ld4(wr + kc * OT + h * 4 * L::CX);
+      };
+      fetch(pa, pw, 0);
+#pragma unroll
+      for (int kc = 0; kc < K * CC; kc += 2) {
+        fetch(qa, qw, kc + 1);
+        fma_step<L::RQ>(acc, pa, pw);
+        fetch(pa, pw, kc + 2 < K * CC ? kc + 2 : kc);  // past the end: reloaded
+        fma_step<L::RQ>(acc, qa, qw);
+      }
+    }
+  }
+
+  // y rows (t, w) inside T, channels o < Co
+#pragma unroll
+  for (int a = 0; a < 4 * L::RQ; ++a) {
+    const int r = 4 * ty + (a / 4) * 4 * L::RY + a % 4;
+    if (r >= rows_ok) continue;
+    T* dst = y + (row0 + r) * Co;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = o0 + 4 * tx + h * 4 * L::CX;
+      if (o >= Co) continue;
+      if (y_vec) {  // Co % 4 == 0: the whole quad lies inside
+        if constexpr (sizeof(T) == 4) {
+          *reinterpret_cast<float4*>(dst + o) =
+              make_float4(acc[a][4 * h], acc[a][4 * h + 1],
+                          acc[a][4 * h + 2], acc[a][4 * h + 3]);
+        } else {
+          uint2 u;
+          u.x = pack2(acc[a][4 * h], acc[a][4 * h + 1]);
+          u.y = pack2(acc[a][4 * h + 2], acc[a][4 * h + 3]);
+          *reinterpret_cast<uint2*>(dst + o) = u;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (o + j < Co) dst[o + j] = from_f<T>(acc[a][4 * h + j]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int V, int OT, int CC>
+cudaError_t launch_fp32(const void* x, const void* a1, const void* w,
+                        void* y, int B, int Tn, int C, int Co,
+                        int round_agg, cudaStream_t stream) {
+  using L = F32Layout<T, V, OT, CC>;
+  auto kern = gcn_fwd_fp32_kernel<T, V, OT, CC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return err;
+  constexpr int E = 16 / (int)sizeof(T);
+  auto aligned = [](const void* p, int n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  dim3 grid((Tn + L::TT - 1) / L::TT, (Co + OT - 1) / OT, B);
+  kern<<<grid, F_THREADS, L::BYTES, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(a1),
+      static_cast<const T*>(w), static_cast<T*>(y), Tn, C, Co, round_agg,
+      C % E == 0 && aligned(x, 16), Co % E == 0 && aligned(w, 16),
+      Co % 4 == 0 && aligned(y, 4 * sizeof(T)));
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+cudaError_t launch_fp32_tile(const void* x, const void* a1, const void* w,
+                             void* y, int B, int Tn, int C, int Co,
+                             int round_agg, cudaStream_t stream) {
+  // Co <= 8 (the dx of the C = 3 entry layer) takes the 8-channel tile
+  // and 4-channel chunks; otherwise 64 or 128 output channels, and C <= 8
+  // (the entry layer) 4-channel chunks instead of 13 of zeros out of 16
+  if (Co <= F_NARROW) {
+    return launch_fp32<T, V, F_NARROW, F_NARROW_C>(x, a1, w, y, B, Tn, C, Co,
+                                                   round_agg, stream);
+  }
+  if (Co <= 64) {
+    return C <= 8 ? launch_fp32<T, V, 64, F_NARROW_C>(x, a1, w, y, B, Tn, C,
+                                                      Co, round_agg, stream)
+                  : launch_fp32<T, V, 64, 16>(x, a1, w, y, B, Tn, C, Co,
+                                              round_agg, stream);
+  }
+  return C <= 8 ? launch_fp32<T, V, 128, F_NARROW_C>(x, a1, w, y, B, Tn, C,
+                                                     Co, round_agg, stream)
+                : launch_fp32<T, V, 128, 16>(x, a1, w, y, B, Tn, C, Co,
+                                             round_agg, stream);
+}
+
+template <typename T>
+cudaError_t launch_fp32_v(const void* x, const void* a1, const void* w,
+                          void* y, int B, int Tn, int V, int C, int Co,
+                          int round_agg, cudaStream_t stream) {
+  switch (V) {  // the joint counts of the AGCN skeletons (NTU, Kinetics)
+    case 25:
+      return launch_fp32_tile<T, 25>(x, a1, w, y, B, Tn, C, Co, round_agg,
+                                     stream);
+    case 18:
+      return launch_fp32_tile<T, 18>(x, a1, w, y, B, Tn, C, Co, round_agg,
+                                     stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int agcn_gcn_fwd(const void* x, const void* a1, const void* w,
@@ -670,14 +889,14 @@ extern "C" int agcn_gcn_fwd(const void* x, const void* a1, const void* w,
   // launches on the caller's current device, which owns `stream`
   cudaError_t err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!x_bf16 && !a_bf16) {
-    err = launch_v<float, float>(x, a1, w, y, B, Tn, V, C, Co, round_agg, s);
+  if (!x_bf16 && !a_bf16) {  // CUDA cores
+    err = launch_fp32_v<float>(x, a1, w, y, B, Tn, V, C, Co, round_agg, s);
   } else if (x_bf16 && a_bf16) {  // tensor cores
     err = round_agg ? launch_mma_v<false>(x, a1, w, y, B, Tn, V, C, Co, s)
                     : launch_mma_v<true>(x, a1, w, y, B, Tn, V, C, Co, s);
-  } else if (x_bf16) {
-    err = launch_v<__nv_bfloat16, float>(x, a1, w, y, B, Tn, V, C, Co,
-                                         round_agg, s);
+  } else if (x_bf16) {  // CUDA cores, bf16 staged raw
+    err = launch_fp32_v<__nv_bfloat16>(x, a1, w, y, B, Tn, V, C, Co,
+                                       round_agg, s);
   } else {
     err = cudaErrorInvalidValue;  // fp32 x with bf16 a1 is not taken
   }

@@ -3,8 +3,8 @@ forward and backward (port of agcn_tpu/ops/pallas/gcn_fused.py).
 
   y[b,t,w,o] = sum_{k,v,c} x[b,t,v,c] * a1[b,k,v,w] * W[k,c,o]
 
-Forward: `csrc/gcn_fwd.cu` computes it per (sample, 4 frames, 64 output
-channels) block with the per-subset aggregate kept in shared memory,
+Forward: `csrc/gcn_fwd.cu` computes it per (sample, frame tile, output
+channel tile) block with the per-subset aggregate kept in shared memory,
 never in device memory. One kernel serves both TPU forward kernels of the
 JAX package; a flag picks the one real numerical difference between them
 in bf16: `round_agg=True` rounds each per-subset aggregate to x's type
@@ -17,8 +17,11 @@ forward and the dx of training) the aggregate is rounded to bf16 in
 shared memory between them; with `round_agg=False` (gcn_kernel's
 `fused_gcn`) each fp32 aggregate is split into two bf16 parts, hi =
 bf16(a) and lo = bf16(a - hi), and both are projected on W. fp32 calls
-and bf16 x with fp32 a1 go to `gcn_fwd_kernel` on the CUDA cores. There
-is no fallback between the two: a failed launch raises.
+and bf16 x with fp32 a1 go to `gcn_fwd_fp32_kernel` on the CUDA cores
+(exact fp32 FMAs): each block forms the aggregate of its frames once for
+all its 64 or 128 output channels (8 when Co <= 8), then projects it as
+a register-tiled GEMM. There is no fallback between the two: a failed
+launch raises.
 
 Backward of `adaptive_gcn_pallas` (the JAX `_vjp_bwd`, gcn_fused.py:222):
   dx      = the forward kernel on (g, a1^T, W^T) with round_agg=True;

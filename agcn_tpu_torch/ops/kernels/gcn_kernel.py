@@ -10,7 +10,7 @@ projection. Here it runs on the same Hopper kernels as `gcn_fused`
 (B, T, V, C) layout: no host transpose, no padded time tiles. In bf16
 that is `gcn_fwd_mma_kernel` on the tensor cores, with each fp32
 aggregate projected as two bf16 parts (hi + lo, within 2^-16 of it);
-in fp32 `gcn_fwd_kernel` on the CUDA cores. Its
+in fp32 `gcn_fwd_fp32_kernel` on the CUDA cores. Its
 backward is the JAX package's einsum `_bwd` (gcn_kernel.py:107-117): the
 TPU package has no backward kernel here, so neither has the port.
 """
@@ -60,7 +60,7 @@ def fused_gcn(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
       a1: (B, K, V, V) combined adjacency, a1[b, k, source, dest].
       w: (K, C, Co) per-subset projection kernels.
       time_tile: kept for the JAX signature; the Hopper kernel picks its
-        own tile of 4 frames and masks the ragged edge.
+        own frame tile and masks the ragged edge.
     """
     if time_tile < 1:
         raise ValueError(f"time_tile must be positive, got {time_tile}")

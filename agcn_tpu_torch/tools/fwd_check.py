@@ -4,7 +4,8 @@
 
 The quick card check of `ops/csrc/gcn_fwd.cu`, about a minute: it builds
 that source alone (and fails if ptxas reports a spill in any
-instantiation of `gcn_fwd_mma_kernel`), then
+instantiation of `gcn_fwd_mma_kernel` or `gcn_fwd_fp32_kernel`, and
+prints each one's registers, spills and shared memory), then
 
 1. at each AGCN layer shape of the served batch (16 streams x 2 persons =
    32 samples, T=300), fp32 and bf16, both aggregate-rounding modes,
@@ -15,21 +16,22 @@ instantiation of `gcn_fwd_mma_kernel`), then
 2. at each layer shape of a training step (batch 64 x 2 persons = 128
    samples) the dx call, gcn_fwd on (g, a1^T, W^T) with C and Co
    swapped, the same way (bf16 and fp32, round_agg=1);
-3. on small-integer inputs, bf16 equal to the plain version bit for bit
-   and two calls on the same inputs bitwise equal: both round_agg modes
-   at every served shape (where the two modes' results must differ),
-   round_agg=1 at every dx shape.
+3. on small-integer inputs, bf16 and fp32 equal to the plain version bit
+   for bit and two calls on the same inputs bitwise equal: both round_agg
+   modes at every served shape (in bf16 the two modes' results must
+   differ, in fp32 they are one function and must agree), round_agg=1 at
+   every dx shape.
 
-Last it prints the per-forward and per-step sums. `chip_smoke.py` phase 3
-runs the same functions.
+Last it prints the fp32 rows layer by layer, then the per-forward and
+per-step sums. `chip_smoke.py` phase 3 runs the same functions.
 
 Which kernel serves which call (the C entry `agcn_gcn_fwd`): bf16 x and
 a1 go to `gcn_fwd_mma_kernel` on the tensor cores, round_agg=1 (the
 aggregate rounded to bf16, `gcn_fused`'s `_fwd_kernel`) as it is,
 round_agg=0 (the aggregate kept in fp32, `gcn_kernel`'s `_kernel`) with
 each aggregate split into two bf16 parts, hi + lo, both projected; fp32
-calls, and bf16 x with fp32 a1, go to `gcn_fwd_kernel` on the CUDA
-cores.
+calls, and bf16 x with fp32 a1, go to `gcn_fwd_fp32_kernel` on the CUDA
+cores (exact fp32 FMAs; its tiles are `fp32_tiling`'s).
 
 Tolerances (`bwd_check.within_tol`): fp32 (TF32 off) max err <= 1e-4 of
 the output's scale; bf16 per element <= 2^-7 |ref| + 2^-10 of the scale.
@@ -37,7 +39,8 @@ Bit-exact inputs: x and a1 integers in [-8, 8], W in [-2, 2], all exact in
 bf16. Every aggregate (|agg| <= 25 * 64 = 1,600) and every fp32 sum of
 the projection (< 2^22) is an integer below 2^24, so it is exact in fp32
 in any summation order; only the rounding points (the aggregate to bf16
-with round_agg=1, y to bf16) decide the result. With round_agg=0 each
+with round_agg=1, y to bf16) decide the result, and in fp32 there are
+none. With round_agg=0 each
 aggregate, an integer below 2^17, is exactly the sum of its two bf16
 parts, so the split projection adds the same integers.
 """
@@ -58,23 +61,103 @@ from agcn_tpu_torch.tools.bwd_check import (
 
 SERVE_BATCH = 32  # 16 streams x 2 persons
 SOURCE = "agcn_tpu_torch/ops/csrc/gcn_fwd.cu"
+# the kernels of gcn_fwd.cu whose spills fail the build checks
+SPILL_CHECKED = ("gcn_fwd_mma_kernel", "gcn_fwd_fp32_kernel")
+FP32_KERNEL = "gcn_fwd_fp32_kernel"
 
 
-def spilling(ptxas_log, kernel="gcn_fwd_mma_kernel"):
-    """The entry functions of `kernel` (a substring of the mangled name)
-    for which `nvcc -Xptxas -v` reports spill stores or loads, each as
-    (name, store bytes, load bytes)."""
-    out, name = [], None
+def spilling(ptxas_log, kernel=SPILL_CHECKED):
+    """The entry functions of `kernel` (a substring of the mangled name,
+    or a tuple of them) for which `nvcc -Xptxas -v` reports spill stores
+    or loads, each as (name, store bytes, load bytes)."""
+    kernels = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    return [(r["name"], r["spill_stores"], r["spill_loads"])
+            for r in ptxas_kernels(ptxas_log, kernels)
+            if r["spill_stores"] or r["spill_loads"]]
+
+
+def ptxas_kernels(ptxas_log, kernels):
+    """Per entry function whose mangled name holds one of `kernels`, what
+    `nvcc -Xptxas -v` reports: name, registers, spill store and load
+    bytes, in the log's order."""
+    out, cur = [], None
     for ln in ptxas_log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
-            name = m.group(1)
+            cur = None
+            if any(k in m.group(1) for k in kernels):
+                cur = dict(name=m.group(1), registers=None, spill_stores=0,
+                           spill_loads=0)
+                out.append(cur)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
-        if m and name and kernel in name and (int(m.group(1))
-                                              or int(m.group(2))):
-            out.append((name, int(m.group(1)), int(m.group(2))))
+        if m and cur is not None:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def fp32_tile(v, ot, cc):
+    """`F32Tile<V, OT, CC>` of gcn_fwd.cu, mirrored: of a block's 256
+    threads, those across the columns (cx) and rows (ry), row quads a
+    thread (rq), rows a block with the pad rows (rows_p), frames a block
+    (tt), a1's padded row (vp), the row stride of the staged aggregate
+    (lda)."""
+    cx = ot // 8
+    ry = 256 // cx
+    rq = 1 if ot == 8 else 2
+    rows_p = 4 * ry * rq
+    return dict(ot=ot, cc=cc, cx=cx, ry=ry, rq=rq, rows_p=rows_p,
+                tt=rows_p // v, vp=(v + 3) // 4 * 4, lda=rows_p + 4)
+
+
+def fp32_smem(itemsize, v, ot, cc):
+    """`F32Layout<T, V, OT, CC>::BYTES`: the dynamic shared memory of a
+    block of `gcn_fwd_fp32_kernel` with x, W of `itemsize` bytes."""
+    t = fp32_tile(v, ot, cc)
+    x_bytes = (t["tt"] * v * cc * itemsize + 15) // 16 * 16
+    return (3 * v * t["vp"] * 4 + 3 * cc * t["lda"] * 4 + x_bytes
+            + 3 * cc * ot * itemsize)
+
+
+def fp32_tiling(v, c, co):
+    """The tile `launch_fp32_tile` of gcn_fwd.cu picks for a call: 8
+    output channels a block when Co <= 8, else 64 when Co <= 64, else
+    128; input-channel chunks of 4 when C <= 8 or Co <= 8, else 16."""
+    ot = 8 if co <= 8 else 64 if co <= 64 else 128
+    return fp32_tile(v, ot, 4 if c <= 8 or co <= 8 else 16)
+
+
+def kernel_label(name):
+    """`gcn_fwd_fp32_kernel<float, 25, 64, 16>` of a mangled name."""
+    for k in SPILL_CHECKED:
+        at = name.find(k)
+        if at >= 0:
+            rest = name[at + len(k):]
+            args = (["bf16" if rest.startswith("I13__nv_bfloat16") else
+                     "float"] if k == FP32_KERNEL else [])
+            args += [n for _, n in re.findall(r"L([ib])(\d+)E", rest)]
+            return f"{k}<{', '.join(args)}>"
+    return name
+
+
+def report_fp32_build(ptxas_log):
+    """Log each `gcn_fwd_fp32_kernel` instantiation's registers, spills and
+    dynamic shared memory (`fp32_smem`); returns them as dicts."""
+    out = []
+    for r in ptxas_kernels(ptxas_log, (FP32_KERNEL,)):
+        label = kernel_label(r["name"])
+        args = label[label.index("<") + 1:-1].split(", ")
+        smem = fp32_smem(2 if args[0] == "bf16" else 4,
+                         *(int(a) for a in args[1:4]))
+        out.append(dict(r, label=label, smem=smem))
+        log(f"  {label}: {r['registers']} registers, "
+            f"{r['spill_stores']} + {r['spill_loads']} spill bytes, "
+            f"{smem} B dynamic shared memory")
     return out
 
 
@@ -84,38 +167,44 @@ def library_fwd(torch, x, a1, w):
     return torch.einsum("btvc,bkvw,kco->btwo", x, a1, w)
 
 
-def exact_inputs(torch, np, b, t, c, co, seed):
-    """bf16 x, a1 and W on the card, small integers: every sum of the
-    kernel is exact in fp32 in any order (module docstring)."""
+def exact_inputs(torch, np, b, t, c, co, seed, dtype=None):
+    """x, a1 and W on the card in `dtype` (bf16 by default), small
+    integers: every sum of the kernel is exact in fp32 in any order
+    (module docstring)."""
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(a.astype(np.float32)).to(
-        "cuda", torch.bfloat16) for a in (
+        "cuda", dtype or torch.bfloat16) for a in (
         rng.integers(-8, 9, (b, t, 25, c)),
         rng.integers(-8, 9, (b, 3, 25, 25)),
         rng.integers(-2, 3, (3, c, co))))
 
 
-def check_exact(torch, np, gcn_fused, b, t, c, co, label, modes):
-    """bf16 on integer inputs, in each round_agg mode of `modes`, equals
-    the plain version bit for bit, and two calls are bitwise equal; with
-    both modes, their results differ."""
-    x, a1, w = exact_inputs(torch, np, b, t, c, co, SEED + 11)
+def check_exact(torch, np, gcn_fused, b, t, c, co, label, modes,
+                dtype=None):
+    """On integer inputs in `dtype` (bf16 by default), each round_agg mode
+    of `modes` equals the plain version bit for bit, and two calls are
+    bitwise equal; with both modes, their results differ in bf16 and
+    agree in fp32 (where the aggregate's rounding is the identity)."""
+    dtype = dtype or torch.bfloat16
+    dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+    x, a1, w = exact_inputs(torch, np, b, t, c, co, SEED + 11, dtype)
     got = {}
     for r in modes:
         got[r] = gcn_fused.launch_gcn_fwd(x, a1, w, r)
         again = gcn_fused.launch_gcn_fwd(x, a1, w, r)
         torch.cuda.synchronize()
         want = gcn_fused.gcn_fwd_plain(x, a1, w, r)
-        what = f"{label} T={t} C={c} Co={co} bf16 round_agg={int(r)}"
+        what = f"{label} T={t} C={c} Co={co} {dname} round_agg={int(r)}"
         check(torch.equal(got[r], again), f"{what}: two calls differ")
         check(torch.equal(got[r], want),
               f"{what}: integer inputs differ from the plain version "
               f"({(got[r] != want).sum().item()} elements, max "
               f"{(got[r].float() - want.float()).abs().max().item():.3e})")
     if len(got) == 2:
-        check(not torch.equal(got[True], got[False]),
-              f"{label} T={t} C={c} Co={co}: the round_agg modes agree on "
-              f"integer inputs")
+        differ = not torch.equal(got[True], got[False])
+        check(differ == (dtype == torch.bfloat16),
+              f"{label} T={t} C={c} Co={co} {dname}: the round_agg modes "
+              f"{'agree' if not differ else 'differ'} on integer inputs")
 
 
 def check_rounding_modes(torch, np, wrappers, gcn_fused, b, t, c, co):
@@ -209,9 +298,12 @@ def phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel):
             f"plain version and fails the other's")
         check_exact(torch, np, gcn_fused, b, t, c, co, "served",
                     (True, False))
-        log(f"  T={t:3d} C={c:3d} Co={co:3d} bfloat16 round_agg=1 and 0 on "
-            f"integer inputs: each equal to its plain version bit for bit, "
-            f"the two apart; two calls bitwise equal")
+        check_exact(torch, np, gcn_fused, b, t, c, co, "served",
+                    (True, False), torch.float32)
+        log(f"  T={t:3d} C={c:3d} Co={co:3d} round_agg=1 and 0 on integer "
+            f"inputs: each equal to its plain version bit for bit in "
+            f"bfloat16 (the two apart) and float32 (the two equal); two "
+            f"calls bitwise equal")
     return rows
 
 
@@ -239,10 +331,12 @@ def phase_dx(torch, np, gcn_fused):
                 lambda: gcn_fused.gcn_fwd_plain(g, at, wt, True),
                 g, at, wt, "dx", t, co, c, mult, dname, True, 10, 3))
             del g, a1, w, at, wt
-        check_exact(torch, np, gcn_fused, b, t, co, c, "dx", (True,))
-        log(f"  dx T={t:3d} C={co:3d} Co={c:3d} bfloat16 on integer inputs: "
-            f"equal to the plain version bit for bit; two calls bitwise "
-            f"equal")
+        for dtype in (torch.bfloat16, torch.float32):
+            check_exact(torch, np, gcn_fused, b, t, co, c, "dx", (True,),
+                        dtype)
+        log(f"  dx T={t:3d} C={co:3d} Co={c:3d} bfloat16 and float32 on "
+            f"integer inputs: equal to the plain version bit for bit; two "
+            f"calls bitwise equal")
     return rows
 
 
@@ -273,6 +367,36 @@ def fwd_entry(rows, round_agg, dname, launches, name, replaces,
     return entry
 
 
+def fp32_layers(rows, dx_rows):
+    """The fp32 rows layer by layer, logged: served (round_agg=1 and 0)
+    and dx kernel ms beside the einsum, the plain version and the bound;
+    returns them as dicts."""
+    out = []
+    for r in rows:
+        if r["dtype"] != "float32" or not r["round_agg"]:
+            continue
+        r0 = next(q for q in rows if q["dtype"] == "float32"
+                  and not q["round_agg"] and (q["t"], q["c"], q["co"]) ==
+                  (r["t"], r["c"], r["co"]))
+        d = next(q for q in dx_rows if q["dtype"] == "float32"
+                 and (q["t"], q["c"], q["co"]) == (r["t"], r["co"], r["c"]))
+        bound = lambda q: max(q["flop_ms"], q["byte_ms"])  # noqa: E731
+        row = dict(t=r["t"], c=r["c"], co=r["co"], layers=r["layers"],
+                   ms=r["ms"], ms_round_agg0=r0["ms"],
+                   library_ms=r["library_ms"], plain_ms=r["plain_ms"],
+                   bound_ms=bound(r), dx_ms=d["ms"],
+                   dx_library_ms=d["library_ms"], dx_plain_ms=d["plain_ms"],
+                   dx_bound_ms=bound(d))
+        out.append(row)
+        log(f"  fp32 T={r['t']:3d} C={r['c']:3d} Co={r['co']:3d} "
+            f"x{r['layers']}: served {row['ms']:.4f} / {row['ms_round_agg0']:.4f}"
+            f" ms (round_agg 1 / 0), einsum {row['library_ms']:.4f}, plain "
+            f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f}; dx "
+            f"{row['dx_ms']:.4f}, einsum {row['dx_library_ms']:.4f}, plain "
+            f"{row['dx_plain_ms']:.4f}, bound {row['dx_bound_ms']:.4f}")
+    return out
+
+
 def _report(label, s):
     log(f"  {label}: {s['ms']:.3f} ms (plain {s['plain_ms']:.3f}, einsum "
         f"{s['library_ms']:.3f}, bound {s['bound_ms']:.3f} "
@@ -301,9 +425,10 @@ def main(argv=None) -> int:
     for ln in built.log.splitlines():
         if "registers" in ln or "spill" in ln or "smem" in ln:
             log(f"  {ln.strip()}")
+    fp32_build = report_fp32_build(built.log)
     try:
         spills = spilling(built.log)
-        check(not spills, f"gcn_fwd_mma_kernel spills: {spills}")
+        check(not spills, f"gcn_fwd kernels spill: {spills}")
         with torch.inference_mode():
             log("gcn_fwd vs its plain version at the served shapes "
                 "(batch 32)")
@@ -314,6 +439,8 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"fwd_check: FAILED: {e}", file=sys.stderr)
         return 1
+    log("fp32 per layer (ms)")
+    layers = fp32_layers(rows, dx_rows)
     sums = {}
     for dname in ("bfloat16", "float32"):
         for round_agg in (True, False):
@@ -327,7 +454,9 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"device": torch.cuda.get_device_name(0),
                        "nvidia_smi": smi, "ptxas": built.log,
-                       "rows": rows, "dx_rows": dx_rows, "sums": sums},
+                       "fp32_build": fp32_build, "rows": rows,
+                       "dx_rows": dx_rows, "fp32_layers": layers,
+                       "sums": sums},
                       f, indent=1)
     log(smi)
     return 0

@@ -9,9 +9,11 @@ fails:
 
 1. environment: a CUDA GPU is required; prints its name and power limit.
 2. build: compiles every CUDA source of the port with nvcc (sm_90a), all
-   started together, and prints the build time and ptxas' report; a
-   spill in gcn_fwd_mma_kernel, gcn_da1_mma_kernel, gcn_dw_fp32_kernel
-   or gcn_u_kernel fails it.
+   started together, and prints the build time and ptxas' report (for
+   each gcn_fwd_fp32_kernel instantiation its registers, spills and
+   dynamic shared memory); a spill in gcn_fwd_mma_kernel,
+   gcn_fwd_fp32_kernel, gcn_da1_mma_kernel, gcn_dw_fp32_kernel or
+   gcn_u_kernel fails it.
 3. gcn_fwd against its plain version, on the card, at every AGCN layer
    shape of the served batch (16 streams x 2 persons = 32 samples), fp32
    and bf16, both aggregate-rounding modes, and as dx (gcn_fwd on g,
@@ -19,10 +21,11 @@ fails:
    prints max error, kernel / plain / library time and the roofline
    bound. At each served shape, on bf16 integer inputs where the two
    modes differ, each mode must match its own plain version and fail the
-   other's; on small-integer inputs bf16 (the tensor cores) equals its
-   plain version bit for bit in both modes at every served shape and with
-   round_agg=1 at every dx shape, and two calls are bitwise equal. The
-   code is
+   other's; on small-integer inputs bf16 (the tensor cores) and fp32
+   (gcn_fwd_fp32_kernel, the CUDA cores) equal their plain version bit
+   for bit in both modes at every served shape and with round_agg=1 at
+   every dx shape, and two calls are bitwise equal; the fp32 rows are
+   printed layer by layer (served and dx). The code is
    agcn_tpu_torch/tools/fwd_check.py, which runs it alone in about a
    minute: `python -m agcn_tpu_torch.tools.fwd_check`.
 4. gcn_bwd (dW, da1) at the training batch, fp32 and bf16, against its
@@ -68,7 +71,8 @@ fails:
    gcn_da1_mma_kernel (the tensor cores) and not the fp32 gcn_da1_kernel;
    the same for pallas and agg_packed in fp32 (TF32 off; 1 warm-up, 3
    timed steps), one fp32 pallas step profiled, in which dW must run
-   gcn_u_kernel and gcn_dw_fp32_kernel; then the entry point
+   gcn_u_kernel and gcn_dw_fp32_kernel, and the forward and dx
+   gcn_fwd_fp32_kernel alone; then the entry point
    `python -m agcn_tpu_torch.main` in subprocesses on synthetic data in a
    temporary directory: train and evaluate one epoch at batch 64, save,
    resume for a second epoch, and `--phase test` on the last checkpoint,
@@ -116,7 +120,8 @@ try:
         phase_bwd_kernels)
     from agcn_tpu_torch.tools.bwd_check import SOURCE as BWD_SOURCE
     from agcn_tpu_torch.tools.fwd_check import (
-        fwd_entry, phase_dx, phase_fwd_kernels, spilling)
+        fp32_layers, fwd_entry, phase_dx, phase_fwd_kernels,
+        report_fp32_build, spilling)
     from agcn_tpu_torch.tools.fwd_check import SOURCE as FWD_SOURCE
 except ImportError as e:
     print(f"chip_smoke: the port is not importable here ({e}); run from a "
@@ -978,6 +983,11 @@ def phase_train_speed(torch, np, cfg, summary, label, iters=5,
                       and "gcn_dw_partial_kernel" not in ours,
                       f"{label}: dW kernels of an fp32 pallas step: "
                       f"{sorted(k for k in ours if 'dw' in k or 'u_' in k)}")
+                # fp32 forward and dx: the CUDA-core gcn_fwd_fp32_kernel
+                fwd = sorted(k for k in ours if k.startswith("gcn_fwd"))
+                check(fwd == ["gcn_fwd_fp32_kernel"],
+                      f"{label}: gcn_fwd kernels of an fp32 pallas step: "
+                      f"{fwd}")
             log(f"      one {key} step: device {device_ms:.3f} ms; the "
                 f"port's kernels: "
                 + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(
@@ -1118,8 +1128,9 @@ def main():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
                 log(f"  {ln.strip()}")
+    summary["fp32_fwd_build"] = report_fp32_build(built["gcn_fwd"].log)
     spills = spilling(built["gcn_fwd"].log)
-    check(not spills, f"gcn_fwd_mma_kernel spills: {spills}")
+    check(not spills, f"gcn_fwd kernels spill: {spills}")
     spills = bwd_spills(built["gcn_bwd"].log)
     check(not spills, f"gcn_bwd kernels spill: {spills}")
     summary["build_s"] = build_s
@@ -1131,12 +1142,14 @@ def main():
         "element <= 2^-7 |ref| + 2^-10 x scale (loose: one bf16 rounding "
         "of each output may land one ulp apart), yet tight enough that "
         "each round_agg mode fails the other mode's plain version on "
-        "integer inputs; bf16 round_agg=1 bit for bit on small-integer "
+        "integer inputs; bf16 and fp32 bit for bit on small-integer "
         "inputs, two calls bitwise equal")
     with torch.inference_mode():
         rows = phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel)
         dx_rows = phase_dx(torch, np, gcn_fused)
-    summary.update(kernel_rows=rows, dx_rows=dx_rows)
+    log("  fp32 per layer (gcn_fwd_fp32_kernel, ms)")
+    summary.update(kernel_rows=rows, dx_rows=dx_rows,
+                   fp32_fwd_layers=fp32_layers(rows, dx_rows))
 
     log("[4/11] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
@@ -1217,10 +1230,16 @@ def main():
         f"agcn_serve_use_pallas_{d}": n
         for d, n in launches["fused_gcn"].items()}
     kernels[2]["launches_by_path"] = bwd_launches
-    # the fp32 route's per-step numbers beside the bf16 ones
+    # the fp32 routes' numbers beside the bf16 ones (gcn_fwd: served
+    # forward and, for gcn_fused, dx per step; gcn_bwd: per step)
+    same = ("name", "route", "source", "replaces", "launches")
+    for i, (round_agg, dx) in enumerate(((True, dx_rows), (False, None))):
+        kernels[i]["float32"] = {
+            k: v for k, v in fwd_entry(rows, round_agg, "float32", 0, "", "",
+                                       dx).items() if k not in same}
     kernels[2]["float32"] = {
         k: v for k, v in bwd_entry(bwd_rows, 0, "float32").items()
-        if k not in ("name", "route", "source", "replaces", "launches")}
+        if k not in same}
     summary.update(kernels=kernels, device=kind, nvidia_smi=smi,
                    seconds=time.perf_counter() - t_start)
     log(f"  all phases in {summary['seconds']:.1f} s")

@@ -25,6 +25,19 @@ from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(scope="module", autouse=True)
+def kernels_built():
+    """Every CUDA source of the port built before the first test, as
+    chip_smoke.py builds them before its first phase. Built later, from
+    inside a test (nvcc in a subprocess of this one) after the profiler
+    tests had run, the profiler tests that followed saw no kernels of the
+    H100 at all (torch 2.11)."""
+    if torch.cuda.is_available():
+        from agcn_tpu_torch.ops.kernels import build
+
+        build.build_all()
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -96,18 +109,18 @@ def test_kernel_rounding_modes_in_bf16(cuda, t, c, co):
         assert not _close(got[r], gcn_fused.gcn_fwd_plain(x, a1, w, not r))
 
 
-def _exact_inputs(dev, b, t, c, co, v=25, seed=4):
-    """bf16 integer inputs on which every sum of the tensor-core path is
-    exact in fp32 in any order: x and a1 in [-8, 8] make each aggregate
+def _exact_inputs(dev, b, t, c, co, v=25, seed=4, dtype=torch.bfloat16):
+    """Integer inputs (bf16 by default) on which every sum of the kernels
+    is exact in fp32 in any order: x and a1 in [-8, 8] make each aggregate
     an integer of at most 25 * 64 = 1,600; W in [-2, 2] keeps each fp32
-    sum of the projection (at most 3 * 200 * 1,600 * 2 here) below 2^22.
-    Only the two rounding points (aggregate, y) then decide the result."""
+    sum of the projection (at most 3 * 256 * 1,600 * 2 here) below 2^22.
+    Only the rounding points (aggregate, y; none in fp32) then decide the
+    result."""
     rng = np.random.default_rng(seed)
     arrs = (rng.integers(-8, 9, (b, t, v, c)),
             rng.integers(-8, 9, (b, 3, v, v)),
             rng.integers(-2, 3, (3, c, co)))
-    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev,
-                                                           torch.bfloat16)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
                  for a in arrs)
 
 
@@ -152,7 +165,7 @@ def test_mma_path_is_deterministic(cuda, t, c, co, round_agg):
 def test_bf16_runs_on_the_tensor_cores_kernel(cuda, round_agg):
     """bf16 x and a1 launch gcn_fwd_mma_kernel in both modes, with the
     split (SPLIT = true) exactly when the aggregate stays fp32, and never
-    the CUDA-core gcn_fwd_kernel."""
+    the CUDA-core gcn_fwd_fp32_kernel."""
     x, a1, w = _inputs(cuda, 2, 12, 64, 64, torch.bfloat16)
     gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)  # built and warm
     torch.cuda.synchronize()
@@ -165,6 +178,71 @@ def test_bf16_runs_on_the_tensor_cores_kernel(cuda, round_agg):
     split = "false" if round_agg else "true"
     assert all(f"{split}>" in n or f"Lb{int(not round_agg)}E" in n
                for n in names), names
+
+
+# ragged fp32 shapes (t, c, co, v) for gcn_fwd_fp32_kernel: T off its
+# frame tile (10 or 5 at V = 25, 14 or 7 at V = 18, 40 or 56 at Co <= 8),
+# C off its 16-channel chunk and C = 3, Co = 3 (the 8-channel tile), 37,
+# 64, 96 and 256 (the 64- and 128-channel tiles, off the 4-wide stores)
+_FP32_SHAPES = [(23, 3, 64, 25), (23, 20, 37, 25), (31, 64, 3, 25),
+                (17, 36, 96, 25), (13, 200, 256, 25), (30, 3, 37, 18),
+                (45, 20, 64, 18), (61, 64, 3, 18), (9, 36, 96, 18),
+                (16, 128, 256, 18)]
+
+
+@pytest.mark.parametrize("t,c,co,v", _FP32_SHAPES)
+def test_fp32_path_bit_exact_on_integer_inputs(cuda, t, c, co, v):
+    """fp32 on the CUDA cores equals the plain version bit for bit where
+    no sum rounds, in both round_agg modes (one function in fp32)."""
+    x, a1, w = _exact_inputs(cuda, 3, t, c, co, v=v, dtype=torch.float32)
+    want = gcn_fused.gcn_fwd_plain(x, a1, w, True)
+    for round_agg in (True, False):
+        got = gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)
+        torch.cuda.synchronize()
+        assert got.shape == (3, t, v, co)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("t,c,co", [(75, 256, 256), (30, 64, 3)])
+def test_fp32_path_is_deterministic(cuda, t, c, co):
+    x, a1, w = _inputs(cuda, 4, t, c, co, torch.float32)
+    first = gcn_fused.launch_gcn_fwd(x, a1, w, True)
+    again = gcn_fused.launch_gcn_fwd(x, a1, w, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("round_agg", [True, False])
+@pytest.mark.parametrize("t,c,co,v", [(23, 20, 37, 25), (30, 3, 64, 18),
+                                      (31, 64, 3, 25), (17, 36, 96, 25)])
+def test_bf16_x_with_fp32_a1_matches_plain(cuda, t, c, co, v, round_agg):
+    """bf16 x and W with fp32 a1 (no model builds it; the entry point
+    takes it): within the bf16 bar of the plain version of each mode."""
+    x, a1, w = _inputs(cuda, 3, t, c, co, torch.float32, v=v)
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    got = gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (3, t, v, co)
+    assert _close(got, gcn_fused.gcn_fwd_plain(x, a1, w, round_agg))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("round_agg", [True, False])
+def test_fp32_runs_on_the_cuda_core_kernel(cuda, x_dtype, round_agg):
+    """fp32 calls, and bf16 x with fp32 a1, launch gcn_fwd_fp32_kernel
+    (of x's type) and nothing else of gcn_fwd.cu."""
+    x, a1, w = _inputs(cuda, 2, 12, 64, 64, torch.float32)
+    x, w = x.to(x_dtype), w.to(x_dtype)
+    gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)  # built and warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "gcn_fwd" in e.name]
+    assert names and all("gcn_fwd_fp32_kernel" in n for n in names), names
+    bf16 = x_dtype == torch.bfloat16
+    assert all(("bfloat16" in n) == bf16 for n in names), names
 
 
 def _launches():

@@ -1,17 +1,19 @@
-"""The premise of the card's bit-exact check of gcn_fwd's bf16 paths.
+"""The premise of the card's bit-exact check of gcn_fwd, bf16 and fp32.
 
 On the card, `tests/test_torch_port_cuda.py` and
 `agcn_tpu_torch/tools/fwd_check.py` hold the tensor cores' kernel
-(bf16, both round_agg modes) equal to the port's plain version
-`gcn_fwd_plain` bit for bit on small-integer inputs. Here, on the CPU,
-the same kind of inputs go through the JAX package's Pallas kernels, as
-tests/test_pallas_gcn.py runs them (interpret mode), and through
-`gcn_fwd_plain`: `adaptive_gcn_pallas(..., interpret=True)` (the
-aggregate rounded to bf16) must equal round_agg=True bit for bit, and the
-same sums without that rounding must differ; `gcn_kernel.fused_gcn(...,
-interpret=True)` (the aggregate kept in fp32) must equal round_agg=False
-bit for bit. So the chain reads: TPU kernel == plain version (here), CUDA
-kernel == plain version (on the card).
+(bf16, both round_agg modes) and the CUDA-core `gcn_fwd_fp32_kernel`
+(fp32) equal to the port's plain version `gcn_fwd_plain` bit for bit on
+small-integer inputs. Here, on the CPU, the same kind of inputs go
+through the JAX package's Pallas kernels, as tests/test_pallas_gcn.py
+runs them (interpret mode), and through `gcn_fwd_plain`:
+`adaptive_gcn_pallas(..., interpret=True)` (the aggregate rounded to x's
+type) must equal round_agg=True bit for bit, in bf16 and in fp32, and in
+bf16 the same sums without that rounding must differ;
+`gcn_kernel.fused_gcn(..., interpret=True)` (the aggregate kept in fp32)
+must equal round_agg=False bit for bit, in both types. So the chain
+reads: TPU kernel == plain version (here), CUDA kernel == plain version
+(on the card).
 
 With round_agg=False the card's kernel projects each fp32 aggregate as
 two bf16 parts, hi = bf16(a) and lo = bf16(a - hi). Every integer
@@ -52,18 +54,27 @@ def _integer_inputs(b, t, c, co, v, seed=0):
             rng.integers(-2, 3, (3, c, co)).astype(np.float32))
 
 
-def _both(b, t, c, co, v, tpu_kernel=adaptive_gcn_pallas):
+def _both(b, t, c, co, v, tpu_kernel=adaptive_gcn_pallas,
+          dtype="bfloat16"):
     """The JAX Pallas kernel's result (interpret mode) as fp32, and the
-    same inputs as bf16 tensors."""
+    same inputs as tensors of `dtype` (bfloat16 or float32)."""
     arrs = _integer_inputs(b, t, c, co, v)
-    bf = [jnp.asarray(a, jnp.bfloat16) for a in arrs]
+    arg = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
     if tpu_kernel is fused_gcn:
-        ref = fused_gcn(*bf, 64, True)
+        ref = fused_gcn(*arg, 64, True)
     else:
-        ref = tpu_kernel(*bf, True)
+        ref = tpu_kernel(*arg, True)
     ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
-    x, a1, w = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    x, a1, w = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs)
     return ref, x, a1, w
+
+
+def _dtype_cases():
+    """(dtype, B, T, C, Co, V) over both types at every shape; the bf16
+    cases keep the ids they had before fp32 joined them."""
+    return [pytest.param(d, *s, id="-".join(map(str, s)) if d == "bfloat16"
+                         else "-".join(map(str, (d,) + s)))
+            for d in ("bfloat16", "float32") for s in SHAPES]
 
 
 def _split_projection(x, a1, w):
@@ -79,11 +90,12 @@ def _split_projection(x, a1, w):
     return acc.to(x.dtype)
 
 
-@pytest.mark.parametrize("b,t,c,co,v", SHAPES)
-def test_plain_version_equals_the_tpu_kernel_bit_for_bit(b, t, c, co, v):
-    ref, x, a1, w = _both(b, t, c, co, v)
+@pytest.mark.parametrize("dtype,b,t,c,co,v", _dtype_cases())
+def test_plain_version_equals_the_tpu_kernel_bit_for_bit(dtype, b, t, c, co,
+                                                         v):
+    ref, x, a1, w = _both(b, t, c, co, v, dtype=dtype)
     got = tfused.gcn_fwd_plain(x, a1, w, True)
-    assert got.dtype == torch.bfloat16 and got.shape == (b, t, v, co)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, t, v, co)
     assert torch.equal(got.float(), ref)
 
 
@@ -96,15 +108,27 @@ def test_the_aggregate_rounding_shows_on_these_inputs(b, t, c, co, v):
                            ref)
 
 
-@pytest.mark.parametrize("b,t,c,co,v", SHAPES)
+@pytest.mark.parametrize("dtype,b,t,c,co,v", _dtype_cases())
 def test_plain_version_equals_the_fp32_aggregate_tpu_kernel_bit_for_bit(
-        b, t, c, co, v):
+        dtype, b, t, c, co, v):
     """gcn_kernel's `_kernel` (the aggregate kept in fp32) is the plain
     version with round_agg=False."""
-    ref, x, a1, w = _both(b, t, c, co, v, tpu_kernel=fused_gcn)
+    ref, x, a1, w = _both(b, t, c, co, v, tpu_kernel=fused_gcn, dtype=dtype)
     got = tfused.gcn_fwd_plain(x, a1, w, False)
-    assert got.dtype == torch.bfloat16 and got.shape == (b, t, v, co)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, t, v, co)
     assert torch.equal(got.float(), ref)
+
+
+@pytest.mark.parametrize("b,t,c,co,v", SHAPES)
+def test_in_fp32_the_two_tpu_kernels_are_one_function(b, t, c, co, v):
+    """In fp32 the aggregate's rounding is the identity: both TPU kernels
+    and both round_agg modes of the plain version give one result, so one
+    CUDA-core kernel serves both."""
+    ref, x, a1, w = _both(b, t, c, co, v, dtype="float32")
+    ref0, *_ = _both(b, t, c, co, v, tpu_kernel=fused_gcn, dtype="float32")
+    assert torch.equal(ref, ref0)
+    assert torch.equal(tfused.gcn_fwd_plain(x, a1, w, True),
+                       tfused.gcn_fwd_plain(x, a1, w, False))
 
 
 @pytest.mark.parametrize("b,t,c,co,v", SHAPES)
@@ -188,15 +212,20 @@ def test_fwd_check_refuses_without_gpu(capsys):
 
 def test_fwd_check_finds_spills_of_the_mma_kernel():
     """`spilling` reads `nvcc -Xptxas -v`: spill stores or loads of a
-    gcn_fwd_mma_kernel instantiation are found, other kernels' ignored."""
+    gcn_fwd_mma_kernel or gcn_fwd_fp32_kernel instantiation are found,
+    other kernels' ignored."""
     mma = "_ZN12_GLOBAL__N_118gcn_fwd_mma_kernelILi25ELi32ELb1EEEvPKii"
+    fp32 = "_ZN12_GLOBAL__N_119gcn_fwd_fp32_kernelIfLi25ELi64ELi16EEEvPKT_"
     other = "_ZN12_GLOBAL__N_114gcn_fwd_kernelIffLi25ELi32EEEvPKii"
     entry = ("ptxas info    : Compiling entry function '{0}' for 'sm_90a'\n"
              "ptxas info    : Function properties for {0}\n"
              "    0 bytes stack frame, {1} bytes spill stores, {2} bytes "
              "spill loads\n"
              "ptxas info    : Used 128 registers, 101376 bytes smem\n")
-    clean = entry.format(mma, 0, 0) + entry.format(other, 8, 8)
+    clean = (entry.format(mma, 0, 0) + entry.format(fp32, 0, 0)
+             + entry.format(other, 8, 8))
     assert fwd_check.spilling(clean) == []
     assert fwd_check.spilling(clean + entry.format(mma, 4, 12)) == [
         (mma, 4, 12)]
+    assert fwd_check.spilling(clean + entry.format(fp32, 16, 16)) == [
+        (fp32, 16, 16)]

@@ -284,3 +284,32 @@ def test_cli_serves_a_trainer_checkpoint_on_cpu(models, tmp_path, capsys,
         answers.append([ln for ln in capsys.readouterr().out.splitlines()
                         if ln.startswith("[cam")])
     assert len(answers[0]) == 2 and answers[0] == answers[1]
+
+
+def test_cli_serves_beside_an_empty_recording(models, tmp_path, capsys):
+    """A 0-byte .npy (np.load raises EOFError on it) ends its own stream
+    with a `!!` line; the good stream beside it answers as it does alone,
+    as the root infer.py serves it."""
+    torch.save(models[2].state_dict(), tmp_path / "w.pt")
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text("model: agcn\nmodel_args: {num_class: 7, "
+                   "formulation: pallas}\n")
+    rng = np.random.default_rng(2)
+    cam0 = rng.standard_normal((3, 20, 25, 2)).astype(np.float32)
+    answers = {}
+    for name, empty in (("alone", False), ("beside", True)):
+        rec = tmp_path / name
+        rec.mkdir()
+        np.save(rec / "cam0.npy", cam0)
+        if empty:
+            (rec / "cam1.npy").write_bytes(b"")
+        cli_main(["--config", str(cfg), "--weights", str(tmp_path / "w.pt"),
+                  "--input", str(rec), "--serve", "2", "--interval", "10",
+                  "--max-frame", "32", "--device", "cpu"])
+        lines = capsys.readouterr().out.splitlines()
+        answers[name] = [ln for ln in lines if ln.startswith("[cam")]
+        if empty:
+            assert any(ln.startswith("!!") and "cam1" in ln for ln in lines)
+    assert [ln.split(":")[0] for ln in answers["beside"]] == [
+        "[cam0] frame 10", "[cam0] frame 20"]
+    assert answers["beside"] == answers["alone"]
