@@ -28,11 +28,16 @@
 //
 // What bounds it on an H100: per call it must read x, g (B*T*V*(C+Co)
 // values), a1 and W, and write dW and da1, and do
-// 4*K*B*T*V*Co*(V+C) flops. At the AGCN training shapes that is 100-290
-// flops per fp32 byte, above the fp32 ridge of 20 (67 TFLOP/s outside the
-// tensor cores over 3.35 TB/s): fp32 calls are bound by operations. In
-// bf16 the bytes halve and the ridge is 295 (989 TFLOP/s on the tensor
-// cores): bytes bound the narrow layers, operations the wide ones.
+// 4*K*B*T*V*Co*(V+C) flops in bf16, where u and p are rounded. In fp32
+// that rounding is the identity, so each gradient may take its narrower
+// intermediate (x a1_k for u, g W_k^T for p), and the least is
+// 4*K*B*T*V*(C*Co + V*min(C, Co)). At the AGCN training shapes that is,
+// in fp32, 12 flops per byte at the C = 3 entry layer, below the fp32
+// ridge of 20 (67 TFLOP/s outside the tensor cores over 3.35 TB/s), so
+// bytes bound it, and 133-419 at the others, bound by operations. In
+// bf16 it is 159-837 flops per byte against a ridge of 295 (989 TFLOP/s
+// on the tensor cores): bytes bound the narrow layers, operations the
+// wide ones.
 //
 // dW makes two passes through device memory in both types: u is formed
 // once, then dW_k = x^T u_k is a GEMM over the rows r = (b, t, v):
@@ -80,12 +85,48 @@
 //   gcn_dw_reduce_kernel: dW = sum over the groups, in group order,
 //     rounded to dW's type once.
 //
-// da1 in fp32 stays on the CUDA cores:
+// da1 in fp32 runs on the CUDA cores in exact fp32 FMAs (TF32 would miss
+// the fp32 bar):
 //
-//   gcn_da1_kernel: one block per (k, sample). Per 4-frame tile and
-//     64-channel chunk it projects p = x W_k (the register tiling of the
-//     forward kernel's projection), rounds it, stages g, and adds
-//     p . g over (t, o) into the 625 (v, w) sums, about 5 per thread.
+//   gcn_da1_fp32_kernel<V, CC>: one block of 256 threads per (group of
+//     frames, subset k, sample b). A group is a range of whole tiles of
+//     the sample, a tile TT = 128 / V frames (5 at V = 25: 125 rows t V +
+//     v; 7 at V = 18: 126 rows); the group count is chosen from the shapes
+//     so that about 2,112 blocks run (8 per SM). Per tile and 64-channel o
+//     chunk:
+//       1. p = x_tile . W_k[:, chunk] over C in chunks of CC (16; 4 for
+//          C <= 8, the C = 3 entry layer): x staged row-major (x_s[row]
+//          [c]) and W_k (w_s[c][o]) by 16-byte cp.async where aligned,
+//          both double-buffered, the next chunk's copies in flight during
+//          the current one's FMAs; each thread keeps a 4 x 8 register tile
+//          (four rows 32 apart x two column quads 32 channels apart): per
+//          four channels, one float4 of x a row and two of W a channel,
+//          12 loads for 128 FMAs. (x staged transposed instead, by 4-byte
+//          copies scattered down the columns, gives the same 3 loads for
+//          32 FMAs, but its four times as many copies made the kernel
+//          slower on the H100.)
+//       2. p stored into p_s[row][o] (rounded to x's type there: the
+//          identity in fp32); g of the tile and chunk staged into
+//          g_s[row][o] by cp.async issued before the C loop, in flight
+//          during it;
+//       3. da1 += p g^T per frame in VT x VT register tiles of (v, w): at
+//          V = 25, 25 tiles of 5 x 5 x 10 slices (a slice: one frame x one
+//          32-channel half) = 250 threads, per o quad five float4 of p
+//          and five of g for 100 FMAs; at V = 18, 9 tiles of 6 x 6 x 28
+//          slices (a frame x a 16-channel quarter) = 252 threads, 144 FMAs
+//          for 12 loads. The accumulators live for the whole block.
+//     At the end the slices are summed in slice order through shared
+//     memory (p_s and g_s reused) into the block's fp32 (V, V) partial
+//     of a (B, K, G, V, V) buffer. Rows past T and channels past C or
+//     Co are zero in shared memory; stores past them are skipped.
+//     Shared memory (Da32Layout): 96,672 bytes at V = 25, CC = 16, so two
+//     blocks fit an SM (__launch_bounds__(256, 2): 128 registers).
+//   gcn_da1_reduce_kernel<float>: the group partials in group order.
+//   What bounds it: in fp32 p's rounding is the identity, so da1_k =
+//   sum_t x_t (g_t W_k^T)^T is the same function, and the least work
+//   is 2 K B T V C Co + 2 K B T V^2 min(C, Co) flops: 8.66 ms a
+//   training step at the fp32 peak. This kernel runs the p form,
+//   2 K B T V Co (C + V) flops, 9.06 ms.
 //
 // da1 in bf16 is two chained products on the tensor cores (nvcuda::wmma
 // bf16 16x16x16, fp32 accumulators), as gcn_fwd_mma_kernel chains the
@@ -117,16 +158,17 @@
 //     leave a thread) are live while x and W are staged; staging them
 //     through registers spilled (72-80 bytes at CC = 64), cp.async takes
 //     none, and g is loaded after the C loop, where x and W are done.
-//   gcn_da1_reduce_kernel: da1 = the sum of the group partials in group
-//     order, rounded to bf16 once.
+//   gcn_da1_reduce_kernel<bf16>: da1 = the sum of the group partials in
+//     group order, rounded to bf16 once.
 //   What bounds it: the function needs x and g read once, 0.77 ms a
 //   training step at 3.35 TB/s; the MMAs it runs, padded (V to 32,
 //   C = 3 to 16), are ~830 GFLOP a step, 0.84 ms at the bf16 peak. The
 //   wmma fragment loads from shared memory and a barrier per C chunk
 //   keep it well below that peak.
 //
-// Ragged edges (T not a multiple of 4, C of 32, Co of 64) are masked:
-// staged values beyond the edge are zero and stores beyond it are skipped.
+// Ragged edges (T not a multiple of the tile, C of the chunk, Co of 64)
+// are masked: staged values beyond the edge are zero and stores beyond it
+// are skipped.
 //
 // C interface, each on the given stream of the current device, returning
 // the first CUDA error (0 on success):
@@ -134,9 +176,13 @@
 //     gcn_dw_fp32_kernel or in bf16 gcn_dw_mma_kernel) and the ordered
 //     reduce; the caller allocates the (G, K, C, Co) fp32 partials and
 //     the (K, B*T*V, Co) buffer of u in x's type.
-//   agcn_gcn_bwd_da1 launches gcn_da1_kernel (fp32), or in bf16
-//     gcn_da1_mma_kernel and its ordered reduce into the caller's
-//     (B, K, G, V, V) fp32 partials.
+//   agcn_gcn_bwd_da1 launches gcn_da1_fp32_kernel (fp32) or
+//     gcn_da1_mma_kernel (bf16) into the caller's (B, K, G, V, V) fp32
+//     partials, then the ordered reduce gcn_da1_reduce_kernel<T>.
+//   agcn_gcn_bwd_da1_tiling says what agcn_gcn_bwd_da1 takes at (V, C)
+//     in either type: the frames of a tile, which the caller's frame
+//     groups split, the dynamic shared memory of a block, and the blocks
+//     an SM of the current device holds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,8 +193,7 @@
 namespace {
 
 constexpr int K = 3;             // spatial subsets
-constexpr int THREADS = 128;
-constexpr int TT = 4;            // frames per tile
+constexpr int TT = 4;            // frames per tile of the bf16 da1 kernel
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -646,162 +691,321 @@ gcn_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// --------------------------------------------------------------- da1 ----
+// ------------------------------------------------------- da1 in fp32 ----
 
-constexpr int DA_CC = 32;                     // input-channel chunk of p
-constexpr int DA_OC = 64;                     // output-channel chunk
-constexpr int DA_COL_GROUPS = DA_OC / 4;      // 16
-constexpr int DA_ROW_GROUPS = THREADS / DA_COL_GROUPS;  // 8
+constexpr int D32_THREADS = 256;
+constexpr int D32_ROWS_P = 128;   // projection rows: 4 a thread, 32 apart
+constexpr int D32_OT = 64;        // output channels per chunk
+constexpr int D32_LD = D32_OT + 4;  // row stride of p_s and g_s
+constexpr int D32_NARROW_C = 8;   // C up to this takes CC = 4
 
+// The tiling of gcn_da1_fp32_kernel for V joints. A tile is TT whole
+// frames, TT V of the 128 projection rows (5 frames, 125 rows at V = 25;
+// 7 frames, 126 rows at V = 18). p g^T: VT x VT register tiles of (v, w),
+// NT x NT of them over the V x V output, each worked by SLICES threads, a
+// slice being one frame x one of PARTS channel parts of the 64-channel
+// chunk: at V = 25, 5 x 5 tiles x (5 frames x 2 halves) = 250 threads; at
+// V = 18, 6 x 6 tiles x (7 frames x 4 quarters) = 252 threads. Per o quad
+// a thread loads VT float4 of p and VT of g for 4 VT^2 FMAs: 10 FMAs a
+// load at V = 25, 12 at V = 18.
 template <int V>
-struct DaLayout {
-  static constexpr int ROWS = TT * V;         // (t, v) rows of a tile
-  static constexpr int RM = (ROWS + DA_ROW_GROUPS - 1) / DA_ROW_GROUPS;
-  static constexpr int ROWS_P = RM * DA_ROW_GROUPS;  // incl. zero pad
-  static constexpr int LDX = DA_CC + 1;       // x_s row stride: no bank
-                                              // conflicts
-  static constexpr int LD = DA_OC + 4;        // p_s / g_s row stride:
-                                              // float4-aligned, rows 4
-                                              // banks apart
-  static constexpr int X = ROWS_P * LDX;      // x_s[ROWS_P][LDX]
-  static constexpr int W = DA_CC * DA_OC;     // w_s[DA_CC][DA_OC]
-  static constexpr int P = ROWS * LD;         // p_s[t*V + v][LD]
-  static constexpr int G = ROWS * LD;         // g_s[t*V + w][LD]
-  static constexpr int PAIRS = (V * V + THREADS - 1) / THREADS;
-  // W, P and G start on 16-byte boundaries (float4 access)
-  static constexpr int X_P = (X + 3) / 4 * 4;
-  static constexpr size_t BYTES = sizeof(float) * (X_P + W + P + G);
+struct Da32Tile {
+  static constexpr int TT = D32_ROWS_P / V;
+  static constexpr int ROWS = TT * V;
+  static constexpr int VT = V == 25 ? 5 : 6;
+  static constexpr int NT = V / VT;
+  static constexpr int TILES = NT * NT;
+  static constexpr int PARTS = V == 25 ? 2 : 4;
+  static constexpr int PQ = D32_OT / 4 / PARTS;  // o quads of a part
+  static constexpr int SLICES = TT * PARTS;
+  static constexpr int WORKERS = TILES * SLICES;
+  static_assert(V % VT == 0 && WORKERS <= D32_THREADS && ROWS <= D32_ROWS_P,
+                "fp32 da1 tiling");
 };
 
-template <typename T, int V>
-__global__ void __launch_bounds__(THREADS)
-gcn_da1_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               const T* __restrict__ g, T* __restrict__ da1, int Tn, int C,
-               int Co) {
-  using L = DaLayout<V>;
-  extern __shared__ __align__(16) float smem[];
-  float* x_s = smem;
-  float* w_s = x_s + L::X_P;
-  float* p_s = w_s + L::W;
-  float* g_s = p_s + L::P;
+// Shared-memory layout in floats: x_s[2][D32_ROWS_P][LDX] and
+// w_s[2][CC][D32_OT] (double-buffered), p_s[ROWS][D32_LD],
+// g_s[ROWS][D32_LD]; at the end red_s[SLICES][V][V] takes p_s and g_s.
+// LDX = CC + 4: the four rows that a warp reads at once (ty = 0 .. 3)
+// land on distinct banks.
+template <int V, int CC>
+struct Da32Layout : Da32Tile<V> {
+  using B = Da32Tile<V>;
+  static constexpr int LDX = CC + 4;
+  static constexpr int X = D32_ROWS_P * LDX;  // one x_s buffer
+  static constexpr int W = CC * D32_OT;   // one w_s buffer
+  static constexpr int W_OFF = 2 * X;
+  static constexpr int P_OFF = W_OFF + 2 * W;
+  static constexpr int G_OFF = P_OFF + B::ROWS * D32_LD;
+  static constexpr int STAGE = G_OFF + B::ROWS * D32_LD;
+  static constexpr int RED = B::SLICES * V * V;
+  static constexpr int FLOATS =
+      STAGE > P_OFF + RED ? STAGE : P_OFF + RED;
+  static constexpr int BYTES = FLOATS * 4;
+  static_assert(CC % 4 == 0 && P_OFF % 4 == 0 && G_OFF % 4 == 0,
+                "float4 rows, four channels a step");
+};
 
-  const int k = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int cg = tid % DA_COL_GROUPS;
-  const int rg = tid / DA_COL_GROUPS;
+// Rows [0, NR) x columns [0, W) of a tile, element (r, c) =
+// m[(row0 + r) * n + col0 + c] where r < rows_ok and col0 + c < n, else
+// zero, into dst (row stride LD) by cp.async. `vec`: n and col0 are
+// multiples of 4 and m is 16-byte aligned, so each piece of 16 bytes is
+// wholly inside or wholly outside. A thread keeps one column (piece) and
+// steps down the rows, D32_THREADS / pieces-a-row apart. The loops stay
+// rolled (gcn_fwd.cu's stage_tile: unrolled, their hoisted index math
+// spilled).
+template <int NR, int W, int LD>
+__device__ __forceinline__ void stage_tile(float* dst,
+                                           const float* __restrict__ m,
+                                           size_t row0, int rows_ok,
+                                           int col0, int n, bool vec,
+                                           int tid) {
+  if (vec) {
+    constexpr int Q = W / 4;  // 16-byte pieces of a row
+    constexpr int RS = D32_THREADS / Q;
+    static_assert(D32_THREADS % Q == 0, "a thread keeps its column");
+    const int c = tid % Q * 4;
+    const bool c_ok = col0 + c < n;
+    size_t at = (row0 + tid / Q) * n + col0 + c;
+#pragma unroll 1
+    for (int r = tid / Q; r < NR; r += RS, at += (size_t)RS * n) {
+      const bool ok = c_ok && r < rows_ok;
+      cp_async16(dst + r * LD + c, ok ? m + at : m, ok);
+    }
+    return;
+  }
+  constexpr int RS = D32_THREADS / W;
+  static_assert(D32_THREADS % W == 0, "a thread keeps its column");
+  const int c = tid % W;
+  const bool c_ok = col0 + c < n;
+  size_t at = (row0 + tid / W) * n + col0 + c;
+#pragma unroll 1
+  for (int r = tid / W; r < NR; r += RS, at += (size_t)RS * n) {
+    const bool ok = c_ok && r < rows_ok;
+    cp_async4(dst + r * LD + c, ok ? m + at : m, ok);
+  }
+}
 
-  // the (v, w) pairs of this thread; the last ones of the last round are
-  // clamped to a valid pair and not stored
-  int pv[L::PAIRS], pw[L::PAIRS];
-  float s[L::PAIRS];
+// channel j of four rows, each a float4 over four channels
+__device__ __forceinline__ float4 column(const float4 (&a)[4], int j) {
+  return j == 0   ? make_float4(a[0].x, a[1].x, a[2].x, a[3].x)
+         : j == 1 ? make_float4(a[0].y, a[1].y, a[2].y, a[3].y)
+         : j == 2 ? make_float4(a[0].z, a[1].z, a[2].z, a[3].z)
+                  : make_float4(a[0].w, a[1].w, a[2].w, a[3].w);
+}
+
+// acc[r][j] += a[r] w[j]: one c step of the projection, one row quad x
+// two column quads, 32 FMAs (gcn_fwd.cu's fma_step<1>: each source
+// builds alone)
+__device__ __forceinline__ void fma_step(float (&acc)[4][8], const float4& a,
+                                         const float4 (&w)[2]) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-  for (int i = 0; i < L::PAIRS; ++i) {
-    const int j = min(tid + i * THREADS, V * V - 1);
-    pv[i] = j / V;
-    pw[i] = j % V;
-    s[i] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const float wv[4] = {w[h].x, w[h].y, w[h].z, w[h].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][4 * h + j] = fmaf(av[i], wv[j], acc[i][4 * h + j]);
+      }
+    }
+  }
+}
+
+// part[b, k, grp, v, w] = sum over the group's frames t and all o of
+// p_k[b,t,v,o] g[b,t,w,o], p_k = x W_k (rounded to x's type: the identity
+// in fp32), in exact fp32 FMAs on the CUDA cores. Two blocks an SM
+// (96,672 bytes of shared memory at V = 25, CC = 16): the bound caps the
+// registers at 128.
+template <int V, int CC>
+__global__ void __launch_bounds__(D32_THREADS, 2)
+gcn_da1_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ g, float* __restrict__ part,
+                    int Tn, int C, int Co, int groups, bool x_vec,
+                    bool w_vec, bool g_vec) {
+  using L = Da32Layout<V, CC>;
+  extern __shared__ __align__(16) float smem_d32[];
+  float* p_s = smem_d32 + L::P_OFF;
+  float* g_s = smem_d32 + L::G_OFF;
+
+  const int grp = blockIdx.x;
+  const int k = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  // the projection: rows ty + 32 i (i < 4), columns 4 tx and 32 + 4 tx
+  // of a quad
+  const int tx = tid % 8;
+  const int ty = tid / 8;
+  // p g^T: the thread's (v, w) tile, and its slice (frame f, channels
+  // from po of each chunk)
+  const int tile = tid % L::TILES;
+  const int slice = tid / L::TILES;
+  const int f = slice / L::PARTS;
+  const int po = (slice % L::PARTS) * L::PQ * 4;
+  const int v0 = (tile / L::NT) * L::VT;
+  const int w0 = (tile % L::NT) * L::VT;
+
+  // the group's frames: whole tiles [tiles*grp/groups, tiles*(grp+1)/groups)
+  const long long tiles = (Tn + L::TT - 1) / L::TT;
+  const int tile_begin = (int)(tiles * grp / groups);
+  const int tile_end = (int)(tiles * (grp + 1) / groups);
+  const int nc = (C + CC - 1) / CC;
+  const int no = (Co + D32_OT - 1) / D32_OT;
+  const int steps = (tile_end - tile_begin) * no * nc;
+  const size_t row_b = (size_t)b * Tn * V;  // x, g as (B*T*V, C or Co)
+  const float* w_k = w + (size_t)k * C * Co;
+
+  // the steps run c chunk fastest, then o chunk, then tile; step s
+  // stages its x and W chunks into buffer s % 2. (nt, no_, nc_): the
+  // tile, o chunk and c chunk of the next step to stage
+  int nt = tile_begin, no_ = 0, nc_ = 0;
+  auto stage_next = [&](int buf) {
+    const int t0 = nt * L::TT;
+    const int c0 = nc_ * CC;
+    const int rows_ok = (Tn - t0 < L::TT ? Tn - t0 : L::TT) * V;
+    stage_tile<D32_ROWS_P, CC, L::LDX>(smem_d32 + buf * L::X, x,
+                                       row_b + (size_t)t0 * V, rows_ok, c0,
+                                       C, x_vec, tid);
+    stage_tile<CC, D32_OT, D32_OT>(smem_d32 + L::W_OFF + buf * L::W, w_k,
+                                   c0, C - c0, no_ * D32_OT, Co, w_vec,
+                                   tid);
+    if (++nc_ == nc) {
+      nc_ = 0;
+      if (++no_ == no) {
+        no_ = 0;
+        ++nt;
+      }
+    }
+  };
+
+  float da[L::VT][L::VT];
+#pragma unroll
+  for (int i = 0; i < L::VT; ++i) {
+#pragma unroll
+    for (int j = 0; j < L::VT; ++j) da[i][j] = 0.f;
   }
 
-  const T* x_b = x + (size_t)b * Tn * V * C;
-  const T* g_b = g + (size_t)b * Tn * V * Co;
-  const T* w_k = w + (size_t)k * C * Co;
-  for (int t0 = 0; t0 < Tn; t0 += TT) {
-    for (int o0 = 0; o0 < Co; o0 += DA_OC) {
-      // p = x[t0 .. t0+TT) @ W_k[:, o0 .. o0+DA_OC), fp32 over c
-      float acc[L::RM][4];
-#pragma unroll
-      for (int i = 0; i < L::RM; ++i) {
-        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-      }
-      for (int c0 = 0; c0 < C; c0 += DA_CC) {
-        __syncthreads();  // the previous chunk / tile is done with smem
-        for (int i = tid; i < L::ROWS_P * DA_CC; i += THREADS) {
-          const int c = i % DA_CC;
-          const int r = i / DA_CC;
-          const int t = t0 + r / V;
-          float val = 0.f;
-          if (r < L::ROWS && t < Tn && c0 + c < C) {
-            val = to_f(x_b[((size_t)t * V + r % V) * C + c0 + c]);
-          }
-          x_s[r * L::LDX + c] = val;
-        }
-        for (int i = tid; i < L::W; i += THREADS) {
-          const int o = i % DA_OC;
-          const int c = c0 + i / DA_OC;
-          float val = 0.f;
-          if (c < C && o0 + o < Co) {
-            val = to_f(w_k[(size_t)c * Co + o0 + o]);
-          }
-          w_s[i] = val;
-        }
-        __syncthreads();
-        const float* x_r = x_s + rg * L::LDX;
-#pragma unroll 4
-        for (int c = 0; c < DA_CC; ++c) {
-          const float4 wv =
-              *reinterpret_cast<const float4*>(w_s + c * DA_OC + cg * 4);
-#pragma unroll
-          for (int i = 0; i < L::RM; ++i) {
-            const float av = x_r[i * DA_ROW_GROUPS * L::LDX + c];
-            acc[i][0] += av * wv.x;
-            acc[i][1] += av * wv.y;
-            acc[i][2] += av * wv.z;
-            acc[i][3] += av * wv.w;
-          }
-        }
-      }
-      // p rounded to x's type; g staged beside it
-#pragma unroll
-      for (int i = 0; i < L::RM; ++i) {
-        const int r = rg + i * DA_ROW_GROUPS;
-        if (r < L::ROWS) {
-          float4 pv4;
-          pv4.x = to_f(from_f<T>(acc[i][0]));
-          pv4.y = to_f(from_f<T>(acc[i][1]));
-          pv4.z = to_f(from_f<T>(acc[i][2]));
-          pv4.w = to_f(from_f<T>(acc[i][3]));
-          *reinterpret_cast<float4*>(p_s + r * L::LD + cg * 4) = pv4;
-        }
-      }
-      for (int i = tid; i < L::ROWS * DA_OC; i += THREADS) {
-        const int o = i % DA_OC;
-        const int tw = i / DA_OC;
-        const int t = t0 + tw / V;
-        float val = 0.f;
-        if (t < Tn && o0 + o < Co) {
-          val = to_f(g_b[((size_t)t * V + tw % V) * Co + o0 + o]);
-        }
-        g_s[tw * L::LD + o] = val;
-      }
-      __syncthreads();
+  stage_next(0);  // a group holds one tile at least
+  cp_async_commit();
+  int s = 0;
+  for (int tl = tile_begin; tl < tile_end; ++tl) {
+    const int t0 = tl * L::TT;
+    const int rows_ok = (Tn - t0 < L::TT ? Tn - t0 : L::TT) * V;
+    // a thread whose frame lies past T adds nothing
+    const bool adds = tid < L::WORKERS && t0 + f < Tn;
+    for (int oc = 0; oc < no; ++oc) {
+      const int o0 = oc * D32_OT;
+      __syncthreads();  // the previous chunk's p g^T is done with p_s, g_s
+      // g of the tile and chunk, in flight during the C loop
+      stage_tile<L::ROWS, D32_OT, D32_LD>(g_s, g, row_b + (size_t)t0 * V,
+                                          rows_ok, o0, Co, g_vec, tid);
+      cp_async_commit();
 
-      // da1[v][w] += sum_{t,o} p[t][v][o] * g[t][w][o]
+      // p = x_tile W_k[:, chunk], c in order from 0
+      float acc[4][8];
 #pragma unroll
-      for (int t = 0; t < TT; ++t) {
-#pragma unroll 4
-        for (int q = 0; q < DA_OC / 4; ++q) {
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-          for (int i = 0; i < L::PAIRS; ++i) {
-            const float4 p4 = *reinterpret_cast<const float4*>(
-                p_s + (t * V + pv[i]) * L::LD + 4 * q);
-            const float4 g4 = *reinterpret_cast<const float4*>(
-                g_s + (t * V + pw[i]) * L::LD + 4 * q);
-            s[i] += p4.x * g4.x;
-            s[i] += p4.y * g4.y;
-            s[i] += p4.z * g4.z;
-            s[i] += p4.w * g4.w;
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      }
+      for (int ci = 0; ci < nc; ++ci, ++s) {
+        // this thread's copies of chunk s are in (at ci = 0, g's, the
+        // newest group, may still be in flight)
+        if (ci == 0) {
+          cp_async_wait_group<1>();
+        } else {
+          cp_async_wait_group<0>();
+        }
+        __syncthreads();  // everyone's; and step s - 1 is done with the
+                          // other buffer, which takes step s + 1's
+                          // chunks, in flight during the FMAs
+        if (s + 1 < steps) stage_next((s + 1) % 2);
+        cp_async_commit();  // (an empty group past the end)
+        const float* xr = smem_d32 + (s % 2) * L::X + ty * L::LDX;
+        const float* wr = smem_d32 + L::W_OFF + (s % 2) * L::W + 4 * tx;
+        // four channels a step: the thread's four rows as float4 over c,
+        // then per c two float4 of W (unrolled fully)
+#pragma unroll
+        for (int c = 0; c < CC; c += 4) {
+          float4 a[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            a[i] = *reinterpret_cast<const float4*>(xr + 32 * i * L::LDX + c);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float4 wv[2] = {
+                *reinterpret_cast<const float4*>(wr + (c + j) * D32_OT),
+                *reinterpret_cast<const float4*>(wr + (c + j) * D32_OT + 32)};
+            fma_step(acc, column(a, j), wv);
+          }
+        }
+      }
+      // p rounded to x's type (from_f<float>: the identity) into p_s,
+      // rows of the tile only
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 32 * i;
+        if (r >= L::ROWS) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float4*>(p_s + r * D32_LD + 32 * h + 4 * tx) =
+              make_float4(from_f<float>(acc[i][4 * h]),
+                          from_f<float>(acc[i][4 * h + 1]),
+                          from_f<float>(acc[i][4 * h + 2]),
+                          from_f<float>(acc[i][4 * h + 3]));
+        }
+      }
+      cp_async_wait_group<1>();  // g is in (the newest group is the next
+      __syncthreads();           // step's chunk); p_s and g_s everyone's
+
+      // da[v][w] += p[f][v][o] g[f][w] over the slice's o quads, in order
+      if (adds) {
+        const float* pr = p_s + (f * V + v0) * D32_LD + po;
+        const float* gr = g_s + (f * V + w0) * D32_LD + po;
+#pragma unroll 2
+        for (int q = 0; q < L::PQ; ++q) {
+          float4 gq[L::VT];
+#pragma unroll
+          for (int j = 0; j < L::VT; ++j) {
+            gq[j] = *reinterpret_cast<const float4*>(gr + j * D32_LD + 4 * q);
+          }
+#pragma unroll
+          for (int i = 0; i < L::VT; ++i) {
+            const float4 pq =
+                *reinterpret_cast<const float4*>(pr + i * D32_LD + 4 * q);
+#pragma unroll
+            for (int j = 0; j < L::VT; ++j) {
+              da[i][j] = fmaf(pq.x, gq[j].x, da[i][j]);
+              da[i][j] = fmaf(pq.y, gq[j].y, da[i][j]);
+              da[i][j] = fmaf(pq.z, gq[j].z, da[i][j]);
+              da[i][j] = fmaf(pq.w, gq[j].w, da[i][j]);
+            }
           }
         }
       }
     }
   }
 
-  T* dst = da1 + ((size_t)b * K + k) * V * V;
+  cp_async_wait_all();
+  __syncthreads();  // every slice is done with p_s, g_s: red_s takes them
+  float* red_s = smem_d32 + L::P_OFF;  // [slice][v][w]
+  if (tid < L::WORKERS) {
 #pragma unroll
-  for (int i = 0; i < L::PAIRS; ++i) {
-    const int j = tid + i * THREADS;
-    if (j < V * V) dst[j] = from_f<T>(s[i]);
+    for (int i = 0; i < L::VT; ++i) {
+#pragma unroll
+      for (int j = 0; j < L::VT; ++j) {
+        red_s[(slice * V + v0 + i) * V + w0 + j] = da[i][j];
+      }
+    }
+  }
+  __syncthreads();
+  float* dst = part + (((size_t)b * K + k) * groups + grp) * V * V;
+  for (int i = tid; i < V * V; i += D32_THREADS) {
+    float sum = 0.f;
+    for (int sl = 0; sl < L::SLICES; ++sl) sum += red_s[sl * V * V + i];
+    dst[i] = sum;
   }
 }
 
@@ -1065,17 +1269,17 @@ gcn_da1_mma_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // da1[bk, i] = sum over the groups of part[bk, grp, i], in group order,
-// rounded to bf16 once
+// rounded to T once
+template <typename T>
 __global__ void __launch_bounds__(256)
-gcn_da1_reduce_kernel(const float* __restrict__ part,
-                      __nv_bfloat16* __restrict__ da1, int n, int vv,
-                      int groups) {
+gcn_da1_reduce_kernel(const float* __restrict__ part, T* __restrict__ da1,
+                      int n, int vv, int groups) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float* src = part + (size_t)(i / vv) * groups * vv + i % vv;
   float s = 0.f;
   for (int gi = 0; gi < groups; ++gi) s += src[(size_t)gi * vv];
-  da1[i] = __float2bfloat16_rn(s);
+  da1[i] = from_f<T>(s);
 }
 
 // ------------------------------------------------------------ launch ----
@@ -1154,31 +1358,84 @@ cudaError_t launch_dw_bf16(const void* x, const void* a1, const void* g,
                              groups, stream);
 }
 
-template <typename T, int V>
-cudaError_t launch_da1(const void* x, const void* w, const void* g,
-                       void* da1, int B, int Tn, int C, int Co,
-                       cudaStream_t stream) {
-  auto da_kern = gcn_da1_kernel<T, V>;
-  const size_t da_bytes = DaLayout<V>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      da_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)da_bytes);
-  if (err != cudaSuccess) return err;
-  da_kern<<<dim3(K, B), THREADS, da_bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(g), static_cast<T*>(da1), Tn, C, Co);
+template <typename T>
+cudaError_t launch_da1_reduce(const void* part, void* da1, int B, int V,
+                              int groups, cudaStream_t stream) {
+  const int n = B * K * V * V;
+  gcn_da1_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<T*>(da1), n, V * V,
+      groups);
   return cudaGetLastError();
+}
+
+// What a da1 launch takes at its shapes: the frames of a tile (the unit
+// of the caller's frame groups), the dynamic shared memory of a block,
+// and the blocks of that size an SM of the current device holds.
+struct Da1Tiling {
+  int frames;
+  int smem;
+  int blocks_per_sm;
+};
+
+// Lets `kern` take `bytes` of dynamic shared memory; with `tiling` set,
+// fills it in (the launcher then returns without launching).
+template <typename Kern>
+cudaError_t prepare_da1(Kern kern, int threads, int frames, int bytes,
+                        Da1Tiling* tiling) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess || tiling == nullptr) return err;
+  tiling->frames = frames;
+  tiling->smem = bytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &tiling->blocks_per_sm, kern, threads, bytes);
+}
+
+template <int V, int CC>
+cudaError_t launch_da1_fp32_cc(const void* x, const void* w, const void* g,
+                               void* da1, void* part, int B, int Tn, int C,
+                               int Co, int groups, cudaStream_t stream,
+                               Da1Tiling* tiling) {
+  auto kern = gcn_da1_fp32_kernel<V, CC>;
+  const int bytes = Da32Layout<V, CC>::BYTES;
+  cudaError_t err =
+      prepare_da1(kern, D32_THREADS, Da32Tile<V>::TT, bytes, tiling);
+  if (err != cudaSuccess || tiling != nullptr) return err;
+  kern<<<dim3(groups, K, B), D32_THREADS, bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(g), static_cast<float*>(part), Tn, C, Co,
+      groups, C % 4 == 0 && aligned(x, 16), Co % 4 == 0 && aligned(w, 16),
+      Co % 4 == 0 && aligned(g, 16));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_da1_reduce<float>(part, da1, B, V, groups, stream);
+}
+
+template <int V>
+cudaError_t launch_da1_fp32(const void* x, const void* w, const void* g,
+                            void* da1, void* part, int B, int Tn, int C,
+                            int Co, int groups, cudaStream_t stream,
+                            Da1Tiling* tiling) {
+  // the C = 3 entry layer takes 4-channel chunks instead of 13 of zeros
+  // out of 16
+  if (C <= D32_NARROW_C) {
+    return launch_da1_fp32_cc<V, 4>(x, w, g, da1, part, B, Tn, C, Co, groups,
+                                    stream, tiling);
+  }
+  return launch_da1_fp32_cc<V, 16>(x, w, g, da1, part, B, Tn, C, Co, groups,
+                                   stream, tiling);
 }
 
 template <int V, int CC>
 cudaError_t launch_da1_mma(const void* x, const void* w, const void* g,
                            void* da1, void* part, int B, int Tn, int C,
-                           int Co, int groups, cudaStream_t stream) {
+                           int Co, int groups, cudaStream_t stream,
+                           Da1Tiling* tiling) {
   using bf16 = __nv_bfloat16;
   auto kern = gcn_da1_mma_kernel<V, CC>;
   const int bytes = DaMmaLayout<CC>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
+  cudaError_t err = prepare_da1(kern, DM_THREADS, TT, bytes, tiling);
+  if (err != cudaSuccess || tiling != nullptr) return err;
   kern<<<dim3(groups, K, B), DM_THREADS, bytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const bf16*>(g), static_cast<float*>(part), Tn, C, Co,
@@ -1186,24 +1443,43 @@ cudaError_t launch_da1_mma(const void* x, const void* w, const void* g,
       Co % 8 == 0 && aligned(g, 16));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n = B * K * V * V;
-  gcn_da1_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<bf16*>(da1), n, V * V,
-      groups);
-  return cudaGetLastError();
+  return launch_da1_reduce<bf16>(part, da1, B, V, groups, stream);
 }
 
 template <int V>
 cudaError_t launch_da1_bf16(const void* x, const void* w, const void* g,
                             void* da1, void* part, int B, int Tn, int C,
-                            int Co, int groups, cudaStream_t stream) {
+                            int Co, int groups, cudaStream_t stream,
+                            Da1Tiling* tiling) {
   // the C=3 entry layer takes one 16-deep chunk instead of 64
   if (C <= 16) {
     return launch_da1_mma<V, 16>(x, w, g, da1, part, B, Tn, C, Co, groups,
-                                 stream);
+                                 stream, tiling);
   }
   return launch_da1_mma<V, 64>(x, w, g, da1, part, B, Tn, C, Co, groups,
-                               stream);
+                               stream, tiling);
+}
+
+// da1 at V joints in fp32 or bf16, launched, or with `tiling` set only
+// described
+cudaError_t dispatch_da1(const void* x, const void* w, const void* g,
+                         void* da1, void* part, int B, int Tn, int V, int C,
+                         int Co, int groups, int bf16, cudaStream_t stream,
+                         Da1Tiling* tiling) {
+  switch (V) {  // the joint counts of the AGCN skeletons (NTU, Kinetics)
+    case 25:
+      return bf16 ? launch_da1_bf16<25>(x, w, g, da1, part, B, Tn, C, Co,
+                                        groups, stream, tiling)
+                  : launch_da1_fp32<25>(x, w, g, da1, part, B, Tn, C, Co,
+                                        groups, stream, tiling);
+    case 18:
+      return bf16 ? launch_da1_bf16<18>(x, w, g, da1, part, B, Tn, C, Co,
+                                        groups, stream, tiling)
+                  : launch_da1_fp32<18>(x, w, g, da1, part, B, Tn, C, Co,
+                                        groups, stream, tiling);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1241,25 +1517,30 @@ extern "C" int agcn_gcn_bwd_da1(const void* x, const void* w, const void* g,
                                 void* da1, void* part, int B, int Tn, int V,
                                 int C, int Co, int groups, int bf16,
                                 void* stream) {
-  // in bf16 `groups` splits each sample's 4-frame tiles (at most their
-  // count) and `part` is the (B, K, groups, V, V) fp32 partials; fp32
-  // takes neither
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16 && (groups < 1 || groups > (Tn + TT - 1) / TT)) {
+  // `groups` splits each sample's frame tiles (agcn_gcn_bwd_da1_tiling's
+  // frames; at most their count) and `part` is the (B, K, groups, V, V)
+  // fp32 partials
+  if (V != 25 && V != 18) return (int)cudaErrorInvalidValue;
+  const int tt = bf16 ? TT : V == 25 ? Da32Tile<25>::TT : Da32Tile<18>::TT;
+  if (groups < 1 || groups > (Tn + tt - 1) / tt ||
+      (long long)K * groups > 65535 || B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  switch (V) {
-    case 25:
-      return (int)(bf16 ? launch_da1_bf16<25>(x, w, g, da1, part, B, Tn, C,
-                                              Co, groups, s)
-                        : launch_da1<float, 25>(x, w, g, da1, B, Tn, C, Co,
-                                                s));
-    case 18:
-      return (int)(bf16 ? launch_da1_bf16<18>(x, w, g, da1, part, B, Tn, C,
-                                              Co, groups, s)
-                        : launch_da1<float, 18>(x, w, g, da1, B, Tn, C, Co,
-                                                s));
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)dispatch_da1(x, w, g, da1, part, B, Tn, V, C, Co, groups,
+                           bf16, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The tiling agcn_gcn_bwd_da1 takes at V joints and C input channels, on
+// the current device: out[0] the frames of a tile, out[1] the dynamic
+// shared memory of a block in bytes, out[2] the blocks an SM holds.
+extern "C" int agcn_gcn_bwd_da1_tiling(int V, int C, int bf16, int* out) {
+  Da1Tiling tiling{};
+  const cudaError_t err = dispatch_da1(nullptr, nullptr, nullptr, nullptr,
+                                       nullptr, 0, 0, V, C, 0, 0, bf16,
+                                       nullptr, &tiling);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = tiling.frames;
+  out[1] = tiling.smem;
+  out[2] = tiling.blocks_per_sm;
+  return 0;
 }

@@ -30,9 +30,10 @@ Backward of `adaptive_gcn_pallas` (the JAX `_vjp_bwd`, gcn_fused.py:222):
             p_k = x W_k rounded to x's type; fp32 sums cast to W's and
             a1's types. u is formed once into device memory, then x^T u
             runs on the tensor cores (nvcuda::wmma) in bf16 and as a
-            register-tiled GEMM on the CUDA cores in fp32; bf16 da1 runs
-            on the tensor cores too: p = x W_k, rounded, then p g^T per
-            frame. Each block
+            register-tiled GEMM on the CUDA cores in fp32; da1 is p =
+            x W_k, rounded, then p g^T per frame, over groups of frames:
+            on the tensor cores in bf16, in register tiles on the CUDA
+            cores in fp32 (`gcn_da1_fp32_kernel`). Each block
             reduces over its rows itself and the dW and da1 partials of
             its groups are summed in a fixed order, so the result is
             deterministic (the TPU kernel's ordered-grid `+=` has no GPU
@@ -51,13 +52,14 @@ CPU tensors; for CUDA tensors it launches the kernel or raises.
 
 Launch counts: `adaptive_gcn_pallas.launches` counts the gcn_fwd
 launches with round_agg (forwards of both pallas forms and the dx of
-`pallas`), `gcn_backward.launches` the gcn_bwd calls (four kernels
-each in fp32, five in bf16).
+`pallas`), `gcn_backward.launches` the gcn_bwd calls (five kernels
+each: u, the dW GEMM and its reduce, da1 and its reduce).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -75,8 +77,9 @@ _MMA_TILE, _MMA_ROWS, _MMA_TARGET_BLOCKS = 64, 32, 1056
 # about this many (8 per SM: two waves of four)
 _DW32_TILE_O, _DW32_TILE_C, _DW32_NARROW_C = 64, 64, 8
 _DW32_ROWS, _DW32_TARGET_BLOCKS = 32, 1056
-# gcn_bwd's bf16 da1 kernel: blocks of (one group of 4-frame tiles, one
-# subset, one sample), at least this many (8 waves of two blocks an SM)
+# gcn_bwd's da1 kernels: blocks of (one group of frame tiles, one subset,
+# one sample), at least this many (8 waves of two blocks an SM); the
+# library says a tile's frames (`da1_tiling`), 4 in bf16
 _DA1_TILE, _DA1_TARGET_BLOCKS = 4, 2112
 
 
@@ -215,12 +218,27 @@ def dw_fp32_groups(rows: int, c: int, co: int) -> int:
                       math.ceil(_DW32_TARGET_BLOCKS / tiles)))
 
 
-def da1_groups(b: int, t: int) -> int:
-    """Frame groups of gcn_bwd's bf16 da1 kernel: ranges of whole 4-frame
-    tiles of a sample, one fp32 (V, V) partial per (sample, subset,
-    group), fixed by the shapes alone."""
-    tiles = math.ceil(t / _DA1_TILE)
+def da1_groups(b: int, t: int, tile: int = _DA1_TILE) -> int:
+    """Frame groups of gcn_bwd's da1 kernels: ranges of whole tiles of
+    `tile` frames of a sample (the library's, `da1_tiling`: 4 in bf16, 5
+    or 7 in fp32), one fp32 (V, V) partial per (sample, subset, group),
+    fixed by the shapes alone."""
+    tiles = math.ceil(t / tile)
     return max(1, min(tiles, math.ceil(_DA1_TARGET_BLOCKS / (K * b))))
+
+
+@functools.lru_cache(maxsize=None)
+def da1_tiling(v: int, c: int, bf16: bool) -> tuple[int, int, int]:
+    """What gcn_bwd's da1 launch takes at V joints and C input channels,
+    from the library (`agcn_gcn_bwd_da1_tiling`, on the current CUDA
+    device): (frames of a tile, dynamic shared memory of a block in
+    bytes, blocks an SM holds)."""
+    fn = getattr(build.load("gcn_bwd"), "agcn_gcn_bwd_da1_tiling")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    _raise_on(fn(v, c, int(bf16), out), "gcn_bwd da1 tiling")
+    return out[0], out[1], out[2]
 
 
 def _check_bwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
@@ -270,10 +288,10 @@ def launch_gcn_bwd_dw(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
 def launch_gcn_bwd_da1(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
                        g: torch.Tensor) -> torch.Tensor:
     """da1 of `csrc/gcn_bwd.cu` on the current stream (CUDA tensors), in
-    a1's dtype: fp32 on the CUDA cores; bf16 as p = x W_k, then p g^T per
-    frame on the tensor cores, one fp32 (V, V) partial per (sample,
-    subset, frame group) into a (B, K, G, V, V) buffer, summed in group
-    order."""
+    a1's dtype: p = x W_k, then p g^T per frame, on the tensor cores in
+    bf16 and in exact fp32 FMAs on the CUDA cores in fp32; one fp32
+    (V, V) partial per (sample, subset, frame group) into a
+    (B, K, G, V, V) buffer, summed in group order."""
     _check_bwd(x, a1, w, g)
     b, t, v, c = x.shape
     co = w.shape[-1]
@@ -281,17 +299,15 @@ def launch_gcn_bwd_da1(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     if x.numel() == 0 or g.numel() == 0:
         return da1.zero_()
     bf16 = x.dtype == torch.bfloat16
-    groups, partial = 1, None
-    if bf16:
-        groups = da1_groups(b, t)
-        partial = torch.empty((b, K, groups, v, v), dtype=torch.float32,
-                              device=x.device)
     fn = _bind("gcn_bwd", "agcn_gcn_bwd_da1", 5, 7)
     with torch.cuda.device(x.device):
+        groups = da1_groups(b, t, da1_tiling(v, c, bf16)[0])
+        partial = torch.empty((b, K, groups, v, v), dtype=torch.float32,
+                              device=x.device)
         stream = torch.cuda.current_stream(x.device)
         err = fn(x.data_ptr(), w.data_ptr(), g.data_ptr(), da1.data_ptr(),
-                 None if partial is None else partial.data_ptr(),
-                 b, t, v, c, co, groups, int(bf16), stream.cuda_stream)
+                 partial.data_ptr(), b, t, v, c, co, groups, int(bf16),
+                 stream.cuda_stream)
     _raise_on(err, "gcn_bwd da1")
     return da1
 

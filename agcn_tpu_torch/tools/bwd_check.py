@@ -11,13 +11,25 @@ yardstick (the einsums of `ops.gcn.adaptive_gcn_bwd`) and its bound, and
 on bf16 integer inputs holds the kernel bit for bit against the plain
 version while dropping the rounding of u or of p changes the result; on
 fp32 integer inputs whose dW sums are exact in any order (the batch cut
-where needed) it holds fp32 dW bit for bit. It fails if ptxas reports a
-spill in `gcn_da1_mma_kernel` (bf16 da1 on the tensor cores),
-`gcn_dw_fp32_kernel` (the fp32 dW GEMM) or `gcn_u_kernel` (u, both
-types). Last it prints the per-step sums (ten layers), dW and da1 each as
-kernel / einsums / plain / bound. `chip_smoke.py` phase 4
-runs the same functions; the dx calls (gcn_fwd on g, a1^T, W^T) are
-`fwd_check.py`'s.
+where needed) it holds fp32 dW bit for bit, and fp32 da1 at the full
+batch (x, W and g in [-1, 1]). It fails if ptxas reports a spill in
+`gcn_da1_mma_kernel` (bf16 da1 on the tensor cores),
+`gcn_da1_fp32_kernel` (fp32 da1 on the CUDA cores), `gcn_dw_fp32_kernel`
+(the fp32 dW GEMM) or `gcn_u_kernel` (u, both types), and prints each
+`gcn_da1_fp32_kernel` instantiation's registers and spills (ptxas). It
+asks the library what each da1 launch takes (`gcn_fused.da1_tiling`:
+frames of a tile, dynamic shared memory, blocks an SM holds) and fails
+if an SM holds fewer than the two blocks both da1 kernels are built for.
+Last it prints the fp32 da1 rows layer by layer and the per-step sums
+(ten layers), dW and da1 each as kernel / einsums / plain / bound.
+`chip_smoke.py` phase 4 runs the same functions; the dx calls (gcn_fwd
+on g, a1^T, W^T) are `fwd_check.py`'s.
+
+Bounds: the larger of the bytes over 3.35 TB/s and the flops over the
+type's peak. Each function here is a chain of a product over the V
+joints and one over the channels; in bf16 the intermediate is rounded
+(the aggregate, u, p), which fixes the order, while in fp32 the rounding
+is the identity and the bound takes the cheaper order.
 
 Tolerances (`within_tol`): fp32 (TF32 off) max err <= 1e-4 of the
 output's scale (fp32 sums of up to B*T*V products in another order);
@@ -34,6 +46,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -59,9 +72,11 @@ ROUTE_KERNELS = {
                  ["gcn_da1_mma_kernel", "gcn_da1_reduce_kernel"]),
     "float32": (["gcn_u_kernel", "gcn_dw_fp32_kernel",
                  "gcn_dw_reduce_kernel"],
-                ["gcn_da1_kernel"])}
+                ["gcn_da1_fp32_kernel", "gcn_da1_reduce_kernel"])}
+DA1_FP32_KERNEL = "gcn_da1_fp32_kernel"
 # the kernels of the source whose ptxas spills fail the card checks
-SPILL_CHECKED = ("gcn_da1_mma_kernel", "gcn_dw_fp32_kernel", "gcn_u_kernel")
+SPILL_CHECKED = ("gcn_da1_mma_kernel", DA1_FP32_KERNEL, "gcn_dw_fp32_kernel",
+                 "gcn_u_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -125,21 +140,33 @@ def bound_ms(flops, nbytes, dname):
         else "bytes"
 
 
+def chain_flops(b, t, c, co, inner, dtype_name, v=25, k=3):
+    """Flops of sum_k over (b, t) of a product over the V joints on
+    `inner` channels and a product over the channels, C in and Co out:
+    2 K B T V (C Co + V inner). In fp32 the intermediate's rounding is
+    the identity, so either order computes the function and the V
+    product takes the narrower side, min(C, Co)."""
+    if dtype_name == "float32":
+        inner = min(c, co)
+    return 2 * k * b * t * v * (c * co + v * inner)
+
+
 def gcn_work(b, t, c, co, dtype_name, v=25, k=3):
     """(flops, bytes) one gcn_fwd call needs: each input read once, the
-    output written once."""
+    output written once; the aggregate over x's C channels, rounded in
+    bf16."""
     size = 4 if dtype_name == "float32" else 2
-    flops = 2 * b * t * k * v * c * (v + co)
+    flops = chain_flops(b, t, c, co, c, dtype_name, v, k)
     nbytes = (b * t * v * (c + co) + b * k * v * v + k * c * co) * size
     return flops, nbytes
 
 
 def gcn_bwd_work(b, t, c, co, dtype_name, v=25, k=3):
     """(flops, bytes) one gcn_bwd call needs: x, g, a1 and W read once,
-    dW and da1 written once; u = g a1^T and p = x W are formed and used
-    (2 K B T V Co (V + C) flops each way)."""
+    dW and da1 written once; the flops of dW and of da1
+    (`gcn_bwd_half_work`)."""
     size = 4 if dtype_name == "float32" else 2
-    flops = 4 * k * b * t * v * co * (v + c)
+    flops = 2 * gcn_bwd_half_work(b, t, c, co, dtype_name, v, k)[0]
     nbytes = (b * t * v * (c + co) + 2 * (b * k * v * v + k * c * co)) * size
     return flops, nbytes
 
@@ -147,10 +174,11 @@ def gcn_bwd_work(b, t, c, co, dtype_name, v=25, k=3):
 def gcn_bwd_half_work(b, t, c, co, dtype_name, v=25, k=3):
     """(flops, bytes) of dW alone, which are also those of da1 alone:
     x and g read once, a1 and W (one of them) read once, the gradient
-    written once; u (p) formed, 2 K B T V V Co flops, and contracted with
-    x (g), 2 K B T V C Co."""
+    written once. In bf16 u = g a1^T (p = x W) is rounded on its Co
+    channels and contracted with x (g); in fp32 dW may take x a1 and da1
+    g W^T, the narrower where C < Co (`chain_flops`)."""
     size = 4 if dtype_name == "float32" else 2
-    flops = 2 * k * b * t * v * co * (v + c)
+    flops = chain_flops(b, t, c, co, co, dtype_name, v, k)
     nbytes = (b * t * v * (c + co) + b * k * v * v + k * c * co) * size
     return flops, nbytes
 
@@ -177,6 +205,44 @@ def bwd_spills(ptxas_log):
     from agcn_tpu_torch.tools.fwd_check import spilling
 
     return [s for k in SPILL_CHECKED for s in spilling(ptxas_log, kernel=k)]
+
+
+def report_da1_fp32_build(ptxas_log):
+    """Log each `gcn_da1_fp32_kernel<V, CC>` instantiation's registers
+    and spills as ptxas reports them; returns them as dicts."""
+    from agcn_tpu_torch.tools.fwd_check import ptxas_kernels
+
+    out = []
+    for r in ptxas_kernels(ptxas_log, (DA1_FP32_KERNEL,)):
+        rest = r["name"][r["name"].index(DA1_FP32_KERNEL):]
+        v, cc = (int(n) for n in re.findall(r"Li(\d+)E", rest)[:2])
+        label = f"{DA1_FP32_KERNEL}<{v}, {cc}>"
+        out.append(dict(r, label=label))
+        log(f"  {label}: {r['registers']} registers, {r['spill_stores']} + "
+            f"{r['spill_loads']} spill bytes")
+    return out
+
+
+def check_da1_tiling(gcn_fused):
+    """What each da1 launch takes, from the library (`da1_tiling`) at
+    V = 25 and 18, the C = 3 entry layer's chunk and the wide one, in
+    both types, logged: an SM must hold the two blocks that both da1
+    kernels are built for (`__launch_bounds__(256, 2)`). Returns the
+    answers as dicts."""
+    out = []
+    for bf16 in (False, True):
+        for v in (25, 18):
+            for c in (3, 64):
+                frames, smem, blocks = gcn_fused.da1_tiling(v, c, bf16)
+                name = "gcn_da1_mma_kernel" if bf16 else DA1_FP32_KERNEL
+                out.append(dict(kernel=name, v=v, c=c, frames=frames,
+                                smem=smem, blocks_per_sm=blocks))
+                log(f"  {name} V={v} C={c}: {frames}-frame tiles, {smem} B "
+                    f"dynamic shared memory, {blocks} blocks an SM (the "
+                    f"library's answer)")
+                check(blocks >= 2, f"{name} V={v} C={c}: {blocks} blocks an "
+                                   f"SM at {smem} B, built for 2")
+    return out
 
 
 def exact_dw_batch(t, v=25, batch=TRAIN_BATCH * PERSONS):
@@ -206,6 +272,30 @@ def check_dw_fp32_exact(torch, np, gcn_fused, t, c, co):
           f"fp32 dW T={t} C={c} Co={co} batch {b}: integer inputs differ "
           f"from the plain version")
     return b
+
+
+def check_da1_fp32_exact(torch, gcn_fused, t, c, co,
+                         b=TRAIN_BATCH * PERSONS):
+    """fp32 x, W and g integers in [-1, 1] (a1 anything): every |p| <= C
+    and every da1 sum of |p| |g| stays below 2^24 (checked), so the sums
+    are exact in fp32 in any order and gcn_bwd's fp32 da1 must equal its
+    plain version bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x, g = (torch.randint(-1, 2, shape, device="cuda",
+                          generator=gen).float()
+            for shape in ((b, t, 25, c), (b, t, 25, co)))
+    w = torch.randint(-1, 2, (3, c, co), device="cuda",
+                      generator=gen).float()
+    a1 = torch.randn(b, 3, 25, 25, device="cuda", generator=gen)
+    terms = gcn_fused.gcn_da1_plain(x.abs(), w.abs(), g.abs())
+    check(terms.max().item() < 2 ** 24,
+          f"fp32 da1 T={t} C={c} Co={co}: sum |terms| {terms.max().item()} "
+          f"reaches 2^24")
+    del terms
+    da1 = gcn_fused.launch_gcn_bwd_da1(x, a1, w, g)
+    check(torch.equal(da1, gcn_fused.gcn_da1_plain(x, w, g)),
+          f"fp32 da1 T={t} C={c} Co={co} batch {b}: integer inputs differ "
+          f"from the plain version")
 
 
 def check_bwd_rounding(torch, np, gcn_fused, c, co):
@@ -241,10 +331,13 @@ def phase_bwd_kernels(torch, np, gcn_fused):
     128 after folding the persons). Returns the rows."""
     b = TRAIN_BATCH * PERSONS
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    check_da1_tiling(gcn_fused)
     rows = []
     for (t, c, co), mult in LAYER_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
+            frames, smem, _ = gcn_fused.da1_tiling(
+                25, c, dtype == torch.bfloat16)
             x = torch.randn(b, t, 25, c, device="cuda", generator=gen)
             a1 = torch.softmax(torch.randn(b, 3, 25, 25, device="cuda",
                                            generator=gen), dim=-2)
@@ -290,6 +383,9 @@ def phase_bwd_kernels(torch, np, gcn_fused):
                 da1_library_ms=cuda_time_ms(
                     lambda: library_da1(torch, x, w, g), 3),
                 half_bound_ms=half[0],  # of dW alone, and of da1 alone
+                half_bound_by=half[1],
+                da1_groups=gcn_fused.da1_groups(b, t, frames),
+                da1_smem=smem,
                 flops=flops, bytes=nbytes,
                 flop_ms=flops / PEAK_FLOPS[dname] * 1e3,
                 byte_ms=nbytes / PEAK_BYTES * 1e3)
@@ -316,7 +412,33 @@ def phase_bwd_kernels(torch, np, gcn_fused):
         exact_b = check_dw_fp32_exact(torch, np, gcn_fused, t, c, co)
         log(f"  gcn_bwd T={t:3d} C={c:3d} Co={co:3d} float32 dW on integer "
             f"inputs (batch {exact_b}): equal to the plain version")
+        check_da1_fp32_exact(torch, gcn_fused, t, c, co)
+        log(f"  gcn_bwd T={t:3d} C={c:3d} Co={co:3d} float32 da1 on integer "
+            f"inputs (batch {b}): equal to the plain version")
     return rows
+
+
+def da1_fp32_layers(rows):
+    """The fp32 da1 rows layer by layer, logged: kernel ms beside the
+    einsums, the plain version and the bound, with the frame groups and
+    the shared memory of a block that the launch took; returns them as
+    dicts."""
+    out = []
+    for r in rows:
+        if r["dtype"] != "float32":
+            continue
+        row = dict(t=r["t"], c=r["c"], co=r["co"], layers=r["layers"],
+                   ms=r["da1_ms"], library_ms=r["da1_library_ms"],
+                   plain_ms=r["da1_plain_ms"], bound_ms=r["half_bound_ms"],
+                   bound_by=r["half_bound_by"], groups=r["da1_groups"],
+                   smem=r["da1_smem"])
+        out.append(row)
+        log(f"  fp32 da1 T={row['t']:3d} C={row['c']:3d} Co={row['co']:3d} "
+            f"x{row['layers']}: {row['ms']:.4f} ms, einsums "
+            f"{row['library_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}); {row['groups']} "
+            f"groups, {row['smem']} B shared memory a block")
+    return out
 
 
 def bwd_entry(rows, launches, dname="bfloat16"):
@@ -370,6 +492,7 @@ def main(argv=None) -> int:
     for ln in built.log.splitlines():
         if "registers" in ln or "spill" in ln or "smem" in ln:
             log(f"  {ln.strip()}")
+    da1_build = report_da1_fp32_build(built.log)
     log("gcn_bwd vs its plain version at the training shapes (batch 128)")
     try:
         spills = bwd_spills(built.log)
@@ -379,6 +502,8 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"bwd_check: FAILED: {e}", file=sys.stderr)
         return 1
+    log("fp32 da1 per layer (gcn_da1_fp32_kernel, ms)")
+    da1_layers = da1_fp32_layers(rows)
     entries = [bwd_entry(rows, 0, d) for d in ("float32", "bfloat16")]
     for e in entries:
         log(f"per step ({e['dtype']}): gcn_bwd {e['ms']:.3f} ms (plain "
@@ -392,8 +517,9 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": torch.cuda.get_device_name(0),
-                       "nvidia_smi": smi, "ptxas": built.log, "rows": rows,
-                       "per_step": entries},
+                       "nvidia_smi": smi, "ptxas": built.log,
+                       "da1_fp32_build": da1_build, "rows": rows,
+                       "da1_fp32_layers": da1_layers, "per_step": entries},
                       f, indent=1)
     log(smi)
     return 0

@@ -11,9 +11,10 @@ fails:
 2. build: compiles every CUDA source of the port with nvcc (sm_90a), all
    started together, and prints the build time and ptxas' report (for
    each gcn_fwd_fp32_kernel instantiation its registers, spills and
-   dynamic shared memory); a spill in gcn_fwd_mma_kernel,
-   gcn_fwd_fp32_kernel, gcn_da1_mma_kernel, gcn_dw_fp32_kernel or
-   gcn_u_kernel fails it.
+   dynamic shared memory, for each gcn_da1_fp32_kernel its registers and
+   spills); a spill in
+   gcn_fwd_mma_kernel, gcn_fwd_fp32_kernel, gcn_da1_mma_kernel,
+   gcn_da1_fp32_kernel, gcn_dw_fp32_kernel or gcn_u_kernel fails it.
 3. gcn_fwd against its plain version, on the card, at every AGCN layer
    shape of the served batch (16 streams x 2 persons = 32 samples), fp32
    and bf16, both aggregate-rounding modes, and as dx (gcn_fwd on g,
@@ -28,16 +29,21 @@ fails:
    printed layer by layer (served and dx). The code is
    agcn_tpu_torch/tools/fwd_check.py, which runs it alone in about a
    minute: `python -m agcn_tpu_torch.tools.fwd_check`.
-4. gcn_bwd (dW, da1) at the training batch, fp32 and bf16, against its
+4. gcn_bwd (dW, da1) at the training batch, fp32 and bf16: first the
+   library's da1 tiling (frames of a tile, dynamic shared memory, blocks
+   an SM holds: fewer than two fail it); then against its
    plain version at every layer shape, two calls bitwise equal, and on
    bf16 integer inputs equal to the plain version while dropping either
    rounding point changes the result; fp32 dW equal to its plain version
    bit for bit on integer inputs whose sums are exact in any order (the
-   batch cut to keep them below 2^24). Prints kernel / plain / library
-   (the einsum backward) time and the bound, dW and da1 apart (in bf16
-   da1 is gcn_da1_mma_kernel on the tensor cores; dW in both types is
-   gcn_u_kernel, then gcn_dw_mma_kernel in bf16 or the CUDA-core GEMM
-   gcn_dw_fp32_kernel in fp32). The code
+   batch cut to keep them below 2^24), and fp32 da1 at the full batch (x,
+   W and g in [-1, 1]). Prints kernel / plain / library (the einsum
+   backward) time and the bound, dW and da1 apart (da1 is
+   gcn_da1_mma_kernel on the tensor cores in bf16 and the CUDA-core
+   gcn_da1_fp32_kernel in fp32, each over frame groups summed by
+   gcn_da1_reduce_kernel; dW in both types is gcn_u_kernel, then
+   gcn_dw_mma_kernel in bf16 or the CUDA-core GEMM gcn_dw_fp32_kernel in
+   fp32), and the fp32 da1 rows layer by layer. The code
    is agcn_tpu_torch/tools/bwd_check.py, which runs it alone in about a
    minute: `python -m agcn_tpu_torch.tools.bwd_check`.
 5. the attention-logits kernel against its plain version (the packed
@@ -68,10 +74,12 @@ fails:
    20 gcn_fwd and 10 gcn_bwd launches per step; ms per step, seq/s and
    peak memory of pallas, pallas_hybrid and agg_packed, and the device
    time of one pallas step by kernel group, in which bf16 da1 must run
-   gcn_da1_mma_kernel (the tensor cores) and not the fp32 gcn_da1_kernel;
-   the same for pallas and agg_packed in fp32 (TF32 off; 1 warm-up, 3
-   timed steps), one fp32 pallas step profiled, in which dW must run
-   gcn_u_kernel and gcn_dw_fp32_kernel, and the forward and dx
+   gcn_da1_mma_kernel (the tensor cores) and not the fp32
+   gcn_da1_fp32_kernel; the same for pallas and agg_packed in fp32 (TF32
+   off; 1 warm-up, 3 timed steps), one fp32 pallas step profiled, in
+   which dW must run gcn_u_kernel and gcn_dw_fp32_kernel, da1
+   gcn_da1_fp32_kernel and gcn_da1_reduce_kernel (neither the removed
+   gcn_da1_kernel nor gcn_da1_mma_kernel), and the forward and dx
    gcn_fwd_fp32_kernel alone; then the entry point
    `python -m agcn_tpu_torch.main` in subprocesses on synthetic data in a
    temporary directory: train and evaluate one epoch at batch 64, save,
@@ -116,8 +124,8 @@ try:
     # phases 3 and 4 and the card-check helpers shared with them
     from agcn_tpu_torch.tools.bwd_check import (
         LAYERS, PEAK_BYTES, PEAK_FLOPS, PERSONS, SEED, TRAIN_BATCH,
-        bwd_entry, bwd_spills, check, cuda_time_ms, log, nvidia_smi_line,
-        phase_bwd_kernels)
+        bwd_entry, bwd_spills, check, cuda_time_ms, da1_fp32_layers, log,
+        nvidia_smi_line, phase_bwd_kernels, report_da1_fp32_build)
     from agcn_tpu_torch.tools.bwd_check import SOURCE as BWD_SOURCE
     from agcn_tpu_torch.tools.fwd_check import (
         fp32_layers, fwd_entry, phase_dx, phase_fwd_kernels,
@@ -636,8 +644,8 @@ KERNEL_GROUPS = (
     ("logits_", "attention logits (the port's CUDA kernel)"),
     ("gcn_dw_", "gcn_bwd (the port's CUDA kernel)"),
     ("gcn_u_kernel", "gcn_bwd (the port's CUDA kernel)"),
-    # gcn_da1_kernel (fp32), gcn_da1_mma_kernel and gcn_da1_reduce_kernel
-    # (bf16): before "reduce" below
+    # gcn_da1_fp32_kernel (fp32), gcn_da1_mma_kernel (bf16) and
+    # gcn_da1_reduce_kernel (both): before "reduce" below
     ("gcn_da1_", "gcn_bwd (the port's CUDA kernel)"),
     ("conv", "cuDNN convolution"), ("cudnn", "cuDNN convolution"),
     # cuDNN's FFT convolution algorithms (fp32 with TF32 off)
@@ -970,13 +978,17 @@ def phase_train_speed(torch, np, cfg, summary, label, iters=5,
                         ours[mine[0]] = ours.get(mine[0], 0.0) + ms_ev
             device_ms = sum(groups.values())
             check(device_ms > 0, "the profiler saw no device time")
+            da1 = sorted(k for k in ours if "da1" in k)
             if dname == "bfloat16":
                 # bf16 da1 runs on the tensor cores, never the fp32 kernel
                 check("gcn_da1_mma_kernel" in ours
-                      and "gcn_da1_kernel" not in ours,
-                      f"{label}: da1 kernels of a bf16 pallas step: "
-                      f"{sorted(k for k in ours if 'da1' in k)}")
+                      and "gcn_da1_fp32_kernel" not in ours,
+                      f"{label}: da1 kernels of a bf16 pallas step: {da1}")
             else:
+                # fp32 da1: the CUDA-core kernel over frame groups, then
+                # the ordered reduce
+                check(da1 == ["gcn_da1_fp32_kernel", "gcn_da1_reduce_kernel"],
+                      f"{label}: da1 kernels of an fp32 pallas step: {da1}")
                 # fp32 dW: u formed once, then the CUDA-core GEMM
                 check({"gcn_u_kernel", "gcn_dw_fp32_kernel"} <= set(ours)
                       and "gcn_dw_mma_kernel" not in ours
@@ -1129,6 +1141,7 @@ def main():
             if "registers" in ln or "spill" in ln or "smem" in ln:
                 log(f"  {ln.strip()}")
     summary["fp32_fwd_build"] = report_fp32_build(built["gcn_fwd"].log)
+    summary["fp32_da1_build"] = report_da1_fp32_build(built["gcn_bwd"].log)
     spills = spilling(built["gcn_fwd"].log)
     check(not spills, f"gcn_fwd kernels spill: {spills}")
     spills = bwd_spills(built["gcn_bwd"].log)
@@ -1155,7 +1168,9 @@ def main():
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
-    summary["bwd_rows"] = bwd_rows
+    log("  fp32 da1 per layer (gcn_da1_fp32_kernel, ms)")
+    summary.update(bwd_rows=bwd_rows,
+                   fp32_da1_layers=da1_fp32_layers(bwd_rows))
 
     log("[5/11] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "

@@ -178,8 +178,11 @@ def test_da1_groups_are_whole_tiles_within_t(b, t):
     "float*, int, int, int, int, bool, bool, bool)",
     "(anonymous namespace)::gcn_da1_reduce_kernel(float const*, "
     "__nv_bfloat16*, int, int, int)",
-    "void (anonymous namespace)::gcn_da1_kernel<float, 25>(float const*, "
-    "float const*, float const*, float*, int, int, int)",
+    "void (anonymous namespace)::gcn_da1_fp32_kernel<25, 16>(float const*, "
+    "float const*, float const*, float*, int, int, int, int, bool, bool, "
+    "bool)",
+    "void (anonymous namespace)::gcn_da1_reduce_kernel<float>(float const*, "
+    "float*, int, int, int)",
     "void (anonymous namespace)::gcn_dw_reduce_kernel<__nv_bfloat16>"
     "(float const*, __nv_bfloat16*, int, int)",
     "void (anonymous namespace)::gcn_dw_fp32_kernel<64, 8>(float const*, "
@@ -217,7 +220,8 @@ def test_bwd_check_entry_names_each_halfs_kernels():
                                        "gcn_da1_reduce_kernel"]
     assert "gcn_dw_mma_kernel" in entry["dw"]["kernels"]
     fp32 = bwd_check.bwd_entry([dict(row, dtype="float32")], 0, "float32")
-    assert fp32["da1"]["kernels"] == ["gcn_da1_kernel"]
+    assert fp32["da1"]["kernels"] == ["gcn_da1_fp32_kernel",
+                                      "gcn_da1_reduce_kernel"]
     assert fp32["dw"]["kernels"] == ["gcn_u_kernel", "gcn_dw_fp32_kernel",
                                       "gcn_dw_reduce_kernel"]
     # each dtype's entry reads its own rows' errors
@@ -231,10 +235,12 @@ def test_bwd_check_entry_names_each_halfs_kernels():
 
 def test_bwd_check_finds_spills_of_the_da1_kernel():
     """`spilling(..., kernel="gcn_da1_mma_kernel")` reads `nvcc -Xptxas
-    -v`: the da1 kernel's spills are found, the other kernels' ignored."""
+    -v`: the da1 kernel's spills are found, the other kernels' (here the
+    fp32 da1 kernel's) ignored."""
     mma = ("_ZN12_GLOBAL__N_118gcn_da1_mma_kernelILi25ELi64EEEvPK13"
            "__nv_bfloat16S3_S3_Pfiiiibbb")
-    other = "_ZN12_GLOBAL__N_114gcn_da1_kernelIfLi25EEEvPKT_S3_S3_PS1_iii"
+    other = ("_ZN12_GLOBAL__N_119gcn_da1_fp32_kernelILi25ELi16EEEvPKfS2_S2_"
+             "Pfiiiibbb")
     entry = ("ptxas info    : Compiling entry function '{0}' for 'sm_90a'\n"
              "ptxas info    : Function properties for {0}\n"
              "    0 bytes stack frame, {1} bytes spill stores, {2} bytes "
@@ -259,12 +265,15 @@ _PTXAS_ENTRY = (
     "_ZN12_GLOBAL__N_118gcn_dw_fp32_kernelILi8ELi4EEEvPKfS2_Pfiiiibb",
     "_ZN12_GLOBAL__N_112gcn_u_kernelIfLi25EEEvPKT_S3_PS1_iiib",
     "_ZN12_GLOBAL__N_118gcn_da1_mma_kernelILi25ELi64EEEvPK13"
-    "__nv_bfloat16S3_S3_Pfiiiibbb"])
+    "__nv_bfloat16S3_S3_Pfiiiibbb",
+    "_ZN12_GLOBAL__N_119gcn_da1_fp32_kernelILi25ELi16EEEvPKfS2_S2_"
+    "Pfiiiibbb"])
 def test_bwd_check_fails_on_spills_of_the_fp32_dw_kernels(name):
     """`bwd_check.bwd_spills` (the check of bwd_check and chip_smoke's
-    phase 2) reports a spill in the fp32 dW GEMM, in u's kernel and in the
-    bf16 da1 kernel, and ignores the other kernels' (fp32 da1 here)."""
-    other = "_ZN12_GLOBAL__N_114gcn_da1_kernelIfLi25EEEvPKT_S3_S3_PS1_iii"
+    phase 2) reports a spill in the fp32 dW GEMM, in u's kernel and in
+    both da1 kernels, and ignores the other kernels' (the da1 reduce
+    here)."""
+    other = "_ZN12_GLOBAL__N_121gcn_da1_reduce_kernelIfEEvPKfPT_iii"
     clean = _PTXAS_ENTRY.format(name, 0, 0) + _PTXAS_ENTRY.format(other, 24,
                                                                   24)
     assert bwd_check.bwd_spills(clean) == []

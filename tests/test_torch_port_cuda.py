@@ -313,6 +313,12 @@ def test_gcn_bwd_matches_plain(cuda, t, c, co, v, dtype):
     assert _close(dw, want_dw) and _close(da1, want_da1)
 
 
+def _da1_groups(b, t, c, dtype, v=25):
+    """The frame groups of the da1 launch, over the library's tiles."""
+    frames = gcn_fused.da1_tiling(v, c, dtype == torch.bfloat16)[0]
+    return gcn_fused.da1_groups(b, t, frames)
+
+
 def _dw_groups(b, t, c, co, dtype, v=25):
     if dtype == torch.bfloat16:
         return gcn_fused.dw_mma_groups(b * t * v, c, co)
@@ -321,13 +327,13 @@ def _dw_groups(b, t, c, co, dtype, v=25):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gcn_bwd_is_deterministic(cuda, dtype):
-    """The dW partials, and in bf16 the da1 partials, are summed in a
-    fixed order: two calls agree bit for bit (the batch spans several dW
-    groups, each sample several da1 frame groups)."""
+    """The dW and da1 partials are summed in a fixed order: two calls
+    agree bit for bit (the batch spans several dW groups, each sample
+    several da1 frame groups)."""
     x, a1, w = _inputs(cuda, 64, 40, 64, 64, dtype)
     g = _cotangent(cuda, 64, 40, 64, dtype)
     assert _dw_groups(64, 40, 64, 64, dtype) > 1
-    assert gcn_fused.da1_groups(64, 40) > 1
+    assert _da1_groups(64, 40, 64, dtype) > 1
     first = gcn_fused.launch_gcn_bwd(x, a1, w, g)
     second = gcn_fused.launch_gcn_bwd(x, a1, w, g)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -446,10 +452,65 @@ def test_gcn_bwd_rounding_points_in_bf16(cuda, b, t, c, co, v, shows):
         assert (no_p[1] != da1).float().mean() > 0.2
 
 
+# (b, t, c, co, v): T off the 5- and 7-frame tiles, the C = 3 entry
+# layer (4-channel chunks), C = 20 (a ragged 16-channel chunk), Co = 37
+# (off the 64-channel chunk and the 4-wide copies) and 96 (two chunks,
+# the second ragged), V = 18
+_DA1_FP32_SHAPES = [(3, 37, 3, 64, 25), (3, 13, 20, 37, 18),
+                    (2, 23, 20, 96, 25), (2, 30, 64, 96, 18),
+                    (4, 11, 128, 37, 25)]
+
+
+@pytest.mark.parametrize("b,t,c,co,v", _DA1_FP32_SHAPES)
+def test_gcn_bwd_fp32_da1_matches_plain(cuda, b, t, c, co, v):
+    """Random fp32 inputs: gcn_da1_fp32_kernel over several frame groups,
+    then the ordered reduce, within the fp32 bar of the plain version,
+    and two calls bitwise equal."""
+    x, a1, w = _inputs(cuda, b, t, c, co, torch.float32, v=v)
+    g = _cotangent(cuda, b, t, co, torch.float32, v=v)
+    assert _da1_groups(b, t, c, torch.float32, v) > 1
+    da1 = gcn_fused.launch_gcn_bwd_da1(x, a1, w, g)
+    torch.cuda.synchronize()
+    assert _close(da1, gcn_fused.gcn_da1_plain(x, w, g))
+    assert torch.equal(gcn_fused.launch_gcn_bwd_da1(x, a1, w, g), da1)
+
+
+@pytest.mark.parametrize("b,t,c,co,v", _DA1_FP32_SHAPES)
+def test_gcn_bwd_fp32_da1_bit_for_bit_on_integers(cuda, b, t, c, co, v):
+    """fp32 x, W and g integers in [-1, 1] (a1 anything): every sum is
+    exact in fp32 in any order (sum |p| |g| < 2^24, checked), so the
+    kernel equals gcn_da1_plain bit for bit."""
+    rng = np.random.default_rng(7)
+    x, w, g = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.integers(-1, 2, (b, t, v, c)), rng.integers(-1, 2, (3, c, co)),
+        rng.integers(-1, 2, (b, t, v, co))))
+    a1 = torch.randn(b, 3, v, v, device=cuda)
+    assert _da1_groups(b, t, c, torch.float32, v) > 1
+    assert gcn_fused.gcn_da1_plain(x.abs(), w.abs(), g.abs()).max() < 2 ** 24
+    da1 = gcn_fused.launch_gcn_bwd_da1(x, a1, w, g)
+    torch.cuda.synchronize()
+    assert torch.equal(da1, gcn_fused.gcn_da1_plain(x, w, g))
+
+
+@pytest.mark.parametrize("v", [25, 18])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_da1_tiling_fits_two_blocks_an_sm(cuda, dtype, v):
+    """The library's da1 tiling: 5- or 7-frame tiles in fp32 (128 rows of
+    (t, v) at most), 4 in bf16, and an SM of this card holds two blocks
+    at both C chunks (the kernels' __launch_bounds__(256, 2))."""
+    bf16 = dtype == torch.bfloat16
+    for c in (3, 64):
+        frames, smem, blocks = gcn_fused.da1_tiling(v, c, bf16)
+        assert frames == (4 if bf16 else 128 // v)
+        assert blocks >= 2 and 0 < 2 * smem <= 227 * 1024
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bf16_da1_runs_on_the_tensor_cores_kernel(cuda, dtype):
     """bf16 da1 launches gcn_da1_mma_kernel and its ordered reduce, never
-    the CUDA-core gcn_da1_kernel; fp32 da1 launches gcn_da1_kernel alone."""
+    the CUDA-core gcn_da1_fp32_kernel; fp32 da1 launches
+    gcn_da1_fp32_kernel and the ordered reduce, never the tensor cores'
+    kernel (nor the removed gcn_da1_kernel)."""
     x, a1, w = _inputs(cuda, 2, 12, 64, 64, dtype)
     g = _cotangent(cuda, 2, 12, 64, dtype)
     gcn_fused.launch_gcn_bwd_da1(x, a1, w, g)  # built and warm
@@ -460,9 +521,11 @@ def test_bf16_da1_runs_on_the_tensor_cores_kernel(cuda, dtype):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if "gcn_da1" in e.name]
     want = ({"gcn_da1_mma_kernel", "gcn_da1_reduce_kernel"}
-            if dtype == torch.bfloat16 else {"gcn_da1_kernel"})
+            if dtype == torch.bfloat16 else
+            {"gcn_da1_fp32_kernel", "gcn_da1_reduce_kernel"})
     found = {k for k in ("gcn_da1_mma_kernel", "gcn_da1_reduce_kernel",
-                         "gcn_da1_kernel") if any(k in n for n in names)}
+                         "gcn_da1_fp32_kernel", "gcn_da1_kernel")
+             if any(k in n for n in names)}
     assert found == want, names
 
 
