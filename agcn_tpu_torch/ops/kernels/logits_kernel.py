@@ -9,11 +9,17 @@ logits (B, K, V, V) in fp32, the sums in fp32. On CUDA tensors it
 launches `csrc/logits.cu`, which computes only the K diagonal V x V
 blocks that the TPU kernel cuts out of its 128 x 128 packed product, and
 reads theta and phi through their strides: the theta/phi views of the
-fused (B, T, V, 2*K*Ce) embedding need no copy. The contraction is split
-into a number of spans fixed by the shapes (enough blocks for the card at
-a served batch) and the spans' partials are summed in a fixed order, so
-two calls give bitwise-equal results. Like the TPU kernel it has no
-backward.
+fused (B, T, V, 2*K*Ce) embedding need no copy. It stages chunks of
+whole frames by `cp.async` (16-byte copies where the rows allow:
+`copy_bytes`) and multiplies them on the tensor cores in bf16 and in
+exact fp32 FMAs on the CUDA cores in fp32. `launch_plan` fixes, from the
+shapes alone, the chunks and the spans the contraction is cut into
+(enough blocks for the card at a served batch); a second kernel sums
+the spans in span order, so two calls give bitwise-equal results. Like
+the TPU kernel it has no backward. A call's host work is kept short,
+since at a served batch it is near the kernel's device time: the C
+entry's integers are cached by shape, strides and alignment
+(`launch_args`), the spans' buffer is kept for each device and stream.
 
 `pack_rows`, `pack_cols`, `packed_logits_plain` and
 `attention_logits_plain` are the JAX package's packed formulation in
@@ -26,6 +32,7 @@ yardstick, never a card path of the port.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -36,9 +43,20 @@ from agcn_tpu_torch.ops.kernels.gcn_fused import _device_kind
 
 P = 128   # packed (K*V) rows of the TPU formulation, padded
 MAX_JOINTS = 32   # the kernel's tile: V padded to 32
-# the kernel stages 64 contraction columns at a time; the split aims at
-# eight blocks of 128 threads per SM and keeps at least 4 chunks a block
-_CHUNK, _TARGET_BLOCKS, _MIN_CHUNKS = 64, 132 * 8, 4
+# The kernel stages chunks of whole frames, about _CHUNK_COLS[dtype]
+# contraction columns each (a frame wider than _MAX_COLS channels is cut
+# into parts of _MAX_COLS); a span keeps at least _MIN_CHUNKS chunks.
+# _SLOTS: the block slots the span rule counts on, an H100's 132 SMs x
+# the blocks an SM holds (logits.cu's note: three of logits_mma_kernel,
+# two of logits_fp32_kernel). A constant, so that the spans, and the
+# order of the sums, follow from the shapes alone on any card.
+_CHUNK_COLS = {torch.bfloat16: 128, torch.float32: 160}
+_MAX_COLS = 256
+_MIN_CHUNKS = 4
+_SLOTS = {torch.bfloat16: 132 * 3, torch.float32: 132 * 2}
+# a block's set-up and first trip to memory, in chunks' time (fitted to
+# the spans swept on the H100 at the served and training shapes)
+_RAMP = 2
 
 
 def pack_rows(theta: torch.Tensor, num_subset: int,
@@ -82,12 +100,109 @@ def attention_logits_plain(theta: torch.Tensor, phi: torch.Tensor,
                        dim=1) / divisor
 
 
-def splits_for(b: int, k: int, x: int) -> int:
-    """Spans of the contraction: enough blocks for the card, fixed by the
-    shapes alone (so the order of the sums is too)."""
-    chunks = math.ceil(x / _CHUNK)
+def splits_for(b: int, k: int, chunks: int, dtype: torch.dtype) -> int:
+    """Spans of each (b, k) contraction of `chunks` chunks, from the
+    shapes alone (so the order of the sums is too): the count that takes
+    the least time through the card's block slots, counted as waves
+    (ceil(b k s / slots)) times a block's time (ceil(chunks / s) chunks
+    and its ramp), the fewest spans among equals."""
     most = max(1, chunks // _MIN_CHUNKS)
-    return max(1, min(most, math.ceil(_TARGET_BLOCKS / (b * k))))
+    return min(range(1, most + 1), key=lambda s: (
+        math.ceil(b * k * s / _SLOTS[dtype])
+        * (math.ceil(chunks / s) + _RAMP), s))
+
+
+def launch_plan(b: int, t: int, k: int, ce: int,
+                dtype: torch.dtype) -> dict:
+    """What `csrc/logits.cu` walks, from the shapes alone: a chunk is
+    `frames` whole frames x `cols` channels of each (`parts` chunks a
+    frame group when Ce > _MAX_COLS), `width` staged columns (frames *
+    cols rounded up to the MMA's 16); the (b, k) contraction's `chunks`
+    go in `spans` spans of `span_chunks` chunks, summed in span order."""
+    cols = min(ce, _MAX_COLS)
+    frames = max(1, _CHUNK_COLS[dtype] // cols)
+    parts = math.ceil(ce / cols)
+    chunks = math.ceil(t / frames) * parts
+    spans = splits_for(b, k, chunks, dtype)
+    span_chunks = math.ceil(chunks / spans)
+    return dict(frames=frames, cols=cols, parts=parts,
+                width=math.ceil(frames * cols / 16) * 16, chunks=chunks,
+                spans=math.ceil(chunks / span_chunks),
+                span_chunks=span_chunks)
+
+
+def launch_strides(shape: tuple, strides: tuple) -> tuple:
+    """The strides with those of dims of length 1 set to 0: the kernel
+    never steps along them, and their alignment is no concern."""
+    return tuple(st if n > 1 else 0 for st, n in zip(strides, shape))
+
+
+def copy_bytes(size: int, ce: int, cols: int, th_strides: tuple,
+               ph_strides: tuple, offset: int) -> int:
+    """The widest copy (16 or 4 bytes) that leaves every piece of a row
+    inside that row and aligned, for elements of `size` bytes: unit
+    channel strides, and the pointers (`offset`: their bitwise or, mod 16)
+    and the launch strides on a multiple of it. Else one element a copy
+    (fp32 by 4-byte cp.async, bf16 through registers)."""
+    if th_strides[-1] != 1 or ph_strides[-1] != 1:
+        return size
+    # row starts and lengths, in elements
+    spans = (ce, cols, *th_strides[:-1], *ph_strides[:-1])
+    for width in (16, 4):
+        if width > size and offset % width == 0 \
+                and all((n * size) % width == 0 for n in spans):
+            return width
+    return size
+
+
+# the integers the C entry takes in one array (`agcn_logits`' `args`)
+LAUNCH_ARGS = 21
+
+
+@functools.lru_cache(maxsize=256)
+def launch_args(dtype: torch.dtype, shape: tuple, th_strides: tuple,
+                ph_strides: tuple, offset: int) -> ctypes.Array:
+    """The C entry's integers, from what fixes them: the dtype, the
+    (B, T, V, K, Ce) shape, the two tensors' strides and their pointers'
+    `offset` (bitwise or, mod 16). In `agcn_logits`' order: theta's and
+    phi's launch strides, B, T, V, K, Ce, the plan's frames and cols, the
+    copy bytes, the spans, the chunks a span, and 1 for bf16. Cached, and
+    handed over as one array, so that a call repeats none of this work
+    and converts no integer."""
+    b, t, v, k, ce = shape
+    plan = launch_plan(b, t, k, ce, dtype)
+    sth, sph = launch_strides(shape, th_strides), launch_strides(shape,
+                                                                 ph_strides)
+    copy = copy_bytes(dtype.itemsize, ce, plan["cols"], sth, sph, offset)
+    return (ctypes.c_longlong * LAUNCH_ARGS)(
+        *sth, *sph, b, t, v, k, ce, plan["frames"], plan["cols"], copy,
+        plan["spans"], plan["span_chunks"], int(dtype == torch.bfloat16))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """`agcn_logits` of the built library, its argument types set: without
+    them ctypes passes each int as a 32-bit C int and cuts the
+    pointers."""
+    fn = build.load("logits").agcn_logits
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# the spans' fp32 sums: for each device, one buffer and the stream it
+# serves, grown as needed. Kernels on one stream run in order, so a
+# call's reduce has read the buffer before the next call's kernel writes
+# it; a call on another stream takes a new one.
+_PARTIALS: dict = {}
+
+
+def _partials(dev: int, stream: int, n: int) -> torch.Tensor:
+    held = _PARTIALS.get(dev)
+    if held is None or held[0] != stream or held[1].numel() < n:
+        held = _PARTIALS[dev] = (stream, torch.empty(
+            n, dtype=torch.float32, device=torch.device("cuda", dev)))
+    return held[1]
 
 
 def _check(theta: torch.Tensor, phi: torch.Tensor) -> None:
@@ -108,9 +223,13 @@ def _check(theta: torch.Tensor, phi: torch.Tensor) -> None:
 
 def launch_logits(theta: torch.Tensor, phi: torch.Tensor,
                   divisor: float) -> torch.Tensor:
-    """Launch `csrc/logits.cu` on the current stream (CUDA tensors, any
-    strides)."""
+    """Launch `csrc/logits.cu` on the current stream of theta's device
+    (CUDA tensors, any strides)."""
     _check(theta, phi)
+    dev = theta.device.index
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return launch_logits(theta, phi, divisor)
     b, t, v, k, ce = theta.shape
     out = torch.empty((b, k, v, v), dtype=torch.float32,
                       device=theta.device)
@@ -118,26 +237,17 @@ def launch_logits(theta: torch.Tensor, phi: torch.Tensor,
         return out
     if t * ce == 0:
         return out.zero_()
-    splits = splits_for(b, k, t * ce)
-    span = math.ceil(math.ceil(t * ce / splits) / _CHUNK) * _CHUNK
-    splits = math.ceil(t * ce / span)
-    partial = (torch.empty((splits, b, k, v, v), dtype=torch.float32,
-                           device=theta.device) if splits > 1 else None)
-    fn = getattr(build.load("logits"), "agcn_logits")
-    if fn.argtypes is None:
-        # without argtypes ctypes passes each int as a 32-bit C int and
-        # cuts the pointers
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 10
-                       + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                               ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(theta.device):
-        stream = torch.cuda.current_stream(theta.device)
-        err = fn(theta.data_ptr(), phi.data_ptr(), out.data_ptr(),
-                 0 if partial is None else partial.data_ptr(),
-                 *theta.stride(), *phi.stride(), b, t, v, k, ce, splits,
-                 span, int(theta.dtype == torch.bfloat16), float(divisor),
-                 stream.cuda_stream)
+    th_ptr, ph_ptr = theta.data_ptr(), phi.data_ptr()
+    args = launch_args(theta.dtype, theta.shape, theta.stride(),
+                       phi.stride(), (th_ptr | ph_ptr) % 16)
+    # the raw handle of the current stream, without the Stream object
+    # that torch.cuda.current_stream() builds at every call
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    splits = args[-3]  # the span count
+    partial = (_partials(dev, stream, out.numel() * splits).data_ptr()
+               if splits > 1 else 0)
+    err = _entry()(th_ptr, ph_ptr, out.data_ptr(), partial, args,
+                   float(divisor), stream)
     if err != 0:
         raise RuntimeError(f"logits kernel launch failed: CUDA error {err}")
     return out

@@ -11,10 +11,11 @@ fails:
 2. build: compiles every CUDA source of the port with nvcc (sm_90a), all
    started together, and prints the build time and ptxas' report (for
    each gcn_fwd_fp32_kernel instantiation its registers, spills and
-   dynamic shared memory, for each gcn_da1_fp32_kernel its registers and
-   spills); a spill in
+   dynamic shared memory, for each gcn_da1_fp32_kernel and each logits
+   kernel its registers and spills); a spill in
    gcn_fwd_mma_kernel, gcn_fwd_fp32_kernel, gcn_da1_mma_kernel,
-   gcn_da1_fp32_kernel, gcn_dw_fp32_kernel or gcn_u_kernel fails it.
+   gcn_da1_fp32_kernel, gcn_dw_fp32_kernel, gcn_u_kernel or any kernel
+   of logits.cu fails it.
 3. gcn_fwd against its plain version, on the card, at every AGCN layer
    shape of the served batch (16 streams x 2 persons = 32 samples), fp32
    and bf16, both aggregate-rounding modes, and as dx (gcn_fwd on g,
@@ -48,10 +49,15 @@ fails:
    minute: `python -m agcn_tpu_torch.tools.bwd_check`.
 5. the attention-logits kernel against its plain version (the packed
    128 x 128 formulation) at the ten layer shapes of the served (32) and
-   training (128) batches, fp32 and bf16, theta/phi as views of the
-   fused embedding: 1e-5 of the output scale, two calls bitwise equal;
-   kernel / plain / library (the 'transposed' form's torch.matmul in
-   fp32) time and the bound.
+   training (128) batches, fp32 (logits_fp32_kernel, the CUDA cores) and
+   bf16 (logits_mma_kernel, the tensor cores), theta/phi as views of the
+   fused embedding: 1e-5 of the output scale, two calls bitwise equal,
+   and on integer inputs the sums equal to the plain version's bit for
+   bit, each divided once; kernel / plain / library (the 'transposed'
+   form's torch.matmul in fp32) time back to back, the kernel's device
+   time alone (the calls queued ahead of the card) and the host's time a
+   call, the bound and its share, and the launch plan. The code is agcn_tpu_torch/tools/logits_check.py, which runs it
+   alone in about a minute: `python -m agcn_tpu_torch.tools.logits_check`.
 6. AGCN serving main path: the NTU-60 AGCN of configs/ntu60_xview/
    test_joint.yaml with `formulation: pallas`, full width, T=300, seeded
    random weights, serving 16 live streams through BatchedStreamServer
@@ -121,16 +127,17 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 try:
-    # phases 3 and 4 and the card-check helpers shared with them
+    # phases 3, 4 and 5 and the card-check helpers shared with them
     from agcn_tpu_torch.tools.bwd_check import (
-        LAYERS, PEAK_BYTES, PEAK_FLOPS, PERSONS, SEED, TRAIN_BATCH,
-        bwd_entry, bwd_spills, check, cuda_time_ms, da1_fp32_layers, log,
-        nvidia_smi_line, phase_bwd_kernels, report_da1_fp32_build)
-    from agcn_tpu_torch.tools.bwd_check import SOURCE as BWD_SOURCE
+        LAYERS, PERSONS, SEED, TRAIN_BATCH, bwd_entry, bwd_spills, check,
+        da1_fp32_layers, log, nvidia_smi_line, phase_bwd_kernels,
+        report_da1_fp32_build)
     from agcn_tpu_torch.tools.fwd_check import (
         fp32_layers, fwd_entry, phase_dx, phase_fwd_kernels,
         report_fp32_build, spilling)
-    from agcn_tpu_torch.tools.fwd_check import SOURCE as FWD_SOURCE
+    from agcn_tpu_torch.tools.logits_check import (
+        logits_close, logits_entry, logits_spills, phase_logits,
+        report_build)
 except ImportError as e:
     print(f"chip_smoke: the port is not importable here ({e}); run from a "
           "checkout of the repository", file=sys.stderr)
@@ -146,110 +153,6 @@ TRAIN_STEPS = 10
 STREAMS = 16
 SEQ = 300
 TICK_FRAMES = 10
-# (T, Ce) of the ten attention-logits calls of one AGCN / AAGCN forward
-# (Ce = Co / 4; the stride-2 blocks shorten T after their GCN)
-LOGITS_SHAPES = [((300, 16), 4), ((300, 32), 1), ((150, 32), 2),
-                 ((150, 64), 1), ((75, 64), 2)]
-SOURCES = {"gcn_fwd": FWD_SOURCE,
-           "gcn_bwd": BWD_SOURCE,
-           "logits": "agcn_tpu_torch/ops/csrc/logits.cu"}
-
-
-def logits_work(b, t, ce, dname, v=25, k=3):
-    """(flops, bytes) one attention-logits call needs: theta and phi read
-    once, the fp32 logits written once."""
-    size = 4 if dname == "float32" else 2
-    return (2 * b * k * v * v * t * ce,
-            2 * b * t * v * k * ce * size + b * k * v * v * 4)
-
-
-def logits_close(got, want):
-    """(ok, max abs err, scale): the stated bar of the logits kernel,
-    1e-5 of the output's scale (fp32 sums of up to T*Ce = 9,600 products
-    in another order)."""
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    return err <= 1e-5 * scale, err, scale
-
-
-def phase_logits(torch, np, logits_kernel):
-    """The attention-logits kernel against its plain version at the ten
-    layer shapes of the served batch (32) and of the training batch
-    (128), fp32 and bf16 inputs, theta/phi as the strided views of the
-    fused embedding that the models produce; two calls bitwise equal."""
-    from agcn_tpu_torch.ops import gcn as gcn_ops
-
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
-    rows = []
-    for b in (STREAMS * PERSONS, TRAIN_BATCH * PERSONS):
-        for (t, ce), mult in LOGITS_SHAPES:
-            for dtype in (torch.float32, torch.bfloat16):
-                dname = str(dtype).split(".")[-1]
-                emb = torch.randn(b, t, 25, 6 * ce, device="cuda",
-                                  generator=gen).to(dtype)
-                e = emb.view(b, t, 25, 2, 3, ce)
-                th, ph = e[..., 0, :, :], e[..., 1, :, :]
-                div = ce * t
-                got = logits_kernel.attention_logits_pallas(th, ph, div)
-                again = logits_kernel.attention_logits_pallas(th, ph, div)
-                torch.cuda.synchronize()
-                check(torch.equal(got, again),
-                      f"logits B={b} T={t} Ce={ce} {dname}: two calls "
-                      f"differ")
-                want = logits_kernel.attention_logits_plain(th, ph, div)
-                ok, err, scale = logits_close(got, want)
-                check(ok, f"logits B={b} T={t} Ce={ce} {dname}: max err "
-                          f"{err:.3e} (scale {scale:.3e})")
-                flops, nbytes = logits_work(b, t, ce, dname)
-                emb32 = emb.float()
-                row = dict(
-                    b=b, t=t, ce=ce, layers=mult, dtype=dname,
-                    max_abs_err=err, scale=scale,
-                    ms=cuda_time_ms(lambda: logits_kernel
-                                    .attention_logits_pallas(th, ph, div),
-                                    20),
-                    plain_ms=cuda_time_ms(lambda: logits_kernel
-                                          .attention_logits_plain(th, ph,
-                                                                  div), 5),
-                    # the yardstick: ops.gcn.attention_logits 'transposed'
-                    # (the (T, Ce) packing copies and one torch.matmul) on
-                    # the fp32 embedding
-                    library_ms=cuda_time_ms(lambda: gcn_ops.attention_logits(
-                        emb32, 3, ce, "transposed"), 5),
-                    flops=flops, bytes=nbytes,
-                    flop_ms=flops / PEAK_FLOPS[dname] * 1e3,
-                    byte_ms=nbytes / PEAK_BYTES * 1e3)
-                rows.append(row)
-                by = "ops" if row["flop_ms"] > row["byte_ms"] else "bytes"
-                log(f"  logits B={b:3d} T={t:3d} Ce={ce:2d} {dname:8s} "
-                    f"err/scale={err / scale:.2e} kernel={row['ms']:.4f} ms "
-                    f"plain={row['plain_ms']:.4f} ms transposed-matmul="
-                    f"{row['library_ms']:.4f} ms bound="
-                    f"{max(row['flop_ms'], row['byte_ms']):.4f} ms ({by})")
-                del emb, emb32, e, th, ph, got, again, want
-    return rows
-
-
-def logits_entry(rows, launches, dname="bfloat16"):
-    """The `kernels` entry of the logits kernel: per served forward, the
-    sum over the ten layers at batch 32 in `dname`."""
-    sel = [r for r in rows if r["dtype"] == dname
-           and r["b"] == STREAMS * PERSONS]
-    tot = lambda key: sum(r[key] * r["layers"] for r in sel)  # noqa: E731
-    flop_ms = tot("flops") / PEAK_FLOPS[dname] * 1e3
-    byte_ms = tot("bytes") / PEAK_BYTES * 1e3
-    return {"name": "attention logits", "route": "cuda",
-            "source": SOURCES["logits"],
-            "replaces": "agcn_tpu/ops/pallas/logits_kernel.py:30",
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
-            "bound_ms": max(flop_ms, byte_ms),
-            "bound_by": "operations" if flop_ms > byte_ms else "bytes",
-            "library_ms": tot("library_ms"), "dtype": dname,
-            "library_call": "ops.gcn.attention_logits(emb_fp32, 3, Ce, "
-                            "'transposed') (torch.matmul)",
-            "per": "one served forward (10 layers, 32 samples, T=300)"}
 
 
 def make_streams(np):
@@ -1142,10 +1045,13 @@ def main():
                 log(f"  {ln.strip()}")
     summary["fp32_fwd_build"] = report_fp32_build(built["gcn_fwd"].log)
     summary["fp32_da1_build"] = report_da1_fp32_build(built["gcn_bwd"].log)
+    summary["logits_build"] = report_build(built["logits"].log)
     spills = spilling(built["gcn_fwd"].log)
     check(not spills, f"gcn_fwd kernels spill: {spills}")
     spills = bwd_spills(built["gcn_bwd"].log)
     check(not spills, f"gcn_bwd kernels spill: {spills}")
+    spills = logits_spills(built["logits"].log)
+    check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
     log("[3/11] gcn_fwd kernel vs plain version at the served shapes "
@@ -1175,7 +1081,9 @@ def main():
     log("[5/11] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
-        "order); two calls bitwise equal")
+        "order); two calls bitwise equal; on integer inputs the sums bit "
+        "for bit, each divided once. Times back to back, and the kernel's "
+        "device time alone with the calls queued ahead of the card")
     with torch.inference_mode():
         logits_rows = phase_logits(torch, np, logits_kernel)
     summary["logits_rows"] = logits_rows

@@ -13,6 +13,7 @@ rounding of an fp32 sum.
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -612,27 +613,97 @@ def test_agcn_train_step_on_card_matches_cpu(cuda, form):
                                    msg=name)
 
 
-@pytest.mark.parametrize("b,t,ce", [(32, 300, 16), (8, 75, 64)])
+def _logits_views(dev, b, t, v, ce, dtype, seed, integers=False):
+    """theta, phi (B, T, V, 3, Ce) as views of a fused (B, T, V, 6 Ce)
+    embedding: normal, or integers in [-2, 2]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, t, v, 6 * ce)
+    emb = (torch.randint(-2, 3, shape, device=dev, generator=g) if integers
+           else torch.randn(shape, device=dev, generator=g)).to(dtype)
+    e = emb.view(b, t, v, 2, 3, ce)
+    return e[..., 0, :, :], e[..., 1, :, :]
+
+
+# (B, T, V, Ce): two layer shapes of the served AAGCN/AGCN forward (l1-l4
+# at batch 32, many spans; l9-l10 at batch 8); V = 18, 15 and 7 (the
+# fp32 tile of V = 18, the general one); Ce = 12 (24-byte bf16 rows: 4-
+# byte copies) and 300 (frames in two parts); one span at (2, 20, 7, 12)
+@pytest.mark.parametrize("b,t,v,ce", [(32, 300, 25, 16), (8, 75, 25, 64),
+                                      (3, 37, 18, 16), (3, 29, 15, 12),
+                                      (2, 20, 7, 12), (2, 9, 25, 300)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_logits_kernel_matches_plain(cuda, b, t, ce, dtype):
-    """Two layer shapes of the served AAGCN/AGCN forward (l1-l4 at batch
-    32, l9-l10 at batch 8): theta/phi as views of the fused embedding,
-    within 1e-5 of the output scale (fp32 sums of T*Ce products in
-    another order), two calls and a contiguous copy bitwise equal."""
+def test_logits_kernel_matches_plain(cuda, b, t, v, ce, dtype):
+    """theta/phi as views of the fused embedding: within 1e-5 of the
+    output scale (fp32 sums of T*Ce products in another order); two calls,
+    a contiguous copy and a theta whose channel stride is not 1 bitwise
+    equal (the copies differ, the order of the sums does not); on integer
+    inputs the sums (divisor 1) equal to the plain version's bit for bit
+    and the logits those sums divided once (on the card PyTorch divides
+    by a Python number through its fp32 reciprocal, so the plain version
+    is held at divisor 1)."""
     from agcn_tpu_torch.ops.kernels import logits_kernel
 
-    g = torch.Generator(device=cuda).manual_seed(4)
-    emb = torch.randn(b, t, 25, 6 * ce, device=cuda, generator=g).to(dtype)
-    e = emb.view(b, t, 25, 2, 3, ce)
-    th, ph = e[..., 0, :, :], e[..., 1, :, :]
+    th, ph = _logits_views(cuda, b, t, v, ce, dtype, 4)
     got = logits_kernel.launch_logits(th, ph, ce * t)
     again = logits_kernel.launch_logits(th.contiguous(), ph.contiguous(),
                                         ce * t)
+    strided = th.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert strided.stride(-1) != 1
+    third = logits_kernel.launch_logits(strided, ph, ce * t)
     torch.cuda.synchronize()
-    assert got.dtype == torch.float32 and got.shape == (b, 3, 25, 25)
-    assert torch.equal(got, again)
+    assert got.dtype == torch.float32 and got.shape == (b, 3, v, v)
+    assert torch.equal(got, again) and torch.equal(got, third)
     want = logits_kernel.attention_logits_plain(th, ph, ce * t)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    th, ph = _logits_views(cuda, b, t, v, ce, dtype, 5, integers=True)
+    sums = logits_kernel.launch_logits(th, ph, 1.0)
+    assert torch.equal(sums, logits_kernel.attention_logits_plain(th, ph,
+                                                                  1.0))
+    got = logits_kernel.launch_logits(th, ph, ce * t)
+    assert torch.equal(got, sums / torch.full_like(sums, ce * t))
+    plan = logits_kernel.launch_plan(b, t, 3, ce, dtype)
+    assert plan["spans"] > 1 if b == 32 else True
+    assert plan["spans"] == 1 if (b, v) == (2, 7) else True
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_logits_runs_the_kernel_of_its_dtype(cuda, dtype):
+    """bf16 launches logits_mma_kernel (the tensor cores), fp32
+    logits_fp32_kernel (the CUDA cores), each then the span reduce."""
+    from agcn_tpu_torch.ops.kernels import logits_kernel
+
+    th, ph = _logits_views(cuda, 32, 300, 25, 16, dtype, 6)
+    logits_kernel.launch_logits(th, ph, 4800.0)  # built and warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        logits_kernel.launch_logits(th, ph, 4800.0)
+        torch.cuda.synchronize()
+    names = {m.group(0) for e in prof.events()
+             for m in [re.search(r"logits_(mma|fp32|reduce)_kernel", e.name)]
+             if m}
+    main = ("logits_mma_kernel" if dtype == torch.bfloat16
+            else "logits_fp32_kernel")
+    assert names == {main, "logits_reduce_kernel"}, names
+
+
+def test_logits_on_a_side_stream_matches(cuda):
+    """The spans' sums go through a buffer kept for each device and
+    stream: calls on a side stream, and a larger call after a smaller one,
+    give what the default stream gives, bitwise."""
+    from agcn_tpu_torch.ops.kernels import logits_kernel
+
+    small = _logits_views(cuda, 8, 75, 25, 64, torch.bfloat16, 7)
+    big = _logits_views(cuda, 32, 300, 25, 16, torch.bfloat16, 8)
+    want = [logits_kernel.launch_logits(*x, 100.0) for x in (small, big)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [logits_kernel.launch_logits(*x, 100.0) for x in (small, big)]
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_logits_wrapper_counts_launches(cuda):

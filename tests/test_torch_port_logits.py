@@ -121,10 +121,12 @@ def test_launch_checks_before_the_card():
     with pytest.raises(ValueError, match="shape"):
         tlk.launch_logits(th, th[:, :2], 1.0)
     # the served batch (16 streams x 2 persons) at T=300, Ce=16 splits
-    # the contraction; the training batch (128) barely; a short one not
-    assert tlk.splits_for(32, 3, 300 * 16) == 11
-    assert tlk.splits_for(128, 3, 300 * 16) == 3
-    assert tlk.splits_for(3, 3, 20 * 16) == 1
+    # the contraction (38 bf16 chunks of 8 frames) into four spans, one
+    # wave of the card's block slots; the training batch (128) fills a
+    # wave unsplit; a short one is not split
+    assert tlk.splits_for(32, 3, 38, torch.bfloat16) == 4
+    assert tlk.splits_for(128, 3, 38, torch.bfloat16) == 1
+    assert tlk.splits_for(3, 3, 3, torch.bfloat16) == 1
 
 
 @pytest.mark.parametrize("form", ["transposed", "transposed_tl", "onepack",
