@@ -1,11 +1,13 @@
-"""Sequence pre-normalization (copy of the numpy path of
-agcn_tpu/data/gen/preprocess.py `pre_normalization`).
+"""Sequence pre-normalization (copy of agcn_tpu/data/gen/preprocess.py
+`pre_normalization`).
 
 Parity target: reference data_gen/preprocess.py:13-147: pad null frames
 by repeating the leading frames, center on the main body's spine joint
 (whole-sequence or first-valid-frame variants), then rotate so hip->spine
-is parallel to z and the shoulder line parallel to x. The C++ host kernel
-of the JAX package (native/skelio.cpp) is not ported yet (ROADMAP).
+is parallel to z and the shoulder line parallel to x. float32 data with
+C = 3 runs the C++ host kernel (agcn_tpu_torch/native/skelio.cpp
+`pre_normalize`), as in the JAX package; `native_ok=False`, other data,
+or a machine without g++ run the numpy version below, the reference.
 """
 
 from __future__ import annotations
@@ -42,10 +44,23 @@ def pre_normalization(data: np.ndarray,
                       xaxis: Optional[Sequence[int]] = (8, 4),
                       pad: bool = True,
                       center: bool = True,
-                      center_firstframe: bool = False) -> np.ndarray:
+                      center_firstframe: bool = False,
+                      native_ok: bool = True) -> np.ndarray:
     """Normalize (N, C, T, V, M) skeleton data into a new array."""
     if center or center_firstframe:
         assert center != center_firstframe
+    if native_ok and data.dtype == np.float32 and data.shape[1] == 3:
+        # the C kernel: within ~1 float32 ulp of the numpy version (BLAS
+        # summation order), but its zero-sum gates (pad, center, rotate)
+        # accumulate in double where numpy sums float32 pairwise, so
+        # adversarially cancelling inputs could branch differently; clean
+        # skeleton data cannot
+        from agcn_tpu_torch import native
+
+        out = native.pre_normalize(data, zaxis, xaxis, pad, center,
+                                   center_firstframe)
+        if out is not None:
+            return out
     n, c, t, v, m = data.shape
     s = np.transpose(data, (0, 4, 2, 3, 1)).copy()  # N, M, T, V, C
 

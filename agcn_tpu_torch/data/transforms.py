@@ -1,15 +1,15 @@
 """Skeleton sequence augmentations of the dense dataset (host-side numpy;
 copy of agcn_tpu/data/transforms.py:22-194, the functions SkeletonDataset
-uses).
+uses, and openpose_match, :277).
 
 Functional parity targets: reference feeders/tools.py (auto_pading :36-44,
 random_choose :93-105, random_move :108-152, random_rotation :181-193,
 random_shift :196-208, random_subsample :212-218, flips/scales :47-90,
-stretch_to_maximum_length :221-231). Every op takes an explicit numpy
-Generator, so the pipeline is reproducible without global RNG state and
-draws the same numbers as the JAX package's. Layout is the on-disk
-contract (C, T, V, M) per sample. The SGN batch and segment ops wait for
-SGN (ROADMAP Queue 1: SGN family).
+stretch_to_maximum_length :221-231, openpose_match :234-275). Every op
+takes an explicit numpy Generator, so the pipeline is reproducible
+without global RNG state and draws the same numbers as the JAX
+package's. Layout is the on-disk contract (C, T, V, M) per sample. The
+SGN batch and segment ops wait for SGN (ROADMAP Queue 1: SGN family).
 """
 
 from __future__ import annotations
@@ -180,3 +180,47 @@ def stretch_to_maximum_length(x: np.ndarray) -> np.ndarray:
     f = interpolate.interp1d(np.arange(t_last), flat)
     out = f(np.linspace(0, t_last - 1, t))
     return out.reshape(c, v, m, t).transpose(0, 3, 1, 2).astype(x.dtype)
+
+
+def openpose_match(x: np.ndarray) -> np.ndarray:
+    """Greedy nearest-neighbour pose tracking across frames.
+
+    OpenPose detections are unordered per frame; this re-threads person
+    slots so slot m holds one consistent identity over time, matching
+    bodies frame-to-frame by squared joint distance, with the more
+    confident body of each frame matched first, then sorts slots by total
+    confidence. Parity: reference feeders/tools.py:234-275.
+
+    Args:
+      x: (3, T, V, M) with channel 2 = confidence score.
+    Returns:
+      (3, T, V, M) identity-threaded copy.
+    """
+    c, t, v, m = x.shape
+    assert c == 3
+    score = x[2].sum(axis=1)                      # (T, M)
+    rank = (-score[: t - 1]).argsort(axis=1)      # (T-1, M)
+
+    xy1 = x[0:2, : t - 1].reshape(2, t - 1, v, m, 1)
+    xy2 = x[0:2, 1:t].reshape(2, t - 1, v, 1, m)
+    distance = ((xy2 - xy1) ** 2).sum(axis=2).sum(axis=0)  # (T-1, M, M)
+
+    forward_map = np.full((t, m), -1, dtype=int)
+    forward_map[0] = np.arange(m)
+    for rank_m in range(m):
+        choose = rank == rank_m                   # (T-1, M) one per frame
+        forward = distance[choose].argmin(axis=1)  # (T-1,)
+        distance[np.arange(t - 1), :, forward] = np.inf  # claim matches
+        forward_map[1:][choose] = forward
+    assert np.all(forward_map >= 0)
+
+    # compose maps so column m tracks the same identity end to end
+    for f in range(t - 1):
+        forward_map[f + 1] = forward_map[f + 1][forward_map[f]]
+
+    out = np.zeros_like(x, dtype=x.dtype)
+    for f in range(t):
+        out[:, f] = x[:, f, :, forward_map[f]].transpose(1, 2, 0)
+
+    trace_score = out[2].sum(axis=1).sum(axis=0)  # (M,)
+    return out[:, :, :, (-trace_score).argsort()]

@@ -35,6 +35,13 @@ class Skeleton:
     def self_loops(self) -> Tuple[Edge, ...]:
         return tuple((i, i) for i in range(self.num_joints))
 
+    @property
+    def bone_pairs(self) -> Tuple[Edge, ...]:
+        """(joint, parent) pairs of the bone stream; the center joint is
+        its own parent (a zero bone at the root)."""
+        parent = {c: p for (c, p) in self.inward}
+        return tuple((j, parent.get(j, j)) for j in range(self.num_joints))
+
 
 # NTU RGB+D joint layout (0-indexed):
 #  0 base-spine, 1 mid-spine, 2 neck, 3 head, 4 l-shoulder, 5 l-elbow,

@@ -58,7 +58,18 @@ fails:
    time alone (the calls queued ahead of the card) and the host's time a
    call, the bound and its share, and the launch plan. The code is agcn_tpu_torch/tools/logits_check.py, which runs it
    alone in about a minute: `python -m agcn_tpu_torch.tools.logits_check`.
-6. AGCN serving main path: the NTU-60 AGCN of configs/ntu60_xview/
+6. host data path: builds the C++ host kernels
+   (agcn_tpu_torch/native/skelio.cpp) with g++ and prints the build time;
+   runs pre_normalization on the batch of a served tick (16 streams,
+   T=300, the two bodies selected) in C++ and in numpy (`native_ok=False`),
+   holds the two within 1e-4 of the output scale and prints each one's
+   median ms of 5 calls on the card's host; writes a seeded raw tree of
+   `.skeleton` files and runs `python -m agcn_tpu_torch.data.gen ntu` and
+   `streams` in subprocesses: the files' shapes and labels, one C++ parse
+   a file, the C++ parse equal to the Python one on every file, and the
+   joint and bone files through the Feeder and one full-width pallas AGCN
+   forward on the card (finite logits).
+7. AGCN serving main path: the NTU-60 AGCN of configs/ntu60_xview/
    test_joint.yaml with `formulation: pallas`, full width, T=300, seeded
    random weights, serving 16 live streams through BatchedStreamServer
    (predict, then predict_async + flush) in fp32 and bf16, and one tick
@@ -66,11 +77,13 @@ fails:
    in each of fp32 and bf16; the kernels' launch counts must equal layers
    x forwards for each dtype; the card's logits, those of the bf16
    `use_pallas` tick too, are held against the same model and weights run
-   with device="cpu" (the plain versions).
-7. AGCN: device time of one served forward by kernel group
+   with device="cpu" (the plain versions); every batched tick must run
+   pre_normalization in C++ (one call a tick), and the mean host prep is
+   printed beside phase 6's numpy figure.
+8. AGCN: device time of one served forward by kernel group
    (torch.profiler); the serving CLI `python -m agcn_tpu_torch.infer
    --serve 16 --pipeline` on recordings written to a temporary directory.
-8. AGCN training main path, configs/ntu60_xview/train_joint.yaml with
+9. AGCN training main path, configs/ntu60_xview/train_joint.yaml with
    `formulation: pallas`, full width, T=300: one step at batch 4 on the
    card against the same step with the kernels' plain versions on the
    card and against device="cpu" (fp32, TF32 off, the card replaying
@@ -91,18 +104,19 @@ fails:
    temporary directory: train and evaluate one epoch at batch 64, save,
    resume for a second epoch, and `--phase test` on the last checkpoint,
    which must reproduce the run's last top-1.
-9. AAGCN serving main path: configs/ntu60_xview/test_joint_aagcn.yaml
+10. AAGCN serving main path: configs/ntu60_xview/test_joint_aagcn.yaml
    (10 blocks, STC attention, adaptive) with `formulation` and
    `eval_formulation: pallas` (AAGCN serves on 'agg' otherwise), seeded
    weights with a live attention branch and BN statistics from a
    train-mode forward, 16 streams in fp32 and bf16: 10 gcn_fwd launches
-   per forward, card against CPU as in 6. Then the attention-logits
-   kernel's entry point on the theta/phi each layer of a served forward
-   produced (fp32 and bf16), against ops.gcn.attention_logits
-   'transposed' in fp32 at 1e-5 of the scale: 10 launches per forward.
-10. AAGCN: device time of one served forward by kernel group; the
+   per forward, card against CPU and C++ pre_normalization as in 7.
+   Then the attention-logits kernel's entry point on the theta/phi each
+   layer of a served forward produced (fp32 and bf16), against
+   ops.gcn.attention_logits 'transposed' in fp32 at 1e-5 of the scale: 10
+   launches per forward.
+11. AAGCN: device time of one served forward by kernel group; the
    serving CLI on the AAGCN config.
-11. AAGCN training main path, train_joint_aagcn.yaml, as 8: the card
+12. AAGCN training main path, train_joint_aagcn.yaml, as 9: the card
    step against the CPU with the attention branch live, 10 bf16 steps at
    batch 64 (20 gcn_fwd + 10 gcn_bwd launches each), the three
    formulations' speed, and the entry point: train and evaluate one
@@ -221,8 +235,11 @@ def serve_streams(torch, np, models, summary, label, num_class):
     """Serve the 16 streams with each model (fp32, bf16) through
     BatchedStreamServer: a warm-up tick, 4 sync and 4 pipelined ticks,
     then the last tick's input through the model directly, whose
-    probabilities the served ones must equal. Returns the forwards run,
-    the card's logits per dtype, and that input."""
+    probabilities the served ones must equal. Every batched tick must run
+    pre_normalization in C++ (one `native.pre_normalize` call a tick).
+    Returns the forwards run, the card's logits per dtype, and that
+    input."""
+    from agcn_tpu_torch import native
     from agcn_tpu_torch.infer.preprocess import InferencePreprocessor
     from agcn_tpu_torch.infer.serving import BatchedStreamServer
 
@@ -241,6 +258,7 @@ def serve_streams(torch, np, models, summary, label, num_class):
             for sid in range(STREAMS):
                 server.append_frame(sid, seq[sid, i])
                 shadows[sid].append(seq[sid, i])
+        calls = native.pre_normalize.calls
         # warm-up tick (cuDNN, kernel attributes), not timed
         warm, _, _ = serve_ticks(server, seq, SEQ, 1, False)
         sync, sync_s, sync_prep = serve_ticks(server, seq,
@@ -248,6 +266,10 @@ def serve_streams(torch, np, models, summary, label, num_class):
         pipe, pipe_s, pipe_prep = serve_ticks(
             server, seq, SEQ + 5 * TICK_FRAMES, 4, True)
         forwards += 1 + 4 + 4
+        cpp_calls = native.pre_normalize.calls - calls
+        check(cpp_calls == 1 + 4 + 4,
+              f"{label} {dname}: {cpp_calls} C++ pre_normalize calls in 9 "
+              "batched ticks")
         check_answers(np, warm + sync + pipe, num_class)
         check(len(pipe) == 4, "pipelined ticks lost")
         # the same input as the last tick, through the model directly
@@ -268,14 +290,18 @@ def serve_streams(torch, np, models, summary, label, num_class):
                            f"{perr:.2e}")
         tick_ms = {"sync": sync_s / 4 * 1e3, "pipelined": pipe_s / 4 * 1e3}
         prep_ms = {"sync": sync_prep, "pipelined": pipe_prep}
+        numpy_ms = summary["host_data"]["pre_normalization_ms"]["numpy"]
         summary[f"{label}_serve_{dname}"] = dict(
-            tick_ms=tick_ms, prep_ms=prep_ms,
+            tick_ms=tick_ms, prep_ms=prep_ms, cpp_pre_normalize=cpp_calls,
+            numpy_pre_normalization_ms=numpy_ms,
             preds_per_s={k: STREAMS / (v / 1e3) for k, v in tick_ms.items()})
         log(f"  {label} {dname}: {STREAMS} streams, tick "
             f"{tick_ms['sync']:.2f} ms sync / {tick_ms['pipelined']:.2f} ms "
             f"pipelined -> {STREAMS / tick_ms['sync'] * 1e3:.1f} / "
             f"{STREAMS / tick_ms['pipelined'] * 1e3:.1f} preds/s "
-            f"(mean host prep {sync_prep:.2f} / {pipe_prep:.2f} ms)")
+            f"(mean host prep {sync_prep:.2f} / {pipe_prep:.2f} ms with "
+            f"pre_normalization in C++, {cpp_calls} calls; numpy "
+            f"pre_normalization alone {numpy_ms:.2f} ms a tick, phase 6)")
     return forwards, card_logits, x_check
 
 
@@ -312,7 +338,172 @@ def check_against_cpu(torch, np, model_name, args, state, x_check,
                                            top1_agreement=top1)
 
 
+# the raw tree of phase 6 (c): (camera, subject, action, frames); xview
+# trains on camera 2, xsub on subject 1
+GEN_SAMPLES = ((1, 1, 1, 300), (2, 1, 2, 280), (1, 3, 3, 250),
+               (2, 3, 4, 300), (1, 1, 5, 200), (2, 3, 6, 300),
+               (1, 3, 7, 150), (2, 1, 8, 300))
+
+
+def write_skeleton(np, path, frames, rng):
+    """A seeded NTU `.skeleton` text file of two moving bodies."""
+    t = np.arange(frames)[None, :, None, None]
+    bodies = (rng.standard_normal((2, 1, 25, 3)) * 0.3
+              + np.array([[0.0, 0.0, 3.0], [1.0, 0.0, 3.5]])[:, None, None]
+              + 0.1 * np.sin(0.15 * t + rng.uniform(0, 6, (2, 1, 25, 3)))
+              + rng.standard_normal((2, frames, 25, 3)) * 0.01)
+    lines = [str(frames)]
+    for f in range(frames):
+        lines.append("2")
+        for b in range(2):
+            lines += ["72057594037931101 0 1 1 1 1 0 0.1 0.2 2", "25"]
+            lines += [f"{x:.6f} {y:.6f} {z:.6f} 100 100 500 500 0.1 0.2 "
+                      "0.3 0.9 2" for x, y, z in bodies[b, f]]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def median_ms(fn, iters=5):
+    """The median host time of `iters` calls of fn, in ms."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[iters // 2]
+
+
+def phase_host_data(torch, np, smi, summary):
+    """The port's C++ host kernels (agcn_tpu_torch/native/skelio.cpp):
+    (a) the g++ build; (b) pre_normalization of a served tick's batch, C++
+    against numpy; (c) the generation CLI on a seeded raw tree, its joint
+    and bone files through the Feeder and one full-width AGCN forward on
+    the card."""
+    import pickle
+
+    from agcn_tpu_torch import native
+    from agcn_tpu_torch.data.feeder import SkeletonDataset
+    from agcn_tpu_torch.data.gen.ntu import read_skeleton
+    from agcn_tpu_torch.data.gen.preprocess import pre_normalization
+    from agcn_tpu_torch.infer.serving import BatchedStreamServer
+    from agcn_tpu_torch.models.registry import build_model
+    from agcn_tpu_torch.utils.config import load_config
+
+    # (a) build
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    check(path is not None and native.available(),
+          "the native library did not build (no g++ on the PATH)")
+    log(f"  (a) g++ {' '.join(native.GXX_FLAGS)} -> {path.name} in "
+        f"{build_s:.2f} s")
+
+    # (b) the batch of a served tick: 16 streams, T = 300, the two bodies
+    # selected, before pre_normalization (a server with a stand-in model:
+    # only its host prep runs)
+    seq = make_streams(np)
+    server = BatchedStreamServer(torch.nn.Linear(1, 1), max_streams=STREAMS,
+                                 max_seq_length=SEQ, normalize=False)
+    for sid in range(STREAMS):
+        server.add_stream()
+        for f in seq[sid, :SEQ]:
+            server.append_frame(sid, f)
+    rows = server._prepare_dense_batched(list(range(STREAMS)))
+    check(rows.shape == (STREAMS, 3, SEQ, 25, 2), f"tick rows {rows.shape}")
+    calls = native.pre_normalize.calls
+    got = pre_normalization(rows)
+    check(native.pre_normalize.calls == calls + 1,
+          "pre_normalization did not run the C++ kernel")
+    ref = pre_normalization(rows, native_ok=False)
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    check(err <= 1e-4 * scale, f"C++ pre_normalization off numpy by {err:.3e}"
+                               f" (scale {scale:.3f})")
+    cpp_ms = median_ms(lambda: pre_normalization(rows))
+    numpy_ms = median_ms(lambda: pre_normalization(rows, native_ok=False))
+    log(f"  (b) pre_normalization of one tick's batch {tuple(rows.shape)}: "
+        f"C++ {cpp_ms:.2f} ms, numpy {numpy_ms:.2f} ms (median of 5, the "
+        f"card's host; {smi}); max err {err:.2e} of scale {scale:.3f} "
+        f"(bar 1e-4 x scale)")
+
+    # (c) generation: raw .skeleton -> joint (ntu) -> bone (streams)
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "raw")
+        os.makedirs(raw)
+        rng = np.random.default_rng(SEED + 21)
+        names = []
+        for c, p, a, frames in GEN_SAMPLES:
+            names.append(f"S001C{c:03d}P{p:03d}R001A{a:03d}.skeleton")
+            write_skeleton(np, os.path.join(raw, names[-1]), frames, rng)
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        counts = run_entry_point(["ntu", "--data-path", raw, "--out-path",
+                                  out, "--benchmark", "xview", "--part",
+                                  "train", "eval"],
+                                 module="agcn_tpu_torch.data.gen")
+        xview = os.path.join(out, "xview")
+        for part in ("train", "eval"):
+            run_entry_point(["streams", "--joint-path",
+                             os.path.join(xview, f"{part}_data_joint.npy")],
+                            module="agcn_tpu_torch.data.gen")
+        gen_s = time.perf_counter() - t0
+        check(counts["parse_skeleton"] == len(names),
+              f"the ntu CLI parsed {counts['parse_skeleton']} files in "
+              f"C++, not {len(names)}")
+        check(counts["pre_normalize"] == 2,
+              f"the ntu CLI ran pre_normalize {counts['pre_normalize']} "
+              "times, not once a split")
+        for name in names:
+            parsed, frames = native.parse_skeleton(
+                os.path.join(raw, name), 4, 10_000, 25)
+            py, py_frames = read_skeleton(os.path.join(raw, name))
+            check(frames == py_frames and np.array_equal(
+                parsed[:, :frames], py.astype(np.float32)),
+                f"{name}: the C++ parse differs from read_skeleton")
+        model = build_model("agcn", dict(load_config(CONFIG).model_args,
+                                         formulation="pallas"),
+                            device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+        randomize_eval_state(torch, model, SEED + 1)
+        model.eval()
+        gen = {}
+        for part, cams in (("train", (2,)), ("eval", (1,))):
+            want = sorted(n for n in names if int(n[5:8]) in cams)
+            with open(os.path.join(xview, f"{part}_label.pkl"), "rb") as f:
+                got_names, labels = pickle.load(f)
+            check(got_names == want
+                  and labels == [int(n[17:20]) - 1 for n in want],
+                  f"{part} labels {got_names} {labels}")
+            for stream in ("joint", "bone"):
+                ds = SkeletonDataset(
+                    os.path.join(xview, f"{part}_data_{stream}.npy"),
+                    os.path.join(xview, f"{part}_label.pkl"))
+                x = np.stack([ds[i][0] for i in range(len(ds))])
+                check(x.shape == (len(want), 3, SEQ, 25, 2)
+                      and np.isfinite(x).all() and np.abs(x).max() > 0,
+                      f"{part} {stream}: {x.shape}")
+                with torch.inference_mode():
+                    logits = model(torch.from_numpy(x).cuda()).float().cpu()
+                check(logits.shape == (len(want), 60)
+                      and bool(torch.isfinite(logits).all()),
+                      f"{part} {stream} logits {tuple(logits.shape)}")
+                gen[f"{part}_{stream}"] = list(x.shape)
+        del model
+    log(f"  (c) python -m agcn_tpu_torch.data.gen ntu (xview train + eval) "
+        f"and streams on {len(names)} raw files in {gen_s:.1f} s: "
+        f"parse_skeleton {counts['parse_skeleton']} C++ calls, "
+        f"pre_normalize {counts['pre_normalize']}; C++ parse == "
+        f"read_skeleton on every file; {gen}; joint and bone through the "
+        f"Feeder and one pallas AGCN forward each: finite logits")
+    summary["host_data"] = dict(
+        build_s=build_s, library=path.name, tick_rows=list(rows.shape),
+        pre_normalization_ms={"cpp": cpp_ms, "numpy": numpy_ms},
+        max_err=err, scale=scale, gen_s=gen_s, gen_calls=counts,
+        gen_shapes=gen, nvidia_smi=smi)
+
+
 def phase_main_path(torch, np, summary):
+    from agcn_tpu_torch import native
     from agcn_tpu_torch.infer.serving import BatchedStreamServer
     from agcn_tpu_torch.models.registry import build_model
     from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel
@@ -359,8 +550,11 @@ def phase_main_path(torch, np, summary):
         hook = up.register_forward_hook(
             lambda mod, inp, out: kept.append(out.float().cpu().numpy()))
         before = gcn_kernel.fused_gcn.launches
+        calls = native.pre_normalize.calls
         up_ans = server.predict()
         fused_gcn_launches[dname] = gcn_kernel.fused_gcn.launches - before
+        check(native.pre_normalize.calls == calls + 1,
+              f"use_pallas {dname} tick: pre_normalization not in C++")
         hook.remove()
         forwards["use_pallas"][dname] = len(kept)
         check_answers(np, [up_ans], num_class)
@@ -915,17 +1109,28 @@ def phase_train_speed(torch, np, cfg, summary, label, iters=5,
     summary[f"{label}_train_speed"] = speed
 
 
-def run_entry_point(args, timeout=600):
-    """`python -m agcn_tpu_torch.main` in a subprocess; its output goes
-    to this run's log, and a failure fails the phase."""
-    proc = subprocess.run([sys.executable, "-m", "agcn_tpu_torch.main",
-                           *args], cwd=REPO, capture_output=True, text=True,
-                          timeout=timeout)
-    tail = (proc.stdout + proc.stderr).splitlines()[-8:]
+def run_entry_point(args, timeout=600, module="agcn_tpu_torch.main"):
+    """`python -m <module> <args>` in a subprocess, run through runpy as
+    `-m` runs it, which then prints the calls of the port's C host kernels
+    (agcn_tpu_torch/native) as its last line; the rest of its output goes
+    to this run's log, and a failure fails the phase. Returns those
+    counts."""
+    code = ("import json, runpy, sys\n"
+            f"sys.argv = [{module!r}] + {list(args)!r}\n"
+            f"runpy.run_module({module!r}, run_name='__main__', "
+            "alter_sys=True)\n"
+            "from agcn_tpu_torch import native\n"
+            "print(json.dumps({'parse_skeleton': native.parse_skeleton.calls,"
+            " 'pre_normalize': native.pre_normalize.calls}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    lines = proc.stdout.splitlines()
+    tail = (lines[:-1] + proc.stderr.splitlines())[-8:]
     for ln in tail:
         log(f"      {ln}")
     check(proc.returncode == 0,
-          f"agcn_tpu_torch.main {' '.join(args)} exited {proc.returncode}")
+          f"{module} {' '.join(args)} exited {proc.returncode}")
+    return json.loads(lines[-1])
 
 
 def read_metrics(path):
@@ -1032,13 +1237,13 @@ def main():
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/11] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/12] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/11] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/12] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -1054,7 +1259,7 @@ def main():
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/11] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/12] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -1070,7 +1275,7 @@ def main():
     summary.update(kernel_rows=rows, dx_rows=dx_rows,
                    fp32_fwd_layers=fp32_layers(rows, dx_rows))
 
-    log("[4/11] gcn_bwd vs its plain version at the training shapes "
+    log("[4/12] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -1078,7 +1283,7 @@ def main():
     summary.update(bwd_rows=bwd_rows,
                    fp32_da1_layers=da1_fp32_layers(bwd_rows))
 
-    log("[5/11] attention-logits kernel vs plain version at the served "
+    log("[5/12] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -1088,11 +1293,19 @@ def main():
         logits_rows = phase_logits(torch, np, logits_kernel)
     summary["logits_rows"] = logits_rows
 
-    log("[6/11] AGCN serving main path: 16 streams through "
+    log("[6/12] host data path: the C++ host kernels "
+        "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
+        "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
+        "output scale, the serving bar); python -m "
+        "agcn_tpu_torch.data.gen ntu and streams on a seeded raw tree, the "
+        "files through the Feeder and a pallas AGCN forward")
+    phase_host_data(torch, np, smi, summary)
+
+    log("[7/12] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[7/11] AGCN: device time of one served forward by kernel group; "
+    log("[8/12] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -1100,7 +1313,7 @@ def main():
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[8/11] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/12] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -1109,19 +1322,19 @@ def main():
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[9/11] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/12] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[10/11] AAGCN: device time of one served forward by kernel group; "
+    log("[11/12] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[11/11] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/12] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")

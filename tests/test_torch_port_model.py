@@ -235,12 +235,14 @@ def test_pre_normalization_matches_jax_numpy_path():
     data[1, :, 12:] = 0.0  # trailing null frames
     data[2, :, :, :, 1] = 0.0  # one empty body
     want = jax_pre_normalization(data, native_ok=False)
-    np.testing.assert_array_equal(pre_normalization(data), want)
+    np.testing.assert_array_equal(pre_normalization(data, native_ok=False),
+                                  want)
 
 
 def test_skeleton_file_reading_matches_jax(tmp_path):
-    """`.skeleton` recordings (the CLI's other input): the port's python
-    parser and 2-max-energy body selection against the JAX package's."""
+    """`.skeleton` recordings (the CLI's other input): the port's parser
+    (the C++ one where g++ is there, as in the JAX package) and
+    2-max-energy body selection against the JAX package's, bit for bit."""
     from agcn_tpu.data.gen.ntu import read_xyz as jax_read_xyz
     from agcn_tpu_torch.data.gen.ntu import read_xyz
 
@@ -258,15 +260,18 @@ def test_skeleton_file_reading_matches_jax(tmp_path):
     path.write_text("\n".join(lines) + "\n")
     got = read_xyz(str(path))
     assert got.shape == (3, 12, 25, 2)
-    np.testing.assert_allclose(got, jax_read_xyz(str(path)), atol=1e-6)
+    np.testing.assert_array_equal(got, jax_read_xyz(str(path)))
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "agcn_tpu")
-# the training path's modules, which the fresh-process check must reach
-_TRAINING_MODULES = tuple(f"agcn_tpu_torch.{m}" for m in (
+# the training path's and the host data path's modules, which the
+# fresh-process check must reach
+_REQUIRED_MODULES = tuple(f"agcn_tpu_torch.{m}" for m in (
     "main", "train.trainer", "train.steps", "train.optim", "train.losses",
     "train.checkpoint", "data.feeder", "data.pipeline", "data.transforms",
-    "tools.grad_parity"))
+    "tools.grad_parity", "native", "data.gen.__main__", "data.gen.ntu",
+    "data.gen.streams", "data.gen.kinetics", "data.gen.openpose",
+    "data.gen.explore", "utils.parallel_map"))
 
 
 def _imports(path):
@@ -301,7 +306,7 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
         "    'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN}]\n"
-        f"missing = sorted(set({_TRAINING_MODULES}) - set(mods))\n"
+        f"missing = sorted(set({_REQUIRED_MODULES}) - set(mods))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 20 else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
