@@ -267,7 +267,9 @@ def main(argv=None):
     from agcn_tpu_torch.utils.config import load_config
 
     cfg = load_config(args.config)
-    model = build_model(cfg.model, cfg.model_args, device=args.device)
+    # the served window is the model's input length (--max-frame)
+    model = build_model(cfg.model, cfg.model_args, device=args.device,
+                        num_frame=args.max_frame)
     weights = args.weights or discover_weights(args.weights_dir)
     # the port trainer's own checkpoints, the JAX package's and reference
     # state dicts alike

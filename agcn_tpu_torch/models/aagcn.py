@@ -441,9 +441,10 @@ class AAGCN(nn.Module):
         self.to(device)
         self.dropout_generator = None
         if drop_out:
-            seed = int(torch.randint(2 ** 62, (1,), generator=generator))
+            self.dropout_seed = int(torch.randint(2 ** 62, (1,),
+                                                  generator=generator))
             self.dropout_generator = torch.Generator(
-                device=device).manual_seed(seed)
+                device=device).manual_seed(self.dropout_seed)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for name in self.block_names:

@@ -1,4 +1,5 @@
-"""Model registry (port of agcn_tpu/models/registry.py: AGCN and AAGCN).
+"""Model registry (port of agcn_tpu/models/registry.py: AGCN, AAGCN and
+the AAGCN transformer).
 
 Models are selected by short name; the reference's dotted paths for the
 ported models are aliased so its config files work unchanged. Graph
@@ -15,6 +16,7 @@ from torch import nn
 
 from agcn_tpu_torch.graph import build_adjacency
 from agcn_tpu_torch.models.aagcn import AAGCN
+from agcn_tpu_torch.models.aagcn_transformer import AAGCNTransformer
 from agcn_tpu_torch.models.agcn import AGCN
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE
 
@@ -23,11 +25,13 @@ _ALIASES = {
     "model.aagcn.Model": "aagcn",
     "model.architecture.aagcn.agcn.Model": "agcn",
     "model.architecture.aagcn.aagcn.Model": "aagcn",
+    "model.aagcn_v37.Model": "aagcn_transformer",
+    "model.architecture.aagcn.aagcn_v37.Model": "aagcn_transformer",
 }
-_CLASSES = {"agcn": AGCN, "aagcn": AAGCN}
+_CLASSES = {"agcn": AGCN, "aagcn": AAGCN,
+            "aagcn_transformer": AAGCNTransformer}
 # the JAX package's other models, each with the ROADMAP item it waits in
-_WAITING = (("aagcn_transformer", "Queue 1 item 6: aagcn_transformer"),
-            ("aagcn_v", "Queue 1 item 6: aagcn_versions"),
+_WAITING = (("aagcn_v", "Queue 1 item 6: aagcn_versions"),
             ("model.aagcn_v", "Queue 1 item 6: aagcn_versions"),
             ("model.architecture.aagcn.aagcn_v",
              "Queue 1 item 6: aagcn_versions"),
@@ -42,21 +46,34 @@ def model_key(name: str) -> str:
     return _ALIASES.get(name, name).lower()
 
 
+def waiting_item(name: str) -> Optional[str]:
+    """The ROADMAP item a model of the JAX package that the port lacks
+    waits in (None for a ported or unknown name)."""
+    key = model_key(name)
+    for prefix, item in _WAITING:
+        if key.startswith(prefix.lower()):
+            return item
+    return None
+
+
 def build_model(name: str, model_args: Dict[str, Any],
                 device: Union[str, torch.device, None] = DEFAULT_DEVICE,
                 dtype: Optional[torch.dtype] = None,
-                generator: Optional[torch.Generator] = None) -> nn.Module:
+                generator: Optional[torch.Generator] = None,
+                num_frame: Optional[int] = None) -> nn.Module:
     """Build a model from a recipe's `model` and `model_args`, on `device`
     (`cuda` unless named), computing in `dtype`, initialized from
-    `generator`."""
+    `generator`. `num_frame`, the input's frames, sizes the position
+    tables of a model that has them (the AAGCN transformer); the others
+    take any T."""
     key = model_key(name)
     cls = _CLASSES.get(key)
     if cls is None:
-        for prefix, item in _WAITING:
-            if key.startswith(prefix.lower()):
-                raise NotImplementedError(
-                    f"model {name!r} is not ported yet: it waits in "
-                    f"ROADMAP {item}")
+        item = waiting_item(name)
+        if item:
+            raise NotImplementedError(
+                f"model {name!r} is not ported yet: it waits in "
+                f"ROADMAP {item}")
         raise KeyError(f"Unknown model {name!r}")
     args = dict(model_args)
     graph = args.pop("graph", "ntu_rgb_d")
@@ -67,5 +84,7 @@ def build_model(name: str, model_args: Dict[str, Any],
     args.pop("num_subset", None)
     if cls is AGCN:
         args.pop("drop_out", None)
+    if cls is AAGCNTransformer and num_frame is not None:
+        args["num_frame"] = num_frame
     return cls(adj=adj, device=device, dtype=dtype, generator=generator,
                **args)

@@ -1,0 +1,372 @@
+"""Attention layers of the AAGCN transformer
+(port of agcn_tpu/ops/attention.py: `PositionalEncoding` :28,
+`CosSinPositionalEncoding` :42, `MultiheadAttention` :85,
+`TransformerEncoderLayer` :166, `CrossAttention` :227,
+`CrossTransformer` :257, `TransformerEncoder` :489).
+
+Tokens are (B, L, D). Parameters carry torch's names
+(`self_attn.in_proj_weight`, `self_attn.out_proj.*`, `linear1`,
+`norm1`, ...), the names `agcn_tpu/utils/torch_import.py` reads, and the
+layers of an encoder are `layer1` .. `layerN`, the tokens that the LLRD
+multipliers look for (`train/optim.llrd_scales`).
+
+As in the JAX package, and unlike torch's own layers:
+- LayerNorm's epsilon is flax's 1e-6;
+- pre-norm *reassigns* x = LN(x), so the residual adds onto the normed
+  tokens (the reference's TransformerEncoderLayerExt);
+- attention returns its per-head softmax weights (B, H, Lq, Lk);
+- 'gelu' is the tanh approximation (flax `nn.gelu`).
+
+Dropout draws its masks from the generator its `Dropout` module holds
+(the model sets it), never from torch's global RNG. Options the AAGCN
+transformer never sets raise with the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from agcn_tpu_torch.ops import initializers as init
+
+LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
+_VERSIONS = "ROADMAP Queue 1 item 6: aagcn_versions"
+_SGN = "ROADMAP Queue 1 item 7: SGN family"
+
+
+def _refuse(**options) -> None:
+    """Raise for the options of the AAGCN versions and the SGN family."""
+    items = {"rel_pos_len": _VERSIONS, "mask": _SGN, "additive_mask":
+             _VERSIONS, "alpha": _VERSIONS, "global_attn": _VERSIONS,
+             "bias=False": _VERSIONS, "attn_bias=False": _VERSIONS}
+    for name, on in options.items():
+        if on:
+            raise NotImplementedError(
+                f"{name}: not in the port yet; waits in {items[name]}")
+
+
+def _linear(in_features: int, out_features: int,
+            bias: bool = True) -> nn.Linear:
+    # skip_init: nn.Linear's own init would draw from the global RNG
+    return nn.utils.skip_init(nn.Linear, in_features, out_features,
+                              bias=bias)
+
+
+def _dense_init(layer: nn.Linear, generator: torch.Generator,
+                kernel=init.lecun_normal) -> None:
+    """flax nn.Dense's init: `kernel` (lecun_normal by default), zero
+    bias."""
+    kernel(layer.weight, generator)
+    if layer.bias is not None:
+        with torch.no_grad():
+            layer.bias.zero_()
+
+
+class Dropout(nn.Module):
+    """Inverted dropout in train mode (flax nn.Dropout): keep with
+    probability 1 - p, scale the kept values by 1 / (1 - p). The masks
+    come from `generator` (on the tokens' device; None draws from torch's
+    default generator of that device)."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p <= 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+def layer_norm(dim: int) -> nn.LayerNorm:
+    return nn.LayerNorm(dim, eps=LN_EPS)
+
+
+class PositionalEncoding(nn.Module):
+    """Learned position table `embedding` (max_len, D), normal(0.02); adds
+    its first L rows to L tokens."""
+
+    def __init__(self, max_len: int, dim: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(max_len, dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init.normal(0.02)(self.embedding, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[1]
+        if n > self.embedding.shape[0]:
+            raise ValueError(
+                f"{n} tokens, but the position table has "
+                f"{self.embedding.shape[0]} rows: build the model for this "
+                "input length")
+        return x + self.embedding[:n][None]
+
+
+def cos_sin_table(max_len: int, dim: int) -> np.ndarray:
+    """The fixed sinusoidal table of agcn_tpu attention.py:48-54 (an odd
+    `dim` included)."""
+    pos = np.arange(max_len)[:, None]
+    div = np.exp(np.arange(0, dim, 2) * (-np.log(10000.0) / dim))
+    table = np.zeros((max_len, dim), np.float32)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div[: (dim + 1) // 2][:dim // 2]) \
+        if dim % 2 else np.cos(pos * div)
+    return table
+
+
+class CosSinPositionalEncoding(nn.Module):
+    """Fixed sinusoidal positions (no parameter, as in the JAX package)."""
+
+    def __init__(self, max_len: int, dim: int):
+        super().__init__()
+        self.register_buffer("table",
+                             torch.from_numpy(cos_sin_table(max_len, dim)),
+                             persistent=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[1]
+        if n > self.table.shape[0]:
+            raise ValueError(
+                f"{n} tokens, but the position table has "
+                f"{self.table.shape[0]} rows: build the model for this "
+                "input length")
+        return x + self.table[:n][None]
+
+
+class MultiheadAttention(nn.Module):
+    """Multi-head self- or cross-attention with torch's packed
+    `in_proj_weight` (3D, D) (rows q | k | v) and `out_proj`, both
+    xavier_normal with zero biases. Returns (output, the plain softmax
+    weights (B, H, Lq, Lk)); in train mode dropout falls on the weights
+    that multiply v, not on the returned ones."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
+                 bias: bool = True, rel_pos_len: int = 0):
+        super().__init__()
+        _refuse(**{"attn_bias=False": not bias, "rel_pos_len": rel_pos_len})
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} is not a multiple of {num_heads} "
+                             "heads")
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = _linear(dim, dim)
+        self.attn_drop = Dropout(dropout)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init.xavier_normal(self.in_proj_weight, generator)
+        with torch.no_grad():
+            self.in_proj_bias.zero_()
+        _dense_init(self.out_proj, generator, init.xavier_normal)
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, d = x.shape
+        return x.view(b, n, self.num_heads,
+                      d // self.num_heads).transpose(1, 2)
+
+    def forward(self, query: torch.Tensor,
+                key: Optional[torch.Tensor] = None,
+                value: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                additive_mask: Optional[torch.Tensor] = None,
+                alpha: Optional[torch.Tensor] = None,
+                global_attn: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        _refuse(mask=mask is not None,
+                additive_mask=additive_mask is not None,
+                alpha=alpha is not None, global_attn=global_attn is not None)
+        key = query if key is None else key
+        value = key if value is None else value
+        w_q, w_k, w_v = self.in_proj_weight.chunk(3)
+        b_q, b_k, b_v = self.in_proj_bias.chunk(3)
+        q = self._heads(F.linear(query, w_q, b_q))
+        k = self._heads(F.linear(key, w_k, b_k))
+        v = self._heads(F.linear(value, w_v, b_v))
+        logits = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+        attn = torch.softmax(logits, dim=-1)
+        out = self.attn_drop(attn) @ v
+        b, _, n, _ = out.shape
+        out = out.transpose(1, 2).reshape(b, n, -1)
+        return self.out_proj(out), attn
+
+
+class TransformerEncoderLayer(nn.Module):
+    """torch nn.TransformerEncoderLayer semantics with the reference's
+    pre-norm variant (agcn_tpu attention.py:166-224)."""
+
+    def __init__(self, dim: int, num_heads: int, dim_feedforward: int,
+                 dropout: float = 0.1, activation: str = "relu",
+                 pre_norm: bool = False, bias: bool = True,
+                 attn_bias: bool = True, rel_pos_len: int = 0):
+        super().__init__()
+        _refuse(**{"bias=False": not bias})
+        self.pre_norm = pre_norm
+        # any activation but 'relu' is flax's nn.gelu (tanh approximation)
+        self.relu = activation == "relu"
+        self.self_attn = MultiheadAttention(dim, num_heads, dropout,
+                                            bias=attn_bias,
+                                            rel_pos_len=rel_pos_len)
+        self.norm1 = layer_norm(dim)
+        self.norm2 = layer_norm(dim)
+        self.linear1 = _linear(dim, dim_feedforward)
+        self.linear2 = _linear(dim_feedforward, dim)
+        self.drop_attn = Dropout(dropout)
+        self.drop_ff = Dropout(dropout)
+        self.drop_out = Dropout(dropout)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.self_attn.reset_parameters(generator)
+        _dense_init(self.linear1, generator)
+        _dense_init(self.linear2, generator)
+
+    def forward(self, x: torch.Tensor,
+                additive_mask: Optional[torch.Tensor] = None,
+                alpha: Optional[torch.Tensor] = None,
+                global_attn: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.pre_norm:
+            x = self.norm1(x)
+        attn_out, attn = self.self_attn(x, additive_mask=additive_mask,
+                                        alpha=alpha, global_attn=global_attn)
+        x = x + self.drop_attn(attn_out)
+        if not self.pre_norm:
+            x = self.norm1(x)
+        if self.pre_norm:
+            x = self.norm2(x)
+        y = self.linear1(x)
+        # torch.relu, the one call tools/grad_parity.py's ReluProbe replays
+        y = torch.relu(y) if self.relu else F.gelu(y, approximate="tanh")
+        y = self.linear2(self.drop_ff(y))
+        x = x + self.drop_out(y)
+        if not self.pre_norm:
+            x = self.norm2(x)
+        return x, attn
+
+
+class TransformerEncoder(nn.Module):
+    """An optional position encoding ('abs' learned, 'cos' fixed, None),
+    then `num_layers` layers named layer1 .. layerN; returns (tokens, the
+    layers' attention weights)."""
+
+    def __init__(self, dim: int, num_layers: int, num_heads: int,
+                 dim_feedforward: int, dropout: float = 0.1,
+                 activation: str = "relu", pre_norm: bool = False,
+                 bias: bool = True, attn_bias: bool = True,
+                 rel_pos_len: int = 0, pos_enc: Optional[str] = None,
+                 max_len: int = 600):
+        super().__init__()
+        self.pos_enc = {"abs": PositionalEncoding,
+                        "cos": CosSinPositionalEncoding}[pos_enc](
+            max_len, dim) if pos_enc else None
+        self.num_layers = num_layers
+        for i in range(1, num_layers + 1):
+            self.add_module(f"layer{i}", TransformerEncoderLayer(
+                dim, num_heads, dim_feedforward, dropout, activation,
+                pre_norm, bias=bias, attn_bias=attn_bias,
+                rel_pos_len=rel_pos_len))
+
+    def layers(self) -> List[TransformerEncoderLayer]:
+        return [getattr(self, f"layer{i}")
+                for i in range(1, self.num_layers + 1)]
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.pos_enc is not None:
+            self.pos_enc.reset_parameters(generator)
+        for layer in self.layers():
+            layer.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        if self.pos_enc is not None:
+            x = self.pos_enc(x)
+        attns = []
+        for layer in self.layers():
+            x, a = layer(x)
+            attns.append(a)
+        return x, attns
+
+
+class CrossAttention(nn.Module):
+    """Queries from one stream attend over another's tokens: bias-free
+    `to_q` / `to_k` / `to_v` of num_heads x dim_head, then `to_out` back to
+    the query's width (agcn_tpu attention.py:227-254)."""
+
+    def __init__(self, dim: int, num_heads: int, dim_head: int = 64):
+        super().__init__()
+        self.num_heads = num_heads
+        inner = num_heads * dim_head
+        self.to_q = _linear(dim, inner, bias=False)
+        self.to_k = _linear(dim, inner, bias=False)
+        self.to_v = _linear(dim, inner, bias=False)
+        self.to_out = _linear(inner, dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for layer in (self.to_q, self.to_k, self.to_v, self.to_out):
+            _dense_init(layer, generator)
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, d = x.shape
+        return x.view(b, n, self.num_heads,
+                      d // self.num_heads).transpose(1, 2)
+
+    def forward(self, q_tokens: torch.Tensor,
+                kv_tokens: torch.Tensor) -> torch.Tensor:
+        q = self._heads(self.to_q(q_tokens))
+        k = self._heads(self.to_k(kv_tokens))
+        v = self._heads(self.to_v(kv_tokens))
+        attn = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1]),
+                             dim=-1)
+        out = attn @ v
+        b, _, n, _ = out.shape
+        return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
+
+
+class CrossTransformer(nn.Module):
+    """CrossViT-style fusion of two (B, 1 + L, D) streams with CLS at index
+    0: each CLS token, layer-normed, attends over itself and the other
+    stream's other tokens, and is added back (agcn_tpu
+    attention.py:257-283). Only the CLS tokens change."""
+
+    def __init__(self, dim: int, num_heads: int = 8, dim_head: int = 64,
+                 depth: int = 1):
+        super().__init__()
+        self.depth = depth
+        for i in range(1, depth + 1):
+            self.add_module(f"a_attends_b{i}",
+                            CrossAttention(dim, num_heads, dim_head))
+            self.add_module(f"norm_a{i}", layer_norm(dim))
+            self.add_module(f"b_attends_a{i}",
+                            CrossAttention(dim, num_heads, dim_head))
+            self.add_module(f"norm_b{i}", layer_norm(dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for i in range(1, self.depth + 1):
+            getattr(self, f"a_attends_b{i}").reset_parameters(generator)
+            getattr(self, f"b_attends_a{i}").reset_parameters(generator)
+
+    def forward(self, a_tokens: torch.Tensor, b_tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        for i in range(1, self.depth + 1):
+            a_cls, a_rest = a_tokens[:, :1], a_tokens[:, 1:]
+            b_cls, b_rest = b_tokens[:, :1], b_tokens[:, 1:]
+            a_cls = a_cls + getattr(self, f"a_attends_b{i}")(
+                getattr(self, f"norm_a{i}")(a_cls),
+                torch.cat([a_cls, b_rest], dim=1))
+            b_cls = b_cls + getattr(self, f"b_attends_a{i}")(
+                getattr(self, f"norm_b{i}")(b_cls),
+                torch.cat([b_cls, a_rest], dim=1))
+            a_tokens = torch.cat([a_cls, a_rest], dim=1)
+            b_tokens = torch.cat([b_cls, b_rest], dim=1)
+        return a_tokens, b_tokens

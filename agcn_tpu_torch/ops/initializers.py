@@ -75,6 +75,31 @@ def fc_init(num_class: int) -> Init:
     return init
 
 
+def normal(std: float) -> Init:
+    """normal(0, std) (flax `nn.initializers.normal`: the transformer's CLS
+    tokens and learned position tables take std 0.02)."""
+
+    def init(tensor: torch.Tensor,
+             generator: torch.Generator) -> torch.Tensor:
+        return _normal(tensor, std, generator)
+
+    return init
+
+
+def lecun_normal(tensor: torch.Tensor,
+                 generator: torch.Generator) -> torch.Tensor:
+    """flax `nn.Dense`'s default kernel init, lecun_normal: a normal
+    truncated at two standard deviations, scaled to variance 1 / fan_in
+    (std = sqrt(1 / fan_in) / 0.8796..., the std of a unit normal
+    truncated so). Linear layout (out, in): fan_in = in."""
+    receptive = math.prod(tensor.shape[2:])
+    std = math.sqrt(1.0 / (tensor.shape[1] * receptive)) \
+        / .87962566103423978
+    with torch.no_grad():
+        return torch.nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std,
+                                           2.0 * std, generator=generator)
+
+
 def constant(value: float) -> Init:
     def init(tensor: torch.Tensor,
              generator: torch.Generator) -> torch.Tensor:

@@ -157,6 +157,49 @@ def relu_probe(probe: ReluProbe):
         torch.relu = _RELU
 
 
+class AmaxProbe:
+    """Stands in for `torch.amax` (the AAGCN transformer's max-pooling of
+    frame and joint tokens) during one step, as `ReluProbe` does for the
+    ReLUs: a max routes its gradient to the element that attains it, and
+    two fp32 runs may pick different elements of a near tie. It records
+    each call's selection (the elements equal to the max) on the CPU;
+    given `ref`, it returns the mean of ref's selected elements (ties share
+    the gradient, as amax's backward shares it), and `disagree` counts
+    the maxima (of `maxima`) whose own selection differs from ref's."""
+
+    def __init__(self, ref: Optional["AmaxProbe"] = None):
+        self.ref = ref
+        self.masks: List[torch.Tensor] = []
+        self.disagree = 0
+        self.maxima = 0
+
+    def __call__(self, x: torch.Tensor, dim: int,
+                 keepdim: bool = False) -> torch.Tensor:
+        top = _AMAX(x, dim, keepdim=True)
+        sel = x.detach() == top.detach()
+        i = len(self.masks)
+        self.masks.append(sel.cpu())
+        self.maxima += top.numel()
+        if self.ref is not None:
+            want = self.ref.masks[i].to(x.device)
+            self.disagree += int((want != sel).any(dim).sum())
+            w = want.to(x.dtype)
+            top = (x * w).sum(dim, keepdim=True) / w.sum(dim, keepdim=True)
+        return top if keepdim else top.squeeze(dim)
+
+
+_AMAX = torch.amax
+
+
+@contextlib.contextmanager
+def amax_probe(probe: AmaxProbe):
+    torch.amax = probe
+    try:
+        yield
+    finally:
+        torch.amax = _AMAX
+
+
 def flips(masks: List[torch.Tensor], ref: List[torch.Tensor],
           margins: List[torch.Tensor],
           block: Tuple[str, ...] = BLOCK_RELUS["agcn"]) -> Dict[str, object]:

@@ -3,7 +3,8 @@
 
 The port saves with `torch.save` one `.pt` dict: the model's
 reference-named state dict (parameters and BN buffers), the optimizer
-state (update count and momentum buffers), step, epoch and
+state (update count, and momentum buffers or Adam's moments), step,
+epoch and
 `steps_per_epoch` (the schedule geometry a test-phase run rebuilds the LR
 from). `--weights` reads such a file, and also the JAX package's npz or
 pickled checkpoints and reference `.pt` state dicts through

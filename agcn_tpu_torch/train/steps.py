@@ -2,8 +2,9 @@
 reference utils/processor.py:604-778).
 
 One train step is: forward in train mode (the BN running statistics come
-from this forward), loss, backward, the optional `grad_transform`, then
-the optimizer's clip -> decay -> momentum update. Its metrics are the
+from this forward; dropout masks from the model's generator reseeded for
+the update count), loss, backward, the optional `grad_transform`, then
+the optimizer's update (clip, then its chain). Its metrics are the
 loss and the accuracy of the same logits, returned as device tensors:
 the caller decides when to wait for them.
 """
@@ -12,10 +13,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from agcn_tpu_torch.train.optim import SGDNesterov
+from agcn_tpu_torch.train.optim import ClippedOptimizer
 
 Metrics = Dict[str, torch.Tensor]
 _LEFTOVER = "waits in ROADMAP Queue 1: training leftovers"
@@ -35,8 +37,19 @@ def freeze_pa(model: nn.Module) -> None:
     zero_grads_by_name(model, "PA")
 
 
+def seed_dropout(model: nn.Module, step: int) -> None:
+    """Reseed the model's dropout generator, where it has one, from its
+    `dropout_seed` and the update count, as the JAX step draws its masks
+    from fold_in(rng, step) (agcn_tpu/train/steps.py:87): a run resumed at
+    step s draws the masks of the run that was not interrupted."""
+    generator = getattr(model, "dropout_generator", None)
+    if generator is not None:
+        seed = np.random.SeedSequence([model.dropout_seed, step])
+        generator.manual_seed(int(seed.generate_state(1, np.uint64)[0]))
+
+
 def make_train_step(model: nn.Module, loss_fn: Callable,
-                    optimizer: SGDNesterov,
+                    optimizer: ClippedOptimizer,
                     grad_transform: Optional[Callable[[nn.Module],
                                                       None]] = None,
                     sam_rho: float = 0.0,
@@ -53,6 +66,7 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
     def train_step(x: torch.Tensor, y: torch.Tensor) -> Metrics:
         model.train()
         optimizer.zero_grad()
+        seed_dropout(model, optimizer.count)
         logits = model(x)
         loss = loss_fn(logits, y)
         loss.backward()

@@ -7,14 +7,18 @@ reference utils/processor.py).
 
 Work-dir management (the reuse guard, config snapshot, `log.txt`,
 `metrics.jsonl`, score pickles, right/wrong lists), the epoch loop with
-the warmup + step LR, periodic eval with top-k, checkpoints, and the PA
-freeze (`only_train_part`). The run lives on one device: `cuda` unless
-the config says `device: cpu` (an integer picks that CUDA card).
+the recipe's optimizer (SGD nesterov, Adam, AdamW, each with LLRD when
+its name says so) and schedule (warmup + step, onecycle, cyclic),
+periodic eval with top-k, checkpoints that resume the optimizer state
+exactly, and the PA freeze (`only_train_part`). The run lives on one
+device: `cuda` unless the config says `device: cpu` (an integer picks
+that CUDA card). The model is built after the data, for the data's
+frames (the AAGCN transformer's position tables).
 
 Not here yet, each refused with its ROADMAP item: the TensorBoard event
 files (log.txt and metrics.jsonl carry the same scalars), auto-resume,
-async checkpoints, the profiler window, steps_per_call, multi-device and
-multi-host runs, the SGN families, the other AAGCN models.
+async checkpoints, the profiler window, steps_per_call, SAM, multi-device
+and multi-host runs, the SGN families, the AAGCN versions.
 """
 
 from __future__ import annotations
@@ -69,7 +73,6 @@ def _refuse_unported(cfg: Config) -> None:
         "async_checkpoint": (cfg.async_checkpoint, _LEFTOVER),
         "profiler": (cfg.profiler, _LEFTOVER),
         "steps_per_call > 1": (int(cfg.steps_per_call or 1) > 1, _LEFTOVER),
-        "llrd_factor != 1": (cfg.llrd_factor != 1.0, _LEFTOVER),
         "world_size > 1 / ddp": (cfg.world_size > 1 or cfg.ddp,
                                  "ROADMAP Queue 1: Parallel"),
         "mesh_data > 1 / mesh_edge > 1": (
@@ -161,12 +164,19 @@ class Trainer:
                 ds, cfg.test_batch_size, shuffle=False, drop_last=False,
                 seed=cfg.seed)
 
+    def _data_frames(self):
+        """The frames T of a sample as the loaders yield it (None without
+        data)."""
+        ds = self.datasets.get("train") or self.datasets.get("val")
+        return None if ds is None or not len(ds) else ds[0][0].shape[1]
+
     def _load_model(self):
         cfg = self.cfg
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
         self.model = build_model(
             cfg.model, cfg.model_args, device=self.device, dtype=dtype,
-            generator=torch.Generator().manual_seed(cfg.seed))
+            generator=torch.Generator().manual_seed(cfg.seed),
+            num_frame=self._data_frames())
         n_params = sum(p.numel() for p in self.model.parameters())
         self.print_log(f"Model {cfg.model} built: {n_params:,} params")
         self._snapshot_model_source()
@@ -203,14 +213,10 @@ class Trainer:
         else:
             steps_per_epoch = 1
         self.steps_per_epoch = steps_per_epoch
-        self.schedule = O.build_schedule(cfg.scheduler, cfg.base_lr,
-                                         steps_per_epoch, cfg.step,
-                                         cfg.warm_up_epoch)
-        self.optimizer = O.build_optimizer(
-            cfg.optimizer, self.model.parameters(), self.schedule,
-            cfg.weight_decay, cfg.nesterov, grad_clip=cfg.grad_clip)
+        self.optimizer = O.from_config(cfg, self.model.named_parameters(),
+                                       steps_per_epoch)
         if self._ckpt is not None and "optimizer" in self._ckpt:
-            # exact resume: momentum buffers and the update count
+            # exact resume: momentum buffers / Adam moments and the count
             self.optimizer.load_state_dict(self._ckpt["optimizer"])
             self.print_log(f"optimizer state resumed at step "
                            f"{self.optimizer.count}")

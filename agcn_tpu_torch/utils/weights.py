@@ -1,13 +1,15 @@
 """Weights carried across from the JAX package
 (the port's copy of the AGCN and AAGCN maps of
-agcn_tpu/utils/torch_export.py and of the npz/pickle branches of
+agcn_tpu/utils/torch_export.py, the transformer layer names of
+agcn_tpu/utils/torch_import.py:412-445, and the npz/pickle branches of
 agcn_tpu/train/checkpoint.load_checkpoint).
 
-`agcn_state_dict_from_variables` and `aagcn_state_dict_from_variables`
-turn a JAX `{"params", "batch_stats"}` tree of numpy arrays into the
-port's state dict (the reference torch names), which the model's
+`agcn_state_dict_from_variables`, `aagcn_state_dict_from_variables` and
+`aagcn_transformer_state_dict_from_variables` turn a JAX
+`{"params", "batch_stats"}` tree of numpy arrays into the port's state
+dict (the reference torch names), which the model's
 `load_state_dict(..., strict=True)` accepts; `model_state_dict`
-dispatches by model.
+dispatches by the registry key.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from agcn_tpu_torch.models.registry import model_key
+from agcn_tpu_torch.models.registry import model_key, waiting_item
 
 
 def _np(x) -> np.ndarray:
@@ -94,6 +96,10 @@ def _block_tail(out: Dict[str, np.ndarray], block: str,
                     bs[unit]["bn"])
 
 
+def _torch_tensors(out: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
 def agcn_state_dict_from_variables(variables: Mapping[str, Any],
                                    num_subset: int = 3
                                    ) -> Dict[str, torch.Tensor]:
@@ -113,20 +119,14 @@ def agcn_state_dict_from_variables(variables: Mapping[str, Any],
                 out[f"{p}.conv_{role}.{k}.bias"] = _np(
                     g[f"conv_{role}{k}_bias"])
         _block_tail(out, block, params[block], stats.get(block, {}))
-    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+    return _torch_tensors(out)
 
 
-def aagcn_state_dict_from_variables(variables: Mapping[str, Any],
-                                    num_subset: int = 3,
-                                    adaptive: bool = True
-                                    ) -> Dict[str, torch.Tensor]:
-    """JAX AAGCN variables -> the port's (reference-named) state dict
-    (agcn_tpu/utils/torch_export.py:103-174)."""
-    params = variables["params"]
-    stats = _stats(variables)
-    out: Dict[str, np.ndarray] = {}
-    _head(out, params, stats)
-    for block in sorted(k for k in params if k.startswith("l")):
+def _aagcn_blocks(out: Dict[str, np.ndarray], params: Mapping[str, Any],
+                  stats: Mapping[str, Any], num_subset: int,
+                  adaptive: bool) -> None:
+    """AAGCN's blocks l1 .. l10 (agcn_tpu/utils/torch_export.py:103-174)."""
+    for block in sorted(k for k in params if re.fullmatch(r"l\d+", k)):
         g = params[block]["gcn1"]
         p = f"{block}.gcn1"
         a = g["agcn"]
@@ -158,7 +158,89 @@ def aagcn_state_dict_from_variables(variables: Mapping[str, Any],
                     g["attn_c"][fc]["kernel"]).T
                 out[f"{p}.attn_c.{fc}.bias"] = _np(g["attn_c"][fc]["bias"])
         _block_tail(out, block, params[block], stats.get(block, {}))
-    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def aagcn_state_dict_from_variables(variables: Mapping[str, Any],
+                                    num_subset: int = 3,
+                                    adaptive: bool = True
+                                    ) -> Dict[str, torch.Tensor]:
+    """JAX AAGCN variables -> the port's (reference-named) state dict
+    (agcn_tpu/utils/torch_export.py:103-174)."""
+    params = variables["params"]
+    stats = _stats(variables)
+    out: Dict[str, np.ndarray] = {}
+    _head(out, params, stats)
+    _aagcn_blocks(out, params, stats, num_subset, adaptive)
+    return _torch_tensors(out)
+
+
+def _linear_out(out: Dict[str, np.ndarray], prefix: str,
+                dense: Mapping[str, Any]) -> None:
+    """flax Dense {kernel (in, out), bias} -> torch Linear."""
+    out[f"{prefix}.weight"] = _np(dense["kernel"]).T
+    if "bias" in dense:
+        out[f"{prefix}.bias"] = _np(dense["bias"])
+
+
+def _layer_norm_out(out: Dict[str, np.ndarray], prefix: str,
+                    norm: Mapping[str, Any]) -> None:
+    out[f"{prefix}.weight"] = _np(norm["scale"])
+    out[f"{prefix}.bias"] = _np(norm["bias"])
+
+
+def _encoder_out(out: Dict[str, np.ndarray], prefix: str,
+                 enc: Mapping[str, Any]) -> None:
+    """A TransformerEncoder: the learned position table and each layerN
+    with torch nn.TransformerEncoderLayer's names (torch_import.py:412-445:
+    in_proj_weight is in_proj_kernel transposed)."""
+    if "pos_enc" in enc:
+        out[f"{prefix}.pos_enc.embedding"] = _np(enc["pos_enc"]["embedding"])
+    i = 1
+    while f"layer{i}" in enc:
+        layer, p = enc[f"layer{i}"], f"{prefix}.layer{i}"
+        attn = layer["self_attn"]
+        out[f"{p}.self_attn.in_proj_weight"] = _np(attn["in_proj_kernel"]).T
+        out[f"{p}.self_attn.in_proj_bias"] = _np(attn["in_proj_bias"])
+        _linear_out(out, f"{p}.self_attn.out_proj", attn["out_proj"])
+        for lin in ("linear1", "linear2"):
+            _linear_out(out, f"{p}.{lin}", layer[lin])
+        for norm in ("norm1", "norm2"):
+            _layer_norm_out(out, f"{p}.{norm}", layer[norm])
+        i += 1
+
+
+def _cross_fusion_out(out: Dict[str, np.ndarray], prefix: str,
+                      cross: Mapping[str, Any]) -> None:
+    """A CrossTransformer: a_attends_bN / b_attends_aN (to_q, to_k, to_v,
+    to_out) and norm_aN / norm_bN."""
+    for name, sub in cross.items():
+        if name.startswith("norm_"):
+            _layer_norm_out(out, f"{prefix}.{name}", sub)
+        else:
+            for lin in ("to_q", "to_k", "to_v", "to_out"):
+                _linear_out(out, f"{prefix}.{name}.{lin}", sub[lin])
+
+
+def aagcn_transformer_state_dict_from_variables(
+        variables: Mapping[str, Any], num_subset: int = 3,
+        adaptive: bool = True) -> Dict[str, torch.Tensor]:
+    """JAX AAGCNTransformer variables -> the port's state dict: data BN
+    and the blocks by the AAGCN map, the CLS tokens, each encoder,
+    `cross_fusion`'s CLS cross-attention and LayerNorms, and fc."""
+    params = variables["params"]
+    stats = _stats(variables)
+    out: Dict[str, np.ndarray] = {}
+    _head(out, params, stats)
+    _aagcn_blocks(out, params, stats, num_subset, adaptive)
+    for name in ("cls_token", "cls_token_t", "cls_token_s"):
+        if name in params:
+            out[name] = _np(params[name])
+    for name in ("encoder", "temporal_encoder", "spatial_encoder"):
+        if name in params:
+            _encoder_out(out, name, params[name])
+    if "cross_fusion" in params:
+        _cross_fusion_out(out, "cross_fusion", params["cross_fusion"])
+    return _torch_tensors(out)
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
@@ -198,12 +280,22 @@ def model_state_dict(checkpoint: Mapping[str, Any], model: str = "agcn",
     reference path) and `model_args` from what `load_checkpoint` read: a
     JAX variables tree is converted by the model's map, a reference state
     dict passes with DDP's `module.` prefix dropped (reference
-    processor.py:242-249)."""
+    processor.py:242-249). A JAX tree of a model without a map raises."""
     if "params" in checkpoint:
-        if model_key(model) == "aagcn":
-            return aagcn_state_dict_from_variables(
-                checkpoint, adaptive=(model_args or {}).get("adaptive",
-                                                            True))
-        return agcn_state_dict_from_variables(checkpoint)
+        key = model_key(model)
+        adaptive = (model_args or {}).get("adaptive", True)
+        if key == "agcn":
+            return agcn_state_dict_from_variables(checkpoint)
+        if key == "aagcn":
+            return aagcn_state_dict_from_variables(checkpoint,
+                                                   adaptive=adaptive)
+        if key == "aagcn_transformer":
+            return aagcn_transformer_state_dict_from_variables(
+                checkpoint, adaptive=adaptive)
+        item = waiting_item(model)
+        raise NotImplementedError(
+            f"a JAX checkpoint of model {model!r}: the port has no weight "
+            "map for it" + (f"; it waits in ROADMAP {item}" if item
+                            else " (unknown model)"))
     return {re.sub(r"^module\.", "", k): torch.as_tensor(v)
             for k, v in checkpoint.items()}

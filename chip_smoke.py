@@ -121,6 +121,25 @@ fails:
    batch 64 (20 gcn_fwd + 10 gcn_bwd launches each), the three
    formulations' speed, and the entry point: train and evaluate one
    epoch, then `--phase test`.
+13. The AAGCN-transformer recipe (full width: model_layers 103, the
+   64-channel backbone, 'dual' with cross_fusion, 3 layers of 8 heads,
+   FF 512, T=300), whose path runs none of the port's kernels, as in the
+   JAX package: every kernel's launch count must stay 0 over its serving
+   and training. Serving test_joint_aagcn_transformer.yaml to 16 streams
+   in bf16 and fp32 (TF32 off), BN statistics from a train-mode forward,
+   card against CPU as in 7 (fp32 1e-3, bf16 5e-2 of the logit scale),
+   one C++ pre_normalize a tick, tick ms and preds/s sync and pipelined,
+   and the device time of one served forward by kernel group; training
+   train_joint_aagcn_transformer.yaml (AdamW, onecycle, bf16): one fp32
+   step at batch 4 with dropout 0 against the CPU (loss 1e-4 relative,
+   every gradient 1e-3 of its scale, the ReLU masks replayed), one
+   AdamW-LLRD step (factor 0.8) on the card and on the CPU from the same
+   gradients, 10 bf16 steps at batch 64 at the recipe's dropout on one
+   repeated batch (the loss must fall), ms per step, seq/s and peak
+   memory in bf16 and fp32 and one bf16 step's device time by kernel
+   group; then `python -m agcn_tpu_torch.main` trains and evaluates one
+   epoch, `--phase test` reproduces its top-1, and `python -m
+   agcn_tpu_torch.infer --serve 16` serves that checkpoint.
 
 The last lines of standard output are the `kernels` JSON line, the
 card's `nvidia-smi` name and power limit, and
@@ -128,6 +147,7 @@ card's `nvidia-smi` name and power limit, and
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -163,6 +183,10 @@ AAGCN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
                             "test_joint_aagcn.yaml")
 AAGCN_TRAIN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
                                   "train_joint_aagcn.yaml")
+TRANSFORMER_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
+                                  "test_joint_aagcn_transformer.yaml")
+TRANSFORMER_TRAIN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
+                                        "train_joint_aagcn_transformer.yaml")
 TRAIN_STEPS = 10
 STREAMS = 16
 SEQ = 300
@@ -315,7 +339,7 @@ def check_against_cpu(torch, np, model_name, args, state, x_check,
     from agcn_tpu_torch.models.registry import build_model
 
     torch.set_num_threads(os.cpu_count() or 1)
-    cpu = build_model(model_name, args, device="cpu")
+    cpu = build_model(model_name, args, device="cpu", num_frame=SEQ)
     cpu.load_state_dict({k: v.cpu() for k, v in state.items()}, strict=True)
     cpu.eval()
     t0 = time.perf_counter()
@@ -804,7 +828,8 @@ def phase_profile(torch, models, x_np, summary, label, iters=5):
             wall_ms=wall_ms, device_ms=device_ms, groups=groups)
 
 
-def phase_cli(torch, np, state, model_name, args, trainer_checkpoint=False):
+def phase_cli(torch, np, state, model_name, args, trainer_checkpoint=False,
+              launches_per_tick=LAYERS):
     """The serving CLI on 16 recordings, its weights a bare state dict or,
     with `trainer_checkpoint`, a file of the port trainer's
     `save_checkpoint` (the model, optimizer state, step and epoch)."""
@@ -850,7 +875,8 @@ def phase_cli(torch, np, state, model_name, args, trainer_checkpoint=False):
     log(f"  {model_name} cli ({source}): {len(answers)} answers, "
         f"{len(ticks)} ticks, "
         f"{launches} launches; last: {ticks[-1] if ticks else None}")
-    check(len(answers) == STREAMS * 4 and launches == LAYERS * 4,
+    check(len(answers) == STREAMS * 4
+          and launches == launches_per_tick * 4,
           f"cli served {len(answers)} answers with {launches} launches")
     return launches
 
@@ -873,17 +899,12 @@ def train_batch(np, n, seed, num_class=60):
 
 
 def make_step(torch, cfg, model, steps_per_epoch=1, keep=None):
-    """The trainer's step: the recipe's loss and SGD chain (clip ->
+    """The trainer's step: the recipe's loss and optimizer (AGCN's: clip ->
     decay -> nesterov), with `keep` given the model's raw gradients."""
     from agcn_tpu_torch.train import losses, optim
     from agcn_tpu_torch.train.steps import make_train_step
 
-    schedule = optim.build_schedule(cfg.scheduler, cfg.base_lr,
-                                    steps_per_epoch, cfg.step,
-                                    cfg.warm_up_epoch)
-    opt = optim.build_optimizer(cfg.optimizer, model.parameters(), schedule,
-                                cfg.weight_decay, cfg.nesterov,
-                                grad_clip=cfg.grad_clip)
+    opt = optim.from_config(cfg, model.named_parameters(), steps_per_epoch)
     loss_fn = losses.build_loss(cfg.loss, cfg.model_args["num_class"])
     return make_train_step(model, loss_fn, opt, grad_transform=keep)
 
@@ -1109,12 +1130,13 @@ def phase_train_speed(torch, np, cfg, summary, label, iters=5,
     summary[f"{label}_train_speed"] = speed
 
 
-def run_entry_point(args, timeout=600, module="agcn_tpu_torch.main"):
+def run_entry_point(args, timeout=600, module="agcn_tpu_torch.main",
+                    stdout=False):
     """`python -m <module> <args>` in a subprocess, run through runpy as
     `-m` runs it, which then prints the calls of the port's C host kernels
     (agcn_tpu_torch/native) as its last line; the rest of its output goes
     to this run's log, and a failure fails the phase. Returns those
-    counts."""
+    counts (with `stdout`, and the lines printed before them)."""
     code = ("import json, runpy, sys\n"
             f"sys.argv = [{module!r}] + {list(args)!r}\n"
             f"runpy.run_module({module!r}, run_name='__main__', "
@@ -1130,7 +1152,35 @@ def run_entry_point(args, timeout=600, module="agcn_tpu_torch.main"):
         log(f"      {ln}")
     check(proc.returncode == 0,
           f"{module} {' '.join(args)} exited {proc.returncode}")
-    return json.loads(lines[-1])
+    counts = json.loads(lines[-1])
+    return (counts, lines[:-1]) if stdout else counts
+
+
+def serve_checkpoint(np, tmp, cfg_path, weights):
+    """`python -m agcn_tpu_torch.infer --serve 16 --pipeline` on 16
+    recordings of 4 ticks with the trainer's checkpoint `weights`: every
+    stream answered at every tick, one C++ pre_normalize a tick."""
+    rec = os.path.join(tmp, "recordings")
+    os.makedirs(rec)
+    seq = make_streams(np)[:, :4 * TICK_FRAMES]
+    for sid in range(STREAMS):
+        np.save(os.path.join(rec, f"cam{sid:02d}.npy"),
+                np.transpose(seq[sid, :, :, 0], (3, 0, 2, 1)))
+    counts, lines = run_entry_point(
+        ["--config", cfg_path, "--weights", weights, "--input", rec,
+         "--serve", str(STREAMS), "--pipeline", "--timing", "--interval",
+         str(TICK_FRAMES), "--max-frame", str(SEQ)],
+        module="agcn_tpu_torch.infer", stdout=True)
+    answers = [ln for ln in lines if ln.startswith("[cam")]
+    ticks = [ln for ln in lines if ln.startswith("tick:")]
+    log(f"      python -m agcn_tpu_torch.infer --serve {STREAMS} on the "
+        f"checkpoint: {len(answers)} answers, {len(ticks)} ticks, "
+        f"{counts['pre_normalize']} C++ pre_normalize calls")
+    check(len(answers) == STREAMS * 4 and len(ticks) == 4
+          and counts["pre_normalize"] == 4,
+          f"the serving CLI gave {len(answers)} answers in {len(ticks)} "
+          f"ticks ({counts})")
+    return dict(answers=len(answers), ticks=ticks, calls=counts)
 
 
 def read_metrics(path):
@@ -1139,12 +1189,17 @@ def read_metrics(path):
 
 
 def phase_train_cli(np, summary, config, label, resume=True,
-                    **model_args):
+                    formulation="pallas", launches_per_step=(2 * LAYERS,
+                                                             LAYERS),
+                    serve=False, **model_args):
     """(b) The entry point on a config derived from the recipe `config`:
-    synthetic data, batch 64, T=300, bf16, `formulation: pallas` (and
-    `model_args`). Train and evaluate one epoch and save; with `resume`,
-    resume from that checkpoint for a second epoch; `--phase test` on the
-    last checkpoint must reproduce the run's last top-1."""
+    synthetic data, batch 64, T=300, bf16, `formulation` (none for a model
+    without one) and `model_args`. Train and evaluate one epoch and save;
+    with `resume`, resume from that checkpoint for a second epoch;
+    `--phase test` on the last checkpoint must reproduce the run's last
+    top-1. Each step must launch gcn_fwd and gcn_bwd `launches_per_step`
+    times. With `serve`, `python -m agcn_tpu_torch.infer --serve 16`
+    serves that checkpoint to 16 recordings, 4 ticks each."""
     import pickle
 
     import yaml
@@ -1168,8 +1223,9 @@ def phase_train_cli(np, summary, config, label, resume=True,
             test_batch_size=TRAIN_BATCH, num_epoch=1, num_worker=2,
             log_interval=1,
             save_interval=1, eval_interval=1, show_topk=[1, 5],
-            model_args=dict(recipe["model_args"], formulation="pallas",
-                            **model_args),
+            model_args=dict(recipe["model_args"], **model_args,
+                            **({"formulation": formulation} if formulation
+                               else {})),
             train_feeder_args=dict(recipe["train_feeder_args"],
                                    data_path=paths["train"][0],
                                    label_path=paths["train"][1]),
@@ -1195,6 +1251,10 @@ def phase_train_cli(np, summary, config, label, resume=True,
         test = read_metrics(os.path.join(tmp, "test", "metrics.jsonl"))
         with open(os.path.join(tmp, "test", "right.txt")) as f:
             right = len(f.readlines())
+        if serve:
+            served = serve_checkpoint(np, tmp, cfg_path, os.path.join(
+                ckpt, f"epoch_{epochs}.pt"))
+            summary[f"{label}_cli_served"] = served
     trains = [m for m in metrics if m["kind"] == "train"]
     evals = [m for m in metrics if m["kind"] == "eval"]
     check([m["epoch"] for m in trains] == list(range(epochs))
@@ -1204,9 +1264,9 @@ def phase_train_cli(np, summary, config, label, resume=True,
         check(math.isfinite(m["loss"]), f"non-finite loss: {m}")
         check(m["steps"] == 2 * (m["epoch"] + 1),
               f"optimizer steps after epoch {m['epoch']}: {m['steps']}")
-        check(m["launches"] == {"gcn_fwd_round_agg": 2 * 2 * LAYERS,
-                                "gcn_fwd_fp32_agg": 0,
-                                "gcn_bwd": 2 * LAYERS},
+        fwd, bwd = launches_per_step
+        check(m["launches"] == {"gcn_fwd_round_agg": 2 * fwd,
+                                "gcn_fwd_fp32_agg": 0, "gcn_bwd": 2 * bwd},
               f"epoch {m['epoch']} launches {m['launches']} for 2 steps")
     check(test[-1]["top1"] == evals[-1]["top1"]
           and right == round(test[-1]["top1"] * TRAIN_BATCH),
@@ -1217,6 +1277,272 @@ def phase_train_cli(np, summary, config, label, resume=True,
         f"{evals[-1]['top1']:.4f}, --phase test top-1 "
         f"{test[-1]['top1']:.4f}")
     summary[f"{label}_train_cli"] = dict(train=trains, eval=evals, test=test)
+
+
+# -- phase 13: the AAGCN transformer recipe (no TPU kernel on its path) --
+
+
+def reset_launches():
+    """Every kernel wrapper's launch count to 0."""
+    from agcn_tpu_torch.ops.kernels import (gcn_fused, gcn_kernel,
+                                            logits_kernel)
+
+    gcn_fused.adaptive_gcn_pallas.launches = 0
+    gcn_kernel.fused_gcn.launches = 0
+    gcn_fused.gcn_backward.launches = 0
+    logits_kernel.attention_logits_pallas.launches = 0
+
+
+def all_launches():
+    from agcn_tpu_torch.ops.kernels import logits_kernel
+    from agcn_tpu_torch.train.trainer import kernel_launches
+
+    return dict(kernel_launches(),
+                logits=logits_kernel.attention_logits_pallas.launches)
+
+
+def transformer_model(torch, cfg, dname, device="cuda", dropout=None):
+    """The recipe's AAGCN transformer at full width for T = 300, seeded
+    weights, parameters fp32, the backbone in `dname`."""
+    from agcn_tpu_torch.models.registry import build_model
+
+    args = dict(cfg.model_args)
+    if dropout is not None:
+        args["dropout"] = dropout
+    return build_model(cfg.model, args, device=device,
+                       dtype=None if dname == "float32" else torch.bfloat16,
+                       generator=torch.Generator().manual_seed(SEED),
+                       num_frame=SEQ)
+
+
+def phase_transformer_serving(torch, np, summary):
+    """test_joint_aagcn_transformer.yaml serving 16 streams in fp32 and
+    bf16, BN statistics from a train-mode forward; card against CPU;
+    one C++ pre_normalize a tick; no launch of any port kernel."""
+    from agcn_tpu_torch.utils.config import load_config
+
+    cfg = load_config(TRANSFORMER_CONFIG)
+    args = dict(cfg.model_args)
+    ref = transformer_model(torch, cfg, "float32")
+    prepare_aagcn_eval(torch, np, ref, dense_streams(np, SEQ), SEED + 1)
+    state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    del ref
+    models = {}
+    for dname in ("float32", "bfloat16"):
+        m = transformer_model(torch, cfg, dname)
+        m.load_state_dict(state, strict=True)
+        models[dname] = m.eval()
+    reset_launches()
+    forwards, card_logits, x_check = serve_streams(
+        torch, np, models, summary, "transformer", args["num_class"])
+    launches = all_launches()
+    log(f"  transformer launches {launches} for {forwards} forwards (this "
+        "path runs no port kernel, as in the JAX package)")
+    check(not any(launches.values()),
+          f"the transformer's serving path launched {launches}")
+    check_against_cpu(torch, np, cfg.model, args, state, x_check,
+                      card_logits, summary, "transformer")
+    summary.update(transformer_launches=launches,
+                   transformer_forwards=forwards)
+    return models, x_check
+
+
+def phase_transformer_train_vs_cpu(torch, np, cfg, summary):
+    """(a) One fp32 step at batch 4 with dropout 0, card against CPU (the
+    card replaying the CPU's ReLU masks, as phases 9 and 12, and the
+    elements its token max-pooling selected: a near tie picked the other
+    way routes a token's gradient to another element and moved the
+    lowest layers' gradients 2.7x past the bar; `AmaxProbe`): loss 1e-4
+    relative, every gradient 1e-3 of its scale; bf16 loss 5e-2. Then one
+    AdamW-LLRD step (llrd_factor 0.8) from the same weights and the card's
+    gradients on the card and on the CPU: the parameters within 1e-6 of
+    their scale plus 1e-3 of the step, and each LLRD group's largest
+    update within 1% of its LR (Adam's first step moves every parameter
+    with a gradient by lr x (1 + weight decay x p)), read where |p| < 0.05
+    so that the fp32 parameter's rounding stays below 0.1% of it."""
+    from agcn_tpu_torch.tools.grad_parity import (AmaxProbe, ReluProbe,
+                                                  amax_probe, condition_bn,
+                                                  grad_errors, relu_probe)
+    from agcn_tpu_torch.train import optim
+
+    x, y = train_batch(np, 4, SEED + 4)
+    ref = transformer_model(torch, cfg, "float32", device="cpu",
+                            dropout=0.0)
+    condition_bn(ref, SEED + 6)
+    state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    del ref
+    torch.set_num_threads(os.cpu_count() or 1)
+    runs = {"cpu fp32": ("cpu", "float32"), "card fp32": ("cuda", "float32"),
+            "card bf16": ("cuda", "bfloat16")}
+    out, probes, maxes = {}, {}, {}
+    for run, (dev, dname) in runs.items():
+        model = transformer_model(torch, cfg, dname, device=dev, dropout=0.0)
+        model.load_state_dict(state, strict=True)
+        grads = {}
+
+        def keep(m):
+            grads.update((n, p.grad.double().cpu().clone())
+                         for n, p in m.named_parameters())
+
+        replay = run == "card fp32"
+        probes[run] = (ReluProbe(keep_inputs=True) if run == "cpu fp32"
+                       else ReluProbe(ref=probes["cpu fp32"]) if replay
+                       else ReluProbe())
+        maxes[run] = AmaxProbe(ref=maxes["cpu fp32"] if replay else None)
+        with relu_probe(probes[run]), amax_probe(maxes[run]):
+            loss = make_step(torch, cfg, model, keep=keep)(
+                torch.from_numpy(x).to(dev),
+                torch.from_numpy(y).to(dev))["loss"].item()
+        out[run] = (loss, grads)
+        del model
+    ref_loss, ref_grads = out["cpu fp32"]
+    rel = {k: abs(v[0] - ref_loss) / abs(ref_loss) for k, v in out.items()}
+    rows = grad_errors(out["card fp32"][1], ref_grads, 1e-3)
+    flip, ties = probes["card fp32"], maxes["card fp32"]
+    log(f"  transformer (a) batch 4, dropout 0: loss cpu fp32 {ref_loss:.6f}"
+        f", card fp32 {out['card fp32'][0]:.6f} ({rel['card fp32']:.2e}), "
+        f"card bf16 {out['card bf16'][0]:.6f} ({rel['card bf16']:.2e}); "
+        f"ReLU signs off the cpu's masks {flip.disagree} (inputs at most "
+        f"{flip.input_diff:.2e} of their layer's mean |input| from the "
+        f"cpu's); max-pool selections off the cpu's {ties.disagree} of "
+        f"{ties.maxima}; worst gradients (err / bar, name, err, scale): "
+        + "; ".join(f"{r:.2f} {n} {e:.3e} {sc:.3e}" for r, n, e, sc in
+                    rows[:3]))
+    check(flip.input_diff <= 1e-3,
+          f"transformer: the card's ReLU inputs lie far from the CPU's: "
+          f"{flip.input_diff}")
+    check(ties.disagree <= 1e-4 * ties.maxima,
+          f"transformer: {ties.disagree} of {ties.maxima} max-pool "
+          "selections differ from the CPU's")
+    check(rel["card fp32"] <= 1e-4,
+          f"transformer: fp32 card loss off the CPU's: {rel}")
+    check(rows[0][0] <= 1.0,
+          f"transformer: fp32 card gradients off the CPU's: {rows[0]}")
+    check(rel["card bf16"] <= 5e-2,
+          f"transformer: bf16 card loss off the CPU's: {rel}")
+
+    # one AdamW-LLRD step on the same gradients, card against CPU, built
+    # as the trainer builds it
+    llrd_cfg = dataclasses.replace(cfg, optimizer="AdamW-LLRD",
+                                   llrd_factor=0.8)
+    after, opts = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = transformer_model(torch, cfg, "float32", device=dev,
+                                  dropout=0.0)
+        model.load_state_dict(state, strict=True)
+        for n, p in model.named_parameters():
+            p.grad = out["card fp32"][1][n].float().to(dev)
+        opts[dev] = optim.from_config(llrd_cfg, model.named_parameters(),
+                                      1)
+        opts[dev].step()
+        after[dev] = {n: p.detach().double().cpu()
+                      for n, p in model.named_parameters()}
+        del model
+    opt = opts["cuda"]
+    lr0 = opt.schedule(0)
+    scale_of = {id(p): s for s, g in zip(opt.scales, opt.opt.param_groups)
+                for p in g["params"]}
+    names = list(after["cuda"])  # named_parameters' order, as opt.params
+    scales = [scale_of[id(p)] for p in opt.params]
+    worst, groups = 0.0, {}
+    for n, s in zip(names, scales):
+        p0 = state[n].double()
+        # the update where the fp32 parameter's rounding is < 0.1% of it
+        small = p0.abs() < 0.05
+        if small.any():
+            step_max = (after["cuda"][n] - p0)[small].abs().max().item()
+            groups[s] = max(groups.get(s, 0.0), step_max)
+        bar = 1e-6 * p0.abs().max().item() + 1e-3 * lr0 * s
+        worst = max(worst, (after["cuda"][n] - after["cpu"][n]).abs()
+                    .max().item() / bar)
+    ratios = {s: groups[s] / (lr0 * s) for s in groups}
+    log(f"      AdamW-LLRD (factor 0.8) step at lr {lr0:.3e}: card vs cpu "
+        f"parameters at most {worst:.3f} of the bar; per LLRD group "
+        "largest update / (lr x multiplier): "
+        + ", ".join(f"{s:.3f}: {r:.4f}" for s, r in sorted(ratios.items())))
+    check(worst <= 1.0, f"transformer AdamW-LLRD: card parameters off the "
+                        f"CPU's by {worst:.3f} of the bar")
+    check(len(ratios) == cfg.model_args["num_layers"]
+          and all(abs(r - 1.0) <= 1e-2 for r in ratios.values()),
+          f"transformer AdamW-LLRD group updates {ratios}")
+    summary["transformer_train_vs_cpu"] = dict(
+        loss={k: v[0] for k, v in out.items()}, loss_rel=rel,
+        relu_sign_flips=(flip.disagree, flip.input_diff),
+        max_pool_ties=(ties.disagree, ties.maxima),
+        card_vs_cpu=[list(r) for r in rows[:5]],
+        adamw_llrd=dict(worst_over_bar=worst, group_ratio=ratios, lr=lr0))
+
+
+def phase_transformer_main_path(torch, np, cfg, summary):
+    """(c) Ten bf16 steps of the recipe (AdamW, onecycle, dropout 0.1) at
+    batch 64 on one repeated batch: the loss must fall, and no port
+    kernel is launched."""
+    model = transformer_model(torch, cfg, "bfloat16")
+    step = make_step(torch, cfg, model)
+    x, y = train_batch(np, TRAIN_BATCH, SEED + 7)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    reset_launches()
+    losses = [step(x, y)["loss"] for _ in range(TRAIN_STEPS)]
+    losses = [v.item() for v in losses]
+    launches = all_launches()
+    log(f"  transformer (c) {TRAIN_STEPS} steps on one batch: loss "
+        f"{' '.join(f'{v:.3f}' for v in losses)}; launches {launches}")
+    check(all(math.isfinite(v) for v in losses), "non-finite loss")
+    check(losses[-1] < losses[0],
+          f"transformer: the loss did not fall on a repeated batch: {losses}")
+    check(not any(launches.values()),
+          f"transformer: the training path launched {launches}")
+    summary["transformer_train_losses"] = losses
+    summary["transformer_train_launches"] = launches
+
+
+def phase_transformer_speed(torch, np, cfg, summary):
+    """(d) ms per step, seq/s and peak memory at batch 64: bf16 (the
+    recipe; 5 timed steps after 2) and fp32 with TF32 off (3 after 1);
+    one bf16 step's device time by kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = train_batch(np, TRAIN_BATCH, SEED + 8)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    speed = {}
+    for dname, warm, n in (("bfloat16", 2, 5), ("float32", 1, 3)):
+        model = transformer_model(torch, cfg, dname)
+        step = make_step(torch, cfg, model)
+        for _ in range(warm):
+            step(x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(x, y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        speed[dname] = dict(ms_per_step=ms, seq_per_s=TRAIN_BATCH / ms * 1e3,
+                            peak_gib=peak, timed_steps=n)
+        log(f"  transformer (d) {dname:9s} {ms:8.2f} ms/step "
+            f"{TRAIN_BATCH / ms * 1e3:7.1f} seq/s, peak {peak:.2f} GiB")
+        if dname == "bfloat16":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step(x, y)
+                torch.cuda.synchronize()
+            groups = {}
+            for ev in prof.events():
+                if ev.device_type == DeviceType.CUDA:
+                    g = kernel_group(ev.name)
+                    groups[g] = groups.get(g, 0.0) + \
+                        ev.device_time_total / 1e3
+            device_ms = sum(groups.values())
+            check(device_ms > 0, "the profiler saw no device time")
+            log(f"      one bf16 step: device {device_ms:.3f} ms "
+                f"({100 * device_ms / ms:.1f}% of the step's wall time)")
+            for g, gms in sorted(groups.items(), key=lambda kv: -kv[1]):
+                log(f"    {gms:9.3f} ms {100 * gms / device_ms:5.1f}%  {g}")
+            speed[dname].update(device_ms=device_ms, groups=groups)
+        del model, step
+    summary["transformer_train_speed"] = speed
 
 
 def main():
@@ -1237,13 +1563,13 @@ def main():
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/12] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/13] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/12] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/13] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -1259,7 +1585,7 @@ def main():
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/12] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/13] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -1275,7 +1601,7 @@ def main():
     summary.update(kernel_rows=rows, dx_rows=dx_rows,
                    fp32_fwd_layers=fp32_layers(rows, dx_rows))
 
-    log("[4/12] gcn_bwd vs its plain version at the training shapes "
+    log("[4/13] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -1283,7 +1609,7 @@ def main():
     summary.update(bwd_rows=bwd_rows,
                    fp32_da1_layers=da1_fp32_layers(bwd_rows))
 
-    log("[5/12] attention-logits kernel vs plain version at the served "
+    log("[5/13] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -1293,7 +1619,7 @@ def main():
         logits_rows = phase_logits(torch, np, logits_kernel)
     summary["logits_rows"] = logits_rows
 
-    log("[6/12] host data path: the C++ host kernels "
+    log("[6/13] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -1301,11 +1627,11 @@ def main():
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/12] AGCN serving main path: 16 streams through "
+    log("[7/13] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/12] AGCN: device time of one served forward by kernel group; "
+    log("[8/13] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -1313,7 +1639,7 @@ def main():
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/12] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/13] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -1322,19 +1648,19 @@ def main():
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/12] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/13] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/12] AAGCN: device time of one served forward by kernel group; "
+    log("[11/13] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/12] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/13] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -1343,6 +1669,24 @@ def main():
     phase_train_speed(torch, np, aagcn_cfg, summary, "aagcn")
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
+
+    log("[13/13] AAGCN-transformer recipe (no port kernel on its path, as "
+        "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
+        "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
+        "T=300")
+    t13 = time.perf_counter()
+    tf_models, tf_x = phase_transformer_serving(torch, np, summary)
+    phase_profile(torch, tf_models, tf_x, summary, "transformer")
+    del tf_models
+    tf_cfg = load_config(TRANSFORMER_TRAIN_CONFIG)
+    phase_transformer_train_vs_cpu(torch, np, tf_cfg, summary)
+    phase_transformer_main_path(torch, np, tf_cfg, summary)
+    phase_transformer_speed(torch, np, tf_cfg, summary)
+    phase_train_cli(np, summary, TRANSFORMER_TRAIN_CONFIG, "transformer",
+                    resume=False, formulation=None, launches_per_step=(0, 0),
+                    serve=True)
+    summary["transformer_phase_s"] = time.perf_counter() - t13
+    log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
@@ -1366,6 +1710,19 @@ def main():
         f"agcn_serve_use_pallas_{d}": n
         for d, n in launches["fused_gcn"].items()}
     kernels[2]["launches_by_path"] = bwd_launches
+    kernels[3]["launches_by_path"] = {"aagcn_serve": logits_launches}
+    # each kernel's count on the transformer's paths, as phase 13 read it:
+    # the served ticks; the ten steps and the entry point's epoch (whose
+    # log counts the three GCN kernels)
+    tf_train = dict(summary["transformer_train_launches"])
+    for m in summary["transformer_train_cli"]["train"]:
+        for key, n in m["launches"].items():
+            tf_train[key] += n
+    for entry, key in zip(kernels, ("gcn_fwd_round_agg", "gcn_fwd_fp32_agg",
+                                    "gcn_bwd", "logits")):
+        entry["launches_by_path"].update(
+            transformer_serve=summary["transformer_launches"][key],
+            transformer_train=tf_train[key])
     # the fp32 routes' numbers beside the bf16 ones (gcn_fwd: served
     # forward and, for gcn_fused, dx per step; gcn_bwd: per step)
     same = ("name", "route", "source", "replaces", "launches")

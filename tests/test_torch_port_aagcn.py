@@ -337,7 +337,7 @@ def test_state_dict_is_the_reference_map():
         built = build_model(name, {"num_class": NUM_CLASS,
                                    "model_layers": 3}, device="cpu")
         assert isinstance(built, AAGCN)
-    for name in ("aagcn_transformer", "aagcn_v31", "model.aagcn_v17.Model",
+    for name in ("aagcn_v30", "aagcn_v31", "model.aagcn_v17.Model",
                  "sgn"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             build_model(name, {}, device="cpu")

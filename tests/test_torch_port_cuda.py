@@ -752,3 +752,36 @@ def test_aagcn_on_card_matches_cpu(cuda, kw):
         got = card.eval()(x.to(cuda)).cpu()
         want = cpu(x)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aagcn_transformer_on_card_matches_cpu(cuda, dtype):
+    """The recipe's AAGCN transformer ('dual', cross_fusion, 3 layers of 8
+    heads over the 64-channel backbone) at T = 40: card logits and
+    attention maps against the CPU's, fp32 (TF32 off) within 1e-4 of their
+    scale, bf16 backbone within 5e-2 of the logit scale. This path runs
+    none of the port's CUDA kernels, as in the JAX package."""
+    from agcn_tpu_torch.models import build_model
+
+    args = dict(num_class=60, graph="ntu_rgb_d", model_layers=103,
+                backbone_channels=64, mode="dual", cross_fusion=True,
+                num_layers=3, num_heads=8, dim_feedforward=512)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 3, 40, 25, 2)).astype(np.float32))
+    card = build_model("aagcn_transformer", args, device=cuda, dtype=dtype,
+                       num_frame=40).eval()
+    cpu = build_model("aagcn_transformer", args, device="cpu", dtype=dtype,
+                      num_frame=40).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    before = _launches()
+    with torch.no_grad():
+        got, got_attn = card(x.to(cuda), return_attention=True)
+        want, want_attn = cpu(x, return_attention=True)
+    assert _launches() == before
+    scale = want.abs().max().item()
+    bar = 1e-4 if dtype == torch.float32 else 5e-2
+    assert (got.cpu() - want).abs().max().item() <= bar * scale
+    if dtype == torch.float32:
+        for part in ("temporal", "spatial"):
+            for g, w in zip(got_attn[part], want_attn[part]):
+                torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=0)

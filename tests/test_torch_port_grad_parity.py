@@ -1,7 +1,8 @@
 """The gradient-parity tool of the port (agcn_tpu_torch/tools/grad_parity.py)
 on the CPU: the ReLU probe records and replays masks, the bar's floors
 apply where the docstring says, the float64 scope keeps `.float()` in
-float64, and the exact-zero gradient names are zero in a float64 step.
+float64, the exact-zero gradient names are zero in a float64 step, and
+the max-pool probe replays a reference's selection.
 """
 
 import json
@@ -100,3 +101,27 @@ def test_tool_runs_end_to_end(tmp_path, model):
     same = [r for r in rows[1:] if r["against"] == "cpu fp32"]
     assert len(same) == 8
     assert all(r["worst"] == 0 and r["flips"] == 0 for r in same)
+
+
+def test_amax_probe_replays_the_reference_selection():
+    """A max routes its gradient to the element that attains it; the
+    probe records the selection, and a replay routes the gradient (shared
+    among ties, as amax's backward shares it) by the reference's, even
+    where a near tie now picks another element."""
+    x = torch.tensor([[1.0, 3.0, 2.0], [5.0, 5.0, 0.0]])
+    ref = gp.AmaxProbe()
+    with gp.amax_probe(ref):
+        want = torch.amax(x, dim=1)
+    assert torch.equal(want, torch.tensor([3.0, 5.0]))
+    y = x.clone()
+    y[0, 2] = 3.0 + 1e-6  # a near tie the other way
+    y.requires_grad_(True)
+    probe = gp.AmaxProbe(ref=ref)
+    with gp.amax_probe(probe):
+        got = torch.amax(y, dim=1, keepdim=True)
+    assert torch.amax is gp._AMAX
+    got.sum().backward()
+    assert (probe.disagree, probe.maxima) == (1, 2)
+    assert torch.equal(got[:, 0], torch.tensor([3.0, 5.0]))
+    assert torch.equal(y.grad, torch.tensor([[0.0, 1.0, 0.0],
+                                             [0.5, 0.5, 0.0]]))

@@ -156,7 +156,7 @@ def test_train_mode_and_unported_options_raise():
     with pytest.raises(NotImplementedError, match="edge_mesh"):
         AGCN(adj=adj, device="cpu", edge_mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("aagcn_transformer", {}, device="cpu")
+        build_model("aagcn_v31", {}, device="cpu")
 
 
 def test_default_device_entry_points_raise_without_gpu():
@@ -204,6 +204,28 @@ def test_checkpoint_files_load_strict(jax_agcn, tmp_path):
     (tmp_path / "orbax_dir").mkdir()
     with pytest.raises(ValueError, match="npz"):
         load_checkpoint(str(tmp_path / "orbax_dir"))
+
+
+def test_model_state_dict_dispatches_by_registry_key(jax_agcn):
+    """A JAX tree goes through its model's map, found by registry key
+    (short name or reference path); a tree of a model the port has no map
+    for raises, naming the ROADMAP item it waits in, where it once went
+    through the AGCN map."""
+    _, variables, _ = jax_agcn
+    want = agcn_state_dict_from_variables(variables)
+    for name in ("agcn", "model.agcn.Model",
+                 "model.architecture.aagcn.agcn.Model"):
+        got = model_state_dict(variables, name)
+        assert set(got) == set(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    for name, item in (("aagcn_v31", "item 6: aagcn_versions"),
+                       ("model.aagcn_v17.Model", "item 6: aagcn_versions"),
+                       ("sgn", "item 7: SGN family"),
+                       ("model.sgn_v15.SGN", "item 7: SGN family")):
+        with pytest.raises(NotImplementedError, match=item):
+            model_state_dict(variables, name)
+    with pytest.raises(NotImplementedError, match="unknown model"):
+        model_state_dict(variables, "no_such_model")
 
 
 def test_ddp_saved_state_dict_loads_every_weight(jax_agcn, tmp_path):
@@ -271,7 +293,8 @@ _REQUIRED_MODULES = tuple(f"agcn_tpu_torch.{m}" for m in (
     "train.checkpoint", "data.feeder", "data.pipeline", "data.transforms",
     "tools.grad_parity", "native", "data.gen.__main__", "data.gen.ntu",
     "data.gen.streams", "data.gen.kinetics", "data.gen.openpose",
-    "data.gen.explore", "utils.parallel_map"))
+    "data.gen.explore", "utils.parallel_map", "ops.attention",
+    "models.aagcn_transformer"))
 
 
 def _imports(path):

@@ -1,11 +1,14 @@
-"""Port BatchNorm train mode, losses, the SGD chain and its schedule
-against agcn_tpu on the CPU, with the same seeded numpy inputs.
+"""Port BatchNorm train mode, losses, the optimizers (SGD nesterov, Adam,
+AdamW, the LLRD multipliers) and the schedules (warmup + step, onecycle,
+cyclic) against agcn_tpu on the CPU, with the same seeded numpy inputs.
 
 Tolerances: BatchNorm fp32 outputs and running statistics atol 1e-5
 (sums of another order over 7,500 values); bf16 outputs 2^-7 relative
 (one bf16 ulp) plus 2^-10 of the scale; losses 1e-6; the optimizer's
 parameters after each of 10 steps 1e-6 relative (fp32 elementwise
-updates in the same order, the global norm summed in another).
+updates in the same order, the global norm summed in another); the
+schedules 1e-6 relative (optax computes them in fp32, the port in
+double).
 """
 
 import jax
@@ -127,15 +130,22 @@ def test_losses_match_jax(name, kw):
 
 
 def test_unknown_or_unported_training_knobs_raise():
+    from agcn_tpu_torch.train.steps import make_train_step
+
     with pytest.raises(ValueError, match="unknown loss"):
         tlosses.build_loss("mmd", 5)
     p = [torch.nn.Parameter(torch.zeros(3))]
     sched = toptim.warmup_step_schedule(0.1, 1, [])
-    for name in ("Adam", "AdamW", "SAM_SGD"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for name in ("SAM_SGD", "SAM"):
+        with pytest.raises(NotImplementedError, match="training leftovers"):
             toptim.build_optimizer(name, p, sched)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toptim.build_schedule("onecyclelr", 0.1, 1, [])
+    with pytest.raises(NotImplementedError, match="training leftovers"):
+        make_train_step(torch.nn.Linear(2, 2), tlosses.cross_entropy,
+                        toptim.build_optimizer("SGD", p, sched),
+                        sam_rho=0.05)
+    # as agcn_tpu's factory: no Adam-LLRD
+    with pytest.raises(ValueError, match="Unknown optimizer"):
+        toptim.build_optimizer("Adam-LLRD", p, sched)
 
 
 def test_warmup_step_schedule_matches_jax():
@@ -187,3 +197,159 @@ def test_sgd_chain_matches_optax_over_ten_steps():
                                        rtol=1e-6, atol=1e-7)
     assert min(norms) < 1.0 < max(norms)
     assert opt.count == 10
+
+
+# names as the port's transformer names its parameters: two encoders'
+# layer1 / layer2 share a multiplier, nothing else matches `layer<N>`
+_NAMED = [("temporal_encoder.layer1.self_attn.in_proj_weight", (6, 3)),
+          ("spatial_encoder.layer2.linear1.weight", (7,)),
+          ("l1.gcn1.conv_d.0.weight", (2, 5, 3)),
+          ("temporal_encoder.layer2.norm1.bias", (3,)),
+          ("spatial_encoder.layer1.linear1.bias", (4, 2)),
+          ("cross_fusion.a_attends_b1.to_q.weight", (5,))]
+
+
+@pytest.mark.parametrize("name,llrd", [("Adam", 1.0), ("AdamW", 1.0),
+                                       ("SGD-LLRD", 0.8),
+                                       ("AdamW-LLRD", 0.8)])
+def test_optimizers_match_optax_over_ten_steps(name, llrd):
+    """agcn_tpu's build_optimizer (and with_llrd) against the port's
+    factory with `llrd_scales`, the LR from onecycle at the count before
+    each update, weight decay 1e-2; the gradient norm below the clip on
+    some steps and above it on others."""
+    names = [n for n, _ in _NAMED]
+    init = [_np(20 + i, *s, scale=0.5) for i, (_, s) in enumerate(_NAMED)]
+    scales = [0.05, 2.0, 0.1, 5.0, 0.3, 1.5, 0.02, 3.0, 0.6, 8.0]
+    noise = [[_np(200 + 10 * k + i, *s) for i, (_, s) in enumerate(_NAMED)]
+             for k in range(10)]
+    sched_args = (0.01, 3, 3, 1, 1e-4, 1e-6)
+    jparams = {n: jnp.asarray(p) for n, p in zip(names, init)}
+    tx = joptim.build_optimizer(name, joptim.onecycle_schedule(*sched_args),
+                                1e-2)
+    if "LLRD" in name.upper():
+        tx = joptim.with_llrd(tx, jparams, llrd)
+    state = tx.init(jparams)
+    tparams = [torch.nn.Parameter(_t(p)) for p in init]
+    lr_scales = (toptim.llrd_scales(names, llrd) if "LLRD" in name.upper()
+                 else None)
+    opt = toptim.build_optimizer(name, tparams,
+                                 toptim.onecycle_schedule(*sched_args),
+                                 1e-2, lr_scales=lr_scales)
+    if lr_scales:
+        assert lr_scales == [0.8, 1.0, 1.0, 1.0, 0.8, 1.0]
+    norms = []
+    for k in range(10):
+        jg = {n: scales[k] * (np.asarray(jparams[n]) + 0.3 * noise[k][i])
+              for i, n in enumerate(names)}
+        norms.append(np.sqrt(sum(float((g ** 2).sum())
+                                 for g in jg.values())))
+        updates, state = tx.update({n: jnp.asarray(g) for n, g in jg.items()},
+                                   state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for i, p in enumerate(tparams):
+            p.grad = _t(scales[k] * (p.detach().numpy() + 0.3 * noise[k][i]))
+        opt.step()
+        for p, n in zip(tparams, names):
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       np.asarray(jparams[n]), rtol=1e-6,
+                                       atol=1e-7, err_msg=f"step {k} {n}")
+    assert min(norms) < 1.0 < max(norms)
+    assert opt.count == 10
+
+
+def test_optimizer_state_round_trips(tmp_path):
+    """Adam's moments and count through state_dict and a file: ten steps
+    equal five, a save, a load into a fresh optimizer, and five more; an
+    SGD state under the older key loads."""
+    init = [_np(40 + i, *s) for i, (_, s) in enumerate(_NAMED)]
+    grads = [[_np(300 + 10 * k + i, *s) for i, (_, s) in enumerate(_NAMED)]
+             for k in range(10)]
+    sched = toptim.cyclic_schedule(0.01, 4)
+
+    def run(params, opt, steps):
+        for k in steps:
+            for p, g in zip(params, grads[k]):
+                p.grad = _t(g)
+            opt.step()
+
+    def adamw(params):
+        return toptim.build_optimizer("AdamW", params, sched, 1e-2)
+
+    whole = [torch.nn.Parameter(_t(p)) for p in init]
+    run(whole, adamw(whole), range(10))
+    parts = [torch.nn.Parameter(_t(p)) for p in init]
+    opt = adamw(parts)
+    run(parts, opt, range(5))
+    torch.save(opt.state_dict(), tmp_path / "opt.pt")
+    again = adamw(parts)
+    again.load_state_dict(torch.load(tmp_path / "opt.pt", weights_only=True))
+    assert again.count == 5
+    run(parts, again, range(5, 10))
+    for a, b in zip(whole, parts):
+        assert torch.equal(a, b)
+    # an SGD state saved before the port had Adam, under the key "sgd"
+    sgd = toptim.build_optimizer("SGD", whole, sched)
+    run(whole, sgd, range(3))
+    old = {"count": 3, "sgd": sgd.state_dict()["opt"]}
+    loaded = toptim.build_optimizer("SGD", whole, sched)
+    loaded.load_state_dict(old)
+    assert loaded.count == 3
+    for i, st in sgd.opt.state_dict()["state"].items():
+        assert torch.equal(loaded.opt.state_dict()["state"][i]
+                           ["momentum_buffer"], st["momentum_buffer"])
+
+
+@pytest.mark.parametrize("args", [
+    (0.001, 10, 60, 5, 1e-5, 1e-7),   # the transformer recipe's numbers
+    (0.001, 10, 60, 5, None, None),   # base / 25 up, base / 1e4 down
+    (0.1, 7, 3, 1, None, 1e-4),
+    (0.05, 3, 4, 0, 2e-3, None)],     # pct_start 1e-3 -> 0.012: no warm-up
+    ids=["recipe", "defaults", "final_only", "initial_only"])
+def test_onecycle_schedule_matches_optax(args):
+    want = joptim.onecycle_schedule(*args)
+    if args[3] == 0 and int(1e-3 * args[1] * args[2]) == 0:
+        # optax's first interval is empty: NaN at every count; the port
+        # refuses
+        assert np.isnan(float(want(jnp.asarray(0))))
+        with pytest.raises(ValueError, match="empty interval"):
+            toptim.onecycle_schedule(*args)
+        return
+    got = toptim.onecycle_schedule(*args)
+    total = args[1] * args[2]
+    peak = int(max(args[3] / args[2], 1e-3) * total)
+    for count in sorted({0, 1, peak - 1, peak, peak + 1, total // 2,
+                         total - 1, total, total + 1, 10 * total}):
+        np.testing.assert_allclose(got(count),
+                                   float(want(jnp.asarray(count))),
+                                   rtol=1e-6, err_msg=f"count {count}")
+
+
+@pytest.mark.parametrize("mode", ["triangular", "triangular2"])
+@pytest.mark.parametrize("steps_per_epoch", [1, 5, 8])
+def test_cyclic_schedule_matches_jax(mode, steps_per_epoch):
+    want = joptim.cyclic_schedule(0.05, steps_per_epoch, mode)
+    got = toptim.cyclic_schedule(0.05, steps_per_epoch, mode)
+    up = max(steps_per_epoch // 2, 1)
+    cycle = up + max(steps_per_epoch - up, 1)
+    for count in sorted({c + d for c in (0, up, cycle, 2 * cycle + up,
+                                         5 * cycle)
+                         for d in (-1, 0, 1) if c + d >= 0}):
+        np.testing.assert_allclose(got(count),
+                                   float(want(jnp.asarray(count))),
+                                   rtol=1e-6, err_msg=f"count {count}")
+
+
+def test_build_schedule_dispatches_as_the_jax_trainer():
+    for name, fn in (("onecyclelr", "onecycle"), ("cycliclr", "cyclic"),
+                     ("cycliclrtri2", "cyclic"), ("step", "warmup")):
+        sched = toptim.build_schedule(name, 0.1, 4, [2], 1, num_epoch=3,
+                                      initial_lr=0.0, final_lr=0.0)
+        ref = {"onecycle": joptim.onecycle_schedule(0.1, 4, 3, 1),
+               "cyclic": joptim.cyclic_schedule(
+                   0.1, 4, "triangular2" if name.endswith("tri2")
+                   else "triangular"),
+               "warmup": joptim.warmup_step_schedule(0.1, 4, [2], 1)}[fn]
+        for count in range(14):
+            np.testing.assert_allclose(sched(count),
+                                       float(ref(jnp.asarray(count))),
+                                       rtol=1e-6, err_msg=f"{name} {count}")
