@@ -1,16 +1,24 @@
-"""The dense skeleton dataset (copy of agcn_tpu/data/feeder.py:28-158).
+"""Skeleton datasets (copy of agcn_tpu/data/feeder.py).
 
-Parity target: reference feeders/feeder.py (Feeder :35-227). On-disk
-contract: `.npy` (N, C, T, V, M) plus pickled (names, labels), as the
-AGCN recipes use. The per-item augmentation chain mirrors
-feeder.py:185-222 with a per-item numpy Generator seeded from the
-per-epoch seed, so the port and the JAX package draw the same numbers.
-The SGN dataset waits for SGN (ROADMAP Queue 1: SGN family).
+Parity target: reference feeders/feeder.py (Feeder :35-227). Two on-disk
+contracts:
+
+- dense: `.npy` (N, C, T, V, M) plus pickled (names, labels), as the
+  AGCN recipes use (`SkeletonDataset`);
+- SGN: pickled (N, T, M*V*C) float arrays plus pickled label arrays, as
+  the SGN recipes use (`SGNDataset`; the train split takes train + val,
+  reference feeder.py:92-103).
+
+The dense per-item augmentation chain mirrors feeder.py:185-222 with a
+per-item numpy Generator seeded from the per-epoch seed, so the port and
+the JAX package draw the same numbers.
 """
 
 from __future__ import annotations
 
+import os
 import pickle
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -145,6 +153,87 @@ class SkeletonDataset:
     def top_k(self, score: np.ndarray, k: int) -> float:
         """Top-k accuracy of a (N, num_class) score matrix
         (reference feeder.py:224-227)."""
+        rank = score.argsort()
+        hits = [l in rank[i, -k:] for i, l in enumerate(self.label)]
+        return sum(hits) / len(hits)
+
+
+class SGNDataset:
+    """SGN pickled-format dataset: raw (N, T, M*V*C) sequences.
+
+    Sampling and collation to fixed segments happen in
+    agcn_tpu_torch/data/sgn_collate.py; this class only loads and remaps.
+    """
+
+    def __init__(self,
+                 data_path: str,
+                 label_path: str,
+                 dataset: str = "NTU60-CV-SGN",
+                 joint_15: bool = False,
+                 merge_val_into_train: bool = True,
+                 debug: bool = False):
+        self.dataset = dataset
+
+        def load_pair(dp, lp):
+            # pickles this project (or the reference's data_gen) wrote:
+            # unpickling runs code
+            with open(lp, "rb") as f:
+                label = pickle.load(f)
+            with open(dp, "rb") as f:
+                data = pickle.load(f)
+            return np.asarray(data), np.asarray(label)
+
+        def val_path(p):
+            # swap train->val in the filename only, so a 'train' in a
+            # directory component can't produce a bogus path
+            head, tail = os.path.split(p)
+            return os.path.join(head, tail.replace("train", "val"))
+
+        if "train" in os.path.basename(data_path) and merge_val_into_train:
+            # the reference trains SGN on train+val merged
+            # (feeders/feeder.py:92-103) and fails loudly when the val
+            # files are absent; this degrades to train-only but says so
+            d1, l1 = load_pair(data_path, label_path)
+            try:
+                d2, l2 = load_pair(val_path(data_path), val_path(label_path))
+                self.data = np.concatenate([d1, d2], axis=0)
+                self.label = np.concatenate([l1, l2], axis=0)
+            except FileNotFoundError:
+                warnings.warn(
+                    f"SGNDataset: val split {val_path(data_path)!r} not "
+                    f"found; training on the train split only (the "
+                    f"reference merges train+val)")
+                self.data, self.label = d1, l1
+        else:
+            self.data, self.label = load_pair(data_path, label_path)
+
+        if joint_15:
+            out = np.zeros((*self.data.shape[:2], 2 * 3 * 15),
+                           dtype=self.data.dtype)
+            for new_id, old_id in JOINT_MAPPING.items():
+                out[:, :, new_id * 3:new_id * 3 + 3] = \
+                    self.data[:, :, (old_id - 1) * 3:(old_id - 1) * 3 + 3]
+            # second person block
+            half = self.data.shape[-1] // 2
+            for new_id, old_id in JOINT_MAPPING.items():
+                out[:, :, 45 + new_id * 3:45 + new_id * 3 + 3] = \
+                    self.data[:, :,
+                              half + (old_id - 1) * 3:
+                              half + (old_id - 1) * 3 + 3]
+            self.data = out
+
+        if debug:
+            self.data = self.data[:100]
+            self.label = self.label[:100]
+
+    def __len__(self):
+        return len(self.label)
+
+    def __getitem__(self, index: int):
+        return np.asarray(self.data[index], np.float32), \
+            int(self.label[index]), index
+
+    def top_k(self, score: np.ndarray, k: int) -> float:
         rank = score.argsort()
         hits = [l in rank[i, -k:] for i, l in enumerate(self.label)]
         return sum(hits) / len(hits)

@@ -1,21 +1,25 @@
-"""Host input pipeline (copy of agcn_tpu/data/pipeline.py:21-150).
+"""Host input pipeline (copy of agcn_tpu/data/pipeline.py).
 
 Replaces torch DataLoader (reference feeders/loader.py:365-394,
 utils/processor.py:479-540): iterates a per-epoch permutation, collates
-numpy batches, and a background thread keeps `PREFETCH` batches ahead so
-host work overlaps device steps. The permutation and the per-epoch item
-seeds use the JAX package's numpy seeding, so both packages see the same
-batches in the same order. Host sharding waits for the data-parallel
-port, the SGN collate for SGN.
+numpy batches (`collate(batch, rng)`: the dense stack by default, the SGN
+segment collate from `make_sgn_collate`), and a background thread keeps
+`PREFETCH` batches ahead so host work overlaps device steps. The
+permutation, the per-epoch item seeds and the collate's draws use the JAX
+package's numpy seeding, so both packages see the same batches in the
+same order. Host sharding waits for the data-parallel port (ROADMAP
+Queue 1: Parallel).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator
+from typing import Callable, Iterator, Optional
 
 import numpy as np
+
+from agcn_tpu_torch.data.sgn_collate import SegmentSampler
 
 PREFETCH = 2  # batches the background thread keeps ahead
 
@@ -29,12 +33,14 @@ class BatchIterator:
                  shuffle: bool = False,
                  drop_last: bool = True,
                  seed: int = 0,
+                 collate: Optional[Callable] = None,
                  num_workers: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.collate = collate or self._default_collate
         self.num_workers = num_workers
         self.epoch = 0
 
@@ -44,7 +50,7 @@ class BatchIterator:
         self.epoch = epoch
 
     @staticmethod
-    def _collate(batch):
+    def _default_collate(batch, rng):
         xs, ys, idxs = zip(*batch)
         return (np.stack(xs).astype(np.float32),
                 np.asarray(ys, np.int64), np.asarray(idxs, np.int64))
@@ -87,7 +93,7 @@ class BatchIterator:
                         lambda i: self.dataset[int(i)], idx))
                 else:
                     batch = [self.dataset[int(i)] for i in idx]
-                yield self._collate(batch)
+                yield self.collate(batch, rng)
         finally:
             if pool is not None:
                 pool.shutdown(wait=False)
@@ -133,3 +139,12 @@ class BatchIterator:
             # consumer closed early (break/exception/GC): release the
             # producer so _iter_batches' finally shuts its pool down
             stop.set()
+
+
+def make_sgn_collate(sampler: SegmentSampler, train: bool,
+                     multi_crop: bool = False) -> Callable:
+    def collate(batch, rng):
+        x, s, y, idx = sampler.collate(batch, rng, train=train,
+                                       multi_crop=multi_crop)
+        return x, y, idx
+    return collate

@@ -1,15 +1,18 @@
-"""Skeleton sequence augmentations of the dense dataset (host-side numpy;
-copy of agcn_tpu/data/transforms.py:22-194, the functions SkeletonDataset
-uses, and openpose_match, :277).
+"""Skeleton sequence augmentations (host-side numpy; copy of
+agcn_tpu/data/transforms.py: the functions SkeletonDataset uses, :22-194,
+the SGN batch rotation and segment splits, :142 and :199-275, and
+openpose_match, :277).
 
 Functional parity targets: reference feeders/tools.py (auto_pading :36-44,
 random_choose :93-105, random_move :108-152, random_rotation :181-193,
 random_shift :196-208, random_subsample :212-218, flips/scales :47-90,
-stretch_to_maximum_length :221-231, openpose_match :234-275). Every op
-takes an explicit numpy Generator, so the pipeline is reproducible
-without global RNG state and draws the same numbers as the JAX
-package's. Layout is the on-disk contract (C, T, V, M) per sample. The
-SGN batch and segment ops wait for SGN (ROADMAP Queue 1: SGN family).
+stretch_to_maximum_length :221-231, openpose_match :234-275, the batch
+rotation :278-314, the AUC segment split :317-379). Every op takes an
+explicit numpy Generator, so the pipeline is reproducible without global
+RNG state and draws the same numbers as the JAX package's. Layout is the
+on-disk contract (C, T, V, M) per sample; the SGN batch ops act on
+(N, T, M*V*C). The k-means segment split (`midvel_sampler`) needs
+scikit-learn and waits (ROADMAP Queue 1 item 7: SGN family).
 """
 
 from __future__ import annotations
@@ -139,6 +142,20 @@ def random_rotation(x: np.ndarray, theta: float,
     return out.reshape(t, c, v, m).transpose(1, 0, 2, 3).astype(x.dtype)
 
 
+def batch_rotation(x: np.ndarray, theta: float,
+                   rng: np.random.Generator) -> np.ndarray:
+    """Train-time batch rotation for SGN segments
+    (reference tools.py:302-314): x is (N, T, M*V*C), one angle triple per
+    sample applied to every (V, 3) point."""
+    n, t, d = x.shape
+    pts = x.reshape(n, t, d // 3, 3)
+    rot = rng.uniform(-theta, theta, (n, 3)).astype(x.dtype)
+    rot = np.broadcast_to(rot[:, None, :], (n, t, 3))
+    mats = rotation_matrices(rot)  # (N, T, 3, 3)
+    out = np.einsum("ntij,ntpj->ntpi", mats, pts)
+    return out.reshape(n, t, d).astype(x.dtype)
+
+
 def random_flip(x: np.ndarray, channel: int,
                 rng: np.random.Generator) -> np.ndarray:
     if rng.random() > 0.5:
@@ -180,6 +197,71 @@ def stretch_to_maximum_length(x: np.ndarray) -> np.ndarray:
     f = interpolate.interp1d(np.arange(t_last), flat)
     out = f(np.linspace(0, t_last - 1, t))
     return out.reshape(c, v, m, t).transpose(0, 3, 1, 2).astype(x.dtype)
+
+
+# --- segment-splitting policies for the SGN sampler -----------------------
+
+def cumulative_auc(x: np.ndarray, norm: bool = False) -> np.ndarray:
+    """Cumulative trapezoid AUC (reference tools.py:317-322)."""
+    if norm:
+        x = np.linalg.norm(x, axis=1)
+    return (np.cumsum(x[:-1]) + np.cumsum(x[1:])) / 2
+
+
+def split_idx_equal(length: int, num_segments: int) -> np.ndarray:
+    avg = length / num_segments
+    return (np.arange(num_segments + 1) * avg).round().astype(int)
+
+
+def split_idx_using_auc(x: np.ndarray, num_segments: int) -> np.ndarray:
+    """Motion-equal segmentation: segment bounds equalize the cumulative
+    feature-norm AUC (reference tools.py:325-379, simplified repair pass).
+    """
+    n = x.shape[0]
+    if n == num_segments:
+        return np.arange(num_segments + 1)
+    cum = cumulative_auc(x, norm=True)
+    if cum[-1] <= 0:
+        return split_idx_equal(n, num_segments)
+    # target cumulative levels -> first index crossing each level
+    levels = cum[-1] * np.arange(1, num_segments) / num_segments
+    bounds = np.searchsorted(cum, levels) + 1
+    bounds = np.concatenate([[0], bounds, [n]])
+    # repair: enforce strictly increasing bounds with unit gaps
+    for i in range(1, len(bounds)):
+        if bounds[i] <= bounds[i - 1]:
+            bounds[i] = bounds[i - 1] + 1
+    overflow = bounds[-1] - n
+    if overflow > 0:
+        for i in range(len(bounds) - 1, 0, -1):
+            bounds[i] = min(bounds[i], n - (len(bounds) - 1 - i))
+        for i in range(1, len(bounds)):
+            if bounds[i] <= bounds[i - 1]:
+                bounds[i] = bounds[i - 1] + 1
+    return bounds
+
+
+def split_idx_center(length: int, num_segments: int,
+                     center_factor: float) -> np.ndarray:
+    """Center-focused segmentation (reference loader.py:268-284)."""
+    avg = length / num_segments
+    min_range = max(avg * center_factor, 1.0)
+    slope = 2 * (avg - min_range) / max(num_segments / 2 - 1, 1)
+    widths = [i * slope + min_range
+              for j in (reversed(range(num_segments // 2)),
+                        range(num_segments // 2))
+              for i in j]
+    return np.cumsum([0] + widths).round().astype(int)
+
+
+def split_idx_tempshift(length: int, num_segments: int, shift: float,
+                        rng: np.random.Generator) -> np.ndarray:
+    """Temporally shifted equal segmentation (reference loader.py:287-299)."""
+    bias = max(int(shift * length), 1)
+    begin = int(rng.integers(0, bias))
+    end = int(rng.integers(0, bias))
+    avg = (length - begin - end) / num_segments
+    return (np.arange(num_segments + 1) * avg + begin).round().astype(int)
 
 
 def openpose_match(x: np.ndarray) -> np.ndarray:

@@ -52,8 +52,9 @@ class BatchedStreamServer:
             raise ValueError("max_streams must be >= 1")
         if kind != "dense":
             raise NotImplementedError(
-                f"kind {kind!r}: the port serves dense (AGCN) models; SGN "
-                "serving waits for the SGN family (ROADMAP, Queue 1)")
+                f"kind {kind!r}: the port serves dense models (AGCN, AAGCN, "
+                "the AAGCN transformer); SGN serving waits in ROADMAP "
+                "Queue 1 item 7.5: SGN family")
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.max_streams = max_streams

@@ -1,10 +1,12 @@
-"""Model registry (port of agcn_tpu/models/registry.py: AGCN, AAGCN and
-the AAGCN transformer).
+"""Model registry (port of agcn_tpu/models/registry.py: AGCN, AAGCN, the
+AAGCN transformer and SGN).
 
 Models are selected by short name; the reference's dotted paths for the
 ported models are aliased so its config files work unchanged. Graph
 construction (the `graph`/`graph_args` model args) resolves through
-agcn_tpu_torch.graph.
+agcn_tpu_torch.graph. The JAX package's models that the port lacks raise
+NotImplementedError naming the ROADMAP item they wait in; every other
+name raises KeyError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ from agcn_tpu_torch.graph import build_adjacency
 from agcn_tpu_torch.models.aagcn import AAGCN
 from agcn_tpu_torch.models.aagcn_transformer import AAGCNTransformer
 from agcn_tpu_torch.models.agcn import AGCN
+from agcn_tpu_torch.models.sgn import SGN
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE
 
+_SGN_VERSIONS = ("v11", "v12", "v13", "v14")
 _ALIASES = {
     "model.agcn.Model": "agcn",
     "model.aagcn.Model": "aagcn",
@@ -27,17 +31,38 @@ _ALIASES = {
     "model.architecture.aagcn.aagcn.Model": "aagcn",
     "model.aagcn_v37.Model": "aagcn_transformer",
     "model.architecture.aagcn.aagcn_v37.Model": "aagcn_transformer",
+    **{f"model.sgn_{v}.SGN": "sgn" for v in _SGN_VERSIONS},
+    **{f"model.architecture.sgn.sgn_{v}.SGN": "sgn" for v in _SGN_VERSIONS},
 }
 _CLASSES = {"agcn": AGCN, "aagcn": AAGCN,
-            "aagcn_transformer": AAGCNTransformer}
-# the JAX package's other models, each with the ROADMAP item it waits in
-_WAITING = (("aagcn_v", "Queue 1 item 6: aagcn_versions"),
-            ("model.aagcn_v", "Queue 1 item 6: aagcn_versions"),
-            ("model.architecture.aagcn.aagcn_v",
-             "Queue 1 item 6: aagcn_versions"),
-            ("sgn", "Queue 1 item 7: SGN family"),
-            ("model.sgn", "Queue 1 item 7: SGN family"),
-            ("model.architecture.sgn", "Queue 1 item 7: SGN family"))
+            "aagcn_transformer": AAGCNTransformer, "sgn": SGN}
+_VERSIONS = "Queue 1 item 6: aagcn_versions"
+_SGN_ITEM = "Queue 1 item 7: SGN family"
+# the keys and aliases the JAX package builds (agcn_tpu/models/
+# registry.py:21-55, 89-199) that the port lacks, each with the ROADMAP
+# item it waits in
+_WAITING = {
+    **{f"aagcn_v{n}": _VERSIONS for n in (17, 24, 30, 31, 32, 34)},
+    **{f"{prefix}aagcn_v{n}.Model": _VERSIONS
+       for n in (17, 24, 30, 31, 32, 34)
+       for prefix in ("model.", "model.architecture.aagcn.")},
+    "sgn_original": _SGN_ITEM,
+    "model.sgn.SGN": _SGN_ITEM,
+    "model.architecture.sgn.sgn.SGN": _SGN_ITEM,
+    "model.architecture.sgn.archiv.sgn.SGN": _SGN_ITEM,
+    "sgn_transformer": _SGN_ITEM,
+    "model.sgn_v15.SGN": _SGN_ITEM,
+    "model.architecture.sgn.sgn_v15.SGN": _SGN_ITEM,
+}
+# reference-only SGN args the model fixes or that are dead upstream
+# (agcn_tpu/models/registry.py:172-184): norm/act are fixed bn+relu,
+# semantic_frame_fusion is unused in the reference (sgn_v14.py:258), the
+# sgcn2 G/GT args are dead in its forward
+_SGN_DROPPED = ("norm_type", "act_type", "semantic_frame_fusion",
+                "semantic_class_fusion", "sgcn2_g_kernel", "sgcn2_g_proj_dim",
+                "sgcn2_g_proj_shared", "sgcn2_g_weighted",
+                "sgcn2_g_res_alpha", "sgcn2_gt_mode", "sgcn2_gt_act",
+                "sgcn2_gt_g3_idx", "sgcn_ffn_mode")
 
 
 def model_key(name: str) -> str:
@@ -48,12 +73,48 @@ def model_key(name: str) -> str:
 
 def waiting_item(name: str) -> Optional[str]:
     """The ROADMAP item a model of the JAX package that the port lacks
-    waits in (None for a ported or unknown name)."""
-    key = model_key(name)
-    for prefix, item in _WAITING:
-        if key.startswith(prefix.lower()):
-            return item
-    return None
+    waits in (None for a ported name, or one the JAX package refuses)."""
+    return _WAITING.get(name) or _WAITING.get(name.lower())
+
+
+def unknown_model(name: str) -> KeyError:
+    """The JAX package's KeyError for a name it does not build
+    (agcn_tpu/models/registry.py:200-213): its own message for an
+    unaliased reference path (an archived experiment)."""
+    if "." in name and name.startswith("model."):
+        supported = sorted(k for k in list(_ALIASES) + list(_WAITING)
+                           if k.startswith("model."))
+        return KeyError(
+            f"{name!r} is an archived reference experiment with no "
+            f"equivalent here; supported reference paths: {supported}")
+    return KeyError(f"Unknown model {name!r}")
+
+
+def sgn_args(model_args: Dict[str, Any]) -> Dict[str, Any]:
+    """A recipe's SGN `model_args` in the model's names
+    (agcn_tpu/models/registry.py:160-199): `bias` -> `use_bias`, the
+    reference-only names dropped, tuples for `sgcn_dims` / `multi_t` /
+    `sgcn_residual`, a scalar `c_multiplier` for all four widths."""
+    args = dict(model_args)
+    if "bias" in args:
+        args["use_bias"] = args.pop("bias")
+    if "use_bias" in args:
+        args["use_bias"] = bool(args["use_bias"])
+    for k in _SGN_DROPPED:
+        args.pop(k, None)
+    for k in ("sgcn_dims", "sgcn2_dims"):
+        if args.get(k) is not None:
+            args[k] = tuple(args[k])
+    if "sgcn_residual" in args:
+        r = args["sgcn_residual"]
+        args["sgcn_residual"] = tuple(r) if isinstance(r, (list, tuple)) \
+            else (r,) * 3
+    if "multi_t" in args:
+        args["multi_t"] = tuple(tuple(t) for t in args["multi_t"])
+    if "c_multiplier" in args and not isinstance(args["c_multiplier"],
+                                                 (list, tuple)):
+        args["c_multiplier"] = (args["c_multiplier"],) * 4
+    return args
 
 
 def build_model(name: str, model_args: Dict[str, Any],
@@ -63,9 +124,9 @@ def build_model(name: str, model_args: Dict[str, Any],
                 num_frame: Optional[int] = None) -> nn.Module:
     """Build a model from a recipe's `model` and `model_args`, on `device`
     (`cuda` unless named), computing in `dtype`, initialized from
-    `generator`. `num_frame`, the input's frames, sizes the position
-    tables of a model that has them (the AAGCN transformer); the others
-    take any T."""
+    `generator`. `num_frame`, the input's frames, sizes the tables of a
+    model that has them (the AAGCN transformer's positions, SGN's one-hot
+    frames: the loader's `seg`); the others take any T."""
     key = model_key(name)
     cls = _CLASSES.get(key)
     if cls is None:
@@ -74,7 +135,12 @@ def build_model(name: str, model_args: Dict[str, Any],
             raise NotImplementedError(
                 f"model {name!r} is not ported yet: it waits in "
                 f"ROADMAP {item}")
-        raise KeyError(f"Unknown model {name!r}")
+        raise unknown_model(name)
+    if cls is SGN:
+        args = sgn_args(model_args)
+        if num_frame is not None:
+            args["num_segment"] = num_frame
+        return SGN(device=device, dtype=dtype, generator=generator, **args)
     args = dict(model_args)
     graph = args.pop("graph", "ntu_rgb_d")
     graph_args = args.pop("graph_args", {})

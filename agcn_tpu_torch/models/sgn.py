@@ -1,0 +1,593 @@
+"""SGN — Semantics-Guided Network (port of agcn_tpu/models/sgn.py, the
+options of the base recipe `configs/*/train_sgn.yaml`).
+
+Parity target: reference model/architecture/sgn/sgn_v14.py and
+blocks/{feature_extractor,semantic,spatial,temporal}.py. The input is the
+SGN loader's (B, seg, V*C) segments (persons flattened into time by the
+collate). In order:
+
+- position and velocity embeddings (`SGNEmbedding`, every mode of
+  `EMB_MODES`), each behind a DataNorm over the (c, v)-ordered features;
+  velocity is x[t] - x[t-1] with a leading zero frame;
+- the one-hot joint embedding, fused by concatenation or sum, and the
+  one-hot frame embedding, added after the GCN stack (location 0);
+- the GCN stack (`GCNSpatialBlock`): G from the GT builder (gt_mode 1:
+  per-frame g1 g2^T mixed by a frame-to-frame softmax of the joint-max
+  descriptors g3, g4, then a softmax or sigmoid), shared by every unit
+  when `sgcn_g_proj_dim` is an int (one per unit for a list), and units
+  norm(w1(G x) + w2(x)) -> relu -> dropout2d (attn_mode 0);
+- the spatial max-pool, the temporal conv branches of `multi_t` on the
+  last level (t_mode 1: conv k -> BN -> relu -> dropout2d, then 1x1 ->
+  BN -> relu), their mean, the temporal max-pool, dropout and `fc`.
+
+Layout is channels-last (B, T, V, C); every 1xk kernel keeps the
+reference's (out, in, 1, k) layout over its (N, C, V, T) grid, and the
+module and parameter names are the reference's (the names
+`utils/weights.sgn_state_dict_from_variables` writes), so a reference
+state dict loads strictly. The one-hot tables are the reference's
+buffers (`semantic_embedding.spa_onehot.onehot` (1, V, V, seg) and
+`tem_onehot.onehot` (1, seg, V, seg)), so the model is built for the
+loader's `seg` (`num_segment`). The max-pools call `torch.amax` and the
+ReLUs `torch.relu` (the calls that tools/grad_parity.py's probes replay).
+
+Every other option value of the JAX model raises NotImplementedError
+naming ROADMAP Queue 1 item 7 (the SGN family's later steps). SGN runs in
+fp32, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from agcn_tpu_torch.ops import BatchNorm
+from agcn_tpu_torch.ops import initializers as init
+from agcn_tpu_torch.ops.attention import Dropout
+from agcn_tpu_torch.ops.gcn import frame_aggregate, frame_attention
+from agcn_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+_ITEM = "ROADMAP Queue 1 item 7: SGN family"
+
+# channel constants c1..c4 (reference model/resource/common_ntu.py:1-6)
+C1, C2, C3, C4 = 64, 128, 256, 512
+
+EMB_MODES = {
+    # mode: (num_layers, kernel_sizes, residual)
+    1: (2, (1, 1), 0),
+    2: (2, (1, 1), 1),
+    3: (3, (1, 1, 1), 0),
+    4: (4, (1, 1, 1, 1), 0),
+    11: (2, (1, 3), 0),
+    12: (2, (3, 3), 0),
+}
+
+
+class Conv1xN(nn.Module):
+    """A 1xk conv along T (reference Conv1xN, block.py:154-189): `conv`
+    holds the reference's (out, in, 1, k) kernel over its (N, C, V, T)
+    grid; here it runs on (B, T, V, C), a matmul when k = 1."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: int = 1, padding: int = 0,
+                 use_bias: bool = False):
+        super().__init__()
+        self.conv = nn.utils.skip_init(
+            nn.Conv2d, in_features, features, (1, kernel_size),
+            padding=(0, padding), bias=use_bias)
+
+    def reset_parameters(self, generator: torch.Generator,
+                         kernel=init.kaiming_normal_fan_out) -> None:
+        w = self.conv.weight
+        kernel(w, generator)
+        if self.conv.bias is not None:
+            init.torch_default(w.shape[1] * w.shape[3])(self.conv.bias,
+                                                        generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.conv.weight, self.conv.bias
+        if w.shape[-1] == 1:
+            return F.linear(x, w.view(w.shape[0], w.shape[1]), b)
+        y = F.conv2d(x.permute(0, 3, 2, 1), w, b,
+                     padding=self.conv.padding)  # (B, C, V, T)
+        return y.permute(0, 3, 2, 1)
+
+
+class _Block(nn.Module):
+    """The reference Conv's `block`: `conv` [+ `norm`]."""
+
+    def __init__(self, conv: Conv1xN, norm: Optional[BatchNorm]):
+        super().__init__()
+        self.conv = conv
+        if norm is not None:
+            self.norm = norm
+
+
+class ConvNormAct(nn.Module):
+    """conv -> [norm] -> [relu] -> [dropout2d] (reference Conv,
+    block.py:192-227; agcn_tpu sgn.py:102-128). Dropout2d drops whole
+    channels of a sample (flax broadcast_dims (1, 2))."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: int = 1, padding: int = 0,
+                 use_bias: bool = False, use_norm: bool = False,
+                 use_act: bool = True, dropout: float = 0.0):
+        super().__init__()
+        self.block = _Block(
+            Conv1xN(in_features, features, kernel_size, padding, use_bias),
+            BatchNorm(features) if use_norm else None)
+        self.use_norm = use_norm
+        self.use_act = use_act
+        self.drop = Dropout(dropout, (1, 2)) if dropout > 0.0 else None
+
+    def reset_parameters(self, generator: torch.Generator,
+                         kernel=init.kaiming_normal_fan_out) -> None:
+        self.block.conv.reset_parameters(generator, kernel)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.block.conv(x)
+        if self.use_norm:
+            x = self.block.norm(x)
+        if self.use_act:
+            x = torch.relu(x)
+        if self.drop is not None:
+            x = self.drop(x)
+        return x
+
+
+class DataNorm(nn.Module):
+    """BatchNorm1d over the C*V features of each frame in the reference's
+    (c, v) order, statistics over (B, T) (blocks/semantic.py:21-31)."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.bn = BatchNorm(num_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, v, c = x.shape
+        y = self.bn(x.permute(0, 1, 3, 2).reshape(b, t, c * v))
+        return y.reshape(b, t, c, v).permute(0, 1, 3, 2)
+
+
+class SGNEmbedding(nn.Module):
+    """Input / semantic embedding MLP (reference blocks/semantic.py:34-125;
+    agcn_tpu sgn.py:131-162): [DataNorm] then `EMB_MODES[mode]` layers of
+    conv -> relu; mode 2 adds each layer's input back, through `res{i}`
+    where the widths differ."""
+
+    def __init__(self, in_channels: int, out_channels: int, mode: int = 1,
+                 use_bias: bool = True, in_norm_features: int = 0):
+        super().__init__()
+        if mode not in EMB_MODES:
+            raise ValueError(f"unknown embedding mode {mode} "
+                             f"(modes: {sorted(EMB_MODES)})")
+        if in_norm_features:
+            self.norm = DataNorm(in_norm_features)
+        num_layers, kernels, residual = EMB_MODES[mode]
+        self.num_layers, self.residual = num_layers, residual
+        self.res_names: List[str] = []
+        c = in_channels
+        for i, k in enumerate(kernels):
+            self.add_module(f"cnn{i + 1}", ConvNormAct(
+                c, out_channels, k, k // 2, use_bias=use_bias))
+            if residual == 1 and c != out_channels:
+                self.add_module(f"res{i + 1}", nn.utils.skip_init(
+                    nn.Linear, c, out_channels, bias=use_bias))
+                self.res_names.append(f"res{i + 1}")
+            c = out_channels
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for i in range(self.num_layers):
+            getattr(self, f"cnn{i + 1}").reset_parameters(generator)
+        for name in self.res_names:
+            res = getattr(self, name)
+            init.torch_default(res.in_features)(res.weight, generator)
+            if res.bias is not None:
+                with torch.no_grad():
+                    res.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if hasattr(self, "norm"):
+            x = self.norm(x)
+        for i in range(self.num_layers):
+            y = getattr(self, f"cnn{i + 1}")(x)
+            if self.residual == 1:
+                res = getattr(self, f"res{i + 1}", None)
+                y = y + (x if res is None else res(x))
+            x = y
+        return x
+
+
+class OneHot(nn.Module):
+    """The reference's one-hot constant (blocks/semantic.py:128-146):
+    eye(E) tiled to (1, L, E, E), then permuted to its (N, C, V, T)
+    layout by `mode`; `table()` gives it channels-last, (1, T, V, E)."""
+
+    def __init__(self, dim_eye: int, dim_length: int, mode: int):
+        super().__init__()
+        oh = np.broadcast_to(np.eye(dim_eye, dtype=np.float32),
+                             (1, dim_length, dim_eye, dim_eye))
+        oh = oh.transpose(0, 3, 2, 1) if mode == 0 else oh.transpose(
+            0, 3, 1, 2)
+        self.register_buffer("onehot", torch.from_numpy(
+            np.ascontiguousarray(oh)))
+
+    def table(self) -> torch.Tensor:
+        return self.onehot.permute(0, 3, 2, 1)
+
+
+class GCNSpatialGT(nn.Module):
+    """G mixed through a T x T temporal attention (blocks/spatial.py:243-322,
+    gt_mode 1; agcn_tpu sgn.py:238-279): g12 = g1 g2^T per frame, the frame
+    descriptors are the joint-max of g3 and g4, g34 = softmax_j(g3p g4p^T)
+    mixes the frames' g12, then a softmax over the source joint (or a
+    sigmoid, gt_activation 2). `alpha` exists as in the reference and is
+    not used without a prior G."""
+
+    def __init__(self, in_features: int, proj_dim: int,
+                 use_bias: bool = True, proj_shared: bool = False,
+                 gt_activation: int = 1):
+        super().__init__()
+        self.proj_shared = proj_shared
+        self.gt_activation = gt_activation
+        names = ("g1", "g3") if proj_shared else ("g1", "g2", "g3", "g4")
+        for name in names:
+            self.add_module(name, ConvNormAct(in_features, proj_dim,
+                                              use_bias=use_bias,
+                                              use_act=False))
+        self.names = names
+        self.alpha = nn.Parameter(torch.zeros(1))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name in self.names:
+            getattr(self, name).reset_parameters(generator)
+        with torch.no_grad():
+            self.alpha.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, v, _ = x.shape
+        g1, g3 = self.g1(x), self.g3(x)
+        g2, g4 = (g1, g3) if self.proj_shared else (self.g2(x), self.g4(x))
+        g12 = frame_attention(g1, g2, "identity")  # (B, T, V, V)
+        g3p = torch.amax(g3, dim=2)  # (B, T, C)
+        g4p = torch.amax(g4, dim=2)
+        g34 = torch.softmax(torch.matmul(g3p, g4p.transpose(1, 2)), dim=-1)
+        g12 = torch.matmul(g34, g12.reshape(b, t, v * v)).reshape(b, t, v, v)
+        if self.gt_activation == 1:
+            return torch.softmax(g12, dim=-1)
+        return torch.sigmoid(g12)
+
+
+class GCNSpatialUnit(nn.Module):
+    """One SGN graph conv, x -> norm(w1(G x) + w2(x)) -> relu -> dropout2d
+    (blocks/spatial.py:702-843, attn_mode 0; agcn_tpu sgn.py:423-506).
+    w1's kernel starts at zero (the reference's init_weight,
+    sgn_v14.py:817-827), so a fresh model's G path adds exactly zero."""
+
+    def __init__(self, in_features: int, out_channels: int,
+                 use_bias: bool = True, dropout: float = 0.0):
+        super().__init__()
+        self.w1 = ConvNormAct(in_features, out_channels, use_bias=use_bias,
+                              use_act=False)
+        self.w2 = ConvNormAct(in_features, out_channels, use_bias=use_bias,
+                              use_act=False)
+        self.norm = BatchNorm(out_channels)
+        self.drop = Dropout(dropout, (1, 2)) if dropout > 0.0 else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.w1.reset_parameters(generator, kernel=init.constant(0.0))
+        self.w2.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        y = self.w1(frame_aggregate(x, g)) + self.w2(x)
+        y = torch.relu(self.norm(y))
+        return y if self.drop is None else self.drop(y)
+
+
+class GCNSpatialBlock(nn.Module):
+    """The GCN units `gcn1..N`, with one G (`gcn_g1`) shared by all of them
+    when `g_proj_dim` is an int, or one per unit (`gcn_g{i}`) for a list
+    (blocks/spatial.py:846-1013; agcn_tpu sgn.py:536-633)."""
+
+    def __init__(self, in_features: int, dims: Sequence[int],
+                 g_proj_dim: Union[int, Sequence[int]] = 256,
+                 g_proj_shared: bool = False, gt_act: int = 1,
+                 dropout: float = 0.0, use_bias: bool = True):
+        super().__init__()
+        self.dims = tuple(dims)
+        self.g_shared = isinstance(g_proj_dim, int)
+        c = in_features
+        for i, dim in enumerate(self.dims):
+            if i == 0 or not self.g_shared:
+                proj = g_proj_dim if self.g_shared else g_proj_dim[i]
+                self.add_module(f"gcn_g{i + 1}", GCNSpatialGT(
+                    c, proj, use_bias=use_bias, proj_shared=g_proj_shared,
+                    gt_activation=gt_act))
+            self.add_module(f"gcn{i + 1}", GCNSpatialUnit(
+                c, dim, use_bias=use_bias, dropout=dropout))
+            c = dim
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for i in range(len(self.dims)):
+            if i == 0 or not self.g_shared:
+                getattr(self, f"gcn_g{i + 1}").reset_parameters(generator)
+            getattr(self, f"gcn{i + 1}").reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor):
+        g_list: List[torch.Tensor] = []
+        for i in range(len(self.dims)):
+            if i == 0 or not self.g_shared:
+                g_list.append(getattr(self, f"gcn_g{i + 1}")(x))
+            x = getattr(self, f"gcn{i + 1}")(x, g_list[-1])
+        return x, g_list
+
+
+class TemporalBranchMLP(nn.Module):
+    """Two-layer temporal conv MLP, t_mode 1 (blocks/temporal.py:99-160;
+    agcn_tpu sgn.py:636-676): conv k -> BN -> relu -> dropout2d, then
+    1x1 -> BN -> relu."""
+
+    def __init__(self, in_features: int, out_channels: int,
+                 kernel_size: int = 3, dropout: float = 0.0,
+                 use_bias: bool = True):
+        super().__init__()
+        self.cnn1 = ConvNormAct(in_features, in_features, kernel_size,
+                                kernel_size // 2, use_bias=use_bias,
+                                use_norm=True, dropout=dropout)
+        self.cnn2 = ConvNormAct(in_features, out_channels,
+                                use_bias=use_bias, use_norm=True)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.cnn1.reset_parameters(generator)
+        self.cnn2.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cnn2(self.cnn1(x))
+
+
+class TemporalBranch(nn.Module):
+    """A temporal branch, t_mode 1: its MLP as `cnn`
+    (blocks/temporal.py:274-397)."""
+
+    def __init__(self, in_features: int, out_channels: int,
+                 kernel_size: int = 3, dropout: float = 0.0,
+                 use_bias: bool = True):
+        super().__init__()
+        self.cnn = TemporalBranchMLP(in_features, out_channels, kernel_size,
+                                     dropout, use_bias)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.cnn.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cnn(x)
+
+
+# options of the JAX model that only the refused modes read (gcn_fpn 8 /
+# 10, t_mode 4 / 5): accepted and unused, as those modes are refused
+_READ_BY_REFUSED_MODES = frozenset({
+    "sgcn2_dims", "sgcn2_kernel", "sgcn2_padding", "sgcn2_dropout",
+    "sgcn2_residual", "sgcn2_prenorm", "sgcn2_ffn", "sgcn2_v_kernel",
+    "sgcn2_attn_mode", "gcn_fpn_kernel", "bifpn_dim", "bifpn_layers",
+    "decomp_kernel_size", "pool_kernel_sizes"})
+
+
+def _refuse(**options: bool) -> None:
+    for name, on in options.items():
+        if on:
+            raise NotImplementedError(
+                f"SGN option {name}: not in the port yet; waits in {_ITEM}")
+
+
+class SGN(nn.Module):
+    """The SGN classifier at the base recipe's options (agcn_tpu
+    sgn.py:758-1283). `forward(x)` takes (B, num_segment, V*C) and
+    returns the logits; `forward(x, return_g=True)` returns (logits, the
+    list of G, each (B, T, V, V)).
+
+    Built on the CPU, initialized from `generator` (seed 0 when None) and
+    moved to `device`, `cuda` unless the caller names another. The
+    dropouts (dropout2d in the temporal branches, `sgcn_dropout` in the
+    units, `dropout` before fc) draw from one generator on that device,
+    seeded from `generator` (`dropout_seed`; the train step reseeds it for
+    each update, `train/steps.seed_dropout`). Parameters and compute are
+    fp32."""
+
+    def __init__(self, num_class: int = 60, num_point: int = 25,
+                 num_segment: int = 20, in_channels: int = 3,
+                 use_bias: bool = True, dropout: float = 0.0,
+                 dropout2d: float = 0.0,
+                 c_multiplier: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                 input_position: int = 1, input_velocity: int = 1,
+                 semantic_joint: int = 1, semantic_frame: int = 1,
+                 semantic_class: int = 0, semantic_jdiff: int = 0,
+                 semantic_joint_smp: int = 0, semantic_joint_fusion: int = 0,
+                 semantic_frame_location: int = 0, xem_projection: int = 0,
+                 sgcn_dims: Optional[Sequence[int]] = None,
+                 sgcn_residual: Sequence[int] = (0, 0, 0),
+                 sgcn_prenorm: bool = False,
+                 sgcn_ffn: Optional[float] = None, sgcn_dropout: float = 0.0,
+                 sgcn_g_proj_dim: Optional[Any] = None,
+                 sgcn_g_proj_shared: bool = False,
+                 sgcn_g_activation: str = "softmax",
+                 sgcn_g_weighted: bool = False, sgcn_g_res_alpha: float = 1.0,
+                 sgcn_kernel: int = 1, sgcn_padding: int = 0,
+                 sgcn_g_kernel: int = 1, sgcn_v_kernel: int = 0,
+                 sgcn_gt_mode: int = 1, sgcn_gt_act: int = 1,
+                 sgcn_gt_g3_idx: int = 2, sgcn_gt_out_channels2: int = 512,
+                 sgcn_attn_mode: int = 0, gcn_fpn_output_merge: int = 1,
+                 gcn_fpn_shared: int = 0, gcn_fpn: int = -1,
+                 spatial_maxpool: int = 1, temporal_maxpool: int = 1,
+                 multi_t: Sequence[Sequence[int]] = ((), (), (3,)),
+                 multi_t_shared: int = 0, t_mode: int = 1,
+                 infogcn_noise_ratio: Optional[float] = None,
+                 infogcn_gain: Optional[float] = None,
+                 t_mha_kwargs: Optional[dict] = None,
+                 t_maxpool_kwargs: Optional[dict] = None,
+                 aspp_rates: Optional[Sequence[int]] = None,
+                 dtype: Optional[torch.dtype] = None,
+                 device: Union[str, torch.device, None] = DEFAULT_DEVICE,
+                 generator: Optional[torch.Generator] = None,
+                 **refused_modes_only: Any):
+        super().__init__()
+        unknown = sorted(set(refused_modes_only) - _READ_BY_REFUSED_MODES)
+        if unknown:
+            raise TypeError(f"SGN got unexpected options {unknown}")
+        # read only by the G builders of other gt modes, the FPN modes or
+        # the unit's w2 kernel (k = 1 ignores its padding, as in JAX)
+        del sgcn_g_activation, sgcn_gt_g3_idx, gcn_fpn_shared
+        del sgcn_gt_out_channels2, sgcn_padding
+        device = resolve_device(device)
+        if dtype not in (None, torch.float32):
+            raise NotImplementedError(
+                f"SGN computes in fp32 (as in the JAX package); dtype "
+                f"{dtype} asked")
+        _refuse(**{
+            "sgcn_gt_mode != 1": sgcn_gt_mode != 1,
+            "sgcn_attn_mode != 0": sgcn_attn_mode != 0,
+            "gcn_fpn != -1": gcn_fpn != -1,
+            "gcn_fpn_output_merge = 2": gcn_fpn_output_merge == 2,
+            "t_mode != 1": t_mode != 1,
+            "multi_t_shared": bool(multi_t_shared),
+            "semantic_class": semantic_class > 0,
+            "semantic_jdiff": semantic_jdiff > 0,
+            "semantic_joint_smp": semantic_joint_smp > 0,
+            "semantic_frame_location = 1": semantic_frame_location == 1,
+            "xem_projection": xem_projection > 0,
+            "segment embeddings (input_position/velocity > 1000)":
+                input_position > 1000 or input_velocity > 1000,
+            "sgcn_ffn": sgcn_ffn is not None,
+            "sgcn_residual": any(int(r) for r in sgcn_residual),
+            "sgcn_prenorm": bool(sgcn_prenorm),
+            "sgcn_g_weighted": bool(sgcn_g_weighted),
+            "sgcn_v_kernel": sgcn_v_kernel > 0,
+            "sgcn_kernel != 1": sgcn_kernel != 1,
+            "sgcn_g_kernel != 1": sgcn_g_kernel != 1,
+            "res_alpha (sgcn_g_res_alpha) != 1": sgcn_g_res_alpha != 1,
+            "spatial_maxpool != 1": spatial_maxpool != 1,
+            "temporal_maxpool != 1": temporal_maxpool != 1,
+            "aspp_rates": bool(aspp_rates),
+            "t_mha_kwargs": bool(t_mha_kwargs),
+            "t_maxpool_kwargs": bool(t_maxpool_kwargs),
+            "infogcn_noise_ratio / infogcn_gain":
+                infogcn_noise_ratio is not None or infogcn_gain is not None,
+        })
+        if input_position <= 0 and input_velocity <= 0:
+            raise ValueError("SGN needs input_position or input_velocity")
+        m = (tuple(c_multiplier) if isinstance(c_multiplier, (list, tuple))
+             else (c_multiplier,) * 4)
+        c1, c2, c3, c4 = (int(C1 * m[0]), int(C2 * m[1]), int(C3 * m[2]),
+                          int(C4 * m[3]))
+        self.num_class = num_class
+        self.num_point = num_point
+        self.num_segment = num_segment
+        self.in_channels = in_channels
+        v, t = num_point, num_segment
+        self.fusion = semantic_joint_fusion
+
+        self.feature_extractor = nn.ModuleDict()
+        for name, mode in (("pos_embed", input_position),
+                           ("vel_embed", input_velocity)):
+            if mode > 0:
+                self.feature_extractor[name] = SGNEmbedding(
+                    in_channels, c1, mode, use_bias,
+                    in_norm_features=in_channels * v)
+        self.semantic_embedding = nn.ModuleDict()
+        width = c1
+        if semantic_joint > 0:
+            self.semantic_embedding["spa_embedding"] = SGNEmbedding(
+                v, c1, semantic_joint, use_bias)
+            self.semantic_embedding["spa_onehot"] = OneHot(v, t, mode=0)
+            width = 2 * c1 if semantic_joint_fusion == 0 else c1
+        self.sgcn_dims = tuple(sgcn_dims or (c2, c3, c3))
+        if semantic_frame > 0:
+            self.semantic_embedding["tem_embedding"] = SGNEmbedding(
+                t, self.sgcn_dims[-1], semantic_frame, use_bias)
+            self.semantic_embedding["tem_onehot"] = OneHot(t, v, mode=1)
+        g_proj = sgcn_g_proj_dim if sgcn_g_proj_dim is not None else c3
+        if isinstance(g_proj, (list, tuple)):
+            g_proj = tuple(g_proj)
+        self.sgcn = GCNSpatialBlock(width, self.sgcn_dims, g_proj,
+                                    bool(sgcn_g_proj_shared), sgcn_gt_act,
+                                    sgcn_dropout, use_bias)
+        # only the last level feeds the temporal branches (gcn_fpn -1)
+        last = len(self.sgcn_dims) - 1
+        self.branch_names: List[str] = []
+        for i, kernels in enumerate(multi_t):
+            for j, k in enumerate(kernels):
+                if i != last:
+                    continue
+                name = f"tem_mlp_{i + 1}_{j + 1}_k{k}"
+                self.add_module(name, TemporalBranch(
+                    self.sgcn_dims[-1], c4, k, dropout2d, use_bias))
+                self.branch_names.append(name)
+        if not self.branch_names:
+            raise ValueError(f"multi_t {multi_t!r} gives the last GCN "
+                             "level no temporal branch")
+        self.fc_drop = Dropout(dropout)
+        self.fc = nn.utils.skip_init(nn.Linear, c4, num_class)
+
+        generator = (generator if generator is not None
+                     else torch.Generator().manual_seed(0))
+        self.reset_parameters(generator)
+        self.to(device)
+        self.dropout_generator = None
+        if dropout or dropout2d or sgcn_dropout:
+            self.dropout_seed = int(torch.randint(2 ** 62, (1,),
+                                                  generator=generator))
+            self.dropout_generator = torch.Generator(
+                device=device).manual_seed(self.dropout_seed)
+            for mod in self.modules():
+                if isinstance(mod, Dropout):
+                    mod.generator = self.dropout_generator
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for emb in self.feature_extractor.values():
+            emb.reset_parameters(generator)
+        for emb in self.semantic_embedding.values():
+            if isinstance(emb, SGNEmbedding):
+                emb.reset_parameters(generator)
+        self.sgcn.reset_parameters(generator)
+        for name in self.branch_names:
+            getattr(self, name).reset_parameters(generator)
+        init.torch_default(self.fc.in_features)(self.fc.weight, generator)
+        init.torch_default(self.fc.in_features)(self.fc.bias, generator)
+
+    def forward(self, x: torch.Tensor, return_g: bool = False):
+        b, t, dim = x.shape
+        v = self.num_point
+        if t != self.num_segment:
+            raise ValueError(
+                f"SGN built for {self.num_segment} segments (the one-hot "
+                f"frame table) got an input of {t}; build it with "
+                f"num_segment={t}")
+        x = x.reshape(b, t, v, dim // v)[..., :self.in_channels]
+        # velocity: the difference padded with a leading zero frame
+        # (blocks/feature_extractor.py:75-79)
+        dif = torch.cat([torch.zeros_like(x[:, :1]), x[:, 1:] - x[:, :-1]],
+                        dim=1)
+        fe, se = self.feature_extractor, self.semantic_embedding
+        streams = [fe[name](inp) for name, inp in (("pos_embed", x),
+                                                   ("vel_embed", dif))
+                   if name in fe]
+        feat = streams[0] if len(streams) == 1 else streams[0] + streams[1]
+        if "spa_embedding" in se:
+            spa = se["spa_embedding"](se["spa_onehot"].table())
+            spa = spa.expand(b, -1, -1, -1)
+            feat = (torch.cat([feat, spa], dim=-1) if self.fusion == 0
+                    else feat + spa)
+        # the frame embedding before the GCN stack, as JAX orders its calls
+        tem = (se["tem_embedding"](se["tem_onehot"].table())
+               if "tem_embedding" in se else None)
+        y, g_list = self.sgcn(feat)
+        if tem is not None:
+            y = y + tem
+        y = torch.amax(y, dim=2, keepdim=True)  # spatial max-pool
+        outs = [getattr(self, name)(y) for name in self.branch_names]
+        y = outs[0] if len(outs) == 1 else torch.stack(outs).mean(dim=0)
+        y = torch.amax(y, dim=1, keepdim=True)  # temporal max-pool
+        logits = self.fc(self.fc_drop(y.reshape(b, -1)))
+        return (logits, g_list) if return_g else logits

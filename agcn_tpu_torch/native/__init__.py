@@ -13,16 +13,15 @@ import.
 
 When it fails:
 - no g++ on the PATH (and no library built before): `available()` is
-  False, `pre_normalize` returns None and `parse_skeleton` parses in
-  Python, so the callers take numpy, as in the JAX package;
+  False, `pre_normalize` returns None, `parse_skeleton` parses in Python
+  and `flatten_persons` runs the numpy loop of
+  `data/sgn_collate.SegmentSampler`, so the callers take numpy, as in the
+  JAX package;
 - a compiler error, or a library that does not load, raises RuntimeError
   with g++'s output. It never quietly gives way to numpy.
 
-`pre_normalize.calls` and `parse_skeleton.calls` count the calls that ran
-the C function.
-
-`flatten_persons` (the SGN collate loop) is in the source but not bound:
-it waits for the SGN family (ROADMAP Queue 1 item 7).
+`pre_normalize.calls`, `parse_skeleton.calls` and `flatten_persons.calls`
+count the calls that ran the C function.
 """
 
 from __future__ import annotations
@@ -105,6 +104,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
                                        ctypes.c_int]
         lib.pre_normalize.restype = None
         lib.pre_normalize.argtypes = [_FLOAT_P] + [ctypes.c_int] * 10
+        lib.flatten_persons.restype = ctypes.c_int
+        lib.flatten_persons.argtypes = [_FLOAT_P, ctypes.c_int,
+                                        ctypes.c_int, _FLOAT_P, _FLOAT_P,
+                                        ctypes.c_int]
         _lib = lib
     return _lib
 
@@ -140,6 +143,35 @@ def parse_skeleton(path: str, max_body: int = 4, max_frames: int = 300,
 
 
 parse_skeleton.calls = 0
+
+
+def flatten_persons(seq: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(T, 2*half) -> the interleaved (T', half) frames and (T', 1)
+    subject ids of the SGN collate (agcn_tpu/native/__init__.py:108-131).
+
+    The C loop drops the all-zero frames itself; without the library the
+    numpy loop of `SegmentSampler.flatten_persons` runs on the nonzero
+    frames, as in the JAX package.
+    """
+    lib = get_lib()
+    t, d = seq.shape
+    half = d // 2
+    if lib is not None:
+        seq_c = np.ascontiguousarray(seq, dtype=np.float32)
+        frames = np.empty((2 * t, half), dtype=np.float32)
+        subjects = np.empty((2 * t,), dtype=np.float32)
+        n = lib.flatten_persons(seq_c.ctypes.data_as(_FLOAT_P), t, half,
+                                frames.ctypes.data_as(_FLOAT_P),
+                                subjects.ctypes.data_as(_FLOAT_P), 2 * t)
+        flatten_persons.calls += 1
+        return frames[:n].copy(), subjects[:n, None].copy()
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+
+    nz = seq.any(axis=-1)
+    return SegmentSampler().flatten_persons(seq[nz])
+
+
+flatten_persons.calls = 0
 
 
 def pre_normalize(data: np.ndarray,

@@ -71,17 +71,22 @@ class Dropout(nn.Module):
     """Inverted dropout in train mode (flax nn.Dropout): keep with
     probability 1 - p, scale the kept values by 1 / (1 - p). The masks
     come from `generator` (on the tokens' device; None draws from torch's
-    default generator of that device)."""
+    default generator of that device). `broadcast_dims` share one draw
+    along those axes (flax's `broadcast_dims`: SGN's Dropout2d drops whole
+    channels of a (B, T, V, C) tensor with (1, 2))."""
 
-    def __init__(self, p: float):
+    def __init__(self, p: float, broadcast_dims: Tuple[int, ...] = ()):
         super().__init__()
         self.p = p
+        self.broadcast_dims = tuple(broadcast_dims)
         self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p <= 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
+        shape = [1 if d in self.broadcast_dims else n
+                 for d, n in enumerate(x.shape)]
+        keep = torch.rand(shape, generator=self.generator,
                           device=x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 

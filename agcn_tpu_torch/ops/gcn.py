@@ -11,6 +11,10 @@ backward (ops/kernels/gcn_fused.py).
 Layouts are the JAX package's: x (B, T, V, C), a1 (B, K, V, V) with
 a1[b, k, source, dest], W (K, C, Co). The other `apply_gcn` forms wait
 (ROADMAP, Queue 1).
+
+SGN's per-frame graph step (`frame_attention`, `frame_aggregate`,
+ops/gcn.py:60-87) is a pair of batched einsums on cuBLAS: the JAX package
+gives it no Pallas kernel either.
 """
 
 from __future__ import annotations
@@ -105,6 +109,34 @@ def attention_logits(emb: torch.Tensor, num_subset: int, inter_c: int,
     else:
         raise ValueError(f"unknown attention form {form!r}")
     return torch.matmul(th, ph.transpose(-1, -2)) / (ce * t)
+
+
+def frame_attention(g1: torch.Tensor, g2: torch.Tensor,
+                    activation: str = "softmax") -> torch.Tensor:
+    """Per-frame dense attention G = act(g1 g2^T) (SGN; agcn_tpu
+    ops/gcn.py:60-78, reference sgn blocks/spatial.py:230-240): for each
+    frame t, G[t] = softmax_w(g1[t] @ g2[t]^T), a softmax over the *last*
+    axis.
+
+    Args:
+      g1, g2: (B, T, V, Ce).
+    Returns:
+      (B, T, V, V) attention, G[b,t,v,w] = weight of source w for dest v.
+    """
+    logits = torch.einsum("btvc,btwc->btvw", g1, g2)
+    if activation == "softmax":
+        return torch.softmax(logits, dim=-1)
+    if activation == "sigmoid":
+        return torch.sigmoid(logits)
+    if activation == "identity":
+        return logits
+    raise ValueError(f"unknown activation {activation!r}")
+
+
+def frame_aggregate(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """SGN's per-frame aggregation x2[b,t,v,:] = sum_w G[b,t,v,w] x[b,t,w,:]
+    (agcn_tpu ops/gcn.py:81-87): the destination is the row of G."""
+    return torch.matmul(g, x)
 
 
 def fused_static_operator(adj: torch.Tensor,

@@ -100,6 +100,20 @@ def lecun_normal(tensor: torch.Tensor,
                                            2.0 * std, generator=generator)
 
 
+def torch_default(fan_in: int) -> Init:
+    """PyTorch's default Conv/Linear bias init, and its default kernel init
+    (kaiming_uniform(a=sqrt(5)) reduces to it): U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) (agcn_tpu/ops/initializers.py:68-85)."""
+    bound = 1.0 / math.sqrt(fan_in)
+
+    def init(tensor: torch.Tensor,
+             generator: torch.Generator) -> torch.Tensor:
+        with torch.no_grad():
+            return tensor.uniform_(-bound, bound, generator=generator)
+
+    return init
+
+
 def constant(value: float) -> Init:
     def init(tensor: torch.Tensor,
              generator: torch.Generator) -> torch.Tensor:

@@ -58,10 +58,13 @@ SEED = 0
 
 
 # conv biases whose gradient is zero in exact arithmetic: a BatchNorm
-# follows them (conv_d, down, tcn, residual), or the attention softmax is
-# invariant to them (conv_a: a shift along the softmax axis)
+# follows them (conv_d, down, tcn, residual; SGN's unit w1 and w2 and its
+# temporal convs), or the attention softmax is invariant to them (conv_a:
+# a shift along the softmax axis; SGN's G projections g2 and g4)
 EXACT_ZERO = re.compile(
-    r"(conv_a\.\d+|conv_d\.\d+|down\.0|tcn1\.conv|residual\.conv)\.bias$")
+    r"(conv_a\.\d+|conv_d\.\d+|down\.0|tcn1\.conv|residual\.conv"
+    r"|\.w[12]\.block\.conv\.conv|tem_mlp_\w+\.cnn\.cnn[12]\.block"
+    r"\.conv\.conv|gcn_g\d+\.g[24]\.block\.conv\.conv)\.bias$")
 
 
 def grad_errors(grads: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],

@@ -4,9 +4,12 @@ reference utils/processor.py:604-778).
 One train step is: forward in train mode (the BN running statistics come
 from this forward; dropout masks from the model's generator reseeded for
 the update count), loss, backward, the optional `grad_transform`, then
-the optimizer's update (clip, then its chain). Its metrics are the
-loss and the accuracy of the same logits, returned as device tensors:
-the caller decides when to wait for them.
+the optimizer's update (clip, then its chain). A parameter the forward
+did not use (SGN's G `alpha` without a prior G) takes a zero gradient, as
+`jax.grad` gives it. Its metrics are the loss and the accuracy of the
+same logits, returned as device tensors: the caller decides when to wait
+for them. The eval step averages the logits of each sample's crops
+(multi-crop eval, the SGN recipes' `multi_test`).
 """
 
 from __future__ import annotations
@@ -60,8 +63,8 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
         raise NotImplementedError(f"SAM (sam_rho > 0) {_LEFTOVER}")
     if aux_loss_fn is not None:
         raise NotImplementedError(
-            "auxiliary losses (MMD, feature similarity) wait for SGN "
-            "(ROADMAP Queue 1: SGN family)")
+            "auxiliary losses (MMD, feature similarity) wait in ROADMAP "
+            "Queue 1 item 7: SGN family")
 
     def train_step(x: torch.Tensor, y: torch.Tensor) -> Metrics:
         model.train()
@@ -70,6 +73,9 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
         logits = model(x)
         loss = loss_fn(logits, y)
         loss.backward()
+        for p in model.parameters():
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         if grad_transform is not None:
             grad_transform(model)
         optimizer.step()
@@ -82,16 +88,19 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
 
 def make_eval_step(model: nn.Module, loss_fn: Optional[Callable] = None,
                    multi_crop: int = 1):
-    """A step (x, y=None) -> (logits, metrics) in eval mode."""
-    if multi_crop != 1:
-        raise NotImplementedError(
-            "multi-crop eval serves the SGN recipes (ROADMAP Queue 1: SGN "
-            "family)")
+    """A step (x, y=None) -> (logits, metrics) in eval mode. With
+    `multi_crop` n > 1 the rows of x are each sample's n crops, one after
+    another: the logits are averaged over them before the loss and the
+    accuracy, one row per sample, and y holds one label per sample
+    (agcn_tpu/train/steps.py:140-171; reference processor.py:546-548)."""
 
     def eval_step(x: torch.Tensor, y: Optional[torch.Tensor] = None):
         model.eval()
         with torch.inference_mode():
             logits = model(x)
+            if multi_crop > 1:
+                logits = logits.reshape(-1, multi_crop,
+                                        logits.shape[-1]).mean(dim=1)
             metrics: Metrics = {}
             if loss_fn is not None and y is not None:
                 metrics["loss"] = loss_fn(logits, y)

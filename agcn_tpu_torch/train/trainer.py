@@ -1,5 +1,5 @@
-"""Trainer — the dense AGCN / AAGCN path of agcn_tpu/train/trainer.py's
-`Trainer`
+"""Trainer — the AGCN / AAGCN / AAGCN-transformer / SGN paths of
+agcn_tpu/train/trainer.py's `Trainer`
 (`__init__` :50-92, `_load_data` :128-168, `_load_model` :170-197,
 `_load_optimizer` :271-314, `_build_steps` :464-533, `start` :537-559,
 `train_epoch` :561-632, `evaluate` :711-821, `save_checkpoint` :823-856;
@@ -13,12 +13,22 @@ periodic eval with top-k, checkpoints that resume the optimizer state
 exactly, and the PA freeze (`only_train_part`). The run lives on one
 device: `cuda` unless the config says `device: cpu` (an integer picks
 that CUDA card). The model is built after the data, for the data's
-frames (the AAGCN transformer's position tables).
+frames (the AAGCN transformer's position tables, SGN's one-hot frame
+table: the loader's `seg`).
+
+The SGN recipes (`feeder: sgn`, `use_sgn_dataloader`, an SGN model;
+JAX `is_sgn`, trainer.py:85-86) load `SGNDataset` and collate segments
+with `SegmentSampler` (train: one crop and the batch rotation; eval:
+`multi_test` consecutive crops a sample, whose logits the eval step
+averages). SGN computes in fp32: `compute_dtype: bfloat16` logs the JAX
+trainer's line and runs fp32.
 
 Not here yet, each refused with its ROADMAP item: the TensorBoard event
 files (log.txt and metrics.jsonl carry the same scalars), auto-resume,
-async checkpoints, the profiler window, steps_per_call, SAM, multi-device
-and multi-host runs, the SGN families, the AAGCN versions.
+async checkpoints, the profiler window, steps_per_call, SAM, the
+auxiliary losses, multi-device and multi-host runs, the models of the
+JAX package that the port lacks (`sgn_transformer`, `sgn_original`, the
+AAGCN versions).
 """
 
 from __future__ import annotations
@@ -33,9 +43,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from agcn_tpu_torch.data.feeder import SkeletonDataset
-from agcn_tpu_torch.data.pipeline import BatchIterator
-from agcn_tpu_torch.models.registry import build_model
+from agcn_tpu_torch.data.feeder import SGNDataset, SkeletonDataset
+from agcn_tpu_torch.data.pipeline import BatchIterator, make_sgn_collate
+from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+from agcn_tpu_torch.models.registry import build_model, waiting_item
 from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel
 from agcn_tpu_torch.train import checkpoint as ckpt
 from agcn_tpu_torch.train import losses as L
@@ -68,23 +79,23 @@ def kernel_launches() -> Dict[str, int]:
 
 
 def _refuse_unported(cfg: Config) -> None:
+    waits = waiting_item(cfg.model)
     refused = {
         "auto_resume": (cfg.auto_resume, _LEFTOVER),
         "async_checkpoint": (cfg.async_checkpoint, _LEFTOVER),
         "profiler": (cfg.profiler, _LEFTOVER),
         "steps_per_call > 1": (int(cfg.steps_per_call or 1) > 1, _LEFTOVER),
+        "SAM (optimizer SAM*)": (cfg.optimizer.upper().startswith("SAM"),
+                                 _LEFTOVER),
         "world_size > 1 / ddp": (cfg.world_size > 1 or cfg.ddp,
                                  "ROADMAP Queue 1: Parallel"),
         "mesh_data > 1 / mesh_edge > 1": (
             cfg.mesh_data > 1 or cfg.mesh_edge > 1,
             "ROADMAP Queue 1: Parallel"),
-        "SGN (feeder sgn, use_sgn_dataloader, an SGN model)": (
-            cfg.use_sgn_dataloader or cfg.feeder == "sgn"
-            or "sgn" in cfg.model.lower(),
-            "ROADMAP Queue 1: SGN family"),
+        f"model {cfg.model}": (waits is not None, f"ROADMAP {waits}"),
         "auxiliary losses (mmd_lambda*, fsim_mode)": (
             cfg.mmd_lambda1 > 0 or cfg.mmd_lambda2 > 0 or cfg.fsim_mode > 0,
-            "ROADMAP Queue 1: SGN family"),
+            "ROADMAP Queue 1 item 7: SGN family"),
     }
     for knob, (on, item) in refused.items():
         if on:
@@ -101,6 +112,8 @@ class Trainer:
         self.cfg = cfg
         self.work_dir = cfg.work_dir
         self.device = device_from_config(cfg.device)
+        self.is_sgn = (cfg.use_sgn_dataloader or cfg.feeder == "sgn"
+                       or "sgn" in cfg.model.lower())
         self._guard_work_dir()
         os.makedirs(os.path.join(self.work_dir, "checkpoints"),
                     exist_ok=True)
@@ -148,31 +161,63 @@ class Trainer:
     # -- construction --------------------------------------------------
 
     def _load_data(self):
+        """The datasets and loaders (agcn_tpu trainer.py:135-161): dense,
+        or SGN with its segment collate; `multi_test` is the eval crops a
+        sample."""
         cfg = self.cfg
         self.loaders: Dict[str, BatchIterator] = {}
-        self.datasets: Dict[str, SkeletonDataset] = {}
+        self.datasets: Dict[str, Any] = {}
+        self.multi_test = 1
         if cfg.phase == "train" and cfg.train_feeder_args:
-            ds = SkeletonDataset(**cfg.train_feeder_args)
+            collate = None
+            if self.is_sgn:
+                ds = SGNDataset(**cfg.train_feeder_args)
+                sampler = SegmentSampler(
+                    dataset=cfg.train_feeder_args.get("dataset", "NTU60-CV"),
+                    **cfg.train_dataloader_args)
+                collate = make_sgn_collate(sampler, train=True)
+            else:
+                ds = SkeletonDataset(**cfg.train_feeder_args)
             self.datasets["train"] = ds
             self.loaders["train"] = BatchIterator(
                 ds, cfg.batch_size, shuffle=True, drop_last=True,
-                seed=cfg.seed, num_workers=cfg.num_worker)
+                seed=cfg.seed, collate=collate, num_workers=cfg.num_worker)
         if cfg.test_feeder_args:
-            ds = SkeletonDataset(**cfg.test_feeder_args)
+            collate = None
+            if self.is_sgn:
+                ds = SGNDataset(**cfg.test_feeder_args)
+                sampler = SegmentSampler(
+                    dataset=cfg.test_feeder_args.get("dataset", "NTU60-CV"),
+                    **cfg.test_dataloader_args)
+                self.multi_test = sampler.multi_test
+                collate = make_sgn_collate(sampler, train=False,
+                                           multi_crop=self.multi_test > 1)
+            else:
+                ds = SkeletonDataset(**cfg.test_feeder_args)
             self.datasets["val"] = ds
             self.loaders["val"] = BatchIterator(
                 ds, cfg.test_batch_size, shuffle=False, drop_last=False,
-                seed=cfg.seed)
+                seed=cfg.seed, collate=collate)
 
     def _data_frames(self):
         """The frames T of a sample as the loaders yield it (None without
-        data)."""
+        data): SGN's segments `seg` (agcn_tpu trainer.py:215-220), else
+        the dense samples' T."""
+        cfg = self.cfg
+        if self.is_sgn:
+            return cfg.train_dataloader_args.get(
+                "seg", cfg.test_dataloader_args.get("seg", 20))
         ds = self.datasets.get("train") or self.datasets.get("val")
         return None if ds is None or not len(ds) else ds[0][0].shape[1]
 
     def _load_model(self):
         cfg = self.cfg
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+        if dtype is not None and "sgn" in cfg.model.lower():
+            # the JAX trainer's line (agcn_tpu trainer.py:174-183)
+            self.print_log("compute_dtype bfloat16 is not supported by the "
+                           "SGN families; running float32")
+            dtype = None
         self.model = build_model(
             cfg.model, cfg.model_args, device=self.device, dtype=dtype,
             generator=torch.Generator().manual_seed(cfg.seed),
@@ -235,7 +280,8 @@ class Trainer:
         self._train_step_frozen = make_train_step(
             self.model, loss_fn, self.optimizer, grad_transform=freeze_pa) \
             if cfg.only_train_part else self._train_step
-        self._eval_step = make_eval_step(self.model, loss_fn)
+        self._eval_step = make_eval_step(self.model, loss_fn,
+                                         multi_crop=self.multi_test)
 
     # -- phases --------------------------------------------------------
 
@@ -304,8 +350,15 @@ class Trainer:
             return None
         ds = self.datasets["val"]
         t0 = time.time()
+        crops = self.multi_test
         scores = []
         for x, _, _ in self.loaders["val"]:
+            if x.shape[0] % crops:
+                raise RuntimeError(
+                    f"eval batch of {x.shape[0]} rows is not a multiple of "
+                    f"multi_test={crops}; collate must expand each sample "
+                    f"into consecutive crops")
+            # one row a sample: the eval step averages its crops' logits
             logits, _ = self._eval_step(self._to_device(x))
             scores.append(logits.float().cpu().numpy())
         score = np.concatenate(scores, axis=0)[: len(ds)]

@@ -4,12 +4,13 @@ agcn_tpu/utils/torch_export.py, the transformer layer names of
 agcn_tpu/utils/torch_import.py:412-445, and the npz/pickle branches of
 agcn_tpu/train/checkpoint.load_checkpoint).
 
-`agcn_state_dict_from_variables`, `aagcn_state_dict_from_variables` and
-`aagcn_transformer_state_dict_from_variables` turn a JAX
-`{"params", "batch_stats"}` tree of numpy arrays into the port's state
-dict (the reference torch names), which the model's
-`load_state_dict(..., strict=True)` accepts; `model_state_dict`
-dispatches by the registry key.
+`agcn_state_dict_from_variables`, `aagcn_state_dict_from_variables`,
+`aagcn_transformer_state_dict_from_variables` and
+`sgn_state_dict_from_variables` (agcn_tpu/utils/torch_export.py:260-420,
+the keys of the port's SGN options) turn a JAX `{"params",
+"batch_stats"}` tree of numpy arrays into the port's state dict (the
+reference torch names), which the model's `load_state_dict(...,
+strict=True)` accepts; `model_state_dict` dispatches by the registry key.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from agcn_tpu_torch.models.registry import model_key, waiting_item
+from agcn_tpu_torch.models.registry import (model_key, unknown_model,
+                                            waiting_item)
 
 
 def _np(x) -> np.ndarray:
@@ -243,6 +245,113 @@ def aagcn_transformer_state_dict_from_variables(
     return _torch_tensors(out)
 
 
+def _torch_conv_weight(kernel) -> np.ndarray:
+    """A flax SGN kernel -> torch: 2-D dense (in, out) -> (out, in, 1, 1);
+    4-D (k, 1, in, out), k along T -> the reference's (out, in, 1, k)."""
+    k = _np(kernel)
+    return dense_to_pointwise(k) if k.ndim == 2 else np.transpose(
+        k, (3, 2, 1, 0))
+
+
+def _sgn_conv_out(out: Dict[str, np.ndarray], prefix: str,
+                  conv: Mapping[str, Any]) -> None:
+    """A flax Dense/Conv -> the reference Conv's `block.conv.conv`."""
+    out[f"{prefix}.block.conv.conv.weight"] = _torch_conv_weight(
+        conv["kernel"])
+    if "bias" in conv:
+        out[f"{prefix}.block.conv.conv.bias"] = _np(conv["bias"])
+
+
+def _sgn_embedding_out(out: Dict[str, np.ndarray], prefix: str,
+                       node: Mapping[str, Any],
+                       stats: Mapping[str, Any]) -> None:
+    """An SGNEmbedding: the DataNorm, `cnn{i}` and (embedding mode 2, the
+    port's own names: the reference export has none) `res{i}`."""
+    if "in_norm" in node:
+        _bn_out(out, f"{prefix}.norm.bn", node["in_norm"], stats["in_norm"])
+    i = 1
+    while f"cnn{i}" in node:
+        _sgn_conv_out(out, f"{prefix}.cnn{i}", node[f"cnn{i}"]["cnn"]["conv"])
+        if f"res{i}" in node:
+            _linear_out(out, f"{prefix}.res{i}", node[f"res{i}"])
+        i += 1
+
+
+def _onehot_buffer(dim_eye: int, dim_length: int, mode: int) -> np.ndarray:
+    """The reference OneHotTensor buffer (blocks/semantic.py:128-146):
+    eye(dim_eye) tiled to (1, dim_length, E, E), then mode-permuted
+    (torch_export.py:274-286)."""
+    oh = np.broadcast_to(np.eye(dim_eye, dtype=np.float32),
+                         (1, dim_length, dim_eye, dim_eye))
+    oh = oh.transpose(0, 3, 2, 1) if mode == 0 else oh.transpose(0, 3, 1, 2)
+    return np.ascontiguousarray(oh)
+
+
+def sgn_state_dict_from_variables(variables: Mapping[str, Any],
+                                  num_point: int = 25,
+                                  num_segment: int = 20
+                                  ) -> Dict[str, torch.Tensor]:
+    """JAX SGN variables -> the port's (reference sgn_v14-named) state
+    dict, for the options the port builds (torch_export.py:260-420). The
+    one-hot buffers' sizes come from the joint and frame embeddings'
+    input widths, as in the JAX map."""
+    params = variables["params"]
+    stats = _stats(variables)
+    out: Dict[str, np.ndarray] = {}
+    for flax_name, prefix in (
+            ("pos_embed", "feature_extractor.pos_embed"),
+            ("vel_embed", "feature_extractor.vel_embed"),
+            ("joint_embed", "semantic_embedding.spa_embedding"),
+            ("frame_embed", "semantic_embedding.tem_embedding")):
+        if flax_name in params:
+            _sgn_embedding_out(out, prefix, params[flax_name],
+                               stats.get(flax_name, {}))
+
+    def in_dim(node):
+        return int(np.shape(node["cnn1"]["cnn"]["conv"]["kernel"])[-2])
+
+    if "joint_embed" in params:
+        num_point = in_dim(params["joint_embed"])
+    if "frame_embed" in params:
+        num_segment = in_dim(params["frame_embed"])
+    if "joint_embed" in params:
+        out["semantic_embedding.spa_onehot.onehot"] = _onehot_buffer(
+            num_point, num_segment, mode=0)
+    if "frame_embed" in params:
+        out["semantic_embedding.tem_onehot.onehot"] = _onehot_buffer(
+            num_segment, num_point, mode=1)
+
+    sg, sgs = params["sgcn"], stats.get("sgcn", {})
+    i = 1
+    while f"g{i}" in sg:  # the G builders
+        g = sg[f"g{i}"]
+        for name in ("g1", "g2", "g3", "g4"):
+            if name in g:
+                _sgn_conv_out(out, f"sgcn.gcn_g{i}.{name}", g[name]["conv"])
+        out[f"sgcn.gcn_g{i}.alpha"] = _np(g["alpha"])
+        i += 1
+    i = 1
+    while f"gcn{i}" in sg:  # the units
+        n, p = sg[f"gcn{i}"], f"sgcn.gcn{i}"
+        _sgn_conv_out(out, f"{p}.w1", n["w1"])
+        _sgn_conv_out(out, f"{p}.w2", n["w2"]["conv"])
+        _bn_out(out, f"{p}.norm", n["norm"], sgs[f"gcn{i}"]["norm"])
+        i += 1
+
+    for name in params:  # the temporal branches tem{i}_{j}_k{k}
+        m = re.fullmatch(r"tem(\d+)_(\d+)_k(\d+)", name)
+        if not m:
+            continue
+        node, snode = params[name]["cnn"], stats[name]["cnn"]
+        for layer in ("cnn1", "cnn2"):
+            p = f"tem_mlp_{m[1]}_{m[2]}_k{m[3]}.cnn.{layer}"
+            _sgn_conv_out(out, p, node[layer]["cnn"]["conv"])
+            _bn_out(out, f"{p}.block.norm", node[layer]["norm"],
+                    snode[layer]["norm"])
+    _linear_out(out, "fc", params["fc"])
+    return _torch_tensors(out)
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """Read a checkpoint: the JAX package's npz or pickled-dict files
     (a `{"params", "batch_stats", ...}` tree of numpy arrays), or a
@@ -292,10 +401,13 @@ def model_state_dict(checkpoint: Mapping[str, Any], model: str = "agcn",
         if key == "aagcn_transformer":
             return aagcn_transformer_state_dict_from_variables(
                 checkpoint, adaptive=adaptive)
+        if key == "sgn":
+            return sgn_state_dict_from_variables(checkpoint)
         item = waiting_item(model)
+        if item is None:
+            raise unknown_model(model)
         raise NotImplementedError(
             f"a JAX checkpoint of model {model!r}: the port has no weight "
-            "map for it" + (f"; it waits in ROADMAP {item}" if item
-                            else " (unknown model)"))
+            f"map for it; it waits in ROADMAP {item}")
     return {re.sub(r"^module\.", "", k): torch.as_tensor(v)
             for k, v in checkpoint.items()}

@@ -140,6 +140,29 @@ fails:
    group; then `python -m agcn_tpu_torch.main` trains and evaluates one
    epoch, `--phase test` reproduces its top-1, and `python -m
    agcn_tpu_torch.infer --serve 16` serves that checkpoint.
+14. The SGN recipe (configs/ntu60_xview/train_sgn.yaml at full width: V =
+   25, seg 20, 60 classes, sgcn_dims (128, 256, 256), c4 512), whose path
+   runs none of the port's kernels, as in the JAX package: every kernel's
+   launch count must stay 0. Seeded synthetic SGN pickles (train, val and
+   test splits of (N, T <= 300, 150) with one-person and all-zero frames)
+   in a temporary directory: the C++ `flatten_persons` must be built and
+   equal the numpy loop on every sequence, and the collate runs it (host
+   ms of one training collate of 64 rows and one test collate of 4 x 5
+   crops); card against CPU with every unit's w1 random and the BN
+   statistics of a train-mode forward: eval logits in fp32 within 1e-3 of
+   the logit scale, one fp32 step at dropout 0 (loss 1e-4 relative, every
+   gradient 1e-3 of its scale, the CPU's ReLU masks and max selections
+   replayed); 10 Adam steps at the recipe's dropout2d on one repeated
+   batch of 64 (the loss must fall), ms per step, seq/s, peak memory and
+   one step's device time by kernel group, the ms of one 4 x 5-crop eval
+   batch; `python -m agcn_tpu_torch.main` trains one epoch of a copy of
+   train_sgn.yaml on the pickles and evaluates with multi_test 5, and
+   `--phase test` with a test_sgn.yaml-shaped config on its checkpoint
+   reproduces its top-1; one full-width forward of the Kinetics shape
+   (V = 18, 400 classes) is finite.
+
+`python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
+minute) and prints no result line.
 
 The last lines of standard output are the `kernels` JSON line, the
 card's `nvidia-smi` name and power limit, and
@@ -187,6 +210,11 @@ TRANSFORMER_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
                                   "test_joint_aagcn_transformer.yaml")
 TRANSFORMER_TRAIN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
                                         "train_joint_aagcn_transformer.yaml")
+SGN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview", "train_sgn.yaml")
+SGN_TEST_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
+                               "test_sgn.yaml")
+SGN_KINETICS_CONFIG = os.path.join(REPO, "configs", "kinetics",
+                                   "train_sgn.yaml")
 TRAIN_STEPS = 10
 STREAMS = 16
 SEQ = 300
@@ -1143,7 +1171,8 @@ def run_entry_point(args, timeout=600, module="agcn_tpu_torch.main",
             "alter_sys=True)\n"
             "from agcn_tpu_torch import native\n"
             "print(json.dumps({'parse_skeleton': native.parse_skeleton.calls,"
-            " 'pre_normalize': native.pre_normalize.calls}))\n")
+            " 'pre_normalize': native.pre_normalize.calls,"
+            " 'flatten_persons': native.flatten_persons.calls}))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=timeout)
     lines = proc.stdout.splitlines()
@@ -1545,9 +1574,422 @@ def phase_transformer_speed(torch, np, cfg, summary):
     summary["transformer_train_speed"] = speed
 
 
-def main():
+# -- phase 14: the SGN recipe (no TPU kernel on its path) -----------------
+
+SGN_SPLITS = (("train", 128), ("val", 64), ("test", 40))
+SGN_CROPS = 5
+
+
+def sgn_sequences(np, n, seed, v=25):
+    """Seeded (n, 300, 2*V*3) two-person sequences of 40-300 frames with
+    one-person frames (either slot) and all-zero frames among them, the
+    classes set apart by an offset of the first coordinate."""
+    rng = np.random.default_rng(seed)
+    half = v * 3
+    data = np.zeros((n, SEQ, 2 * half), np.float32)
+    labels = rng.integers(0, 60, n)
+    for i in range(n):
+        t = int(rng.integers(40, SEQ + 1))
+        seq = rng.standard_normal((t, 2 * half)).astype(np.float32) * 0.3
+        seq[rng.random(t) < 0.3, half:] = 0.0   # person 1 absent
+        seq[rng.random(t) < 0.1, :half] = 0.0   # person 0 absent
+        seq[rng.random(t) < 0.05] = 0.0         # empty frames
+        seq[:, 0::3] += 0.02 * labels[i]
+        data[i, :t] = seq
+    return data, labels
+
+
+def write_sgn_pickles(np, tmp):
+    """The NTU_CV_{train,val,test} data and label pickles of the SGN
+    loader; the train split's loader merges val into it."""
+    import pickle
+
+    paths = {}
+    for k, (split, n) in enumerate(SGN_SPLITS):
+        data, labels = sgn_sequences(np, n, SEED + 30 + k)
+        paths[split] = (os.path.join(tmp, f"NTU_CV_{split}.pkl"),
+                        os.path.join(tmp, f"NTU_CV_{split}_label.pkl"))
+        for path, obj in zip(paths[split], (data, labels)):
+            with open(path, "wb") as f:
+                pickle.dump(obj, f)
+    return paths
+
+
+def sgn_model(torch, cfg, device="cuda", dropout2d=None):
+    """The recipe's SGN at full width for its seg, seeded weights."""
+    from agcn_tpu_torch.models.registry import build_model
+
+    args = dict(cfg.model_args)
+    if dropout2d is not None:
+        args["dropout2d"] = dropout2d
+    return build_model(cfg.model, args, device=device,
+                       generator=torch.Generator().manual_seed(SEED),
+                       num_frame=cfg.train_dataloader_args["seg"])
+
+
+def liven_sgn(torch, model, x, seed):
+    """Every unit's w1 random (its init is zero: the G path would add
+    exactly nothing) and every BN's running statistics set to its batch
+    statistics in a train-mode forward on `x` (numpy), so that eval
+    normalizes as training would."""
+    from agcn_tpu_torch.ops.norm import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".w1.block.conv.conv.weight"):
+                p.copy_((torch.randn(p.shape, generator=g)
+                         / math.sqrt(p.shape[1])).to(p.device))
+        for m in norms:
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        model.train()(torch.from_numpy(x).to(next(model.parameters()).device))
+        for m in norms:  # undo the momentum-0.1 update from (0, 1)
+            m.running_mean.div_(0.1)
+            m.running_var.sub_(0.9).div_(0.1).clamp_(min=1e-3)
+    model.eval()
+
+
+def phase_sgn_data(np, tmp, summary):
+    """(a) The synthetic pickles; the C++ flatten_persons built, equal to
+    the numpy loop on every sequence, and run by the collate; host ms of
+    one training collate (64 rows) and one test collate (4 x 5 crops).
+    Returns the pickles' paths and one collated batch of each kind."""
+    from agcn_tpu_torch import native
+    from agcn_tpu_torch.data.feeder import SGNDataset
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+
+    t0 = time.perf_counter()
+    check(native.available(), "the C++ host kernels did not build (g++)")
+    build_s = time.perf_counter() - t0
+    paths = write_sgn_pickles(np, tmp)
+    train = SGNDataset(*paths["train"], dataset="NTU60-CV-SGN")
+    test = SGNDataset(*paths["test"], dataset="NTU60-CV-SGN")
+    sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20,
+                             multi_test=SGN_CROPS)
+    frames = 0
+    for ds in (train, test):
+        for i in range(len(ds)):
+            seq = ds[i][0]
+            got = native.flatten_persons(seq)
+            want = sampler.flatten_persons(seq[seq.any(axis=-1)])
+            check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                  f"C++ flatten_persons differs from numpy on sequence {i}")
+            frames += len(got[0])
+    batch = [train[i] for i in range(TRAIN_BATCH)]
+    crops = [test[i] for i in range(4)]
+    rng = np.random.default_rng(SEED)
+    calls = native.flatten_persons.calls
+    train_ms = median_ms(lambda: sampler.collate(batch, rng, train=True))
+    test_ms = median_ms(lambda: sampler.collate(crops, rng, multi_crop=True))
+    check(native.flatten_persons.calls - calls == 5 * (TRAIN_BATCH + 4),
+          "the collate did not run the C++ flatten_persons")
+    x, _, y, _ = sampler.collate(batch, rng, train=True)
+    x_eval, _, y_eval, _ = sampler.collate(crops, rng, multi_crop=True)
+    check(x.shape == (TRAIN_BATCH, 20, 75)
+          and x_eval.shape == (4 * SGN_CROPS, 20, 75),
+          f"collated shapes {x.shape}, {x_eval.shape}")
+    log(f"  sgn (a) C++ host kernels ready in {build_s:.2f} s; "
+        f"flatten_persons C++ = numpy on {len(train) + len(test)} "
+        f"sequences ({frames} frames out); host collate: train "
+        f"{TRAIN_BATCH} rows {train_ms:.2f} ms, test 4 x {SGN_CROPS} crops "
+        f"{test_ms:.2f} ms (median of 5)")
+    summary["sgn_data"] = dict(train_collate_ms=train_ms,
+                               test_collate_ms=test_ms, sequences=len(train)
+                               + len(test), frames=frames)
+    return paths, (x, y), (x_eval, y_eval)
+
+
+def phase_sgn_vs_cpu(torch, np, cfg, x_eval, summary):
+    """(b) Card against CPU, w1 random and live BN statistics: the eval
+    logits of the 4 x 5-crop batch in fp32 (TF32 off) within 1e-3 of the
+    logit scale, and one fp32 training step at batch 4 with dropout 0:
+    loss 1e-4 relative, every gradient 1e-3 of its scale, the card
+    replaying the CPU's ReLU masks and max-pool selections (a max routes a
+    gradient to one element; a near tie picked the other way moves it)."""
+    from agcn_tpu_torch.tools.grad_parity import (AmaxProbe, ReluProbe,
+                                                  amax_probe, grad_errors,
+                                                  relu_probe)
+
+    ref = sgn_model(torch, cfg, device="cpu", dropout2d=0.0)
+    liven_sgn(torch, ref, x_eval, SEED + 40)
+    state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    torch.set_num_threads(os.cpu_count() or 1)
+    with torch.inference_mode():
+        want = ref(torch.from_numpy(x_eval)).numpy()
+    del ref
+    card = sgn_model(torch, cfg, dropout2d=0.0)
+    card.load_state_dict(state, strict=True)
+    with torch.inference_mode():
+        got = card.eval()(torch.from_numpy(x_eval).cuda()).cpu().numpy()
+    scale = float(np.abs(want).max())
+    logit_err = float(np.abs(got - want).max())
+    check(logit_err <= 1e-3 * max(scale, 1.0),
+          f"sgn: card logits off the CPU's by {logit_err:.3e}")
+
+    x, y = np.ascontiguousarray(x_eval[::SGN_CROPS]), np.arange(4) * 7 % 60
+    out, probes, maxes = {}, {}, {}
+    for run, dev in (("cpu fp32", "cpu"), ("card fp32", "cuda")):
+        model = sgn_model(torch, cfg, device=dev, dropout2d=0.0)
+        model.load_state_dict(state, strict=True)
+        grads = {}
+
+        def keep(m):
+            grads.update((n, p.grad.double().cpu().clone())
+                         for n, p in m.named_parameters())
+
+        replay = run == "card fp32"
+        probes[run] = (ReluProbe(ref=probes["cpu fp32"]) if replay
+                       else ReluProbe(keep_inputs=True))
+        maxes[run] = AmaxProbe(ref=maxes["cpu fp32"] if replay else None)
+        with relu_probe(probes[run]), amax_probe(maxes[run]):
+            loss = make_step(torch, cfg, model, keep=keep)(
+                torch.from_numpy(x).to(dev),
+                torch.from_numpy(y).to(dev))["loss"].item()
+        out[run] = (loss, grads)
+        del model
+    ref_loss, ref_grads = out["cpu fp32"]
+    rel = abs(out["card fp32"][0] - ref_loss) / abs(ref_loss)
+    rows = grad_errors(out["card fp32"][1], ref_grads, 1e-3)
+    flip, ties = probes["card fp32"], maxes["card fp32"]
+    log(f"  sgn (b) eval logits (4 x {SGN_CROPS} crops) card vs cpu: max err "
+        f"{logit_err:.3e} (logit scale {scale:.3f}); one fp32 step at batch "
+        f"4, dropout 0: loss cpu {ref_loss:.6f}, card {out['card fp32'][0]:.6f}"
+        f" ({rel:.2e}); ReLU signs off the cpu's masks {flip.disagree} "
+        f"(inputs at most {flip.input_diff:.2e} of their layer's mean |input|"
+        f" from the cpu's); max selections off the cpu's {ties.disagree} of "
+        f"{ties.maxima}; worst gradients (err / bar, name, err, scale): "
+        + "; ".join(f"{r:.2f} {n} {e:.3e} {sc:.3e}" for r, n, e, sc in
+                    rows[:3]))
+    check(flip.input_diff <= 1e-3,
+          f"sgn: the card's ReLU inputs lie far from the CPU's: "
+          f"{flip.input_diff}")
+    check(ties.disagree <= 1e-4 * ties.maxima,
+          f"sgn: {ties.disagree} of {ties.maxima} max selections differ")
+    check(rel <= 1e-4, f"sgn: fp32 card loss off the CPU's: {rel}")
+    check(rows[0][0] <= 1.0, f"sgn: fp32 card gradients off the CPU's: "
+                             f"{rows[0]}")
+    summary["sgn_card_vs_cpu"] = dict(
+        logit_err=logit_err, logit_scale=scale, loss_rel=rel,
+        relu_sign_flips=(flip.disagree, flip.input_diff),
+        max_ties=(ties.disagree, ties.maxima),
+        grads=[list(r) for r in rows[:5]])
+
+
+def phase_sgn_main_path(torch, cfg, train_batch_np, x_eval, summary):
+    """(c) Ten Adam steps of the recipe (dropout2d 0.2) at batch 64 on one
+    repeated batch: the loss must fall and no port kernel launches; then
+    ms per step, seq/s and peak memory (5 timed steps after 2), one step's
+    device time by kernel group (torch.profiler) and its busy share, and
+    the ms of one 4 x 5-crop eval batch (20 calls after 3)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from agcn_tpu_torch.train import losses
+    from agcn_tpu_torch.train.steps import make_eval_step
+
+    x, y = (torch.from_numpy(a).cuda() for a in train_batch_np)
+    model = sgn_model(torch, cfg)
+    step = make_step(torch, cfg, model)
+    reset_launches()
+    losses_ = [step(x, y)["loss"] for _ in range(TRAIN_STEPS)]
+    losses_ = [v.item() for v in losses_]
+    launches = all_launches()
+    log(f"  sgn (c) {TRAIN_STEPS} Adam steps (dropout2d "
+        f"{cfg.model_args['dropout2d']}) on one batch of {TRAIN_BATCH}: loss "
+        f"{' '.join(f'{v:.3f}' for v in losses_)}; launches {launches}")
+    check(all(math.isfinite(v) for v in losses_), "sgn: non-finite loss")
+    check(losses_[-1] < losses_[0],
+          f"sgn: the loss did not fall on a repeated batch: {losses_}")
+    check(not any(launches.values()),
+          f"sgn: the training path launched {launches}")
+    for _ in range(2):
+        step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(x, y)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(x, y)
+        torch.cuda.synchronize()
+    groups, kernels = {}, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            g = kernel_group(ev.name)
+            groups[g] = groups.get(g, 0.0) + ev.device_time_total / 1e3
+            kernels += 1
+    device_ms = sum(groups.values())
+    check(device_ms > 0, "the profiler saw no device time")
+    # where the host's time goes (self time under the profiler, which
+    # inflates each op's: read the shares)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+    host_top = [(e.key, e.self_cpu_time_total / 1e3, e.count)
+                for e in host[:8]]
+    eval_step = make_eval_step(model, losses.build_loss(
+        cfg.loss, cfg.model_args["num_class"]), multi_crop=SGN_CROPS)
+    xe = torch.from_numpy(x_eval).cuda()
+    for _ in range(3):
+        eval_step(xe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        logits, _ = eval_step(xe)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3 / 20
+    check(tuple(logits.shape) == (4, cfg.model_args["num_class"]),
+          f"sgn eval logits {tuple(logits.shape)}")
+    log(f"      {ms:.3f} ms/step, {TRAIN_BATCH / ms * 1e3:.1f} seq/s, peak "
+        f"{peak:.3f} GiB; one step: device {device_ms:.3f} ms in {kernels} "
+        f"kernels ({100 * device_ms / ms:.1f}% of the step's wall time)")
+    for g, gms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {gms:9.3f} ms {100 * gms / device_ms:5.1f}%  {g}")
+    log(f"      host self time under the profiler {host_ms:.2f} ms; top ops "
+        "(ms, calls): " + ", ".join(f"{k} {t:.2f} ({n})"
+                                   for k, t, n in host_top))
+    log(f"      one eval batch (4 x {SGN_CROPS} crops, crops averaged): "
+        f"{eval_ms:.3f} ms")
+    summary["sgn_train"] = dict(losses=losses_, launches=launches,
+                                ms_per_step=ms,
+                                seq_per_s=TRAIN_BATCH / ms * 1e3,
+                                peak_gib=peak, device_ms=device_ms,
+                                kernels=kernels, groups=groups,
+                                host_ms=host_ms, host_top=host_top,
+                                eval_ms=eval_ms)
+    del model, step
+
+
+def phase_sgn_cli(torch, np, paths, tmp, summary):
+    """(d) `python -m agcn_tpu_torch.main` on a copy of train_sgn.yaml
+    pointed at the pickles: one epoch (train + val merged, batch 64), eval
+    with multi_test 5 (4 samples x 5 crops a batch) and a checkpoint;
+    `--phase test` with a test_sgn.yaml-shaped config on it must give the
+    same top-1 and score rows (one a sample, within 1e-5 of their scale).
+    The collate runs the C++ flatten_persons; no port kernel
+    launches. Then one full-width forward of the Kinetics recipe's shape
+    (V = 18, 400 classes) on the card: finite logits."""
+    import pickle
+
+    import yaml
+
+    from agcn_tpu_torch.utils.config import load_config
+
+    with open(SGN_CONFIG) as f:
+        recipe = yaml.safe_load(f)
+    work = os.path.join(tmp, "work")
+    recipe.update(
+        work_dir=work, num_epoch=1, num_worker=2, log_interval=1,
+        save_interval=1, eval_interval=1, show_topk=[1, 5],
+        train_feeder_args=dict(recipe["train_feeder_args"],
+                               data_path=paths["train"][0],
+                               label_path=paths["train"][1]),
+        test_feeder_args=dict(recipe["test_feeder_args"],
+                              data_path=paths["test"][0],
+                              label_path=paths["test"][1]))
+    with open(SGN_TEST_CONFIG) as f:
+        test_recipe = yaml.safe_load(f)
+    test_recipe.update(
+        work_dir=os.path.join(tmp, "test"),
+        test_feeder_args=dict(test_recipe["test_feeder_args"],
+                              data_path=paths["test"][0],
+                              label_path=paths["test"][1]))
+    cfgs = {}
+    for name, r in (("train", recipe), ("test", test_recipe)):
+        cfgs[name] = os.path.join(tmp, f"sgn_{name}.yaml")
+        with open(cfgs[name], "w") as f:
+            yaml.safe_dump(r, f)
+    log("  sgn (d) python -m agcn_tpu_torch.main: train + eval (multi_test "
+        f"{SGN_CROPS}) + save, one epoch")
+    calls = run_entry_point(["--config", cfgs["train"]])
+    ckpt = os.path.join(work, "checkpoints", "epoch_1.pt")
+    log("      --phase test (test_sgn.yaml) on epoch_1")
+    test_calls = run_entry_point(["--config", cfgs["test"], "--weights",
+                                  ckpt])
+    metrics = read_metrics(os.path.join(work, "metrics.jsonl"))
+    test = read_metrics(os.path.join(tmp, "test", "metrics.jsonl"))
+    with open(os.path.join(tmp, "test", "right.txt")) as f:
+        right = len(f.readlines())
+    scores = []
+    for run in (work, os.path.join(tmp, "test")):
+        with open(os.path.join(run, "score", "epoch1_val.pkl"), "rb") as f:
+            scores.append(np.stack(list(pickle.load(f).values())))
+    score_err = float(np.abs(scores[0] - scores[1]).max())
+    trains = [m for m in metrics if m["kind"] == "train"]
+    evals = [m for m in metrics if m["kind"] == "eval"]
+    n_test = dict(SGN_SPLITS)["test"]
+    n_train = dict(SGN_SPLITS)["train"] + dict(SGN_SPLITS)["val"]
+    check(len(trains) == 1 and len(evals) == 1
+          and trains[0]["steps"] == n_train // TRAIN_BATCH
+          and math.isfinite(trains[0]["loss"]),
+          f"sgn entry point: {metrics}")
+    check(not any(trains[0]["launches"].values()),
+          f"sgn entry point launched {trains[0]['launches']}")
+    # one C++ call a sequence per epoch: train + val, then 5-crop eval
+    check(calls["flatten_persons"] == n_train + n_test
+          and test_calls["flatten_persons"] == n_test,
+          f"C++ flatten_persons calls {calls}, {test_calls}")
+    check(test[-1]["top1"] == evals[-1]["top1"]
+          and right == round(test[-1]["top1"] * n_test),
+          f"--phase test top-1 {test[-1]['top1']} != the run's "
+          f"{evals[-1]['top1']}")
+    # one score row a test sample (its crops averaged), the same in both
+    # runs (one card, the same weights and crops)
+    check(scores[0].shape == scores[1].shape == (
+        n_test, recipe["model_args"]["num_class"])
+          and score_err <= 1e-5 * float(np.abs(scores[0]).max()),
+          f"sgn scores: shapes {scores[0].shape}, {scores[1].shape}, "
+          f"max difference {score_err:.3e}")
+    log(f"      loss {trains[0]['loss']:.4f}, {trains[0]['seq_per_sec']:.1f} "
+        f"seq/s (host-fed epoch of {trains[0]['steps']} steps); eval top-1 "
+        f"{evals[-1]['top1']:.4f} in {evals[-1]['seconds']:.2f} s, --phase "
+        f"test top-1 {test[-1]['top1']:.4f}, its {n_test} score rows within "
+        f"{score_err:.2e} of the run's; C++ flatten_persons calls "
+        f"{calls['flatten_persons']} + {test_calls['flatten_persons']}")
+    kcfg = load_config(SGN_KINETICS_CONFIG)
+    kin = sgn_model(torch, kcfg).eval()
+    xk = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (4, 20, 18 * 3)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        logits = kin(xk)
+    check(tuple(logits.shape) == (4, 400)
+          and bool(torch.isfinite(logits).all()),
+          f"kinetics SGN logits {tuple(logits.shape)}")
+    log(f"      kinetics shape (V = 18, 400 classes): finite logits "
+        f"{tuple(logits.shape)}")
+    summary["sgn_cli"] = dict(train=trains, eval=evals, test=test,
+                              calls=calls, test_calls=test_calls)
+
+
+def phase_sgn(torch, np, summary):
+    """Phase 14: (a)-(d) above, in one temporary directory."""
+    from agcn_tpu_torch.utils.config import load_config
+
+    t14 = time.perf_counter()
+    cfg = load_config(SGN_CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, train_batch_np, (x_eval, _) = phase_sgn_data(np, tmp,
+                                                            summary)
+        phase_sgn_vs_cpu(torch, np, cfg, x_eval, summary)
+        phase_sgn_main_path(torch, cfg, train_batch_np, x_eval, summary)
+        phase_sgn_cli(torch, np, paths, tmp, summary)
+    summary["sgn_phase_s"] = time.perf_counter() - t14
+    log(f"  phase 14 in {summary['sgn_phase_s']:.1f} s")
+
+
+def main(argv=None):
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    only_sgn = argv == ["--phase", "14"]
+    if argv and not only_sgn:
+        print("usage: python3 chip_smoke.py [--phase 14]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
@@ -1563,13 +2005,17 @@ def main():
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/13] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/14] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    if only_sgn:
+        log("[14/14] the SGN recipe alone (phase 14)")
+        phase_sgn(torch, np, summary)
+        return 0
 
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/13] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/14] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -1585,7 +2031,7 @@ def main():
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/13] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/14] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -1601,7 +2047,7 @@ def main():
     summary.update(kernel_rows=rows, dx_rows=dx_rows,
                    fp32_fwd_layers=fp32_layers(rows, dx_rows))
 
-    log("[4/13] gcn_bwd vs its plain version at the training shapes "
+    log("[4/14] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -1609,7 +2055,7 @@ def main():
     summary.update(bwd_rows=bwd_rows,
                    fp32_da1_layers=da1_fp32_layers(bwd_rows))
 
-    log("[5/13] attention-logits kernel vs plain version at the served "
+    log("[5/14] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -1619,7 +2065,7 @@ def main():
         logits_rows = phase_logits(torch, np, logits_kernel)
     summary["logits_rows"] = logits_rows
 
-    log("[6/13] host data path: the C++ host kernels "
+    log("[6/14] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -1627,11 +2073,11 @@ def main():
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/13] AGCN serving main path: 16 streams through "
+    log("[7/14] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/13] AGCN: device time of one served forward by kernel group; "
+    log("[8/14] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -1639,7 +2085,7 @@ def main():
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/13] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/14] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -1648,19 +2094,19 @@ def main():
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/13] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/14] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/13] AAGCN: device time of one served forward by kernel group; "
+    log("[11/14] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/13] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/14] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -1670,7 +2116,7 @@ def main():
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/13] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/14] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -1687,6 +2133,12 @@ def main():
                     serve=True)
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
+
+    log("[14/14] SGN recipe (no port kernel on its path, as in the JAX "
+        "package): train_sgn.yaml at full width on synthetic SGN pickles "
+        "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
+        "the entry points with 5-crop eval")
+    phase_sgn(torch, np, summary)
 
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
@@ -1718,11 +2170,16 @@ def main():
     for m in summary["transformer_train_cli"]["train"]:
         for key, n in m["launches"].items():
             tf_train[key] += n
+    # and on the SGN path, as phase 14 read it: the ten steps (the entry
+    # point's epoch is checked at 0 for the three GCN kernels)
+    sgn_train = dict(summary["sgn_train"]["launches"])
+    for key, n in summary["sgn_cli"]["train"][0]["launches"].items():
+        sgn_train[key] += n
     for entry, key in zip(kernels, ("gcn_fwd_round_agg", "gcn_fwd_fp32_agg",
                                     "gcn_bwd", "logits")):
         entry["launches_by_path"].update(
             transformer_serve=summary["transformer_launches"][key],
-            transformer_train=tf_train[key])
+            transformer_train=tf_train[key], sgn_train=sgn_train[key])
     # the fp32 routes' numbers beside the bf16 ones (gcn_fwd: served
     # forward and, for gcn_fused, dx per step; gcn_bwd: per step)
     same = ("name", "route", "source", "replaces", "launches")

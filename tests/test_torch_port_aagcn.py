@@ -338,7 +338,7 @@ def test_state_dict_is_the_reference_map():
                                    "model_layers": 3}, device="cpu")
         assert isinstance(built, AAGCN)
     for name in ("aagcn_v30", "aagcn_v31", "model.aagcn_v17.Model",
-                 "sgn"):
+                 "sgn_original"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             build_model(name, {}, device="cpu")
     got = model_state_dict(variables, "aagcn")

@@ -785,3 +785,41 @@ def test_aagcn_transformer_on_card_matches_cpu(cuda, dtype):
         for part in ("temporal", "spatial"):
             for g, w in zip(got_attn[part], want_attn[part]):
                 torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=0)
+
+
+def test_sgn_on_card_matches_cpu(cuda):
+    """train_sgn.yaml's SGN at full width (batch 4 x 5 crops of seg 20),
+    every unit's w1 random (its init is zero) and the BN statistics of a
+    train-mode forward: card logits and each G against the CPU's, fp32
+    (TF32 off) within 1e-4 of their scale. This path runs none of the
+    port's CUDA kernels, as in the JAX package."""
+    from agcn_tpu_torch.models import build_model
+
+    args = dict(num_class=60, num_point=25, bias=1, dropout2d=0.0,
+                sgcn_dims=[128, 256, 256], sgcn_g_proj_dim=256,
+                multi_t=[[], [], [3]])
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (20, 20, 75)).astype(np.float32))
+    cpu = build_model("sgn", args, device="cpu", num_frame=20)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith("w1.block.conv.conv.weight"):
+                p.copy_(torch.randn(p.shape, generator=g)
+                        / math.sqrt(p.shape[1]))
+        cpu.train()(x)
+        for m in cpu.modules():  # the batch statistics, not the momentum's
+            if hasattr(m, "running_var"):
+                m.running_mean.div_(0.1)
+                m.running_var.sub_(0.9).div_(0.1).clamp_(min=1e-3)
+    card = build_model("sgn", args, device=cuda, num_frame=20)
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    before = _launches()
+    with torch.no_grad():
+        got, got_g = card.eval()(x.to(cuda), return_g=True)
+        want, want_g = cpu.eval()(x, return_g=True)
+    assert _launches() == before
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * scale
+    for a, b in zip(got_g, want_g):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)

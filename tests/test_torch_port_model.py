@@ -220,11 +220,12 @@ def test_model_state_dict_dispatches_by_registry_key(jax_agcn):
         assert all(torch.equal(got[k], want[k]) for k in want)
     for name, item in (("aagcn_v31", "item 6: aagcn_versions"),
                        ("model.aagcn_v17.Model", "item 6: aagcn_versions"),
-                       ("sgn", "item 7: SGN family"),
+                       ("sgn_transformer", "item 7: SGN family"),
                        ("model.sgn_v15.SGN", "item 7: SGN family")):
         with pytest.raises(NotImplementedError, match=item):
             model_state_dict(variables, name)
-    with pytest.raises(NotImplementedError, match="unknown model"):
+    # a name the JAX package does not build either: its KeyError
+    with pytest.raises(KeyError, match="Unknown model"):
         model_state_dict(variables, "no_such_model")
 
 
