@@ -16,9 +16,18 @@ collate). In order:
   descriptors g3, g4, then a softmax or sigmoid), shared by every unit
   when `sgcn_g_proj_dim` is an int (one per unit for a list), and units
   norm(w1(G x) + w2(x)) -> relu -> dropout2d (attn_mode 0);
-- the spatial max-pool, the temporal conv branches of `multi_t` on the
-  last level (t_mode 1: conv k -> BN -> relu -> dropout2d, then 1x1 ->
-  BN -> relu), their mean, the temporal max-pool, dropout and `fc`.
+- the levels that feed the temporal module: the last unit's output
+  (`gcn_fpn: -1`) or every unit's (`gcn_fpn: 0`, the FPN's parallel
+  mode), each plus the frame embedding where the widths agree;
+- the spatial max-pool, the temporal conv branches of `multi_t` on those
+  levels (t_mode 1: conv k -> BN -> relu -> dropout2d, then 1x1 -> BN ->
+  relu), their mean, the temporal max-pool, dropout and `fc`.
+
+`forward(x, return_aux=True)` also returns the JAX model's aux outputs
+(agcn_tpu sgn.py:1226-1261): `g` (the list of G), `branch_outputs` (each
+temporal branch's output in the reference's (N, C, T') layout, for the
+feature-similarity loss) and `z` (the pooled feature before the
+classifier's dropout).
 
 Layout is channels-last (B, T, V, C); every 1xk kernel keeps the
 reference's (out, in, 1, k) layout over its (N, C, V, T) grid, and the
@@ -37,7 +46,7 @@ fp32, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -317,12 +326,15 @@ class GCNSpatialBlock(nn.Module):
             getattr(self, f"gcn{i + 1}").reset_parameters(generator)
 
     def forward(self, x: torch.Tensor):
+        """(the last unit's output, the list of G, every unit's output)."""
         g_list: List[torch.Tensor] = []
+        x_list: List[torch.Tensor] = []
         for i in range(len(self.dims)):
             if i == 0 or not self.g_shared:
                 g_list.append(getattr(self, f"gcn_g{i + 1}")(x))
             x = getattr(self, f"gcn{i + 1}")(x, g_list[-1])
-        return x, g_list
+            x_list.append(x)
+        return x, g_list, x_list
 
 
 class TemporalBranchMLP(nn.Module):
@@ -394,7 +406,12 @@ class SGN(nn.Module):
     units, `dropout` before fc) draw from one generator on that device,
     seeded from `generator` (`dropout_seed`; the train step reseeds it for
     each update, `train/steps.seed_dropout`). Parameters and compute are
-    fp32."""
+    fp32.
+
+    `has_aux`: the train and eval steps call `forward(x, return_aux=True)`
+    for an aux loss (only models that set it take the argument)."""
+
+    has_aux = True
 
     def __init__(self, num_class: int = 60, num_point: int = 25,
                  num_segment: int = 20, in_channels: int = 3,
@@ -448,7 +465,7 @@ class SGN(nn.Module):
         _refuse(**{
             "sgcn_gt_mode != 1": sgcn_gt_mode != 1,
             "sgcn_attn_mode != 0": sgcn_attn_mode != 0,
-            "gcn_fpn != -1": gcn_fpn != -1,
+            "gcn_fpn other than -1 and 0": gcn_fpn not in (-1, 0),
             "gcn_fpn_output_merge = 2": gcn_fpn_output_merge == 2,
             "t_mode != 1": t_mode != 1,
             "multi_t_shared": bool(multi_t_shared),
@@ -513,20 +530,23 @@ class SGN(nn.Module):
         self.sgcn = GCNSpatialBlock(width, self.sgcn_dims, g_proj,
                                     bool(sgcn_g_proj_shared), sgcn_gt_act,
                                     sgcn_dropout, use_bias)
-        # only the last level feeds the temporal branches (gcn_fpn -1)
+        # the levels that feed the temporal branches: the last (gcn_fpn
+        # -1) or every one (gcn_fpn 0); multi_t[i] lists level i's kernels
         last = len(self.sgcn_dims) - 1
-        self.branch_names: List[str] = []
+        self.levels = (tuple(range(last + 1)) if gcn_fpn == 0
+                       else (last,))
+        self.branches: List[Tuple[int, str]] = []
         for i, kernels in enumerate(multi_t):
             for j, k in enumerate(kernels):
-                if i != last:
+                if i not in self.levels:
                     continue
                 name = f"tem_mlp_{i + 1}_{j + 1}_k{k}"
                 self.add_module(name, TemporalBranch(
-                    self.sgcn_dims[-1], c4, k, dropout2d, use_bias))
-                self.branch_names.append(name)
-        if not self.branch_names:
-            raise ValueError(f"multi_t {multi_t!r} gives the last GCN "
-                             "level no temporal branch")
+                    self.sgcn_dims[i], c4, k, dropout2d, use_bias))
+                self.branches.append((i, name))
+        if not self.branches:
+            raise ValueError(f"multi_t {multi_t!r} gives the levels "
+                             f"{self.levels} no temporal branch")
         self.fc_drop = Dropout(dropout)
         self.fc = nn.utils.skip_init(nn.Linear, c4, num_class)
 
@@ -551,12 +571,13 @@ class SGN(nn.Module):
             if isinstance(emb, SGNEmbedding):
                 emb.reset_parameters(generator)
         self.sgcn.reset_parameters(generator)
-        for name in self.branch_names:
+        for _, name in self.branches:
             getattr(self, name).reset_parameters(generator)
         init.torch_default(self.fc.in_features)(self.fc.weight, generator)
         init.torch_default(self.fc.in_features)(self.fc.bias, generator)
 
-    def forward(self, x: torch.Tensor, return_g: bool = False):
+    def forward(self, x: torch.Tensor, return_g: bool = False,
+                return_aux: bool = False):
         b, t, dim = x.shape
         v = self.num_point
         if t != self.num_segment:
@@ -582,12 +603,23 @@ class SGN(nn.Module):
         # the frame embedding before the GCN stack, as JAX orders its calls
         tem = (se["tem_embedding"](se["tem_onehot"].table())
                if "tem_embedding" in se else None)
-        y, g_list = self.sgcn(feat)
-        if tem is not None:
-            y = y + tem
-        y = torch.amax(y, dim=2, keepdim=True)  # spatial max-pool
-        outs = [getattr(self, name)(y) for name in self.branch_names]
+        _, g_list, x_list = self.sgcn(feat)
+        feats = {}
+        for i in self.levels:
+            f = x_list[i]
+            if tem is not None and f.shape[-1] == tem.shape[-1]:
+                f = f + tem
+            feats[i] = torch.amax(f, dim=2, keepdim=True)  # spatial max-pool
+        outs = [getattr(self, name)(feats[i]) for i, name in self.branches]
         y = outs[0] if len(outs) == 1 else torch.stack(outs).mean(dim=0)
         y = torch.amax(y, dim=1, keepdim=True)  # temporal max-pool
-        logits = self.fc(self.fc_drop(y.reshape(b, -1)))
+        z = y.reshape(b, -1)
+        logits = self.fc(self.fc_drop(z))
+        if return_aux:
+            # each branch (B, T', 1, C) as (N, C, T'): the reference's
+            # CosineLoss takes dim 1 as the channels
+            branch_outputs = [o.reshape(b, o.shape[1], -1).transpose(1, 2)
+                              for o in outs]
+            return logits, {"g": g_list, "branch_outputs": branch_outputs,
+                            "z": z}
         return (logits, g_list) if return_g else logits

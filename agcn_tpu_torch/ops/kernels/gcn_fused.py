@@ -337,7 +337,11 @@ def gcn_forward(name: str, x: torch.Tensor, a1: torch.Tensor,
     through the Functions below."""
     if _device_kind(name, x, a1, w) == "cpu":
         return gcn_fwd_plain(x, a1, w, round_agg), False
-    return launch_gcn_fwd(x, a1, w, round_agg), True
+    # the kernel reads dense rows: a strided view (AGCN's first-layer
+    # input of a one-sample batch, whose person fold stays a view) is
+    # copied first; a dense tensor passes as it is
+    return launch_gcn_fwd(x.contiguous(), a1.contiguous(), w.contiguous(),
+                          round_agg), True
 
 
 def gcn_backward(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
@@ -346,7 +350,8 @@ def gcn_backward(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     version, CUDA -> the gcn_bwd kernel."""
     if _device_kind("gcn_backward", x, a1, w, g) == "cpu":
         return gcn_bwd_plain(x, a1, w, g)
-    out = launch_gcn_bwd(x, a1, w, g)
+    out = launch_gcn_bwd(x.contiguous(), a1.contiguous(), w.contiguous(),
+                         g.contiguous())
     gcn_backward.launches += 1
     return out
 

@@ -135,13 +135,16 @@ class LayerNorm(nn.Module):
 
 @contextlib.contextmanager
 def recomputing(module: nn.Module) -> Iterator[None]:
-    """Mark every BatchNorm under `module` as recomputing for the scope
-    (the recompute context of `torch.utils.checkpoint`)."""
+    """Mark every BatchNorm under `module` as recomputing for the scope,
+    so that no forward in it moves the running statistics (the recompute
+    context of `torch.utils.checkpoint`, and SAM's second pass); the
+    marks in force before it come back after it, so scopes nest."""
     norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    before = [m.recomputing for m in norms]
     for m in norms:
         m.recomputing = True
     try:
         yield
     finally:
-        for m in norms:
-            m.recomputing = False
+        for m, flag in zip(norms, before):
+            m.recomputing = flag

@@ -1,11 +1,11 @@
-"""Classification losses over logits and int labels
-(port of agcn_tpu/train/losses.py:18-58, 129-140; reference
-utils/loss.py). The MMD, cosine and feature-similarity losses of the SGN
-recipes wait for SGN (ROADMAP Queue 1: SGN family)."""
+"""Classification losses over logits and int labels, and the cosine
+feature-similarity loss of the SGN recipes (port of
+agcn_tpu/train/losses.py:18-58, 82-140; reference utils/loss.py). The
+MMD loss waits with the InfoGCN head (ROADMAP Queue 1 item 7.2)."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -48,6 +48,46 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
         ce = ce * alpha.to(ce.device)[labels]
     pt = torch.softmax(logits, dim=-1).gather(-1, labels[:, None])[:, 0]
     return ((1.0 - pt) ** gamma * ce).mean()
+
+
+def cosine_loss(x1: torch.Tensor, x2: torch.Tensor, mode: int = 1,
+                eps: float = 1e-8) -> torch.Tensor:
+    """Feature-similarity loss 1 - mean(cos) (reference utils/loss.py:7-21;
+    agcn_tpu losses.py:82-99). Mode 1: the cosine over axis 1 (channels
+    of an (N, C, T) output); mode 2: the cosine of the L2-norm vectors
+    along axis 1."""
+    if mode == 2:
+        x1 = torch.linalg.vector_norm(x1, dim=1)
+        x2 = torch.linalg.vector_norm(x2, dim=1)
+        dim = -1
+    else:
+        dim = 1
+    num = (x1 * x2).sum(dim=dim)
+    den = torch.clamp(torch.linalg.vector_norm(x1, dim=dim)
+                      * torch.linalg.vector_norm(x2, dim=dim), min=eps)
+    return 1.0 - (num / den).mean()
+
+
+def fsim_pair_loss(branch_outputs: Sequence[Optional[torch.Tensor]],
+                   alphas: Sequence[float], kernels: int,
+                   mode: int = 1) -> Union[torch.Tensor, float]:
+    """The cosine feature-similarity loss with the reference's pairing
+    (utils/processor.py:583-599; agcn_tpu losses.py:102-126): the level-i
+    kernel-j temporal branch output is pulled toward the last level's
+    kernel-j output, weighted by alphas[i * kernels + j] (the last alpha
+    for pairs beyond the list). `kernels` is len(multi_t[-1]), the
+    branches a level; None outputs are dropped."""
+    outs = [o for o in branch_outputs if o is not None]
+    kernels = max(int(kernels), 1)
+    alphas = list(alphas) or [1.0]
+    total = 0.0
+    for i in range(len(outs) // kernels - 1):
+        for j in range(kernels):
+            idx = i * kernels + j
+            a = alphas[idx] if idx < len(alphas) else alphas[-1]
+            total = total + a * cosine_loss(outs[idx], outs[-kernels + j],
+                                            mode=mode)
+    return total
 
 
 def build_loss(name: str, num_class: int, smoothing: float = 0.0,

@@ -31,6 +31,10 @@ rate is the schedule's times the factor. The schedules are plain
 functions of the count (Python floats), copied formula for formula,
 boundaries included. `from_config` wires a config's schedule, chain and
 LLRD rule, for the trainer and for anything that builds its step.
+
+SAM (`optimizer: SAM*`) is SGD nesterov here, as in `build_optimizer`
+(agcn_tpu optim.py:117-124); its two passes live in the train step
+(`train/steps.py`), which perturbs the parameters by `sam_perturbation`.
 """
 
 from __future__ import annotations
@@ -43,8 +47,6 @@ import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
-
-_LEFTOVER = "waits in ROADMAP Queue 1: training leftovers"
 
 
 def warmup_step_schedule(base_lr: float, steps_per_epoch: int,
@@ -156,16 +158,34 @@ def llrd_scales(names: Sequence[str], factor: float) -> List[float]:
     return [1.0 if i is None else factor ** rank[i] for i in ids]
 
 
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: the L2 norm over every element of `tensors`, in
+    fp32, as a device scalar."""
+    return torch.stack([t.float().square().sum() for t in tensors]).sum() \
+        .sqrt()
+
+
 @torch.no_grad()
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
     """optax.clip_by_global_norm in place: every g becomes
     (g / ||g||) * max_norm when the global norm ||g|| >= max_norm. The
     choice is made on the device (no host sync)."""
-    norm = torch.stack([g.float().square().sum() for g in grads]).sum()
-    norm = norm.sqrt()
+    norm = global_norm(grads)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+
+
+@torch.no_grad()
+def sam_perturbation(params: Sequence[torch.Tensor],
+                     grads: Sequence[torch.Tensor], rho: float = 0.05
+                     ) -> List[torch.Tensor]:
+    """SAM's first step (agcn_tpu optim.py:180-185; davda54/sam, which
+    the reference calls at processor.py:673-687): p + g * rho / (||g|| +
+    1e-12), ||g|| the global norm over every gradient, no clipping.
+    Returns the perturbed values; `params` are not touched."""
+    scale = rho / (global_norm(grads) + 1e-12)
+    return [p + g * scale.to(g.dtype) for p, g in zip(params, grads)]
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -313,10 +333,12 @@ def build_optimizer(name: str, params: Iterable[torch.nn.Parameter],
                     ) -> ClippedOptimizer:
     """Optimizer factory (agcn_tpu optim.py:117-133; reference
     load_optimizer, processor.py:395-430). The '-llrd' names are their
-    base chain, given `lr_scales` from `llrd_scales` (`from_config`)."""
+    base chain, given `lr_scales` from `llrd_scales` (`from_config`).
+    'SAM*' names take their SGD chain ('SAM', 'SAM_SGD' -> 'sgd'); the
+    train step adds SAM's second pass (`sam_rho`)."""
     key = name.lower()
     if key.startswith("sam"):
-        raise NotImplementedError(f"optimizer {name!r} {_LEFTOVER}")
+        key = key.replace("_sgd", "").replace("sam", "sgd")
     if key in ("sgd", "sgd-llrd"):
         return SGDNesterov(params, schedule, weight_decay,
                            nesterov=nesterov, grad_clip=grad_clip,

@@ -1,9 +1,9 @@
 """Trainer — the AGCN / AAGCN / AAGCN-transformer / SGN paths of
 agcn_tpu/train/trainer.py's `Trainer`
 (`__init__` :50-92, `_load_data` :128-168, `_load_model` :170-197,
-`_load_optimizer` :271-314, `_build_steps` :464-533, `start` :537-559,
-`train_epoch` :561-632, `evaluate` :711-821, `save_checkpoint` :823-856;
-reference utils/processor.py).
+`_load_optimizer` :271-353, `_build_aux_loss` :381-462, `_build_steps`
+:464-533, `start` :537-559, `train_epoch` :561-709, `evaluate` :711-821,
+`save_checkpoint` :823-856; reference utils/processor.py).
 
 Work-dir management (the reuse guard, config snapshot, `log.txt`,
 `metrics.jsonl`, score pickles, right/wrong lists), the epoch loop with
@@ -23,12 +23,36 @@ with `SegmentSampler` (train: one crop and the batch rotation; eval:
 averages). SGN computes in fp32: `compute_dtype: bfloat16` logs the JAX
 trainer's line and runs fp32.
 
-Not here yet, each refused with its ROADMAP item: the TensorBoard event
-files (log.txt and metrics.jsonl carry the same scalars), auto-resume,
-async checkpoints, the profiler window, steps_per_call, SAM, the
-auxiliary losses, multi-device and multi-host runs, the models of the
-JAX package that the port lacks (`sgn_transformer`, `sgn_original`, the
-AAGCN versions).
+The run knobs, as the JAX trainer's:
+
+- TensorBoard event files (`utils/tb_writer.py`) in phase train:
+  `work_dir/event/train` takes `train/loss`, `train/acc` and `train/lr`
+  at each logged step and `train/epoch` at each epoch's end, keyed by the
+  optimizer's count; `work_dir/event/val` takes `val/top{k}` after each
+  eval. The scalars are those of log.txt and metrics.jsonl.
+- `auto_resume`: a run in a work dir that holds checkpoints continues
+  from the newest `<prefix>_<N>.pt` (model, optimizer state and count,
+  the next epoch); one that fails to load is logged and skipped.
+- `async_checkpoint`: saves write in a background thread from a host
+  snapshot taken before the next step (`train/checkpoint.py`); `start`
+  waits for them, and a failed write raises.
+- `profiler`: steps 2-7 of the run's first epoch traced by
+  `torch.profiler` (CPU and CUDA activity on a GPU) into a Chrome trace
+  in `work_dir/trace/`; on a GPU a trace without CUDA events raises.
+- `optimizer: SAM*` with `sam_rho`: SGD nesterov under SAM's two-pass
+  step (`train/steps.py`).
+- `steps_per_call` K > 1: K loader batches stacked on the host, one copy
+  to the device, K steps back to back in the one epoch loop; the metrics
+  come to the host only at logged steps and at the epoch's end (the last
+  group may hold fewer batches; the profiled epoch takes K = 1). The
+  updates are those of K = 1.
+- `fsim_mode` > 0: the cosine feature-similarity loss of the SGN
+  temporal branches (`fsim` in metrics.jsonl and the eval log).
+
+Not here yet, each refused with its ROADMAP item: the MMD loss
+(`mmd_lambda*`, with the InfoGCN head), multi-device and multi-host runs,
+the models of the JAX package that the port lacks (`sgn_transformer`,
+`sgn_original`, the AAGCN versions).
 """
 
 from __future__ import annotations
@@ -38,7 +62,7 @@ import os
 import pickle
 import shutil
 import time
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -55,8 +79,11 @@ from agcn_tpu_torch.train.steps import (freeze_pa, make_eval_step,
                                         make_train_step)
 from agcn_tpu_torch.utils.config import Config, save_config
 from agcn_tpu_torch.utils.device import resolve_device
+from agcn_tpu_torch.utils.tb_writer import SummaryWriter
 
-_LEFTOVER = "ROADMAP Queue 1: training leftovers"
+# the profiler's window in the run's first epoch (agcn_tpu trainer.py:572;
+# reference torch.profiler schedule wait=1 warmup=1 active=5)
+PROFILE_STEPS = range(2, 8)
 
 
 def device_from_config(value: Any) -> torch.device:
@@ -81,21 +108,16 @@ def kernel_launches() -> Dict[str, int]:
 def _refuse_unported(cfg: Config) -> None:
     waits = waiting_item(cfg.model)
     refused = {
-        "auto_resume": (cfg.auto_resume, _LEFTOVER),
-        "async_checkpoint": (cfg.async_checkpoint, _LEFTOVER),
-        "profiler": (cfg.profiler, _LEFTOVER),
-        "steps_per_call > 1": (int(cfg.steps_per_call or 1) > 1, _LEFTOVER),
-        "SAM (optimizer SAM*)": (cfg.optimizer.upper().startswith("SAM"),
-                                 _LEFTOVER),
         "world_size > 1 / ddp": (cfg.world_size > 1 or cfg.ddp,
                                  "ROADMAP Queue 1: Parallel"),
         "mesh_data > 1 / mesh_edge > 1": (
             cfg.mesh_data > 1 or cfg.mesh_edge > 1,
             "ROADMAP Queue 1: Parallel"),
         f"model {cfg.model}": (waits is not None, f"ROADMAP {waits}"),
-        "auxiliary losses (mmd_lambda*, fsim_mode)": (
-            cfg.mmd_lambda1 > 0 or cfg.mmd_lambda2 > 0 or cfg.fsim_mode > 0,
-            "ROADMAP Queue 1 item 7: SGN family"),
+        "the MMD loss (mmd_lambda1 / mmd_lambda2)": (
+            cfg.mmd_lambda1 > 0 or cfg.mmd_lambda2 > 0,
+            "ROADMAP Queue 1 item 7.2: SGN family, with the InfoGCN head "
+            "(infogcn_*) that gives it its prior"),
     }
     for knob, (on, item) in refused.items():
         if on:
@@ -104,6 +126,19 @@ def _refuse_unported(cfg: Config) -> None:
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: float32 or "
                          "bfloat16")
+
+
+def _groups(batches, k: int):
+    """Lists of k consecutive items of `batches`; the last may hold
+    fewer."""
+    group = []
+    for batch in batches:
+        group.append(batch)
+        if len(group) == k:
+            yield group
+            group = []
+    if group:
+        yield group
 
 
 class Trainer:
@@ -121,6 +156,13 @@ class Trainer:
         save_config(cfg, os.path.join(self.work_dir, "config.yaml"))
         self._log_file = os.path.join(self.work_dir, "log.txt")
         self._metrics_file = os.path.join(self.work_dir, "metrics.jsonl")
+        # TensorBoard event writers (reference processor.py:125-132)
+        self.train_writer = self.val_writer = None
+        if cfg.phase == "train":
+            self.train_writer = SummaryWriter(
+                os.path.join(self.work_dir, "event", "train"))
+            self.val_writer = SummaryWriter(
+                os.path.join(self.work_dir, "event", "val"))
 
         np.random.seed(cfg.seed)
         torch.manual_seed(cfg.seed)
@@ -139,7 +181,7 @@ class Trainer:
         marker = os.path.join(self.work_dir, "log.txt")
         if (cfg.phase == "train" and os.path.exists(marker)
                 and cfg.start_epoch == 0 and not cfg.weights
-                and not cfg.assume_yes):
+                and not cfg.assume_yes and not cfg.auto_resume):
             raise RuntimeError(
                 f"work_dir {self.work_dir!r} already contains a run "
                 f"(log.txt present). Pass assume_yes=true to reuse it, "
@@ -261,10 +303,72 @@ class Trainer:
         self.optimizer = O.from_config(cfg, self.model.named_parameters(),
                                        steps_per_epoch)
         if self._ckpt is not None and "optimizer" in self._ckpt:
-            # exact resume: momentum buffers / Adam moments and the count
-            self.optimizer.load_state_dict(self._ckpt["optimizer"])
-            self.print_log(f"optimizer state resumed at step "
-                           f"{self.optimizer.count}")
+            self._resume_optimizer(self._ckpt)
+        elif cfg.auto_resume and cfg.phase == "train" and not cfg.weights:
+            self._auto_resume()
+
+    def _resume_optimizer(self, state: Dict[str, Any]):
+        # exact resume: momentum buffers / Adam moments and the count
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.print_log(f"optimizer state resumed at step "
+                       f"{self.optimizer.count}")
+
+    def _auto_resume(self):
+        """Continue from the newest `<prefix>_<N>.pt` in
+        work_dir/checkpoints, by N: the model, the optimizer state and
+        count, and the epoch after the checkpoint's (agcn_tpu
+        trainer.py:316-353). A checkpoint that fails to load is logged and
+        skipped; none means a fresh start."""
+        cfg = self.cfg
+        ckpt_dir = os.path.join(self.work_dir, "checkpoints")
+        cands = []
+        for name in os.listdir(ckpt_dir):
+            stem, ext = os.path.splitext(name)
+            tail = stem.rsplit("_", 1)[-1]
+            if ext == ".pt" and "_" in stem and tail.isdigit():
+                cands.append((int(tail), os.path.join(ckpt_dir, name)))
+        if not cands:
+            return
+        number, path = max(cands)
+        try:
+            state = ckpt.load_checkpoint(path, cfg.model, cfg.model_args)
+            odd = set(state["model"]) ^ set(self.model.state_dict())
+            if odd or "optimizer" not in state:
+                raise ValueError(f"not a checkpoint of this run's model and "
+                                 f"optimizer (names apart: {sorted(odd)})")
+            self.model.load_state_dict(state["model"], strict=True)
+            self._resume_optimizer(state)
+        except Exception as e:
+            self.print_log(f"auto-resume skipped ({e})")
+            return
+        cfg.start_epoch = int(state.get("epoch", number - 1)) + 1
+        self.print_log(f"auto-resumed from {path} "
+                       f"(continuing at epoch {cfg.start_epoch})")
+
+    def _build_aux_loss(self) -> Optional[Callable]:
+        """The cosine feature-similarity loss between the temporal
+        branches' outputs (`fsim_mode`, reference processor.py:583-595;
+        agcn_tpu trainer.py:381-462): pairs over len(multi_t[-1]) kernels
+        a level, weighted by `fsim_alpha`; its `fsim` metric. A model
+        without aux outputs adds nothing, as in JAX."""
+        cfg = self.cfg
+        if cfg.fsim_mode <= 0:
+            return None
+        alphas = (list(cfg.fsim_alpha)
+                  if isinstance(cfg.fsim_alpha, (list, tuple))
+                  else [cfg.fsim_alpha])
+        multi_t = cfg.model_args.get("multi_t", [[], [], [3]])
+        kernels = len(multi_t[-1]) if multi_t else 1
+
+        def aux_loss(aux, y):
+            outs = (aux or {}).get("branch_outputs", [])
+            if len(outs) <= 1:
+                return 0.0, {}
+            total = L.fsim_pair_loss(outs, alphas, kernels,
+                                     mode=cfg.fsim_mode)
+            return total, {"fsim": total}
+
+        return aux_loss
 
     def _build_steps(self):
         cfg = self.cfg
@@ -273,15 +377,22 @@ class Trainer:
                                alpha=cfg.fl_alpha, gamma=cfg.fl_gamma)
         sam_rho = cfg.sam_rho if cfg.optimizer.upper().startswith("SAM") \
             else 0.0
-        self._train_step = make_train_step(self.model, loss_fn,
-                                           self.optimizer, sam_rho=sam_rho)
-        # PA frozen while epoch <= only_train_epoch
-        # (reference processor.py:612-630)
-        self._train_step_frozen = make_train_step(
-            self.model, loss_fn, self.optimizer, grad_transform=freeze_pa) \
+        aux_loss_fn = self._build_aux_loss()
+
+        def step(**kw):
+            return make_train_step(self.model, loss_fn, self.optimizer,
+                                   sam_rho=sam_rho, aux_loss_fn=aux_loss_fn,
+                                   **kw)
+
+        self._train_step = step()
+        # the PA freeze (reference processor.py:612-630)
+        self._train_step_frozen = step(grad_transform=freeze_pa) \
             if cfg.only_train_part else self._train_step
+        self._steps_per_call = max(1, int(cfg.steps_per_call or 1))
+        self._eval_aux = aux_loss_fn
         self._eval_step = make_eval_step(self.model, loss_fn,
-                                         multi_crop=self.multi_test)
+                                         multi_crop=self.multi_test,
+                                         aux_loss_fn=aux_loss_fn)
 
     # -- phases --------------------------------------------------------
 
@@ -298,6 +409,9 @@ class Trainer:
                     self.save_checkpoint(epoch)
             self.print_log(
                 f"Best top-1: {self.best_acc:.4f} @ epoch {self.best_epoch}")
+            ckpt.wait_for_checkpoints()
+            for writer in (self.train_writer, self.val_writer):
+                writer.close()
         elif cfg.phase == "test":
             if not cfg.weights:
                 raise ValueError("--weights required for phase test")
@@ -312,36 +426,123 @@ class Trainer:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
+    def _log_step(self, epoch: int, i: int, n_steps: int,
+                  metrics: Dict[str, float], count: int):
+        """The log line and the event scalars of logged step i, keyed by
+        the optimizer's count after it."""
+        lr = self.optimizer.schedule(count)
+        self.print_log(
+            f"epoch {epoch} step {i}/{n_steps} "
+            f"loss {metrics['loss']:.4f} acc {metrics['acc']:.3f} "
+            f"lr {lr:.5f}")
+        if self.train_writer is not None:
+            self.train_writer.add_scalar("train/loss", metrics["loss"],
+                                         count)
+            self.train_writer.add_scalar("train/acc", metrics["acc"], count)
+            self.train_writer.add_scalar("train/lr", lr, count)
+
+    def _step_fn(self, epoch: int):
+        """The train step of `epoch`: PA frozen while epoch <=
+        only_train_epoch."""
+        if self.cfg.only_train_part and epoch <= self.cfg.only_train_epoch:
+            return self._train_step_frozen
+        return self._train_step
+
     def train_epoch(self, epoch: int):
         cfg = self.cfg
         loader = self.loaders["train"]
         loader.set_epoch(epoch)
         t0 = time.time()
         launches0 = kernel_launches()
-        seen = 0
-        last = {}
-        step_fn = (self._train_step_frozen
-                   if cfg.only_train_part and epoch <= cfg.only_train_epoch
-                   else self._train_step)
-        for i, (x, y, _) in enumerate(loader):
-            metrics = step_fn(self._to_device(x), self._to_device(y))
-            seen += len(y)
-            if (i + 1) % cfg.log_interval == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                self.print_log(
-                    f"epoch {epoch} step {i + 1}/{len(loader)} "
-                    f"loss {m['loss']:.4f} acc {m['acc']:.3f} "
-                    f"lr {self.optimizer.lr():.5f}")
-            last = metrics
+        profiled = cfg.profiler and epoch == cfg.start_epoch
+        seen, last = self._train_epoch_steps(epoch, loader, profiled)
         m = {k: float(v) for k, v in last.items()}  # waits for the device
         dt = time.time() - t0
         launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
         self.log_metrics(kind="train", epoch=epoch, seconds=dt,
                          seq_per_sec=seen / max(dt, 1e-9),
                          steps=self.optimizer.count, launches=launches, **m)
+        if self.train_writer is not None:
+            self.train_writer.add_scalar("train/epoch", epoch,
+                                         self.optimizer.count)
+            self.train_writer.flush()
         self.print_log(
             f"epoch {epoch} done in {dt:.1f}s "
             f"({seen / max(dt, 1e-9):.1f} seq/s)")
+
+    def _train_epoch_steps(self, epoch: int, loader, profiled: bool):
+        """One step a loader batch. The batches go to the device
+        K = `steps_per_call` at a time, stacked on the host into one copy,
+        and their K steps run back to back (agcn_tpu trainer.py:634-709);
+        the metrics come to the host only at logged steps and at the end.
+        The last group may hold fewer. With `profiled`, K = 1 and steps
+        2-7 are traced."""
+        cfg = self.cfg
+        step_fn = self._step_fn(epoch)
+        spc = 1 if profiled else self._steps_per_call
+        n_steps = len(loader)
+        prof = None
+        seen = done = 0
+        last: Dict[str, Any] = {}
+        for group in _groups(loader, spc):
+            xs = self._to_device(np.stack([x for x, _, _ in group]))
+            ys = self._to_device(np.stack([y for _, y, _ in group]))
+            seen += ys.numel()
+            count0 = self.optimizer.count
+            rows = []
+            for j in range(len(group)):
+                if profiled and done == PROFILE_STEPS.start:
+                    prof = self._start_profiler()
+                rows.append(step_fn(xs[j], ys[j]))
+                done += 1
+                if prof is not None and done == PROFILE_STEPS.stop:
+                    self._stop_profiler(prof, epoch)
+                    prof = None
+            for j, metrics in enumerate(rows):
+                i = done - len(rows) + j + 1
+                if i % cfg.log_interval == 0:
+                    self._log_step(epoch, i, n_steps,
+                                   {k: float(v) for k, v in metrics.items()},
+                                   count0 + j + 1)
+            last = rows[-1]
+        if prof is not None:  # an epoch shorter than the window
+            self._stop_profiler(prof, epoch)
+        return seen, last
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof, epoch: int):
+        """End the window: wait for the device, stop, write the Chrome
+        trace into work_dir/trace. On a GPU a trace without CUDA events
+        is an error."""
+        from torch.autograd import DeviceType
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        trace_dir = os.path.join(self.work_dir, "trace")
+        os.makedirs(trace_dir, exist_ok=True)
+        # the raw events: `prof.events()` would build the Python event
+        # tree of the whole window first (seconds for six steps)
+        if self.device.type == "cuda" and not any(
+                ev.device_type() == DeviceType.CUDA
+                for ev in prof.profiler.kineto_results.events()):
+            raise RuntimeError("profiler: the trace of steps "
+                               f"{PROFILE_STEPS.start}-"
+                               f"{PROFILE_STEPS.stop - 1} holds no CUDA "
+                               "event")
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"epoch{epoch}_steps{PROFILE_STEPS.start}-"
+                       f"{PROFILE_STEPS.stop - 1}.pt.trace.json"))
+        self.print_log(f"profiler trace written to {trace_dir}")
 
     def evaluate(self, epoch: int, save_score: bool = False,
                  write_predictions: bool = False):
@@ -351,15 +552,24 @@ class Trainer:
         ds = self.datasets["val"]
         t0 = time.time()
         crops = self.multi_test
+        full = cfg.test_batch_size * crops
         scores = []
-        for x, _, _ in self.loaders["val"]:
+        aux_metrics = []
+        for x, y, _ in self.loaders["val"]:
             if x.shape[0] % crops:
                 raise RuntimeError(
                     f"eval batch of {x.shape[0]} rows is not a multiple of "
                     f"multi_test={crops}; collate must expand each sample "
                     f"into consecutive crops")
             # one row a sample: the eval step averages its crops' logits
-            logits, _ = self._eval_step(self._to_device(x))
+            if self._eval_aux is not None and x.shape[0] == full:
+                # the aux metrics on full batches, z averaged over the
+                # crops (agcn_tpu trainer.py:741-749)
+                logits, m = self._eval_step(
+                    self._to_device(x), self._to_device(y[::crops]))
+                aux_metrics.append({k: float(v) for k, v in m.items()})
+            else:
+                logits, _ = self._eval_step(self._to_device(x))
             scores.append(logits.float().cpu().numpy())
         score = np.concatenate(scores, axis=0)[: len(ds)]
         accs = {k: ds.top_k(score, k) for k in cfg.show_topk}
@@ -369,8 +579,20 @@ class Trainer:
             self.best_epoch = epoch
         msg = ", ".join(f"top-{k}: {v:.4f}" for k, v in accs.items())
         self.print_log(f"eval epoch {epoch}: {msg} ({dt:.1f}s)")
+        aux_means = {}
+        if aux_metrics:
+            aux_means = {k: float(np.mean([m[k] for m in aux_metrics]))
+                         for k in aux_metrics[0]}
+            self.print_log("eval aux: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in aux_means.items()))
         self.log_metrics(kind="eval", epoch=epoch, seconds=dt,
-                         **{f"top{k}": v for k, v in accs.items()})
+                         **{f"top{k}": v for k, v in accs.items()},
+                         **aux_means)
+        if self.val_writer is not None:
+            for k, v in accs.items():
+                self.val_writer.add_scalar(f"val/top{k}", v,
+                                           self.optimizer.count)
+            self.val_writer.flush()
         if save_score:
             names = getattr(ds, "sample_name", np.arange(len(ds)))
             out = {str(n): s for n, s in zip(names, score)}
@@ -396,5 +618,6 @@ class Trainer:
                          f"{prefix}_{epoch + 1}"),
             self.model, self.optimizer.state_dict(),
             step=self.optimizer.count, epoch=epoch,
-            steps_per_epoch=self.steps_per_epoch)
+            steps_per_epoch=self.steps_per_epoch,
+            async_save=self.cfg.async_checkpoint)
         self.print_log(f"checkpoint saved: {path}")

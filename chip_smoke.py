@@ -160,9 +160,33 @@ fails:
    `--phase test` with a test_sgn.yaml-shaped config on its checkpoint
    reproduces its top-1; one full-width forward of the Kinetics shape
    (V = 18, 400 classes) is finite.
+15. The trainer's run knobs. (a) One fp32 SAM step (rho 0.05) of
+   train_joint.yaml's AGCN at full width, `formulation: pallas`, batch 4,
+   T=300, with the kernels against the same step with their plain
+   versions (the plain run's ReLU masks replayed, as in 9): every
+   gradient the update takes within 1e-3 of its scale, 40 gcn_fwd and 20
+   gcn_bwd launches, and the BN running statistics those of pass one
+   alone; SAM against SGD at batch 64 in bf16 (ms a step, peak memory,
+   one SAM step's device time), and the host ms of a checkpoint (sync and
+   async) and of an event scalar. (b) `python -m agcn_tpu_torch.main` on
+   train_joint.yaml with `formulation: pallas`, `optimizer: SAM`,
+   `profiler` and `async_checkpoint`, 8 steps an epoch (batch 8 of
+   synthetic T=300 sequences), then the same work dir with `auto_resume`
+   for a second epoch (the profiler off): 40 gcn_fwd and 20 gcn_bwd
+   launches a step (metrics.jsonl), a Chrome trace of steps 2-7 in
+   work_dir/trace naming gcn_fwd's and gcn_bwd's kernels, TensorBoard
+   event files that parse (CRCs checked by the reader here: the card's
+   machine has no TensorBoard) and carry the log's scalars, and the
+   resumed run continuing at epoch 1 from the checkpoint's step 8. (c)
+   train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml as shipped through
+   the entry point on synthetic SGN pickles (512 + 64 training
+   sequences: 9 steps at batch 64), two epochs each: a finite fsim, and
+   the scan8 epoch equal to one with steps_per_call 1 within 1e-5; ms a
+   step of each, with the card's name and power limit.
 
 `python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
-minute) and prints no result line.
+minute), `--phase 15` phases 1, 2 (the build) and 15; neither prints a
+result line (details of 15 in build/chip_smoke_knobs.json).
 
 The last lines of standard output are the `kernels` JSON line, the
 card's `nvidia-smi` name and power limit, and
@@ -213,6 +237,10 @@ TRANSFORMER_TRAIN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
 SGN_CONFIG = os.path.join(REPO, "configs", "ntu60_xview", "train_sgn.yaml")
 SGN_TEST_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
                                "test_sgn.yaml")
+SGN_FSIM_SAM_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
+                                   "train_sgn_fsim_sam.yaml")
+SGN_SCAN8_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
+                                "train_sgn_scan8.yaml")
 SGN_KINETICS_CONFIG = os.path.join(REPO, "configs", "kinetics",
                                    "train_sgn.yaml")
 TRAIN_STEPS = 10
@@ -926,15 +954,20 @@ def train_batch(np, n, seed, num_class=60):
     return x, rng.integers(0, num_class, n)
 
 
-def make_step(torch, cfg, model, steps_per_epoch=1, keep=None):
+def make_step(torch, cfg, model, steps_per_epoch=1, keep=None, sam_rho=0.0):
     """The trainer's step: the recipe's loss and optimizer (AGCN's: clip ->
-    decay -> nesterov), with `keep` given the model's raw gradients."""
+    decay -> nesterov), with `keep` given the model's raw gradients (under
+    SAM, `sam_rho` > 0, those of pass two, which the update takes); the
+    optimizer is the step's `.optimizer`."""
     from agcn_tpu_torch.train import losses, optim
     from agcn_tpu_torch.train.steps import make_train_step
 
     opt = optim.from_config(cfg, model.named_parameters(), steps_per_epoch)
     loss_fn = losses.build_loss(cfg.loss, cfg.model_args["num_class"])
-    return make_train_step(model, loss_fn, opt, grad_transform=keep)
+    step = make_train_step(model, loss_fn, opt, grad_transform=keep,
+                           sam_rho=sam_rho)
+    step.optimizer = opt
+    return step
 
 
 def liven_attention(torch, model, seed):
@@ -1982,13 +2015,545 @@ def phase_sgn(torch, np, summary):
     log(f"  phase 14 in {summary['sgn_phase_s']:.1f} s")
 
 
+# -- phase 15: the trainer's run knobs -------------------------------------
+
+SAM_RHO = 0.05
+KNOB_BATCH = 8          # (b): 8 SAM steps an epoch of 64 sequences
+SGN_KNOB_SPLITS = (("train", 512), ("val", 64), ("test", 40))
+
+
+def phase_sam_step(torch, np, cfg, summary):
+    """(a) One fp32 SAM step (rho 0.05) of the full-width `pallas` AGCN at
+    batch 4, T=300, on the card with the kernels against the same step
+    with their plain versions, the kernel run replaying the plain run's
+    ReLU masks (phase 9's replay: its ReLU inputs within 1e-3 of their
+    layer's mean |input| of the plain run's). Every gradient the update
+    takes (pass two's) within 1e-3 of its tensor's scale; 40 gcn_fwd and
+    20 gcn_bwd launches (two passes of 20 and 10); the BN running
+    statistics those of one train-mode forward of pass one alone (within
+    1e-6 of their scale, `num_batches_tracked` 1)."""
+    from agcn_tpu_torch.ops.norm import BatchNorm
+    from agcn_tpu_torch.tools.grad_parity import (
+        ReluProbe, condition_bn, grad_errors, plain_versions_on_the_card,
+        relu_probe)
+
+    x, y = train_batch(np, 4, SEED + 40)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    ref = train_model(torch, cfg, "pallas", "float32")
+    condition_bn(ref, SEED + 41)
+    state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    del ref
+    out, probes = {}, {}
+    for run in ("plain", "kernels"):
+        model = train_model(torch, cfg, "pallas", "float32")
+        model.load_state_dict(state, strict=True)
+        grads = {}
+
+        def keep(m):
+            grads.update((n, p.grad.double().cpu().clone())
+                         for n, p in m.named_parameters())
+
+        probes[run] = (ReluProbe(keep_inputs=True) if run == "plain"
+                       else ReluProbe(ref=probes["plain"]))
+        step = make_step(torch, cfg, model, keep=keep, sam_rho=SAM_RHO)
+        reset_launches()
+        with contextlib.ExitStack() as scopes:
+            scopes.enter_context(relu_probe(probes[run]))
+            if run == "plain":
+                scopes.enter_context(plain_versions_on_the_card())
+            loss = step(x, y)["loss"].item()
+        torch.cuda.synchronize()
+        out[run] = (loss, grads, all_launches(), model)
+    kern = grad_errors(out["kernels"][1], out["plain"][1], 1e-3)
+    launches = out["kernels"][2]
+    # pass one alone: a train-mode forward at the step's starting state
+    first = train_model(torch, cfg, "pallas", "float32")
+    first.load_state_dict(state, strict=True)
+    with torch.no_grad(), relu_probe(ReluProbe(ref=probes["plain"])):
+        first.train()(x)
+    want = dict(first.named_buffers())
+    stat_err, counted = 0.0, set()
+    for name, mod in out["kernels"][3].named_modules():
+        if isinstance(mod, BatchNorm):
+            counted.add(int(mod.num_batches_tracked))
+            for buf in ("running_mean", "running_var"):
+                w = want[f"{name}.{buf}"]
+                stat_err = max(stat_err, float(
+                    (getattr(mod, buf) - w).abs().max()
+                    / w.abs().max().clamp(min=1e-30)))
+    rel = abs(out["kernels"][0] - out["plain"][0]) / abs(out["plain"][0])
+    probe = probes["kernels"]
+    log(f"  sam (a) batch 4: loss {out['kernels'][0]:.6f} (plain versions "
+        f"{out['plain'][0]:.6f}, {rel:.2e}); ReLU signs off the plain run's "
+        f"masks {probe.disagree} (inputs at most {probe.input_diff:.2e} of "
+        f"their layer's mean |input|); launches {launches}; BN statistics "
+        f"{stat_err:.2e} of their scale from pass one alone, counted "
+        f"{sorted(counted)} time(s)")
+    log("      kernels vs plain: worst gradients (err / bar, name, err, "
+        "scale): " + "; ".join(f"{r:.2f} {n} {e:.3e} {sc:.3e}"
+                               for r, n, e, sc in kern[:3]))
+    check(probe.input_diff <= 1e-3,
+          f"sam: the kernel run's ReLU inputs lie far from the plain "
+          f"run's: {probe.input_diff}")
+    check(kern[0][0] <= 1.0 and rel <= 1e-4,
+          f"sam: the kernel step's gradients off the plain versions': "
+          f"{kern[0]}, loss {rel}")
+    check(launches["gcn_fwd_round_agg"] == 4 * LAYERS
+          and launches["gcn_bwd"] == 2 * LAYERS
+          and launches["gcn_fwd_fp32_agg"] == 0,
+          f"sam: launches of one step {launches}")
+    check(counted == {1} and stat_err <= 1e-6,
+          f"sam: BN statistics moved by pass two ({stat_err}, counted "
+          f"{counted})")
+    summary["sam_step"] = dict(loss={k: v[0] for k, v in out.items()},
+                               kernels_vs_plain=[list(r) for r in kern[:5]],
+                               launches=launches, bn_stat_err=stat_err,
+                               relu=[probe.disagree, probe.input_diff])
+
+
+def phase_sam_speed(torch, np, cfg, tmp, summary, warm=2, iters=3):
+    """(a') ms a step, seq/s and peak memory of the recipe's bf16 `pallas`
+    AGCN at batch 64, T=300, plain SGD against SAM (2 warm-up, 3 timed
+    steps each, one repeated batch), and the device time of one SAM step
+    by kernel group with the host ms of that profiled step. Then the
+    host costs of the other knobs on that model: a checkpoint saved
+    synchronously, and asynchronously twice (each: the call's return,
+    after the snapshot's device-to-host copies, then the wait for the
+    background write), and one TensorBoard scalar (the mean of 300)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from agcn_tpu_torch.train import checkpoint as ckpt
+    from agcn_tpu_torch.utils.tb_writer import SummaryWriter
+
+    x, y = train_batch(np, TRAIN_BATCH, SEED + 42)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    speed = {}
+    for name, rho in (("sgd", 0.0), ("sam", SAM_RHO)):
+        model = train_model(torch, cfg, "pallas", "bfloat16")
+        step = make_step(torch, cfg, model, sam_rho=rho)
+        for _ in range(warm):
+            step(x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step(x, y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / iters
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        speed[name] = dict(ms_per_step=ms, seq_per_s=TRAIN_BATCH / ms * 1e3,
+                           peak_gib=peak)
+        if name == "sam":
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step(x, y)
+                torch.cuda.synchronize()
+            speed[name]["profiled_ms"] = (time.perf_counter() - t0) * 1e3
+            groups = {}
+            for ev in prof.events():
+                if ev.device_type == DeviceType.CUDA:
+                    g = kernel_group(ev.name)
+                    groups[g] = groups.get(g, 0.0) + ev.device_time_total / 1e3
+            speed[name].update(device_ms=sum(groups.values()), groups=groups)
+            opt_state = step.optimizer.state_dict()
+            saves = {}
+            # two async saves: the second as every later save of a run
+            for mode in ("sync", "async", "async_again"):
+                t0 = time.perf_counter()
+                ckpt.save_checkpoint(os.path.join(tmp, f"save_{mode}"), model,
+                                     opt_state, 1, 0, 1,
+                                     async_save=mode != "sync")
+                saves[mode] = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                ckpt.wait_for_checkpoints()
+                saves[f"{mode}_write"] = (time.perf_counter() - t0) * 1e3
+            writer = SummaryWriter(os.path.join(tmp, "event_cost"))
+            t0 = time.perf_counter()
+            for i in range(300):
+                writer.add_scalar("train/loss", 1.0 / (i + 1), i)
+            writer.close()
+            speed["host_ms"] = dict(
+                saves, event_scalar=(time.perf_counter() - t0) * 1e3 / 300)
+        del model, step
+    sam, sgd = speed["sam"], speed["sgd"]
+    ratio = sam["ms_per_step"] / sgd["ms_per_step"]
+    log(f"  sam (a') bf16 batch {TRAIN_BATCH}: SGD {sgd['ms_per_step']:.2f} "
+        f"ms/step ({sgd['seq_per_s']:.1f} seq/s, peak {sgd['peak_gib']:.2f} "
+        f"GiB), SAM {sam['ms_per_step']:.2f} ms/step ({sam['seq_per_s']:.1f} "
+        f"seq/s, peak {sam['peak_gib']:.2f} GiB), {ratio:.3f}x; "
+        f"one SAM step's device time {sam['device_ms']:.3f} ms: " + ", ".join(
+            f"{g} {v:.3f}" for g, v in sorted(sam["groups"].items(),
+                                              key=lambda kv: -kv[1])[:5]))
+    host = speed["host_ms"]
+    log(f"      host ms: the profiled SAM step {sam['profiled_ms']:.2f}; a "
+        f"checkpoint saved {host['sync']:.2f} synchronously, "
+        f"{host['async']:.2f} until an async save returns (then "
+        f"{host['async_write']:.2f} of background write), the next "
+        f"{host['async_again']:.2f} (then {host['async_again_write']:.2f}); "
+        f"one event scalar {host['event_scalar']:.4f}")
+    check(sam["device_ms"] > 0, "sam: the profiler saw no device time")
+    summary["sam_speed"] = speed
+
+
+def masked_crc32c(data):
+    """TFRecord's masked CRC-32C (Castagnoli), bit by bit."""
+    crc = 0xFFFFFFFF
+    for byte in data:
+        crc ^= byte
+        for _ in range(8):
+            crc = (crc >> 1) ^ (0x82F63B78 & -(crc & 1))
+    crc ^= 0xFFFFFFFF
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def proto_fields(buf):
+    """(field, wire type, value) of one protobuf message."""
+    pos = 0
+
+    def varint():
+        nonlocal pos
+        out = shift = 0
+        while True:
+            b = buf[pos]
+            pos += 1
+            out |= (b & 0x7F) << shift
+            shift += 7
+            if b < 0x80:
+                return out
+
+    while pos < len(buf):
+        key = varint()
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value = varint()
+        elif wire in (1, 5):
+            size = 8 if wire == 1 else 4
+            value, pos = buf[pos:pos + size], pos + size
+        elif wire == 2:
+            size = varint()
+            value, pos = buf[pos:pos + size], pos + size
+        else:
+            raise ValueError(f"protobuf wire type {wire}")
+        yield field, wire, value
+
+
+def read_events(directory):
+    """(tag, step, value) of every scalar in the TensorBoard event files of
+    `directory` (TFRecords of Event protobufs), each record's length and
+    payload checked against their masked CRC-32C. The card's machine has
+    no TensorBoard, so the reader is this one."""
+    import struct
+
+    out = []
+    for name in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, name), "rb") as f:
+            data = f.read()
+        pos = 0
+        while pos < len(data):
+            header = data[pos:pos + 8]
+            (size,) = struct.unpack("<Q", header)
+            (crc_h,) = struct.unpack("<I", data[pos + 8:pos + 12])
+            payload = data[pos + 12:pos + 12 + size]
+            (crc_p,) = struct.unpack("<I", data[pos + 12 + size:
+                                               pos + 16 + size])
+            check(masked_crc32c(header) == crc_h
+                  and masked_crc32c(payload) == crc_p,
+                  f"event file {name}: a record's CRC does not match")
+            pos += 16 + size
+            step = 0
+            values = []
+            for field, _, value in proto_fields(payload):
+                if field == 2:
+                    step = value
+                elif field == 5:  # Summary
+                    for f_v, _, v in proto_fields(value):
+                        if f_v == 1:  # Summary.Value
+                            items = dict((f, x) for f, _, x in
+                                         proto_fields(v))
+                            values.append((
+                                items[1].decode(),
+                                struct.unpack("<f", items[2])[0]))
+            out.extend((tag, step, v) for tag, v in values)
+    return out
+
+
+def trace_kernels(path):
+    """The names of the port's gcn kernels in a Chrome trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    return {m[0] for e in trace.get("traceEvents", [])
+            for m in [re.search(r"gcn_\w+_kernel", str(e.get("name", "")))]
+            if m}
+
+
+def phase_knobs_cli(np, tmp, summary):
+    """(b) `python -m agcn_tpu_torch.main` on train_joint.yaml with
+    `formulation: pallas`, `optimizer: SAM` (rho 0.05), `profiler`,
+    `async_checkpoint`, 64 synthetic sequences of T=300 at batch 8 (8 steps
+    an epoch), one epoch; then the same work dir with `auto_resume` for a
+    second epoch. Each epoch 40 gcn_fwd and 20 gcn_bwd launches a step
+    (metrics.jsonl); the first run's Chrome trace of steps 2-7 names
+    gcn_fwd's and gcn_bwd's kernels; the event files parse (CRCs checked)
+    and carry the log's scalars; the resumed run (the profiler off)
+    continues at epoch 1 from the checkpoint's step 8."""
+    import pickle
+
+    import yaml
+
+    with open(TRAIN_CONFIG) as f:
+        recipe = yaml.safe_load(f)
+    paths = {}
+    for split, n in (("train", 8 * KNOB_BATCH), ("val", 16)):
+        x, y = train_batch(np, n, SEED + 50 + n)
+        paths[split] = (os.path.join(tmp, f"knob_{split}.npy"),
+                        os.path.join(tmp, f"knob_{split}.pkl"))
+        np.save(paths[split][0], x)
+        with open(paths[split][1], "wb") as f:
+            pickle.dump(([f"{split}{i}" for i in range(n)], y.tolist()), f)
+    work = os.path.join(tmp, "knobs")
+    recipe.update(
+        work_dir=work, batch_size=KNOB_BATCH, test_batch_size=16,
+        num_epoch=1, num_worker=2, log_interval=1, save_interval=1,
+        eval_interval=1, show_topk=[1, 5], optimizer="SAM", sam_rho=SAM_RHO,
+        profiler=True, async_checkpoint=True,
+        model_args=dict(recipe["model_args"], formulation="pallas"),
+        train_feeder_args=dict(recipe["train_feeder_args"],
+                               data_path=paths["train"][0],
+                               label_path=paths["train"][1]),
+        test_feeder_args=dict(recipe["test_feeder_args"],
+                              data_path=paths["val"][0],
+                              label_path=paths["val"][1]))
+    cfg_path = os.path.join(tmp, "knobs.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(recipe, f)
+    log("  knobs (b) python -m agcn_tpu_torch.main: SAM, profiler, async "
+        "checkpoints, one epoch of 8 steps at batch 8")
+    t0 = time.perf_counter()
+    run_entry_point(["--config", cfg_path])
+    first_s = time.perf_counter() - t0
+    log("      the same work dir with auto_resume, --num-epoch 2 (the "
+        "profiler off: one trace is enough)")
+    t0 = time.perf_counter()
+    run_entry_point(["--config", cfg_path, "--auto-resume", "true",
+                     "--num-epoch", "2", "--profiler", "false"])
+    second_s = time.perf_counter() - t0
+    metrics = read_metrics(os.path.join(work, "metrics.jsonl"))
+    trains = [m for m in metrics if m["kind"] == "train"]
+    evals = [m for m in metrics if m["kind"] == "eval"]
+    with open(os.path.join(work, "log.txt")) as f:
+        log_text = f.read()
+    check([m["epoch"] for m in trains] == [0, 1]
+          and [m["steps"] for m in trains] == [8, 16]
+          and [m["epoch"] for m in evals] == [0, 1],
+          f"knobs: epochs and steps {metrics}")
+    for m in trains:
+        check(math.isfinite(m["loss"]), f"knobs: non-finite loss {m}")
+        check(m["launches"] == {"gcn_fwd_round_agg": 8 * 4 * LAYERS,
+                                "gcn_fwd_fp32_agg": 0,
+                                "gcn_bwd": 8 * 2 * LAYERS},
+              f"knobs: epoch {m['epoch']} launches {m['launches']} for 8 "
+              "SAM steps")
+    resumed = (f"auto-resumed from {work}/checkpoints/epoch_1.pt "
+               "(continuing at epoch 1)")
+    check(resumed in log_text
+          and "optimizer state resumed at step 8" in log_text,
+          "knobs: the second run did not auto-resume from epoch_1.pt")
+    saved = sorted(os.listdir(os.path.join(work, "checkpoints")))
+    check(saved == ["epoch_1.pt", "epoch_2.pt"], f"knobs: checkpoints {saved}")
+    # the traces: one a run, of steps 2-7 of its first epoch
+    trace_dir = os.path.join(work, "trace")
+    traces = sorted(os.listdir(trace_dir))
+    check(traces == ["epoch0_steps2-7.pt.trace.json"],
+          f"knobs: traces {traces}")
+    trace_mb = os.path.getsize(os.path.join(trace_dir, traces[0])) / 2 ** 20
+    names = [trace_kernels(os.path.join(trace_dir, t)) for t in traces]
+    need = {"gcn_fwd_mma_kernel", "gcn_u_kernel", "gcn_dw_mma_kernel",
+            "gcn_da1_mma_kernel"}
+    check(all(need <= n for n in names),
+          f"knobs: the traces' gcn kernels {names}")
+    check(log_text.count(f"profiler trace written to {trace_dir}") == 1,
+          "knobs: the profiler's log lines")
+    # the event files: the log's scalars, keyed by the optimizer's count
+    train_ev = read_events(os.path.join(work, "event", "train"))
+    val_ev = read_events(os.path.join(work, "event", "val"))
+    step_losses = [float(v) for v in re.findall(
+        r"epoch \d+ step \d+/\d+ loss ([-\d.]+)", log_text)]
+    ev_losses = [(s, v) for t, s, v in train_ev if t == "train/loss"]
+    check([s for s, _ in ev_losses] == list(range(1, 17))
+          and all(abs(v - w) <= 5e-5 for (_, v), w in
+                  zip(ev_losses, step_losses))
+          and len(step_losses) == 16,
+          f"knobs: train/loss events {ev_losses} against the log "
+          f"{step_losses}")
+    check([(s, v) for t, s, v in train_ev if t == "train/epoch"]
+          == [(8, 0.0), (16, 1.0)]
+          and [abs(v - trains[i]["loss"]) <= 1e-6 * abs(trains[i]["loss"])
+               for i, v in enumerate(v for s, v in ev_losses
+                                     if s in (8, 16))] == [True, True],
+          f"knobs: train/epoch events and the epochs' losses: {train_ev}")
+    check([(s, round(v, 6)) for t, s, v in val_ev if t == "val/top1"]
+          == [(8 * (e["epoch"] + 1), round(e["top1"], 6)) for e in evals],
+          f"knobs: val/top1 events {val_ev} against {evals}")
+    log(f"      epochs {[round(m['loss'], 4) for m in trains]} loss, "
+        f"{[round(m['seconds'] / 8 * 1e3, 2) for m in trains]} ms a SAM "
+        f"step (host clock; epoch 0 profiled, epoch 1 not); launches a step "
+        f"{ {k: v // 8 for k, v in trains[0]['launches'].items()} }; the "
+        f"trace ({trace_mb:.1f} MiB) names {sorted(names[0])}; "
+        f"{len(train_ev)} + {len(val_ev)} scalar events read back; the runs "
+        f"{first_s:.1f} s and {second_s:.1f} s")
+    summary["knobs_cli"] = dict(train=trains, eval=evals, traces=traces,
+                                trace_kernels=sorted(names[0]),
+                                trace_mib=trace_mb, run_s=[first_s, second_s],
+                                events=len(train_ev) + len(val_ev))
+    return trains
+
+
+def phase_sgn_knobs(np, tmp, smi, summary):
+    """(c) The two SGN recipes through the entry point as shipped (model
+    and optimizer), on synthetic SGN pickles of phase 14's kind with more
+    training sequences (512 + 64 merged: 9 steps at batch 64), two epochs
+    each: train_sgn_fsim_sam.yaml (SAM, fsim_mode 1; `python -m
+    agcn_tpu_torch.main`) with a finite fsim in training and eval;
+    train_sgn_scan8.yaml (each epoch one group of 8 steps, then one single
+    step) equal to the same run with steps_per_call 1 within 1e-5 of each
+    tensor's scale (the last step's loss, every parameter), the two run
+    in this process by `agcn_tpu_torch.main.main`, one after the other,
+    with cuDNN's deterministic algorithms. Two epochs each, evaluated and saved after the second; ms a step from
+    each epoch's host clock (the first holds the warm-up)."""
+    import pickle
+
+    import torch
+    import yaml
+
+    from agcn_tpu_torch.main import main as entry_point
+
+    paths = {}
+    for k, (split, n) in enumerate(SGN_KNOB_SPLITS):
+        data, labels = sgn_sequences(np, n, SEED + 60 + k)
+        paths[split] = (os.path.join(tmp, f"NTU_CV_{split}.pkl"),
+                        os.path.join(tmp, f"NTU_CV_{split}_label.pkl"))
+        for path, obj in zip(paths[split], (data, labels)):
+            with open(path, "wb") as f:
+                pickle.dump(obj, f)
+    runs = {}
+    for name, config, over in (
+            ("fsim_sam", SGN_FSIM_SAM_CONFIG, {}),
+            ("scan8", SGN_SCAN8_CONFIG, {}),
+            ("scan1", SGN_SCAN8_CONFIG, {"steps_per_call": 1})):
+        with open(config) as f:
+            recipe = yaml.safe_load(f)
+        work = os.path.join(tmp, name)
+        # the recipes' own log cadence (log_interval 100: no step of the
+        # epoch waits for its metrics, in either run)
+        recipe.update(
+            work_dir=work, num_epoch=2, num_worker=2,
+            save_interval=2, eval_interval=2, show_topk=[1, 5],
+            train_feeder_args=dict(recipe["train_feeder_args"],
+                                   data_path=paths["train"][0],
+                                   label_path=paths["train"][1]),
+            test_feeder_args=dict(recipe["test_feeder_args"],
+                                  data_path=paths["test"][0],
+                                  label_path=paths["test"][1]), **over)
+        cfg_path = os.path.join(tmp, f"{name}.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(recipe, f)
+        if name == "fsim_sam":
+            log(f"  sgn knobs (c) python -m agcn_tpu_torch.main: {name}")
+            run_entry_point(["--config", cfg_path])
+        else:
+            # the same entry point in this process (two more interpreters
+            # would take ~14 s each to reach the card), with cuDNN's
+            # deterministic algorithms: a weight gradient summed by
+            # atomics differs from run to run in its last bits, and Adam
+            # turns such bits of a near-zero gradient into +-lr steps
+            log(f"  sgn knobs (c) agcn_tpu_torch.main.main in this "
+                f"process, cuDNN deterministic: {name}")
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    entry_point(["--config", cfg_path])
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+        metrics = read_metrics(os.path.join(work, "metrics.jsonl"))
+        runs[name] = ([m for m in metrics if m["kind"] == "train"],
+                      [m for m in metrics if m["kind"] == "eval"][0], work)
+    steps = (SGN_KNOB_SPLITS[0][1] + SGN_KNOB_SPLITS[1][1]) // TRAIN_BATCH
+    for name, (trains, ev, _) in runs.items():
+        check([m["steps"] for m in trains] == [steps, 2 * steps]
+              and all(math.isfinite(m["loss"])
+                      and not any(m["launches"].values()) for m in trains),
+              f"sgn knobs {name}: {trains}")
+    fsim = (runs["fsim_sam"][0][-1].get("fsim"),
+            runs["fsim_sam"][1].get("fsim"))
+    check(all(v is not None and math.isfinite(v) and v > 0 for v in fsim),
+          f"sgn knobs: fsim in training and eval {fsim}")
+    states = [torch.load(os.path.join(runs[n][2], "checkpoints",
+                                      "epoch_2.pt"), weights_only=False)
+              for n in ("scan8", "scan1")]
+    param_err = max(float((a - states[1]["model"][k]).abs().max()
+                          / states[1]["model"][k].abs().max().clamp(
+                              min=1e-30))
+                    for k, a in states[0]["model"].items()
+                    if a.is_floating_point())
+    loss8, loss1 = runs["scan8"][0][-1]["loss"], runs["scan1"][0][-1]["loss"]
+    loss_err = abs(loss8 - loss1) / abs(loss1)
+    # epoch 0 holds the process's and the shapes' warm-up; epoch 1 not
+    ms = {n: [m["seconds"] / steps * 1e3 for m in runs[n][0]] for n in runs}
+    log(f"      fsim_sam: loss {runs['fsim_sam'][0][-1]['loss']:.4f}, fsim "
+        f"{fsim[0]:.4f} (eval {fsim[1]:.4f}), eval top-1 "
+        f"{runs['fsim_sam'][1]['top1']:.4f}; scan8 against steps_per_call "
+        f"1: loss {loss8:.6f} / {loss1:.6f} ({loss_err:.2e}), parameters "
+        f"within {param_err:.2e} of their scale")
+    log(f"      ms a step (epochs 0 / 1 of {steps} steps at batch "
+        f"{TRAIN_BATCH}, host clock with the collate): " + ", ".join(
+            f"{n} {v[0]:.2f} / {v[1]:.2f}" for n, v in ms.items())
+        + f" [{smi}]")
+    check(loss_err <= 1e-5 and param_err <= 1e-5,
+          f"sgn knobs: scan8 off the steps_per_call 1 run: loss {loss_err}, "
+          f"parameters {param_err}")
+    summary["sgn_knobs"] = dict(
+        runs={n: dict(train=r[0], eval=r[1]) for n, r in runs.items()},
+        ms_per_step=ms, scan8_loss_err=loss_err, scan8_param_err=param_err,
+        nvidia_smi=smi)
+
+
+def phase_knobs(torch, np, smi, summary):
+    """Phase 15: (a)-(c) above."""
+    from agcn_tpu_torch.utils.config import load_config
+
+    t15 = time.perf_counter()
+    cfg = load_config(TRAIN_CONFIG)
+    phase_sam_step(torch, np, cfg, summary)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_sam_speed(torch, np, cfg, tmp, summary)
+        trains = phase_knobs_cli(np, tmp, summary)
+        phase_sgn_knobs(np, tmp, smi, summary)
+    summary["knobs_phase_s"] = time.perf_counter() - t15
+    log(f"  phase 15 in {summary['knobs_phase_s']:.1f} s")
+    # every kernel's count on the SAM path: the three GCN kernels' from
+    # the entry point's epochs (their log counts those), the logits
+    # kernel's from (a)'s step, which read all four
+    launches = {k: 0 for k in trains[0]["launches"]}
+    for m in trains:
+        for k, n in m["launches"].items():
+            launches[k] += n
+    launches["logits"] = summary["sam_step"]["launches"]["logits"]
+    check(launches["logits"] == 0 and launches["gcn_fwd_fp32_agg"] == 0,
+          f"sam: a kernel off the SAM path launched: {launches}")
+    return launches
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
-    only_sgn = argv == ["--phase", "14"]
-    if argv and not only_sgn:
-        print("usage: python3 chip_smoke.py [--phase 14]", file=sys.stderr)
+    only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
+    if argv and only not in ("14", "15"):
+        print("usage: python3 chip_smoke.py [--phase 14|15]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -2005,17 +2570,29 @@ def main(argv=None):
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/14] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/15] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    if only_sgn:
-        log("[14/14] the SGN recipe alone (phase 14)")
+    if only == "14":
+        log("[14/15] the SGN recipe alone (phase 14)")
         phase_sgn(torch, np, summary)
+        return 0
+    if only == "15":
+        t0 = time.perf_counter()
+        built = build.build_all()
+        log(f"[2/15] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+            "s")
+        log("[15/15] the trainer's run knobs alone (phase 15)")
+        phase_knobs(torch, np, smi, summary)
+        out_dir = os.path.join(REPO, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_knobs.json"), "w") as f:
+            json.dump(summary, f, indent=1)
         return 0
 
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/14] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/15] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -2031,7 +2608,7 @@ def main(argv=None):
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/14] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/15] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -2047,7 +2624,7 @@ def main(argv=None):
     summary.update(kernel_rows=rows, dx_rows=dx_rows,
                    fp32_fwd_layers=fp32_layers(rows, dx_rows))
 
-    log("[4/14] gcn_bwd vs its plain version at the training shapes "
+    log("[4/15] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -2055,7 +2632,7 @@ def main(argv=None):
     summary.update(bwd_rows=bwd_rows,
                    fp32_da1_layers=da1_fp32_layers(bwd_rows))
 
-    log("[5/14] attention-logits kernel vs plain version at the served "
+    log("[5/15] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -2065,7 +2642,7 @@ def main(argv=None):
         logits_rows = phase_logits(torch, np, logits_kernel)
     summary["logits_rows"] = logits_rows
 
-    log("[6/14] host data path: the C++ host kernels "
+    log("[6/15] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -2073,11 +2650,11 @@ def main(argv=None):
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/14] AGCN serving main path: 16 streams through "
+    log("[7/15] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/14] AGCN: device time of one served forward by kernel group; "
+    log("[8/15] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -2085,7 +2662,7 @@ def main(argv=None):
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/14] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/15] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -2094,19 +2671,19 @@ def main(argv=None):
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/14] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/15] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/14] AAGCN: device time of one served forward by kernel group; "
+    log("[11/15] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/14] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/15] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -2116,7 +2693,7 @@ def main(argv=None):
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/14] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/15] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -2134,19 +2711,28 @@ def main(argv=None):
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
-    log("[14/14] SGN recipe (no port kernel on its path, as in the JAX "
+    log("[14/15] SGN recipe (no port kernel on its path, as in the JAX "
         "package): train_sgn.yaml at full width on synthetic SGN pickles "
         "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
         "the entry points with 5-crop eval")
     phase_sgn(torch, np, summary)
 
+    log("[15/15] the trainer's run knobs: one fp32 SAM step of the pallas "
+        "AGCN, kernels against plain versions; the entry point on "
+        "train_joint.yaml with SAM, the profiler, async checkpoints, then "
+        "auto-resume; train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml "
+        "through the entry point")
+    sam_launches = phase_knobs(torch, np, smi, summary)
+
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
         "agcn_train": train_launches["gcn_fwd_round_agg"],
         "aagcn_serve": aagcn_launches["adaptive_gcn_pallas"],
-        "aagcn_train": aagcn_train_launches["gcn_fwd_round_agg"]}
+        "aagcn_train": aagcn_train_launches["gcn_fwd_round_agg"],
+        "agcn_sam_train": sam_launches["gcn_fwd_round_agg"]}
     bwd_launches = {"agcn_train": train_launches["gcn_bwd"],
-                    "aagcn_train": aagcn_train_launches["gcn_bwd"]}
+                    "aagcn_train": aagcn_train_launches["gcn_bwd"],
+                    "agcn_sam_train": sam_launches["gcn_bwd"]}
     kernels = [
         fwd_entry(rows, True, "bfloat16", sum(fwd_launches.values()),
                   "gcn_fwd (aggregate rounded to x's type)",
@@ -2179,7 +2765,8 @@ def main(argv=None):
                                     "gcn_bwd", "logits")):
         entry["launches_by_path"].update(
             transformer_serve=summary["transformer_launches"][key],
-            transformer_train=tf_train[key], sgn_train=sgn_train[key])
+            transformer_train=tf_train[key], sgn_train=sgn_train[key],
+            agcn_sam_train=sam_launches[key])
     # the fp32 routes' numbers beside the bf16 ones (gcn_fwd: served
     # forward and, for gcn_fused, dx per step; gcn_bwd: per step)
     same = ("name", "route", "source", "replaces", "launches")

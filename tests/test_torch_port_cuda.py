@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (marker `cuda`; skipped without a
 GPU): gcn_fwd, gcn_bwd and the attention-logits kernel against their
 plain versions, the fused-GCN autograd Functions, AGCN and AAGCN logits
-and an AGCN train step against the same on the CPU. Imports
+and an AGCN train step against the same on the CPU, a SAM step against
+its plain versions and the trainer's profiler window. Imports
 nothing of JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -13,6 +14,7 @@ rounding of an fp32 sum.
 """
 
 import math
+import os
 import re
 
 import numpy as np
@@ -823,3 +825,128 @@ def test_sgn_on_card_matches_cpu(cuda):
     assert (got.cpu() - want).abs().max().item() <= 1e-4 * scale
     for a, b in zip(got_g, want_g):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+
+
+def test_sam_step_on_card_matches_plain_and_keeps_pass_one_statistics(cuda):
+    """One fp32 SAM step (rho 0.05) of a `pallas` AGCN on the card against
+    the same step with the kernels' plain versions on the card, the
+    kernel run replaying the plain run's ReLU masks: every gradient the
+    update takes (pass two's) within `grad_errors`' bar at 1e-3; 40
+    gcn_fwd and 20 gcn_bwd launches (two passes of ten layers, forward
+    and dx); the BN running statistics those of one train-mode forward
+    at the starting state (1e-6 of their scale), counted once."""
+    from agcn_tpu_torch.ops.norm import BatchNorm
+    from agcn_tpu_torch.tools.grad_parity import (
+        ReluProbe, condition_bn, grad_errors, plain_versions_on_the_card,
+        relu_probe)
+    from agcn_tpu_torch.train import losses, optim
+    from agcn_tpu_torch.train.steps import make_train_step
+
+    adj = build_adjacency("ntu_rgb_d")
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 40, 25, 2)).astype(
+        np.float32)).to(cuda)
+    y = torch.tensor([1, 5], device=cuda)
+    model = AGCN(num_class=7, adj=adj, device=cuda, formulation="pallas")
+    condition_bn(model, 0)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out, probes = {}, {}
+    for run in ("plain", "kernels"):
+        model = AGCN(num_class=7, adj=adj, device=cuda, formulation="pallas")
+        model.load_state_dict(state)
+        raw = {}
+        opt = optim.SGDNesterov(model.parameters(),
+                                optim.warmup_step_schedule(0.1, 1, []))
+        step = make_train_step(
+            model, losses.cross_entropy, opt, sam_rho=0.05,
+            grad_transform=lambda m: raw.update(
+                (n, p.grad.double().cpu().clone())
+                for n, p in m.named_parameters()))
+        probes[run] = (ReluProbe(keep_inputs=True) if run == "plain"
+                       else ReluProbe(ref=probes["plain"]))
+        before = _launches()
+        with relu_probe(probes[run]):
+            if run == "plain":
+                with plain_versions_on_the_card():
+                    m = step(x, y)
+            else:
+                m = step(x, y)
+        torch.cuda.synchronize()
+        out[run] = (m["loss"].item(), raw, model,
+                    [a - b for a, b in zip(_launches(), before)])
+    assert probes["kernels"].input_diff <= 1e-3
+    assert out["kernels"][0] == pytest.approx(out["plain"][0], rel=1e-4)
+    worst = grad_errors(out["kernels"][1], out["plain"][1], 1e-3)[0]
+    assert worst[0] <= 1.0, worst
+    assert out["kernels"][3] == [40, 0, 20]
+    first = AGCN(num_class=7, adj=adj, device=cuda, formulation="pallas")
+    first.load_state_dict(state)
+    with torch.no_grad(), relu_probe(ReluProbe(ref=probes["plain"])):
+        first.train()(x)
+    want = dict(first.named_buffers())
+    for name, mod in out["kernels"][2].named_modules():
+        if isinstance(mod, BatchNorm):
+            assert int(mod.num_batches_tracked) == 1, name
+            for buf in ("running_mean", "running_var"):
+                w = want[f"{name}.{buf}"]
+                assert (getattr(mod, buf) - w).abs().max().item() \
+                    <= 1e-6 * w.abs().max().item(), (name, buf)
+
+
+def test_profiler_window_traces_the_kernels(cuda, tmp_path):
+    """`profiler: true` through the trainer on the card: steps 2-7 of a
+    `pallas` AGCN's first epoch (8 steps, fp32) written as one Chrome
+    trace in work_dir/trace that names gcn_fwd's and gcn_bwd's kernels."""
+    import json
+    import pickle
+
+    import yaml
+
+    from agcn_tpu_torch.train.trainer import Trainer
+    from agcn_tpu_torch.utils.config import load_config
+
+    rng = np.random.default_rng(3)
+    np.save(tmp_path / "x.npy",
+            rng.standard_normal((8, 3, 20, 25, 2)).astype(np.float32))
+    with open(tmp_path / "y.pkl", "wb") as f:
+        pickle.dump(([f"s{i}" for i in range(8)], [i % 4 for i in range(8)]),
+                    f)
+    feeder = {"data_path": str(tmp_path / "x.npy"),
+              "label_path": str(tmp_path / "y.pkl"), "window_size": 20}
+    recipe = {"work_dir": str(tmp_path / "work"), "model": "agcn",
+              "model_args": {"num_class": 4, "graph": "ntu_rgb_d",
+                             "formulation": "pallas"},
+              "train_feeder_args": feeder, "test_feeder_args": feeder,
+              "batch_size": 1, "test_batch_size": 8, "num_epoch": 1,
+              "profiler": True, "print_log": False, "num_worker": 0,
+              "device": "cuda"}
+    with open(tmp_path / "cfg.yaml", "w") as f:
+        yaml.safe_dump(recipe, f)
+    Trainer(load_config(str(tmp_path / "cfg.yaml"))).start()
+    trace_dir = tmp_path / "work" / "trace"
+    assert os.listdir(trace_dir) == ["epoch0_steps2-7.pt.trace.json"]
+    with open(trace_dir / "epoch0_steps2-7.pt.trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernels = {m[0] for n in names
+               for m in [re.search(r"gcn_\w+_kernel", n)] if m}
+    assert {"gcn_fwd_fp32_kernel", "gcn_u_kernel", "gcn_dw_fp32_kernel",
+            "gcn_da1_fp32_kernel"} <= kernels, kernels
+
+
+@pytest.mark.parametrize("round_agg", [True, False])
+def test_wrappers_take_strided_views(cuda, round_agg):
+    """A one-sample AGCN batch gives the first GCN layer a strided view
+    (the person fold of a size-1 batch stays a view): the wrappers copy it
+    to dense rows for the kernels and give the dense input's outputs, in
+    the forward and in gcn_bwd."""
+    x, a1, w = _inputs(cuda, 2, 20, 3, 64, torch.float32)
+    strided = x.permute(1, 0, 2, 3).contiguous().permute(1, 0, 2, 3)
+    assert not strided.is_contiguous() and torch.equal(strided, x)
+    fwd = (gcn_fused.adaptive_gcn_pallas if round_agg
+           else gcn_kernel.fused_gcn)
+    with torch.no_grad():
+        assert torch.equal(fwd(strided, a1, w), fwd(x, a1, w))
+    g = torch.randn(2, 20, 25, 64, device=cuda)
+    for got, want in zip(gcn_fused.gcn_backward(strided, a1, w, g),
+                         gcn_fused.gcn_backward(x, a1, w, g)):
+        assert torch.equal(got, want)

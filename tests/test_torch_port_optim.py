@@ -130,22 +130,41 @@ def test_losses_match_jax(name, kw):
 
 
 def test_unknown_or_unported_training_knobs_raise():
-    from agcn_tpu_torch.train.steps import make_train_step
-
+    """The names agcn_tpu's factories refuse raise here too; the SAM names
+    are SGD nesterov (agcn_tpu optim.py:123-124), SAM's second pass being
+    the train step's (tests/test_torch_port_sam_scan.py)."""
     with pytest.raises(ValueError, match="unknown loss"):
         tlosses.build_loss("mmd", 5)
     p = [torch.nn.Parameter(torch.zeros(3))]
     sched = toptim.warmup_step_schedule(0.1, 1, [])
-    for name in ("SAM_SGD", "SAM"):
-        with pytest.raises(NotImplementedError, match="training leftovers"):
-            toptim.build_optimizer(name, p, sched)
-    with pytest.raises(NotImplementedError, match="training leftovers"):
-        make_train_step(torch.nn.Linear(2, 2), tlosses.cross_entropy,
-                        toptim.build_optimizer("SGD", p, sched),
-                        sam_rho=0.05)
+    for name in ("SAM_SGD", "SAM", "sam"):
+        opt = toptim.build_optimizer(name, p, sched, weight_decay=1e-3,
+                                     nesterov=False)
+        assert type(opt) is toptim.SGDNesterov
+        group = opt.opt.param_groups[0]
+        assert (group["momentum"], group["nesterov"],
+                group["weight_decay"]) == (0.9, False, 1e-3)
+        joptim.build_optimizer(name, 0.1)  # agcn_tpu builds them too
     # as agcn_tpu's factory: no Adam-LLRD
     with pytest.raises(ValueError, match="Unknown optimizer"):
         toptim.build_optimizer("Adam-LLRD", p, sched)
+
+
+def test_sam_perturbation_matches_jax():
+    rng = np.random.default_rng(3)
+    params = [rng.standard_normal(s).astype(np.float32)
+              for s in ((4, 3), (7,), ())]
+    grads = [rng.standard_normal(x.shape).astype(np.float32)
+             for x in params]
+    grads[1][:] = 0.0  # an unused parameter's zero gradient
+    want = joptim.sam_perturbation([jnp.asarray(g) for g in grads],
+                                   [jnp.asarray(x) for x in params], 0.05)
+    got = toptim.sam_perturbation([torch.from_numpy(x) for x in params],
+                                  [torch.from_numpy(g) for g in grads], 0.05)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-7)
+    assert np.abs(got[0].numpy() - params[0]).max() > 1e-3
+    np.testing.assert_array_equal(got[1].numpy(), params[1])
 
 
 def test_warmup_step_schedule_matches_jax():
