@@ -55,6 +55,8 @@ class AAGCNTransformer(nn.Module):
     the train step reseeds it for each update, `train/steps.seed_dropout`).
     """
 
+    takes_num_frame = True  # build_model passes the input's frames
+
     def __init__(self, num_class: int = 60, num_point: int = 25,
                  num_person: int = 2, in_channels: int = 3,
                  adj: Optional[np.ndarray] = None, model_layers: int = 101,

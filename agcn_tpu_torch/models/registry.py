@@ -1,5 +1,5 @@
 """Model registry (port of agcn_tpu/models/registry.py: AGCN, AAGCN, the
-AAGCN transformer and SGN).
+AAGCN transformer, the AAGCN versions v17/v24/v30/v31/v32/v34 and SGN).
 
 Models are selected by short name; the reference's dotted paths for the
 ported models are aliased so its config files work unchanged. Graph
@@ -19,6 +19,7 @@ from torch import nn
 from agcn_tpu_torch.graph import build_adjacency
 from agcn_tpu_torch.models.aagcn import AAGCN
 from agcn_tpu_torch.models.aagcn_transformer import AAGCNTransformer
+from agcn_tpu_torch.models.aagcn_versions import VERSIONS, AAGCNv31
 from agcn_tpu_torch.models.agcn import AGCN
 from agcn_tpu_torch.models.sgn import SGN
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE
@@ -33,19 +34,21 @@ _ALIASES = {
     "model.architecture.aagcn.aagcn_v37.Model": "aagcn_transformer",
     **{f"model.sgn_{v}.SGN": "sgn" for v in _SGN_VERSIONS},
     **{f"model.architecture.sgn.sgn_{v}.SGN": "sgn" for v in _SGN_VERSIONS},
+    # the version-faithful variants (models/aagcn_versions.py)
+    **{f"{prefix}aagcn_v{n}.Model": f"aagcn_v{n}"
+       for n in (17, 24, 30, 31, 32, 34)
+       for prefix in ("model.", "model.architecture.aagcn.")},
 }
+# aagcn_v32 is v31 with version='v32' (per-layer alphas, the 'attn-a'
+# modes, bias-less layers)
 _CLASSES = {"agcn": AGCN, "aagcn": AAGCN,
-            "aagcn_transformer": AAGCNTransformer, "sgn": SGN}
-_VERSIONS = "Queue 1 item 6: aagcn_versions"
+            "aagcn_transformer": AAGCNTransformer, "sgn": SGN,
+            "aagcn_v32": AAGCNv31, **VERSIONS}
 _SGN_ITEM = "Queue 1 item 7: SGN family"
 # the keys and aliases the JAX package builds (agcn_tpu/models/
 # registry.py:21-55, 89-199) that the port lacks, each with the ROADMAP
 # item it waits in
 _WAITING = {
-    **{f"aagcn_v{n}": _VERSIONS for n in (17, 24, 30, 31, 32, 34)},
-    **{f"{prefix}aagcn_v{n}.Model": _VERSIONS
-       for n in (17, 24, 30, 31, 32, 34)
-       for prefix in ("model.", "model.architecture.aagcn.")},
     "sgn_original": _SGN_ITEM,
     "model.sgn.SGN": _SGN_ITEM,
     "model.architecture.sgn.sgn.SGN": _SGN_ITEM,
@@ -125,8 +128,9 @@ def build_model(name: str, model_args: Dict[str, Any],
     """Build a model from a recipe's `model` and `model_args`, on `device`
     (`cuda` unless named), computing in `dtype`, initialized from
     `generator`. `num_frame`, the input's frames, sizes the tables of a
-    model that has them (the AAGCN transformer's positions, SGN's one-hot
-    frames: the loader's `seg`); the others take any T."""
+    model whose class sets `takes_num_frame` (the AAGCN transformer's
+    positions, the spatial tokens of the AAGCN versions) and SGN's one-hot
+    frames (the loader's `seg`); the others take any T."""
     key = model_key(name)
     cls = _CLASSES.get(key)
     if cls is None:
@@ -150,7 +154,9 @@ def build_model(name: str, model_args: Dict[str, Any],
     args.pop("num_subset", None)
     if cls is AGCN:
         args.pop("drop_out", None)
-    if cls is AAGCNTransformer and num_frame is not None:
+    if key == "aagcn_v32":
+        args["version"] = "v32"
+    if getattr(cls, "takes_num_frame", False) and num_frame is not None:
         args["num_frame"] = num_frame
     return cls(adj=adj, device=device, dtype=dtype, generator=generator,
                **args)

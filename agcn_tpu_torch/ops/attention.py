@@ -1,7 +1,7 @@
-"""Attention layers of the AAGCN transformer
+"""Attention layers of the AAGCN transformer and the AAGCN versions
 (port of agcn_tpu/ops/attention.py: `PositionalEncoding` :28,
-`CosSinPositionalEncoding` :42, `MultiheadAttention` :85,
-`TransformerEncoderLayer` :166, `CrossAttention` :227,
+`CosSinPositionalEncoding` :42, `RelPosEmb1D` :59, `MultiheadAttention`
+:85, `TransformerEncoderLayer` :166, `CrossAttention` :227,
 `CrossTransformer` :257, `TransformerEncoder` :489).
 
 Tokens are (B, L, D). Parameters carry torch's names
@@ -17,9 +17,14 @@ As in the JAX package, and unlike torch's own layers:
 - attention returns its per-head softmax weights (B, H, Lq, Lk);
 - 'gelu' is the tanh approximation (flax `nn.gelu`).
 
-Dropout draws its masks from the generator its `Dropout` module holds
-(the model sets it), never from torch's global RNG. Options the AAGCN
-transformer never sets raise with the ROADMAP item that brings them.
+The versions' options (models/aagcn_versions.py): a shared 1D relative
+position bias (`rel_pos_len`, the skew trick), an additive logit mask,
+the forked MHA's post-softmax injection (`alpha`, `global_attn`), and
+layers without biases (`bias=False`: linears and LayerNorms, v32's slip;
+`attn_bias=False`: the attention's projections). Dropout draws its masks
+from the generator its `Dropout` module holds (the model sets it), never
+from torch's global RNG. The boolean `mask` (SGN's transformer) raises
+with the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -35,19 +40,6 @@ from torch import nn
 from agcn_tpu_torch.ops import initializers as init
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
-_VERSIONS = "ROADMAP Queue 1 item 6: aagcn_versions"
-_SGN = "ROADMAP Queue 1 item 7: SGN family"
-
-
-def _refuse(**options) -> None:
-    """Raise for the options of the AAGCN versions and the SGN family."""
-    items = {"rel_pos_len": _VERSIONS, "mask": _SGN, "additive_mask":
-             _VERSIONS, "alpha": _VERSIONS, "global_attn": _VERSIONS,
-             "bias=False": _VERSIONS, "attn_bias=False": _VERSIONS}
-    for name, on in options.items():
-        if on:
-            raise NotImplementedError(
-                f"{name}: not in the port yet; waits in {items[name]}")
 
 
 def _linear(in_features: int, out_features: int,
@@ -91,8 +83,9 @@ class Dropout(nn.Module):
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 
-def layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=LN_EPS)
+def layer_norm(dim: int, bias: bool = True) -> nn.LayerNorm:
+    """flax nn.LayerNorm: epsilon 1e-6; `bias=False` keeps the scale."""
+    return nn.LayerNorm(dim, eps=LN_EPS, bias=bias)
 
 
 class PositionalEncoding(nn.Module):
@@ -150,31 +143,67 @@ class CosSinPositionalEncoding(nn.Module):
         return x + self.table[:n][None]
 
 
+class RelPosEmb1D(nn.Module):
+    """1D relative position logits by the skew trick (agcn_tpu
+    attention.py:59-82, reference rel_embedding.py): a table
+    `rel_pos_emb` (2 * max_len - 1, Dh), normal(0.02); the rows of the
+    relative offsets -(T-1) .. T-1 of a T-token sequence, skewed into
+    (T, T) absolute positions."""
+
+    def __init__(self, max_len: int, dim_head: int):
+        super().__init__()
+        self.max_len = max_len
+        self.rel_pos_emb = nn.Parameter(torch.empty(2 * max_len - 1,
+                                                    dim_head))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init.normal(0.02)(self.rel_pos_emb, generator)
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        """q (B, H, T, Dh) -> (B, H, T, T) relative logits."""
+        b, h, t, dh = q.shape
+        start = self.max_len - t
+        rel = (q * dh ** -0.5) @ self.rel_pos_emb[
+            start:start + 2 * t - 1].t()  # (B, H, T, 2T-1)
+        flat = F.pad(F.pad(rel, (0, 1)).reshape(b, h, 2 * t * t),
+                     (0, t - 1))
+        return flat.reshape(b, h, t + 1, 2 * t - 1)[:, :, :t, t - 1:]
+
+
 class MultiheadAttention(nn.Module):
     """Multi-head self- or cross-attention with torch's packed
     `in_proj_weight` (3D, D) (rows q | k | v) and `out_proj`, both
-    xavier_normal with zero biases. Returns (output, the plain softmax
-    weights (B, H, Lq, Lk)); in train mode dropout falls on the weights
-    that multiply v, not on the returned ones."""
+    xavier_normal with zero biases (none with `bias=False`), and with
+    `rel_pos_len` the relative position logits `pos_emb` added to the
+    scaled logits. Returns (output, the plain softmax weights (B, H, Lq,
+    Lk)). The weights that multiply v are softmax * `alpha` +
+    `global_attn` (the reference fork's post-softmax injection), then, in
+    train mode, dropped out; `additive_mask` is added to the logits,
+    clamped at -1e9 (torch's float attn_mask, (L, L) or (B, H, L, L))."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
                  bias: bool = True, rel_pos_len: int = 0):
         super().__init__()
-        _refuse(**{"attn_bias=False": not bias, "rel_pos_len": rel_pos_len})
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not a multiple of {num_heads} "
                              "heads")
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
-        self.out_proj = _linear(dim, dim)
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim)) \
+            if bias else None
+        self.out_proj = _linear(dim, dim, bias=bias)
+        self.pos_emb = RelPosEmb1D(rel_pos_len, dim // num_heads) \
+            if rel_pos_len else None
         self.attn_drop = Dropout(dropout)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         init.xavier_normal(self.in_proj_weight, generator)
-        with torch.no_grad():
-            self.in_proj_bias.zero_()
+        if self.in_proj_bias is not None:
+            with torch.no_grad():
+                self.in_proj_bias.zero_()
         _dense_init(self.out_proj, generator, init.xavier_normal)
+        if self.pos_emb is not None:
+            self.pos_emb.reset_parameters(generator)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         b, n, d = x.shape
@@ -189,19 +218,30 @@ class MultiheadAttention(nn.Module):
                 alpha: Optional[torch.Tensor] = None,
                 global_attn: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        _refuse(mask=mask is not None,
-                additive_mask=additive_mask is not None,
-                alpha=alpha is not None, global_attn=global_attn is not None)
+        if mask is not None:
+            raise NotImplementedError(
+                "mask: not in the port yet; waits in ROADMAP Queue 1 item "
+                "7: SGN family")
         key = query if key is None else key
         value = key if value is None else value
         w_q, w_k, w_v = self.in_proj_weight.chunk(3)
-        b_q, b_k, b_v = self.in_proj_bias.chunk(3)
+        b_q, b_k, b_v = (self.in_proj_bias.chunk(3)
+                         if self.in_proj_bias is not None else (None,) * 3)
         q = self._heads(F.linear(query, w_q, b_q))
         k = self._heads(F.linear(key, w_k, b_k))
         v = self._heads(F.linear(value, w_v, b_v))
         logits = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+        if self.pos_emb is not None:
+            logits = logits + self.pos_emb(q)
+        if additive_mask is not None:
+            logits = logits + torch.clamp(additive_mask, min=-1e9)
         attn = torch.softmax(logits, dim=-1)
-        out = self.attn_drop(attn) @ v
+        applied = attn
+        if alpha is not None:
+            applied = applied * alpha
+        if global_attn is not None:
+            applied = applied + global_attn
+        out = self.attn_drop(applied) @ v
         b, _, n, _ = out.shape
         out = out.transpose(1, 2).reshape(b, n, -1)
         return self.out_proj(out), attn
@@ -216,17 +256,16 @@ class TransformerEncoderLayer(nn.Module):
                  pre_norm: bool = False, bias: bool = True,
                  attn_bias: bool = True, rel_pos_len: int = 0):
         super().__init__()
-        _refuse(**{"bias=False": not bias})
         self.pre_norm = pre_norm
         # any activation but 'relu' is flax's nn.gelu (tanh approximation)
         self.relu = activation == "relu"
         self.self_attn = MultiheadAttention(dim, num_heads, dropout,
                                             bias=attn_bias,
                                             rel_pos_len=rel_pos_len)
-        self.norm1 = layer_norm(dim)
-        self.norm2 = layer_norm(dim)
-        self.linear1 = _linear(dim, dim_feedforward)
-        self.linear2 = _linear(dim_feedforward, dim)
+        self.norm1 = layer_norm(dim, bias)
+        self.norm2 = layer_norm(dim, bias)
+        self.linear1 = _linear(dim, dim_feedforward, bias)
+        self.linear2 = _linear(dim_feedforward, dim, bias)
         self.drop_attn = Dropout(dropout)
         self.drop_ff = Dropout(dropout)
         self.drop_out = Dropout(dropout)

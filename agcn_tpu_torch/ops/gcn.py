@@ -9,8 +9,11 @@ backward (ops/kernels/gcn_fused.py).
                                                  * ph_k[b,t,w,c] / (Ce*T)
 
 Layouts are the JAX package's: x (B, T, V, C), a1 (B, K, V, V) with
-a1[b, k, source, dest], W (K, C, Co). The other `apply_gcn` forms wait
-(ROADMAP, Queue 1).
+a1[b, k, source, dest], W (K, C, Co). Every `apply_gcn` form of the JAX
+package is here (agcn_tpu ops/gcn.py:160-331). The forms other than
+'pallas' are XLA einsum orders there, not Pallas kernels, so here they are
+torch's matmuls and einsums; 'custom' is project-first with the
+hand-ordered backward of `adaptive_gcn_bwd` (the JAX `custom_vjp`).
 
 SGN's per-frame graph step (`frame_attention`, `frame_aggregate`,
 ops/gcn.py:60-87) is a pair of batched einsums on cuBLAS: the JAX package
@@ -20,6 +23,55 @@ gives it no Pallas kernel either.
 from __future__ import annotations
 
 import torch
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """p[b,t,v,k,o] = x ·_c W_k: one wide (B*T*V, C) x (C, K*Co) GEMM."""
+    b, t, v, c = x.shape
+    k, _, co = w.shape
+    return (x @ w.permute(1, 0, 2).reshape(c, k * co)).reshape(
+        b, t, v, k, co)
+
+
+def _aggregate_packed(x: torch.Tensor, a1: torch.Tensor) -> torch.Tensor:
+    """z[b,t,c,k,w] = x ·_v a1_k as one (T*C, V) x (V, K*V) batched
+    matmul ('agg_packed''s aggregation)."""
+    b, t, v, c = x.shape
+    k = a1.shape[1]
+    x2 = x.permute(0, 1, 3, 2).reshape(b, t * c, v)
+    a2 = a1.permute(0, 2, 1, 3).reshape(b, v, k * v)
+    return torch.bmm(x2, a2).reshape(b, t, c, k, v)
+
+
+def _project_first(x: torch.Tensor, a1: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """Project-first ('pf', agcn_tpu ops/gcn.py:123-128): the wide GEMM,
+    then the joint (k, v) contraction."""
+    return einsum("btvko,bkvw->btwo", _project(x, w), a1)
+
+
+class _AdaptiveGCN(torch.autograd.Function):
+    """'custom': the project-first forward with the backward of
+    `adaptive_gcn_bwd`, each cotangent in its own einsum order
+    (agcn_tpu ops/gcn.py:91-148, a `jax.custom_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, x, a1, w):
+        ctx.save_for_backward(x, a1, w)
+        return _project_first(x, a1, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a1, w = ctx.saved_tensors
+        dx, da1, dw = adaptive_gcn_bwd(x, a1, w, g)
+        return dx.to(x.dtype), da1.to(a1.dtype), dw.to(w.dtype)
+
+
+def adaptive_gcn(x: torch.Tensor, a1: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """y[b,t,w,o] = sum_{k,v,c} x[b,t,v,c] w[k,c,o] a1[b,k,v,w],
+    project-first with the hand-ordered backward ('custom')."""
+    return _AdaptiveGCN.apply(x, a1, w)
 
 
 def adaptive_gcn_reference(x: torch.Tensor, a1: torch.Tensor,
@@ -37,11 +89,57 @@ def adaptive_gcn_agg_packed(x: torch.Tensor, a1: torch.Tensor,
     (V, K*V) batched matmul ('agg_packed', ops/gcn.py:173-183)."""
     b, t, v, c = x.shape
     k = a1.shape[1]
-    x2 = x.permute(0, 1, 3, 2).reshape(b, t * c, v)
-    a2 = a1.permute(0, 2, 1, 3).reshape(b, v, k * v)
-    z = torch.bmm(x2, a2).reshape(b, t, c, k, v)  # (B, T*C, K*V)
+    z = _aggregate_packed(x, a1)
     z = z.permute(0, 1, 4, 3, 2).reshape(b, t, v, k * c)
     return z @ w.reshape(k * c, -1)
+
+
+def adaptive_gcn_pf_packed(x: torch.Tensor, a1: torch.Tensor,
+                           w: torch.Tensor) -> torch.Tensor:
+    """Project-first with (k, v) packed as one contraction axis
+    ('pf_packed', ops/gcn.py:160-170)."""
+    b, t, v, c = x.shape
+    k, _, co = w.shape
+    p2 = _project(x, w).permute(0, 1, 4, 3, 2).reshape(b, t * co, k * v)
+    y = einsum("bmx,bxw->bmw", p2, a1.reshape(b, k * v, v))
+    return y.reshape(b, t, co, v).permute(0, 1, 3, 2)
+
+
+def adaptive_gcn_agg_packed2(x: torch.Tensor, a1: torch.Tensor,
+                             w: torch.Tensor) -> torch.Tensor:
+    """'agg_packed' with the contracted V second on both operands
+    ('agg_packed2', ops/gcn.py:186-196)."""
+    b, t, v, c = x.shape
+    k = a1.shape[1]
+    x2 = x.permute(0, 2, 1, 3).reshape(b, v, t * c)
+    a2 = a1.permute(0, 2, 1, 3).reshape(b, v, k * v)
+    z = torch.bmm(x2.transpose(1, 2), a2).reshape(b, t, c, k, v)
+    z = z.permute(0, 1, 4, 3, 2).reshape(b, t, v, k * c)
+    return z @ w.reshape(k * c, -1)
+
+
+def adaptive_gcn_agg_dp(x: torch.Tensor, a1: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """The 'agg_packed' aggregation, then a projection that contracts the
+    packed (c, k) axes directly ('agg_dp', ops/gcn.py:199-210)."""
+    return einsum("btckv,kco->btvo", _aggregate_packed(x, a1), w)
+
+
+def adaptive_gcn_fused_dyn(x: torch.Tensor, a1: torch.Tensor,
+                           w: torch.Tensor) -> torch.Tensor:
+    """The K-subset aggregate-and-project as one per-sample (V*C, V*Co)
+    operator, M[b][(v,c),(w,o)] = sum_k a1[b,k,v,w] w[k,c,o]
+    ('fused_dyn', ops/gcn.py:261-280)."""
+    b, t, v, c = x.shape
+    k, _, co = w.shape
+    op = einsum("bkvw,kco->bvcwo", a1, w).reshape(b, v * c, v * co)
+    y = einsum("btm,bmn->btn", x.reshape(b, t, v * c), op)
+    return y.reshape(b, t, v, co)
+
+
+# 'hybrid': fused_dyn while its per-sample operator has at most this many
+# entries, else agg_packed (ops/gcn.py:281-283)
+FUSED_DYN_MAX_OPERATOR = 1600 * 1600
 
 
 def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
@@ -58,10 +156,7 @@ def adaptive_gcn_bwd(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
     """(dx, da1, dW) of y = sum_k (x @_v a1_k) @_c W_k for the cotangent
     g, each in the einsum order with the largest contractions
     (agcn_tpu ops/gcn.py:130-145, the `pallas_hybrid` backward)."""
-    b, t, v, c = x.shape
-    k, _, co = w.shape
-    wc = w.permute(1, 0, 2).reshape(c, k * co)
-    p = (x @ wc).reshape(b, t, v, k, co)  # recomputed: one wide GEMM
+    p = _project(x, w)  # recomputed: one wide GEMM
     da1 = einsum("btvko,btwo->bkvw", p, g)
     u = einsum("btwo,kco->btwkc", g, w)
     dx = einsum("btwkc,bkvw->btvc", u, a1)
@@ -164,23 +259,30 @@ def apply_fused_static(x: torch.Tensor, operator: torch.Tensor,
 
 def apply_gcn(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor,
               formulation: str = "agg") -> torch.Tensor:
-    """Dispatch between GCN formulations. 'pallas' and 'pallas_hybrid'
+    """Dispatch between GCN formulations, each the same function
+    (agcn_tpu ops/gcn.py:286-331). 'pallas' and 'pallas_hybrid'
     run the fused Hopper kernel at every C, the C=3 entry layer included
     (the JAX package routes C < 8 to 'agg_packed' because Mosaic cannot
-    lay out a minor dim of 3; the result is the same function)."""
-    if formulation == "agg":
-        return adaptive_gcn_reference(x, a1, w)
-    if formulation == "agg_packed":
-        return adaptive_gcn_agg_packed(x, a1, w)
+    lay out a minor dim of 3; the result is the same function). 'hybrid'
+    is 'fused_dyn' while (V*C)*(V*Co) <= FUSED_DYN_MAX_OPERATOR, else
+    'agg_packed'."""
+    if formulation == "hybrid":
+        v, c, co = x.shape[-2], x.shape[-1], w.shape[-1]
+        formulation = ("fused_dyn" if (v * c) * (v * co)
+                       <= FUSED_DYN_MAX_OPERATOR else "agg_packed")
+    forms = {"pf": _project_first, "custom": adaptive_gcn,
+             "agg": adaptive_gcn_reference,
+             "pf_packed": adaptive_gcn_pf_packed,
+             "agg_packed": adaptive_gcn_agg_packed,
+             "agg_packed2": adaptive_gcn_agg_packed2,
+             "agg_dp": adaptive_gcn_agg_dp,
+             "fused_dyn": adaptive_gcn_fused_dyn}
+    if formulation in forms:
+        return forms[formulation](x, a1, w)
     if formulation in ("pallas", "pallas_hybrid"):
         from agcn_tpu_torch.ops.kernels import gcn_fused
 
         fn = (gcn_fused.adaptive_gcn_pallas if formulation == "pallas"
               else gcn_fused.adaptive_gcn_pallas_hybrid)
         return fn(x, a1, w)
-    if formulation in ("pf", "custom", "pf_packed", "agg_packed2", "agg_dp",
-                       "fused_dyn", "hybrid"):
-        raise NotImplementedError(
-            f"GCN formulation {formulation!r} is not ported yet "
-            "(ROADMAP, Queue 1)")
     raise ValueError(f"unknown GCN formulation {formulation!r}")

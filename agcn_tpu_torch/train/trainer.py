@@ -1,5 +1,5 @@
-"""Trainer — the AGCN / AAGCN / AAGCN-transformer / SGN paths of
-agcn_tpu/train/trainer.py's `Trainer`
+"""Trainer — the AGCN / AAGCN / AAGCN-transformer / AAGCN-version / SGN
+paths of agcn_tpu/train/trainer.py's `Trainer`
 (`__init__` :50-92, `_load_data` :128-168, `_load_model` :170-197,
 `_load_optimizer` :271-353, `_build_aux_loss` :381-462, `_build_steps`
 :464-533, `start` :537-559, `train_epoch` :561-709, `evaluate` :711-821,
@@ -13,8 +13,8 @@ periodic eval with top-k, checkpoints that resume the optimizer state
 exactly, and the PA freeze (`only_train_part`). The run lives on one
 device: `cuda` unless the config says `device: cpu` (an integer picks
 that CUDA card). The model is built after the data, for the data's
-frames (the AAGCN transformer's position tables, SGN's one-hot frame
-table: the loader's `seg`).
+frames (the AAGCN transformer's position tables, the spatial tokens of
+AAGCN v31 / v34, SGN's one-hot frame table: the loader's `seg`).
 
 The SGN recipes (`feeder: sgn`, `use_sgn_dataloader`, an SGN model;
 JAX `is_sgn`, trainer.py:85-86) load `SGNDataset` and collate segments
@@ -52,7 +52,7 @@ The run knobs, as the JAX trainer's:
 Not here yet, each refused with its ROADMAP item: the MMD loss
 (`mmd_lambda*`, with the InfoGCN head), multi-device and multi-host runs,
 the models of the JAX package that the port lacks (`sgn_transformer`,
-`sgn_original`, the AAGCN versions).
+`sgn_original`).
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ agcn_tpu/utils/torch_import.py:412-445, and the npz/pickle branches of
 agcn_tpu/train/checkpoint.load_checkpoint).
 
 `agcn_state_dict_from_variables`, `aagcn_state_dict_from_variables`,
-`aagcn_transformer_state_dict_from_variables` and
+`aagcn_transformer_state_dict_from_variables`,
+`aagcn_v{17,24,30,31,34}_state_dict_from_variables` (the inverses of
+agcn_tpu/utils/torch_import.py:447-626) and
 `sgn_state_dict_from_variables` (agcn_tpu/utils/torch_export.py:260-420,
 the keys of the port's SGN options) turn a JAX `{"params",
 "batch_stats"}` tree of numpy arrays into the port's state dict (the
@@ -187,27 +189,38 @@ def _linear_out(out: Dict[str, np.ndarray], prefix: str,
 def _layer_norm_out(out: Dict[str, np.ndarray], prefix: str,
                     norm: Mapping[str, Any]) -> None:
     out[f"{prefix}.weight"] = _np(norm["scale"])
-    out[f"{prefix}.bias"] = _np(norm["bias"])
+    if "bias" in norm:
+        out[f"{prefix}.bias"] = _np(norm["bias"])
+
+
+def _layer_out(out: Dict[str, np.ndarray], p: str,
+               layer: Mapping[str, Any]) -> None:
+    """A TransformerEncoderLayer with torch nn.TransformerEncoderLayer's
+    names (torch_import.py:412-445: in_proj_weight is in_proj_kernel
+    transposed; the biases of a bias-less layer absent; the forked MHA's
+    relative position table as `self_attn.pos_emb.rel_pos_emb`)."""
+    attn = layer["self_attn"]
+    out[f"{p}.self_attn.in_proj_weight"] = _np(attn["in_proj_kernel"]).T
+    if "in_proj_bias" in attn:
+        out[f"{p}.self_attn.in_proj_bias"] = _np(attn["in_proj_bias"])
+    _linear_out(out, f"{p}.self_attn.out_proj", attn["out_proj"])
+    if "rel_pos" in attn:
+        out[f"{p}.self_attn.pos_emb.rel_pos_emb"] = _np(
+            attn["rel_pos"]["rel_pos_emb"])
+    for lin in ("linear1", "linear2"):
+        _linear_out(out, f"{p}.{lin}", layer[lin])
+    for norm in ("norm1", "norm2"):
+        _layer_norm_out(out, f"{p}.{norm}", layer[norm])
 
 
 def _encoder_out(out: Dict[str, np.ndarray], prefix: str,
                  enc: Mapping[str, Any]) -> None:
-    """A TransformerEncoder: the learned position table and each layerN
-    with torch nn.TransformerEncoderLayer's names (torch_import.py:412-445:
-    in_proj_weight is in_proj_kernel transposed)."""
+    """A TransformerEncoder: the learned position table and each layerN."""
     if "pos_enc" in enc:
         out[f"{prefix}.pos_enc.embedding"] = _np(enc["pos_enc"]["embedding"])
     i = 1
     while f"layer{i}" in enc:
-        layer, p = enc[f"layer{i}"], f"{prefix}.layer{i}"
-        attn = layer["self_attn"]
-        out[f"{p}.self_attn.in_proj_weight"] = _np(attn["in_proj_kernel"]).T
-        out[f"{p}.self_attn.in_proj_bias"] = _np(attn["in_proj_bias"])
-        _linear_out(out, f"{p}.self_attn.out_proj", attn["out_proj"])
-        for lin in ("linear1", "linear2"):
-            _linear_out(out, f"{p}.{lin}", layer[lin])
-        for norm in ("norm1", "norm2"):
-            _layer_norm_out(out, f"{p}.{norm}", layer[norm])
+        _layer_out(out, f"{prefix}.layer{i}", enc[f"layer{i}"])
         i += 1
 
 
@@ -243,6 +256,167 @@ def aagcn_transformer_state_dict_from_variables(
     if "cross_fusion" in params:
         _cross_fusion_out(out, "cross_fusion", params["cross_fusion"])
     return _torch_tensors(out)
+
+
+def _version_head(variables: Mapping[str, Any]):
+    """(params, out) with a version's data norm, its adaptive backbone's
+    blocks and fc (torch_import.py:447-460: the AAGCN map)."""
+    params = variables["params"]
+    stats = _stats(variables)
+    out: Dict[str, np.ndarray] = {}
+    _head(out, params, stats)
+    _aagcn_blocks(out, params, stats, 3, True)
+    return params, out
+
+
+def _copy(out: Dict[str, np.ndarray], params: Mapping[str, Any],
+          pairs) -> None:
+    """`out[torch name] = params[flax path]` for the (torch name, flax
+    path) pairs whose path the tree has."""
+    for name, path in pairs:
+        node = params
+        for part in path:
+            if not isinstance(node, Mapping) or part not in node:
+                break
+            node = node[part]
+        else:
+            out[name] = _np(node)
+
+
+def _layers_out(out: Dict[str, np.ndarray], params: Mapping[str, Any],
+                flax_prefix: str, torch_prefix: str) -> None:
+    """Layers `{flax_prefix}{i}` -> `{torch_prefix}.{i}`, i = 0, 1, ..."""
+    i = 0
+    while f"{flax_prefix}{i}" in params:
+        _layer_out(out, f"{torch_prefix}.{i}", params[f"{flax_prefix}{i}"])
+        i += 1
+
+
+def _spatial_out(out: Dict[str, np.ndarray],
+                 params: Mapping[str, Any]) -> None:
+    """v31 / v34's spatial layers: `s_layer{i}`, or the subset layers
+    `s_layer{i}_subset{a}` with their `s_layer{i}_PA{a}` and
+    `s_layer{i}_alpha{a}`, and v34 v3's `sa_norm{i}`
+    (torch_import.py:562-579, 609-625)."""
+    i = 0
+    while f"s_layer{i}" in params or f"s_layer{i}_subset0" in params:
+        p = f"s_trans_enc_layers.{i}"
+        if f"s_layer{i}" in params:
+            _layer_out(out, p, params[f"s_layer{i}"])
+        a = 0
+        while f"s_layer{i}_subset{a}" in params:
+            _layer_out(out, f"{p}.subset{a}", params[f"s_layer{i}_subset{a}"])
+            _copy(out, params, ((f"{p}.subset{a}.PA", (f"s_layer{i}_PA{a}",)),
+                                (f"{p}.subset{a}.alpha",
+                                 (f"s_layer{i}_alpha{a}",))))
+            a += 1
+        if f"sa_norm{i}" in params:
+            _layer_norm_out(out, f"{p}.sa_norm", params[f"sa_norm{i}"])
+        i += 1
+
+
+def _norms_out(out: Dict[str, np.ndarray], params: Mapping[str, Any],
+               names) -> None:
+    for name in names:
+        if name in params:
+            _layer_norm_out(out, name, params[name])
+
+
+def aagcn_v17_state_dict_from_variables(
+        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX AAGCNv17 variables -> the port's state dict (the inverse of
+    torch_import.aagcn_v17_variables_from_torch, :447-460)."""
+    params, out = _version_head(variables)
+    _copy(out, params, (("cls_token", ("cls_token",)),
+                        ("pos_encoder.pe", ("pos_encoder", "pe"))))
+    _layers_out(out, params, "layer", "trans_enc")
+    return _torch_tensors(out)
+
+
+def aagcn_v24_state_dict_from_variables(
+        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX AAGCNv24 variables -> the port's state dict (the inverse of
+    torch_import.aagcn_v24_variables_from_torch, :506-526)."""
+    params, out = _version_head(variables)
+    _copy(out, params, (("s_cls_token", ("s_cls_token",)),
+                        ("s_pos_encoder.pe", ("s_pos_encoder", "pe")),
+                        ("alpha", ("alpha",))))
+    _layers_out(out, params, "s_layer", "s_trans_enc_layers")
+    i = 0
+    while f"s_layer{i}" in params:
+        _copy(out, params, ((f"s_trans_enc_layers.{i}.PA",
+                             (f"s_layer{i}_PA",)),))
+        i += 1
+    return _torch_tensors(out)
+
+
+def aagcn_v30_state_dict_from_variables(
+        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX AAGCNv30 variables -> the port's state dict (the inverse of
+    torch_import.aagcn_v30_variables_from_torch, :463-503): the
+    GCNUnitLocal's conv_d under the unit, the rest under `agcn`."""
+    params, out = _version_head(variables)
+    stats = _stats(variables)
+    _copy(out, params, (("cls_token", ("cls_token",)),
+                        ("t_pos_encoder.pe", ("t_pos_encoder", "pe"))))
+    _layers_out(out, params, "t_layer", "t_trans_enc_layers")
+    i = 0
+    while f"s_layer{i}" in params:
+        unit, p = params[f"s_layer{i}"], f"s_trans_enc_layers.{i}"
+        agcn = unit["agcn"]
+        out[f"{p}.agcn.PA"] = _np(agcn["PA"])
+        out[f"{p}.agcn.alpha"] = _np(agcn["alpha"])
+        k = 0
+        while f"conv_a{k}" in agcn:
+            for role, prefix in (("a", f"{p}.agcn.conv_a"),
+                                 ("b", f"{p}.agcn.conv_b"),
+                                 ("d", f"{p}.conv_d")):
+                conv = agcn[f"conv_{role}{k}"]["conv"]
+                out[f"{prefix}.{k}.weight"] = dense_to_pointwise(
+                    conv["kernel"])
+                out[f"{prefix}.{k}.bias"] = _np(conv["bias"])
+            k += 1
+        _bn_out(out, f"{p}.bn", unit["bn"], stats[f"s_layer{i}"]["bn"])
+        i += 1
+    return _torch_tensors(out)
+
+
+def aagcn_v31_state_dict_from_variables(
+        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX AAGCNv31 (v31 and v32) variables -> the port's state dict (the
+    inverse of torch_import.aagcn_v31_variables_from_torch, :582-626):
+    the shared alpha `sa_alpha` is the reference's `alpha`."""
+    params, out = _version_head(variables)
+    _copy(out, params, (("cls_token", ("cls_token",)),
+                        ("t_pos_encoder.pe", ("t_pos_encoder", "pe")),
+                        ("alpha", ("sa_alpha",))))
+    _norms_out(out, params, ("sa_norm", "res_norm"))
+    _layers_out(out, params, "t_layer", "t_trans_enc_layers")
+    _spatial_out(out, params)
+    return _torch_tensors(out)
+
+
+def aagcn_v34_state_dict_from_variables(
+        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX AAGCNv34 variables -> the port's state dict (the inverse of
+    torch_import.aagcn_v34_variables_from_torch, :529-579)."""
+    params, out = _version_head(variables)
+    _copy(out, params, (("cls_token", ("cls_token",)),
+                        ("t_pos_encoder.pe", ("t_pos_encoder", "pe"))))
+    _norms_out(out, params, ("sa_norm", "res_norm"))
+    if "cls_pool_fc" in params:
+        _linear_out(out, "cls_pool_fc", params["cls_pool_fc"])
+    _layers_out(out, params, "t_layer", "t_trans_enc_layers")
+    _spatial_out(out, params)
+    return _torch_tensors(out)
+
+
+_VERSION_MAPS = {"aagcn_v17": aagcn_v17_state_dict_from_variables,
+                 "aagcn_v24": aagcn_v24_state_dict_from_variables,
+                 "aagcn_v30": aagcn_v30_state_dict_from_variables,
+                 "aagcn_v31": aagcn_v31_state_dict_from_variables,
+                 "aagcn_v32": aagcn_v31_state_dict_from_variables,
+                 "aagcn_v34": aagcn_v34_state_dict_from_variables}
 
 
 def _torch_conv_weight(kernel) -> np.ndarray:
@@ -403,6 +577,8 @@ def model_state_dict(checkpoint: Mapping[str, Any], model: str = "agcn",
                 checkpoint, adaptive=adaptive)
         if key == "sgn":
             return sgn_state_dict_from_variables(checkpoint)
+        if key in _VERSION_MAPS:
+            return _VERSION_MAPS[key](checkpoint)
         item = waiting_item(model)
         if item is None:
             raise unknown_model(model)

@@ -183,10 +183,38 @@ fails:
    sequences: 9 steps at batch 64), two epochs each: a finite fsim, and
    the scan8 epoch equal to one with steps_per_call 1 within 1e-5; ms a
    step of each, with the card's name and power limit.
+16. BN folding, the apply_gcn forms and the AAGCN versions, whose paths
+   but (a)'s run none of the port's kernels, as in the JAX package. (a)
+   test_joint.yaml's AGCN and test_joint_aagcn.yaml's AAGCN with
+   `formulation: pallas` (AAGCN also `eval_formulation`), BN statistics
+   from a train-mode forward, folded by utils/bn_fold.py: one served
+   forward of each in fp32 (TF32 off) and bf16 at 16 streams x 2 persons,
+   T=300, with 10 gcn_fwd launches a forward, and the logits kernel's
+   entry point on each folded AAGCN forward's theta/phi (10 a forward);
+   folded logits against unfolded (fp32 2e-4 of the logit scale, bf16
+   5e-2), the card's folded logits against the CPU's (fp32 1e-3, bf16
+   5e-2); device time by kernel group and kernels launched, folded
+   beside unfolded. (b) apply_gcn's pf, custom, pf_packed, agg_packed2,
+   agg_dp, fused_dyn and hybrid against 'agg' at AGCN l5's and l2's
+   served shapes (fp32, 1e-5 of the output scale; custom's gradients
+   against autograd of 'agg', 1e-4 of each tensor's scale), each form's
+   ms. (c) train_joint_aagcn_v31.yaml at full width, T=60 (the recipe's
+   random_subsample), seeded weights: eval logits at batch 64 against the
+   CPU (fp32 1e-3, bf16 5e-2), one SGD-nesterov step at batch 4 with
+   dropout 0 against the CPU (loss 1e-4 relative, every gradient 1e-3 of
+   its scale, the CPU's ReLU masks replayed), 10 bf16 steps at batch 64
+   whose loss must fall, ms a step, seq/s and peak memory in bf16 and
+   fp32 and one bf16 step's device time by kernel group; `python -m
+   agcn_tpu_torch.main` trains one epoch, `--phase test` with
+   test_joint_aagcn_v31.yaml reproduces its top-1, and `python -m
+   agcn_tpu_torch.infer --serve 16 --max-frame 60` serves the
+   checkpoint; no kernel launched. (d) v17, v24, v30 (both GCN units),
+   v32 and v34, one forward each at batch 2 against the CPU (fp32 1e-3).
 
 `python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
-minute), `--phase 15` phases 1, 2 (the build) and 15; neither prints a
-result line (details of 15 in build/chip_smoke_knobs.json).
+minute), `--phase 15` phases 1, 2 (the build) and 15, `--phase 16`
+phases 1, 2 and 16; none prints a result line (details of 15 in
+build/chip_smoke_knobs.json, of 16 in build/chip_smoke_versions.json).
 
 The last lines of standard output are the `kernels` JSON line, the
 card's `nvidia-smi` name and power limit, and
@@ -211,8 +239,8 @@ try:
     # phases 3, 4 and 5 and the card-check helpers shared with them
     from agcn_tpu_torch.tools.bwd_check import (
         LAYERS, PERSONS, SEED, TRAIN_BATCH, bwd_entry, bwd_spills, check,
-        da1_fp32_layers, log, nvidia_smi_line, phase_bwd_kernels,
-        report_da1_fp32_build)
+        cuda_time_ms, da1_fp32_layers, log, nvidia_smi_line,
+        phase_bwd_kernels, report_da1_fp32_build)
     from agcn_tpu_torch.tools.fwd_check import (
         fp32_layers, fwd_entry, phase_dx, phase_fwd_kernels,
         report_fp32_build, spilling)
@@ -842,46 +870,54 @@ def kernel_group(name):
     return "other"
 
 
+def profile_forward(torch, model, x, iters=5):
+    """Wall ms of a forward (profiler off), and its device time by kernel
+    group with the kernels launched in each (`torch.profiler`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                model(x)
+            torch.cuda.synchronize()
+    groups, kernels = {}, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            g = kernel_group(ev.name)
+            groups[g] = groups.get(g, 0.0) + ev.device_time_total / 1e3 / iters
+            kernels[g] = kernels.get(g, 0) + 1
+    kernels = {g: n / iters for g, n in kernels.items()}
+    device_ms = sum(groups.values())
+    check(device_ms > 0, "the profiler saw no device time")
+    return dict(wall_ms=wall_ms, device_ms=device_ms, groups=groups,
+                kernels=kernels)
+
+
 def phase_profile(torch, models, x_np, summary, label, iters=5):
     """Device time of one served forward by kernel group, under
     torch.profiler, on the main path's models and its last served input;
     the wall time per forward is taken with the profiler off."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     x = torch.from_numpy(x_np).cuda()
     for dname, model in models.items():
-        with torch.inference_mode():
-            model(x)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                model(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    model(x)
-                torch.cuda.synchronize()
-        groups = {}
-        for ev in prof.events():
-            # device-side activities only: an aten op's own device time
-            # repeats its kernels'
-            if ev.device_type == DeviceType.CUDA:
-                g = kernel_group(ev.name)
-                groups[g] = groups.get(g, 0.0) + (
-                    ev.device_time_total / 1e3 / iters)
-        device_ms = sum(groups.values())
-        check(device_ms > 0, f"{dname}: the profiler saw no device time")
+        prof = profile_forward(torch, model, x, iters)
+        wall_ms, device_ms = prof["wall_ms"], prof["device_ms"]
         log(f"  {label} {dname}: wall {wall_ms:.3f} ms per forward (profiler "
             f"off), "
             f"device {device_ms:.3f} ms under the profiler (busy "
             f"{100 * device_ms / wall_ms:.1f}%)")
-        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        for g, ms in sorted(prof["groups"].items(), key=lambda kv: -kv[1]):
             log(f"    {ms:9.3f} ms {100 * ms / device_ms:5.1f}%  {g}")
         summary[f"{label}_profile_{dname}"] = dict(
-            wall_ms=wall_ms, device_ms=device_ms, groups=groups)
+            wall_ms=wall_ms, device_ms=device_ms, groups=prof["groups"])
 
 
 def phase_cli(torch, np, state, model_name, args, trainer_checkpoint=False,
@@ -1218,10 +1254,11 @@ def run_entry_point(args, timeout=600, module="agcn_tpu_torch.main",
     return (counts, lines[:-1]) if stdout else counts
 
 
-def serve_checkpoint(np, tmp, cfg_path, weights):
-    """`python -m agcn_tpu_torch.infer --serve 16 --pipeline` on 16
-    recordings of 4 ticks with the trainer's checkpoint `weights`: every
-    stream answered at every tick, one C++ pre_normalize a tick."""
+def serve_checkpoint(np, tmp, cfg_path, weights, max_frame=SEQ):
+    """`python -m agcn_tpu_torch.infer --serve 16 --pipeline --max-frame
+    <max_frame>` on 16 recordings of 4 ticks with the trainer's checkpoint
+    `weights`: every stream answered at every tick, one C++ pre_normalize
+    a tick."""
     rec = os.path.join(tmp, "recordings")
     os.makedirs(rec)
     seq = make_streams(np)[:, :4 * TICK_FRAMES]
@@ -1231,7 +1268,7 @@ def serve_checkpoint(np, tmp, cfg_path, weights):
     counts, lines = run_entry_point(
         ["--config", cfg_path, "--weights", weights, "--input", rec,
          "--serve", str(STREAMS), "--pipeline", "--timing", "--interval",
-         str(TICK_FRAMES), "--max-frame", str(SEQ)],
+         str(TICK_FRAMES), "--max-frame", str(max_frame)],
         module="agcn_tpu_torch.infer", stdout=True)
     answers = [ln for ln in lines if ln.startswith("[cam")]
     ticks = [ln for ln in lines if ln.startswith("tick:")]
@@ -1253,15 +1290,18 @@ def read_metrics(path):
 def phase_train_cli(np, summary, config, label, resume=True,
                     formulation="pallas", launches_per_step=(2 * LAYERS,
                                                              LAYERS),
-                    serve=False, **model_args):
+                    serve=False, max_frame=SEQ, test_config=None,
+                    **model_args):
     """(b) The entry point on a config derived from the recipe `config`:
     synthetic data, batch 64, T=300, bf16, `formulation` (none for a model
     without one) and `model_args`. Train and evaluate one epoch and save;
     with `resume`, resume from that checkpoint for a second epoch;
     `--phase test` on the last checkpoint must reproduce the run's last
     top-1. Each step must launch gcn_fwd and gcn_bwd `launches_per_step`
-    times. With `serve`, `python -m agcn_tpu_torch.infer --serve 16`
-    serves that checkpoint to 16 recordings, 4 ticks each."""
+    times. With `serve`, `python -m agcn_tpu_torch.infer --serve 16
+    --max-frame <max_frame>` serves that checkpoint to 16 recordings, 4
+    ticks each. With `test_config`, `--phase test` runs that recipe (its
+    test feeder pointed at the data), else the training config."""
     import pickle
 
     import yaml
@@ -1305,8 +1345,24 @@ def phase_train_cli(np, summary, config, label, resume=True,
             run_entry_point(["--config", cfg_path, "--weights",
                              os.path.join(ckpt, "epoch_1.pt"),
                              "--start-epoch", "1", "--num-epoch", "2"])
-        log(f"      --phase test on epoch_{epochs}")
-        run_entry_point(["--config", cfg_path, "--phase", "test", "--weights",
+        test_path = cfg_path
+        if test_config:
+            with open(test_config) as f:
+                test_recipe = yaml.safe_load(f)
+            test_recipe.update(
+                work_dir=os.path.join(tmp, "test"),
+                test_batch_size=TRAIN_BATCH, num_worker=2,
+                model_args=dict(test_recipe["model_args"], **model_args),
+                test_feeder_args=dict(test_recipe["test_feeder_args"],
+                                      data_path=paths["val"][0],
+                                      label_path=paths["val"][1]))
+            test_path = os.path.join(tmp, "test.yaml")
+            with open(test_path, "w") as f:
+                yaml.safe_dump(test_recipe, f)
+        log(f"      --phase test on epoch_{epochs} "
+            f"({os.path.basename(test_config or config)})")
+        run_entry_point(["--config", test_path, "--phase", "test",
+                         "--weights",
                          os.path.join(ckpt, f"epoch_{epochs}.pt"),
                          "--work-dir", os.path.join(tmp, "test")])
         metrics = read_metrics(os.path.join(work, "metrics.jsonl"))
@@ -1315,7 +1371,7 @@ def phase_train_cli(np, summary, config, label, resume=True,
             right = len(f.readlines())
         if serve:
             served = serve_checkpoint(np, tmp, cfg_path, os.path.join(
-                ckpt, f"epoch_{epochs}.pt"))
+                ckpt, f"epoch_{epochs}.pt"), max_frame=max_frame)
             summary[f"{label}_cli_served"] = served
     trains = [m for m in metrics if m["kind"] == "train"]
     evals = [m for m in metrics if m["kind"] == "eval"]
@@ -1558,18 +1614,17 @@ def phase_transformer_main_path(torch, np, cfg, summary):
     summary["transformer_train_launches"] = launches
 
 
-def phase_transformer_speed(torch, np, cfg, summary):
-    """(d) ms per step, seq/s and peak memory at batch 64: bf16 (the
-    recipe; 5 timed steps after 2) and fp32 with TF32 off (3 after 1);
-    one bf16 step's device time by kernel group."""
+def step_speed(torch, cfg, build, x, y, label):
+    """ms per step, seq/s and peak memory at the batch of (x, y): bf16 (5
+    timed steps after 2) and fp32 with TF32 off (3 after 1) of the model
+    `build(dname)` makes, stepped as the trainer steps it; one bf16 step's
+    device time by kernel group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x, y = train_batch(np, TRAIN_BATCH, SEED + 8)
-    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
-    speed = {}
+    speed, batch = {}, x.shape[0]
     for dname, warm, n in (("bfloat16", 2, 5), ("float32", 1, 3)):
-        model = transformer_model(torch, cfg, dname)
+        model = build(dname)
         step = make_step(torch, cfg, model)
         for _ in range(warm):
             step(x, y)
@@ -1581,10 +1636,10 @@ def phase_transformer_speed(torch, np, cfg, summary):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / n
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        speed[dname] = dict(ms_per_step=ms, seq_per_s=TRAIN_BATCH / ms * 1e3,
+        speed[dname] = dict(ms_per_step=ms, seq_per_s=batch / ms * 1e3,
                             peak_gib=peak, timed_steps=n)
-        log(f"  transformer (d) {dname:9s} {ms:8.2f} ms/step "
-            f"{TRAIN_BATCH / ms * 1e3:7.1f} seq/s, peak {peak:.2f} GiB")
+        log(f"  {label} {dname:9s} {ms:8.2f} ms/step "
+            f"{batch / ms * 1e3:7.1f} seq/s, peak {peak:.2f} GiB")
         if dname == "bfloat16":
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -1604,7 +1659,18 @@ def phase_transformer_speed(torch, np, cfg, summary):
                 log(f"    {gms:9.3f} ms {100 * gms / device_ms:5.1f}%  {g}")
             speed[dname].update(device_ms=device_ms, groups=groups)
         del model, step
-    summary["transformer_train_speed"] = speed
+    return speed
+
+
+def phase_transformer_speed(torch, np, cfg, summary):
+    """(d) ms per step, seq/s and peak memory at batch 64: bf16 (the
+    recipe; 5 timed steps after 2) and fp32 with TF32 off (3 after 1);
+    one bf16 step's device time by kernel group."""
+    x, y = train_batch(np, TRAIN_BATCH, SEED + 8)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    summary["transformer_train_speed"] = step_speed(
+        torch, cfg, lambda d: transformer_model(torch, cfg, d), x, y,
+        "transformer (d)")
 
 
 # -- phase 14: the SGN recipe (no TPU kernel on its path) -----------------
@@ -2546,13 +2612,437 @@ def phase_knobs(torch, np, smi, summary):
     return launches
 
 
+# -- phase 16: BN folding, the apply_gcn forms and the AAGCN versions -----
+
+V31_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
+                          "train_joint_aagcn_v31.yaml")
+V31_TEST_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
+                               "test_joint_aagcn_v31.yaml")
+V31_SEQ = 60  # the recipe's feeders: random_subsample 60
+# (C, Co) of AGCN l5's and l2's GCN, served (batch 32, T = 300): 'hybrid'
+# is agg_packed at the first ((V*C)*(V*Co) = 1600 x 3200) and fused_dyn at
+# the second (1600 x 1600)
+FORM_SHAPES = ((64, 128), (64, 64))
+GCN_FORMS = ("pf", "custom", "pf_packed", "agg_packed2", "agg_dp",
+             "fused_dyn", "hybrid")
+# (d): each version at batch 2, one served forward on the card against
+# the CPU, at the JAX suite's modes and the constructor's widths and
+# depths, with the v31 recipe's patchify (101, kernel 3, unpadded) and
+# frames (T = 60, so T' = 20). v17 takes two encoder layers (its masks go
+# on the last only); v34's T-sized tables are cut to T': trans_len 20,
+# t_length 21 (CLS + T')
+VERSION_CASES = (
+    ("aagcn_v17", 60, dict(pos_enc="cossin", classifier_type="CLS",
+                           trans_num_layers=2, attn_masking="backward")),
+    ("aagcn_v24", 60, dict(add_A="triple", pos_enc="cossin")),
+    ("aagcn_v30", 60, dict(gcn_trans_unit="v2", pos_enc="cossin")),
+    ("aagcn_v30", 60, dict(gcn_trans_unit="v3", pos_enc="cossin")),
+    ("aagcn_v32", 60, dict(trans_seq="sa-t-res-attn-a", add_A=True,
+                           pos_enc="cossin")),
+    ("aagcn_v34", 60, dict(trans_seq="sa-t-res-v3", add_A=True,
+                           add_Aa="one", trans_len=20, t_length=21,
+                           pos_enc="cossin")),
+)
+
+
+def phase_fold(torch, np, summary):
+    """(a) BN folding on the served `pallas` forwards of AGCN and AAGCN
+    (test_joint*.yaml, 16 streams x 2 persons, T = 300, BN statistics from
+    a train-mode forward): folded logits against unfolded (fp32 2e-4 of
+    the logit scale, bf16 5e-2), the card's folded logits against the
+    CPU's (fp32 1e-3, bf16 5e-2), 10 gcn_fwd launches a folded forward and
+    10 of the logits kernel on each folded AAGCN forward's theta/phi; the
+    device time by kernel group of each forward, folded beside unfolded.
+    Returns the launch counts of the folded serving path."""
+    from agcn_tpu_torch.models.registry import build_model
+    from agcn_tpu_torch.ops import gcn as gcn_ops
+    from agcn_tpu_torch.ops.kernels import logits_kernel
+    from agcn_tpu_torch.utils import bn_fold
+    from agcn_tpu_torch.utils.config import load_config
+
+    x_np = dense_streams(np, SEQ)
+    x = torch.from_numpy(x_np).cuda()
+    launches_by_path, out = {}, {}
+    for family, config, fold in (
+            ("agcn", CONFIG, bn_fold.fold_agcn_bn_eval),
+            ("aagcn", AAGCN_CONFIG, bn_fold.fold_aagcn_bn_eval)):
+        cfg = load_config(config)
+        args = dict(cfg.model_args, formulation="pallas")
+        if family == "aagcn":
+            args["eval_formulation"] = "pallas"
+        ref = build_model(cfg.model, args, device="cuda",
+                          generator=torch.Generator().manual_seed(SEED))
+        prepare_aagcn_eval(torch, np, ref, x_np, SEED + 1)
+        state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+        del ref
+        folded = fold(state)
+        models = {}
+        for dname in ("float32", "bfloat16"):
+            for kind, weights, fold_bn in (("unfolded", state, False),
+                                           ("folded", folded, True)):
+                m = build_model(cfg.model, dict(args, fold_bn=fold_bn),
+                                device="cuda", dtype=getattr(torch, dname))
+                m.load_state_dict(weights, strict=True)
+                models[(kind, dname)] = m.eval()
+        # the folded serving path: its forwards alone between the reset and
+        # the read
+        reset_launches()
+        logits = {}
+        with torch.inference_mode():
+            for dname in ("float32", "bfloat16"):
+                logits[("folded", dname)] = models[("folded", dname)](
+                    x).float().cpu()
+        launches = all_launches()
+        embs = []
+        if family == "aagcn":
+            for dname in ("float32", "bfloat16"):
+                embs += capture_embeddings(torch, models[("folded", dname)],
+                                           x)
+            worst = 0.0
+            reset_launches()
+            for emb, k, ce in embs:
+                b, t, v, _ = emb.shape
+                e = emb.view(b, t, v, 2, k, ce)
+                with torch.inference_mode():
+                    got = logits_kernel.attention_logits_pallas(
+                        e[..., 0, :, :], e[..., 1, :, :], ce * t)
+                    want = gcn_ops.attention_logits(emb.float(), k, ce,
+                                                    "transposed")
+                ok, err, scale = logits_close(got, want)
+                check(ok, f"folded aagcn T={t} Ce={ce}: the logits kernel "
+                          f"off the transposed form by {err:.3e}")
+                worst = max(worst, err / scale)
+            launches["logits"] = \
+                logits_kernel.attention_logits_pallas.launches
+            out[f"{family}_logits_kernel_worst"] = worst
+        launches_by_path[f"{family}_folded_serve"] = launches
+        check(launches["gcn_fwd_round_agg"] == 2 * LAYERS
+              and launches["gcn_fwd_fp32_agg"] == 0
+              and launches["gcn_bwd"] == 0
+              and launches["logits"] == (2 * LAYERS if family == "aagcn"
+                                         else 0),
+              f"{family} folded forwards launched {launches}")
+        with torch.inference_mode():
+            for dname in ("float32", "bfloat16"):
+                logits[("unfolded", dname)] = models[("unfolded", dname)](
+                    x).float().cpu()
+        errs = {}
+        for dname, bar in (("float32", 2e-4), ("bfloat16", 5e-2)):
+            want = logits[("unfolded", dname)]
+            scale = want.abs().max().item()
+            err = (logits[("folded", dname)] - want).abs().max().item()
+            errs[f"folded vs unfolded {dname}"] = err / scale
+            check(err <= bar * scale, f"{family} {dname}: folded logits off "
+                                      f"the unfolded by {err:.3e} (scale "
+                                      f"{scale:.3f})")
+        torch.set_num_threads(os.cpu_count() or 1)
+        cpu = build_model(cfg.model, dict(args, fold_bn=True), device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in folded.items()},
+                            strict=True)
+        with torch.inference_mode():
+            ref = cpu.eval()(torch.from_numpy(x_np))
+        scale = ref.abs().max().item()
+        for dname, bar in (("float32", 1e-3), ("bfloat16", 5e-2)):
+            err = (logits[("folded", dname)] - ref).abs().max().item()
+            errs[f"card vs cpu folded {dname}"] = err / scale
+            check(err <= bar * scale, f"{family} {dname}: the card's folded "
+                                      f"logits off the CPU's by {err:.3e}")
+        del cpu
+        log(f"  {family} (a) folded logits, error over the logit scale "
+            f"{scale:.3f}: " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                         errs.items())
+            + f"; launches of the folded forwards {launches}")
+        for dname in ("float32", "bfloat16"):
+            prof = {kind: profile_forward(torch, models[(kind, dname)], x)
+                    for kind in ("unfolded", "folded")}
+            u, f_ = prof["unfolded"], prof["folded"]
+            log(f"  {family} {dname} served forward, unfolded / folded: wall "
+                f"{u['wall_ms']:.3f} / {f_['wall_ms']:.3f} ms, device "
+                f"{u['device_ms']:.3f} / {f_['device_ms']:.3f} ms, kernels "
+                f"{sum(u['kernels'].values()):.0f} / "
+                f"{sum(f_['kernels'].values()):.0f}")
+            for g in sorted(u["groups"], key=lambda g: -u["groups"][g]):
+                log(f"    {u['groups'][g]:9.3f} / "
+                    f"{f_['groups'].get(g, 0.0):9.3f} ms, "
+                    f"{u['kernels'][g]:4.0f} / {f_['kernels'].get(g, 0):4.0f}"
+                    f" kernels  {g}")
+            out[f"{family}_{dname}"] = dict(prof, errors=errs)
+        del models
+    summary["fold"] = dict(out, launches=launches_by_path)
+    return launches_by_path
+
+
+def phase_forms(torch, np, summary):
+    """(b) The seven einsum forms of apply_gcn on the card against 'agg' at
+    two served AGCN layer shapes (batch 32, T = 300), fp32 with TF32 off:
+    1e-5 of the output scale; 'custom''s gradients (its hand-ordered
+    backward) against autograd of 'agg', 1e-4 of each tensor's scale;
+    each form's forward ms (CUDA events over 5 calls)."""
+    from agcn_tpu_torch.ops import gcn as gcn_ops
+
+    rows = []
+    for c, co in FORM_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(SEED + c + co)
+        x = torch.randn(2 * STREAMS, SEQ, 25, c, device="cuda", generator=g)
+        a1 = torch.softmax(torch.randn(2 * STREAMS, 3, 25, 25, device="cuda",
+                                       generator=g), dim=-2)
+        w = torch.randn(3, c, co, device="cuda", generator=g) / math.sqrt(
+            3 * c)
+        with torch.no_grad():
+            want = gcn_ops.apply_gcn(x, a1, w, "agg")
+            scale = want.abs().max().item()
+            for form in ("agg",) + GCN_FORMS:
+                y = gcn_ops.apply_gcn(x, a1, w, form)
+                err = (y - want).abs().max().item()
+                check(err <= 1e-5 * scale,
+                      f"apply_gcn {form} at C={c} Co={co} off 'agg' by "
+                      f"{err:.3e} (scale {scale:.3f})")
+                ms = cuda_time_ms(
+                    lambda: gcn_ops.apply_gcn(x, a1, w, form), 5)
+                rows.append(dict(form=form, c=c, co=co, err=err / scale,
+                                 ms=ms))
+        gy = torch.randn(want.shape, device="cuda", generator=g)
+        grads = {}
+        for form in ("agg", "custom"):
+            leaves = [t.clone().requires_grad_(True) for t in (x, a1, w)]
+            (gcn_ops.apply_gcn(*leaves, form) * gy).sum().backward()
+            grads[form] = [t.grad for t in leaves]
+        for name, got, ref in zip(("dx", "da1", "dW"), grads["custom"],
+                                  grads["agg"]):
+            err, sc = (got - ref).abs().max().item(), ref.abs().max().item()
+            check(err <= 1e-4 * sc, f"custom {name} at C={c} Co={co} off "
+                                    f"autograd of agg by {err:.3e} ({sc:.3e})")
+            rows.append(dict(form=f"custom {name}", c=c, co=co,
+                             err=err / sc))
+        del x, a1, w, want, gy, grads
+    for r in rows:
+        log(f"  (b) C={r['c']:3d} Co={r['co']:3d} {r['form']:12s} err "
+            f"{r['err']:.2e} of the scale"
+            + (f", {r['ms']:.3f} ms" if "ms" in r else ""))
+    summary["gcn_forms"] = rows
+
+
+def v31_model(torch, cfg, dname, device="cuda", dropout=None):
+    """The v31 recipe's model at full width for T = 60, seeded weights,
+    parameters fp32, the backbone in `dname`."""
+    from agcn_tpu_torch.models.registry import build_model
+
+    args = dict(cfg.model_args)
+    if dropout is not None:
+        args["dropout"] = dropout
+    return build_model(cfg.model, args, device=device,
+                       dtype=None if dname == "float32" else torch.bfloat16,
+                       generator=torch.Generator().manual_seed(SEED),
+                       num_frame=V31_SEQ)
+
+
+def v31_batch(np, n, seed, num_class=60):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 3, V31_SEQ, 25, PERSONS)).astype(np.float32)
+    return x, rng.integers(0, num_class, n)
+
+
+def phase_v31_vs_cpu(torch, np, cfg, summary):
+    """(c) Eval logits at batch 64 (BN statistics from a train-mode
+    forward), card against CPU: fp32 1e-3 of the logit scale, bf16 5e-2.
+    One SGD-nesterov step at batch 4, dropout 0, BN conditioned: the card
+    replays the CPU's ReLU masks; loss 1e-4 relative, every gradient 1e-3
+    of its scale."""
+    from agcn_tpu_torch.tools.grad_parity import (ReluProbe, condition_bn,
+                                                  grad_errors, relu_probe)
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    x_bn, _ = v31_batch(np, TRAIN_BATCH, SEED + 21)
+    x_eval, _ = v31_batch(np, TRAIN_BATCH, SEED + 22)
+    ref = v31_model(torch, cfg, "float32")
+    prepare_aagcn_eval(torch, np, ref, x_bn, SEED + 1)
+    state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    del ref
+    logits = {}
+    for dev, dname in (("cuda", "float32"), ("cuda", "bfloat16"),
+                       ("cpu", "float32")):
+        m = v31_model(torch, cfg, dname, device=dev)
+        m.load_state_dict({k: v.to(dev) for k, v in state.items()},
+                          strict=True)
+        with torch.inference_mode():
+            logits[(dev, dname)] = m.eval()(
+                torch.from_numpy(x_eval).to(dev)).float().cpu()
+        del m
+    ref_logits = logits[("cpu", "float32")]
+    scale = ref_logits.abs().max().item()
+    errs = {}
+    for dname, bar in (("float32", 1e-3), ("bfloat16", 5e-2)):
+        err = (logits[("cuda", dname)] - ref_logits).abs().max().item()
+        errs[dname] = err / scale
+        check(err <= bar * scale, f"v31 {dname}: card logits off the CPU's "
+                                  f"by {err:.3e} (scale {scale:.3f})")
+
+    x, y = v31_batch(np, 4, SEED + 4)
+    ref = v31_model(torch, cfg, "float32", device="cpu", dropout=0.0)
+    condition_bn(ref, SEED + 6)
+    state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    del ref
+    out, probes = {}, {}
+    for run, dev in (("cpu", "cpu"), ("card", "cuda")):
+        model = v31_model(torch, cfg, "float32", device=dev, dropout=0.0)
+        model.load_state_dict({k: v.to(dev) for k, v in state.items()},
+                              strict=True)
+        grads = {}
+
+        def keep(m):
+            grads.update((n, p.grad.double().cpu().clone())
+                         for n, p in m.named_parameters())
+
+        probes[run] = (ReluProbe(keep_inputs=True) if run == "cpu"
+                       else ReluProbe(ref=probes["cpu"]))
+        step = make_step(torch, cfg, model, keep=keep)
+        with relu_probe(probes[run]):
+            loss = step(torch.from_numpy(x).to(dev),
+                        torch.from_numpy(y).to(dev))["loss"].item()
+        out[run] = (loss, grads)
+        del model, step
+    rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    rows = grad_errors(out["card"][1], out["cpu"][1], 1e-3)
+    flip = probes["card"]
+    log(f"  v31 (c) eval logits at batch {TRAIN_BATCH}, card vs cpu over the "
+        f"scale {scale:.3f}: {errs}; one SGD step at batch 4: "
+        f"loss cpu {out['cpu'][0]:.6f}, card {out['card'][0]:.6f} "
+        f"({rel:.2e}); ReLU inputs at most {flip.input_diff:.2e} of their "
+        f"layer's mean |input| from the cpu's; worst gradients (err / bar, "
+        "name, err, scale): "
+        + "; ".join(f"{r:.2f} {n} {e:.3e} {sc:.3e}" for r, n, e, sc in
+                    rows[:3]))
+    check(flip.input_diff <= 1e-3, f"v31: the card's ReLU inputs lie far "
+                                   f"from the CPU's: {flip.input_diff}")
+    check(rel <= 1e-4, f"v31: card loss off the CPU's by {rel:.2e}")
+    check(rows[0][0] <= 1.0, f"v31: card gradients off the CPU's: {rows[0]}")
+    summary["v31_vs_cpu"] = dict(
+        logits_over_scale=errs, logit_scale=scale, loss=(out["cpu"][0],
+                                                         out["card"][0]),
+        loss_rel=rel, card_vs_cpu=[list(r) for r in rows[:5]])
+
+
+def phase_v31_main_path(torch, np, cfg, summary):
+    """(c) Ten bf16 steps of the recipe's model and optimizer (SGD
+    nesterov, dropout 0.1; the recipe itself sets no compute_dtype and
+    trains in fp32) at batch 64 on one repeated batch: the loss must
+    fall; no port kernel is launched. Then ms a step, seq/s and peak
+    memory in bf16 (5 timed steps after 2) and fp32, the recipe's type,
+    with TF32 off (3 after 1), and one bf16 step's device time by kernel
+    group."""
+    model = v31_model(torch, cfg, "bfloat16")
+    step = make_step(torch, cfg, model)
+    x, y = v31_batch(np, TRAIN_BATCH, SEED + 7)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    reset_launches()
+    losses = [step(x, y)["loss"] for _ in range(TRAIN_STEPS)]
+    losses = [v.item() for v in losses]
+    launches = all_launches()
+    log(f"  v31 (c) {TRAIN_STEPS} bf16 steps on one batch: loss "
+        f"{' '.join(f'{v:.3f}' for v in losses)}; launches {launches}")
+    check(all(math.isfinite(v) for v in losses), "v31: non-finite loss")
+    check(losses[-1] < losses[0],
+          f"v31: the loss did not fall on a repeated batch: {losses}")
+    check(not any(launches.values()),
+          f"v31: the training path launched {launches}")
+    del model, step
+    speed = step_speed(torch, cfg, lambda d: v31_model(torch, cfg, d), x, y,
+                       "v31 (c)")
+    summary.update(v31_train_losses=losses, v31_train_launches=launches,
+                   v31_train_speed=speed)
+    return launches
+
+
+def phase_versions_vs_cpu(torch, np, summary):
+    """(d) v17, v24, v30 (both GCN units), v32 and v34 at their
+    constructor's widths (`VERSION_CASES`): one forward each at batch 2
+    with BN statistics from a train-mode forward, card against CPU, fp32
+    within 1e-3 of the logit scale; no port kernel launched."""
+    from agcn_tpu_torch.models.registry import build_model
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    rows = []
+    reset_launches()
+    for name, t, kw in VERSION_CASES:
+        args = dict(num_class=60, model_layers=101, kernel_size=3,
+                    pad=False, **kw)
+        rng = np.random.default_rng(SEED + t)
+        x_bn, x = (rng.standard_normal((2, 3, t, 25, PERSONS)).astype(
+            np.float32) for _ in range(2))
+        ref = build_model(name, args, device="cuda", num_frame=t,
+                          generator=torch.Generator().manual_seed(SEED))
+        prepare_aagcn_eval(torch, np, ref, x_bn, SEED + 1)
+        with torch.inference_mode():
+            card = ref(torch.from_numpy(x).cuda()).float().cpu()
+        state = {k: v.cpu() for k, v in ref.state_dict().items()}
+        del ref
+        cpu = build_model(name, args, device="cpu", num_frame=t)
+        cpu.load_state_dict(state, strict=True)
+        with torch.inference_mode():
+            want = cpu.eval()(torch.from_numpy(x))
+        scale = want.abs().max().item()
+        err = (card - want).abs().max().item()
+        rows.append(dict(model=name, t=t, err=err / scale, scale=scale,
+                         **{k: v for k, v in kw.items()
+                            if k in ("trans_seq", "gcn_trans_unit", "add_A",
+                                     "attn_masking")}))
+        log(f"  (d) {name} {kw}: card vs cpu {err:.2e} of the logit scale "
+            f"{scale:.3f}")
+        check(err <= 1e-3 * scale, f"{name} {kw}: card logits off the CPU's "
+                                   f"by {err:.3e}")
+    launches = all_launches()
+    check(not any(launches.values()), f"the versions launched {launches}")
+    summary["versions_vs_cpu"] = dict(rows=rows, launches=launches)
+
+
+def phase_versions(torch, np, smi, summary):
+    """Phase 16: (a) BN folding, (b) the apply_gcn forms, (c) the v31
+    recipe, (d) the other versions. Returns the launch counts of the
+    folded serving paths and of v31's training path."""
+    from agcn_tpu_torch.utils.config import load_config
+
+    t16 = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t16 - sum(parts.values())
+
+    folded = phase_fold(torch, np, summary)
+    lap("a")
+    phase_forms(torch, np, summary)
+    lap("b")
+    cfg = load_config(V31_CONFIG)
+    phase_v31_vs_cpu(torch, np, cfg, summary)
+    lap("c: card against cpu")
+    v31_train = phase_v31_main_path(torch, np, cfg, summary)
+    lap("c: steps and speed")
+    phase_train_cli(np, summary, V31_CONFIG, "aagcn_v31", resume=False,
+                    formulation=None, launches_per_step=(0, 0), serve=True,
+                    max_frame=V31_SEQ, test_config=V31_TEST_CONFIG)
+    lap("c: entry points")
+    # v31's training path: the ten steps' counts, and the entry point's
+    # epoch's (whose log counts the three GCN kernels)
+    v31_train = dict(v31_train)
+    for m in summary["aagcn_v31_train_cli"]["train"]:
+        for key, n in m["launches"].items():
+            v31_train[key] += n
+    phase_versions_vs_cpu(torch, np, summary)
+    lap("d")
+    summary["versions_phase_s"] = time.perf_counter() - t16
+    summary["versions_phase_parts_s"] = parts
+    summary["versions_smi"] = smi
+    log(f"  phase 16 in {summary['versions_phase_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return dict(folded, aagcn_v31_train=v31_train)
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only not in ("14", "15"):
-        print("usage: python3 chip_smoke.py [--phase 14|15]",
+    if argv and only not in ("14", "15", "16"):
+        print("usage: python3 chip_smoke.py [--phase 14|15|16]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2570,29 +3060,43 @@ def main(argv=None):
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/15] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/16] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     if only == "14":
-        log("[14/15] the SGN recipe alone (phase 14)")
+        log("[14/16] the SGN recipe alone (phase 14)")
         phase_sgn(torch, np, summary)
         return 0
     if only == "15":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/15] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/16] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[15/15] the trainer's run knobs alone (phase 15)")
+        log("[15/16] the trainer's run knobs alone (phase 15)")
         phase_knobs(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke_knobs.json"), "w") as f:
             json.dump(summary, f, indent=1)
         return 0
+    if only == "16":
+        t0 = time.perf_counter()
+        built = build.build_all()
+        log(f"[2/16] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+            "s")
+        log("[16/16] BN folding, the apply_gcn forms, the AAGCN versions "
+            "alone (phase 16)")
+        summary["phase16_launches"] = phase_versions(torch, np, smi, summary)
+        out_dir = os.path.join(REPO, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_versions.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=1)
+        return 0
 
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/15] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/16] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -2608,7 +3112,7 @@ def main(argv=None):
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/15] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/16] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -2624,7 +3128,7 @@ def main(argv=None):
     summary.update(kernel_rows=rows, dx_rows=dx_rows,
                    fp32_fwd_layers=fp32_layers(rows, dx_rows))
 
-    log("[4/15] gcn_bwd vs its plain version at the training shapes "
+    log("[4/16] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -2632,7 +3136,7 @@ def main(argv=None):
     summary.update(bwd_rows=bwd_rows,
                    fp32_da1_layers=da1_fp32_layers(bwd_rows))
 
-    log("[5/15] attention-logits kernel vs plain version at the served "
+    log("[5/16] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -2642,7 +3146,7 @@ def main(argv=None):
         logits_rows = phase_logits(torch, np, logits_kernel)
     summary["logits_rows"] = logits_rows
 
-    log("[6/15] host data path: the C++ host kernels "
+    log("[6/16] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -2650,11 +3154,11 @@ def main(argv=None):
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/15] AGCN serving main path: 16 streams through "
+    log("[7/16] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/15] AGCN: device time of one served forward by kernel group; "
+    log("[8/16] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -2662,7 +3166,7 @@ def main(argv=None):
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/15] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/16] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -2671,19 +3175,19 @@ def main(argv=None):
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/15] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/16] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/15] AAGCN: device time of one served forward by kernel group; "
+    log("[11/16] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/15] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/16] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -2693,7 +3197,7 @@ def main(argv=None):
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/15] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/16] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -2711,25 +3215,36 @@ def main(argv=None):
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
-    log("[14/15] SGN recipe (no port kernel on its path, as in the JAX "
+    log("[14/16] SGN recipe (no port kernel on its path, as in the JAX "
         "package): train_sgn.yaml at full width on synthetic SGN pickles "
         "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
         "the entry points with 5-crop eval")
     phase_sgn(torch, np, summary)
 
-    log("[15/15] the trainer's run knobs: one fp32 SAM step of the pallas "
+    log("[15/16] the trainer's run knobs: one fp32 SAM step of the pallas "
         "AGCN, kernels against plain versions; the entry point on "
         "train_joint.yaml with SAM, the profiler, async checkpoints, then "
         "auto-resume; train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml "
         "through the entry point")
     sam_launches = phase_knobs(torch, np, smi, summary)
 
+    log("[16/16] BN folding on the served pallas AGCN and AAGCN forwards "
+        "(gcn_fwd and the logits kernel counted); the apply_gcn forms "
+        "against 'agg'; the AAGCN v31 recipe (train_joint_aagcn_v31.yaml, "
+        "T=60: card against CPU, 10 SGD steps, speed, the entry points); "
+        "v17, v24, v30, v32 and v34 against the CPU")
+    v16 = phase_versions(torch, np, smi, summary)
+
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
         "agcn_train": train_launches["gcn_fwd_round_agg"],
         "aagcn_serve": aagcn_launches["adaptive_gcn_pallas"],
         "aagcn_train": aagcn_train_launches["gcn_fwd_round_agg"],
-        "agcn_sam_train": sam_launches["gcn_fwd_round_agg"]}
+        "agcn_sam_train": sam_launches["gcn_fwd_round_agg"],
+        "agcn_folded_serve":
+            v16["agcn_folded_serve"]["gcn_fwd_round_agg"],
+        "aagcn_folded_serve":
+            v16["aagcn_folded_serve"]["gcn_fwd_round_agg"]}
     bwd_launches = {"agcn_train": train_launches["gcn_bwd"],
                     "aagcn_train": aagcn_train_launches["gcn_bwd"],
                     "agcn_sam_train": sam_launches["gcn_bwd"]}
@@ -2741,14 +3256,17 @@ def main(argv=None):
                   "gcn_fwd (fp32 aggregate)",
                   "agcn_tpu/ops/pallas/gcn_kernel.py:27"),
         bwd_entry(bwd_rows, sum(bwd_launches.values())),
-        logits_entry(logits_rows, logits_launches),
+        logits_entry(logits_rows, logits_launches
+                     + v16["aagcn_folded_serve"]["logits"]),
     ]
     kernels[0]["launches_by_path"] = fwd_launches
     kernels[1]["launches_by_path"] = {
         f"agcn_serve_use_pallas_{d}": n
         for d, n in launches["fused_gcn"].items()}
     kernels[2]["launches_by_path"] = bwd_launches
-    kernels[3]["launches_by_path"] = {"aagcn_serve": logits_launches}
+    kernels[3]["launches_by_path"] = {
+        "aagcn_serve": logits_launches,
+        "aagcn_folded_serve": v16["aagcn_folded_serve"]["logits"]}
     # each kernel's count on the transformer's paths, as phase 13 read it:
     # the served ticks; the ten steps and the entry point's epoch (whose
     # log counts the three GCN kernels)
@@ -2766,7 +3284,10 @@ def main(argv=None):
         entry["launches_by_path"].update(
             transformer_serve=summary["transformer_launches"][key],
             transformer_train=tf_train[key], sgn_train=sgn_train[key],
-            agcn_sam_train=sam_launches[key])
+            agcn_sam_train=sam_launches[key],
+            aagcn_v31_train=v16["aagcn_v31_train"][key])
+        for path in ("agcn_folded_serve", "aagcn_folded_serve"):
+            entry["launches_by_path"].setdefault(path, v16[path][key])
     # the fp32 routes' numbers beside the bf16 ones (gcn_fwd: served
     # forward and, for gcn_fused, dx per step; gcn_bwd: per step)
     same = ("name", "route", "source", "replaces", "launches")

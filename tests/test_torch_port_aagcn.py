@@ -337,10 +337,14 @@ def test_state_dict_is_the_reference_map():
         built = build_model(name, {"num_class": NUM_CLASS,
                                    "model_layers": 3}, device="cpu")
         assert isinstance(built, AAGCN)
-    for name in ("aagcn_v30", "aagcn_v31", "model.aagcn_v17.Model",
-                 "sgn_original"):
+    for name in ("sgn_original", "sgn_transformer"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             build_model(name, {}, device="cpu")
+    # the AAGCN versions build since they were ported
+    for name in ("aagcn_v30", "aagcn_v31", "model.aagcn_v17.Model"):
+        assert build_model(name, {"num_class": NUM_CLASS,
+                                  "model_layers": 101},
+                           device="cpu", num_frame=27) is not None
     got = model_state_dict(variables, "aagcn")
     assert all(torch.equal(got[k], sd[k]) for k in sd)
 

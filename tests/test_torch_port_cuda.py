@@ -950,3 +950,136 @@ def test_wrappers_take_strided_views(cuda, round_agg):
     for got, want in zip(gcn_fused.gcn_backward(strided, a1, w, g),
                          gcn_fused.gcn_backward(x, a1, w, g)):
         assert torch.equal(got, want)
+
+
+def _stats_from_a_forward(model, x, seed=1):
+    """BN affines and AAGCN's attention branch away from their init, and
+    every BN's running statistics the batch statistics of a train-mode
+    forward on `x` (statistics that normalize, as AAGCN's eval needs)."""
+    from agcn_tpu_torch.ops.norm import BatchNorm
+
+    dev = next(model.parameters()).device
+    g = torch.Generator().manual_seed(seed)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".alpha") or name.endswith("bn.weight"):
+                p.copy_((torch.rand(p.shape, generator=g) + 0.5).to(dev))
+            elif ".conv_ta." in name or ".fc2c." in name:
+                p.copy_((torch.randn(p.shape, generator=g) * 0.1).to(dev))
+        for m in norms:
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        model.train()(x.to(dev))
+        for m in norms:
+            m.running_mean.div_(0.1)
+            m.running_var.sub_(0.9).div_(0.1).clamp_(min=1e-3)
+    return model.eval()
+
+
+@pytest.mark.parametrize("family", ["agcn", "aagcn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_folded_pallas_forward_on_card(cuda, family, dtype):
+    """BN-folded weights in a `fold_bn=True` model with `formulation:
+    pallas` (AAGCN also `eval_formulation`): the card's logits against
+    the unfolded model's (fp32 2e-4 of the logit scale, bf16 5e-2) and the
+    CPU's folded ones (fp32 1e-3, bf16 5e-2), 10 gcn_fwd launches a
+    forward."""
+    from agcn_tpu_torch.models import build_model
+    from agcn_tpu_torch.utils import bn_fold
+
+    args = dict(num_class=60, graph="ntu_rgb_d", formulation="pallas")
+    if family == "aagcn":
+        args["eval_formulation"] = "pallas"
+    fold = (bn_fold.fold_agcn_bn_eval if family == "agcn"
+            else bn_fold.fold_aagcn_bn_eval)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 3, 40, 25, 2)).astype(np.float32))
+    ref = _stats_from_a_forward(build_model(family, args, device=cuda), x)
+    state = ref.state_dict()
+    folded = fold(state)
+    card = {}
+    for kind, weights, fold_bn in (("unfolded", state, False),
+                                   ("folded", folded, True)):
+        m = build_model(family, dict(args, fold_bn=fold_bn), device=cuda,
+                        dtype=dtype)
+        m.load_state_dict(weights, strict=True)
+        card[kind] = m.eval()
+    cpu = build_model(family, dict(args, fold_bn=True), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in folded.items()})
+    xc = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 3, 40, 25, 2)).astype(np.float32))
+    with torch.no_grad():
+        before = gcn_fused.adaptive_gcn_pallas.launches
+        got = card["folded"](xc.to(cuda)).float().cpu()
+        assert gcn_fused.adaptive_gcn_pallas.launches - before == 10
+        unfolded = card["unfolded"](xc.to(cuda)).float().cpu()
+        want = cpu.eval()(xc)
+    fp32 = dtype == torch.float32
+    scale = unfolded.abs().max().item()
+    assert (got - unfolded).abs().max().item() <= (
+        2e-4 if fp32 else 5e-2) * scale
+    assert (got - want).abs().max().item() <= (
+        1e-3 if fp32 else 5e-2) * want.abs().max().item()
+
+
+@pytest.mark.parametrize("c,co", [(64, 128), (64, 64)])
+def test_gcn_forms_on_card_match_agg(cuda, c, co):
+    """apply_gcn's seven einsum forms against 'agg' at a served AGCN layer
+    shape (batch 32, T = 300), fp32 with TF32 off: 1e-5 of the output
+    scale; 'custom''s gradients against autograd of 'agg', 1e-4 of each
+    tensor's scale."""
+    from agcn_tpu_torch.ops import gcn as gcn_ops
+
+    x, a1, w = _inputs(cuda, 32, 300, c, co, torch.float32)
+    with torch.no_grad():
+        want = gcn_ops.apply_gcn(x, a1, w, "agg")
+        for form in ("pf", "custom", "pf_packed", "agg_packed2", "agg_dp",
+                     "fused_dyn", "hybrid"):
+            got = gcn_ops.apply_gcn(x, a1, w, form)
+            assert (got - want).abs().max() <= 1e-5 * want.abs().max(), form
+    gy = torch.randn(want.shape, device=cuda)
+    grads = {}
+    for form in ("agg", "custom"):
+        leaves = [t.clone().requires_grad_(True) for t in (x, a1, w)]
+        (gcn_ops.apply_gcn(*leaves, form) * gy).sum().backward()
+        grads[form] = [t.grad for t in leaves]
+    for got, ref in zip(grads["custom"], grads["agg"]):
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("name,t,kw", [
+    ("aagcn_v17", 60, dict(pos_enc="cossin", trans_num_layers=2,
+                           attn_masking="backward")),
+    ("aagcn_v24", 60, dict(add_A="triple", pos_enc="cossin")),
+    ("aagcn_v30", 300, dict(gcn_trans_unit="v2")),
+    ("aagcn_v30", 300, dict(gcn_trans_unit="v3")),
+    ("aagcn_v31", 60, dict(trans_seq="sa-t", add_A=True, pos_enc="cossin")),
+    ("aagcn_v32", 300, dict(trans_seq="sa-t-res-attn-a", add_A=True,
+                            pos_enc="cossin")),
+    ("aagcn_v34", 300, dict(trans_seq="sa-t-res-v3", add_A=True,
+                            add_Aa="one", pos_enc="cossin")),
+])
+def test_aagcn_versions_on_card_match_cpu(cuda, name, t, kw):
+    """Each AAGCN version at batch 2, at its constructor's widths and
+    depths (v17 with two encoder layers), with BN statistics from a
+    train-mode forward: card logits against the CPU's, fp32 (TF32 off)
+    within 1e-4 of the logit scale. No port kernel runs on this path, as
+    in the JAX package."""
+    from agcn_tpu_torch.models import build_model
+
+    args = dict(num_class=60, graph="ntu_rgb_d", model_layers=101,
+                kernel_size=3, pad=False, **kw)
+    rng = np.random.default_rng(0)
+    x_bn, x = (torch.from_numpy(rng.standard_normal(
+        (2, 3, t, 25, 2)).astype(np.float32)) for _ in range(2))
+    card = _stats_from_a_forward(
+        build_model(name, args, device=cuda, num_frame=t), x_bn)
+    cpu = build_model(name, args, device="cpu", num_frame=t).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    before = _launches()
+    with torch.no_grad():
+        got = card(x.to(cuda)).cpu()
+        want = cpu(x)
+    assert _launches() == before
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
