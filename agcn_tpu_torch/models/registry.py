@@ -1,5 +1,6 @@
 """Model registry (port of agcn_tpu/models/registry.py: AGCN, AAGCN, the
-AAGCN transformer, the AAGCN versions v17/v24/v30/v31/v32/v34 and SGN).
+AAGCN transformer, the AAGCN versions v17/v24/v30/v31/v32/v34, SGN and the
+original SGN).
 
 Models are selected by short name; the reference's dotted paths for the
 ported models are aliased so its config files work unchanged. Graph
@@ -22,6 +23,7 @@ from agcn_tpu_torch.models.aagcn_transformer import AAGCNTransformer
 from agcn_tpu_torch.models.aagcn_versions import VERSIONS, AAGCNv31
 from agcn_tpu_torch.models.agcn import AGCN
 from agcn_tpu_torch.models.sgn import SGN
+from agcn_tpu_torch.models.sgn_original import SGNOriginal
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE
 
 _SGN_VERSIONS = ("v11", "v12", "v13", "v14")
@@ -34,6 +36,10 @@ _ALIASES = {
     "model.architecture.aagcn.aagcn_v37.Model": "aagcn_transformer",
     **{f"model.sgn_{v}.SGN": "sgn" for v in _SGN_VERSIONS},
     **{f"model.architecture.sgn.sgn_{v}.SGN": "sgn" for v in _SGN_VERSIONS},
+    # the original microsoft/SGN (agcn_tpu/models/registry.py:37-40)
+    "model.sgn.SGN": "sgn_original",
+    "model.architecture.sgn.sgn.SGN": "sgn_original",
+    "model.architecture.sgn.archiv.sgn.SGN": "sgn_original",
     # the version-faithful variants (models/aagcn_versions.py)
     **{f"{prefix}aagcn_v{n}.Model": f"aagcn_v{n}"
        for n in (17, 24, 30, 31, 32, 34)
@@ -43,16 +49,13 @@ _ALIASES = {
 # modes, bias-less layers)
 _CLASSES = {"agcn": AGCN, "aagcn": AAGCN,
             "aagcn_transformer": AAGCNTransformer, "sgn": SGN,
+            "sgn_original": SGNOriginal,
             "aagcn_v32": AAGCNv31, **VERSIONS}
 _SGN_ITEM = "Queue 1 item 7: SGN family"
 # the keys and aliases the JAX package builds (agcn_tpu/models/
 # registry.py:21-55, 89-199) that the port lacks, each with the ROADMAP
 # item it waits in
 _WAITING = {
-    "sgn_original": _SGN_ITEM,
-    "model.sgn.SGN": _SGN_ITEM,
-    "model.architecture.sgn.sgn.SGN": _SGN_ITEM,
-    "model.architecture.sgn.archiv.sgn.SGN": _SGN_ITEM,
     "sgn_transformer": _SGN_ITEM,
     "model.sgn_v15.SGN": _SGN_ITEM,
     "model.architecture.sgn.sgn_v15.SGN": _SGN_ITEM,
@@ -130,7 +133,8 @@ def build_model(name: str, model_args: Dict[str, Any],
     `generator`. `num_frame`, the input's frames, sizes the tables of a
     model whose class sets `takes_num_frame` (the AAGCN transformer's
     positions, the spatial tokens of the AAGCN versions) and SGN's one-hot
-    frames (the loader's `seg`); the others take any T."""
+    frames (the loader's `seg`, also the original SGN's); the others take
+    any T."""
     key = model_key(name)
     cls = _CLASSES.get(key)
     if cls is None:
@@ -145,6 +149,14 @@ def build_model(name: str, model_args: Dict[str, Any],
         if num_frame is not None:
             args["num_segment"] = num_frame
         return SGN(device=device, dtype=dtype, generator=generator, **args)
+    if cls is SGNOriginal:
+        args = dict(model_args)
+        if "bias" in args:
+            args["use_bias"] = bool(args.pop("bias"))
+        if num_frame is not None:
+            args["num_frame"] = num_frame
+        return SGNOriginal(device=device, dtype=dtype, generator=generator,
+                           **args)
     args = dict(model_args)
     graph = args.pop("graph", "ntu_rgb_d")
     graph_args = args.pop("graph_args", {})

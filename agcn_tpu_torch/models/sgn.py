@@ -1,48 +1,62 @@
 """SGN — Semantics-Guided Network (port of agcn_tpu/models/sgn.py, the
-options of the base recipe `configs/*/train_sgn.yaml`).
+options of the base recipe `configs/*/train_sgn.yaml` and of
+`train_sgn_v11/v12/v13/v13_gt4.yaml`).
 
-Parity target: reference model/architecture/sgn/sgn_v14.py and
-blocks/{feature_extractor,semantic,spatial,temporal}.py. The input is the
-SGN loader's (B, seg, V*C) segments (persons flattened into time by the
-collate). In order:
+Parity target: reference model/architecture/sgn/sgn_v14.py (sgn_v12.py for
+the InfoGCN head) and blocks/{feature_extractor,semantic,spatial,temporal}.py.
+The input is the SGN loader's (B, seg, V*C) segments (persons flattened
+into time by the collate). In order:
 
 - position and velocity embeddings (`SGNEmbedding`, every mode of
   `EMB_MODES`), each behind a DataNorm over the (c, v)-ordered features;
   velocity is x[t] - x[t-1] with a leading zero frame;
 - the one-hot joint embedding, fused by concatenation or sum, and the
   one-hot frame embedding, added after the GCN stack (location 0);
-- the GCN stack (`GCNSpatialBlock`): G from the GT builder (gt_mode 1:
-  per-frame g1 g2^T mixed by a frame-to-frame softmax of the joint-max
-  descriptors g3, g4, then a softmax or sigmoid), shared by every unit
-  when `sgcn_g_proj_dim` is an int (one per unit for a list), and units
-  norm(w1(G x) + w2(x)) -> relu -> dropout2d (attn_mode 0);
-- the levels that feed the temporal module: the last unit's output
-  (`gcn_fpn: -1`) or every unit's (`gcn_fpn: 0`, the FPN's parallel
-  mode), each plus the frame embedding where the widths agree;
+- the GCN stack (`GCNSpatialBlock`): G from the GT module, shared by
+  every unit when `sgcn_g_proj_dim` is an int (one per unit for a list):
+  gt_mode 1 (per-frame g1 g2^T mixed by a frame-to-frame softmax of the
+  joint-max descriptors g3, g4, then a softmax or sigmoid) or gt modes
+  2-4 (`GCNSpatialGTScalar`: G = act(g1 g2^T) and a per-frame scalar of
+  the flattened joints, which scales G (2, 3) or gates the unit's input
+  (4)); units norm(w1(G x) + res_alpha w2(x)) -> relu -> dropout2d
+  (attn_mode 0; `sgcn_g_res_alpha` fixed, or learnable with -1 / -2);
+- the GCN-FPN, the levels that feed the temporal module: the last unit's
+  output (`gcn_fpn: -1`), every unit's (0), or the projections
+  `fpn_proj{i}[_k{k}]` of every unit's output (1-7, 9: summed from level
+  i upward, kept apart, or concatenated after the spatial pool), each
+  plus the frame embedding where the widths agree;
 - the spatial max-pool, the temporal conv branches of `multi_t` on those
   levels (t_mode 1: conv k -> BN -> relu -> dropout2d, then 1x1 -> BN ->
-  relu), their mean, the temporal max-pool, dropout and `fc`.
+  relu; with `multi_t_shared: 2` one branch a (slot, kernel) pair, named
+  after the first level that declares it, applied to every level), their
+  mean, the temporal max-pool, the class embedding (`semantic_class`),
+  the InfoGCN head (`infogcn_*`: z = mu + eps * std in training, mu in
+  eval, and the fixed prior `z_prior`), dropout and `fc`.
 
 `forward(x, return_aux=True)` also returns the JAX model's aux outputs
 (agcn_tpu sgn.py:1226-1261): `g` (the list of G), `branch_outputs` (each
 temporal branch's output in the reference's (N, C, T') layout, for the
-feature-similarity loss) and `z` (the pooled feature before the
-classifier's dropout).
+feature-similarity loss), `z` (the classifier's input before its
+dropout: the latent under the InfoGCN head) and, with the head,
+`z_prior`.
 
 Layout is channels-last (B, T, V, C); every 1xk kernel keeps the
 reference's (out, in, 1, k) layout over its (N, C, V, T) grid, and the
 module and parameter names are the reference's (the names
 `utils/weights.sgn_state_dict_from_variables` writes), so a reference
 state dict loads strictly. The one-hot tables are the reference's
-buffers (`semantic_embedding.spa_onehot.onehot` (1, V, V, seg) and
-`tem_onehot.onehot` (1, seg, V, seg)), so the model is built for the
-loader's `seg` (`num_segment`). The max-pools call `torch.amax` and the
-ReLUs `torch.relu` (the calls that tools/grad_parity.py's probes replay).
+buffers (`semantic_embedding.spa_onehot.onehot` (1, V, V, seg),
+`tem_onehot.onehot` (1, seg, V, seg) and `cls_onehot.onehot` (1, 1, 1,
+1)), so the model is built for the loader's `seg` (`num_segment`). The
+max-pools call `torch.amax`, the ReLUs `torch.relu` and the head's eps
+`latent_noise` (the calls that tools/grad_parity.py's probes replay).
 
 Every other option value of the JAX model raises NotImplementedError
-naming ROADMAP Queue 1 item 7 (the SGN family's later steps). SGN runs in
-fp32, as in the JAX package.
+naming ROADMAP Queue 1 item 7 (the SGN family's later steps): gt modes 0,
+5 and 6, `gcn_fpn` 8 and 10, the attn modes, t modes other than 1, and
+the options `_refuse` lists. SGN runs in fp32, as in the JAX package.
 """
+
 
 from __future__ import annotations
 
@@ -213,16 +227,19 @@ class SGNEmbedding(nn.Module):
 class OneHot(nn.Module):
     """The reference's one-hot constant (blocks/semantic.py:128-146):
     eye(E) tiled to (1, L, E, E), then permuted to its (N, C, V, T)
-    layout by `mode`; `table()` gives it channels-last, (1, T, V, E)."""
+    layout by `mode` (0: joints, 1: frames; 2, the class table, as
+    tiled); `table()` gives it channels-last, (1, T, V, E)."""
 
     def __init__(self, dim_eye: int, dim_length: int, mode: int):
         super().__init__()
         oh = np.broadcast_to(np.eye(dim_eye, dtype=np.float32),
                              (1, dim_length, dim_eye, dim_eye))
-        oh = oh.transpose(0, 3, 2, 1) if mode == 0 else oh.transpose(
-            0, 3, 1, 2)
+        if mode == 0:
+            oh = oh.transpose(0, 3, 2, 1)
+        elif mode == 1:
+            oh = oh.transpose(0, 3, 1, 2)
         self.register_buffer("onehot", torch.from_numpy(
-            np.ascontiguousarray(oh)))
+            np.array(oh, order="C")))
 
     def table(self) -> torch.Tensor:
         return self.onehot.permute(0, 3, 2, 1)
@@ -234,7 +251,8 @@ class GCNSpatialGT(nn.Module):
     descriptors are the joint-max of g3 and g4, g34 = softmax_j(g3p g4p^T)
     mixes the frames' g12, then a softmax over the source joint (or a
     sigmoid, gt_activation 2). `alpha` exists as in the reference and is
-    not used without a prior G."""
+    not used without a prior G. Returns (G, None): this mode gives the
+    unit no per-frame gate."""
 
     def __init__(self, in_features: int, proj_dim: int,
                  use_bias: bool = True, proj_shared: bool = False,
@@ -256,7 +274,7 @@ class GCNSpatialGT(nn.Module):
         with torch.no_grad():
             self.alpha.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, None]:
         b, t, v, _ = x.shape
         g1, g3 = self.g1(x), self.g3(x)
         g2, g4 = (g1, g3) if self.proj_shared else (self.g2(x), self.g4(x))
@@ -266,18 +284,113 @@ class GCNSpatialGT(nn.Module):
         g34 = torch.softmax(torch.matmul(g3p, g4p.transpose(1, 2)), dim=-1)
         g12 = torch.matmul(g34, g12.reshape(b, t, v * v)).reshape(b, t, v, v)
         if self.gt_activation == 1:
-            return torch.softmax(g12, dim=-1)
-        return torch.sigmoid(g12)
+            return torch.softmax(g12, dim=-1), None
+        return torch.sigmoid(g12), None
+
+
+class FrameScalarMLP(nn.Module):
+    """One scalar a frame from its flattened joint features (the
+    reference's MLPTemporal in GCNSpatialGT3 / GT4, blocks/spatial.py:
+    391-545; agcn_tpu sgn.py:282-303): `depth` - 1 layers conv k3 -> BN ->
+    relu of `hidden` channels, then a 1x1 conv to one channel. Takes
+    (B, T, 1, C*V) and gives (B, T)."""
+
+    def __init__(self, in_features: int, hidden: int, depth: int = 2,
+                 use_bias: bool = True):
+        super().__init__()
+        self.depth = depth
+        c = in_features
+        for i in range(depth - 1):
+            self.add_module(f"cnn{i + 1}", ConvNormAct(
+                c, hidden, 3, 1, use_bias=use_bias, use_norm=True))
+            c = hidden
+        self.add_module(f"cnn{depth}", ConvNormAct(c, 1, use_bias=use_bias,
+                                                   use_act=False))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for i in range(self.depth):
+            getattr(self, f"cnn{i + 1}").reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.depth):
+            x = getattr(self, f"cnn{i + 1}")(x)
+        return x[..., 0, 0]
+
+
+class GCNSpatialGTScalar(nn.Module):
+    """GT modes 2, 3 and 4 (blocks/spatial.py GCNSpatialGT2 :325-388, GT3
+    :391-467, GT4 :470-545; agcn_tpu sgn.py:306-365): G = act(g1 g2^T) per
+    frame (a softmax over the source joint for `activation` 'softmax',
+    else a sigmoid), and a per-frame scalar s of the frame's flattened
+    joint features: GT2 the Linear `g3`, GT3 / GT4 the MLP `g3` (C*V or C
+    hidden channels, `g3_idx` layers), then a softmax over the frames (a
+    sigmoid for gt_activation 2). GT2 and GT3 return (s G, s), GT4 (G, s)
+    for the unit to gate its input. `g3` reads the features in the
+    reference's (c, v) order, so its weights are the reference's. `alpha`
+    exists as in the reference and is not used without a prior G."""
+
+    def __init__(self, in_features: int, num_point: int, proj_dim: int,
+                 gt_mode: int = 2, use_bias: bool = True,
+                 proj_shared: bool = False, activation: str = "softmax",
+                 gt_activation: int = 1, g3_idx: int = 2):
+        super().__init__()
+        self.gt_mode = gt_mode
+        self.activation = "softmax" if activation == "softmax" else "sigmoid"
+        self.gt_activation = gt_activation
+        self.names = ("g1",) if proj_shared else ("g1", "g2")
+        for name in self.names:
+            self.add_module(name, ConvNormAct(in_features, proj_dim,
+                                              use_bias=use_bias,
+                                              use_act=False))
+        flat = in_features * num_point
+        if gt_mode == 2:
+            self.g3 = nn.utils.skip_init(nn.Linear, flat, 1, bias=use_bias)
+        else:
+            self.g3 = FrameScalarMLP(
+                flat, flat if gt_mode == 3 else in_features, g3_idx,
+                use_bias)
+        self.alpha = nn.Parameter(torch.zeros(1))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name in self.names:
+            getattr(self, name).reset_parameters(generator)
+        if isinstance(self.g3, nn.Linear):
+            init.torch_default(self.g3.in_features)(self.g3.weight, generator)
+            if self.g3.bias is not None:
+                with torch.no_grad():
+                    self.g3.bias.zero_()
+        else:
+            self.g3.reset_parameters(generator)
+        with torch.no_grad():
+            self.alpha.zero_()
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, t, v, c = x.shape
+        g1 = self.g1(x)
+        g2 = g1 if len(self.names) == 1 else self.g2(x)
+        g12 = frame_attention(g1, g2, self.activation)
+        flat = x.transpose(2, 3).reshape(b, t, 1, c * v)  # (c, v) order
+        s = self.g3(flat)
+        if self.gt_mode == 2:
+            s = s[..., 0, 0]
+        s = (torch.softmax(s, dim=-1) if self.gt_activation == 1
+             else torch.sigmoid(s))[:, :, None, None]  # (B, T, 1, 1)
+        return (g12, s) if self.gt_mode == 4 else (s * g12, s)
 
 
 class GCNSpatialUnit(nn.Module):
-    """One SGN graph conv, x -> norm(w1(G x) + w2(x)) -> relu -> dropout2d
-    (blocks/spatial.py:702-843, attn_mode 0; agcn_tpu sgn.py:423-506).
-    w1's kernel starts at zero (the reference's init_weight,
-    sgn_v14.py:817-827), so a fresh model's G path adds exactly zero."""
+    """One SGN graph conv, x -> norm(w1(G x) + res_alpha w2(x)) -> relu ->
+    dropout2d (blocks/spatial.py:702-843, attn_mode 0; agcn_tpu
+    sgn.py:423-506). w1's kernel starts at zero (the reference's
+    init_weight, sgn_v14.py:817-827), so a fresh model's G path adds
+    exactly zero. `res_alpha` is a fixed float, or the learnable
+    `res_alpha` for -1 (starting at one) and -2 (at zero). Under gt_mode 4
+    the G module's per-frame scalar gates x before both paths."""
 
     def __init__(self, in_features: int, out_channels: int,
-                 use_bias: bool = True, dropout: float = 0.0):
+                 use_bias: bool = True, dropout: float = 0.0,
+                 res_alpha: float = 1.0, gt_mode: int = 1):
         super().__init__()
         self.w1 = ConvNormAct(in_features, out_channels, use_bias=use_bias,
                               use_act=False)
@@ -285,26 +398,46 @@ class GCNSpatialUnit(nn.Module):
                               use_act=False)
         self.norm = BatchNorm(out_channels)
         self.drop = Dropout(dropout, (1, 2)) if dropout > 0.0 else None
+        self.gate = gt_mode == 4
+        self.alpha_init = {-1: 1.0, -2: 0.0}.get(res_alpha)
+        if self.alpha_init is not None:
+            self.res_alpha = nn.Parameter(torch.full((1,), self.alpha_init))
+        else:
+            self.fixed_alpha = float(res_alpha)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.w1.reset_parameters(generator, kernel=init.constant(0.0))
         self.w2.reset_parameters(generator)
+        if self.alpha_init is not None:
+            with torch.no_grad():
+                self.res_alpha.fill_(self.alpha_init)
 
-    def forward(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-        y = self.w1(frame_aggregate(x, g)) + self.w2(x)
-        y = torch.relu(self.norm(y))
+    def forward(self, x: torch.Tensor, g: torch.Tensor,
+                s: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.gate and s is not None:
+            x = s * x
+        y2 = self.w2(x)
+        if self.alpha_init is not None:
+            y2 = y2 * self.res_alpha
+        elif self.fixed_alpha != 1.0:
+            y2 = y2 * self.fixed_alpha
+        y = torch.relu(self.norm(self.w1(frame_aggregate(x, g)) + y2))
         return y if self.drop is None else self.drop(y)
 
 
 class GCNSpatialBlock(nn.Module):
     """The GCN units `gcn1..N`, with one G (`gcn_g1`) shared by all of them
     when `g_proj_dim` is an int, or one per unit (`gcn_g{i}`) for a list
-    (blocks/spatial.py:846-1013; agcn_tpu sgn.py:536-633)."""
+    (blocks/spatial.py:846-1013; agcn_tpu sgn.py:536-633). The G module
+    is GT1's (`gt_mode` 1) or GT2-4's (`GCNSpatialGTScalar`)."""
 
     def __init__(self, in_features: int, dims: Sequence[int],
                  g_proj_dim: Union[int, Sequence[int]] = 256,
                  g_proj_shared: bool = False, gt_act: int = 1,
-                 dropout: float = 0.0, use_bias: bool = True):
+                 dropout: float = 0.0, use_bias: bool = True,
+                 num_point: int = 25, gt_mode: int = 1,
+                 g_activation: str = "softmax", g3_idx: int = 2,
+                 res_alpha: float = 1.0):
         super().__init__()
         self.dims = tuple(dims)
         self.g_shared = isinstance(g_proj_dim, int)
@@ -314,9 +447,14 @@ class GCNSpatialBlock(nn.Module):
                 proj = g_proj_dim if self.g_shared else g_proj_dim[i]
                 self.add_module(f"gcn_g{i + 1}", GCNSpatialGT(
                     c, proj, use_bias=use_bias, proj_shared=g_proj_shared,
-                    gt_activation=gt_act))
+                    gt_activation=gt_act) if gt_mode == 1 else
+                    GCNSpatialGTScalar(
+                        c, num_point, proj, gt_mode, use_bias=use_bias,
+                        proj_shared=g_proj_shared, activation=g_activation,
+                        gt_activation=gt_act, g3_idx=g3_idx))
             self.add_module(f"gcn{i + 1}", GCNSpatialUnit(
-                c, dim, use_bias=use_bias, dropout=dropout))
+                c, dim, use_bias=use_bias, dropout=dropout,
+                res_alpha=res_alpha, gt_mode=gt_mode))
             c = dim
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -329,10 +467,12 @@ class GCNSpatialBlock(nn.Module):
         """(the last unit's output, the list of G, every unit's output)."""
         g_list: List[torch.Tensor] = []
         x_list: List[torch.Tensor] = []
+        s = None
         for i in range(len(self.dims)):
             if i == 0 or not self.g_shared:
-                g_list.append(getattr(self, f"gcn_g{i + 1}")(x))
-            x = getattr(self, f"gcn{i + 1}")(x, g_list[-1])
+                g, s = getattr(self, f"gcn_g{i + 1}")(x)
+                g_list.append(g)
+            x = getattr(self, f"gcn{i + 1}")(x, g_list[-1], s)
             x_list.append(x)
         return x, g_list, x_list
 
@@ -383,8 +523,18 @@ class TemporalBranch(nn.Module):
 _READ_BY_REFUSED_MODES = frozenset({
     "sgcn2_dims", "sgcn2_kernel", "sgcn2_padding", "sgcn2_dropout",
     "sgcn2_residual", "sgcn2_prenorm", "sgcn2_ffn", "sgcn2_v_kernel",
-    "sgcn2_attn_mode", "gcn_fpn_kernel", "bifpn_dim", "bifpn_layers",
+    "sgcn2_attn_mode", "bifpn_dim", "bifpn_layers",
     "decomp_kernel_size", "pool_kernel_sizes"})
+
+# the GCN-FPN's projection modes (agcn_tpu sgn.py:964-1007): mode -> the
+# projections' width from sgcn_dims (mode 6: 64) and whether level i sums
+# the projections of levels i.. (1, 2, 6, 7, 9), keeps its own (3), or the
+# pooled levels are concatenated into the last one (4, 5)
+_FPN_WIDTH = {1: lambda d: d[-1], 2: lambda d: d[0], 3: lambda d: d[-1],
+              4: lambda d: d[-1], 5: lambda d: d[-1] // 4, 6: lambda d: 64,
+              7: lambda d: d[-1], 9: lambda d: d[-1]}
+_FPN_SUM = (1, 2, 6, 7, 9)
+_FPN_CONCAT = (4, 5)
 
 
 def _refuse(**options: bool) -> None:
@@ -394,19 +544,27 @@ def _refuse(**options: bool) -> None:
                 f"SGN option {name}: not in the port yet; waits in {_ITEM}")
 
 
+def latent_noise(shape: Sequence[int], generator: Optional[torch.Generator],
+                 device: torch.device) -> torch.Tensor:
+    """eps of the InfoGCN head's train-time draw: a standard normal from
+    the model's dropout generator. `tools/grad_parity.NoiseProbe` stands in
+    for it to record one run's draws and replay them in another."""
+    return torch.randn(tuple(shape), generator=generator, device=device)
+
+
 class SGN(nn.Module):
-    """The SGN classifier at the base recipe's options (agcn_tpu
-    sgn.py:758-1283). `forward(x)` takes (B, num_segment, V*C) and
-    returns the logits; `forward(x, return_g=True)` returns (logits, the
-    list of G, each (B, T, V, V)).
+    """The SGN classifier (agcn_tpu sgn.py:758-1283) at the options of the
+    base, v11, v12, v13 and v13_gt4 recipes. `forward(x)` takes (B,
+    num_segment, V*C) and returns the logits; `forward(x, return_g=True)`
+    returns (logits, the list of G, each (B, T, V, V)).
 
     Built on the CPU, initialized from `generator` (seed 0 when None) and
     moved to `device`, `cuda` unless the caller names another. The
     dropouts (dropout2d in the temporal branches, `sgcn_dropout` in the
-    units, `dropout` before fc) draw from one generator on that device,
-    seeded from `generator` (`dropout_seed`; the train step reseeds it for
-    each update, `train/steps.seed_dropout`). Parameters and compute are
-    fp32.
+    units, `dropout` before fc) and the InfoGCN head's eps draw from one
+    generator on that device, seeded from `generator` (`dropout_seed`; the
+    train step reseeds it for each update, `train/steps.seed_dropout`).
+    Parameters and compute are fp32.
 
     `has_aux`: the train and eval steps call `forward(x, return_aux=True)`
     for an aux loss (only models that set it take the argument)."""
@@ -437,6 +595,7 @@ class SGN(nn.Module):
                  sgcn_gt_g3_idx: int = 2, sgcn_gt_out_channels2: int = 512,
                  sgcn_attn_mode: int = 0, gcn_fpn_output_merge: int = 1,
                  gcn_fpn_shared: int = 0, gcn_fpn: int = -1,
+                 gcn_fpn_kernel: int = 1,
                  spatial_maxpool: int = 1, temporal_maxpool: int = 1,
                  multi_t: Sequence[Sequence[int]] = ((), (), (3,)),
                  multi_t_shared: int = 0, t_mode: int = 1,
@@ -453,23 +612,25 @@ class SGN(nn.Module):
         unknown = sorted(set(refused_modes_only) - _READ_BY_REFUSED_MODES)
         if unknown:
             raise TypeError(f"SGN got unexpected options {unknown}")
-        # read only by the G builders of other gt modes, the FPN modes or
-        # the unit's w2 kernel (k = 1 ignores its padding, as in JAX)
-        del sgcn_g_activation, sgcn_gt_g3_idx, gcn_fpn_shared
+        # read only by gt modes 5 / 6 or the unit's w2 kernel (k = 1
+        # ignores its padding, as in JAX)
         del sgcn_gt_out_channels2, sgcn_padding
         device = resolve_device(device)
         if dtype not in (None, torch.float32):
             raise NotImplementedError(
                 f"SGN computes in fp32 (as in the JAX package); dtype "
                 f"{dtype} asked")
+        if gcn_fpn_output_merge == 2 and infogcn_noise_ratio is not None:
+            raise ValueError(
+                "gcn_fpn_output_merge=2 has per-branch classifier heads "
+                "and cannot host the InfoGCN latent head")
         _refuse(**{
-            "sgcn_gt_mode != 1": sgcn_gt_mode != 1,
+            "sgcn_gt_mode 0, 5 or 6": sgcn_gt_mode not in (1, 2, 3, 4),
             "sgcn_attn_mode != 0": sgcn_attn_mode != 0,
-            "gcn_fpn other than -1 and 0": gcn_fpn not in (-1, 0),
+            "gcn_fpn 8 (BiFPN) or 10 (a second GCN stack)":
+                gcn_fpn in (8, 10),
             "gcn_fpn_output_merge = 2": gcn_fpn_output_merge == 2,
             "t_mode != 1": t_mode != 1,
-            "multi_t_shared": bool(multi_t_shared),
-            "semantic_class": semantic_class > 0,
             "semantic_jdiff": semantic_jdiff > 0,
             "semantic_joint_smp": semantic_joint_smp > 0,
             "semantic_frame_location = 1": semantic_frame_location == 1,
@@ -483,14 +644,11 @@ class SGN(nn.Module):
             "sgcn_v_kernel": sgcn_v_kernel > 0,
             "sgcn_kernel != 1": sgcn_kernel != 1,
             "sgcn_g_kernel != 1": sgcn_g_kernel != 1,
-            "res_alpha (sgcn_g_res_alpha) != 1": sgcn_g_res_alpha != 1,
             "spatial_maxpool != 1": spatial_maxpool != 1,
             "temporal_maxpool != 1": temporal_maxpool != 1,
             "aspp_rates": bool(aspp_rates),
             "t_mha_kwargs": bool(t_mha_kwargs),
             "t_maxpool_kwargs": bool(t_maxpool_kwargs),
-            "infogcn_noise_ratio / infogcn_gain":
-                infogcn_noise_ratio is not None or infogcn_gain is not None,
         })
         if input_position <= 0 and input_velocity <= 0:
             raise ValueError("SGN needs input_position or input_velocity")
@@ -519,34 +677,92 @@ class SGN(nn.Module):
                 v, c1, semantic_joint, use_bias)
             self.semantic_embedding["spa_onehot"] = OneHot(v, t, mode=0)
             width = 2 * c1 if semantic_joint_fusion == 0 else c1
-        self.sgcn_dims = tuple(sgcn_dims or (c2, c3, c3))
+        dims = self.sgcn_dims = tuple(sgcn_dims or (c2, c3, c3))
         if semantic_frame > 0:
             self.semantic_embedding["tem_embedding"] = SGNEmbedding(
-                t, self.sgcn_dims[-1], semantic_frame, use_bias)
+                t, dims[-1], semantic_frame, use_bias)
             self.semantic_embedding["tem_onehot"] = OneHot(t, v, mode=1)
+        if semantic_class > 0:
+            # added to the pooled feature (agcn_tpu sgn.py:1218-1223)
+            self.semantic_embedding["cls_embedding"] = SGNEmbedding(
+                1, c4, semantic_class, use_bias)
+            self.semantic_embedding["cls_onehot"] = OneHot(1, 1, mode=2)
         g_proj = sgcn_g_proj_dim if sgcn_g_proj_dim is not None else c3
         if isinstance(g_proj, (list, tuple)):
             g_proj = tuple(g_proj)
-        self.sgcn = GCNSpatialBlock(width, self.sgcn_dims, g_proj,
-                                    bool(sgcn_g_proj_shared), sgcn_gt_act,
-                                    sgcn_dropout, use_bias)
-        # the levels that feed the temporal branches: the last (gcn_fpn
-        # -1) or every one (gcn_fpn 0); multi_t[i] lists level i's kernels
-        last = len(self.sgcn_dims) - 1
-        self.levels = (tuple(range(last + 1)) if gcn_fpn == 0
-                       else (last,))
+        self.sgcn = GCNSpatialBlock(
+            width, dims, g_proj, bool(sgcn_g_proj_shared), sgcn_gt_act,
+            sgcn_dropout, use_bias, num_point=v, gt_mode=sgcn_gt_mode,
+            g_activation=sgcn_g_activation, g3_idx=sgcn_gt_g3_idx,
+            res_alpha=sgcn_g_res_alpha)
+
+        # the GCN-FPN: the levels that feed the temporal branches, the last
+        # unit's output (gcn_fpn -1), every unit's (0), or the projections
+        # fpn_proj{i}[_k{k}] of every unit's output (one, fpn_proj1, for
+        # all levels with gcn_fpn_shared); widths[i] is level i's width at
+        # its branches (None: no feature)
+        last = len(dims) - 1
+        self.fpn_mode = gcn_fpn if gcn_fpn in _FPN_WIDTH else None
+        self.every_level = gcn_fpn == 0
+        self.fpn_projections: List[List[str]] = []
+        if self.fpn_mode is not None:
+            proj_dim = _FPN_WIDTH[gcn_fpn](dims)
+            kernels = ((3,) if gcn_fpn == 7 else (1, 3)
+                       if gcn_fpn == 9 and gcn_fpn_kernel == 1
+                       else (gcn_fpn_kernel,))
+            for k in kernels:
+                suffix = f"_k{k}" if gcn_fpn == 9 else ""
+                names = [f"fpn_proj{1 if gcn_fpn_shared else i + 1}{suffix}"
+                         for i in range(last + 1)]
+                for name, c in zip(names, dims):
+                    if not hasattr(self, name):
+                        self.add_module(name, ConvNormAct(
+                            c, proj_dim, k, k // 2, use_bias=use_bias,
+                            use_act=False))
+                self.fpn_projections.append(names)
+            widths = [proj_dim] * (last + 1)
+            if gcn_fpn in _FPN_CONCAT:
+                widths = [None] * last + [proj_dim * (last + 1)]
+        elif gcn_fpn == 0:
+            widths = list(dims)
+        else:
+            widths = [None] * last + [dims[-1]]
+        # multi_t[i] lists level i's kernels; with multi_t_shared 2 one
+        # branch a (slot, kernel) pair, named after the first level that
+        # declares the pair (agcn_tpu sgn.py:1117-1150)
+        shared = {}
+        if multi_t_shared == 2:
+            for i, kernels in enumerate(multi_t):
+                for j, k in enumerate(kernels):
+                    shared.setdefault((j, k), f"tem_mlp_{i + 1}_{j + 1}_k{k}")
         self.branches: List[Tuple[int, str]] = []
         for i, kernels in enumerate(multi_t):
             for j, k in enumerate(kernels):
-                if i not in self.levels:
+                if i >= len(widths) or widths[i] is None:
                     continue
-                name = f"tem_mlp_{i + 1}_{j + 1}_k{k}"
-                self.add_module(name, TemporalBranch(
-                    self.sgcn_dims[i], c4, k, dropout2d, use_bias))
+                name = shared.get((j, k), f"tem_mlp_{i + 1}_{j + 1}_k{k}")
+                if not hasattr(self, name):
+                    self.add_module(name, TemporalBranch(
+                        widths[i], c4, k, dropout2d, use_bias))
+                elif getattr(self, name).cnn.cnn1.block.conv.conv \
+                        .in_channels != widths[i]:
+                    raise ValueError(
+                        f"multi_t_shared: {name} is shared by levels of "
+                        f"widths {widths}")
                 self.branches.append((i, name))
         if not self.branches:
-            raise ValueError(f"multi_t {multi_t!r} gives the levels "
-                             f"{self.levels} no temporal branch")
+            raise ValueError(f"multi_t {multi_t!r} gives the levels of "
+                             f"widths {widths} no temporal branch")
+        # the InfoGCN latent head (agcn_tpu sgn.py:1233-1261): the
+        # classifier takes z = mu + eps * std in training, mu in eval;
+        # z_prior, the MMD loss's class prior, is a fixed buffer
+        self.noise_ratio = None
+        if infogcn_noise_ratio is not None and infogcn_gain is not None:
+            self.noise_ratio = float(infogcn_noise_ratio)
+            self.fc_mu = nn.utils.skip_init(nn.Linear, c4, c4)
+            self.fc_logvar = nn.utils.skip_init(nn.Linear, c4, c4)
+            self.register_buffer("z_prior", torch.empty(num_class, c4))
+            self.prior_gain = float(infogcn_gain)
         self.fc_drop = Dropout(dropout)
         self.fc = nn.utils.skip_init(nn.Linear, c4, num_class)
 
@@ -555,7 +771,7 @@ class SGN(nn.Module):
         self.reset_parameters(generator)
         self.to(device)
         self.dropout_generator = None
-        if dropout or dropout2d or sgcn_dropout:
+        if dropout or dropout2d or sgcn_dropout or self.noise_ratio is not None:
             self.dropout_seed = int(torch.randint(2 ** 62, (1,),
                                                   generator=generator))
             self.dropout_generator = torch.Generator(
@@ -571,10 +787,34 @@ class SGN(nn.Module):
             if isinstance(emb, SGNEmbedding):
                 emb.reset_parameters(generator)
         self.sgcn.reset_parameters(generator)
-        for _, name in self.branches:
+        for name in dict.fromkeys(n for names in self.fpn_projections
+                                  for n in names):
             getattr(self, name).reset_parameters(generator)
+        for name in dict.fromkeys(name for _, name in self.branches):
+            getattr(self, name).reset_parameters(generator)
+        if self.noise_ratio is not None:
+            for fc in (self.fc_mu, self.fc_logvar):
+                init.torch_default(fc.in_features)(fc.weight, generator)
+                init.torch_default(fc.in_features)(fc.bias, generator)
+            with torch.no_grad():
+                nn.init.orthogonal_(self.z_prior, gain=self.prior_gain,
+                                    generator=generator)
         init.torch_default(self.fc.in_features)(self.fc.weight, generator)
         init.torch_default(self.fc.in_features)(self.fc.bias, generator)
+
+    def _levels(self, x_list: List[torch.Tensor]
+                ) -> List[Optional[torch.Tensor]]:
+        """The GCN-FPN's features, one a level (None: no feature)."""
+        if self.fpn_mode is None:
+            return (list(x_list) if self.every_level
+                    else [None] * (len(x_list) - 1) + [x_list[-1]])
+        proj = None
+        for names in self.fpn_projections:
+            p = [getattr(self, n)(xl) for n, xl in zip(names, x_list)]
+            proj = p if proj is None else [a + b for a, b in zip(proj, p)]
+        if self.fpn_mode in _FPN_SUM:
+            return [sum(proj[i:]) for i in range(len(proj))]
+        return proj
 
     def forward(self, x: torch.Tensor, return_g: bool = False,
                 return_aux: bool = False):
@@ -604,22 +844,40 @@ class SGN(nn.Module):
         tem = (se["tem_embedding"](se["tem_onehot"].table())
                if "tem_embedding" in se else None)
         _, g_list, x_list = self.sgcn(feat)
-        feats = {}
-        for i in self.levels:
-            f = x_list[i]
-            if tem is not None and f.shape[-1] == tem.shape[-1]:
-                f = f + tem
-            feats[i] = torch.amax(f, dim=2, keepdim=True)  # spatial max-pool
-        outs = [getattr(self, name)(feats[i]) for i, name in self.branches]
+        pooled = []
+        for f in self._levels(x_list):
+            if f is not None:
+                if tem is not None and f.shape[-1] == tem.shape[-1]:
+                    f = f + tem
+                f = torch.amax(f, dim=2, keepdim=True)  # spatial max-pool
+            pooled.append(f)
+        if self.fpn_mode in _FPN_CONCAT:
+            pooled = [None] * (len(pooled) - 1) + [torch.cat(pooled, -1)]
+        outs = [getattr(self, name)(pooled[i]) for i, name in self.branches]
         y = outs[0] if len(outs) == 1 else torch.stack(outs).mean(dim=0)
         y = torch.amax(y, dim=1, keepdim=True)  # temporal max-pool
+        if "cls_embedding" in se:
+            y = y + se["cls_embedding"](se["cls_onehot"].table())
         z = y.reshape(b, -1)
+        if self.noise_ratio is not None:
+            mu = self.fc_mu(z)
+            if self.training:
+                logvar = self.fc_logvar(z)
+                eps = latent_noise(logvar.shape, self.dropout_generator,
+                                   logvar.device)
+                std = torch.clamp(torch.exp(self.noise_ratio * logvar),
+                                  max=100.0)
+                z = eps * std + mu
+            else:
+                z = mu
         logits = self.fc(self.fc_drop(z))
         if return_aux:
             # each branch (B, T', 1, C) as (N, C, T'): the reference's
             # CosineLoss takes dim 1 as the channels
             branch_outputs = [o.reshape(b, o.shape[1], -1).transpose(1, 2)
                               for o in outs]
-            return logits, {"g": g_list, "branch_outputs": branch_outputs,
-                            "z": z}
+            aux = {"g": g_list, "branch_outputs": branch_outputs, "z": z}
+            if self.noise_ratio is not None:
+                aux["z_prior"] = self.z_prior
+            return logits, aux
         return (logits, g_list) if return_g else logits

@@ -44,6 +44,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from agcn_tpu_torch.models import sgn
 from agcn_tpu_torch.ops.norm import BatchNorm
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -59,12 +60,14 @@ SEED = 0
 
 # conv biases whose gradient is zero in exact arithmetic: a BatchNorm
 # follows them (conv_d, down, tcn, residual; SGN's unit w1 and w2 and its
-# temporal convs), or the attention softmax is invariant to them (conv_a:
-# a shift along the softmax axis; SGN's G projections g2 and g4)
+# temporal convs; the original SGN's w1 and local convs), or the attention
+# softmax is invariant to them (conv_a: a shift along the softmax axis;
+# SGN's G projections g2 and g4, the original SGN's g2)
 EXACT_ZERO = re.compile(
     r"(conv_a\.\d+|conv_d\.\d+|down\.0|tcn1\.conv|residual\.conv"
     r"|\.w[12]\.block\.conv\.conv|tem_mlp_\w+\.cnn\.cnn[12]\.block"
-    r"\.conv\.conv|gcn_g\d+\.g[24]\.block\.conv\.conv)\.bias$")
+    r"\.conv\.conv|gcn_g\d+\.g[24]\.block\.conv\.conv"
+    r"|^gcn\d\.w1\.cnn|^compute_g1\.g2\.cnn|^cnn\.cnn[12])\.bias$")
 
 
 def grad_errors(grads: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
@@ -201,6 +204,41 @@ def amax_probe(probe: AmaxProbe):
         yield
     finally:
         torch.amax = _AMAX
+
+
+class NoiseProbe:
+    """Stands in for `models/sgn.latent_noise` (the InfoGCN head's eps)
+    during one step, as `ReluProbe` does for the ReLUs: it records each
+    draw on the CPU (`draws`); given `ref`, another run's probe (or any
+    object with such `draws`), it returns ref's draws in turn instead, so
+    that two runs, or two frameworks, sample the same latent."""
+
+    def __init__(self, ref=None):
+        self.ref = ref
+        self.draws: List[torch.Tensor] = []
+
+    def __call__(self, shape, generator, device) -> torch.Tensor:
+        if self.ref is None:
+            eps = _NOISE(shape, generator, device)
+        else:
+            eps = self.ref.draws[len(self.draws)].to(device)
+            if tuple(eps.shape) != tuple(shape):
+                raise ValueError(f"replayed eps {tuple(eps.shape)} for a "
+                                 f"draw of {tuple(shape)}")
+        self.draws.append(eps.detach().cpu())
+        return eps
+
+
+_NOISE = sgn.latent_noise
+
+
+@contextlib.contextmanager
+def noise_probe(probe: NoiseProbe):
+    sgn.latent_noise = probe
+    try:
+        yield
+    finally:
+        sgn.latent_noise = _NOISE
 
 
 def flips(masks: List[torch.Tensor], ref: List[torch.Tensor],

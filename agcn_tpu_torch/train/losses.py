@@ -1,13 +1,13 @@
-"""Classification losses over logits and int labels, and the cosine
-feature-similarity loss of the SGN recipes (port of
-agcn_tpu/train/losses.py:18-58, 82-140; reference utils/loss.py). The
-MMD loss waits with the InfoGCN head (ROADMAP Queue 1 item 7.2)."""
+"""Classification losses over logits and int labels, the InfoGCN MMD loss
+and the cosine feature-similarity loss of the SGN recipes (port of
+agcn_tpu/train/losses.py:18-140; reference utils/loss.py)."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -48,6 +48,50 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
         ce = ce * alpha.to(ce.device)[labels]
     pt = torch.softmax(logits, dim=-1).gather(-1, labels[:, None])[:, 0]
     return ((1.0 - pt) ** gamma * ce).mean()
+
+
+def mmd_loss(z: torch.Tensor, z_prior: torch.Tensor, labels: torch.Tensor,
+             num_class: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The InfoGCN MMD loss (reference utils/loss.py:90-106; agcn_tpu
+    losses.py:61-79): (mmd, l2_z_mean), the mean squared distance of the
+    latent's class means from the class priors over the classes present
+    in the batch, and the L2 norm of the batch's mean latent."""
+    onehot = F.one_hot(labels, num_class).to(z.dtype)  # (B, K)
+    counts = onehot.sum(dim=0)
+    means = (onehot.T @ z) / torch.clamp(counts[:, None], min=1.0)
+    present = (counts > 0).to(z.dtype)
+    sq = ((means - z_prior) ** 2).sum(dim=-1)
+    denom = torch.clamp(present.sum() * z.shape[-1], min=1.0)
+    return (sq * present).sum() / denom, torch.linalg.vector_norm(
+        z.mean(dim=0))
+
+
+def _pairwise(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean cosine and the mean distance over the distinct pairs of
+    `rows` (reference get_vector_property, processor.py:43-53)."""
+    normed = rows / torch.clamp(torch.linalg.vector_norm(
+        rows, dim=-1, keepdim=True), min=1e-9)
+    off = 1.0 - torch.eye(rows.shape[0], dtype=rows.dtype,
+                          device=rows.device)
+    denom = torch.clamp(off.sum(), min=1.0)
+    dist = torch.linalg.vector_norm(rows[:, None] - rows[None], dim=-1)
+    return ((normed @ normed.T) * off).sum() / denom, \
+        (dist * off).sum() / denom
+
+
+@torch.no_grad()
+def latent_diagnostics(z: torch.Tensor, z_prior: torch.Tensor,
+                       labels: torch.Tensor, num_class: int
+                       ) -> Dict[str, torch.Tensor]:
+    """The MMD loss's metrics beside it (agcn_tpu trainer.py:420-446):
+    `cos_z` and `dist_z` over the latent's class means (an absent class's
+    mean is zero), `cos_z_prior` and `dist_z_prior` over the priors."""
+    onehot = F.one_hot(labels, num_class).to(z.dtype)
+    means = (onehot.T @ z) / torch.clamp(onehot.sum(dim=0), min=1.0)[:, None]
+    cos_z, dist_z = _pairwise(means)
+    cos_p, dist_p = _pairwise(z_prior)
+    return {"cos_z": cos_z, "dist_z": dist_z, "cos_z_prior": cos_p,
+            "dist_z_prior": dist_p}
 
 
 def cosine_loss(x1: torch.Tensor, x2: torch.Tensor, mode: int = 1,

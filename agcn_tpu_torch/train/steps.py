@@ -68,10 +68,12 @@ def seed_dropout(model: nn.Module, step: int) -> None:
 
 def _forward(model: nn.Module, x: torch.Tensor, aux: bool):
     """(logits, the model's aux outputs or None); a model without aux
-    outputs (no `has_aux`) gives None, as JAX's models do."""
+    outputs (no `has_aux`) gives None, as JAX's models do, and one that
+    returns (logits, G) (the original SGN) gives its logits."""
     if aux and getattr(model, "has_aux", False):
         return model(x, return_aux=True)
-    return model(x), None
+    out = model(x)
+    return (out[0] if isinstance(out, tuple) else out), None
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable,

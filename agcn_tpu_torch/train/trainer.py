@@ -48,11 +48,16 @@ The run knobs, as the JAX trainer's:
   updates are those of K = 1.
 - `fsim_mode` > 0: the cosine feature-similarity loss of the SGN
   temporal branches (`fsim` in metrics.jsonl and the eval log).
+- `mmd_lambda1` / `mmd_lambda2` > 0: the InfoGCN MMD loss on the latent
+  z of an SGN with the InfoGCN head (`infogcn_*`), against the head's
+  `z_prior` (`mmd`, `l2_z_mean`, `cos_z`, `dist_z`, `cos_z_prior` and
+  `dist_z_prior` in metrics.jsonl and the eval log). Without the head the
+  JAX trainer draws a fallback prior with jax.random, which the port
+  cannot reproduce: it raises (ROADMAP Queue 3, a known difference).
 
-Not here yet, each refused with its ROADMAP item: the MMD loss
-(`mmd_lambda*`, with the InfoGCN head), multi-device and multi-host runs,
-the models of the JAX package that the port lacks (`sgn_transformer`,
-`sgn_original`).
+Not here yet, each refused with its ROADMAP item: multi-device and
+multi-host runs, the model of the JAX package that the port lacks
+(`sgn_transformer`).
 """
 
 from __future__ import annotations
@@ -114,10 +119,6 @@ def _refuse_unported(cfg: Config) -> None:
             cfg.mesh_data > 1 or cfg.mesh_edge > 1,
             "ROADMAP Queue 1: Parallel"),
         f"model {cfg.model}": (waits is not None, f"ROADMAP {waits}"),
-        "the MMD loss (mmd_lambda1 / mmd_lambda2)": (
-            cfg.mmd_lambda1 > 0 or cfg.mmd_lambda2 > 0,
-            "ROADMAP Queue 1 item 7.2: SGN family, with the InfoGCN head "
-            "(infogcn_*) that gives it its prior"),
     }
     for knob, (on, item) in refused.items():
         if on:
@@ -139,6 +140,63 @@ def _groups(batches, k: int):
             group = []
     if group:
         yield group
+
+
+def build_aux_loss(cfg: Config, model: torch.nn.Module
+                   ) -> Optional[Callable]:
+    """The auxiliary losses of a recipe (agcn_tpu trainer.py:381-462;
+    reference processor.py:563-595), as (aux, y) -> (loss, metrics) over
+    the model's aux outputs, or None:
+
+    - the InfoGCN MMD loss, mmd_lambda2 * mmd + mmd_lambda1 * l2_z_mean,
+      of the aux latent `z` against the head's `z_prior` (tiled when its
+      width differs from z's), with its six metrics;
+    - the cosine feature-similarity loss between the temporal branches'
+      outputs (`fsim_mode`): pairs over len(multi_t[-1]) kernels a level,
+      weighted by `fsim_alpha`; its `fsim` metric.
+
+    Aux outputs without `z` (or branches) add nothing, as in JAX. The MMD
+    loss of a model without the InfoGCN head raises: JAX's fallback prior
+    is a jax.random draw the port cannot reproduce."""
+    use_mmd = cfg.mmd_lambda1 > 0 or cfg.mmd_lambda2 > 0
+    use_fsim = cfg.fsim_mode > 0
+    if not (use_mmd or use_fsim):
+        return None
+    if use_mmd and getattr(model, "z_prior", None) is None:
+        raise NotImplementedError(
+            "the MMD loss (mmd_lambda1 / mmd_lambda2) needs the InfoGCN head "
+            "(infogcn_noise_ratio and infogcn_gain), whose z_prior is its "
+            "prior: without it the JAX trainer draws a fallback prior with "
+            "jax.random, which the port cannot reproduce (ROADMAP Queue 3, "
+            "a known difference)")
+    num_class = cfg.model_args.get("num_class", 60)
+    alphas = (list(cfg.fsim_alpha)
+              if isinstance(cfg.fsim_alpha, (list, tuple))
+              else [cfg.fsim_alpha])
+    multi_t = cfg.model_args.get("multi_t", [[], [], [3]])
+    kernels = len(multi_t[-1]) if multi_t else 1
+
+    def aux_loss(aux, y):
+        aux = aux or {}
+        total, metrics = 0.0, {}
+        if use_mmd and "z" in aux:
+            z, prior = aux["z"], aux["z_prior"]
+            if prior.shape[-1] != z.shape[-1]:
+                reps = -(-z.shape[-1] // prior.shape[-1])
+                prior = prior.repeat(1, reps)[:, :z.shape[-1]]
+            mmd, l2z = L.mmd_loss(z, prior, y, num_class)
+            total = total + cfg.mmd_lambda2 * mmd + cfg.mmd_lambda1 * l2z
+            metrics.update(mmd=mmd, l2_z_mean=l2z, **L.latent_diagnostics(
+                z, prior, y, num_class))
+        outs = aux.get("branch_outputs", [])
+        if use_fsim and len(outs) > 1:
+            fsim = L.fsim_pair_loss(outs, alphas, kernels,
+                                    mode=cfg.fsim_mode)
+            total = total + fsim
+            metrics["fsim"] = fsim
+        return total, metrics
+
+    return aux_loss
 
 
 class Trainer:
@@ -345,31 +403,6 @@ class Trainer:
         self.print_log(f"auto-resumed from {path} "
                        f"(continuing at epoch {cfg.start_epoch})")
 
-    def _build_aux_loss(self) -> Optional[Callable]:
-        """The cosine feature-similarity loss between the temporal
-        branches' outputs (`fsim_mode`, reference processor.py:583-595;
-        agcn_tpu trainer.py:381-462): pairs over len(multi_t[-1]) kernels
-        a level, weighted by `fsim_alpha`; its `fsim` metric. A model
-        without aux outputs adds nothing, as in JAX."""
-        cfg = self.cfg
-        if cfg.fsim_mode <= 0:
-            return None
-        alphas = (list(cfg.fsim_alpha)
-                  if isinstance(cfg.fsim_alpha, (list, tuple))
-                  else [cfg.fsim_alpha])
-        multi_t = cfg.model_args.get("multi_t", [[], [], [3]])
-        kernels = len(multi_t[-1]) if multi_t else 1
-
-        def aux_loss(aux, y):
-            outs = (aux or {}).get("branch_outputs", [])
-            if len(outs) <= 1:
-                return 0.0, {}
-            total = L.fsim_pair_loss(outs, alphas, kernels,
-                                     mode=cfg.fsim_mode)
-            return total, {"fsim": total}
-
-        return aux_loss
-
     def _build_steps(self):
         cfg = self.cfg
         loss_fn = L.build_loss(cfg.loss, cfg.model_args.get("num_class", 60),
@@ -377,7 +410,7 @@ class Trainer:
                                alpha=cfg.fl_alpha, gamma=cfg.fl_gamma)
         sam_rho = cfg.sam_rho if cfg.optimizer.upper().startswith("SAM") \
             else 0.0
-        aux_loss_fn = self._build_aux_loss()
+        aux_loss_fn = build_aux_loss(cfg, self.model)
 
         def step(**kw):
             return make_train_step(self.model, loss_fn, self.optimizer,

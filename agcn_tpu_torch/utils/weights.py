@@ -7,9 +7,10 @@ agcn_tpu/train/checkpoint.load_checkpoint).
 `agcn_state_dict_from_variables`, `aagcn_state_dict_from_variables`,
 `aagcn_transformer_state_dict_from_variables`,
 `aagcn_v{17,24,30,31,34}_state_dict_from_variables` (the inverses of
-agcn_tpu/utils/torch_import.py:447-626) and
-`sgn_state_dict_from_variables` (agcn_tpu/utils/torch_export.py:260-420,
-the keys of the port's SGN options) turn a JAX `{"params",
+agcn_tpu/utils/torch_import.py:447-626),
+`sgn_state_dict_from_variables` (agcn_tpu/utils/torch_export.py:260-500,
+the keys of the port's SGN options, with those the JAX map leaves out) and
+`sgn_original_state_dict_from_variables` (:177-224) turn a JAX `{"params",
 "batch_stats"}` tree of numpy arrays into the port's state dict (the
 reference torch names), which the model's `load_state_dict(...,
 strict=True)` accepts; `model_state_dict` dispatches by the registry key.
@@ -453,12 +454,53 @@ def _sgn_embedding_out(out: Dict[str, np.ndarray], prefix: str,
 
 def _onehot_buffer(dim_eye: int, dim_length: int, mode: int) -> np.ndarray:
     """The reference OneHotTensor buffer (blocks/semantic.py:128-146):
-    eye(dim_eye) tiled to (1, dim_length, E, E), then mode-permuted
-    (torch_export.py:274-286)."""
+    eye(dim_eye) tiled to (1, dim_length, E, E), then mode-permuted, the
+    class table (mode 2) as tiled (torch_export.py:274-286)."""
     oh = np.broadcast_to(np.eye(dim_eye, dtype=np.float32),
                          (1, dim_length, dim_eye, dim_eye))
-    oh = oh.transpose(0, 3, 2, 1) if mode == 0 else oh.transpose(0, 3, 1, 2)
-    return np.ascontiguousarray(oh)
+    if mode == 0:
+        oh = oh.transpose(0, 3, 2, 1)
+    elif mode == 1:
+        oh = oh.transpose(0, 3, 1, 2)
+    return np.array(oh, order="C")
+
+
+def _vc_to_cv(w: np.ndarray, num_point: int) -> np.ndarray:
+    """A kernel whose input features (axis -2) are (v, c)-flattened, as
+    the JAX model flattens a frame's joints, in the reference's (c, v)
+    order (torch_export.py:300-307)."""
+    *lead, cin_all, out = w.shape
+    w = w.reshape(*lead, num_point, cin_all // num_point, out)
+    return np.ascontiguousarray(np.swapaxes(w, -3, -2)).reshape(
+        *lead, cin_all, out)
+
+
+def _sgn_g_module_out(out: Dict[str, np.ndarray], p: str,
+                       g: Mapping[str, Any], gs: Mapping[str, Any],
+                       num_point: int) -> None:
+    """A G module: its projections g1-g4, GT2's Linear `g3` or GT3 /
+    GT4's MLP `g3` (the first layer of either reads the (c, v)-flattened
+    joint features), and `alpha` (torch_export.py:337-403)."""
+    for name in ("g1", "g2", "g3", "g4"):
+        if name in g and "conv" in g[name]:
+            _sgn_conv_out(out, f"{p}.{name}", g[name]["conv"])
+    g3 = g.get("g3", {})
+    if "kernel" in g3:
+        _linear_out(out, f"{p}.g3", dict(
+            g3, kernel=_vc_to_cv(_np(g3["kernel"]), num_point)))
+    li = 1
+    while f"cnn{li}" in g3:
+        node = g3[f"cnn{li}"]
+        conv = node["conv"] if "conv" in node else node["cnn"]["conv"]
+        if li == 1:
+            conv = dict(conv, kernel=_vc_to_cv(_np(conv["kernel"]),
+                                               num_point))
+        _sgn_conv_out(out, f"{p}.g3.cnn{li}", conv)
+        if "norm" in node:
+            _bn_out(out, f"{p}.g3.cnn{li}.block.norm", node["norm"],
+                    gs["g3"][f"cnn{li}"]["norm"])
+        li += 1
+    out[f"{p}.alpha"] = _np(g["alpha"])
 
 
 def sgn_state_dict_from_variables(variables: Mapping[str, Any],
@@ -466,9 +508,12 @@ def sgn_state_dict_from_variables(variables: Mapping[str, Any],
                                   num_segment: int = 20
                                   ) -> Dict[str, torch.Tensor]:
     """JAX SGN variables -> the port's (reference sgn_v14-named) state
-    dict, for the options the port builds (torch_export.py:260-420). The
-    one-hot buffers' sizes come from the joint and frame embeddings'
-    input widths, as in the JAX map."""
+    dict, for the options the port builds (torch_export.py:260-500). The
+    one-hot buffers' sizes, and the joints of the (c, v) reorders, come
+    from the joint and frame embeddings' input widths, as in the JAX map.
+    Beyond the JAX map's keys it writes the GCN-FPN's projections
+    `fpn_proj{i}[_k{k}]`, the InfoGCN head's `fc_mu` and `fc_logvar` and
+    its buffer `z_prior`, which the JAX export leaves out."""
     params = variables["params"]
     stats = _stats(variables)
     out: Dict[str, np.ndarray] = {}
@@ -476,7 +521,8 @@ def sgn_state_dict_from_variables(variables: Mapping[str, Any],
             ("pos_embed", "feature_extractor.pos_embed"),
             ("vel_embed", "feature_extractor.vel_embed"),
             ("joint_embed", "semantic_embedding.spa_embedding"),
-            ("frame_embed", "semantic_embedding.tem_embedding")):
+            ("frame_embed", "semantic_embedding.tem_embedding"),
+            ("class_embed", "semantic_embedding.cls_embedding")):
         if flax_name in params:
             _sgn_embedding_out(out, prefix, params[flax_name],
                                stats.get(flax_name, {}))
@@ -494,34 +540,86 @@ def sgn_state_dict_from_variables(variables: Mapping[str, Any],
     if "frame_embed" in params:
         out["semantic_embedding.tem_onehot.onehot"] = _onehot_buffer(
             num_segment, num_point, mode=1)
+    if "class_embed" in params:
+        out["semantic_embedding.cls_onehot.onehot"] = _onehot_buffer(
+            in_dim(params["class_embed"]), 1, mode=2)
 
     sg, sgs = params["sgcn"], stats.get("sgcn", {})
     i = 1
-    while f"g{i}" in sg:  # the G builders
-        g = sg[f"g{i}"]
-        for name in ("g1", "g2", "g3", "g4"):
-            if name in g:
-                _sgn_conv_out(out, f"sgcn.gcn_g{i}.{name}", g[name]["conv"])
-        out[f"sgcn.gcn_g{i}.alpha"] = _np(g["alpha"])
+    while f"g{i}" in sg:  # the G modules
+        _sgn_g_module_out(out, f"sgcn.gcn_g{i}", sg[f"g{i}"],
+                           sgs.get(f"g{i}", {}), num_point)
         i += 1
     i = 1
     while f"gcn{i}" in sg:  # the units
         n, p = sg[f"gcn{i}"], f"sgcn.gcn{i}"
         _sgn_conv_out(out, f"{p}.w1", n["w1"])
         _sgn_conv_out(out, f"{p}.w2", n["w2"]["conv"])
+        if "res_alpha" in n:
+            out[f"{p}.res_alpha"] = _np(n["res_alpha"])
         _bn_out(out, f"{p}.norm", n["norm"], sgs[f"gcn{i}"]["norm"])
         i += 1
 
-    for name in params:  # the temporal branches tem{i}_{j}_k{k}
+    for name in params:
         m = re.fullmatch(r"tem(\d+)_(\d+)_k(\d+)", name)
-        if not m:
-            continue
-        node, snode = params[name]["cnn"], stats[name]["cnn"]
-        for layer in ("cnn1", "cnn2"):
-            p = f"tem_mlp_{m[1]}_{m[2]}_k{m[3]}.cnn.{layer}"
-            _sgn_conv_out(out, p, node[layer]["cnn"]["conv"])
-            _bn_out(out, f"{p}.block.norm", node[layer]["norm"],
-                    snode[layer]["norm"])
+        if m:  # the temporal branches tem{i}_{j}_k{k}
+            node, snode = params[name]["cnn"], stats[name]["cnn"]
+            for layer in ("cnn1", "cnn2"):
+                p = f"tem_mlp_{m[1]}_{m[2]}_k{m[3]}.cnn.{layer}"
+                _sgn_conv_out(out, p, node[layer]["cnn"]["conv"])
+                _bn_out(out, f"{p}.block.norm", node[layer]["norm"],
+                        snode[layer]["norm"])
+        elif re.fullmatch(r"fpn_proj\d+(_k\d+)?", name):
+            _sgn_conv_out(out, name, params[name]["conv"])
+    for name in ("fc_mu", "fc_logvar", "fc"):
+        if name in params:
+            _linear_out(out, name, params[name])
+    if "z_prior" in stats:
+        out["z_prior"] = _np(stats["z_prior"])
+    return _torch_tensors(out)
+
+
+def sgn_original_state_dict_from_variables(
+        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX SGNOriginal variables -> the original microsoft/SGN state dict
+    (the port's copy of torch_export.sgn_original_state_dict_from_variables,
+    agcn_tpu/utils/torch_export.py:177-224)."""
+    params = variables["params"]
+    stats = _stats(variables)
+    out: Dict[str, np.ndarray] = {}
+
+    def dense(node, prefix):
+        out[f"{prefix}.weight"] = dense_to_pointwise(node["kernel"])
+        if "bias" in node:
+            out[f"{prefix}.bias"] = _np(node["bias"])
+
+    for flax_name, prefix, normed in (("pos_embed", "joint_embed", True),
+                                      ("dif_embed", "dif_embed", True),
+                                      ("spa_embed", "spa_embed", False),
+                                      ("tem_embed", "tem_embed", False)):
+        node = params[flax_name]
+        i = 0
+        if normed:
+            _bn_out(out, f"{prefix}.cnn.0.bn", node["in_norm"],
+                    stats[flax_name]["in_norm"])
+            i = 1
+        dense(node["cnn1"]["conv"], f"{prefix}.cnn.{i}.cnn")
+        dense(node["cnn2"]["conv"], f"{prefix}.cnn.{i + 2}.cnn")
+    dense(params["g1"]["conv"], "compute_g1.g1.cnn")
+    dense(params["g2"]["conv"], "compute_g1.g2.cnn")
+    for i in (1, 2, 3):
+        node = params[f"gcn{i}"]
+        dense(node["w"], f"gcn{i}.w.cnn")
+        dense(node["w1"]["conv"], f"gcn{i}.w1.cnn")
+        _bn_out(out, f"gcn{i}.bn", node["norm"], stats[f"gcn{i}"]["norm"])
+    # the local conv is (1, 3) over the time axis: (out, in, 1, 3)
+    out["cnn.cnn1.weight"] = np.transpose(_np(params["t_cnn1"]["kernel"]),
+                                          (3, 2, 1, 0))
+    if "bias" in params["t_cnn1"]:
+        out["cnn.cnn1.bias"] = _np(params["t_cnn1"]["bias"])
+    _bn_out(out, "cnn.bn1", params["t_norm1"], stats["t_norm1"])
+    dense(params["t_cnn2"]["conv"], "cnn.cnn2")
+    _bn_out(out, "cnn.bn2", params["t_norm2"], stats["t_norm2"])
     _linear_out(out, "fc", params["fc"])
     return _torch_tensors(out)
 
@@ -577,6 +675,8 @@ def model_state_dict(checkpoint: Mapping[str, Any], model: str = "agcn",
                 checkpoint, adaptive=adaptive)
         if key == "sgn":
             return sgn_state_dict_from_variables(checkpoint)
+        if key == "sgn_original":
+            return sgn_original_state_dict_from_variables(checkpoint)
         if key in _VERSION_MAPS:
             return _VERSION_MAPS[key](checkpoint)
         item = waiting_item(model)

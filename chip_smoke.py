@@ -210,11 +210,32 @@ fails:
    agcn_tpu_torch.infer --serve 16 --max-frame 60` serves the
    checkpoint; no kernel launched. (d) v17, v24, v30 (both GCN units),
    v32 and v34, one forward each at batch 2 against the CPU (fp32 1e-3).
+17. SGN's v11-v13 options, the MMD loss and sgn_original (full width: V
+   = 25, seg 20, 60 classes, c4 512), whose paths run none of the port's
+   kernels, as in the JAX package: every kernel's launch count must stay
+   0. On phase 14's synthetic pickles: (a) train_sgn_v11.yaml,
+   train_sgn_v12.yaml (the InfoGCN head), train_sgn_v13_gt4.yaml and
+   sgn_original, every unit's w1 random and the BN statistics of a
+   train-mode forward: eval logits of a 4 x 5-crop batch, card against
+   CPU in fp32, within 1e-3 of the logit scale; (b) one fp32 v12 step at
+   batch 4 with dropout 0 (label smoothing, the MMD loss, Adam), card
+   against CPU, the card replaying the CPU's ReLU masks, max selections
+   and the head's eps: loss and the six MMD metrics 1e-4 relative (the
+   cosines 1e-4 of 1), every gradient 1e-3 of its scale; (c) 10 Adam
+   steps of v12 at its batch of 128 and of v13_gt4 at 64 on one repeated
+   batch (the loss must fall), ms per step, seq/s, peak memory, one
+   step's device time by kernel group and its busy share; (d) `python -m
+   agcn_tpu_torch.main` trains one epoch of a copy of train_sgn_v12.yaml
+   and evaluates with multi_test 5 (metrics.jsonl's train and eval lines
+   carry mmd, l2_z_mean, cos_z, dist_z, cos_z_prior and dist_z_prior),
+   and `--phase test` on its checkpoint reproduces its top-1.
 
 `python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
 minute), `--phase 15` phases 1, 2 (the build) and 15, `--phase 16`
-phases 1, 2 and 16; none prints a result line (details of 15 in
-build/chip_smoke_knobs.json, of 16 in build/chip_smoke_versions.json).
+phases 1, 2 and 16, `--phase 17` phases 1 and 17; none prints a result
+line (details of 15 in build/chip_smoke_knobs.json, of 16 in
+build/chip_smoke_versions.json, of 17 in
+build/chip_smoke_sgn_options.json).
 
 The last lines of standard output are the `kernels` JSON line, the
 card's `nvidia-smi` name and power limit, and
@@ -990,18 +1011,25 @@ def train_batch(np, n, seed, num_class=60):
     return x, rng.integers(0, num_class, n)
 
 
-def make_step(torch, cfg, model, steps_per_epoch=1, keep=None, sam_rho=0.0):
+def make_step(torch, cfg, model, steps_per_epoch=1, keep=None, sam_rho=0.0,
+              recipe_loss=False):
     """The trainer's step: the recipe's loss and optimizer (AGCN's: clip ->
     decay -> nesterov), with `keep` given the model's raw gradients (under
     SAM, `sam_rho` > 0, those of pass two, which the update takes); the
-    optimizer is the step's `.optimizer`."""
+    optimizer is the step's `.optimizer`. With `recipe_loss`, the loss is
+    the trainer's: the recipe's label smoothing and its aux losses (the
+    MMD loss)."""
     from agcn_tpu_torch.train import losses, optim
     from agcn_tpu_torch.train.steps import make_train_step
+    from agcn_tpu_torch.train.trainer import build_aux_loss
 
     opt = optim.from_config(cfg, model.named_parameters(), steps_per_epoch)
-    loss_fn = losses.build_loss(cfg.loss, cfg.model_args["num_class"])
-    step = make_train_step(model, loss_fn, opt, grad_transform=keep,
-                           sam_rho=sam_rho)
+    loss_fn = losses.build_loss(
+        cfg.loss, cfg.model_args["num_class"],
+        **({"smoothing": cfg.label_smoothing} if recipe_loss else {}))
+    step = make_train_step(
+        model, loss_fn, opt, grad_transform=keep, sam_rho=sam_rho,
+        aux_loss_fn=build_aux_loss(cfg, model) if recipe_loss else None)
     step.optimizer = opt
     return step
 
@@ -1728,25 +1756,37 @@ def sgn_model(torch, cfg, device="cuda", dropout2d=None):
 
 def liven_sgn(torch, model, x, seed):
     """Every unit's w1 random (its init is zero: the G path would add
-    exactly nothing) and every BN's running statistics set to its batch
-    statistics in a train-mode forward on `x` (numpy), so that eval
-    normalizes as training would."""
+    exactly nothing; the original SGN's `w`) and every BN's running
+    statistics set to its batch statistics in a train-mode forward on `x`
+    (numpy), so that eval normalizes as training would: a BN called n
+    times in the forward (a shared temporal branch's) took n momentum-0.1
+    updates from (0, 1), which leave 0.9^n of the start."""
     from agcn_tpu_torch.ops.norm import BatchNorm
 
     g = torch.Generator().manual_seed(seed)
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    calls = {id(m): 0 for m in norms}
+
+    def count(m, _):
+        calls[id(m)] += 1
+
+    hooks = [m.register_forward_pre_hook(count) for m in norms]
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith(".w1.block.conv.conv.weight"):
+            if (name.endswith(".w1.block.conv.conv.weight")
+                    or re.fullmatch(r"gcn\d\.w\.cnn\.weight", name)):
                 p.copy_((torch.randn(p.shape, generator=g)
                          / math.sqrt(p.shape[1])).to(p.device))
         for m in norms:
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
         model.train()(torch.from_numpy(x).to(next(model.parameters()).device))
-        for m in norms:  # undo the momentum-0.1 update from (0, 1)
-            m.running_mean.div_(0.1)
-            m.running_var.sub_(0.9).div_(0.1).clamp_(min=1e-3)
+        for m in norms:  # undo the updates from (0, 1)
+            kept = 0.9 ** calls[id(m)]
+            m.running_mean.div_(1.0 - kept)
+            m.running_var.sub_(kept).div_(1.0 - kept).clamp_(min=1e-3)
+    for h in hooks:
+        h.remove()
     model.eval()
 
 
@@ -3036,13 +3076,303 @@ def phase_versions(torch, np, smi, summary):
     return dict(folded, aagcn_v31_train=v31_train)
 
 
+# -- phase 17: SGN's v11-v13 options, the MMD loss, sgn_original ---------
+
+SGN_OPTION_CONFIGS = {
+    name: os.path.join(REPO, "configs", "ntu60_xview",
+                       f"train_sgn_{name}.yaml")
+    for name in ("v11", "v12", "v13_gt4")}
+MMD_METRICS = ("mmd", "l2_z_mean", "cos_z", "dist_z", "cos_z_prior",
+               "dist_z_prior")
+
+
+def first(out):
+    """The logits of a model's output ((logits, G) for sgn_original)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def option_configs():
+    """The recipes of phase 17 (sgn_original in train_sgn.yaml's data
+    settings: no recipe ships it), by name."""
+    from agcn_tpu_torch.utils.config import load_config
+
+    cfgs = {name: load_config(path)
+            for name, path in SGN_OPTION_CONFIGS.items()}
+    cfgs["sgn_original"] = load_config(SGN_CONFIG, {
+        "model": "model.sgn.SGN",
+        "model_args": {"num_class": 60, "num_point": 25, "in_channels": 3,
+                       "seg": 20, "dropout": 0.0}})
+    return cfgs
+
+
+def phase_sgn_options_vs_cpu(torch, np, cfgs, x_eval, summary):
+    """(a) Card against CPU, fp32 (TF32 off): each model with every unit's
+    w1 random and the BN statistics of a train-mode forward, eval logits
+    of the 4 x 5-crop batch within 1e-3 of the logit scale. Returns the
+    CPU models' state dicts."""
+    states, rows = {}, {}
+    torch.set_num_threads(os.cpu_count() or 1)
+    for name, cfg in cfgs.items():
+        drop = None if name == "sgn_original" else 0.0
+        ref = sgn_model(torch, cfg, device="cpu", dropout2d=drop)
+        liven_sgn(torch, ref, x_eval, SEED + 50)
+        states[name] = {k: v.detach().clone()
+                        for k, v in ref.state_dict().items()}
+        with torch.inference_mode():
+            want = first(ref(torch.from_numpy(x_eval))).numpy()
+        del ref
+        card = sgn_model(torch, cfg, dropout2d=drop)
+        card.load_state_dict(states[name], strict=True)
+        with torch.inference_mode():
+            got = first(card.eval()(torch.from_numpy(x_eval).cuda()))
+        got = got.cpu().numpy()
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        rows[name] = dict(logit_err=err, logit_scale=scale,
+                          params=sum(p.numel() for p in card.parameters()))
+        check(np.isfinite(got).all() and err <= 1e-3 * max(scale, 1.0),
+              f"{name}: card logits off the CPU's by {err:.3e}")
+        del card
+    log("  sgn options (a) eval logits (4 x 5 crops) card vs cpu: "
+        + "; ".join(f"{n} {r['logit_err']:.3e} of {r['logit_scale']:.3f} "
+                    f"({r['params']:,} parameters)" for n, r in rows.items()))
+    summary["sgn_options_vs_cpu"] = rows
+    return states
+
+
+def phase_sgn_mmd_step_vs_cpu(torch, np, cfg, state, x_eval, summary):
+    """(b) One fp32 step of v12 (label smoothing, the MMD loss, Adam) at
+    batch 4 with dropout 0, card against CPU: the card replays the CPU's
+    ReLU masks, max selections and the InfoGCN head's eps. Loss and the
+    six MMD metrics 1e-4 relative (the cosines 1e-4 of their bound, 1),
+    every gradient 1e-3 of its scale."""
+    from agcn_tpu_torch.tools.grad_parity import (AmaxProbe, NoiseProbe,
+                                                  ReluProbe, amax_probe,
+                                                  grad_errors, noise_probe,
+                                                  relu_probe)
+
+    x = np.ascontiguousarray(x_eval[::SGN_CROPS])
+    y = np.array([0, 7, 7, 21])  # a repeated class and absent ones
+    out, probes = {}, {}
+    for run, dev in (("cpu", "cpu"), ("card", "cuda")):
+        model = sgn_model(torch, cfg, device=dev, dropout2d=0.0)
+        model.load_state_dict(state, strict=True)
+        grads = {}
+
+        def keep(m):
+            grads.update((n, p.grad.double().cpu().clone())
+                         for n, p in m.named_parameters())
+
+        ref = probes.get("cpu")
+        probes[run] = (ReluProbe(ref=ref and ref[0], keep_inputs=not ref),
+                       AmaxProbe(ref=ref and ref[1]),
+                       NoiseProbe(ref=ref and ref[2]))
+        relu, amax, noise = probes[run]
+        with relu_probe(relu), amax_probe(amax), noise_probe(noise):
+            metrics = make_step(torch, cfg, model, keep=keep,
+                                recipe_loss=True)(
+                torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+        out[run] = ({k: v.item() for k, v in metrics.items()}, grads)
+        del model
+    (m_cpu, g_cpu), (m_card, g_card) = out["cpu"], out["card"]
+    # relative to the value; the cosines (cos_z_prior is 0 in exact
+    # arithmetic for the orthogonal prior) relative to their bound, 1
+    rel = {k: abs(m_card[k] - m_cpu[k]) / max(
+        abs(m_cpu[k]), 1.0 if k.startswith("cos") else 1e-30)
+           for k in ("loss",) + MMD_METRICS}
+    rows = grad_errors(g_card, g_cpu, 1e-3)
+    relu, amax, noise = probes["card"]
+    log(f"  sgn options (b) one fp32 v12 step at batch 4 with the MMD loss: "
+        f"loss cpu {m_cpu['loss']:.6f}, card {m_card['loss']:.6f}; "
+        + ", ".join(f"{k} {m_card[k]:.5g} ({rel[k]:.1e})"
+                    for k in MMD_METRICS)
+        + f"; eps replayed {len(noise.draws)}; ReLU signs off the cpu's "
+        f"{relu.disagree} (inputs within {relu.input_diff:.2e}); max "
+        f"selections off {amax.disagree} of {amax.maxima}; worst gradients: "
+        + "; ".join(f"{r:.2f} {n} {e:.3e} {sc:.3e}" for r, n, e, sc in
+                    rows[:3]))
+    check(len(noise.draws) == 1, f"eps draws {len(noise.draws)}")
+    check(relu.input_diff <= 1e-3,
+          f"v12: the card's ReLU inputs lie far from the CPU's: "
+          f"{relu.input_diff}")
+    check(amax.disagree <= 1e-4 * amax.maxima,
+          f"v12: {amax.disagree} of {amax.maxima} max selections differ")
+    check(max(rel.values()) <= 1e-4, f"v12: card metrics off the CPU's: "
+                                     f"{rel}")
+    check(rows[0][0] <= 1.0, f"v12: card gradients off the CPU's: "
+                             f"{rows[0]}")
+    summary["sgn_mmd_step"] = dict(
+        cpu=m_cpu, card=m_card, rel=rel,
+        relu_sign_flips=(relu.disagree, relu.input_diff),
+        max_ties=(amax.disagree, amax.maxima),
+        grads=[list(r) for r in rows[:5]])
+
+
+def step_profile(torch, step, x, y):
+    """One step under torch.profiler: (device ms by kernel group, kernels
+    launched)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(x, y)
+        torch.cuda.synchronize()
+    groups, kernels = {}, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            g = kernel_group(ev.name)
+            groups[g] = groups.get(g, 0.0) + ev.device_time_total / 1e3
+            kernels += 1
+    check(sum(groups.values()) > 0, "the profiler saw no device time")
+    return groups, kernels
+
+
+def phase_sgn_options_train(torch, np, cfgs, train_ds, summary):
+    """(c) Ten Adam steps of v12 (batch 128, the MMD loss) and v13_gt4
+    (batch 64) at the recipes' dropout2d on one repeated collated batch:
+    the loss must fall and no port kernel launches; then ms per step,
+    seq/s and peak memory (5 timed steps after 2), one step's device time
+    by kernel group (torch.profiler) and its busy share."""
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+
+    sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20)
+    rng = np.random.default_rng(SEED + 51)
+    rows = {}
+    for name in ("v12", "v13_gt4"):
+        cfg = cfgs[name]
+        n = cfg.batch_size
+        x, _, y, _ = sampler.collate([train_ds[i] for i in range(n)], rng,
+                                     train=True)
+        x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+        model = sgn_model(torch, cfg)
+        step = make_step(torch, cfg, model, recipe_loss=True)
+        reset_launches()
+        losses_ = [step(x, y)["loss"] for _ in range(TRAIN_STEPS)]
+        losses_ = [v.item() for v in losses_]
+        launches = all_launches()
+        check(all(math.isfinite(v) for v in losses_)
+              and losses_[-1] < losses_[0],
+              f"{name}: the loss did not fall on a repeated batch: "
+              f"{losses_}")
+        check(not any(launches.values()),
+              f"{name}: the training path launched {launches}")
+        for _ in range(2):
+            step(x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(x, y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 5
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        groups, kernels = step_profile(torch, step, x, y)
+        device_ms = sum(groups.values())
+        rows[name] = dict(batch=n, losses=losses_, launches=launches,
+                          ms_per_step=ms, seq_per_s=n / ms * 1e3,
+                          peak_gib=peak, device_ms=device_ms,
+                          busy=device_ms / ms, kernels=kernels,
+                          groups=groups)
+        log(f"  sgn options (c) {name}: {TRAIN_STEPS} Adam steps at batch "
+            f"{n}: loss {' '.join(f'{v:.3f}' for v in losses_)}; launches "
+            f"{launches}; {ms:.3f} ms/step, {n / ms * 1e3:.1f} seq/s, peak "
+            f"{peak:.3f} GiB; one step: device {device_ms:.3f} ms in "
+            f"{kernels} kernels ({100 * device_ms / ms:.1f}% busy)")
+        for g, gms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            log(f"    {gms:9.3f} ms {100 * gms / device_ms:5.1f}%  {g}")
+        del model, step
+    summary["sgn_options_train"] = rows
+
+
+def phase_sgn_options_cli(np, paths, tmp, summary):
+    """(d) `python -m agcn_tpu_torch.main` on a copy of train_sgn_v12.yaml
+    pointed at the pickles: one epoch (batch 128), eval with multi_test 5
+    and a checkpoint; metrics.jsonl's train and eval lines carry the six
+    MMD metrics, finite; `--phase test` on the checkpoint reproduces the
+    run's top-1; no port kernel launches."""
+    import yaml
+
+    with open(SGN_OPTION_CONFIGS["v12"]) as f:
+        recipe = yaml.safe_load(f)
+    work = os.path.join(tmp, "v12")
+    recipe.update(
+        work_dir=work, num_epoch=1, num_worker=2, log_interval=1,
+        save_interval=1, eval_interval=1, show_topk=[1, 5],
+        train_feeder_args=dict(recipe["train_feeder_args"],
+                               data_path=paths["train"][0],
+                               label_path=paths["train"][1]),
+        test_feeder_args=dict(recipe["test_feeder_args"],
+                              data_path=paths["test"][0],
+                              label_path=paths["test"][1]))
+    cfg_path = os.path.join(tmp, "sgn_v12.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(recipe, f)
+    log("  sgn options (d) python -m agcn_tpu_torch.main on "
+        "train_sgn_v12.yaml: train + eval (multi_test 5) + save, one epoch; "
+        "then --phase test")
+    run_entry_point(["--config", cfg_path])
+    run_entry_point(["--config", cfg_path, "--phase", "test", "--weights",
+                     os.path.join(work, "checkpoints", "epoch_1.pt"),
+                     "--work-dir", os.path.join(tmp, "v12_test")])
+    metrics = read_metrics(os.path.join(work, "metrics.jsonl"))
+    test = read_metrics(os.path.join(tmp, "v12_test", "metrics.jsonl"))
+    trains = [m for m in metrics if m["kind"] == "train"]
+    evals = [m for m in metrics if m["kind"] == "eval"]
+    check(len(trains) == 1 and len(evals) == 1
+          and all(math.isfinite(m.get(k, math.nan))
+                  for m in (trains[0], evals[0]) for k in MMD_METRICS),
+          f"v12 entry point: the MMD metrics missing: {metrics}")
+    check(not any(trains[0]["launches"].values()),
+          f"v12 entry point launched {trains[0]['launches']}")
+    check(test[-1]["top1"] == evals[-1]["top1"],
+          f"--phase test top-1 {test[-1]['top1']} != the run's "
+          f"{evals[-1]['top1']}")
+    log(f"      train loss {trains[0]['loss']:.4f}, "
+        + ", ".join(f"{k} {trains[0][k]:.4g}" for k in MMD_METRICS)
+        + f"; eval top-1 {evals[-1]['top1']:.4f} (mmd {evals[-1]['mmd']:.4g}"
+        f"), --phase test top-1 {test[-1]['top1']:.4f}")
+    summary["sgn_options_cli"] = dict(train=trains, eval=evals, test=test)
+
+
+def phase_sgn_options(torch, np, summary):
+    """Phase 17: (a)-(d) above, on phase 14's synthetic pickles in one
+    temporary directory."""
+    from agcn_tpu_torch.data.feeder import SGNDataset
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+
+    t17 = time.perf_counter()
+    cfgs = option_configs()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_sgn_pickles(np, tmp)
+        train = SGNDataset(*paths["train"], dataset="NTU60-CV-SGN")
+        test = SGNDataset(*paths["test"], dataset="NTU60-CV-SGN")
+        sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20,
+                                 multi_test=SGN_CROPS)
+        x_eval, _, _, _ = sampler.collate([test[i] for i in range(4)],
+                                          np.random.default_rng(SEED),
+                                          multi_crop=True)
+        states = phase_sgn_options_vs_cpu(torch, np, cfgs, x_eval, summary)
+        phase_sgn_mmd_step_vs_cpu(torch, np, cfgs["v12"], states["v12"],
+                                  x_eval, summary)
+        phase_sgn_options_train(torch, np, cfgs, train, summary)
+        phase_sgn_options_cli(np, paths, tmp, summary)
+    launches = all_launches()
+    check(not any(launches.values()), f"phase 17 launched {launches}")
+    summary["sgn_options_launches"] = launches
+    summary["sgn_options_phase_s"] = time.perf_counter() - t17
+    log(f"  phase 17 in {summary['sgn_options_phase_s']:.1f} s")
+    return launches
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only not in ("14", "15", "16"):
-        print("usage: python3 chip_smoke.py [--phase 14|15|16]",
+    if argv and only not in ("14", "15", "16", "17"):
+        print("usage: python3 chip_smoke.py [--phase 14|15|16|17]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3060,18 +3390,28 @@ def main(argv=None):
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/16] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/17] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     if only == "14":
-        log("[14/16] the SGN recipe alone (phase 14)")
+        log("[14/17] the SGN recipe alone (phase 14)")
         phase_sgn(torch, np, summary)
+        return 0
+    if only == "17":
+        log("[17/17] SGN's v11-v13 options, the MMD loss and sgn_original "
+            "alone (phase 17)")
+        phase_sgn_options(torch, np, summary)
+        out_dir = os.path.join(REPO, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_sgn_options.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=1)
         return 0
     if only == "15":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/16] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/17] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[15/16] the trainer's run knobs alone (phase 15)")
+        log("[15/17] the trainer's run knobs alone (phase 15)")
         phase_knobs(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
@@ -3081,9 +3421,9 @@ def main(argv=None):
     if only == "16":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/16] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/17] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[16/16] BN folding, the apply_gcn forms, the AAGCN versions "
+        log("[16/17] BN folding, the apply_gcn forms, the AAGCN versions "
             "alone (phase 16)")
         summary["phase16_launches"] = phase_versions(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -3096,7 +3436,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/16] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/17] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -3112,7 +3452,7 @@ def main(argv=None):
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/16] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/17] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -3128,7 +3468,7 @@ def main(argv=None):
     summary.update(kernel_rows=rows, dx_rows=dx_rows,
                    fp32_fwd_layers=fp32_layers(rows, dx_rows))
 
-    log("[4/16] gcn_bwd vs its plain version at the training shapes "
+    log("[4/17] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -3136,7 +3476,7 @@ def main(argv=None):
     summary.update(bwd_rows=bwd_rows,
                    fp32_da1_layers=da1_fp32_layers(bwd_rows))
 
-    log("[5/16] attention-logits kernel vs plain version at the served "
+    log("[5/17] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -3146,7 +3486,7 @@ def main(argv=None):
         logits_rows = phase_logits(torch, np, logits_kernel)
     summary["logits_rows"] = logits_rows
 
-    log("[6/16] host data path: the C++ host kernels "
+    log("[6/17] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -3154,11 +3494,11 @@ def main(argv=None):
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/16] AGCN serving main path: 16 streams through "
+    log("[7/17] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/16] AGCN: device time of one served forward by kernel group; "
+    log("[8/17] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -3166,7 +3506,7 @@ def main(argv=None):
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/16] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/17] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -3175,19 +3515,19 @@ def main(argv=None):
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/16] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/17] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/16] AAGCN: device time of one served forward by kernel group; "
+    log("[11/17] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/16] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/17] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -3197,7 +3537,7 @@ def main(argv=None):
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/16] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/17] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -3215,25 +3555,32 @@ def main(argv=None):
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
-    log("[14/16] SGN recipe (no port kernel on its path, as in the JAX "
+    log("[14/17] SGN recipe (no port kernel on its path, as in the JAX "
         "package): train_sgn.yaml at full width on synthetic SGN pickles "
         "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
         "the entry points with 5-crop eval")
     phase_sgn(torch, np, summary)
 
-    log("[15/16] the trainer's run knobs: one fp32 SAM step of the pallas "
+    log("[15/17] the trainer's run knobs: one fp32 SAM step of the pallas "
         "AGCN, kernels against plain versions; the entry point on "
         "train_joint.yaml with SAM, the profiler, async checkpoints, then "
         "auto-resume; train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml "
         "through the entry point")
     sam_launches = phase_knobs(torch, np, smi, summary)
 
-    log("[16/16] BN folding on the served pallas AGCN and AAGCN forwards "
+    log("[16/17] BN folding on the served pallas AGCN and AAGCN forwards "
         "(gcn_fwd and the logits kernel counted); the apply_gcn forms "
         "against 'agg'; the AAGCN v31 recipe (train_joint_aagcn_v31.yaml, "
         "T=60: card against CPU, 10 SGD steps, speed, the entry points); "
         "v17, v24, v30, v32 and v34 against the CPU")
     v16 = phase_versions(torch, np, smi, summary)
+
+    log("[17/17] SGN's v11-v13 options, the MMD loss and sgn_original (no "
+        "port kernel on their path, as in the JAX package): v11, v12, "
+        "v13_gt4 and sgn_original card against CPU; one v12 step with the "
+        "MMD loss card against CPU; 10 Adam steps of v12 (batch 128) and "
+        "v13_gt4 (64), speed; train_sgn_v12.yaml through the entry points")
+    v17 = phase_sgn_options(torch, np, summary)
 
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
@@ -3288,6 +3635,7 @@ def main(argv=None):
             aagcn_v31_train=v16["aagcn_v31_train"][key])
         for path in ("agcn_folded_serve", "aagcn_folded_serve"):
             entry["launches_by_path"].setdefault(path, v16[path][key])
+        entry["launches_by_path"]["sgn_options"] = v17[key]
     # the fp32 routes' numbers beside the bf16 ones (gcn_fwd: served
     # forward and, for gcn_fused, dx per step; gcn_bwd: per step)
     same = ("name", "route", "source", "replaces", "launches")

@@ -337,7 +337,7 @@ def test_state_dict_is_the_reference_map():
         built = build_model(name, {"num_class": NUM_CLASS,
                                    "model_layers": 3}, device="cpu")
         assert isinstance(built, AAGCN)
-    for name in ("sgn_original", "sgn_transformer"):
+    for name in ("model.sgn_v15.SGN", "sgn_transformer"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             build_model(name, {}, device="cpu")
     # the AAGCN versions build since they were ported

@@ -156,7 +156,7 @@ def test_train_mode_and_unported_options_raise():
     with pytest.raises(NotImplementedError, match="edge_mesh"):
         AGCN(adj=adj, device="cpu", edge_mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("sgn_original", {}, device="cpu")
+        build_model("sgn_transformer", {}, device="cpu")
 
 
 def test_default_device_entry_points_raise_without_gpu():
@@ -218,11 +218,15 @@ def test_model_state_dict_dispatches_by_registry_key(jax_agcn):
         got = model_state_dict(variables, name)
         assert set(got) == set(want)
         assert all(torch.equal(got[k], want[k]) for k in want)
-    for name, item in (("sgn_original", "item 7: SGN family"),
-                       ("sgn_transformer", "item 7: SGN family"),
+    for name, item in (("sgn_transformer", "item 7: SGN family"),
+                       ("model.architecture.sgn.sgn_v15.SGN",
+                        "item 7: SGN family"),
                        ("model.sgn_v15.SGN", "item 7: SGN family")):
         with pytest.raises(NotImplementedError, match=item):
             model_state_dict(variables, name)
+    # the original SGN has its map (an AGCN tree has none of its keys)
+    with pytest.raises(KeyError):
+        model_state_dict(variables, "model.sgn.SGN")
     # the AAGCN versions have their maps (an AGCN tree has none of their
     # keys: the v31 map asks for its head)
     for name in ("aagcn_v31", "model.aagcn_v17.Model"):

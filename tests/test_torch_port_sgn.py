@@ -258,19 +258,19 @@ def test_frame_ops_match_jax():
 
 
 @pytest.mark.parametrize("option", [
-    dict(sgcn_gt_mode=0), dict(sgcn_gt_mode=4), dict(sgcn_attn_mode=2),
-    dict(gcn_fpn=1), dict(gcn_fpn_output_merge=2), dict(t_mode=2),
-    dict(multi_t_shared=2), dict(semantic_class=1), dict(semantic_jdiff=1),
+    dict(sgcn_gt_mode=0), dict(sgcn_gt_mode=5), dict(sgcn_attn_mode=2),
+    dict(gcn_fpn=8), dict(gcn_fpn_output_merge=2), dict(t_mode=2),
+    dict(gcn_fpn=10), dict(sgcn_gt_mode=6), dict(semantic_jdiff=1),
     dict(semantic_joint_smp=1), dict(semantic_frame_location=1),
     dict(xem_projection=1),
     dict(input_position=1001, input_velocity=1001), dict(sgcn_ffn=4.0),
     dict(sgcn_residual=[1, 1, 1]), dict(sgcn_prenorm=True),
     dict(sgcn_g_weighted=True), dict(sgcn_v_kernel=3),
-    dict(sgcn_kernel=3), dict(sgcn_g_kernel=3), dict(sgcn_g_res_alpha=-1),
+    dict(sgcn_kernel=3), dict(sgcn_g_kernel=3), dict(sgcn_attn_mode=1),
     dict(spatial_maxpool=3), dict(temporal_maxpool=2),
     dict(aspp_rates=[1, 2]), dict(t_mha_kwargs={"nhead": 2}),
     dict(t_maxpool_kwargs={"kernel_size": [1, 2]}),
-    dict(infogcn_noise_ratio=0.5, infogcn_gain=3.0),
+    dict(sgcn_attn_mode=3),
 ])
 def test_refused_option_names_its_item(option):
     name = next(iter(option))
@@ -316,16 +316,18 @@ def test_unported_names_raise_what_jax_raises(name):
 @pytest.mark.parametrize("name,item", [
     ("aagcn_v17", "item 6"), ("aagcn_v34", "item 6"),
     ("model.architecture.aagcn.aagcn_v31.Model", "item 6"),
-    ("sgn_original", "item 7"), ("model.sgn.SGN", "item 7"),
+    ("sgn_original", "item 7.2"), ("model.sgn.SGN", "item 7.2"),
     ("sgn_transformer", "item 7"), ("model.sgn_v15.SGN", "item 7"),
 ])
 def test_jax_models_the_port_lacks_name_their_item(name, item):
     """The SGN models the port lacks name their item; the AAGCN versions
-    (item 6) are ported and build where the JAX package builds them."""
+    (item 6) and the original SGN (item 7.2) are ported and build where
+    the JAX package builds them."""
     jax_registry.build_model(name, {})  # the JAX package builds them
-    if item == "item 6":
+    if item in ("item 6", "item 7.2"):
         assert registry.waiting_item(name) is None
-        assert registry.build_model(name, {"model_layers": 101},
+        assert registry.build_model(name, {"model_layers": 101} if
+                                    item == "item 6" else {},
                                     device="cpu") is not None
         return
     with pytest.raises(NotImplementedError, match=item):
