@@ -6,8 +6,13 @@
 
 Each file in --input (a directory of `.npy` or `.skeleton` recordings) is
 one live stream; all streams advance in lock-step and every --interval
-frames ONE batched forward answers all of them (infer/serving.py). The
-single-stream mode of the root infer.py is not ported yet (ROADMAP).
+frames ONE batched forward answers all of them (infer/serving.py). A model
+whose name holds "sgn" is served as the SGN family (`kind="sgn"`, as the
+root infer.py decides): the recipe's `test_dataloader_args` set its
+segments, `seg` sizes its frame table, and each stream takes
+`--multi-test` crops (the recipe's `multi_test` by default), whose logits
+are averaged. The single-stream mode of the root infer.py is not ported
+yet (ROADMAP).
 Weights are a reference `.pt` state dict or the JAX package's npz/pickle
 checkpoints (utils/weights.py). The model runs on `--device`, `cuda`
 unless named.
@@ -73,17 +78,19 @@ def scan_new_files(path: str, seen: set):
     return out
 
 
-def _serve(args, model, labels=None):
+def _serve(args, model, kind="dense", sgn_dataloader_args=None,
+           labels=None):
     """Multi-stream serving loop (see the module docstring)."""
     from agcn_tpu_torch.infer.serving import BatchedStreamServer
 
     server = BatchedStreamServer(
-        model, max_streams=args.serve, num_joint=args.num_joint,
+        model, max_streams=args.serve, kind=kind, num_joint=args.num_joint,
         max_seq_length=args.max_frame, moving_avg=args.moving_avg,
         max_person=args.max_num_skeleton,
         num_skels=args.max_num_skeleton_true,
-        normalize=args.aagcn_normalize,
-        allowed_classes=args.allowed_classes)
+        normalize=args.aagcn_normalize, multi_test=args.multi_test,
+        allowed_classes=args.allowed_classes,
+        sgn_dataloader_args=sgn_dataloader_args)
     streams = {}
     tags = set()
     tag_by_sid = {}
@@ -238,6 +245,9 @@ def main(argv=None):
                    help="skeletons fed to the model (energy-selected)")
     p.add_argument("--aagcn-normalize", type=lambda s: s.lower() in
                    ("1", "true", "yes"), default=True)
+    p.add_argument("--multi-test", type=int, default=None,
+                   help="SGN crops a stream (default: the recipe's "
+                        "test_dataloader_args multi_test)")
     p.add_argument("--label-mapping-file", type=str, default=None,
                    help="text file: one class name per line")
     p.add_argument("--out-folder", type=str, default=None,
@@ -267,9 +277,17 @@ def main(argv=None):
     from agcn_tpu_torch.utils.config import load_config
 
     cfg = load_config(args.config)
-    # the served window is the model's input length (--max-frame)
+    kind = "sgn" if "sgn" in cfg.model.lower() else "dense"
+    sgn_args = cfg.test_dataloader_args if kind == "sgn" else None
+    if args.multi_test is None:
+        args.multi_test = (sgn_args.get("multi_test", 1) if kind == "sgn"
+                           else 1)
+    # the model's input length: the served window (--max-frame), or an
+    # SGN model's segments (its one-hot frame table)
+    num_frame = (sgn_args.get("seg", 20) if kind == "sgn"
+                 else args.max_frame)
     model = build_model(cfg.model, cfg.model_args, device=args.device,
-                        num_frame=args.max_frame)
+                        num_frame=num_frame)
     weights = args.weights or discover_weights(args.weights_dir)
     # the port trainer's own checkpoints, the JAX package's and reference
     # state dicts alike
@@ -283,4 +301,5 @@ def main(argv=None):
     if args.label_mapping_file:
         with open(args.label_mapping_file) as f:
             labels = [ln.strip() for ln in f if ln.strip()]
-    return _serve(args, model, labels=labels)
+    return _serve(args, model, kind=kind, sgn_dataloader_args=sgn_args,
+                  labels=labels)

@@ -1,20 +1,24 @@
 """Real-time action recognition, one stream
-(port of agcn_tpu/infer/realtime.py, dense models).
+(port of agcn_tpu/infer/realtime.py: dense models and, `kind="sgn"`, the
+SGN family).
 
 Parity target: reference infer/inference.py (ActionRecognition :47-113,
-class-subset logit filtering :24-44): a streaming wrapper that appends
-per-frame skeletons, prepares model input, runs the forward on the
-model's device, and emits (label, probabilities).
+class-subset logit filtering :24-44, multi-crop averaging :103-106): a
+streaming wrapper that appends per-frame skeletons, prepares model input,
+runs the forward on the model's device, and emits (label,
+probabilities). The attention output of the JAX recognizer
+(`expose_attention`) waits in ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from agcn_tpu_torch.data.sgn_collate import SegmentSampler
 from agcn_tpu_torch.infer.preprocess import InferencePreprocessor
 
 
@@ -40,25 +44,43 @@ def softmax_answer(logits: np.ndarray,
 
 class ActionRecognition:
     """Streaming recognizer over the model's eval forward. The model is
-    put in eval mode; inputs go to the device its parameters lie on."""
+    put in eval mode; inputs go to the device its parameters lie on. An
+    SGN model (`kind="sgn"`) takes `multi_test` crops of the segments the
+    recipe's `sgn_dataloader_args` set (their own `multi_test` yields to
+    the argument), drawn from `default_rng(0)`, and averages their
+    logits."""
 
     def __init__(self,
                  model: torch.nn.Module,
+                 kind: str = "dense",
                  num_joint: int = 25,
                  max_seq_length: int = 300,
                  max_person: int = 4,
                  moving_avg: int = 1,
                  num_skels: int = 2,
                  normalize: bool = True,
-                 allowed_classes: Optional[Sequence[int]] = None):
+                 multi_test: int = 1,
+                 allowed_classes: Optional[Sequence[int]] = None,
+                 sgn_dataloader_args: Optional[Dict] = None):
+        if kind not in ("dense", "sgn"):
+            raise ValueError(f"kind {kind!r}: 'dense' or 'sgn'")
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        self.kind = kind
         self.num_skels = num_skels
         self.normalize = normalize
+        self.multi_test = multi_test
         self.allowed_classes = allowed_classes
+        sampler = None
+        if kind == "sgn":
+            extra = {k: v for k, v in (sgn_dataloader_args or {}).items()
+                     if k != "multi_test"}
+            sampler = SegmentSampler(multi_test=multi_test, **extra)
         self.preproc = InferencePreprocessor(
             num_joint=num_joint, max_seq_length=max_seq_length,
-            max_person=max_person, moving_avg=moving_avg)
+            max_person=max_person, moving_avg=moving_avg,
+            sgn_sampler=sampler)
+        self.rng = np.random.default_rng(0)
         self.last_latency_ms = 0.0
 
     def append_frame(self, frame: np.ndarray):
@@ -68,11 +90,22 @@ class ActionRecognition:
     def predict(self) -> Tuple[int, np.ndarray]:
         """Run the model on the current buffer -> (label, probabilities)."""
         t0 = time.perf_counter()
-        x = self.preproc.dense_input(self.num_skels,
-                                     normalize=self.normalize)
+        if self.kind == "sgn":
+            x = self.preproc.sgn_input(self.num_skels,
+                                       normalize=self.normalize,
+                                       multi_crop=self.multi_test > 1,
+                                       rng=self.rng)
+        else:
+            x = self.preproc.dense_input(self.num_skels,
+                                         normalize=self.normalize)
         with torch.inference_mode():
             out = self.model(torch.from_numpy(x).to(self.device))
+        if isinstance(out, tuple):  # (logits, aux)
+            out = out[0]
         logits = out.float().cpu().numpy()
+        if self.multi_test > 1:
+            logits = logits.reshape(-1, self.multi_test,
+                                    logits.shape[-1]).mean(axis=1)
         label, probs = softmax_answer(logits[0], self.allowed_classes)
         self.last_latency_ms = (time.perf_counter() - t0) * 1e3
         return label, probs

@@ -1,5 +1,6 @@
 """Multi-stream batched serving engine
-(port of agcn_tpu/infer/serving.py, dense models).
+(port of agcn_tpu/infer/serving.py: dense models and, `kind="sgn"`, the
+SGN family).
 
 N independent skeleton streams are multiplexed into ONE fixed-shape
 forward per tick on the model's device.
@@ -11,9 +12,15 @@ Design rules (as in the JAX package):
 - per-stream state (ring buffer, smoothing, energy-based skeleton
   selection, normalization) stays on the host in numpy; the device only
   sees the batched tensor.
-- per-stream semantics (class filtering, softmax) match
-  `ActionRecognition.predict`; a batched tick over K live streams
-  returns the same answers as K single-stream predicts.
+- per-stream semantics (multi-crop averaging, class filtering,
+  softmax) match `ActionRecognition.predict`; a batched tick over K live
+  streams returns the same answers as K single-stream predicts.
+- SGN (`kind="sgn"`): each stream's rows are its `multi_test` crops of
+  `seg` segments (`InferencePreprocessor.sgn_input`), drawn from the
+  stream's own `np.random.default_rng(stream_id)`, so a stream's crops do
+  not depend on the other live streams; the first stream's rows fix the
+  batch shape, and past 4 more streams a thread pool fills slabs of the
+  others; the logits of a stream's crops are averaged.
 
 On CUDA the batch is staged in page-locked host memory and copied with
 `non_blocking=True`, so `predict_async` returns while the card computes:
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from agcn_tpu_torch.data.gen.preprocess import pre_normalization
+from agcn_tpu_torch.data.sgn_collate import SegmentSampler
 from agcn_tpu_torch.infer.preprocess import InferencePreprocessor
 from agcn_tpu_torch.infer.realtime import softmax_answer
 
@@ -47,14 +55,19 @@ class BatchedStreamServer:
                  moving_avg: int = 1,
                  num_skels: int = 2,
                  normalize: bool = True,
-                 allowed_classes: Optional[Sequence[int]] = None):
+                 multi_test: int = 1,
+                 allowed_classes: Optional[Sequence[int]] = None,
+                 sgn_dataloader_args: Optional[Dict] = None):
         if max_streams < 1:
             raise ValueError("max_streams must be >= 1")
-        if kind != "dense":
-            raise NotImplementedError(
-                f"kind {kind!r}: the port serves dense models (AGCN, AAGCN, "
-                "the AAGCN transformer); SGN serving waits in ROADMAP "
-                "Queue 1 item 7.5: SGN family")
+        if kind not in ("dense", "sgn"):
+            raise ValueError(f"kind {kind!r}: 'dense' or 'sgn'")
+        self.kind = kind
+        self.multi_test = multi_test
+        # the recipe's test_dataloader_args carry multi_test too: the
+        # explicit parameter wins
+        self._sgn_args = {k: v for k, v in (sgn_dataloader_args or {}).items()
+                          if k != "multi_test"}
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.max_streams = max_streams
@@ -66,6 +79,8 @@ class BatchedStreamServer:
                                max_person=max_person,
                                moving_avg=moving_avg)
         self._streams: Dict[int, InferencePreprocessor] = {}
+        self._rngs: Dict[int, np.random.Generator] = {}
+        self._pool = None  # thread pool of the SGN per-stream rows
         self._next_id = 0
         self._bufs = [None, None]  # ping-pong staging buffers
         self._buf_i = 0
@@ -84,11 +99,17 @@ class BatchedStreamServer:
         if sid in self._streams:
             raise ValueError(f"stream {sid} already exists")
         self._next_id = max(self._next_id, sid) + 1
-        self._streams[sid] = InferencePreprocessor(**self._pp_kwargs)
+        sampler = (SegmentSampler(multi_test=self.multi_test,
+                                  **self._sgn_args)
+                   if self.kind == "sgn" else None)
+        self._streams[sid] = InferencePreprocessor(sgn_sampler=sampler,
+                                                   **self._pp_kwargs)
+        self._rngs[sid] = np.random.default_rng(sid)
         return sid
 
     def remove_stream(self, stream_id: int) -> None:
         self._streams.pop(stream_id)
+        self._rngs.pop(stream_id)
 
     def append_frame(self, stream_id: int, frame: np.ndarray) -> None:
         """frame: (M, 1, V, C) joints for the stream's current step."""
@@ -125,6 +146,40 @@ class BatchedStreamServer:
                                      xaxis=pps[0].xaxis)
         return rows.astype(np.float32)
 
+    def _sgn_rows(self, sid: int) -> np.ndarray:
+        return self._streams[sid].sgn_input(
+            self.num_skels, normalize=self.normalize,
+            multi_crop=self.multi_test > 1, rng=self._rngs[sid])
+
+    def _prepare_sgn(self, sids):
+        """The SGN rows of every stream in a staging buffer: the first
+        stream's rows fix the shape (crops, seg, V*C); past 4 more streams
+        W = min(8, n) thread-pool tasks each fill every W-th stream's
+        slice in place (numpy releases the GIL; the slices are
+        disjoint)."""
+        row0 = self._sgn_rows(sids[0])
+        per = row0.shape[0]
+        buf = self._staging((self.max_streams * per,) + row0.shape[1:])
+        x = buf.numpy()
+        x[:per] = row0
+        rest = sids[1:]
+        if len(rest) > 4:
+            if self._pool is None:
+                import concurrent.futures as cf
+                self._pool = cf.ThreadPoolExecutor(
+                    max_workers=min(8, self.max_streams))
+            workers = min(8, len(rest))
+
+            def slab(w):
+                for j in range(1 + w, len(sids), workers):
+                    x[j * per:(j + 1) * per] = self._sgn_rows(sids[j])
+
+            list(self._pool.map(slab, range(workers)))
+        else:
+            for j, sid in enumerate(rest, start=1):
+                x[j * per:(j + 1) * per] = self._sgn_rows(sid)
+        return buf
+
     def _staging(self, shape) -> torch.Tensor:
         """The next ping-pong host buffer (page-locked for a CUDA model)."""
         self._buf_i ^= 1
@@ -142,17 +197,20 @@ class BatchedStreamServer:
         sids = sorted(self._streams)
         if not sids:
             return None
-        if len(sids) > 4:
-            rows = self._prepare_dense_batched(sids)
+        if self.kind == "sgn":
+            buf = self._prepare_sgn(sids)
         else:
-            rows = np.concatenate([
-                self._streams[sid].dense_input(self.num_skels,
-                                               normalize=self.normalize)
-                for sid in sids])
-        buf = self._staging((self.max_streams,) + rows.shape[1:])
-        # stale rows of removed streams are harmless: eval has no
-        # cross-row coupling and _finalize drops rows past len(sids)
-        buf.numpy()[:len(sids)] = rows
+            if len(sids) > 4:
+                rows = self._prepare_dense_batched(sids)
+            else:
+                rows = np.concatenate([
+                    self._streams[sid].dense_input(self.num_skels,
+                                                   normalize=self.normalize)
+                    for sid in sids])
+            buf = self._staging((self.max_streams,) + rows.shape[1:])
+            # stale rows of removed streams are harmless: eval has no
+            # cross-row coupling and _finalize drops rows past len(sids)
+            buf.numpy()[:len(sids)] = rows
         t1 = time.perf_counter()
         xd = buf.to(self.device, non_blocking=True)
         # the enqueue of the host->device copy, not its duration
@@ -162,11 +220,17 @@ class BatchedStreamServer:
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return self.model(x)
+            out = self.model(x)
+        # the logits of a model that returns (logits, aux)
+        return out[0] if isinstance(out, tuple) else out
 
     def _finalize(self, sids, out) -> Dict[int, Tuple[int, np.ndarray]]:
-        """Host phase: device logits -> per-stream answers."""
-        logits = out.float().cpu().numpy()[:len(sids)]
+        """Host phase: device logits -> per-stream answers, each stream's
+        crops averaged (reference processor.py:546-548)."""
+        per = out.shape[0] // self.max_streams
+        logits = out.float().cpu().numpy()[:len(sids) * per]
+        if per > 1:
+            logits = logits.reshape(len(sids), per, -1).mean(axis=1)
         return {sid: softmax_answer(logits[i], self.allowed_classes)
                 for i, sid in enumerate(sids)}
 

@@ -1,13 +1,14 @@
 """Model registry (port of agcn_tpu/models/registry.py: AGCN, AAGCN, the
-AAGCN transformer, the AAGCN versions v17/v24/v30/v31/v32/v34, SGN and the
-original SGN).
+AAGCN transformer, the AAGCN versions v17/v24/v30/v31/v32/v34, SGN, the
+original SGN and SGN's transformer, v15): every model the JAX package
+builds.
 
 Models are selected by short name; the reference's dotted paths for the
 ported models are aliased so its config files work unchanged. Graph
 construction (the `graph`/`graph_args` model args) resolves through
-agcn_tpu_torch.graph. The JAX package's models that the port lacks raise
-NotImplementedError naming the ROADMAP item they wait in; every other
-name raises KeyError, as in the JAX package.
+agcn_tpu_torch.graph. A name the JAX package does not build raises
+KeyError, as in the JAX package; `_WAITING` would list a JAX model that
+the port lacked, with the ROADMAP item it waits in (none is left).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from agcn_tpu_torch.models.aagcn_versions import VERSIONS, AAGCNv31
 from agcn_tpu_torch.models.agcn import AGCN
 from agcn_tpu_torch.models.sgn import SGN
 from agcn_tpu_torch.models.sgn_original import SGNOriginal
+from agcn_tpu_torch.models.sgn_transformer import SGNTransformer
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE
 
 _SGN_VERSIONS = ("v11", "v12", "v13", "v14")
@@ -40,6 +42,9 @@ _ALIASES = {
     "model.sgn.SGN": "sgn_original",
     "model.architecture.sgn.sgn.SGN": "sgn_original",
     "model.architecture.sgn.archiv.sgn.SGN": "sgn_original",
+    # the pure-transformer SGN (agcn_tpu/models/registry.py:41-43)
+    "model.sgn_v15.SGN": "sgn_transformer",
+    "model.architecture.sgn.sgn_v15.SGN": "sgn_transformer",
     # the version-faithful variants (models/aagcn_versions.py)
     **{f"{prefix}aagcn_v{n}.Model": f"aagcn_v{n}"
        for n in (17, 24, 30, 31, 32, 34)
@@ -49,17 +54,12 @@ _ALIASES = {
 # modes, bias-less layers)
 _CLASSES = {"agcn": AGCN, "aagcn": AAGCN,
             "aagcn_transformer": AAGCNTransformer, "sgn": SGN,
-            "sgn_original": SGNOriginal,
+            "sgn_original": SGNOriginal, "sgn_transformer": SGNTransformer,
             "aagcn_v32": AAGCNv31, **VERSIONS}
-_SGN_ITEM = "Queue 1 item 7: SGN family"
 # the keys and aliases the JAX package builds (agcn_tpu/models/
 # registry.py:21-55, 89-199) that the port lacks, each with the ROADMAP
-# item it waits in
-_WAITING = {
-    "sgn_transformer": _SGN_ITEM,
-    "model.sgn_v15.SGN": _SGN_ITEM,
-    "model.architecture.sgn.sgn_v15.SGN": _SGN_ITEM,
-}
+# item it waits in: none since SGN's transformer (Queue 1 item 7.3)
+_WAITING: Dict[str, str] = {}
 # reference-only SGN args the model fixes or that are dead upstream
 # (agcn_tpu/models/registry.py:172-184): norm/act are fixed bn+relu,
 # semantic_frame_fusion is unused in the reference (sgn_v14.py:258), the
@@ -123,6 +123,38 @@ def sgn_args(model_args: Dict[str, Any]) -> Dict[str, Any]:
     return args
 
 
+def sgn_transformer_args(model_args: Dict[str, Any]) -> Dict[str, Any]:
+    """A recipe's sgn_transformer `model_args` in the model's names
+    (agcn_tpu/models/registry.py:125-159): `bias` -> `use_bias`,
+    `*_mha_kwargs` -> `spatial_mha` / `temporal_mha`; `norm_type` must be
+    'bn' and `act_type` 'relu' (the only shipped values),
+    `semantic_frame_fusion` (unused upstream, sgn_v15.py:130) is dropped,
+    and so is `dropout2d`, which reaches only the bert-style (>= 100)
+    embedding modes upstream: with one of those it raises."""
+    args = dict(model_args)
+    if "bias" in args:
+        args["use_bias"] = bool(args.pop("bias"))
+    for k in ("spatial_mha_kwargs", "temporal_mha_kwargs"):
+        if k in args:
+            args[k.replace("_kwargs", "")] = args.pop(k)
+    for k, allowed in (("norm_type", ("bn",)), ("act_type", ("relu",)),
+                       ("semantic_frame_fusion", None)):
+        if k in args:
+            val = args.pop(k)
+            if allowed is not None and val not in allowed:
+                raise ValueError(
+                    f"sgn_transformer: {k}={val!r} is not supported (only "
+                    f"{allowed}, as in the JAX package)")
+    if args.pop("dropout2d", 0.0) and any(
+            int(args.get(k, 0) or 0) >= 100
+            for k in ("input_position", "input_velocity", "semantic_joint",
+                      "semantic_frame", "semantic_class")):
+        raise ValueError(
+            "sgn_transformer: dropout2d with a bert-style (>=100) embedding "
+            "mode is not supported, as in the JAX package")
+    return args
+
+
 def build_model(name: str, model_args: Dict[str, Any],
                 device: Union[str, torch.device, None] = DEFAULT_DEVICE,
                 dtype: Optional[torch.dtype] = None,
@@ -133,8 +165,8 @@ def build_model(name: str, model_args: Dict[str, Any],
     `generator`. `num_frame`, the input's frames, sizes the tables of a
     model whose class sets `takes_num_frame` (the AAGCN transformer's
     positions, the spatial tokens of the AAGCN versions) and SGN's one-hot
-    frames (the loader's `seg`, also the original SGN's); the others take
-    any T."""
+    frames (the loader's `seg`, also the original SGN's and SGN's
+    transformer's); the others take any T."""
     key = model_key(name)
     cls = _CLASSES.get(key)
     if cls is None:
@@ -149,6 +181,12 @@ def build_model(name: str, model_args: Dict[str, Any],
         if num_frame is not None:
             args["num_segment"] = num_frame
         return SGN(device=device, dtype=dtype, generator=generator, **args)
+    if cls is SGNTransformer:
+        args = sgn_transformer_args(model_args)
+        if num_frame is not None:
+            args["num_segment"] = num_frame
+        return SGNTransformer(device=device, dtype=dtype,
+                              generator=generator, **args)
     if cls is SGNOriginal:
         args = dict(model_args)
         if "bias" in args:

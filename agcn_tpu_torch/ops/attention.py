@@ -1,8 +1,10 @@
 """Attention layers of the AAGCN transformer and the AAGCN versions
-(port of agcn_tpu/ops/attention.py: `PositionalEncoding` :28,
-`CosSinPositionalEncoding` :42, `RelPosEmb1D` :59, `MultiheadAttention`
-:85, `TransformerEncoderLayer` :166, `CrossAttention` :227,
-`CrossTransformer` :257, `TransformerEncoder` :489).
+and SGN's transformer (port of agcn_tpu/ops/attention.py:
+`PositionalEncoding` :28, `CosSinPositionalEncoding` :42, `RelPosEmb1D`
+:59, `MultiheadAttention` :85, `TransformerEncoderLayer` :166,
+`CrossAttention` :227, `CrossTransformer` :257, `_ChannelNorm` :287,
+`LucidAttention` :307, `LucidFeedForward` :359, `LucidTransformer` :396,
+`TransformerEncoder` :489).
 
 Tokens are (B, L, D). Parameters carry torch's names
 (`self_attn.in_proj_weight`, `self_attn.out_proj.*`, `linear1`,
@@ -21,16 +23,26 @@ The versions' options (models/aagcn_versions.py): a shared 1D relative
 position bias (`rel_pos_len`, the skew trick), an additive logit mask,
 the forked MHA's post-softmax injection (`alpha`, `global_attn`), and
 layers without biases (`bias=False`: linears and LayerNorms, v32's slip;
-`attn_bias=False`: the attention's projections). Dropout draws its masks
-from the generator its `Dropout` module holds (the model sets it), never
-from torch's global RNG. The boolean `mask` (SGN's transformer) raises
-with the ROADMAP item that brings it.
+`attn_bias=False`: the attention's projections), and a boolean `mask`
+(logits where it is False set to -1e9). Dropout draws its masks from the
+generator its `Dropout` module holds (the model sets it), never from
+torch's global RNG.
+
+SGN v15's lucidrains (CrossViT-style) encoder, `LucidTransformer`, keeps
+the reference's module names (crossattention.py:202-304), so that a
+reference state dict loads strictly: `layers.l{i}.attn.norm.fn` and
+`layers.l{i}.ffn.norm.fn` (the Normalize-wrapped BatchNorm or LayerNorm),
+`layers.l{i}.attn.fn.{to_q,to_k,to_v,to_out.linear,residual}`,
+`layers.l{i}.ffn.fn.{net.linear1,net.linear2,residual}` and the global
+`norm.fn`. Torch sizes a Linear before any input, so the encoder takes
+its input width (`in_dim`); the per-layer `dims` decide, as in JAX, only
+whether an attention has its residual projection.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from agcn_tpu_torch.ops import initializers as init
+from agcn_tpu_torch.ops.norm import BatchNorm
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -178,8 +191,9 @@ class MultiheadAttention(nn.Module):
     scaled logits. Returns (output, the plain softmax weights (B, H, Lq,
     Lk)). The weights that multiply v are softmax * `alpha` +
     `global_attn` (the reference fork's post-softmax injection), then, in
-    train mode, dropped out; `additive_mask` is added to the logits,
-    clamped at -1e9 (torch's float attn_mask, (L, L) or (B, H, L, L))."""
+    train mode, dropped out; where the boolean `mask` is False the logits
+    are -1e9, and `additive_mask` is added to them, clamped at -1e9
+    (torch's float attn_mask, (L, L) or (B, H, L, L))."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
                  bias: bool = True, rel_pos_len: int = 0):
@@ -218,10 +232,6 @@ class MultiheadAttention(nn.Module):
                 alpha: Optional[torch.Tensor] = None,
                 global_attn: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if mask is not None:
-            raise NotImplementedError(
-                "mask: not in the port yet; waits in ROADMAP Queue 1 item "
-                "7: SGN family")
         key = query if key is None else key
         value = key if value is None else value
         w_q, w_k, w_v = self.in_proj_weight.chunk(3)
@@ -233,6 +243,8 @@ class MultiheadAttention(nn.Module):
         logits = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
         if self.pos_emb is not None:
             logits = logits + self.pos_emb(q)
+        if mask is not None:
+            logits = torch.where(mask, logits, -1e9)
         if additive_mask is not None:
             logits = logits + torch.clamp(additive_mask, min=-1e9)
         attn = torch.softmax(logits, dim=-1)
@@ -414,3 +426,237 @@ class CrossTransformer(nn.Module):
             a_tokens = torch.cat([a_cls, a_rest], dim=1)
             b_tokens = torch.cat([b_cls, b_rest], dim=1)
         return a_tokens, b_tokens
+
+
+def _torch_linear_init(layer: nn.Linear, generator: torch.Generator) -> None:
+    """torch's default Linear init (JAX's torch_default_kernel and
+    torch_default_bias): U(+-1/sqrt(fan_in)) for the kernel and the bias."""
+    bound = init.torch_default(layer.in_features)
+    bound(layer.weight, generator)
+    if layer.bias is not None:
+        bound(layer.bias, generator)
+
+
+class ChannelNorm(nn.Module):
+    """The reference's Normalize wrapper over (B, N, C) tokens
+    (crossattention.py:37-43; agcn_tpu attention.py:287-304), the norm as
+    its `fn`: 'bn' is BatchNorm1d over (B, C, N), per-channel statistics
+    over every leading axis, which the channels-last `BatchNorm` computes
+    as it stands; 'ln' is LayerNorm (flax's epsilon 1e-6)."""
+
+    def __init__(self, dim: int, norm: str = "ln"):
+        super().__init__()
+        if norm not in ("bn", "ln"):
+            raise ValueError(f"unknown norm {norm!r} (bn or ln)")
+        self.fn = BatchNorm(dim) if norm == "bn" else layer_norm(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
+
+
+class _OutProj(nn.Module):
+    """The attention's `to_out`: `linear`, then dropout."""
+
+    def __init__(self, inner: int, output_dim: int, dropout: float):
+        super().__init__()
+        self.linear = _linear(inner, output_dim)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.drop(self.linear(x))
+
+
+class LucidAttention(nn.Module):
+    """lucidrains attention (reference crossattention.py:104-198; agcn_tpu
+    attention.py:307-356): bias-free `to_q` / `to_k` / `to_v` of heads x
+    dim_head from the `in_dim`-wide tokens, softmax(q k^T / sqrt(dim_head))
+    v, `to_out` to `output_dim` and dropout. `residual`, a Linear, carries
+    the input to the output's width where `dim` != `output_dim` or
+    `res_proj` forces one (`res`). Returns (output, the softmax weights
+    (B, H, N, N))."""
+
+    def __init__(self, in_dim: int, dim: int, heads: int, dim_head: int,
+                 output_dim: int, dropout: float = 0.0,
+                 res_proj: bool = False):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.to_q = _linear(in_dim, inner, bias=False)
+        self.to_k = _linear(in_dim, inner, bias=False)
+        self.to_v = _linear(in_dim, inner, bias=False)
+        self.to_out = _OutProj(inner, output_dim, dropout)
+        self.residual = (_linear(in_dim, output_dim)
+                         if res_proj or dim != output_dim else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for layer in (self.to_q, self.to_k, self.to_v, self.to_out.linear,
+                      self.residual):
+            if layer is not None:
+                _torch_linear_init(layer, generator)
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, _ = x.shape
+        return x.view(b, n, self.heads, self.dim_head).transpose(1, 2)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        q, k, v = (self._heads(p(x)) for p in (self.to_q, self.to_k,
+                                               self.to_v))
+        attn = torch.softmax(q @ k.transpose(-1, -2) * self.dim_head ** -0.5,
+                             dim=-1)
+        out = attn @ v
+        b, _, n, _ = out.shape
+        return self.to_out(out.transpose(1, 2).reshape(b, n, -1)), attn
+
+    def res(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.residual is None else self.residual(x)
+
+
+class _FeedForwardNet(nn.Module):
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int):
+        super().__init__()
+        self.linear1 = _linear(dim, hidden_dim)
+        self.linear2 = _linear(hidden_dim, out_dim)
+
+
+class LucidFeedForward(nn.Module):
+    """lucidrains FFN (crossattention.py:74-100; agcn_tpu
+    attention.py:359-393): `net.linear1` -> act -> dropout ->
+    `net.linear2` (to `output_dim`; 0 means `dim`) -> dropout, and a
+    `residual` Linear where the widths differ. 'gelu' is the tanh
+    approximation (flax nn.gelu); 'relu' calls torch.relu (the call
+    tools/grad_parity.py's ReluProbe replays)."""
+
+    def __init__(self, dim: int, hidden_dim: int, output_dim: int = 0,
+                 dropout: float = 0.0, activation: str = "gelu"):
+        super().__init__()
+        if activation not in ("relu", "gelu"):
+            raise ValueError(f"unknown activation {activation!r}")
+        out_dim = output_dim or dim
+        self.out_dim = out_dim
+        self.relu = activation == "relu"
+        self.net = _FeedForwardNet(dim, hidden_dim, out_dim)
+        self.drop_hidden = Dropout(dropout)
+        self.drop_out = Dropout(dropout)
+        self.residual = _linear(dim, out_dim) if dim != out_dim else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for layer in (self.net.linear1, self.net.linear2, self.residual):
+            if layer is not None:
+                _torch_linear_init(layer, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.net.linear1(x)
+        y = torch.relu(y) if self.relu else F.gelu(y, approximate="tanh")
+        return self.drop_out(self.net.linear2(self.drop_hidden(y)))
+
+    def res(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.residual is None else self.residual(x)
+
+
+class _Normed(nn.Module):
+    """The reference's PreNorm pairing: `norm` (a ChannelNorm) and `fn`
+    (the attention or the FFN); the encoder decides where the norm goes."""
+
+    def __init__(self, norm: ChannelNorm, fn: nn.Module):
+        super().__init__()
+        self.norm = norm
+        self.fn = fn
+
+
+class _LucidLayer(nn.Module):
+    def __init__(self, attn: _Normed, ffn: _Normed):
+        super().__init__()
+        self.attn = attn
+        self.ffn = ffn
+
+
+class LucidTransformer(nn.Module):
+    """The reference's CrossViT-derived encoder (crossattention.py:202-304;
+    agcn_tpu attention.py:396-486) of SGN v15: per-layer widths, the
+    attention's output width (`out_dims`, d_out) apart from the FFN's
+    (`mlp_out_dims`, 0: the attention's), pre- or post-norm with BN or LN
+    channel norms, and an optional global norm. Pre-norm, a layer is
+
+        x = attn(norm(x)) + attn.res(x);  x = ffn(norm(x)) + ffn.res(x)
+
+    and post-norm x = norm(attn(x)) + attn.res(x); x = norm(ffn(x)) +
+    ffn.res(x). Returns (tokens, each layer's attention weights)."""
+
+    def __init__(self, in_dim: int, depth: int, dims: Sequence[int],
+                 heads: Sequence[int], dim_heads: Sequence[int],
+                 mlp_dims: Sequence[int], mlp_out_dims: Sequence[int],
+                 out_dims: Sequence[int], dropouts: Sequence[float],
+                 activation: str = "gelu", norm: str = "ln",
+                 global_norm: bool = True, post_norm: bool = False,
+                 res_proj: bool = False):
+        super().__init__()
+        self.depth = depth
+        self.post_norm = post_norm
+        self.layers = nn.Module()
+        width = in_dim
+        for i in range(depth):
+            attn = LucidAttention(width, dims[i], heads[i], dim_heads[i],
+                                  out_dims[i], dropouts[i], res_proj)
+            ffn = LucidFeedForward(out_dims[i], mlp_dims[i], mlp_out_dims[i],
+                                   dropouts[i], activation)
+            attn_norm = out_dims[i] if post_norm else width
+            ffn_norm = ffn.out_dim if post_norm else out_dims[i]
+            self.layers.add_module(f"l{i + 1}", _LucidLayer(
+                _Normed(ChannelNorm(attn_norm, norm), attn),
+                _Normed(ChannelNorm(ffn_norm, norm), ffn)))
+            width = ffn.out_dim
+        self.out_dim = width
+        self.norm = ChannelNorm(width, norm) if global_norm else None
+
+    @staticmethod
+    def from_mha_kwargs(kwargs: dict, in_dim: int) -> "LucidTransformer":
+        """Build from the reference's *_mha_kwargs (sgn_v15.py:444-457):
+        d_model / nhead / d_head / dim_feedforward /
+        dim_feedforward_output as per-layer lists (a scalar for every
+        layer), d_out defaulting to d_model (crossattention.py:240)."""
+        depth = kwargs["num_layers"]
+
+        def as_list(key, default=None):
+            v = kwargs.get(key, default)
+            return [v] * depth if isinstance(v, (int, float)) else list(v)
+
+        return LucidTransformer(
+            in_dim, depth, dims=as_list("d_model"), heads=as_list("nhead"),
+            dim_heads=as_list("d_head"),
+            mlp_dims=as_list("dim_feedforward"),
+            mlp_out_dims=as_list("dim_feedforward_output", 0),
+            out_dims=as_list("d_out", kwargs["d_model"]),
+            dropouts=as_list("dropout", 0.0),
+            activation=kwargs.get("activation", "gelu"),
+            norm=kwargs.get("norm", "ln"),
+            global_norm=kwargs.get("global_norm", True),
+            post_norm=kwargs.get("post_norm", False),
+            res_proj=kwargs.get("res_proj", False))
+
+    def blocks(self) -> List[_LucidLayer]:
+        return [getattr(self.layers, f"l{i}")
+                for i in range(1, self.depth + 1)]
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for layer in self.blocks():
+            layer.attn.fn.reset_parameters(generator)
+            layer.ffn.fn.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        attns = []
+        for layer in self.blocks():
+            attn, ffn = layer.attn, layer.ffn
+            if self.post_norm:
+                y, a = attn.fn(x)
+                x = attn.norm(y) + attn.fn.res(x)
+                x = ffn.norm(ffn.fn(x)) + ffn.fn.res(x)
+            else:
+                y, a = attn.fn(attn.norm(x))
+                x = y + attn.fn.res(x)
+                x = ffn.fn(ffn.norm(x)) + ffn.fn.res(x)
+            attns.append(a)
+        if self.norm is not None:
+            x = self.norm(x)
+        return x, attns

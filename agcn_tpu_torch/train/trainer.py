@@ -1,9 +1,10 @@
 """Trainer — the AGCN / AAGCN / AAGCN-transformer / AAGCN-version / SGN
-paths of agcn_tpu/train/trainer.py's `Trainer`
-(`__init__` :50-92, `_load_data` :128-168, `_load_model` :170-197,
-`_load_optimizer` :271-353, `_build_aux_loss` :381-462, `_build_steps`
-:464-533, `start` :537-559, `train_epoch` :561-709, `evaluate` :711-821,
-`save_checkpoint` :823-856; reference utils/processor.py).
+(the original SGN and SGN's transformer too) paths of
+agcn_tpu/train/trainer.py's `Trainer` (`__init__` :50-92, `_load_data`
+:128-168, `_load_model` :170-197, `_load_optimizer` :271-353,
+`_build_aux_loss` :381-462, `_build_steps` :464-533, `start` :537-559,
+`train_epoch` :561-709, `evaluate` :711-821, `save_checkpoint` :823-856;
+reference utils/processor.py).
 
 Work-dir management (the reuse guard, config snapshot, `log.txt`,
 `metrics.jsonl`, score pickles, right/wrong lists), the epoch loop with
@@ -55,9 +56,10 @@ The run knobs, as the JAX trainer's:
   JAX trainer draws a fallback prior with jax.random, which the port
   cannot reproduce: it raises (ROADMAP Queue 3, a known difference).
 
-Not here yet, each refused with its ROADMAP item: multi-device and
-multi-host runs, the model of the JAX package that the port lacks
-(`sgn_transformer`).
+Every model of the JAX registry trains here (SGN's transformer, v15,
+since Queue 1 item 7.3: its tuple output (logits, attention) reaches the
+steps, which take the logits). Not here yet, refused with its ROADMAP
+item: multi-device and multi-host runs.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ import torch
 from agcn_tpu_torch.data.feeder import SGNDataset, SkeletonDataset
 from agcn_tpu_torch.data.pipeline import BatchIterator, make_sgn_collate
 from agcn_tpu_torch.data.sgn_collate import SegmentSampler
-from agcn_tpu_torch.models.registry import build_model, waiting_item
+from agcn_tpu_torch.models.registry import build_model
 from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel
 from agcn_tpu_torch.train import checkpoint as ckpt
 from agcn_tpu_torch.train import losses as L
@@ -111,14 +113,12 @@ def kernel_launches() -> Dict[str, int]:
 
 
 def _refuse_unported(cfg: Config) -> None:
-    waits = waiting_item(cfg.model)
     refused = {
         "world_size > 1 / ddp": (cfg.world_size > 1 or cfg.ddp,
                                  "ROADMAP Queue 1: Parallel"),
         "mesh_data > 1 / mesh_edge > 1": (
             cfg.mesh_data > 1 or cfg.mesh_edge > 1,
             "ROADMAP Queue 1: Parallel"),
-        f"model {cfg.model}": (waits is not None, f"ROADMAP {waits}"),
     }
     for knob, (on, item) in refused.items():
         if on:

@@ -10,7 +10,9 @@ agcn_tpu/train/checkpoint.load_checkpoint).
 agcn_tpu/utils/torch_import.py:447-626),
 `sgn_state_dict_from_variables` (agcn_tpu/utils/torch_export.py:260-500,
 the keys of the port's SGN options, with those the JAX map leaves out) and
-`sgn_original_state_dict_from_variables` (:177-224) turn a JAX `{"params",
+`sgn_original_state_dict_from_variables` (:177-224) and
+`sgn_transformer_state_dict_from_variables` (:503-596, with the
+torch-style encoder branch the JAX export refuses) turn a JAX `{"params",
 "batch_stats"}` tree of numpy arrays into the port's state dict (the
 reference torch names), which the model's `load_state_dict(...,
 strict=True)` accepts; `model_state_dict` dispatches by the registry key.
@@ -624,6 +626,93 @@ def sgn_original_state_dict_from_variables(
     return _torch_tensors(out)
 
 
+def _channel_norm_out(out: Dict[str, np.ndarray], prefix: str,
+                      node: Mapping[str, Any],
+                      stats: Optional[Mapping[str, Any]]) -> None:
+    """A lucid encoder's ChannelNorm: the BatchNorm (running statistics)
+    or the LayerNorm under its `norm`."""
+    sn = (stats or {}).get("norm", {})
+    if "mean" in sn:
+        _bn_out(out, prefix, node["norm"], sn)
+    else:
+        _layer_norm_out(out, prefix, node["norm"])
+
+
+def _lucid_out(out: Dict[str, np.ndarray], prefix: str,
+               node: Mapping[str, Any], stats: Mapping[str, Any]) -> None:
+    """A LucidTransformer under the reference's `<encoder>.transformer`
+    (torch_export.py:566-591)."""
+    i = 1
+    while f"l{i}_attn" in node:
+        base = f"{prefix}.transformer.layers.l{i}"
+        for part in ("attn", "ffn"):
+            _channel_norm_out(out, f"{base}.{part}.norm.fn",
+                              node[f"l{i}_{part}_norm"],
+                              stats.get(f"l{i}_{part}_norm"))
+        at = node[f"l{i}_attn"]
+        for lin in ("to_q", "to_k", "to_v"):
+            _linear_out(out, f"{base}.attn.fn.{lin}", at[lin])
+        _linear_out(out, f"{base}.attn.fn.to_out.linear", at["to_out"])
+        ff = node[f"l{i}_ffn"]
+        _linear_out(out, f"{base}.ffn.fn.net.linear1", ff["linear1"])
+        _linear_out(out, f"{base}.ffn.fn.net.linear2", ff["linear2"])
+        for part, sub in (("attn", at), ("ffn", ff)):
+            if "residual" in sub:
+                _linear_out(out, f"{base}.{part}.fn.residual",
+                            sub["residual"])
+        i += 1
+    if "global_norm" in node:
+        _channel_norm_out(out, f"{prefix}.transformer.norm.fn",
+                          node["global_norm"], stats.get("global_norm"))
+
+
+def sgn_transformer_state_dict_from_variables(
+        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX SGNTransformer variables -> the port's (reference
+    sgn_v15-named) state dict (torch_export.py:503-596): the embeddings
+    and one-hot buffers as in SGN's map, each encoder by its branch (the
+    lucid encoder under `<encoder>.transformer`, the torch-style stack's
+    `layerN` by the AAGCN transformer's names, which the JAX export
+    refuses), and fc."""
+    params = variables["params"]
+    stats = _stats(variables)
+    out: Dict[str, np.ndarray] = {}
+    for flax_name, prefix in (
+            ("pos_embed", "feature_extractor.pos_embed"),
+            ("vel_embed", "feature_extractor.vel_embed"),
+            ("joint_embed", "semantic_embedding.spa_embedding"),
+            ("frame_embed", "semantic_embedding.tem_embedding"),
+            ("class_embed", "semantic_embedding.cls_embedding")):
+        if flax_name in params:
+            _sgn_embedding_out(out, prefix, params[flax_name],
+                               stats.get(flax_name, {}))
+
+    def in_dim(node):
+        return int(np.shape(node["cnn1"]["cnn"]["conv"]["kernel"])[-2])
+
+    num_point = (in_dim(params["joint_embed"]) if "joint_embed" in params
+                 else 25)
+    num_segment = (in_dim(params["frame_embed"]) if "frame_embed" in params
+                   else 20)
+    if "joint_embed" in params:
+        out["semantic_embedding.spa_onehot.onehot"] = _onehot_buffer(
+            num_point, num_segment, mode=0)
+    if "frame_embed" in params:
+        out["semantic_embedding.tem_onehot.onehot"] = _onehot_buffer(
+            num_segment, num_point, mode=1)
+    if "class_embed" in params:
+        out["semantic_embedding.cls_onehot.onehot"] = _onehot_buffer(
+            in_dim(params["class_embed"]), 1, mode=2)
+    for mha in ("spatial_mha", "temporal_mha"):
+        node = params[mha]
+        if any(k.startswith("layer") for k in node):
+            _encoder_out(out, mha, node)
+        else:
+            _lucid_out(out, mha, node, stats.get(mha, {}))
+    _linear_out(out, "fc", params["fc"])
+    return _torch_tensors(out)
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """Read a checkpoint: the JAX package's npz or pickled-dict files
     (a `{"params", "batch_stats", ...}` tree of numpy arrays), or a
@@ -677,6 +766,8 @@ def model_state_dict(checkpoint: Mapping[str, Any], model: str = "agcn",
             return sgn_state_dict_from_variables(checkpoint)
         if key == "sgn_original":
             return sgn_original_state_dict_from_variables(checkpoint)
+        if key == "sgn_transformer":
+            return sgn_transformer_state_dict_from_variables(checkpoint)
         if key in _VERSION_MAPS:
             return _VERSION_MAPS[key](checkpoint)
         item = waiting_item(model)

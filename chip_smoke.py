@@ -229,13 +229,35 @@ fails:
    and evaluates with multi_test 5 (metrics.jsonl's train and eval lines
    carry mmd, l2_z_mean, cos_z, dist_z, cos_z_prior and dist_z_prior),
    and `--phase test` on its checkpoint reproduces its top-1.
+18. SGN's transformer (train_sgn_transformer.yaml: torch-style encoders;
+   train_sgn_v15.yaml: the lucid encoder; full width: V = 25, seg 20, 60
+   classes) and SGN serving, whose paths run none of the port's kernels,
+   as in the JAX package: every kernel's launch count must stay 0. On
+   phase 14's synthetic pickles: (a) both recipes' models with the BN
+   statistics of a train-mode forward: eval logits of a 4 x 5-crop batch,
+   card against CPU in fp32, within 1e-3 of the logit scale; (b) one fp32
+   v15 step at batch 4 with dropout 0 (label smoothing 0.1, Adam), card
+   against CPU, the card replaying the CPU's ReLU masks and max
+   selections: loss 1e-4 relative, every gradient 1e-3 of its scale; (c)
+   10 Adam steps of each recipe at batch 64 on one repeated batch (the
+   loss must fall), ms per step, seq/s, peak memory, one step's device
+   time by kernel group and its busy share; (d) `python -m
+   agcn_tpu_torch.main` trains one epoch of a copy of
+   train_sgn_transformer.yaml and evaluates with multi_test 5, `--phase
+   test` with test_sgn_transformer.yaml reproduces its top-1, and `python
+   -m agcn_tpu_torch.infer --serve 16` serves the checkpoint; (e) the SGN
+   tick, 16 streams x 5 crops (80 rows), for train_sgn.yaml's `sgn` and
+   for test_sgn_transformer.yaml's model: tick ms sync and pipelined,
+   preds/s, host prep and h2d ms, one C++ pre_normalize a stream and
+   tick, and the card's answers those of the CPU on the same recordings.
 
 `python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
 minute), `--phase 15` phases 1, 2 (the build) and 15, `--phase 16`
-phases 1, 2 and 16, `--phase 17` phases 1 and 17; none prints a result
-line (details of 15 in build/chip_smoke_knobs.json, of 16 in
-build/chip_smoke_versions.json, of 17 in
-build/chip_smoke_sgn_options.json).
+phases 1, 2 and 16, `--phase 17` phases 1 and 17, `--phase 18` phases 1
+and 18; none prints a result line (details of 15 in
+build/chip_smoke_knobs.json, of 16 in build/chip_smoke_versions.json, of
+17 in build/chip_smoke_sgn_options.json, of 18 in
+build/chip_smoke_sgn_transformer.json).
 
 The last lines of standard output are the `kernels` JSON line, the
 card's `nvidia-smi` name and power limit, and
@@ -1282,11 +1304,13 @@ def run_entry_point(args, timeout=600, module="agcn_tpu_torch.main",
     return (counts, lines[:-1]) if stdout else counts
 
 
-def serve_checkpoint(np, tmp, cfg_path, weights, max_frame=SEQ):
+def serve_checkpoint(np, tmp, cfg_path, weights, max_frame=SEQ,
+                     normalize_calls=1):
     """`python -m agcn_tpu_torch.infer --serve 16 --pipeline --max-frame
     <max_frame>` on 16 recordings of 4 ticks with the trainer's checkpoint
-    `weights`: every stream answered at every tick, one C++ pre_normalize
-    a tick."""
+    `weights`: every stream answered at every tick, `normalize_calls` C++
+    pre_normalize calls a tick (one for the batched dense prep, one a
+    stream for SGN's per-stream rows)."""
     rec = os.path.join(tmp, "recordings")
     os.makedirs(rec)
     seq = make_streams(np)[:, :4 * TICK_FRAMES]
@@ -1304,7 +1328,7 @@ def serve_checkpoint(np, tmp, cfg_path, weights, max_frame=SEQ):
         f"checkpoint: {len(answers)} answers, {len(ticks)} ticks, "
         f"{counts['pre_normalize']} C++ pre_normalize calls")
     check(len(answers) == STREAMS * 4 and len(ticks) == 4
-          and counts["pre_normalize"] == 4,
+          and counts["pre_normalize"] == 4 * normalize_calls,
           f"the serving CLI gave {len(answers)} answers in {len(ticks)} "
           f"ticks ({counts})")
     return dict(answers=len(answers), ticks=ticks, calls=counts)
@@ -3366,13 +3390,442 @@ def phase_sgn_options(torch, np, summary):
     return launches
 
 
+# -- phase 18: SGN's transformer and SGN serving (no TPU kernel) ---------
+
+SGN_TRANSFORMER_CONFIGS = {
+    name: os.path.join(REPO, "configs", "ntu60_xview", f"train_{name}.yaml")
+    for name in ("sgn_transformer", "sgn_v15")}
+SGN_TRANSFORMER_TEST_CONFIG = os.path.join(REPO, "configs", "ntu60_xview",
+                                           "test_sgn_transformer.yaml")
+
+
+def sgn_transformer_model(torch, cfg, device="cuda", dropout=None):
+    """The recipe's SGN transformer at full width for its seg, seeded
+    weights; `dropout` replaces every dropout rate of the recipe (fc's and
+    the encoders')."""
+    from agcn_tpu_torch.models.registry import build_model
+
+    args = dict(cfg.model_args)
+    if dropout is not None:
+        args["dropout"] = dropout
+        for k in ("spatial_mha_kwargs", "temporal_mha_kwargs"):
+            if k in args:
+                args[k] = dict(args[k], dropout=dropout)
+    seg = (cfg.train_dataloader_args or cfg.test_dataloader_args)["seg"]
+    return build_model(cfg.model, args, device=device,
+                       generator=torch.Generator().manual_seed(SEED),
+                       num_frame=seg)
+
+
+def phase_sgn_transformer_vs_cpu(torch, np, cfgs, x_eval, summary):
+    """(a) Card against CPU, fp32 (TF32 off): each recipe's model with the
+    BN statistics of a train-mode forward, eval logits of the 4 x 5-crop
+    batch within 1e-3 of the logit scale. Returns the CPU models' state
+    dicts."""
+    states, rows = {}, {}
+    torch.set_num_threads(os.cpu_count() or 1)
+    for name, cfg in cfgs.items():
+        ref = sgn_transformer_model(torch, cfg, device="cpu")
+        liven_sgn(torch, ref, x_eval, SEED + 60)
+        states[name] = {k: v.detach().clone()
+                        for k, v in ref.state_dict().items()}
+        with torch.inference_mode():
+            want = first(ref(torch.from_numpy(x_eval))).numpy()
+        del ref
+        card = sgn_transformer_model(torch, cfg)
+        card.load_state_dict(states[name], strict=True)
+        with torch.inference_mode():
+            got = first(card.eval()(torch.from_numpy(x_eval).cuda()))
+        got = got.cpu().numpy()
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        rows[name] = dict(logit_err=err, logit_scale=scale,
+                          params=sum(p.numel() for p in card.parameters()))
+        check(np.isfinite(got).all() and err <= 1e-3 * max(scale, 1.0),
+              f"{name}: card logits off the CPU's by {err:.3e}")
+        del card
+    log("  sgn transformer (a) eval logits (4 x 5 crops) card vs cpu: "
+        + "; ".join(f"{n} {r['logit_err']:.3e} of {r['logit_scale']:.3f} "
+                    f"({r['params']:,} parameters)" for n, r in rows.items()))
+    summary["sgn_transformer_vs_cpu"] = rows
+    return states
+
+
+def phase_sgn_transformer_step_vs_cpu(torch, np, cfg, state, x_eval,
+                                      summary):
+    """(b) One fp32 step of train_sgn_v15.yaml (label smoothing 0.1,
+    Adam) at batch 4 with dropout 0, card against CPU, the card replaying
+    the CPU's ReLU masks and max selections: loss 1e-4 relative, every
+    gradient 1e-3 of its scale."""
+    from agcn_tpu_torch.tools.grad_parity import (AmaxProbe, ReluProbe,
+                                                  amax_probe, grad_errors,
+                                                  relu_probe)
+
+    x = np.ascontiguousarray(x_eval[::SGN_CROPS])
+    y = np.array([0, 7, 7, 21])
+    out, probes = {}, {}
+    for run, dev in (("cpu", "cpu"), ("card", "cuda")):
+        model = sgn_transformer_model(torch, cfg, device=dev, dropout=0.0)
+        model.load_state_dict(state, strict=True)
+        grads = {}
+
+        def keep(m):
+            grads.update((n, p.grad.double().cpu().clone())
+                         for n, p in m.named_parameters())
+
+        ref = probes.get("cpu")
+        probes[run] = (ReluProbe(ref=ref and ref[0], keep_inputs=not ref),
+                       AmaxProbe(ref=ref and ref[1]))
+        relu, amax = probes[run]
+        with relu_probe(relu), amax_probe(amax):
+            loss = make_step(torch, cfg, model, keep=keep, recipe_loss=True)(
+                torch.from_numpy(x).to(dev),
+                torch.from_numpy(y).to(dev))["loss"].item()
+        out[run] = (loss, grads)
+        del model
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["card"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    rows = grad_errors(g_card, g_cpu, 1e-3)
+    relu, amax = probes["card"]
+    log(f"  sgn transformer (b) one fp32 v15 step at batch 4, dropout 0, "
+        f"label smoothing {cfg.label_smoothing}: loss cpu {l_cpu:.6f}, card "
+        f"{l_card:.6f} ({rel:.2e}); ReLU signs off the cpu's {relu.disagree}"
+        f" (inputs within {relu.input_diff:.2e}); max selections off "
+        f"{amax.disagree} of {amax.maxima}; worst gradients: "
+        + "; ".join(f"{r:.2f} {n} {e:.3e} {sc:.3e}" for r, n, e, sc in
+                    rows[:3]))
+    check(relu.input_diff <= 1e-3,
+          f"v15: the card's ReLU inputs lie far from the CPU's: "
+          f"{relu.input_diff}")
+    check(amax.disagree <= 1e-4 * amax.maxima,
+          f"v15: {amax.disagree} of {amax.maxima} max selections differ")
+    check(rel <= 1e-4, f"v15: fp32 card loss off the CPU's: {rel}")
+    check(rows[0][0] <= 1.0, f"v15: card gradients off the CPU's: {rows[0]}")
+    summary["sgn_transformer_step"] = dict(
+        cpu=l_cpu, card=l_card, loss_rel=rel,
+        relu_sign_flips=(relu.disagree, relu.input_diff),
+        max_ties=(amax.disagree, amax.maxima),
+        grads=[list(r) for r in rows[:5]])
+
+
+def phase_sgn_transformer_train(torch, np, cfgs, train_ds, summary):
+    """(c) Ten Adam steps of each recipe at its batch of 64 and its
+    dropout on one repeated collated batch: the loss must fall and no port
+    kernel launches; then ms per step, seq/s and peak memory (5 timed steps
+    after 2), one step's device time by kernel group (torch.profiler) and
+    its busy share."""
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+
+    sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20)
+    rng = np.random.default_rng(SEED + 61)
+    rows = {}
+    for name, cfg in cfgs.items():
+        n = cfg.batch_size
+        x, _, y, _ = sampler.collate([train_ds[i] for i in range(n)], rng,
+                                     train=True)
+        x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+        model = sgn_transformer_model(torch, cfg)
+        step = make_step(torch, cfg, model, recipe_loss=True)
+        before = all_launches()
+        losses_ = [step(x, y)["loss"] for _ in range(TRAIN_STEPS)]
+        losses_ = [v.item() for v in losses_]
+        launches = {k: n - before[k] for k, n in all_launches().items()}
+        check(all(math.isfinite(v) for v in losses_)
+              and losses_[-1] < losses_[0],
+              f"{name}: the loss did not fall on a repeated batch: "
+              f"{losses_}")
+        check(not any(launches.values()),
+              f"{name}: the training path launched {launches}")
+        for _ in range(2):
+            step(x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(x, y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 5
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        groups, kernels = step_profile(torch, step, x, y)
+        device_ms = sum(groups.values())
+        rows[name] = dict(batch=n, losses=losses_, launches=launches,
+                          ms_per_step=ms, seq_per_s=n / ms * 1e3,
+                          peak_gib=peak, device_ms=device_ms,
+                          busy=device_ms / ms, kernels=kernels,
+                          groups=groups)
+        log(f"  sgn transformer (c) {name}: {TRAIN_STEPS} Adam steps at "
+            f"batch {n}: loss {' '.join(f'{v:.3f}' for v in losses_)}; "
+            f"launches {launches}; {ms:.3f} ms/step, {n / ms * 1e3:.1f} "
+            f"seq/s, peak {peak:.3f} GiB; one step: device {device_ms:.3f} "
+            f"ms in {kernels} kernels ({100 * device_ms / ms:.1f}% busy)")
+        for g, gms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            log(f"    {gms:9.3f} ms {100 * gms / device_ms:5.1f}%  {g}")
+        del model, step
+    summary["sgn_transformer_train"] = rows
+
+
+def phase_sgn_transformer_cli(np, paths, tmp, summary):
+    """(d) `python -m agcn_tpu_torch.main` on a copy of
+    train_sgn_transformer.yaml pointed at the pickles: one epoch (batch
+    64), eval with multi_test 5 and a checkpoint; `--phase test` with a
+    copy of test_sgn_transformer.yaml (the entry point's `main` in this
+    process: a third interpreter would add its start) reproduces its
+    top-1 (right.txt too) and its score rows (one a sample, its crops
+    averaged; within 1e-5 of their scale); `python -m
+    agcn_tpu_torch.infer --serve 16`
+    serves the checkpoint (one C++ pre_normalize a stream and tick: SGN's
+    rows are made stream by stream); no port kernel launches."""
+    import pickle
+
+    import yaml
+
+    from agcn_tpu_torch.main import main as entry_point
+
+    with open(SGN_TRANSFORMER_CONFIGS["sgn_transformer"]) as f:
+        recipe = yaml.safe_load(f)
+    work = os.path.join(tmp, "sgn_transformer")
+    recipe.update(
+        work_dir=work, num_epoch=1, num_worker=2, log_interval=1,
+        save_interval=1, eval_interval=1, show_topk=[1, 5],
+        train_feeder_args=dict(recipe["train_feeder_args"],
+                               data_path=paths["train"][0],
+                               label_path=paths["train"][1]),
+        test_feeder_args=dict(recipe["test_feeder_args"],
+                              data_path=paths["test"][0],
+                              label_path=paths["test"][1]))
+    with open(SGN_TRANSFORMER_TEST_CONFIG) as f:
+        test_recipe = yaml.safe_load(f)
+    test_recipe.update(
+        work_dir=os.path.join(tmp, "sgn_transformer_test"),
+        test_feeder_args=dict(test_recipe["test_feeder_args"],
+                              data_path=paths["test"][0],
+                              label_path=paths["test"][1]))
+    cfgs = {}
+    for name, r in (("train", recipe), ("test", test_recipe)):
+        cfgs[name] = os.path.join(tmp, f"sgn_transformer_{name}.yaml")
+        with open(cfgs[name], "w") as f:
+            yaml.safe_dump(r, f)
+    log("  sgn transformer (d) python -m agcn_tpu_torch.main on "
+        "train_sgn_transformer.yaml: train + eval (multi_test 5) + save, "
+        "one epoch; --phase test with test_sgn_transformer.yaml; the "
+        f"serving CLI at {STREAMS} streams")
+    run_entry_point(["--config", cfgs["train"]])
+    ckpt = os.path.join(work, "checkpoints", "epoch_1.pt")
+    with contextlib.redirect_stdout(io.StringIO()):
+        entry_point(["--config", cfgs["test"], "--weights", ckpt])
+    metrics = read_metrics(os.path.join(work, "metrics.jsonl"))
+    test = read_metrics(os.path.join(tmp, "sgn_transformer_test",
+                                     "metrics.jsonl"))
+    with open(os.path.join(tmp, "sgn_transformer_test", "right.txt")) as f:
+        right = len(f.readlines())
+    scores = []
+    for run in (work, os.path.join(tmp, "sgn_transformer_test")):
+        with open(os.path.join(run, "score", "epoch1_val.pkl"), "rb") as f:
+            scores.append(np.stack(list(pickle.load(f).values())))
+    score_err = float(np.abs(scores[0] - scores[1]).max())
+    trains = [m for m in metrics if m["kind"] == "train"]
+    evals = [m for m in metrics if m["kind"] == "eval"]
+    n_test = dict(SGN_SPLITS)["test"]
+    check(len(trains) == 1 and len(evals) == 1
+          and math.isfinite(trains[0]["loss"]),
+          f"sgn_transformer entry point: {metrics}")
+    check(not any(trains[0]["launches"].values()),
+          f"sgn_transformer entry point launched {trains[0]['launches']}")
+    check(test[-1]["top1"] == evals[-1]["top1"]
+          and right == round(test[-1]["top1"] * n_test),
+          f"--phase test top-1 {test[-1]['top1']} != the run's "
+          f"{evals[-1]['top1']}")
+    check(scores[0].shape == scores[1].shape == (
+        n_test, recipe["model_args"]["num_class"])
+          and score_err <= 1e-5 * float(np.abs(scores[0]).max()),
+          f"sgn_transformer scores: shapes {scores[0].shape}, "
+          f"{scores[1].shape}, max difference {score_err:.3e}")
+    served = serve_checkpoint(np, tmp, cfgs["test"], ckpt,
+                              normalize_calls=STREAMS)
+    log(f"      train loss {trains[0]['loss']:.4f}, "
+        f"{trains[0]['seq_per_sec']:.1f} seq/s (host-fed epoch of "
+        f"{trains[0]['steps']} steps); eval top-1 {evals[-1]['top1']:.4f} in "
+        f"{evals[-1]['seconds']:.2f} s, --phase test top-1 "
+        f"{test[-1]['top1']:.4f}, its {n_test} score rows within "
+        f"{score_err:.2e} of the run's")
+    summary["sgn_transformer_cli"] = dict(train=trains, eval=evals,
+                                          test=test, served=served,
+                                          score_err=score_err)
+
+
+def serve_sgn(server, seq, ticks, start, pipelined=False):
+    """Ticks of a kind="sgn" server over the streams of `seq` (fed
+    TICK_FRAMES frames a stream before each tick, from frame `start`; the
+    ring already holds the frames before it): (answers of every tick, ms
+    of each tick, host prep ms and h2d enqueue ms of each tick)."""
+    answers, tick_ms, prep, h2d = [], [], [], []
+    for i in range(ticks):
+        lo = start + i * TICK_FRAMES
+        for sid in range(STREAMS):
+            for f in seq[sid, lo:lo + TICK_FRAMES]:
+                server.append_frame(sid, f)
+        t0 = time.perf_counter()
+        r = server.predict_async() if pipelined else server.predict()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        prep.append(server.last_prep_ms)
+        h2d.append(server.last_h2d_ms)
+        if r is not None:
+            answers.append(r)
+    if pipelined:
+        answers.append(server.flush())
+    return answers, tick_ms, prep, h2d
+
+
+def phase_sgn_serving(torch, np, states, summary):
+    """(e) The SGN tick: 16 streams x 5 crops (80 rows a forward) of
+    train_sgn.yaml's `sgn` (w1 random, live BN statistics) and of
+    test_sgn_transformer.yaml's SGN transformer ((a)'s weights), each
+    stream's crops from its default_rng(stream id): a warm-up tick, 4
+    sync and 4 pipelined ticks on the card (tick ms, preds/s, host prep
+    and h2d ms; one C++ pre_normalize a stream and tick); then a tenth
+    tick on the card and on the CPU with the same weights, the CPU
+    server's streams handed the card server's rings and crop generators
+    as they stand: every stream's probabilities within 1e-4 of the
+    CPU's, the labels equal where the CPU's top two lie more than 1e-4
+    apart."""
+    import copy
+
+    from agcn_tpu_torch import native
+    from agcn_tpu_torch.infer.serving import BatchedStreamServer
+    from agcn_tpu_torch.utils.config import load_config
+
+    seq = make_streams(np)
+    sgn_cfg = load_config(SGN_CONFIG)
+    ref = sgn_model(torch, sgn_cfg, device="cpu")
+    x_warm = np.random.default_rng(SEED + 62).standard_normal(
+        (64, 20, 75)).astype(np.float32)
+    liven_sgn(torch, ref, x_warm, SEED + 63)
+    tf_cfg = load_config(SGN_TRANSFORMER_TEST_CONFIG)
+    served = {"sgn": (sgn_cfg, sgn_model, ref.state_dict()),
+              "sgn_transformer": (tf_cfg, sgn_transformer_model,
+                                  states["sgn_transformer"])}
+    torch.set_num_threads(os.cpu_count() or 1)
+    rows = {}
+    for name, (cfg, build, state) in served.items():
+        servers = {}
+        for dev in ("cuda", "cpu"):
+            model = build(torch, cfg, device=dev)
+            model.load_state_dict(state, strict=True)
+            servers[dev] = BatchedStreamServer(
+                model.eval(), max_streams=STREAMS, kind="sgn",
+                max_seq_length=SEQ, multi_test=SGN_CROPS,
+                sgn_dataloader_args=cfg.test_dataloader_args)
+            for sid in range(STREAMS):
+                check(servers[dev].add_stream() == sid, "stream ids")
+        card, cpu = servers["cuda"], servers["cpu"]
+        for sid in range(STREAMS):
+            for f in seq[sid, :SEQ]:
+                card.append_frame(sid, f)
+        calls = native.pre_normalize.calls
+        warm, _, _, _ = serve_sgn(card, seq, 1, SEQ)
+        sync, sync_ms, sync_prep, sync_h2d = serve_sgn(
+            card, seq, 4, SEQ + TICK_FRAMES)
+        pipe, pipe_ms, pipe_prep, pipe_h2d = serve_sgn(
+            card, seq, 4, SEQ + 5 * TICK_FRAMES, pipelined=True)
+        cpp_calls = native.pre_normalize.calls - calls
+        check(cpp_calls == 9 * STREAMS,
+              f"sgn serving {name}: {cpp_calls} C++ pre_normalize calls in "
+              f"9 ticks of {STREAMS} streams")
+        got = warm + sync + pipe
+        check(len(got) == 9, f"sgn serving {name}: {len(got)} answered ticks")
+        check_answers(np, got, cfg.model_args["num_class"])
+        # the CPU server takes up each stream where the card's stands
+        for sid in range(STREAMS):
+            cpu._streams[sid] = copy.deepcopy(card._streams[sid])
+            cpu._rngs[sid] = copy.deepcopy(card._rngs[sid])
+        (g,), _, _, _ = serve_sgn(card, seq, 1, SEQ + 9 * TICK_FRAMES)
+        (w,), _, _, _ = serve_sgn(cpu, seq, 1, SEQ + 9 * TICK_FRAMES)
+        perr, flips = 0.0, 0
+        for sid in range(STREAMS):
+            pg, pw = g[sid][1], w[sid][1]
+            perr = max(perr, float(np.abs(pg - pw).max()))
+            top2 = np.sort(pw)[-2:]
+            flips += int(g[sid][0] != w[sid][0] and top2[1] - top2[0] > 1e-4)
+        check(perr <= 1e-4 and flips == 0,
+              f"sgn serving {name}: card answers off the CPU's: "
+              f"probabilities {perr:.2e}, {flips} labels")
+        tick = {"sync": float(np.mean(sync_ms)),
+                "pipelined": float(np.mean(pipe_ms))}
+        rows[name] = dict(
+            tick_ms=tick, preds_per_s={k: STREAMS / (v / 1e3)
+                                       for k, v in tick.items()},
+            prep_ms={"sync": float(np.mean(sync_prep)),
+                     "pipelined": float(np.mean(pipe_prep))},
+            h2d_ms={"sync": float(np.mean(sync_h2d)),
+                    "pipelined": float(np.mean(pipe_h2d))},
+            cpp_pre_normalize=cpp_calls, prob_err_vs_cpu=perr,
+            rows_a_forward=STREAMS * SGN_CROPS)
+        r = rows[name]
+        log(f"  sgn serving (e) {name}: {STREAMS} streams x {SGN_CROPS} "
+            f"crops, tick {tick['sync']:.2f} ms sync / "
+            f"{tick['pipelined']:.2f} ms pipelined -> "
+            f"{r['preds_per_s']['sync']:.1f} / "
+            f"{r['preds_per_s']['pipelined']:.1f} preds/s; host prep "
+            f"{r['prep_ms']['sync']:.2f} / {r['prep_ms']['pipelined']:.2f} "
+            f"ms, h2d {r['h2d_ms']['sync']:.3f} / "
+            f"{r['h2d_ms']['pipelined']:.3f} ms; {cpp_calls} C++ "
+            f"pre_normalize calls; probabilities within {perr:.2e} of the "
+            "cpu's")
+        del servers, card
+    summary["sgn_serving"] = rows
+
+
+def phase_sgn_transformer(torch, np, summary):
+    """Phase 18: (a)-(e) above, on phase 14's synthetic pickles in one
+    temporary directory; the launch counts of all of it must stay 0."""
+    from agcn_tpu_torch.data.feeder import SGNDataset
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+    from agcn_tpu_torch.utils.config import load_config
+
+    t18 = time.perf_counter()
+    cfgs = {name: load_config(path)
+            for name, path in SGN_TRANSFORMER_CONFIGS.items()}
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_sgn_pickles(np, tmp)
+        train = SGNDataset(*paths["train"], dataset="NTU60-CV-SGN")
+        test = SGNDataset(*paths["test"], dataset="NTU60-CV-SGN")
+        sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20,
+                                 multi_test=SGN_CROPS)
+        x_eval, _, _, _ = sampler.collate([test[i] for i in range(4)],
+                                          np.random.default_rng(SEED),
+                                          multi_crop=True)
+        part_s, t0 = {}, time.perf_counter()
+        states = phase_sgn_transformer_vs_cpu(torch, np, cfgs, x_eval,
+                                              summary)
+        part_s["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+        phase_sgn_transformer_step_vs_cpu(torch, np, cfgs["sgn_v15"],
+                                          states["sgn_v15"], x_eval,
+                                          summary)
+        part_s["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+        phase_sgn_transformer_train(torch, np, cfgs, train, summary)
+        part_s["c"], t0 = time.perf_counter() - t0, time.perf_counter()
+        phase_sgn_transformer_cli(np, paths, tmp, summary)
+        part_s["d"], t0 = time.perf_counter() - t0, time.perf_counter()
+        phase_sgn_serving(torch, np, states, summary)
+        part_s["e"] = time.perf_counter() - t0
+    launches = all_launches()
+    check(not any(launches.values()), f"phase 18 launched {launches}")
+    summary["sgn_transformer_launches"] = launches
+    summary["sgn_transformer_phase_s"] = time.perf_counter() - t18
+    summary["sgn_transformer_part_s"] = part_s
+    log(f"  phase 18 in {summary['sgn_transformer_phase_s']:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in part_s.items()) + ")")
+    return launches
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only not in ("14", "15", "16", "17"):
-        print("usage: python3 chip_smoke.py [--phase 14|15|16|17]",
+    if argv and only not in ("14", "15", "16", "17", "18"):
+        print("usage: python3 chip_smoke.py [--phase 14|15|16|17|18]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3390,14 +3843,14 @@ def main(argv=None):
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/17] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/18] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     if only == "14":
-        log("[14/17] the SGN recipe alone (phase 14)")
+        log("[14/18] the SGN recipe alone (phase 14)")
         phase_sgn(torch, np, summary)
         return 0
     if only == "17":
-        log("[17/17] SGN's v11-v13 options, the MMD loss and sgn_original "
+        log("[17/18] SGN's v11-v13 options, the MMD loss and sgn_original "
             "alone (phase 17)")
         phase_sgn_options(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -3406,12 +3859,22 @@ def main(argv=None):
                   "w") as f:
             json.dump(summary, f, indent=1)
         return 0
+    if only == "18":
+        log("[18/18] SGN's transformer (train_sgn_transformer.yaml, "
+            "train_sgn_v15.yaml) and SGN serving alone (phase 18)")
+        phase_sgn_transformer(torch, np, summary)
+        out_dir = os.path.join(REPO, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_sgn_transformer.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=1)
+        return 0
     if only == "15":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/17] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/18] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[15/17] the trainer's run knobs alone (phase 15)")
+        log("[15/18] the trainer's run knobs alone (phase 15)")
         phase_knobs(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
@@ -3421,9 +3884,9 @@ def main(argv=None):
     if only == "16":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/17] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/18] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[16/17] BN folding, the apply_gcn forms, the AAGCN versions "
+        log("[16/18] BN folding, the apply_gcn forms, the AAGCN versions "
             "alone (phase 16)")
         summary["phase16_launches"] = phase_versions(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -3436,7 +3899,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/17] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/18] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -3452,7 +3915,7 @@ def main(argv=None):
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/17] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/18] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -3468,7 +3931,7 @@ def main(argv=None):
     summary.update(kernel_rows=rows, dx_rows=dx_rows,
                    fp32_fwd_layers=fp32_layers(rows, dx_rows))
 
-    log("[4/17] gcn_bwd vs its plain version at the training shapes "
+    log("[4/18] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -3476,7 +3939,7 @@ def main(argv=None):
     summary.update(bwd_rows=bwd_rows,
                    fp32_da1_layers=da1_fp32_layers(bwd_rows))
 
-    log("[5/17] attention-logits kernel vs plain version at the served "
+    log("[5/18] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -3486,7 +3949,7 @@ def main(argv=None):
         logits_rows = phase_logits(torch, np, logits_kernel)
     summary["logits_rows"] = logits_rows
 
-    log("[6/17] host data path: the C++ host kernels "
+    log("[6/18] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -3494,11 +3957,11 @@ def main(argv=None):
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/17] AGCN serving main path: 16 streams through "
+    log("[7/18] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/17] AGCN: device time of one served forward by kernel group; "
+    log("[8/18] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -3506,7 +3969,7 @@ def main(argv=None):
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/17] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/18] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -3515,19 +3978,19 @@ def main(argv=None):
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/17] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/18] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/17] AAGCN: device time of one served forward by kernel group; "
+    log("[11/18] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/17] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/18] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -3537,7 +4000,7 @@ def main(argv=None):
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/17] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/18] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -3555,32 +4018,40 @@ def main(argv=None):
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
-    log("[14/17] SGN recipe (no port kernel on its path, as in the JAX "
+    log("[14/18] SGN recipe (no port kernel on its path, as in the JAX "
         "package): train_sgn.yaml at full width on synthetic SGN pickles "
         "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
         "the entry points with 5-crop eval")
     phase_sgn(torch, np, summary)
 
-    log("[15/17] the trainer's run knobs: one fp32 SAM step of the pallas "
+    log("[15/18] the trainer's run knobs: one fp32 SAM step of the pallas "
         "AGCN, kernels against plain versions; the entry point on "
         "train_joint.yaml with SAM, the profiler, async checkpoints, then "
         "auto-resume; train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml "
         "through the entry point")
     sam_launches = phase_knobs(torch, np, smi, summary)
 
-    log("[16/17] BN folding on the served pallas AGCN and AAGCN forwards "
+    log("[16/18] BN folding on the served pallas AGCN and AAGCN forwards "
         "(gcn_fwd and the logits kernel counted); the apply_gcn forms "
         "against 'agg'; the AAGCN v31 recipe (train_joint_aagcn_v31.yaml, "
         "T=60: card against CPU, 10 SGD steps, speed, the entry points); "
         "v17, v24, v30, v32 and v34 against the CPU")
     v16 = phase_versions(torch, np, smi, summary)
 
-    log("[17/17] SGN's v11-v13 options, the MMD loss and sgn_original (no "
+    log("[17/18] SGN's v11-v13 options, the MMD loss and sgn_original (no "
         "port kernel on their path, as in the JAX package): v11, v12, "
         "v13_gt4 and sgn_original card against CPU; one v12 step with the "
         "MMD loss card against CPU; 10 Adam steps of v12 (batch 128) and "
         "v13_gt4 (64), speed; train_sgn_v12.yaml through the entry points")
     v17 = phase_sgn_options(torch, np, summary)
+
+    log("[18/18] SGN's transformer (no port kernel on its path, as in the "
+        "JAX package): train_sgn_transformer.yaml and train_sgn_v15.yaml "
+        "card against CPU, one v15 step card against CPU, 10 Adam steps "
+        "each, speed, the entry points (train, --phase test, --serve 16); "
+        "the SGN tick (sgn and sgn_transformer, 16 streams x 5 crops) "
+        "card against CPU")
+    v18 = phase_sgn_transformer(torch, np, summary)
 
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
@@ -3636,6 +4107,7 @@ def main(argv=None):
         for path in ("agcn_folded_serve", "aagcn_folded_serve"):
             entry["launches_by_path"].setdefault(path, v16[path][key])
         entry["launches_by_path"]["sgn_options"] = v17[key]
+        entry["launches_by_path"]["sgn_transformer"] = v18[key]
     # the fp32 routes' numbers beside the bf16 ones (gcn_fwd: served
     # forward and, for gcn_fused, dx per step; gcn_bwd: per step)
     same = ("name", "route", "source", "replaces", "launches")

@@ -98,8 +98,11 @@ def test_capacity_and_lifecycle(models):
     c = server.add_stream()
     assert c not in (a, b)  # ids are never reused
     assert len(server.predict()) == 2  # empty buffers still serve
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedStreamServer(models[2], max_streams=2, kind="sgn")
+    # SGN serving since it was ported; a kind that is neither raises
+    assert BatchedStreamServer(models[2], max_streams=2,
+                               kind="sgn").kind == "sgn"
+    with pytest.raises(ValueError, match="kind"):
+        BatchedStreamServer(models[2], max_streams=2, kind="graph")
 
 
 def test_batched_vectorized_preprocessing_matches(models):

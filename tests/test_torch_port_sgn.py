@@ -317,21 +317,18 @@ def test_unported_names_raise_what_jax_raises(name):
     ("aagcn_v17", "item 6"), ("aagcn_v34", "item 6"),
     ("model.architecture.aagcn.aagcn_v31.Model", "item 6"),
     ("sgn_original", "item 7.2"), ("model.sgn.SGN", "item 7.2"),
-    ("sgn_transformer", "item 7"), ("model.sgn_v15.SGN", "item 7"),
+    ("sgn_transformer", "item 7.3"), ("model.sgn_v15.SGN", "item 7.3"),
 ])
 def test_jax_models_the_port_lacks_name_their_item(name, item):
-    """The SGN models the port lacks name their item; the AAGCN versions
-    (item 6) and the original SGN (item 7.2) are ported and build where
-    the JAX package builds them."""
+    """The JAX models that once waited in an item (the AAGCN versions,
+    item 6; the original SGN, item 7.2; SGN's transformer, item 7.3) are
+    ported: none waits, and each builds where the JAX package builds
+    it."""
     jax_registry.build_model(name, {})  # the JAX package builds them
-    if item in ("item 6", "item 7.2"):
-        assert registry.waiting_item(name) is None
-        assert registry.build_model(name, {"model_layers": 101} if
-                                    item == "item 6" else {},
-                                    device="cpu") is not None
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        registry.build_model(name, {}, device="cpu")
+    assert registry.waiting_item(name) is None
+    assert registry.build_model(name, {"model_layers": 101} if
+                                item == "item 6" else {},
+                                device="cpu") is not None
 
 
 def test_dropout2d_draws_whole_channels_from_the_generator():

@@ -249,17 +249,21 @@ def test_initializers_match_flax_statistics():
 
 
 def test_unported_options_raise():
-    """The boolean mask (the SGN transformer's) still raises; the AAGCN
-    versions' options, ported with them, build and run (held against JAX
-    in tests/test_torch_port_aagcn_versions.py)."""
+    """No option of the attention raises any more: the boolean mask,
+    ported with the SGN transformer (held against JAX in
+    tests/test_torch_port_sgn_transformer.py), and the AAGCN versions'
+    options, ported with them, build and run (held against JAX in
+    tests/test_torch_port_aagcn_versions.py)."""
     assert tatt.MultiheadAttention(8, 2, rel_pos_len=4).pos_emb is not None
     layer = tatt.TransformerEncoderLayer(8, 2, 16, bias=False)
     assert layer.linear1.bias is None and layer.norm1.bias is None
     assert tatt.MultiheadAttention(8, 2, bias=False).in_proj_bias is None
     mha = tatt.MultiheadAttention(8, 2)
+    mha.reset_parameters(torch.Generator().manual_seed(0))
     x = torch.zeros(1, 3, 8)
-    with pytest.raises(NotImplementedError, match="SGN family"):
-        mha(x, mask=torch.ones(3, 3, dtype=torch.bool))
+    out, attn = mha(x, mask=torch.tensor([[True, False, False]] * 3))
+    assert out.shape == x.shape
+    assert torch.equal(attn[..., 0], torch.ones(1, 2, 3))
     for kw in ("additive_mask", "alpha", "global_attn"):
         out, _ = mha(x, **{kw: torch.zeros(3, 3)})
         assert out.shape == x.shape
