@@ -13,14 +13,15 @@ data_gen/openpose/openpose_b25_j15_ntu_gendata.py):
         --joint-path out/xview/train_data_joint.npy
     python -m agcn_tpu_torch.data.gen kinetics --data-path kinetics_train/ \
         --label-path kinetics_train_label.json --out-dir out/ --part train
+    python -m agcn_tpu_torch.data.gen sgn-raw --stat-dir statistics/ \
+        --skeleton-root raw/ --out-dir out_sgn/
     python -m agcn_tpu_torch.data.gen openpose --data-path raw/ \
         --out-path out/ --benchmark xview --part train
     python -m agcn_tpu_torch.data.gen explore --data-path raw/ --classes 7 8 \
         --read-frames   # reference data_gen/ntu_explore.py
 
-Not ported yet, each raising a message that names its ROADMAP item:
-`sgn-raw` (Queue 1 item 7, the SGN family) and `explore --render-sample`
-(item 9, utils/visualization.py).
+Not ported yet, raising a message that names its ROADMAP item:
+`explore --render-sample` (item 9, utils/visualization.py).
 """
 
 import argparse
@@ -116,10 +117,14 @@ def main(argv=None):
             print(f"kinetics {part}", flush=True)
             gendata(args.data_path, args.label_path, args.out_dir, part)
     elif args.cmd == "sgn-raw":
-        raise NotImplementedError(
-            "sgn-raw writes the SGN family's inputs (data/gen/sgn_raw.py), "
-            "which the port has not copied yet (ROADMAP Queue 1 item 7: "
-            "SGN family)")
+        from agcn_tpu_torch.data.gen.sgn_raw import (gendata_from_raw,
+                                                     load_statistics)
+
+        paths, labels, performer, camera = load_statistics(
+            args.stat_dir, args.skeleton_root)
+        os.makedirs(args.out_dir, exist_ok=True)
+        gendata_from_raw(paths, labels, performer, camera, args.out_dir,
+                         evaluations=args.evaluations)
     elif args.cmd == "openpose":
         from agcn_tpu_torch.data.gen.openpose import LABEL_MAPPING, gendata
 

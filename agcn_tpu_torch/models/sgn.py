@@ -1,6 +1,7 @@
 """SGN — Semantics-Guided Network (port of agcn_tpu/models/sgn.py, the
-options of the base recipe `configs/*/train_sgn.yaml` and of
-`train_sgn_v11/v12/v13/v13_gt4.yaml`).
+options of the base recipe `configs/*/train_sgn.yaml`, of
+`train_sgn_v11/v12/v13/v13_gt4.yaml`, and the temporal-branch and BiFPN
+options).
 
 Parity target: reference model/architecture/sgn/sgn_v14.py (sgn_v12.py for
 the InfoGCN head) and blocks/{feature_extractor,semantic,spatial,temporal}.py.
@@ -21,21 +22,30 @@ into time by the collate). In order:
   (4)); units norm(w1(G x) + res_alpha w2(x)) -> relu -> dropout2d
   (attn_mode 0; `sgcn_g_res_alpha` fixed, or learnable with -1 / -2);
 - the GCN-FPN, the levels that feed the temporal module: the last unit's
-  output (`gcn_fpn: -1`), every unit's (0), or the projections
+  output (`gcn_fpn: -1`), every unit's (0), the projections
   `fpn_proj{i}[_k{k}]` of every unit's output (1-7, 9: summed from level
-  i upward, kept apart, or concatenated after the spatial pool), each
-  plus the frame embedding where the widths agree;
-- the spatial max-pool, the temporal conv branches of `multi_t` on those
-  levels (t_mode 1: conv k -> BN -> relu -> dropout2d, then 1x1 -> BN ->
-  relu; with `multi_t_shared: 2` one branch a (slot, kernel) pair, named
-  after the first level that declares it, applied to every level), their
-  mean, the temporal max-pool, the class embedding (`semantic_class`),
-  the InfoGCN head (`infogcn_*`: z = mu + eps * std in training, mu in
-  eval, and the fixed prior `z_prior`), dropout and `fc`.
+  i upward, kept apart, or concatenated after the spatial pool), or the
+  BiFPN `bifpn` over every unit's output (8, `ops/blocks.BiFPN` of
+  `bifpn_dim`, which the frame embedding then takes), each plus the frame
+  embedding where the widths agree;
+- the spatial max-pool, the temporal branches of `multi_t` on those
+  levels (`TemporalBranch`: an optional `ASPP` (`aspp_rates`), then
+  t_mode 0 (the feature itself), 1 (conv k -> BN -> relu -> dropout2d,
+  then 1x1 -> BN -> relu), 2 (the same with residuals), 3 (a transformer
+  encoder over the frames, `t_mha_kwargs`), 4 (a series decomposition and
+  three t_mode-2 MLPs) or 5 (t_mode-2 MLPs over moving averages of
+  `pool_kernel_sizes`); `t_maxpool_kwargs` max-pools time before a t_mode
+  1 / 2 MLP; with `multi_t_shared: 2` one branch a (slot, kernel) pair,
+  named after the first level that declares it, applied to every level),
+  the mean of all their outputs, the temporal max-pool, the class
+  embedding (`semantic_class`), the InfoGCN head (`infogcn_*`: z = mu +
+  eps * std in training, mu in eval, and the fixed prior `z_prior`),
+  dropout and `fc`, whose input is the branches' width (c4, or the
+  level's own under t_mode 0 and 3).
 
 `forward(x, return_aux=True)` also returns the JAX model's aux outputs
 (agcn_tpu sgn.py:1226-1261): `g` (the list of G), `branch_outputs` (each
-temporal branch's output in the reference's (N, C, T') layout, for the
+temporal branch output in the reference's (N, C, T') layout, for the
 feature-similarity loss), `z` (the classifier's input before its
 dropout: the latent under the InfoGCN head) and, with the head,
 `z_prior`.
@@ -44,7 +54,9 @@ Layout is channels-last (B, T, V, C); every 1xk kernel keeps the
 reference's (out, in, 1, k) layout over its (N, C, V, T) grid, and the
 module and parameter names are the reference's (the names
 `utils/weights.sgn_state_dict_from_variables` writes), so a reference
-state dict loads strictly. The one-hot tables are the reference's
+state dict loads strictly; the blocks the JAX export has no names for
+(`ops/blocks.py`, a branch's `res2`, `mha`, `cnn_raw` ...) carry the JAX
+modules' names. The one-hot tables are the reference's
 buffers (`semantic_embedding.spa_onehot.onehot` (1, V, V, seg),
 `tem_onehot.onehot` (1, seg, V, seg) and `cls_onehot.onehot` (1, 1, 1,
 1)), so the model is built for the loader's `seg` (`num_segment`). The
@@ -53,8 +65,8 @@ max-pools call `torch.amax`, the ReLUs `torch.relu` and the head's eps
 
 Every other option value of the JAX model raises NotImplementedError
 naming ROADMAP Queue 1 item 7 (the SGN family's later steps): gt modes 0,
-5 and 6, `gcn_fpn` 8 and 10, the attn modes, t modes other than 1, and
-the options `_refuse` lists. SGN runs in fp32, as in the JAX package.
+5 and 6, `gcn_fpn` 10, the attn modes, and the options `_refuse` lists.
+SGN runs in fp32, as in the JAX package.
 """
 
 
@@ -69,7 +81,9 @@ from torch import nn
 
 from agcn_tpu_torch.ops import BatchNorm
 from agcn_tpu_torch.ops import initializers as init
-from agcn_tpu_torch.ops.attention import Dropout
+from agcn_tpu_torch.ops.attention import Dropout, TransformerEncoder
+from agcn_tpu_torch.ops.blocks import (ASPP, BiFPN, SeriesDecomposition,
+                                       moving_average)
 from agcn_tpu_torch.ops.gcn import frame_aggregate, frame_attention
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -478,53 +492,142 @@ class GCNSpatialBlock(nn.Module):
 
 
 class TemporalBranchMLP(nn.Module):
-    """Two-layer temporal conv MLP, t_mode 1 (blocks/temporal.py:99-160;
-    agcn_tpu sgn.py:636-676): conv k -> BN -> relu -> dropout2d, then
-    1x1 -> BN -> relu."""
+    """Two-layer temporal conv MLP (blocks/temporal.py:99-160; agcn_tpu
+    sgn.py:636-676): [a VALID max pool over time, `maxpool_kwargs`' last
+    kernel and stride elements], conv k -> BN -> relu -> dropout2d
+    (`cnn1`), then 1x1 -> BN -> relu (`cnn2`); t_mode 2 adds each layer's
+    input to its output, through the 1x1 conv `res2` where cnn2 changes
+    the width."""
 
     def __init__(self, in_features: int, out_channels: int,
                  kernel_size: int = 3, dropout: float = 0.0,
-                 use_bias: bool = True):
+                 use_bias: bool = True, t_mode: int = 1,
+                 maxpool_kwargs: Optional[dict] = None):
         super().__init__()
+        self.residual = t_mode == 2
+        self.pool = None
+        if maxpool_kwargs:
+            ks = maxpool_kwargs.get("kernel_size", [1, 1])
+            st = maxpool_kwargs.get("stride", ks)
+            self.pool = tuple(int(v[-1] if isinstance(v, (list, tuple))
+                                  else v) for v in (ks, st))
         self.cnn1 = ConvNormAct(in_features, in_features, kernel_size,
                                 kernel_size // 2, use_bias=use_bias,
                                 use_norm=True, dropout=dropout)
         self.cnn2 = ConvNormAct(in_features, out_channels,
                                 use_bias=use_bias, use_norm=True)
+        if self.residual and in_features != out_channels:
+            self.res2 = Conv1xN(in_features, out_channels,
+                                use_bias=use_bias)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.cnn1.reset_parameters(generator)
         self.cnn2.reset_parameters(generator)
+        if hasattr(self, "res2"):
+            self.res2.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cnn2(self.cnn1(x))
+        if self.pool is not None:  # VALID, over time
+            x = F.max_pool2d(x.permute(0, 3, 1, 2), (self.pool[0], 1),
+                             (self.pool[1], 1)).permute(0, 2, 3, 1)
+        y = self.cnn1(x)
+        if not self.residual:
+            return self.cnn2(y)
+        y = y + x
+        z = self.cnn2(y)
+        return z + (self.res2(y) if hasattr(self, "res2") else y)
 
 
 class TemporalBranch(nn.Module):
-    """A temporal branch, t_mode 1: its MLP as `cnn`
-    (blocks/temporal.py:274-397)."""
+    """A temporal branch (blocks/temporal.py:274-397; agcn_tpu
+    sgn.py:679-755): [`aspp`, an `ASPP` of the input's width], then by
+    `t_mode`: 0 the feature itself (no parameters); 1 and 2 the MLP `cnn`
+    (2 with residuals; `maxpool_kwargs` pools first); 3 the encoder `mha`
+    (`ops/attention.TransformerEncoder`) over the T tokens of V C
+    features, as (B, T, 1, V C), its position table `num_segment` long;
+    4 `SeriesDecomposition`, then t_mode-2 MLPs `cnn_raw`, `cnn_season`
+    and `cnn_trend` over x, its seasonal part and its trend; 5 a t_mode-2
+    MLP of kernel 1 `cnn_p{k}` over each replicate-padded moving average of
+    `pool_kernel_sizes`. Returns the list of outputs, of width
+    `out_features`. `in_features` is the input's V C: the port's levels
+    reach the branches spatially max-pooled (V = 1)."""
 
     def __init__(self, in_features: int, out_channels: int,
                  kernel_size: int = 3, dropout: float = 0.0,
-                 use_bias: bool = True):
+                 use_bias: bool = True, t_mode: int = 1,
+                 aspp_rates: Optional[Sequence[int]] = None,
+                 mha_kwargs: Optional[dict] = None,
+                 maxpool_kwargs: Optional[dict] = None,
+                 decomp_kernel_size: int = 3,
+                 pool_kernel_sizes: Sequence[int] = (3, 5, 7, 9),
+                 num_segment: int = 20):
         super().__init__()
-        self.cnn = TemporalBranchMLP(in_features, out_channels, kernel_size,
-                                     dropout, use_bias)
+        if t_mode not in (0, 1, 2, 3, 4, 5):
+            raise NotImplementedError(f"t_mode {t_mode}")
+        self.in_features = in_features
+        self.t_mode = t_mode
+        self.out_features = (in_features if t_mode in (0, 3)
+                             else out_channels)
+        if aspp_rates:
+            self.aspp = ASPP(in_features, in_features, tuple(aspp_rates),
+                             use_bias=bool(use_bias))
+        if t_mode in (1, 2):
+            self.cnn = TemporalBranchMLP(in_features, out_channels,
+                                         kernel_size, dropout, use_bias,
+                                         t_mode, maxpool_kwargs)
+        elif t_mode == 3:
+            kw = dict(mha_kwargs or {})
+            nhead, dff = kw.get("nhead", 1), kw.get("dim_feedforward", 256)
+            self.mha = TransformerEncoder(
+                in_features, kw.get("num_layers", 1),
+                nhead[0] if isinstance(nhead, (list, tuple)) else nhead,
+                dff[0] if isinstance(dff, (list, tuple)) else dff,
+                dropout=kw.get("dropout", 0.1),
+                activation=kw.get("activation", "relu"),
+                pos_enc=kw.get("pos_enc"), max_len=num_segment)
+        elif t_mode == 4:
+            self.decomp = SeriesDecomposition(decomp_kernel_size)
+            for part in ("raw", "season", "trend"):
+                self.add_module(f"cnn_{part}", TemporalBranchMLP(
+                    in_features, out_channels, kernel_size, dropout,
+                    use_bias, t_mode=2))
+        elif t_mode == 5:
+            self.pool_kernel_sizes = tuple(int(k) for k in pool_kernel_sizes)
+            for k in self.pool_kernel_sizes:
+                self.add_module(f"cnn_p{k}", TemporalBranchMLP(
+                    in_features, out_channels, 1, dropout, use_bias,
+                    t_mode=2))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        self.cnn.reset_parameters(generator)
+        for mod in self.children():
+            if hasattr(mod, "reset_parameters"):
+                mod.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cnn(x)
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        if hasattr(self, "aspp"):
+            x = self.aspp(x)
+        if self.t_mode == 0:
+            return [x]
+        if self.t_mode in (1, 2):
+            return [self.cnn(x)]
+        if self.t_mode == 3:
+            b, t, v, c = x.shape
+            y, _ = self.mha(x.reshape(b, t, v * c))
+            return [y.reshape(b, t, 1, -1)]
+        if self.t_mode == 4:
+            seasonal, trend = self.decomp(x)
+            return [self.cnn_raw(x), self.cnn_season(seasonal),
+                    self.cnn_trend(trend)]
+        return [getattr(self, f"cnn_p{k}")(moving_average(x, k))
+                for k in self.pool_kernel_sizes]
 
 
-# options of the JAX model that only the refused modes read (gcn_fpn 8 /
-# 10, t_mode 4 / 5): accepted and unused, as those modes are refused
+# options of the JAX model that only a refused mode reads (gcn_fpn 10):
+# accepted and unused, as that mode is refused
 _READ_BY_REFUSED_MODES = frozenset({
     "sgcn2_dims", "sgcn2_kernel", "sgcn2_padding", "sgcn2_dropout",
     "sgcn2_residual", "sgcn2_prenorm", "sgcn2_ffn", "sgcn2_v_kernel",
-    "sgcn2_attn_mode", "bifpn_dim", "bifpn_layers",
-    "decomp_kernel_size", "pool_kernel_sizes"})
+    "sgcn2_attn_mode"})
 
 # the GCN-FPN's projection modes (agcn_tpu sgn.py:964-1007): mode -> the
 # projections' width from sgcn_dims (mode 6: 64) and whether level i sums
@@ -554,14 +657,16 @@ def latent_noise(shape: Sequence[int], generator: Optional[torch.Generator],
 
 class SGN(nn.Module):
     """The SGN classifier (agcn_tpu sgn.py:758-1283) at the options of the
-    base, v11, v12, v13 and v13_gt4 recipes. `forward(x)` takes (B,
-    num_segment, V*C) and returns the logits; `forward(x, return_g=True)`
-    returns (logits, the list of G, each (B, T, V, V)).
+    base, v11, v12, v13 and v13_gt4 recipes and the temporal-branch and
+    BiFPN options. `forward(x)` takes (B, num_segment, V*C) and returns
+    the logits; `forward(x, return_g=True)` returns (logits, the list of
+    G, each (B, T, V, V)).
 
     Built on the CPU, initialized from `generator` (seed 0 when None) and
     moved to `device`, `cuda` unless the caller names another. The
     dropouts (dropout2d in the temporal branches, `sgcn_dropout` in the
-    units, `dropout` before fc) and the InfoGCN head's eps draw from one
+    units, the temporal encoder's under t_mode 3, `dropout` before fc)
+    and the InfoGCN head's eps draw from one
     generator on that device, seeded from `generator` (`dropout_seed`; the
     train step reseeds it for each update, `train/steps.seed_dropout`).
     Parameters and compute are fp32.
@@ -595,7 +700,8 @@ class SGN(nn.Module):
                  sgcn_gt_g3_idx: int = 2, sgcn_gt_out_channels2: int = 512,
                  sgcn_attn_mode: int = 0, gcn_fpn_output_merge: int = 1,
                  gcn_fpn_shared: int = 0, gcn_fpn: int = -1,
-                 gcn_fpn_kernel: int = 1,
+                 gcn_fpn_kernel: int = 1, bifpn_dim: int = 256,
+                 bifpn_layers: int = 1,
                  spatial_maxpool: int = 1, temporal_maxpool: int = 1,
                  multi_t: Sequence[Sequence[int]] = ((), (), (3,)),
                  multi_t_shared: int = 0, t_mode: int = 1,
@@ -604,6 +710,8 @@ class SGN(nn.Module):
                  t_mha_kwargs: Optional[dict] = None,
                  t_maxpool_kwargs: Optional[dict] = None,
                  aspp_rates: Optional[Sequence[int]] = None,
+                 decomp_kernel_size: int = 3,
+                 pool_kernel_sizes: Sequence[int] = (3, 5, 7, 9),
                  dtype: Optional[torch.dtype] = None,
                  device: Union[str, torch.device, None] = DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None,
@@ -627,10 +735,8 @@ class SGN(nn.Module):
         _refuse(**{
             "sgcn_gt_mode 0, 5 or 6": sgcn_gt_mode not in (1, 2, 3, 4),
             "sgcn_attn_mode != 0": sgcn_attn_mode != 0,
-            "gcn_fpn 8 (BiFPN) or 10 (a second GCN stack)":
-                gcn_fpn in (8, 10),
+            "gcn_fpn 10 (a second GCN stack)": gcn_fpn == 10,
             "gcn_fpn_output_merge = 2": gcn_fpn_output_merge == 2,
-            "t_mode != 1": t_mode != 1,
             "semantic_jdiff": semantic_jdiff > 0,
             "semantic_joint_smp": semantic_joint_smp > 0,
             "semantic_frame_location = 1": semantic_frame_location == 1,
@@ -646,9 +752,6 @@ class SGN(nn.Module):
             "sgcn_g_kernel != 1": sgcn_g_kernel != 1,
             "spatial_maxpool != 1": spatial_maxpool != 1,
             "temporal_maxpool != 1": temporal_maxpool != 1,
-            "aspp_rates": bool(aspp_rates),
-            "t_mha_kwargs": bool(t_mha_kwargs),
-            "t_maxpool_kwargs": bool(t_maxpool_kwargs),
         })
         if input_position <= 0 and input_velocity <= 0:
             raise ValueError("SGN needs input_position or input_velocity")
@@ -679,8 +782,10 @@ class SGN(nn.Module):
             width = 2 * c1 if semantic_joint_fusion == 0 else c1
         dims = self.sgcn_dims = tuple(sgcn_dims or (c2, c3, c3))
         if semantic_frame > 0:
+            # of the BiFPN's width under gcn_fpn 8 (agcn_tpu sgn.py:920-925)
             self.semantic_embedding["tem_embedding"] = SGNEmbedding(
-                t, dims[-1], semantic_frame, use_bias)
+                t, bifpn_dim if gcn_fpn == 8 else dims[-1], semantic_frame,
+                use_bias)
             self.semantic_embedding["tem_onehot"] = OneHot(t, v, mode=1)
         if semantic_class > 0:
             # added to the pooled feature (agcn_tpu sgn.py:1218-1223)
@@ -697,10 +802,11 @@ class SGN(nn.Module):
             res_alpha=sgcn_g_res_alpha)
 
         # the GCN-FPN: the levels that feed the temporal branches, the last
-        # unit's output (gcn_fpn -1), every unit's (0), or the projections
+        # unit's output (gcn_fpn -1), every unit's (0), the projections
         # fpn_proj{i}[_k{k}] of every unit's output (one, fpn_proj1, for
-        # all levels with gcn_fpn_shared); widths[i] is level i's width at
-        # its branches (None: no feature)
+        # all levels with gcn_fpn_shared), or the BiFPN `bifpn` over every
+        # unit's output (8); widths[i] is level i's width at its branches
+        # (None: no feature)
         last = len(dims) - 1
         self.fpn_mode = gcn_fpn if gcn_fpn in _FPN_WIDTH else None
         self.every_level = gcn_fpn == 0
@@ -723,13 +829,17 @@ class SGN(nn.Module):
             widths = [proj_dim] * (last + 1)
             if gcn_fpn in _FPN_CONCAT:
                 widths = [None] * last + [proj_dim * (last + 1)]
+        elif gcn_fpn == 8:
+            self.bifpn = BiFPN(dims, bifpn_dim, bifpn_layers)
+            widths = [bifpn_dim] * (last + 1)
         elif gcn_fpn == 0:
             widths = list(dims)
         else:
             widths = [None] * last + [dims[-1]]
         # multi_t[i] lists level i's kernels; with multi_t_shared 2 one
         # branch a (slot, kernel) pair, named after the first level that
-        # declares the pair (agcn_tpu sgn.py:1117-1150)
+        # declares the pair (agcn_tpu sgn.py:1117-1150); each branch is of
+        # `t_mode` with the options of agcn_tpu sgn.py:1134-1146
         shared = {}
         if multi_t_shared == 2:
             for i, kernels in enumerate(multi_t):
@@ -743,9 +853,11 @@ class SGN(nn.Module):
                 name = shared.get((j, k), f"tem_mlp_{i + 1}_{j + 1}_k{k}")
                 if not hasattr(self, name):
                     self.add_module(name, TemporalBranch(
-                        widths[i], c4, k, dropout2d, use_bias))
-                elif getattr(self, name).cnn.cnn1.block.conv.conv \
-                        .in_channels != widths[i]:
+                        widths[i], c4, k, dropout2d, use_bias, t_mode,
+                        aspp_rates, t_mha_kwargs, t_maxpool_kwargs,
+                        decomp_kernel_size, pool_kernel_sizes,
+                        num_segment=t))
+                elif getattr(self, name).in_features != widths[i]:
                     raise ValueError(
                         f"multi_t_shared: {name} is shared by levels of "
                         f"widths {widths}")
@@ -753,25 +865,39 @@ class SGN(nn.Module):
         if not self.branches:
             raise ValueError(f"multi_t {multi_t!r} gives the levels of "
                              f"widths {widths} no temporal branch")
+        # the classifier's width: the branches' outputs (c4; the level's
+        # own width under t_mode 0 and 3), averaged, so equal
+        out_widths = {getattr(self, name).out_features
+                      for _, name in self.branches}
+        if len(out_widths) > 1:
+            raise ValueError(f"t_mode {t_mode}: the temporal branches give "
+                             f"outputs of widths {sorted(out_widths)}, "
+                             "which cannot be averaged")
+        width = out_widths.pop()
         # the InfoGCN latent head (agcn_tpu sgn.py:1233-1261): the
         # classifier takes z = mu + eps * std in training, mu in eval;
         # z_prior, the MMD loss's class prior, is a fixed buffer
         self.noise_ratio = None
         if infogcn_noise_ratio is not None and infogcn_gain is not None:
             self.noise_ratio = float(infogcn_noise_ratio)
-            self.fc_mu = nn.utils.skip_init(nn.Linear, c4, c4)
-            self.fc_logvar = nn.utils.skip_init(nn.Linear, c4, c4)
-            self.register_buffer("z_prior", torch.empty(num_class, c4))
+            self.fc_mu = nn.utils.skip_init(nn.Linear, width, width)
+            self.fc_logvar = nn.utils.skip_init(nn.Linear, width, width)
+            self.register_buffer("z_prior", torch.empty(num_class, width))
             self.prior_gain = float(infogcn_gain)
         self.fc_drop = Dropout(dropout)
-        self.fc = nn.utils.skip_init(nn.Linear, c4, num_class)
+        self.fc = nn.utils.skip_init(nn.Linear, width, num_class)
 
         generator = (generator if generator is not None
                      else torch.Generator().manual_seed(0))
         self.reset_parameters(generator)
         self.to(device)
         self.dropout_generator = None
-        if dropout or dropout2d or sgcn_dropout or self.noise_ratio is not None:
+        # the temporal encoder's dropout defaults to 0.1 (agcn_tpu
+        # sgn.py:721)
+        mha_dropout = t_mode == 3 and (t_mha_kwargs or {}).get("dropout",
+                                                               0.1)
+        if (dropout or dropout2d or sgcn_dropout or mha_dropout
+                or self.noise_ratio is not None):
             self.dropout_seed = int(torch.randint(2 ** 62, (1,),
                                                   generator=generator))
             self.dropout_generator = torch.Generator(
@@ -787,6 +913,8 @@ class SGN(nn.Module):
             if isinstance(emb, SGNEmbedding):
                 emb.reset_parameters(generator)
         self.sgcn.reset_parameters(generator)
+        if hasattr(self, "bifpn"):
+            self.bifpn.reset_parameters(generator)
         for name in dict.fromkeys(n for names in self.fpn_projections
                                   for n in names):
             getattr(self, name).reset_parameters(generator)
@@ -805,6 +933,8 @@ class SGN(nn.Module):
     def _levels(self, x_list: List[torch.Tensor]
                 ) -> List[Optional[torch.Tensor]]:
         """The GCN-FPN's features, one a level (None: no feature)."""
+        if hasattr(self, "bifpn"):
+            return self.bifpn(list(x_list))
         if self.fpn_mode is None:
             return (list(x_list) if self.every_level
                     else [None] * (len(x_list) - 1) + [x_list[-1]])
@@ -853,7 +983,10 @@ class SGN(nn.Module):
             pooled.append(f)
         if self.fpn_mode in _FPN_CONCAT:
             pooled = [None] * (len(pooled) - 1) + [torch.cat(pooled, -1)]
-        outs = [getattr(self, name)(pooled[i]) for i, name in self.branches]
+        # level, then branch slot, then the mode's outputs (agcn_tpu
+        # sgn.py:1113-1150)
+        outs = [o for i, name in self.branches
+                for o in getattr(self, name)(pooled[i])]
         y = outs[0] if len(outs) == 1 else torch.stack(outs).mean(dim=0)
         y = torch.amax(y, dim=1, keepdim=True)  # temporal max-pool
         if "cls_embedding" in se:

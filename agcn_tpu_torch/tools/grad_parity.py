@@ -59,14 +59,16 @@ SEED = 0
 
 
 # conv biases whose gradient is zero in exact arithmetic: a BatchNorm
-# follows them (conv_d, down, tcn, residual; SGN's unit w1 and w2 and its
-# temporal convs; the original SGN's w1 and local convs), or the attention
+# follows them (conv_d, down, tcn, residual; SGN's unit w1 and w2, its
+# temporal MLPs' convs (`cnn`, `cnn_raw`, `cnn_p3`, ...) and the ASPP
+# convs before a BN; the original SGN's w1 and local convs), or the attention
 # softmax is invariant to them (conv_a: a shift along the softmax axis;
 # SGN's G projections g2 and g4, the original SGN's g2)
 EXACT_ZERO = re.compile(
     r"(conv_a\.\d+|conv_d\.\d+|down\.0|tcn1\.conv|residual\.conv"
-    r"|\.w[12]\.block\.conv\.conv|tem_mlp_\w+\.cnn\.cnn[12]\.block"
-    r"\.conv\.conv|gcn_g\d+\.g[24]\.block\.conv\.conv"
+    r"|\.w[12]\.block\.conv\.conv|tem_mlp_\w+\.cnn(_\w+)?\.cnn[12]\.block"
+    r"\.conv\.conv|tem_mlp_\w+\.aspp\.(branch_1x1|branch_d\d+|project)"
+    r"|gcn_g\d+\.g[24]\.block\.conv\.conv"
     r"|^gcn\d\.w1\.cnn|^compute_g1\.g2\.cnn|^cnn\.cnn[12])\.bias$")
 
 

@@ -505,6 +505,57 @@ def _sgn_g_module_out(out: Dict[str, np.ndarray], p: str,
     out[f"{p}.alpha"] = _np(g["alpha"])
 
 
+def _sgn_mlp_out(out: Dict[str, np.ndarray], p: str,
+                 node: Mapping[str, Any], snode: Mapping[str, Any]) -> None:
+    """A temporal MLP: `cnn1`, `cnn2` and (t_mode 2 across widths, the
+    JAX module's name) the 1x1 conv `res2`."""
+    for layer in ("cnn1", "cnn2"):
+        _sgn_conv_out(out, f"{p}.{layer}", node[layer]["cnn"]["conv"])
+        _bn_out(out, f"{p}.{layer}.block.norm", node[layer]["norm"],
+                snode[layer]["norm"])
+    if "res2" in node:
+        conv = node["res2"]["conv"]
+        out[f"{p}.res2.conv.weight"] = _torch_conv_weight(conv["kernel"])
+        if "bias" in conv:
+            out[f"{p}.res2.conv.bias"] = _np(conv["bias"])
+
+
+def _aspp_out(out: Dict[str, np.ndarray], p: str, node: Mapping[str, Any],
+              snode: Mapping[str, Any]) -> None:
+    """An `ops/blocks.ASPP` under the JAX module's names: Dense -> Linear,
+    the dilated (k, 1) convs -> Conv2d (out, in, k, 1), the BNs."""
+    for name, sub in node.items():
+        if name.startswith("bn"):
+            _bn_out(out, f"{p}.{name}", sub, snode[name])
+        elif name.startswith("branch_d"):
+            out[f"{p}.{name}.weight"] = conv_to_torch(sub["kernel"])
+            if "bias" in sub:
+                out[f"{p}.{name}.bias"] = _np(sub["bias"])
+        else:
+            _linear_out(out, f"{p}.{name}", sub)
+
+
+def _bifpn_out(out: Dict[str, np.ndarray], p: str, node: Mapping[str, Any],
+               snode: Mapping[str, Any]) -> None:
+    """An `ops/blocks.BiFPN` under the JAX module's names: `in_proj{i}`,
+    `in_bn{i}`, and each `block{l}`'s `w_td`, `w_bu`, `td{i}` / `bu{i}`
+    and their BNs."""
+    for name, sub in node.items():
+        if name.startswith("block"):
+            for inner, leaf in sub.items():
+                if inner in ("w_td", "w_bu"):
+                    out[f"{p}.{name}.{inner}"] = _np(leaf)
+                elif inner.endswith("_bn"):
+                    _bn_out(out, f"{p}.{name}.{inner}", leaf,
+                            snode[name][inner])
+                else:
+                    _linear_out(out, f"{p}.{name}.{inner}", leaf)
+        elif name.startswith("in_bn"):
+            _bn_out(out, f"{p}.{name}", sub, snode[name])
+        else:
+            _linear_out(out, f"{p}.{name}", sub)
+
+
 def sgn_state_dict_from_variables(variables: Mapping[str, Any],
                                   num_point: int = 25,
                                   num_segment: int = 20
@@ -515,7 +566,11 @@ def sgn_state_dict_from_variables(variables: Mapping[str, Any],
     from the joint and frame embeddings' input widths, as in the JAX map.
     Beyond the JAX map's keys it writes the GCN-FPN's projections
     `fpn_proj{i}[_k{k}]`, the InfoGCN head's `fc_mu` and `fc_logvar` and
-    its buffer `z_prior`, which the JAX export leaves out."""
+    its buffer `z_prior`, which the JAX export leaves out, and, under the
+    JAX module names (the JAX export has none), the temporal branches'
+    `aspp`, `mha` (`layerN` as the AAGCN transformer's),
+    `cnn_{raw,season,trend}`, `cnn_p{k}` and `res2`, and the BiFPN
+    `bifpn`."""
     params = variables["params"]
     stats = _stats(variables)
     out: Dict[str, np.ndarray] = {}
@@ -565,14 +620,19 @@ def sgn_state_dict_from_variables(variables: Mapping[str, Any],
     for name in params:
         m = re.fullmatch(r"tem(\d+)_(\d+)_k(\d+)", name)
         if m:  # the temporal branches tem{i}_{j}_k{k}
-            node, snode = params[name]["cnn"], stats[name]["cnn"]
-            for layer in ("cnn1", "cnn2"):
-                p = f"tem_mlp_{m[1]}_{m[2]}_k{m[3]}.cnn.{layer}"
-                _sgn_conv_out(out, p, node[layer]["cnn"]["conv"])
-                _bn_out(out, f"{p}.block.norm", node[layer]["norm"],
-                        snode[layer]["norm"])
+            p = f"tem_mlp_{m[1]}_{m[2]}_k{m[3]}"
+            snode = stats.get(name, {})
+            for sub, node in params[name].items():
+                if sub == "aspp":
+                    _aspp_out(out, f"{p}.aspp", node, snode["aspp"])
+                elif sub == "mha":
+                    _encoder_out(out, f"{p}.mha", node)
+                else:  # cnn, cnn_raw / _season / _trend, cnn_p{k}
+                    _sgn_mlp_out(out, f"{p}.{sub}", node, snode[sub])
         elif re.fullmatch(r"fpn_proj\d+(_k\d+)?", name):
             _sgn_conv_out(out, name, params[name]["conv"])
+        elif name == "bifpn":
+            _bifpn_out(out, name, params[name], stats["bifpn"])
     for name in ("fc_mu", "fc_logvar", "fc"):
         if name in params:
             _linear_out(out, name, params[name])

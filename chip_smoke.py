@@ -250,14 +250,33 @@ fails:
    for test_sgn_transformer.yaml's model: tick ms sync and pipelined,
    preds/s, host prep and h2d ms, one C++ pre_normalize a stream and
    tick, and the card's answers those of the CPU on the same recordings.
+19. SGN raw generation and SGN's temporal-branch options, whose paths run
+   none of the port's kernels, as in the JAX package: every kernel's
+   launch count must stay 0. (a) A seeded synthetic NTU raw tree (48
+   .skeleton files of one to four bodies with their own IDs, empty
+   frames, short, wide, returning and tied bodies, and the five
+   statistics tables; one listed sample missing), then `python -m
+   agcn_tpu_torch.data.gen sgn-raw --evaluations CS CV` in a subprocess:
+   its 12 pickles ((n, 300, 150) float32, 0-based labels, every kept
+   sample once an evaluation), one C++ pre_normalize call, no sklearn,
+   jax or agcn_tpu imported, ms a sample; then phase 14's entry-point
+   check on its NTU_CV pickles at batch 8 (one epoch, 5-crop eval,
+   `--phase test`). (b) train_sgn.yaml's SGN at full width with t_mode 2,
+   3 (2 heads, one layer), 4 and 5, aspp_rates [1, 3, 5], gcn_fpn 8 with
+   a branch on every level and t_maxpool_kwargs kernel [1, 2]: eval
+   logits of a 4 x 5-crop batch card against CPU in fp32 within 2e-4
+   (of the logit scale where it exceeds 1), one Adam step's median ms at
+   batch 64, its device time by kernel group and busy share.
 
 `python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
 minute), `--phase 15` phases 1, 2 (the build) and 15, `--phase 16`
 phases 1, 2 and 16, `--phase 17` phases 1 and 17, `--phase 18` phases 1
-and 18; none prints a result line (details of 15 in
-build/chip_smoke_knobs.json, of 16 in build/chip_smoke_versions.json, of
-17 in build/chip_smoke_sgn_options.json, of 18 in
-build/chip_smoke_sgn_transformer.json).
+and 18, `--phase 19` phases 1 and 19; none prints a result line (details
+of 15 in build/chip_smoke_knobs.json, of 16 in
+build/chip_smoke_versions.json, of 17 in
+build/chip_smoke_sgn_options.json, of 18 in
+build/chip_smoke_sgn_transformer.json, of 19 in
+build/chip_smoke_sgn_temporal.json).
 
 The last lines of standard output are the `kernels` JSON line, the
 card's `nvidia-smi` name and power limit, and
@@ -2028,15 +2047,18 @@ def phase_sgn_main_path(torch, cfg, train_batch_np, x_eval, summary):
     del model, step
 
 
-def phase_sgn_cli(torch, np, paths, tmp, summary):
+def phase_sgn_cli(torch, np, paths, tmp, summary, sizes=None, batch=None,
+                  key="sgn_cli", kinetics=True):
     """(d) `python -m agcn_tpu_torch.main` on a copy of train_sgn.yaml
-    pointed at the pickles: one epoch (train + val merged, batch 64), eval
-    with multi_test 5 (4 samples x 5 crops a batch) and a checkpoint;
-    `--phase test` with a test_sgn.yaml-shaped config on it must give the
-    same top-1 and score rows (one a sample, within 1e-5 of their scale).
-    The collate runs the C++ flatten_persons; no port kernel
-    launches. Then one full-width forward of the Kinetics recipe's shape
-    (V = 18, 400 classes) on the card: finite logits."""
+    pointed at the pickles: one epoch (train + val merged, batch 64 or
+    `batch`), eval with multi_test 5 (4 samples x 5 crops a batch) and a
+    checkpoint; `--phase test` with a test_sgn.yaml-shaped config on it
+    must give the same top-1 and score rows (one a sample, within 1e-5 of
+    their scale). The collate runs the C++ flatten_persons; no port kernel
+    launches. `sizes` are the (train + val, test) sample counts (phase
+    14's pickles by default). Then, with `kinetics`, one full-width
+    forward of the Kinetics recipe's shape (V = 18, 400 classes) on the
+    card: finite logits. The entry points' metrics go to summary[key]."""
     import pickle
 
     import yaml
@@ -2045,6 +2067,8 @@ def phase_sgn_cli(torch, np, paths, tmp, summary):
 
     with open(SGN_CONFIG) as f:
         recipe = yaml.safe_load(f)
+    if batch is not None:
+        recipe["batch_size"] = batch
     work = os.path.join(tmp, "work")
     recipe.update(
         work_dir=work, num_epoch=1, num_worker=2, log_interval=1,
@@ -2085,16 +2109,19 @@ def phase_sgn_cli(torch, np, paths, tmp, summary):
     score_err = float(np.abs(scores[0] - scores[1]).max())
     trains = [m for m in metrics if m["kind"] == "train"]
     evals = [m for m in metrics if m["kind"] == "eval"]
-    n_test = dict(SGN_SPLITS)["test"]
-    n_train = dict(SGN_SPLITS)["train"] + dict(SGN_SPLITS)["val"]
+    n_train, n_test = sizes or (
+        dict(SGN_SPLITS)["train"] + dict(SGN_SPLITS)["val"],
+        dict(SGN_SPLITS)["test"])
     check(len(trains) == 1 and len(evals) == 1
-          and trains[0]["steps"] == n_train // TRAIN_BATCH
+          and trains[0]["steps"] == n_train // recipe["batch_size"]
           and math.isfinite(trains[0]["loss"]),
           f"sgn entry point: {metrics}")
     check(not any(trains[0]["launches"].values()),
           f"sgn entry point launched {trains[0]['launches']}")
-    # one C++ call a sequence per epoch: train + val, then 5-crop eval
-    check(calls["flatten_persons"] == n_train + n_test
+    # one C++ call a sequence per epoch: train + val (whole batches),
+    # then 5-crop eval
+    steps = n_train // recipe["batch_size"]
+    check(calls["flatten_persons"] == steps * recipe["batch_size"] + n_test
           and test_calls["flatten_persons"] == n_test,
           f"C++ flatten_persons calls {calls}, {test_calls}")
     check(test[-1]["top1"] == evals[-1]["top1"]
@@ -2114,6 +2141,10 @@ def phase_sgn_cli(torch, np, paths, tmp, summary):
         f"test top-1 {test[-1]['top1']:.4f}, its {n_test} score rows within "
         f"{score_err:.2e} of the run's; C++ flatten_persons calls "
         f"{calls['flatten_persons']} + {test_calls['flatten_persons']}")
+    summary[key] = dict(train=trains, eval=evals, test=test, calls=calls,
+                        test_calls=test_calls)
+    if not kinetics:
+        return
     kcfg = load_config(SGN_KINETICS_CONFIG)
     kin = sgn_model(torch, kcfg).eval()
     xk = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
@@ -2125,8 +2156,6 @@ def phase_sgn_cli(torch, np, paths, tmp, summary):
           f"kinetics SGN logits {tuple(logits.shape)}")
     log(f"      kinetics shape (V = 18, 400 classes): finite logits "
         f"{tuple(logits.shape)}")
-    summary["sgn_cli"] = dict(train=trains, eval=evals, test=test,
-                              calls=calls, test_calls=test_calls)
 
 
 def phase_sgn(torch, np, summary):
@@ -3819,13 +3848,219 @@ def phase_sgn_transformer(torch, np, summary):
     return launches
 
 
+# -- phase 19: SGN raw generation and SGN's temporal-branch options -------
+
+SGN_RAW_SAMPLES = 48   # (a): .skeleton files written, one listed missing
+SGN_RAW_BATCH = 8      # (a): the entry point's batch on NTU_CV
+# (b): each option group at train_sgn.yaml's widths
+TEMPORAL_CASES = (
+    ("t_mode2", dict(t_mode=2)),
+    ("t_mode3", dict(t_mode=3, t_mha_kwargs={"nhead": 2, "num_layers": 1})),
+    ("t_mode4", dict(t_mode=4)),
+    ("t_mode5", dict(t_mode=5)),
+    ("aspp", dict(aspp_rates=[1, 3, 5])),
+    ("gcn_fpn8", dict(gcn_fpn=8, multi_t=[[3], [3], [3]])),
+    ("t_maxpool", dict(t_maxpool_kwargs={"kernel_size": [1, 2]})),
+)
+
+
+def phase_sgn_raw(torch, np, tmp, summary):
+    """(a) A seeded synthetic NTU raw tree (agcn_tpu_torch/tools/
+    sgn_raw_tree.py: SGN_RAW_SAMPLES .skeleton files of one to four bodies,
+    empty frames, short, wide, returning and tied bodies, and the five
+    statistics tables), then `python -m agcn_tpu_torch.data.gen sgn-raw
+    --evaluations CS CV` in a subprocess: its 12 pickles, (n, 300, 150)
+    finite float32 arrays and 0-based labels, each evaluation's splits
+    holding every kept sample once; one C++ pre_normalize call; no
+    sklearn, jax or agcn_tpu module imported. Seconds per sample. Then
+    phase 14's entry-point check on its NTU_CV pickles (batch
+    SGN_RAW_BATCH): one epoch, 5-crop eval, `--phase test`."""
+    import pickle
+
+    from agcn_tpu_torch.tools.sgn_raw_tree import write_sgn_raw_tree
+
+    t0 = time.perf_counter()
+    stat_dir, raw_dir, names = write_sgn_raw_tree(
+        os.path.join(tmp, "raw_tree"), SGN_RAW_SAMPLES, SEED)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "sgn_raw")
+    argv = ["agcn_tpu_torch.data.gen", "sgn-raw", "--stat-dir", stat_dir,
+            "--skeleton-root", raw_dir, "--out-dir", out, "--evaluations",
+            "CS", "CV"]
+    code = ("import json, runpy, sys, time\n"
+            f"sys.argv = {argv!r}\n"
+            "t0 = time.perf_counter()\n"
+            "runpy.run_module('agcn_tpu_torch.data.gen', run_name='__main__',"
+            " alter_sys=True)\n"
+            "seconds = time.perf_counter() - t0\n"
+            "from agcn_tpu_torch import native\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('sklearn', 'jax', 'flax', 'agcn_tpu'))\n"
+            "print(json.dumps({'seconds': seconds, 'forbidden': bad, "
+            "'pre_normalize': native.pre_normalize.calls}))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    for ln in (proc.stdout.splitlines()[:-1] + proc.stderr.splitlines())[-8:]:
+        log(f"      {ln}")
+    check(proc.returncode == 0, f"sgn-raw exited {proc.returncode}")
+    info = json.loads(proc.stdout.splitlines()[-1])
+    check(not info["forbidden"], f"sgn-raw imported {info['forbidden']}")
+    check(info["pre_normalize"] == 1,
+          f"sgn-raw: {info['pre_normalize']} C++ pre_normalize calls")
+    files = sorted(os.listdir(out))
+    check(len(files) == 12, f"sgn-raw wrote {files}")
+    sizes = {}
+    for ev in ("CS", "CV"):
+        for split in ("train", "val", "test"):
+            base = os.path.join(out, f"NTU_{ev}_{split}")
+            with open(base + ".pkl", "rb") as f:
+                data = pickle.load(f)
+            with open(base + "_label.pkl", "rb") as f:
+                labels = np.asarray(pickle.load(f))
+            check(data.dtype == np.float32 and data.ndim == 3
+                  and data.shape[1:] == (300, 150)
+                  and bool(np.isfinite(data).all())
+                  and len(labels) == len(data) > 0
+                  and labels.min() >= 0 and labels.max() < 60,
+                  f"NTU_{ev}_{split}: {data.shape} {data.dtype}, labels "
+                  f"{labels.min()}..{labels.max()}")
+            sizes[f"{ev}_{split}"] = len(data)
+        total = sum(sizes[f"{ev}_{sp}"] for sp in ("train", "val", "test"))
+        check(total == len(names),
+              f"{ev}: {total} samples in the splits of {len(names)}")
+    per_sample = info["seconds"] / len(names)
+    log(f"  sgn-raw (a) {len(names)} samples (tree written in {write_s:.2f} "
+        f"s): generation {info['seconds']:.3f} s in the subprocess "
+        f"({1e3 * per_sample:.2f} ms a sample; {wall_s:.2f} s with its "
+        f"start), splits {sizes}; no sklearn / jax / agcn_tpu imported; C++ "
+        f"pre_normalize calls {info['pre_normalize']}")
+    summary["sgn_raw"] = dict(samples=len(names), seconds=info["seconds"],
+                              ms_per_sample=1e3 * per_sample,
+                              wall_s=wall_s, write_s=write_s, sizes=sizes)
+    paths = {split: (os.path.join(out, f"NTU_CV_{split}.pkl"),
+                     os.path.join(out, f"NTU_CV_{split}_label.pkl"))
+             for split in ("train", "test")}
+    log(f"  sgn-raw (a) the entry points on its NTU_CV pickles, batch "
+        f"{SGN_RAW_BATCH}")
+    phase_sgn_cli(torch, np, paths, tmp, summary,
+                  sizes=(sizes["CV_train"] + sizes["CV_val"],
+                         sizes["CV_test"]),
+                  batch=SGN_RAW_BATCH, key="sgn_raw_cli", kinetics=False)
+
+
+def phase_sgn_temporal_options(torch, np, x_eval, train_ds, summary):
+    """(b) Each of TEMPORAL_CASES on train_sgn.yaml's SGN (full width,
+    seg 20, fp32, TF32 off): with every unit's w1 random and the BN
+    statistics of a train-mode forward (`liven_sgn`), the card's eval
+    logits of the 4 x 5-crop batch within 2e-4 (of the logit scale where
+    it exceeds 1) of the CPU port's at the same weights; then Adam steps
+    at the recipe's batch of 64 and dropout: one step's median ms (5
+    timed after 2), one step's device time by kernel group
+    (torch.profiler) and its busy share; no port kernel launches."""
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+    from agcn_tpu_torch.utils.config import load_config
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20)
+    x, _, y, _ = sampler.collate([train_ds[i] for i in range(64)],
+                                 np.random.default_rng(SEED + 71),
+                                 train=True)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    base = load_config(SGN_CONFIG)
+    rows = {}
+    for name, opts in TEMPORAL_CASES:
+        cfg = load_config(SGN_CONFIG, {
+            "model_args": dict(base.model_args, **opts)})
+        ref = sgn_model(torch, cfg, device="cpu", dropout2d=0.0)
+        liven_sgn(torch, ref, x_eval, SEED + 70)
+        state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+        with torch.inference_mode():
+            want = ref(torch.from_numpy(x_eval)).numpy()
+        del ref
+        card = sgn_model(torch, cfg, dropout2d=0.0)
+        card.load_state_dict(state, strict=True)
+        with torch.inference_mode():
+            got = card.eval()(torch.from_numpy(x_eval).cuda()).cpu().numpy()
+        del card
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        check(np.isfinite(got).all() and err <= 2e-4 * max(scale, 1.0),
+              f"{name}: card logits off the CPU's by {err:.3e} (scale "
+              f"{scale:.3f})")
+        model = sgn_model(torch, cfg)
+        step = make_step(torch, cfg, model, recipe_loss=True)
+        before = all_launches()
+        times = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(x, y)["loss"]
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms = sorted(times)[len(times) // 2]
+        check(math.isfinite(loss.item()), f"{name}: loss {loss.item()}")
+        groups, kernels = step_profile(torch, step, x, y)
+        launches = {k: n - before[k] for k, n in all_launches().items()}
+        check(not any(launches.values()),
+              f"{name}: the training path launched {launches}")
+        device_ms = sum(groups.values())
+        rows[name] = dict(options=opts, logit_err=err, logit_scale=scale,
+                          params=sum(p.numel() for p in model.parameters()),
+                          ms_per_step=ms, seq_per_s=64 / ms * 1e3,
+                          device_ms=device_ms, busy=device_ms / ms,
+                          kernels=kernels, groups=groups, launches=launches)
+        log(f"  sgn temporal (b) {name} {opts}: logits card vs cpu "
+            f"{err:.3e} of {scale:.3f}; {rows[name]['params']:,} parameters; "
+            f"Adam step at batch 64: median {ms:.3f} ms, device "
+            f"{device_ms:.3f} ms in {kernels} kernels "
+            f"({100 * device_ms / ms:.1f}% busy); launches {launches}")
+        del model, step
+    summary["sgn_temporal"] = rows
+
+
+def phase_sgn_temporal(torch, np, summary):
+    """Phase 19: (a) and (b) above, in one temporary directory; the launch
+    counts of all of it must stay 0."""
+    from agcn_tpu_torch.data.feeder import SGNDataset
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+
+    t19 = time.perf_counter()
+    reset_launches()
+    part_s = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        phase_sgn_raw(torch, np, tmp, summary)
+        part_s["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+        paths = write_sgn_pickles(np, tmp)
+        train = SGNDataset(*paths["train"], dataset="NTU60-CV-SGN")
+        test = SGNDataset(*paths["test"], dataset="NTU60-CV-SGN")
+        sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20,
+                                 multi_test=SGN_CROPS)
+        x_eval, _, _, _ = sampler.collate([test[i] for i in range(4)],
+                                          np.random.default_rng(SEED),
+                                          multi_crop=True)
+        phase_sgn_temporal_options(torch, np, x_eval, train, summary)
+        part_s["b"] = time.perf_counter() - t0
+    launches = all_launches()
+    check(not any(launches.values()), f"phase 19 launched {launches}")
+    summary["sgn_temporal_launches"] = launches
+    summary["sgn_temporal_phase_s"] = time.perf_counter() - t19
+    summary["sgn_temporal_part_s"] = part_s
+    log(f"  phase 19 in {summary['sgn_temporal_phase_s']:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in part_s.items()) + ")")
+    return launches
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only not in ("14", "15", "16", "17", "18"):
-        print("usage: python3 chip_smoke.py [--phase 14|15|16|17|18]",
+    if argv and only not in ("14", "15", "16", "17", "18", "19"):
+        print("usage: python3 chip_smoke.py [--phase 14|15|16|17|18|19]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3843,14 +4078,14 @@ def main(argv=None):
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/18] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/19] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     if only == "14":
-        log("[14/18] the SGN recipe alone (phase 14)")
+        log("[14/19] the SGN recipe alone (phase 14)")
         phase_sgn(torch, np, summary)
         return 0
     if only == "17":
-        log("[17/18] SGN's v11-v13 options, the MMD loss and sgn_original "
+        log("[17/19] SGN's v11-v13 options, the MMD loss and sgn_original "
             "alone (phase 17)")
         phase_sgn_options(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -3860,7 +4095,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "18":
-        log("[18/18] SGN's transformer (train_sgn_transformer.yaml, "
+        log("[18/19] SGN's transformer (train_sgn_transformer.yaml, "
             "train_sgn_v15.yaml) and SGN serving alone (phase 18)")
         phase_sgn_transformer(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -3869,12 +4104,22 @@ def main(argv=None):
                   "w") as f:
             json.dump(summary, f, indent=1)
         return 0
+    if only == "19":
+        log("[19/19] SGN raw generation (sgn-raw) and SGN's temporal-branch "
+            "options alone (phase 19)")
+        phase_sgn_temporal(torch, np, summary)
+        out_dir = os.path.join(REPO, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_sgn_temporal.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=1)
+        return 0
     if only == "15":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/18] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/19] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[15/18] the trainer's run knobs alone (phase 15)")
+        log("[15/19] the trainer's run knobs alone (phase 15)")
         phase_knobs(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
@@ -3884,9 +4129,9 @@ def main(argv=None):
     if only == "16":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/18] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/19] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[16/18] BN folding, the apply_gcn forms, the AAGCN versions "
+        log("[16/19] BN folding, the apply_gcn forms, the AAGCN versions "
             "alone (phase 16)")
         summary["phase16_launches"] = phase_versions(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -3899,7 +4144,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/18] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/19] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -3915,7 +4160,7 @@ def main(argv=None):
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/18] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/19] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -3931,7 +4176,7 @@ def main(argv=None):
     summary.update(kernel_rows=rows, dx_rows=dx_rows,
                    fp32_fwd_layers=fp32_layers(rows, dx_rows))
 
-    log("[4/18] gcn_bwd vs its plain version at the training shapes "
+    log("[4/19] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -3939,7 +4184,7 @@ def main(argv=None):
     summary.update(bwd_rows=bwd_rows,
                    fp32_da1_layers=da1_fp32_layers(bwd_rows))
 
-    log("[5/18] attention-logits kernel vs plain version at the served "
+    log("[5/19] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -3949,7 +4194,7 @@ def main(argv=None):
         logits_rows = phase_logits(torch, np, logits_kernel)
     summary["logits_rows"] = logits_rows
 
-    log("[6/18] host data path: the C++ host kernels "
+    log("[6/19] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -3957,11 +4202,11 @@ def main(argv=None):
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/18] AGCN serving main path: 16 streams through "
+    log("[7/19] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/18] AGCN: device time of one served forward by kernel group; "
+    log("[8/19] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -3969,7 +4214,7 @@ def main(argv=None):
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/18] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/19] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -3978,19 +4223,19 @@ def main(argv=None):
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/18] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/19] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/18] AAGCN: device time of one served forward by kernel group; "
+    log("[11/19] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/18] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/19] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -4000,7 +4245,7 @@ def main(argv=None):
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/18] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/19] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -4018,40 +4263,48 @@ def main(argv=None):
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
-    log("[14/18] SGN recipe (no port kernel on its path, as in the JAX "
+    log("[14/19] SGN recipe (no port kernel on its path, as in the JAX "
         "package): train_sgn.yaml at full width on synthetic SGN pickles "
         "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
         "the entry points with 5-crop eval")
     phase_sgn(torch, np, summary)
 
-    log("[15/18] the trainer's run knobs: one fp32 SAM step of the pallas "
+    log("[15/19] the trainer's run knobs: one fp32 SAM step of the pallas "
         "AGCN, kernels against plain versions; the entry point on "
         "train_joint.yaml with SAM, the profiler, async checkpoints, then "
         "auto-resume; train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml "
         "through the entry point")
     sam_launches = phase_knobs(torch, np, smi, summary)
 
-    log("[16/18] BN folding on the served pallas AGCN and AAGCN forwards "
+    log("[16/19] BN folding on the served pallas AGCN and AAGCN forwards "
         "(gcn_fwd and the logits kernel counted); the apply_gcn forms "
         "against 'agg'; the AAGCN v31 recipe (train_joint_aagcn_v31.yaml, "
         "T=60: card against CPU, 10 SGD steps, speed, the entry points); "
         "v17, v24, v30, v32 and v34 against the CPU")
     v16 = phase_versions(torch, np, smi, summary)
 
-    log("[17/18] SGN's v11-v13 options, the MMD loss and sgn_original (no "
+    log("[17/19] SGN's v11-v13 options, the MMD loss and sgn_original (no "
         "port kernel on their path, as in the JAX package): v11, v12, "
         "v13_gt4 and sgn_original card against CPU; one v12 step with the "
         "MMD loss card against CPU; 10 Adam steps of v12 (batch 128) and "
         "v13_gt4 (64), speed; train_sgn_v12.yaml through the entry points")
     v17 = phase_sgn_options(torch, np, summary)
 
-    log("[18/18] SGN's transformer (no port kernel on its path, as in the "
+    log("[18/19] SGN's transformer (no port kernel on its path, as in the "
         "JAX package): train_sgn_transformer.yaml and train_sgn_v15.yaml "
         "card against CPU, one v15 step card against CPU, 10 Adam steps "
         "each, speed, the entry points (train, --phase test, --serve 16); "
         "the SGN tick (sgn and sgn_transformer, 16 streams x 5 crops) "
         "card against CPU")
     v18 = phase_sgn_transformer(torch, np, summary)
+
+    log("[19/19] SGN raw generation and SGN's temporal-branch options (no "
+        "port kernel on their path, as in the JAX package): python -m "
+        "agcn_tpu_torch.data.gen sgn-raw on a synthetic raw tree, its "
+        "NTU_CV pickles through the entry points; t_mode 2-5, t_mha_kwargs, "
+        "aspp_rates, gcn_fpn 8 and t_maxpool_kwargs at train_sgn.yaml's "
+        "widths card against CPU, one Adam step each")
+    v19 = phase_sgn_temporal(torch, np, summary)
 
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
@@ -4108,6 +4361,7 @@ def main(argv=None):
             entry["launches_by_path"].setdefault(path, v16[path][key])
         entry["launches_by_path"]["sgn_options"] = v17[key]
         entry["launches_by_path"]["sgn_transformer"] = v18[key]
+        entry["launches_by_path"]["sgn_temporal"] = v19[key]
     # the fp32 routes' numbers beside the bf16 ones (gcn_fwd: served
     # forward and, for gcn_fused, dx per step; gcn_bwd: per step)
     same = ("name", "route", "source", "replaces", "launches")

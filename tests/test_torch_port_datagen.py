@@ -219,9 +219,6 @@ def test_explore_npy_prints_as_jax(capsys, ntu_out, classes):
 
 def test_unported_subcommands_name_their_roadmap_items(tmp_path, raw_tree):
     raw, _ = raw_tree
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        port_main(["sgn-raw", "--stat-dir", str(tmp_path), "--skeleton-root",
-                   raw, "--out-dir", str(tmp_path / "sgn")])
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         port_main(["explore", "--data-path", raw, "--render-sample",
                    "S001C001P001R001A001.skeleton", "--save",

@@ -294,7 +294,8 @@ def test_skeleton_file_reading_matches_jax(tmp_path):
     np.testing.assert_array_equal(got, jax_read_xyz(str(path)))
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "agcn_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "agcn_tpu",
+              "sklearn")
 # the training path's and the host data path's modules, which the
 # fresh-process check must reach
 _REQUIRED_MODULES = tuple(f"agcn_tpu_torch.{m}" for m in (
@@ -302,7 +303,8 @@ _REQUIRED_MODULES = tuple(f"agcn_tpu_torch.{m}" for m in (
     "train.checkpoint", "data.feeder", "data.pipeline", "data.transforms",
     "tools.grad_parity", "native", "data.gen.__main__", "data.gen.ntu",
     "data.gen.streams", "data.gen.kinetics", "data.gen.openpose",
-    "data.gen.explore", "utils.parallel_map", "ops.attention",
+    "data.gen.explore", "data.gen.sgn_raw", "data.gen.sgn",
+    "utils.parallel_map", "ops.attention", "ops.blocks",
     "models.aagcn_transformer"))
 
 

@@ -259,7 +259,7 @@ def test_frame_ops_match_jax():
 
 @pytest.mark.parametrize("option", [
     dict(sgcn_gt_mode=0), dict(sgcn_gt_mode=5), dict(sgcn_attn_mode=2),
-    dict(gcn_fpn=8), dict(gcn_fpn_output_merge=2), dict(t_mode=2),
+    dict(gcn_fpn_output_merge=2),
     dict(gcn_fpn=10), dict(sgcn_gt_mode=6), dict(semantic_jdiff=1),
     dict(semantic_joint_smp=1), dict(semantic_frame_location=1),
     dict(xem_projection=1),
@@ -268,9 +268,9 @@ def test_frame_ops_match_jax():
     dict(sgcn_g_weighted=True), dict(sgcn_v_kernel=3),
     dict(sgcn_kernel=3), dict(sgcn_g_kernel=3), dict(sgcn_attn_mode=1),
     dict(spatial_maxpool=3), dict(temporal_maxpool=2),
-    dict(aspp_rates=[1, 2]), dict(t_mha_kwargs={"nhead": 2}),
-    dict(t_maxpool_kwargs={"kernel_size": [1, 2]}),
-    dict(sgcn_attn_mode=3),
+    dict(spatial_maxpool=0), dict(spatial_maxpool=5),
+    dict(temporal_maxpool=0), dict(temporal_maxpool=3),
+    dict(sgcn_attn_mode=10), dict(sgcn_attn_mode=3),
 ])
 def test_refused_option_names_its_item(option):
     name = next(iter(option))
