@@ -1,14 +1,14 @@
 """Host input pipeline (copy of agcn_tpu/data/pipeline.py).
 
-Replaces torch DataLoader (reference feeders/loader.py:365-394,
-utils/processor.py:479-540): iterates a per-epoch permutation, collates
+Replaces torch DataLoader + DistributedSampler (reference
+feeders/loader.py:365-394, utils/processor.py:479-540): each data rank
+iterates its shard of a per-epoch permutation, collates
 numpy batches (`collate(batch, rng)`: the dense stack by default, the SGN
 segment collate from `make_sgn_collate`), and a background thread keeps
 `PREFETCH` batches ahead so host work overlaps device steps. The
 permutation, the per-epoch item seeds and the collate's draws use the JAX
 package's numpy seeding, so both packages see the same batches in the
-same order. Host sharding waits for the data-parallel port (ROADMAP
-Queue 1: Parallel).
+same order.
 """
 
 from __future__ import annotations
@@ -25,7 +25,13 @@ PREFETCH = 2  # batches the background thread keeps ahead
 
 
 class BatchIterator:
-    """Shuffling batch iterator over an indexable dataset."""
+    """Shuffling, sharded batch iterator over an indexable dataset.
+
+    With `num_shards` > 1, shard `shard_index` takes every num_shards-th
+    index of the permutation padded (by its own head) to a multiple of
+    num_shards, so every shard sees the same count (the DistributedSampler
+    contract; agcn_tpu/data/pipeline.py:24-60). The trainer's shards are
+    the data ranks."""
 
     def __init__(self,
                  dataset,
@@ -33,6 +39,8 @@ class BatchIterator:
                  shuffle: bool = False,
                  drop_last: bool = True,
                  seed: int = 0,
+                 num_shards: int = 1,
+                 shard_index: int = 0,
                  collate: Optional[Callable] = None,
                  num_workers: int = 0):
         self.dataset = dataset
@@ -40,6 +48,8 @@ class BatchIterator:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.collate = collate or self._default_collate
         self.num_workers = num_workers
         self.epoch = 0
@@ -62,6 +72,12 @@ class BatchIterator:
                 self.seed + self.epoch).permutation(n)
         else:
             order = np.arange(n)
+        if self.num_shards > 1:
+            # pad to a multiple so every shard sees the same count
+            per = -(-n // self.num_shards)
+            padded = np.concatenate(
+                [order, order[: per * self.num_shards - n]])
+            order = padded[self.shard_index::self.num_shards]
         return order
 
     def __len__(self):
@@ -72,8 +88,8 @@ class BatchIterator:
 
     def _iter_batches(self) -> Iterator:
         order = self._indices()
-        # (seed, epoch, shard 0): the JAX package's per-shard stream
-        rng = np.random.default_rng((self.seed, self.epoch, 0))
+        rng = np.random.default_rng(
+            (self.seed, self.epoch, self.shard_index))
         if hasattr(self.dataset, "seed"):
             self.dataset.seed(int(rng.integers(2 ** 31)))
         end = (len(order) // self.batch_size * self.batch_size

@@ -1,12 +1,16 @@
-"""Adjacency construction (copy of the dense part of agcn_tpu/graph/build.py).
+"""Adjacency construction (copy of the dense part and the COO edge sets of
+agcn_tpu/graph/build.py).
 
 The (K, V, V) spatial partition stack of the reference's graph/tools.py:
-identity, in-degree-normalized inward and outward edges.
+identity, in-degree-normalized inward and outward edges; and each
+subset's edges in COO form (`EdgeSet`), partitionable by edge for the
+edge-partitioned aggregation (parallel/edge_partition.py).
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+import dataclasses
+from typing import Iterable, Tuple
 
 import numpy as np
 
@@ -51,3 +55,54 @@ def build_adjacency(name: str, labeling_mode: str = "spatial") -> np.ndarray:
     if labeling_mode != "spatial":
         raise ValueError(f"Unknown labeling mode {labeling_mode!r}")
     return spatial_graph(get_skeleton(name))
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeSet:
+    """COO edge structure for one adjacency subset, partitionable by edge
+    (agcn_tpu/graph/build.py:203-236).
+
+    Arrays are index-sorted by destination joint so a partition is a
+    contiguous slice and segment-sum aggregation is monotone.
+    """
+
+    src: np.ndarray    # (E,) int32 source joint per edge
+    dst: np.ndarray    # (E,) int32 destination joint per edge
+    weight: np.ndarray  # (E,) float32 normalized edge weight
+    num_joints: int
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.src.shape[0])
+
+    def to_dense(self) -> np.ndarray:
+        a = np.zeros((self.num_joints, self.num_joints), dtype=np.float32)
+        a[self.dst, self.src] = self.weight
+        return a
+
+    def partition(self, num_parts: int) -> Tuple["EdgeSet", ...]:
+        """Split edges into contiguous near-equal parts (by edge count):
+        each edge rank of parallel/edge_partition.py owns one."""
+        bounds = np.linspace(0, self.num_edges, num_parts + 1).astype(int)
+        return tuple(
+            EdgeSet(self.src[s:e], self.dst[s:e], self.weight[s:e],
+                    self.num_joints)
+            for s, e in zip(bounds[:-1], bounds[1:])
+        )
+
+
+def dense_to_edges(a: np.ndarray) -> EdgeSet:
+    """Convert one dense (V, V) adjacency (A[dst, src]) to COO form."""
+    dst, src = np.nonzero(a)
+    order = np.lexsort((src, dst))
+    return EdgeSet(
+        src=src[order].astype(np.int32),
+        dst=dst[order].astype(np.int32),
+        weight=a[dst, src][order].astype(np.float32),
+        num_joints=a.shape[-1],
+    )
+
+
+def spatial_edge_sets(name: str) -> Tuple[EdgeSet, ...]:
+    """COO form of each spatial-partition subset."""
+    return tuple(dense_to_edges(a) for a in build_adjacency(name))

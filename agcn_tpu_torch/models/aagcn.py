@@ -36,6 +36,7 @@ from agcn_tpu_torch.ops import (BatchNorm, LayerNorm, PointwiseConv,
                                 TemporalConv)
 from agcn_tpu_torch.ops import gcn as gcn_ops
 from agcn_tpu_torch.ops import initializers as init
+from agcn_tpu_torch.ops.norm import sync_batch_norms
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -123,18 +124,23 @@ class AdaptiveGCN(nn.Module):
     z = sum_k W_k ( x @ (PA_k + alpha * C_k(x)) ) (aagcn.py:145-177).
 
     `conv_d` is the unit's module list, registered here again as the
-    reference does."""
+    reference does. With an `edge_mesh` whose 'edge' axis has more than
+    one rank the aggregation is edge-partitioned over it
+    (parallel/edge_partition.model_edge_gcn; aagcn.py:147-155), in train
+    and eval mode."""
 
     def __init__(self, in_channels: int, inter_channels: int,
                  adj: np.ndarray, conv_d: nn.ModuleList,
                  dtype: Optional[torch.dtype] = None,
                  formulation: str = "agg_packed",
                  attn_form: str = "transposed",
-                 eval_formulation: Optional[str] = None):
+                 eval_formulation: Optional[str] = None,
+                 edge_mesh: Any = None):
         super().__init__()
         k = adj.shape[0]
         self.inter_c = inter_channels
         self.dtype = dtype
+        self.edge_mesh = edge_mesh
         self.formulation = formulation
         self.attn_form = attn_form
         self.eval_formulation = eval_formulation
@@ -174,6 +180,12 @@ class AdaptiveGCN(nn.Module):
         w_stack = _cast(torch.stack([m.weight.view(-1, in_c).t()
                                      for m in self.conv_d]), self.dtype)
         out_b = _cast(sum(m.bias for m in self.conv_d), self.dtype)
+        if self.edge_mesh is not None \
+                and self.edge_mesh.shape.get("edge", 1) > 1:
+            from agcn_tpu_torch.parallel.edge_partition import model_edge_gcn
+
+            return model_edge_gcn(compute, a1, w_stack,
+                                  self.edge_mesh) + out_b
         # eval runs eval_formulation or 'agg', even for the pallas forms
         form = (self.formulation if self.training
                 else self.eval_formulation or "agg")
@@ -213,7 +225,8 @@ class GCNUnit(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  formulation: str = "agg_packed",
                  attn_form: str = "transposed", fold_bn: bool = False,
-                 eval_formulation: Optional[str] = None):
+                 eval_formulation: Optional[str] = None,
+                 edge_mesh: Any = None):
         super().__init__()
         k, v = adj.shape[0], adj.shape[-1]
         self.conv_d = nn.ModuleList(
@@ -224,7 +237,8 @@ class GCNUnit(nn.Module):
                                     self.conv_d, dtype=dtype,
                                     formulation=formulation,
                                     attn_form=attn_form,
-                                    eval_formulation=eval_formulation)
+                                    eval_formulation=eval_formulation,
+                                    edge_mesh=edge_mesh)
         else:
             self.agcn = NonAdaptiveGCN(adj, self.conv_d)
         self.attention = attention
@@ -372,7 +386,9 @@ class AAGCN(nn.Module):
     Built on the CPU, initialized from `generator` (seed 0 when None) and
     moved to `device`, `cuda` unless the caller names another. Dropout
     (`drop_out`, train mode only) draws its masks from a generator on that
-    device, seeded from `generator`.
+    device, seeded from `generator`. `sync_axis` puts every BatchNorm on
+    that axis of the bound mesh (SyncBN); `edge_mesh` partitions each
+    adaptive unit's aggregation over its 'edge' axis.
     """
 
     def __init__(self, num_class: int = 60, num_point: int = 25,
@@ -393,14 +409,6 @@ class AAGCN(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        if edge_mesh is not None:
-            raise NotImplementedError(
-                "edge_mesh (in-model edge partitioning) is not ported yet "
-                "(ROADMAP, Queue 1: Parallel)")
-        if sync_axis is not None:
-            raise NotImplementedError(
-                "SyncBN (sync_axis) needs the data-parallel port "
-                "(ROADMAP Queue 1: Parallel)")
         if adj is None:
             raise ValueError("adj: the (K, V, V) adjacency stack is required")
         if data_norm == "bn":
@@ -419,7 +427,7 @@ class AAGCN(nn.Module):
                       kernel_size=kernel_size, gbn_split=gbn_split,
                       formulation=formulation, attn_form=attn_form,
                       dtype=dtype, fold_bn=fold_bn,
-                      eval_formulation=eval_formulation)
+                      eval_formulation=eval_formulation, edge_mesh=edge_mesh)
         plan = layer_plan(model_layers, backbone_dim or 64)
         self.block_names = []
         c = in_channels
@@ -435,6 +443,8 @@ class AAGCN(nn.Module):
         fc_in = c * num_point if fc_cv else c
         # skip_init: nn.Linear's own init would draw from the global RNG
         self.fc = nn.utils.skip_init(nn.Linear, fc_in, num_class)
+        if sync_axis is not None:  # every BN of the model (:233-419)
+            sync_batch_norms(self, sync_axis)
         generator = (generator if generator is not None
                      else torch.Generator().manual_seed(0))
         self.reset_parameters(generator)

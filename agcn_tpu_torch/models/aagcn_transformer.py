@@ -40,6 +40,7 @@ from torch import nn
 from agcn_tpu_torch.models.aagcn import TCNGCNUnit, layer_plan
 from agcn_tpu_torch.ops import BatchNorm
 from agcn_tpu_torch.ops import initializers as init
+from agcn_tpu_torch.ops.norm import sync_batch_norms
 from agcn_tpu_torch.ops.attention import (CrossTransformer, Dropout,
                                           TransformerEncoder)
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -73,10 +74,6 @@ class AAGCNTransformer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        if sync_axis is not None:
-            raise NotImplementedError(
-                "SyncBN (sync_axis) needs the data-parallel port "
-                "(ROADMAP Queue 1: Parallel)")
         if adj is None:
             raise ValueError("adj: the (K, V, V) adjacency stack is required")
         if mode not in MODES:
@@ -106,6 +103,11 @@ class AAGCNTransformer(nn.Module):
             conv = block.tcn1.conv
             t = (t + 2 * conv.pad - conv.weight.shape[2]) // conv.stride + 1
             c = ch
+        # SyncBN on the data norm and the AAGCN units (JAX :88, :106); the
+        # encoders' norms take no axis there either
+        if sync_axis is not None:
+            for name in ["data_bn"] + self.block_names:
+                sync_batch_norms(getattr(self, name), sync_axis)
         # frames after the backbone, and the tokens each encoder sees
         self.backbone_frames = t
         cls = 1 if use_cls_token else 0

@@ -56,6 +56,7 @@ from torch import nn
 from agcn_tpu_torch.models.aagcn import TCNGCNUnit, layer_plan
 from agcn_tpu_torch.ops import BatchNorm, LayerNorm, PointwiseConv
 from agcn_tpu_torch.ops import initializers as init
+from agcn_tpu_torch.ops.norm import sync_batch_norms
 from agcn_tpu_torch.ops.attention import (Dropout, TransformerEncoderLayer,
                                           layer_norm)
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -149,10 +150,6 @@ class _Version(nn.Module):
                         model_layers: int, output_channel: int,
                         data_norm: str, drop_out: float, dtype,
                         num_frame: int, sync_axis) -> None:
-        if sync_axis is not None:
-            raise NotImplementedError(
-                "SyncBN (sync_axis) needs the data-parallel port "
-                "(ROADMAP Queue 1: Parallel)")
         if adj is None:
             raise ValueError("adj: the (K, V, V) adjacency stack is required")
         self.adj = np.asarray(adj, np.float32)
@@ -189,6 +186,12 @@ class _Version(nn.Module):
         self.num_frame = num_frame
         self.backbone_frames = t
         self.fc_drop = Dropout(drop_out)
+        # SyncBN on the data norm and the backbone's units, as JAX's
+        # _preprocess and _backbone pass sync_axis (:104-136)
+        self.sync_axis = sync_axis
+        if sync_axis is not None:
+            for name in ["data_bn"] + self.block_names:
+                sync_batch_norms(getattr(self, name), sync_axis)
 
     def _head(self, width: int) -> None:
         self.fc = nn.utils.skip_init(nn.Linear, width, self.num_class)
@@ -951,6 +954,7 @@ class AAGCNv30(_Version):
         self.s_trans_enc_layers = nn.ModuleList(
             GCNUnitLocal(self.channels, self.adj, gcn_trans_unit)
             for _ in range(num_layers))
+        sync_batch_norms(self.s_trans_enc_layers, sync_axis)
         self.t_trans_enc_layers = nn.ModuleList(
             TransformerEncoderLayer(t_dim, t_num_heads, t_ffn_dim,
                                     t_dropout, t_activation, t_prenorm)

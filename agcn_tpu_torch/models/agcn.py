@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from agcn_tpu_torch.ops import BatchNorm, PointwiseConv, TemporalConv
 from agcn_tpu_torch.ops import gcn as gcn_ops
 from agcn_tpu_torch.ops import initializers as init
-from agcn_tpu_torch.ops.norm import recomputing
+from agcn_tpu_torch.ops.norm import recomputing, sync_batch_norms
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -53,12 +53,14 @@ class UnitGCN(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  use_pallas: bool = False, formulation: str = "agg_packed",
                  attn_form: str = "transposed", fold_bn: bool = False,
-                 eval_formulation: Optional[str] = None):
+                 eval_formulation: Optional[str] = None,
+                 edge_mesh: Any = None):
         super().__init__()
         k = adj.shape[0]
         self.inter_c = out_channels // coff_embedding
         self.dtype = dtype
         self.use_pallas = use_pallas
+        self.edge_mesh = edge_mesh
         self.formulation = formulation
         self.attn_form = attn_form
         self.eval_formulation = eval_formulation
@@ -113,6 +115,13 @@ class UnitGCN(nn.Module):
             from agcn_tpu_torch.ops.kernels.gcn_kernel import fused_gcn
 
             y = fused_gcn(compute, a1, w_stack) + out_b
+        elif self.edge_mesh is not None \
+                and self.edge_mesh.shape.get("edge", 1) > 1:
+            # the subsets partitioned over the 'edge' axis, in train and
+            # eval mode, before any formulation (agcn_tpu agcn.py:116-127)
+            from agcn_tpu_torch.parallel.edge_partition import model_edge_gcn
+
+            y = model_edge_gcn(compute, a1, w_stack, self.edge_mesh) + out_b
         else:
             # training runs the configured formulation; at eval the
             # pallas formulations keep their fused forward kernel and the
@@ -194,7 +203,11 @@ class AGCN(nn.Module):
 
     The model is built on the CPU, initialized from `generator` (a
     `torch.Generator`; seed 0 when None) and moved to `device`, which is
-    `cuda` unless the caller names another.
+    `cuda` unless the caller names another. `sync_axis` puts every
+    BatchNorm on that axis of the bound mesh (SyncBN); with an `edge_mesh`
+    whose 'edge' axis has more than one rank, each unit's aggregation is
+    partitioned over it (parallel/edge_partition.model_edge_gcn), unless
+    `use_pallas` takes the unit first, as in the JAX model.
     """
 
     def __init__(self, num_class: int = 60, num_point: int = 25,
@@ -206,6 +219,7 @@ class AGCN(nn.Module):
                  remat: bool = False, scan_blocks: bool = False,
                  fold_bn: bool = False,
                  eval_formulation: Optional[str] = None,
+                 sync_axis: Optional[str] = None,
                  device: Union[str, torch.device, None] = DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -215,10 +229,6 @@ class AGCN(nn.Module):
                 "scan_blocks stacks the block parameters on a leading axis "
                 "(a layout the reference state dict does not have); the "
                 "port runs the unrolled model only")
-        if edge_mesh is not None:
-            raise NotImplementedError(
-                "edge_mesh (in-model edge partitioning) is not ported yet "
-                "(ROADMAP, Queue 1: Parallel)")
         if adj is None:
             raise ValueError("adj: the (K, V, V) adjacency stack is required")
         self.remat = remat
@@ -226,7 +236,8 @@ class AGCN(nn.Module):
         self.data_bn = BatchNorm(num_person * num_point * in_channels)
         common = dict(dtype=self.dtype, use_pallas=use_pallas,
                       formulation=formulation, attn_form=attn_form,
-                      fold_bn=fold_bn, eval_formulation=eval_formulation)
+                      fold_bn=fold_bn, eval_formulation=eval_formulation,
+                      edge_mesh=edge_mesh)
         self.block_names = []
         in_c = in_channels
         for i, (ch, stride, residual) in enumerate(BACKBONE_PLAN):
@@ -238,6 +249,8 @@ class AGCN(nn.Module):
         # skip_init: nn.Linear's own init would draw from the global RNG
         self.fc = nn.utils.skip_init(nn.Linear, in_c, num_class)
         self.num_class = num_class
+        if sync_axis is not None:  # every BN of the model (agcn.py:145-312)
+            sync_batch_norms(self, sync_axis)
         self.reset_parameters(generator if generator is not None
                               else torch.Generator().manual_seed(0))
         self.to(device)

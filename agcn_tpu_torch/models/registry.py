@@ -9,6 +9,8 @@ construction (the `graph`/`graph_args` model args) resolves through
 agcn_tpu_torch.graph. A name the JAX package does not build raises
 KeyError, as in the JAX package; `_WAITING` would list a JAX model that
 the port lacked, with the ROADMAP item it waits in (none is left).
+`edge_mesh` (a parallel.Mesh) reaches AGCN and AAGCN only; the other
+models, the SGN names and unaliased dotted paths raise JAX's ValueError.
 """
 
 from __future__ import annotations
@@ -159,15 +161,23 @@ def build_model(name: str, model_args: Dict[str, Any],
                 device: Union[str, torch.device, None] = DEFAULT_DEVICE,
                 dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None,
-                num_frame: Optional[int] = None) -> nn.Module:
+                num_frame: Optional[int] = None,
+                edge_mesh: Any = None) -> nn.Module:
     """Build a model from a recipe's `model` and `model_args`, on `device`
     (`cuda` unless named), computing in `dtype`, initialized from
     `generator`. `num_frame`, the input's frames, sizes the tables of a
     model whose class sets `takes_num_frame` (the AAGCN transformer's
     positions, the spatial tokens of the AAGCN versions) and SGN's one-hot
     frames (the loader's `seg`, also the original SGN's and SGN's
-    transformer's); the others take any T."""
+    transformer's); the others take any T. `edge_mesh` partitions the
+    GCN aggregation of AGCN and AAGCN over its 'edge' axis."""
     key = model_key(name)
+    if edge_mesh is not None and (key.startswith("sgn") or "." in key):
+        # fail loudly instead of silently replicating compute over the
+        # edge axis (agcn_tpu/models/registry.py:98-106)
+        raise ValueError(
+            f"mesh_edge > 1 requires a model with in-model edge "
+            f"partitioning (agcn/aagcn families); got {name!r}")
     cls = _CLASSES.get(key)
     if cls is None:
         item = waiting_item(name)
@@ -208,5 +218,11 @@ def build_model(name: str, model_args: Dict[str, Any],
         args["version"] = "v32"
     if getattr(cls, "takes_num_frame", False) and num_frame is not None:
         args["num_frame"] = num_frame
+    if edge_mesh is not None:
+        if cls not in (AGCN, AAGCN):
+            raise ValueError(
+                f"mesh_edge > 1 requires a model with in-model edge "
+                f"partitioning (agcn/aagcn); got {cls.__name__}")
+        args["edge_mesh"] = edge_mesh
     return cls(adj=adj, device=device, dtype=dtype, generator=generator,
                **args)

@@ -1,5 +1,5 @@
-"""BatchNorm (+ Ghost splits) and LayerNorm over the trailing channel
-axis (port of agcn_tpu/ops/norm.py).
+"""BatchNorm (+ cross-rank sync, + Ghost splits) and LayerNorm over the
+trailing channel axis (port of agcn_tpu/ops/norm.py).
 
 Channels-last, like the JAX package: the statistics are per channel of
 the last axis. The parameter and buffer names are torch's
@@ -39,6 +39,15 @@ class BatchNorm(nn.Module):
         the JAX package): in train mode split s normalizes samples
         {s, S+s, 2S+s, ...} with its own statistics, and the running
         statistics take the mean of the splits' (norm.py:82-107).
+      axis_name: SyncBN over this axis of the bound mesh
+        (parallel/mesh.py; norm.py:109-130): in train mode one all-reduce
+        over the axis' ranks of [sum x, sum x^2, count] in fp32 gives the
+        statistics of all their rows, and the backward sums the
+        statistics' gradient over the ranks (JAX's psum). Ghost BN does
+        not sync, as in the JAX package. Train mode without a bound mesh
+        raises JAX's NameError for an unbound axis; eval mode does not
+        need one. The trainer sets it on every BatchNorm of a
+        data-parallel run.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
@@ -46,10 +55,7 @@ class BatchNorm(nn.Module):
                  identity_at_eval: bool = False, splits: int = 1,
                  axis_name: Optional[str] = None):
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(
-                "SyncBN (axis_name) needs the data-parallel port "
-                "(ROADMAP Queue 1: Parallel)")
+        self.axis_name = axis_name
         self.eps = eps
         self.splits = splits
         self.identity_at_eval = identity_at_eval
@@ -80,20 +86,40 @@ class BatchNorm(nn.Module):
             return self._ghost(x)
         xf = x.float()
         dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dim=dims)
-        var = (xf * xf).mean(dim=dims) - mean * mean
-        self._track(mean, var, x.numel() // x.shape[-1])
+        if self.axis_name is None:
+            mean = xf.mean(dim=dims)
+            var = (xf * xf).mean(dim=dims) - mean * mean
+            count = x.numel() // x.shape[-1]
+        else:
+            mean, var, count = self._synced_stats(xf, dims)
+        self._track(mean, var, count)
         return self._affine(x, mean, var)
 
+    def _synced_stats(self, xf: torch.Tensor, dims):
+        """(mean, biased var, count) over the rows of every rank of the
+        axis (norm.py:116-127)."""
+        from agcn_tpu_torch.parallel.collectives import psum
+        from agcn_tpu_torch.parallel.mesh import axis_group
+
+        group = axis_group(self.axis_name)
+        c = xf.shape[-1]
+        total = psum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+                                xf.new_full((1,), xf.numel() // c)]), group)
+        count = total[-1]
+        mean = total[:c] / count
+        return mean, total[c:-1] / count - mean * mean, count
+
     def _track(self, mean: torch.Tensor, var: torch.Tensor,
-               count: int) -> None:
+               count) -> None:
         """Fold batch statistics into the running ones (not while a
         checkpointed block recomputes its forward)."""
         if self.recomputing:
             return
         m = MOMENTUM
         with torch.no_grad():
-            unbiased = var * count / max(count - 1, 1)
+            unbiased = var * count / (torch.clamp(count - 1, min=1)
+                                      if torch.is_tensor(count)
+                                      else max(count - 1, 1))
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
             self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
             self.num_batches_tracked.add_(1)
@@ -148,3 +174,11 @@ def recomputing(module: nn.Module) -> Iterator[None]:
     finally:
         for m, flag in zip(norms, before):
             m.recomputing = flag
+
+
+def sync_batch_norms(module: nn.Module, axis_name: Optional[str]) -> None:
+    """Set `axis_name` on every BatchNorm under `module` (the models'
+    `sync_axis`, and the trainer's data axis)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.axis_name = axis_name

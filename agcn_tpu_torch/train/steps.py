@@ -19,6 +19,11 @@ same dropout masks and the running statistics left alone
 (`ops.norm.recomputing`), gives the gradients the update takes; the
 parameters come back before `grad_transform` and the update.
 
+In a data-parallel run the forward and backward go through the
+trainer's DistributedDataParallel wrapper (`forward`), so the gradients
+the update (and SAM's perturbation) takes are those of the global batch,
+as JAX's are; the clip then sees the global gradient.
+
 JAX's `lax.scan` of K steps (:111-139) is the trainer's epoch loop
 here: K batches in one copy, their steps back to back. The eval step
 averages the logits, and the aux `z`, of each sample's crops (multi-crop
@@ -59,18 +64,26 @@ def seed_dropout(model: nn.Module, step: int) -> None:
     """Reseed the model's dropout generator, where it has one, from its
     `dropout_seed` and the update count, as the JAX step draws its masks
     from fold_in(rng, step) (agcn_tpu/train/steps.py:87): a run resumed at
-    step s draws the masks of the run that was not interrupted."""
+    step s draws the masks of the run that was not interrupted. A data
+    rank d > 0 (`dropout_shard`, set by the trainer) folds d in too, so
+    data ranks draw their own masks on their own rows while the edge
+    ranks of one data rank draw the same."""
     generator = getattr(model, "dropout_generator", None)
     if generator is not None:
-        seed = np.random.SeedSequence([model.dropout_seed, step])
+        shard = getattr(model, "dropout_shard", 0)
+        seed = np.random.SeedSequence(
+            [model.dropout_seed, step] + ([shard] if shard else []))
         generator.manual_seed(int(seed.generate_state(1, np.uint64)[0]))
 
 
-def _forward(model: nn.Module, x: torch.Tensor, aux: bool):
+def _forward(model: nn.Module, x: torch.Tensor, aux: bool,
+             has_aux: Optional[bool] = None):
     """(logits, the model's aux outputs or None); a model without aux
     outputs (no `has_aux`) gives None, as JAX's models do, and one that
     returns (logits, G) (the original SGN) gives its logits."""
-    if aux and getattr(model, "has_aux", False):
+    if has_aux is None:
+        has_aux = getattr(model, "has_aux", False)
+    if aux and has_aux:
         return model(x, return_aux=True)
     out = model(x)
     return (out[0] if isinstance(out, tuple) else out), None
@@ -81,17 +94,21 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
                     grad_transform: Optional[Callable[[nn.Module],
                                                       None]] = None,
                     sam_rho: float = 0.0,
-                    aux_loss_fn: Optional[AuxLoss] = None
+                    aux_loss_fn: Optional[AuxLoss] = None,
+                    forward: Optional[nn.Module] = None
                     ) -> Callable[[torch.Tensor, torch.Tensor], Metrics]:
     """A step (x, y) -> {"loss", "acc", aux metrics} that updates `model`
     in place. With `aux_loss_fn` a model that has aux outputs is called
     with `return_aux=True` and the loss is loss_fn + aux_loss_fn(aux,
-    y)[0]."""
+    y)[0]. `forward` (a DistributedDataParallel wrapper of `model`) runs
+    the forward when given."""
     params = [p for p in model.parameters() if p.requires_grad]
+    run = model if forward is None else forward
 
     def loss_and_grads(x, y):
         seed_dropout(model, optimizer.count)
-        logits, aux = _forward(model, x, aux_loss_fn is not None)
+        logits, aux = _forward(run, x, aux_loss_fn is not None,
+                               getattr(model, "has_aux", False))
         loss = loss_fn(logits, y)
         metrics: Metrics = {}
         if aux_loss_fn is not None:

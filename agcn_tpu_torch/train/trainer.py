@@ -11,11 +11,12 @@ Work-dir management (the reuse guard, config snapshot, `log.txt`,
 the recipe's optimizer (SGD nesterov, Adam, AdamW, each with LLRD when
 its name says so) and schedule (warmup + step, onecycle, cyclic),
 periodic eval with top-k, checkpoints that resume the optimizer state
-exactly, and the PA freeze (`only_train_part`). The run lives on one
-device: `cuda` unless the config says `device: cpu` (an integer picks
-that CUDA card). The model is built after the data, for the data's
-frames (the AAGCN transformer's position tables, the spatial tokens of
-AAGCN v31 / v34, SGN's one-hot frame table: the loader's `seg`).
+exactly, and the PA freeze (`only_train_part`). A run without a
+launcher lives on one device: `cuda` unless the config says `device:
+cpu` (an integer picks that CUDA card). The model is built after the
+data, for the data's frames (the AAGCN transformer's position tables,
+the spatial tokens of AAGCN v31 / v34, SGN's one-hot frame table: the
+loader's `seg`).
 
 The SGN recipes (`feeder: sgn`, `use_sgn_dataloader`, an SGN model;
 JAX `is_sgn`, trainer.py:85-86) load `SGNDataset` and collate segments
@@ -58,8 +59,39 @@ The run knobs, as the JAX trainer's:
 
 Every model of the JAX registry trains here (SGN's transformer, v15,
 since Queue 1 item 7.3: its tuple output (logits, attention) reaches the
-steps, which take the logits). Not here yet, refused with its ROADMAP
-item: multi-device and multi-host runs.
+steps, which take the logits).
+
+Data-parallel and edge-partitioned runs (agcn_tpu trainer.py:79-83,
+132-133, 496-502, 736-784, 840-856): under a launcher
+(`parallel.init_distributed`, called by `agcn_tpu_torch.main`) each rank
+runs this trainer on its card, on a (data, edge) mesh of the recipe's
+`mesh_data` x `mesh_edge` (`mesh_data` 0: the world over `mesh_edge`).
+
+- Data: each data rank loads its shard of the train and val sets
+  (`batch_size` per data rank: the global batch is batch_size x data).
+  The model is wrapped in DistributedDataParallel over the data axis
+  (also at data 1, where its all-reduce is the identity), every
+  BatchNorm takes the statistics of all data ranks' rows (SyncBN, as
+  GSPMD computes them over the global batch; a Ghost BN keeps its
+  per-rank splits, as the JAX module does), the clip sees the reduced
+  gradient, the logged loss and accuracy are the data ranks' mean, and
+  dropout folds the data rank into its masks' seed. `steps_per_call`
+  falls back to 1 at data > 1, as in JAX.
+- Edge: at `mesh_edge` > 1 the model (AGCN or AAGCN) partitions its
+  GCN aggregation over the edge axis (parallel/edge_partition.py); the
+  edge ranks of a data rank load the same rows.
+- Eval: each data rank scores its shard; the rows are all-gathered over
+  the data axis, interleaved back into the loader's order and cut to the
+  set's size. The aux eval metrics are skipped at world > 1.
+- Rank 0 alone writes log.txt, metrics.jsonl, the event files, the
+  config and model-source snapshots, the profiler trace, checkpoints
+  (the module's own names, synchronous at world > 1) and scores.
+- `ddp` is read nowhere, as in JAX; a `world_size` above 1 must equal
+  the launcher's, and without a launcher it raises
+  (parallel/mesh.check_world).
+
+The JAX package's auxiliary losses (SGN's MMD, fsim) see the global
+batch; here each data rank's rows, as the reference's DDP does.
 """
 
 from __future__ import annotations
@@ -79,6 +111,8 @@ from agcn_tpu_torch.data.pipeline import BatchIterator, make_sgn_collate
 from agcn_tpu_torch.data.sgn_collate import SegmentSampler
 from agcn_tpu_torch.models.registry import build_model
 from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel
+from agcn_tpu_torch.ops.norm import sync_batch_norms
+from agcn_tpu_torch.parallel import mesh as M
 from agcn_tpu_torch.train import checkpoint as ckpt
 from agcn_tpu_torch.train import losses as L
 from agcn_tpu_torch.train import optim as O
@@ -95,13 +129,12 @@ PROFILE_STEPS = range(2, 8)
 
 def device_from_config(value: Any) -> torch.device:
     """`device` of a recipe: 'cpu', 'cuda', 'cuda:N', or an int N (the
-    reference's GPU index) for cuda:N."""
+    reference's GPU index) for cuda:N; a list of one card is that card
+    (a longer list needs a launcher: parallel/mesh.check_world)."""
+    if isinstance(value, (list, tuple)) and len(value) == 1:
+        value = value[0]
     if isinstance(value, int) and not isinstance(value, bool):
         return resolve_device(f"cuda:{value}")
-    if isinstance(value, (list, tuple)):
-        raise NotImplementedError(
-            f"device {value!r}: multi-device runs wait for ROADMAP Queue 1: "
-            "Parallel")
     return resolve_device(str(value))
 
 
@@ -112,21 +145,19 @@ def kernel_launches() -> Dict[str, int]:
             "gcn_bwd": gcn_fused.gcn_backward.launches}
 
 
-def _refuse_unported(cfg: Config) -> None:
-    refused = {
-        "world_size > 1 / ddp": (cfg.world_size > 1 or cfg.ddp,
-                                 "ROADMAP Queue 1: Parallel"),
-        "mesh_data > 1 / mesh_edge > 1": (
-            cfg.mesh_data > 1 or cfg.mesh_edge > 1,
-            "ROADMAP Queue 1: Parallel"),
-    }
-    for knob, (on, item) in refused.items():
-        if on:
-            raise NotImplementedError(
-                f"{knob}: not in the port yet; waits in {item}")
+def _check_config(cfg: Config) -> None:
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: float32 or "
                          "bfloat16")
+
+
+def _mean_all_reduce(group, bucket):
+    """DDP comm hook: the bucket's mean over the group, one AVG
+    all-reduce."""
+    work = torch.distributed.all_reduce(
+        bucket.buffer(), op=torch.distributed.ReduceOp.AVG, group=group,
+        async_op=True)
+    return work.get_future().then(lambda fut: fut.value()[0])
 
 
 def _groups(batches, k: int):
@@ -201,22 +232,35 @@ def build_aux_loss(cfg: Config, model: torch.nn.Module
 
 class Trainer:
     def __init__(self, cfg: Config):
-        _refuse_unported(cfg)
+        _check_config(cfg)
         self.cfg = cfg
         self.work_dir = cfg.work_dir
-        self.device = device_from_config(cfg.device)
+        self.mesh = self._make_mesh()
+        self.data = self.mesh.shape["data"] if self.mesh else 1
+        self.data_rank = self.mesh.coordinate("data") if self.mesh else 0
+        # rank 0 owns every work-dir artifact (agcn_tpu trainer.py:56)
+        self.is_main = M.is_main()
+        self.device = (M.rank_device(cfg.device) if self.mesh
+                       else device_from_config(cfg.device))
         self.is_sgn = (cfg.use_sgn_dataloader or cfg.feeder == "sgn"
                        or "sgn" in cfg.model.lower())
         self._guard_work_dir()
+        if self.mesh:  # no rank writes before every rank looked
+            torch.distributed.barrier()
         os.makedirs(os.path.join(self.work_dir, "checkpoints"),
                     exist_ok=True)
         os.makedirs(os.path.join(self.work_dir, "score"), exist_ok=True)
-        save_config(cfg, os.path.join(self.work_dir, "config.yaml"))
+        if self.is_main:
+            save_config(cfg, os.path.join(self.work_dir, "config.yaml"))
         self._log_file = os.path.join(self.work_dir, "log.txt")
         self._metrics_file = os.path.join(self.work_dir, "metrics.jsonl")
+        if self.mesh:
+            self.print_log(
+                f"process group: {torch.distributed.get_backend()}, "
+                f"{M.world_size()} ranks as {self.mesh}, on {self.device}")
         # TensorBoard event writers (reference processor.py:125-132)
         self.train_writer = self.val_writer = None
-        if cfg.phase == "train":
+        if cfg.phase == "train" and self.is_main:
             self.train_writer = SummaryWriter(
                 os.path.join(self.work_dir, "event", "train"))
             self.val_writer = SummaryWriter(
@@ -231,6 +275,21 @@ class Trainer:
         self._build_steps()
         self.best_acc = 0.0
         self.best_epoch = -1
+
+    def _make_mesh(self) -> Optional[M.Mesh]:
+        """The (data, edge) mesh of a run in a process group, or None for
+        a run without a launcher (which must ask for one rank)."""
+        cfg = self.cfg
+        world = M.check_world(cfg)
+        if M.distributed():
+            return M.make_mesh(cfg.mesh_data, cfg.mesh_edge)
+        if world > 1:
+            raise RuntimeError(
+                f"WORLD_SIZE {world} but no process group: call "
+                "agcn_tpu_torch.parallel.init_distributed first "
+                "(agcn_tpu_torch.main does)")
+        M.mesh_shape(cfg.mesh_data, cfg.mesh_edge, 1)
+        return None
 
     def _guard_work_dir(self):
         """Refuse to clobber a previous run's work dir unless resuming or
@@ -248,6 +307,8 @@ class Trainer:
     # -- logging -------------------------------------------------------
 
     def print_log(self, msg: str):
+        if not self.is_main:  # rank-0 logging (processor.py:138-146)
+            return
         line = f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] {msg}"
         if self.cfg.print_log:
             print(line, flush=True)
@@ -255,6 +316,8 @@ class Trainer:
             f.write(line + "\n")
 
     def log_metrics(self, **kv):
+        if not self.is_main:
+            return
         with open(self._metrics_file, "a") as f:
             f.write(json.dumps(kv) + "\n")
 
@@ -268,6 +331,8 @@ class Trainer:
         self.loaders: Dict[str, BatchIterator] = {}
         self.datasets: Dict[str, Any] = {}
         self.multi_test = 1
+        # the data ranks' shards; the edge ranks of one load the same rows
+        shards = dict(num_shards=self.data, shard_index=self.data_rank)
         if cfg.phase == "train" and cfg.train_feeder_args:
             collate = None
             if self.is_sgn:
@@ -281,7 +346,8 @@ class Trainer:
             self.datasets["train"] = ds
             self.loaders["train"] = BatchIterator(
                 ds, cfg.batch_size, shuffle=True, drop_last=True,
-                seed=cfg.seed, collate=collate, num_workers=cfg.num_worker)
+                seed=cfg.seed, collate=collate, num_workers=cfg.num_worker,
+                **shards)
         if cfg.test_feeder_args:
             collate = None
             if self.is_sgn:
@@ -297,7 +363,7 @@ class Trainer:
             self.datasets["val"] = ds
             self.loaders["val"] = BatchIterator(
                 ds, cfg.test_batch_size, shuffle=False, drop_last=False,
-                seed=cfg.seed, collate=collate)
+                seed=cfg.seed, collate=collate, **shards)
 
     def _data_frames(self):
         """The frames T of a sample as the loaders yield it (None without
@@ -318,13 +384,19 @@ class Trainer:
             self.print_log("compute_dtype bfloat16 is not supported by the "
                            "SGN families; running float32")
             dtype = None
+        edge_mesh = self.mesh if cfg.mesh_edge > 1 else None
         self.model = build_model(
             cfg.model, cfg.model_args, device=self.device, dtype=dtype,
             generator=torch.Generator().manual_seed(cfg.seed),
-            num_frame=self._data_frames())
+            num_frame=self._data_frames(), edge_mesh=edge_mesh)
+        if self.mesh:
+            # global-batch statistics in every BN; data ranks' own masks
+            sync_batch_norms(self.model, "data")
+            self.model.dropout_shard = self.data_rank
         n_params = sum(p.numel() for p in self.model.parameters())
         self.print_log(f"Model {cfg.model} built: {n_params:,} params")
-        self._snapshot_model_source()
+        if self.is_main:
+            self._snapshot_model_source()
         self._ckpt = None
         if cfg.weights:
             self._ckpt = ckpt.load_checkpoint(cfg.weights, cfg.model,
@@ -411,21 +483,63 @@ class Trainer:
         sam_rho = cfg.sam_rho if cfg.optimizer.upper().startswith("SAM") \
             else 0.0
         aux_loss_fn = build_aux_loss(cfg, self.model)
+        ddp = self._wrap_data_parallel()
 
         def step(**kw):
-            return make_train_step(self.model, loss_fn, self.optimizer,
-                                   sam_rho=sam_rho, aux_loss_fn=aux_loss_fn,
-                                   **kw)
+            return self._mean_over_data(make_train_step(
+                self.model, loss_fn, self.optimizer, sam_rho=sam_rho,
+                aux_loss_fn=aux_loss_fn, forward=ddp, **kw))
 
         self._train_step = step()
-        # the PA freeze (reference processor.py:612-630)
+        # the PA freeze (reference processor.py:612-630): the gradients
+        # are zeroed, requires_grad stays (DDP's reducer needs it)
         self._train_step_frozen = step(grad_transform=freeze_pa) \
             if cfg.only_train_part else self._train_step
         self._steps_per_call = max(1, int(cfg.steps_per_call or 1))
+        if self._steps_per_call > 1 and self.data > 1:
+            self.print_log("steps_per_call > 1 requires a single data "
+                           "shard; falling back to 1")
+            self._steps_per_call = 1
         self._eval_aux = aux_loss_fn
         self._eval_step = make_eval_step(self.model, loss_fn,
                                          multi_crop=self.multi_test,
                                          aux_loss_fn=aux_loss_fn)
+
+    def _wrap_data_parallel(self):
+        """DistributedDataParallel over the data axis in a process group
+        (None without one). Buffers are not broadcast: SyncBN keeps every
+        rank's running statistics equal. A parameter the forward may leave
+        unused (SGN's G `alpha`) needs the unused-parameter search. On
+        NCCL each gradient bucket's mean is one AVG all-reduce (DDP's own
+        hook divides, then sums; gloo has no AVG)."""
+        if not self.mesh:
+            return None
+        from torch.nn.parallel import DistributedDataParallel
+
+        group = self.mesh.group("data")
+        ddp = DistributedDataParallel(
+            self.model, process_group=group,
+            device_ids=[self.device] if self.device.type == "cuda" else None,
+            broadcast_buffers=False, find_unused_parameters=self.is_sgn)
+        if torch.distributed.get_backend(group) == "nccl":
+            ddp.register_comm_hook(group, _mean_all_reduce)
+        return ddp
+
+    def _mean_over_data(self, step: Callable) -> Callable:
+        """`step` with its metrics averaged over the data ranks: the
+        global batch's loss and accuracy, as the JAX step reports them."""
+        if self.data == 1:
+            return step
+        group = self.mesh.group("data")
+
+        def run(x, y):
+            metrics = step(x, y)
+            keys = sorted(metrics)
+            t = torch.stack([metrics[k].float() for k in keys])
+            torch.distributed.all_reduce(t, group=group)
+            return dict(zip(keys, (t / self.data).unbind()))
+
+        return run
 
     # -- phases --------------------------------------------------------
 
@@ -444,7 +558,8 @@ class Trainer:
                 f"Best top-1: {self.best_acc:.4f} @ epoch {self.best_epoch}")
             ckpt.wait_for_checkpoints()
             for writer in (self.train_writer, self.val_writer):
-                writer.close()
+                if writer is not None:
+                    writer.close()
         elif cfg.phase == "test":
             if not cfg.weights:
                 raise ValueError("--weights required for phase test")
@@ -487,7 +602,7 @@ class Trainer:
         loader.set_epoch(epoch)
         t0 = time.time()
         launches0 = kernel_launches()
-        profiled = cfg.profiler and epoch == cfg.start_epoch
+        profiled = cfg.profiler and epoch == cfg.start_epoch and self.is_main
         seen, last = self._train_epoch_steps(epoch, loader, profiled)
         m = {k: float(v) for k, v in last.items()}  # waits for the device
         dt = time.time() - t0
@@ -588,6 +703,9 @@ class Trainer:
         full = cfg.test_batch_size * crops
         scores = []
         aux_metrics = []
+        # the aux metrics ride full batches of one process
+        # (agcn_tpu trainer.py:741-744)
+        aux_eval = self._eval_aux is not None and M.world_size() == 1
         for x, y, _ in self.loaders["val"]:
             if x.shape[0] % crops:
                 raise RuntimeError(
@@ -595,7 +713,7 @@ class Trainer:
                     f"multi_test={crops}; collate must expand each sample "
                     f"into consecutive crops")
             # one row a sample: the eval step averages its crops' logits
-            if self._eval_aux is not None and x.shape[0] == full:
+            if aux_eval and x.shape[0] == full:
                 # the aux metrics on full batches, z averaged over the
                 # crops (agcn_tpu trainer.py:741-749)
                 logits, m = self._eval_step(
@@ -604,7 +722,11 @@ class Trainer:
             else:
                 logits, _ = self._eval_step(self._to_device(x))
             scores.append(logits.float().cpu().numpy())
-        score = np.concatenate(scores, axis=0)[: len(ds)]
+        score = np.concatenate(scores, axis=0)
+        if self.mesh:
+            # every data rank's shard, back in the loader's padded order
+            score = M.gather_rows(score, self.mesh)
+        score = score[: len(ds)]
         accs = {k: ds.top_k(score, k) for k in cfg.show_topk}
         dt = time.time() - t0
         if accs.get(1, 0.0) > self.best_acc:
@@ -626,14 +748,14 @@ class Trainer:
                 self.val_writer.add_scalar(f"val/top{k}", v,
                                            self.optimizer.count)
             self.val_writer.flush()
-        if save_score:
+        if save_score and self.is_main:
             names = getattr(ds, "sample_name", np.arange(len(ds)))
             out = {str(n): s for n, s in zip(names, score)}
             path = os.path.join(self.work_dir, "score",
                                 f"epoch{epoch + 1}_val.pkl")
             with open(path, "wb") as f:
                 pickle.dump(out, f)
-        if write_predictions:
+        if write_predictions and self.is_main:
             pred = score.argmax(-1)
             with open(os.path.join(self.work_dir, "right.txt"), "w") as fr, \
                     open(os.path.join(self.work_dir, "wrong.txt"), "w") as fw:
@@ -642,15 +764,25 @@ class Trainer:
         return accs
 
     def save_checkpoint(self, epoch: int):
+        if not self.is_main:  # rank-0 saves (processor.py:777)
+            return
         # filename prefix from model_saved_name (reference names weights
         # {model_saved_name}-{epoch}-{global_step}.pt, processor.py:225-231)
         prefix = os.path.basename(self.cfg.model_saved_name or "epoch") \
             or "epoch"
+        multi = M.world_size() > 1
+        # the module's own names (not DDP's `module.` ones)
         path = ckpt.save_checkpoint(
             os.path.join(self.work_dir, "checkpoints",
                          f"{prefix}_{epoch + 1}"),
             self.model, self.optimizer.state_dict(),
             step=self.optimizer.count, epoch=epoch,
             steps_per_epoch=self.steps_per_epoch,
-            async_save=self.cfg.async_checkpoint)
+            async_save=self.cfg.async_checkpoint and not multi)
+        if self.cfg.async_checkpoint and multi \
+                and not getattr(self, "_warned_sync_save", False):
+            self._warned_sync_save = True
+            self.print_log("async_checkpoint is synchronous in "
+                           "multi-process runs (rank-0 npz saves; orbax "
+                           "async saves are collective)")
         self.print_log(f"checkpoint saved: {path}")

@@ -204,9 +204,10 @@ fails:
    dropout 0 against the CPU (loss 1e-4 relative, every gradient 1e-3 of
    its scale, the CPU's ReLU masks replayed), 10 bf16 steps at batch 64
    whose loss must fall, ms a step, seq/s and peak memory in bf16 and
-   fp32 and one bf16 step's device time by kernel group; `python -m
-   agcn_tpu_torch.main` trains one epoch, `--phase test` with
-   test_joint_aagcn_v31.yaml reproduces its top-1, and `python -m
+   fp32 and one bf16 step's device time by kernel group; at a cut depth
+   (one encoder layer of three) `python -m agcn_tpu_torch.main` trains one
+   epoch of one step, `--phase test` with test_joint_aagcn_v31.yaml (in
+   this process) reproduces its top-1, and `python -m
    agcn_tpu_torch.infer --serve 16 --max-frame 60` serves the
    checkpoint; no kernel launched. (d) v17, v24, v30 (both GCN units),
    v32 and v34, one forward each at batch 2 against the CPU (fp32 1e-3).
@@ -242,8 +243,9 @@ fails:
    10 Adam steps of each recipe at batch 64 on one repeated batch (the
    loss must fall), ms per step, seq/s, peak memory, one step's device
    time by kernel group and its busy share; (d) `python -m
-   agcn_tpu_torch.main` trains one epoch of a copy of
-   train_sgn_transformer.yaml and evaluates with multi_test 5, `--phase
+   agcn_tpu_torch.main` trains one epoch (one step) of a copy of
+   train_sgn_transformer.yaml at a cut depth (one temporal encoder layer
+   of two) and evaluates with multi_test 5, `--phase
    test` with test_sgn_transformer.yaml reproduces its top-1, and `python
    -m agcn_tpu_torch.infer --serve 16` serves the checkpoint; (e) the SGN
    tick, 16 streams x 5 crops (80 rows), for train_sgn.yaml's `sgn` and
@@ -267,16 +269,33 @@ fails:
    logits of a 4 x 5-crop batch card against CPU in fp32 within 2e-4
    (of the logit scale where it exceeds 1), one Adam step's median ms at
    batch 64, its device time by kernel group and busy share.
+20. Data-parallel training (the card has one GPU, so one rank). (a)
+   train_joint.yaml's AGCN at full width, `formulation: pallas`, bf16,
+   batch 64, on synthetic data (2 batches, T = 64): one epoch through the
+   entry point's `main` in this process, then with `world_size: 1` and
+   `ddp: true` under `torchrun --standalone --nproc-per-node 1 -m
+   agcn_tpu_torch.main` (an NCCL process group, DDP, SyncBN), and
+   `--phase test` on its checkpoint under torchrun: its log names NCCL,
+   its per-step losses are the plain run's within 5e-2 relative, 20
+   gcn_fwd and 10 gcn_bwd launches a step, and `--phase test` reproduces
+   its top-1; then in this process, on a one-rank NCCL group, the
+   trainer's DDP step (T = 300) timed beside the plain step, its launches
+   counted, and a torch.profiler window over two DDP steps, in which
+   NCCL's kernels must run (count and device ms printed). (b) On that
+   group, model_edge_gcn with its gradients, edge_partitioned_aggregate
+   (an NCCL all-reduce) and SyncBN forward and backward, card against CPU
+   in fp32 within 1e-5 of each output's scale.
 
 `python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
 minute), `--phase 15` phases 1, 2 (the build) and 15, `--phase 16`
 phases 1, 2 and 16, `--phase 17` phases 1 and 17, `--phase 18` phases 1
-and 18, `--phase 19` phases 1 and 19; none prints a result line (details
-of 15 in build/chip_smoke_knobs.json, of 16 in
-build/chip_smoke_versions.json, of 17 in
-build/chip_smoke_sgn_options.json, of 18 in
+and 18, `--phase 19` phases 1 and 19, `--phase 20` phases 1, 2 and 20;
+none prints a result line (details of 15 in
+build/chip_smoke_knobs.json, of 16 in build/chip_smoke_versions.json, of
+17 in build/chip_smoke_sgn_options.json, of 18 in
 build/chip_smoke_sgn_transformer.json, of 19 in
-build/chip_smoke_sgn_temporal.json).
+build/chip_smoke_sgn_temporal.json, of 20 in
+build/chip_smoke_parallel.json).
 
 The last lines of standard output are the `kernels` JSON line, the
 card's `nvidia-smi` name and power limit, and
@@ -1361,28 +1380,33 @@ def read_metrics(path):
 def phase_train_cli(np, summary, config, label, resume=True,
                     formulation="pallas", launches_per_step=(2 * LAYERS,
                                                              LAYERS),
-                    serve=False, max_frame=SEQ, test_config=None,
+                    serve=False, max_frame=SEQ, test_config=None, steps=2,
                     **model_args):
     """(b) The entry point on a config derived from the recipe `config`:
     synthetic data, batch 64, T=300, bf16, `formulation` (none for a model
-    without one) and `model_args`. Train and evaluate one epoch and save;
-    with `resume`, resume from that checkpoint for a second epoch;
-    `--phase test` on the last checkpoint must reproduce the run's last
-    top-1. Each step must launch gcn_fwd and gcn_bwd `launches_per_step`
-    times. With `serve`, `python -m agcn_tpu_torch.infer --serve 16
-    --max-frame <max_frame>` serves that checkpoint to 16 recordings, 4
-    ticks each. With `test_config`, `--phase test` runs that recipe (its
-    test feeder pointed at the data), else the training config."""
+    without one) and `model_args`. Train and evaluate one epoch of `steps`
+    steps and save; with `resume`, resume from that checkpoint for a
+    second epoch; `--phase test` on the last checkpoint (the entry point's
+    `main` in this process: another interpreter would add its start) must
+    reproduce the run's last top-1. Each step must launch gcn_fwd and
+    gcn_bwd `launches_per_step` times. With `serve`, `python -m
+    agcn_tpu_torch.infer --serve 16 --max-frame <max_frame>` serves that
+    checkpoint to 16 recordings, 4 ticks each. With `test_config`,
+    `--phase test` runs that recipe (its test feeder pointed at the
+    data), else the training config."""
     import pickle
 
     import yaml
+
+    from agcn_tpu_torch.main import main as entry_point
 
     with open(config) as f:
         recipe = yaml.safe_load(f)
     epochs = 2 if resume else 1
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
-        for split, n in (("train", 2 * TRAIN_BATCH), ("val", TRAIN_BATCH)):
+        for split, n in (("train", steps * TRAIN_BATCH),
+                         ("val", TRAIN_BATCH)):
             x, y = train_batch(np, n, SEED + 9 + n)
             paths[split] = (os.path.join(tmp, f"{split}_data.npy"),
                             os.path.join(tmp, f"{split}_label.pkl"))
@@ -1432,9 +1456,9 @@ def phase_train_cli(np, summary, config, label, resume=True,
                 yaml.safe_dump(test_recipe, f)
         log(f"      --phase test on epoch_{epochs} "
             f"({os.path.basename(test_config or config)})")
-        run_entry_point(["--config", test_path, "--phase", "test",
-                         "--weights",
-                         os.path.join(ckpt, f"epoch_{epochs}.pt"),
+        with contextlib.redirect_stdout(io.StringIO()):
+            entry_point(["--config", test_path, "--phase", "test",
+                         "--weights", os.path.join(ckpt, f"epoch_{epochs}.pt"),
                          "--work-dir", os.path.join(tmp, "test")])
         metrics = read_metrics(os.path.join(work, "metrics.jsonl"))
         test = read_metrics(os.path.join(tmp, "test", "metrics.jsonl"))
@@ -1451,12 +1475,14 @@ def phase_train_cli(np, summary, config, label, resume=True,
           f"{label} epochs trained / evaluated: {metrics}")
     for m in trains:
         check(math.isfinite(m["loss"]), f"non-finite loss: {m}")
-        check(m["steps"] == 2 * (m["epoch"] + 1),
+        check(m["steps"] == steps * (m["epoch"] + 1),
               f"optimizer steps after epoch {m['epoch']}: {m['steps']}")
         fwd, bwd = launches_per_step
-        check(m["launches"] == {"gcn_fwd_round_agg": 2 * fwd,
-                                "gcn_fwd_fp32_agg": 0, "gcn_bwd": 2 * bwd},
-              f"epoch {m['epoch']} launches {m['launches']} for 2 steps")
+        check(m["launches"] == {"gcn_fwd_round_agg": steps * fwd,
+                                "gcn_fwd_fp32_agg": 0,
+                                "gcn_bwd": steps * bwd},
+              f"epoch {m['epoch']} launches {m['launches']} for {steps} "
+              "steps")
     check(test[-1]["top1"] == evals[-1]["top1"]
           and right == round(test[-1]["top1"] * TRAIN_BATCH),
           f"--phase test top-1 {test[-1]['top1']} != the run's "
@@ -3109,9 +3135,12 @@ def phase_versions(torch, np, smi, summary):
     lap("c: card against cpu")
     v31_train = phase_v31_main_path(torch, np, cfg, summary)
     lap("c: steps and speed")
+    # the entry points at a cut depth (one encoder layer of the recipe's
+    # three) and one step
     phase_train_cli(np, summary, V31_CONFIG, "aagcn_v31", resume=False,
                     formulation=None, launches_per_step=(0, 0), serve=True,
-                    max_frame=V31_SEQ, test_config=V31_TEST_CONFIG)
+                    max_frame=V31_SEQ, test_config=V31_TEST_CONFIG, steps=1,
+                    num_layers=1)
     lap("c: entry points")
     # v31's training path: the ten steps' counts, and the entry point's
     # epoch's (whose log counts the three GCN kernels)
@@ -3595,8 +3624,9 @@ def phase_sgn_transformer_train(torch, np, cfgs, train_ds, summary):
 
 def phase_sgn_transformer_cli(np, paths, tmp, summary):
     """(d) `python -m agcn_tpu_torch.main` on a copy of
-    train_sgn_transformer.yaml pointed at the pickles: one epoch (batch
-    64), eval with multi_test 5 and a checkpoint; `--phase test` with a
+    train_sgn_transformer.yaml pointed at the pickles, its depth cut to one
+    temporal encoder layer: one epoch of one step (batch 64), eval with
+    multi_test 5 and a checkpoint; `--phase test` with a
     copy of test_sgn_transformer.yaml (the entry point's `main` in this
     process: a third interpreter would add its start) reproduces its
     top-1 (right.txt too) and its score rows (one a sample, its crops
@@ -3613,12 +3643,16 @@ def phase_sgn_transformer_cli(np, paths, tmp, summary):
     with open(SGN_TRANSFORMER_CONFIGS["sgn_transformer"]) as f:
         recipe = yaml.safe_load(f)
     work = os.path.join(tmp, "sgn_transformer")
+    # cut depth: one temporal encoder layer of the recipe's two, and one
+    # step (the 64 val sequences as the training set)
     recipe.update(
         work_dir=work, num_epoch=1, num_worker=2, log_interval=1,
         save_interval=1, eval_interval=1, show_topk=[1, 5],
+        model_args=dict(recipe["model_args"], temporal_mha_kwargs=dict(
+            recipe["model_args"]["temporal_mha_kwargs"], num_layers=1)),
         train_feeder_args=dict(recipe["train_feeder_args"],
-                               data_path=paths["train"][0],
-                               label_path=paths["train"][1]),
+                               data_path=paths["val"][0],
+                               label_path=paths["val"][1]),
         test_feeder_args=dict(recipe["test_feeder_args"],
                               data_path=paths["test"][0],
                               label_path=paths["test"][1]))
@@ -3626,6 +3660,8 @@ def phase_sgn_transformer_cli(np, paths, tmp, summary):
         test_recipe = yaml.safe_load(f)
     test_recipe.update(
         work_dir=os.path.join(tmp, "sgn_transformer_test"),
+        model_args=dict(test_recipe["model_args"], temporal_mha_kwargs=dict(
+            test_recipe["model_args"]["temporal_mha_kwargs"], num_layers=1)),
         test_feeder_args=dict(test_recipe["test_feeder_args"],
                               data_path=paths["test"][0],
                               label_path=paths["test"][1]))
@@ -4054,14 +4090,316 @@ def phase_sgn_temporal(torch, np, summary):
     return launches
 
 
+# -- phase 20: data-parallel training and the edge partition --------------
+
+PARALLEL_SEQ = 64     # (a): the entry points' T, cut from 300
+PARALLEL_STEPS = 2    # (a): steps of the entry points' epoch (batch 64)
+DDP_TIMED = 5         # (a): timed steps of the DDP and the plain step
+EDGE_BATCH = 16       # (b): samples (x 2 persons) of the card-CPU checks
+
+
+def run_torchrun(args, timeout=600):
+    """`torchrun --standalone --nproc-per-node 1 -m agcn_tpu_torch.main
+    <args>` (torchrun is `python -m torch.distributed.run`) in a
+    subprocess: a one-rank launch, so the entry point makes an NCCL
+    process group on the card; its last lines go to this run's log, and
+    a failure fails the phase."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "agcn_tpu_torch.main", *args],
+        cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    for ln in (proc.stdout.splitlines() + proc.stderr.splitlines())[-6:]:
+        log(f"      {ln}")
+    check(proc.returncode == 0,
+          f"torchrun agcn_tpu_torch.main {' '.join(args)} exited "
+          f"{proc.returncode}")
+
+
+def phase_parallel_cli(np, tmp, summary):
+    """(a) train_joint.yaml's AGCN at full width (`formulation: pallas`,
+    bf16, batch 64) on synthetic data (PARALLEL_STEPS batches of T =
+    PARALLEL_SEQ): one epoch through the entry point's `main` in this
+    process (no launcher), then with `world_size: 1`, `ddp: true` under
+    torchrun (an NCCL group, DDP,
+    SyncBN), and `--phase test` on the DDP checkpoint under torchrun. The
+    DDP run's log names NCCL, its per-step losses (event files) are the
+    plain run's within 5e-2 relative (PERF.md's bf16 bar), it launches
+    gcn_fwd and gcn_bwd at every step, and `--phase test` reproduces its
+    top-1."""
+    import pickle
+
+    import yaml
+
+    with open(TRAIN_CONFIG) as f:
+        recipe = yaml.safe_load(f)
+    feeders = {}
+    for split, n in (("train", PARALLEL_STEPS * TRAIN_BATCH),
+                     ("val", TRAIN_BATCH)):
+        rng = np.random.default_rng(SEED + 20 + n)
+        x = rng.standard_normal((n, 3, PARALLEL_SEQ, 25, PERSONS))
+        paths = (os.path.join(tmp, f"{split}_data.npy"),
+                 os.path.join(tmp, f"{split}_label.pkl"))
+        np.save(paths[0], x.astype(np.float32))
+        with open(paths[1], "wb") as f:
+            pickle.dump(([f"{split}{i}" for i in range(n)],
+                         rng.integers(0, 60, n).tolist()), f)
+        feeders[split] = dict(data_path=paths[0], label_path=paths[1])
+    cfgs, works = {}, {}
+    for name, extra in (("plain", {}),
+                        ("ddp", {"world_size": 1, "ddp": True})):
+        works[name] = os.path.join(tmp, f"work_{name}")
+        r = dict(recipe, work_dir=works[name], batch_size=TRAIN_BATCH,
+                 test_batch_size=TRAIN_BATCH, num_epoch=1, num_worker=2,
+                 log_interval=1, save_interval=1, eval_interval=1,
+                 show_topk=[1, 5], **extra,
+                 model_args=dict(recipe["model_args"], formulation="pallas"),
+                 train_feeder_args=dict(recipe["train_feeder_args"],
+                                        **feeders["train"]),
+                 test_feeder_args=dict(recipe["test_feeder_args"],
+                                       **feeders["val"]))
+        cfgs[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(cfgs[name], "w") as f:
+            yaml.safe_dump(r, f)
+    from agcn_tpu_torch.main import main as entry_point
+
+    t0 = time.perf_counter()
+    log("  (a) agcn_tpu_torch.main, one epoch, in this process (the "
+        "reference)")
+    with contextlib.redirect_stdout(io.StringIO()):
+        entry_point(["--config", cfgs["plain"]])
+    log("      torchrun --standalone --nproc-per-node 1 -m "
+        "agcn_tpu_torch.main (world_size 1, ddp true)")
+    run_torchrun(["--config", cfgs["ddp"]])
+    test_dir = os.path.join(tmp, "test")
+    log("      torchrun ... --phase test on its checkpoint")
+    run_torchrun(["--config", cfgs["ddp"], "--phase", "test", "--weights",
+                  os.path.join(works["ddp"], "checkpoints", "epoch_1.pt"),
+                  "--work-dir", test_dir])
+    cli_s = time.perf_counter() - t0
+    with open(os.path.join(works["ddp"], "log.txt")) as f:
+        group_line = [ln for ln in f if "process group:" in ln]
+    check(len(group_line) == 1 and "nccl" in group_line[0],
+          f"the DDP run's process group: {group_line}")
+    losses = {name: [v for tag, _, v in read_events(
+        os.path.join(work, "event", "train")) if tag == "train/loss"]
+        for name, work in works.items()}
+    check(len(losses["ddp"]) == len(losses["plain"]) == PARALLEL_STEPS,
+          f"logged steps: {losses}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["ddp"],
+                                                  losses["plain"]))
+    check(rel <= 5e-2, f"DDP losses {losses['ddp']} against the plain "
+                       f"run's {losses['plain']}: {rel:.3e} relative")
+    metrics = {name: read_metrics(os.path.join(work, "metrics.jsonl"))
+               for name, work in works.items()}
+    test = read_metrics(os.path.join(test_dir, "metrics.jsonl"))
+    train = [m for m in metrics["ddp"] if m["kind"] == "train"][0]
+    evals = [m for m in metrics["ddp"] if m["kind"] == "eval"]
+    check(train["launches"] == {"gcn_fwd_round_agg":
+                                PARALLEL_STEPS * 2 * LAYERS,
+                                "gcn_fwd_fp32_agg": 0,
+                                "gcn_bwd": PARALLEL_STEPS * LAYERS},
+          f"the DDP epoch's launches: {train['launches']}")
+    check(test[-1]["top1"] == evals[-1]["top1"],
+          f"--phase test top-1 {test[-1]['top1']} != the DDP run's "
+          f"{evals[-1]['top1']}")
+    log(f"      {group_line[0].strip().split('] ', 1)[-1]}; losses plain "
+        f"{[round(v, 5) for v in losses['plain']]}, DDP "
+        f"{[round(v, 5) for v in losses['ddp']]} ({rel:.2e} relative); "
+        f"launches {train['launches']}; eval top-1 {evals[-1]['top1']:.4f}"
+        f", --phase test {test[-1]['top1']:.4f}; {cli_s:.1f} s")
+    summary["parallel_cli"] = dict(
+        group=group_line[0].strip(), losses=losses, loss_rel=rel,
+        metrics=metrics, test=test, seconds=cli_s)
+    return train["launches"]
+
+
+def nccl_kernels(prof):
+    """(kernels, device ms, names) of NCCL's kernels in a profile: its
+    ring and tree kernels (`ncclDevKernel_*`) and, on one rank, its
+    one-rank reduce (onerank.cu); not the `nccl:*` annotations that
+    torch.profiler lays over them on the device's timeline."""
+    from torch.autograd import DeviceType
+
+    n, ms, names = 0, 0.0, set()
+    for ev in prof.events():
+        name = ev.name.lower()
+        if ev.device_type == DeviceType.CUDA and not name.startswith(
+                "nccl:") and ("nccl" in name or "onerank" in name):
+            n += 1
+            ms += ev.device_time_total / 1e3
+            names.add(ev.name[:90])
+    return n, ms, sorted(names)
+
+
+def phase_parallel_steps(torch, np, tmp, summary):
+    """(a) In this process, a one-rank NCCL group (the launcher's
+    variables set here) and the trainer of train_joint.yaml's AGCN
+    (`formulation: pallas`, bf16, batch 64, T = 300): DDP over the data
+    axis, SyncBN, NCCL's AVG all-reduce a gradient bucket. Its step's ms
+    beside the plain step's (no group, no DDP), DDP_TIMED each after 2,
+    20 gcn_fwd and 10 gcn_bwd launches a DDP step, and a torch.profiler
+    window over two DDP steps with NCCL's kernels counted. (b) On that
+    group, model_edge_gcn (the one-rank edge axis: the dense sum) with
+    its gradients, edge_partitioned_aggregate (one NCCL all-reduce) and
+    SyncBN's forward and backward, card against the CPU (SyncBN against
+    the plain BatchNorm there), fp32 with TF32 off, within 1e-5 of each
+    output's scale."""
+    import socket
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from agcn_tpu_torch.parallel import destroy, init_distributed
+    from agcn_tpu_torch.train.trainer import Trainer
+    from agcn_tpu_torch.utils.config import load_config
+
+    cfg = load_config(TRAIN_CONFIG, dict(
+        work_dir=os.path.join(tmp, "steps"), world_size=1, ddp=True,
+        train_feeder_args={}, test_feeder_args={}, print_log=False,
+        model_args=dict(load_config(TRAIN_CONFIG).model_args,
+                        formulation="pallas")))
+    x_np, y_np = train_batch(np, TRAIN_BATCH, SEED + 21)
+    x = torch.from_numpy(x_np).cuda()
+    y = torch.from_numpy(y_np).cuda()
+
+    def timed(step):
+        for _ in range(2):
+            step(x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DDP_TIMED):
+            step(x, y)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / DDP_TIMED
+
+    plain_ms = timed(make_step(torch, cfg, train_model(
+        torch, cfg, "pallas", "bfloat16")))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        check(init_distributed(cfg) is not None, "no process group made")
+        trainer = Trainer(cfg)
+        check(torch.distributed.get_backend() == "nccl",
+              f"backend {torch.distributed.get_backend()}")
+        reset_launches()
+        ddp_ms = timed(trainer._train_step)
+        launches = all_launches()
+        steps = 2 + DDP_TIMED
+        check(launches == {"gcn_fwd_round_agg": steps * 2 * LAYERS,
+                           "gcn_fwd_fp32_agg": 0, "gcn_bwd": steps * LAYERS,
+                           "logits": 0},
+              f"{steps} DDP steps launched {launches}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                trainer._train_step(x, y)
+            torch.cuda.synchronize()
+        n_nccl, nccl_ms, nccl_names = nccl_kernels(prof)
+        check(n_nccl > 0, "no NCCL kernel in the profile of two DDP steps")
+        log(f"  (a) in-process DDP step (one-rank NCCL group, SyncBN, AVG "
+            f"buckets) {ddp_ms:.2f} ms against the plain step's "
+            f"{plain_ms:.2f} ms (bf16, batch 64, T={SEQ}, {DDP_TIMED} steps "
+            f"after 2 each); {launches['gcn_fwd_round_agg']} gcn_fwd / "
+            f"{launches['gcn_bwd']} gcn_bwd launches in {steps} steps; "
+            f"two DDP steps: {n_nccl} NCCL kernels, {nccl_ms:.4f} device ms "
+            f"({nccl_names})")
+        mesh = trainer.mesh
+        del trainer
+        edge = phase_parallel_edge(torch, np, mesh)
+    finally:
+        destroy()
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    summary["parallel_steps"] = dict(
+        plain_ms=plain_ms, ddp_ms=ddp_ms, launches=launches,
+        nccl_kernels=n_nccl, nccl_device_ms=nccl_ms, nccl_names=nccl_names,
+        edge=edge)
+    return launches
+
+
+def phase_parallel_edge(torch, np, mesh):
+    """(b) above, on the trainer's one-rank mesh (bound to the process, so
+    the SyncBN finds its data axis)."""
+    from agcn_tpu_torch.graph import build_adjacency
+    from agcn_tpu_torch.ops.norm import BatchNorm
+    from agcn_tpu_torch.parallel.edge_partition import (
+        edge_partitioned_aggregate, model_edge_gcn)
+
+    rng = np.random.default_rng(SEED + 22)
+    b = EDGE_BATCH * PERSONS
+    host = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for k, s in (("x", (b, SEQ, 25, 64)), ("a1", (b, 3, 25, 25)),
+                         ("w", (3, 64, 64)), ("g", (b, SEQ, 25, 64)),
+                         ("bn_x", (b, SEQ, 25, 64)))}
+    adj = build_adjacency("ntu_rgb_d")
+    errs = {}
+
+    def rel(name, card, cpu):
+        cpu = cpu.detach()
+        err = float((card.detach().cpu() - cpu).abs().max())
+        scale = float(cpu.abs().max())
+        errs[name] = err / scale
+        check(err <= 1e-5 * scale, f"{name}: card against CPU {err:.3e} "
+                                   f"(scale {scale:.3e})")
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = {k: v.to(dev, copy=True).requires_grad_(
+            k in ("x", "a1", "w", "bn_x")) for k, v in host.items()}
+        y = model_edge_gcn(t["x"], t["a1"], t["w"], mesh)
+        (y * t["g"]).sum().backward()
+        bn = BatchNorm(64, axis_name="data" if dev == "cuda" else None)
+        bn = bn.to(dev).train()
+        z = bn(t["bn_x"])
+        (z * t["g"]).sum().backward()
+        agg = (edge_partitioned_aggregate(t["x"].detach(), adj, mesh)
+               if dev == "cuda" else
+               torch.einsum("btvc,kvw->kbtwc", t["x"].detach(),
+                            torch.from_numpy(adj)))
+        out[dev] = dict(y=y, dx=t["x"].grad, da1=t["a1"].grad,
+                        dw=t["w"].grad, bn_y=z, bn_dx=t["bn_x"].grad,
+                        bn_dscale=bn.weight.grad, bn_dbias=bn.bias.grad,
+                        bn_mean=bn.running_mean, bn_var=bn.running_var,
+                        agg=agg)
+    for name, cpu in out["cpu"].items():
+        rel(name, out["cuda"][name], cpu)
+    log(f"  (b) on the one-rank NCCL group, card against CPU (fp32): "
+        f"model_edge_gcn y/dx/da1/dW, edge_partitioned_aggregate, SyncBN "
+        f"y/dx/dscale/dbias/running stats at batch {b}, T={SEQ}, C 64: "
+        f"largest {max(errs.values()):.2e} of the scale "
+        f"({max(errs, key=errs.get)})")
+    return errs
+
+
+def phase_parallel(torch, np, smi, summary):
+    """Phase 20: (a) and (b) above in one temporary directory. Returns the
+    launch counts of the DDP training paths (the entry point's epoch and
+    the in-process steps)."""
+    t20 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = phase_parallel_cli(np, tmp, summary)
+        steps = phase_parallel_steps(torch, np, tmp, summary)
+    summary["parallel_phase_s"] = time.perf_counter() - t20
+    summary["parallel_smi"] = smi
+    log(f"  phase 20 in {summary['parallel_phase_s']:.1f} s ({smi})")
+    return {k: cli.get(k, 0) + steps[k] for k in steps}
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only not in ("14", "15", "16", "17", "18", "19"):
-        print("usage: python3 chip_smoke.py [--phase 14|15|16|17|18|19]",
-              file=sys.stderr)
+    if argv and only not in ("14", "15", "16", "17", "18", "19", "20"):
+        print("usage: python3 chip_smoke.py "
+              "[--phase 14|15|16|17|18|19|20]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -4078,14 +4416,14 @@ def main(argv=None):
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/19] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/20] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     if only == "14":
-        log("[14/19] the SGN recipe alone (phase 14)")
+        log("[14/20] the SGN recipe alone (phase 14)")
         phase_sgn(torch, np, summary)
         return 0
     if only == "17":
-        log("[17/19] SGN's v11-v13 options, the MMD loss and sgn_original "
+        log("[17/20] SGN's v11-v13 options, the MMD loss and sgn_original "
             "alone (phase 17)")
         phase_sgn_options(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4095,7 +4433,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "18":
-        log("[18/19] SGN's transformer (train_sgn_transformer.yaml, "
+        log("[18/20] SGN's transformer (train_sgn_transformer.yaml, "
             "train_sgn_v15.yaml) and SGN serving alone (phase 18)")
         phase_sgn_transformer(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4105,7 +4443,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "19":
-        log("[19/19] SGN raw generation (sgn-raw) and SGN's temporal-branch "
+        log("[19/20] SGN raw generation (sgn-raw) and SGN's temporal-branch "
             "options alone (phase 19)")
         phase_sgn_temporal(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4117,21 +4455,35 @@ def main(argv=None):
     if only == "15":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/19] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/20] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[15/19] the trainer's run knobs alone (phase 15)")
+        log("[15/20] the trainer's run knobs alone (phase 15)")
         phase_knobs(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke_knobs.json"), "w") as f:
             json.dump(summary, f, indent=1)
         return 0
+    if only == "20":
+        t0 = time.perf_counter()
+        built = build.build_all()
+        log(f"[2/20] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+            "s")
+        log("[20/20] data-parallel training and the edge partition alone "
+            "(phase 20)")
+        summary["phase20_launches"] = phase_parallel(torch, np, smi, summary)
+        out_dir = os.path.join(REPO, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_parallel.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=1)
+        return 0
     if only == "16":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/19] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/20] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[16/19] BN folding, the apply_gcn forms, the AAGCN versions "
+        log("[16/20] BN folding, the apply_gcn forms, the AAGCN versions "
             "alone (phase 16)")
         summary["phase16_launches"] = phase_versions(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4144,7 +4496,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/19] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/20] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -4160,7 +4512,7 @@ def main(argv=None):
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/19] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/20] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -4176,7 +4528,7 @@ def main(argv=None):
     summary.update(kernel_rows=rows, dx_rows=dx_rows,
                    fp32_fwd_layers=fp32_layers(rows, dx_rows))
 
-    log("[4/19] gcn_bwd vs its plain version at the training shapes "
+    log("[4/20] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -4184,7 +4536,7 @@ def main(argv=None):
     summary.update(bwd_rows=bwd_rows,
                    fp32_da1_layers=da1_fp32_layers(bwd_rows))
 
-    log("[5/19] attention-logits kernel vs plain version at the served "
+    log("[5/20] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -4194,7 +4546,7 @@ def main(argv=None):
         logits_rows = phase_logits(torch, np, logits_kernel)
     summary["logits_rows"] = logits_rows
 
-    log("[6/19] host data path: the C++ host kernels "
+    log("[6/20] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -4202,11 +4554,11 @@ def main(argv=None):
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/19] AGCN serving main path: 16 streams through "
+    log("[7/20] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/19] AGCN: device time of one served forward by kernel group; "
+    log("[8/20] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -4214,7 +4566,7 @@ def main(argv=None):
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/19] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/20] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -4223,19 +4575,19 @@ def main(argv=None):
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/19] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/20] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/19] AAGCN: device time of one served forward by kernel group; "
+    log("[11/20] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/19] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/20] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -4245,7 +4597,7 @@ def main(argv=None):
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/19] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/20] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -4263,34 +4615,34 @@ def main(argv=None):
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
-    log("[14/19] SGN recipe (no port kernel on its path, as in the JAX "
+    log("[14/20] SGN recipe (no port kernel on its path, as in the JAX "
         "package): train_sgn.yaml at full width on synthetic SGN pickles "
         "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
         "the entry points with 5-crop eval")
     phase_sgn(torch, np, summary)
 
-    log("[15/19] the trainer's run knobs: one fp32 SAM step of the pallas "
+    log("[15/20] the trainer's run knobs: one fp32 SAM step of the pallas "
         "AGCN, kernels against plain versions; the entry point on "
         "train_joint.yaml with SAM, the profiler, async checkpoints, then "
         "auto-resume; train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml "
         "through the entry point")
     sam_launches = phase_knobs(torch, np, smi, summary)
 
-    log("[16/19] BN folding on the served pallas AGCN and AAGCN forwards "
+    log("[16/20] BN folding on the served pallas AGCN and AAGCN forwards "
         "(gcn_fwd and the logits kernel counted); the apply_gcn forms "
         "against 'agg'; the AAGCN v31 recipe (train_joint_aagcn_v31.yaml, "
         "T=60: card against CPU, 10 SGD steps, speed, the entry points); "
         "v17, v24, v30, v32 and v34 against the CPU")
     v16 = phase_versions(torch, np, smi, summary)
 
-    log("[17/19] SGN's v11-v13 options, the MMD loss and sgn_original (no "
+    log("[17/20] SGN's v11-v13 options, the MMD loss and sgn_original (no "
         "port kernel on their path, as in the JAX package): v11, v12, "
         "v13_gt4 and sgn_original card against CPU; one v12 step with the "
         "MMD loss card against CPU; 10 Adam steps of v12 (batch 128) and "
         "v13_gt4 (64), speed; train_sgn_v12.yaml through the entry points")
     v17 = phase_sgn_options(torch, np, summary)
 
-    log("[18/19] SGN's transformer (no port kernel on its path, as in the "
+    log("[18/20] SGN's transformer (no port kernel on its path, as in the "
         "JAX package): train_sgn_transformer.yaml and train_sgn_v15.yaml "
         "card against CPU, one v15 step card against CPU, 10 Adam steps "
         "each, speed, the entry points (train, --phase test, --serve 16); "
@@ -4298,13 +4650,26 @@ def main(argv=None):
         "card against CPU")
     v18 = phase_sgn_transformer(torch, np, summary)
 
-    log("[19/19] SGN raw generation and SGN's temporal-branch options (no "
+    log("[19/20] SGN raw generation and SGN's temporal-branch options (no "
         "port kernel on their path, as in the JAX package): python -m "
         "agcn_tpu_torch.data.gen sgn-raw on a synthetic raw tree, its "
         "NTU_CV pickles through the entry points; t_mode 2-5, t_mha_kwargs, "
         "aspp_rates, gcn_fpn 8 and t_maxpool_kwargs at train_sgn.yaml's "
         "widths card against CPU, one Adam step each")
     v19 = phase_sgn_temporal(torch, np, summary)
+
+    log("[20/20] data-parallel training: train_joint.yaml's pallas AGCN "
+        "through torchrun (one rank: an NCCL group, DDP, SyncBN) against the "
+        "plain entry point, --phase test on the DDP checkpoint; the DDP "
+        "step's ms and NCCL kernels; model_edge_gcn, the edge aggregate and "
+        "SyncBN on the NCCL group, card against CPU")
+    v20 = phase_parallel(torch, np, smi, summary)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with open(os.path.join(REPO, "build", "chip_smoke_parallel.json"),
+              "w") as f:
+        json.dump({k: summary[k] for k in (
+            "parallel_cli", "parallel_steps", "parallel_phase_s",
+            "parallel_smi")}, f, indent=1)
 
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
@@ -4315,10 +4680,12 @@ def main(argv=None):
         "agcn_folded_serve":
             v16["agcn_folded_serve"]["gcn_fwd_round_agg"],
         "aagcn_folded_serve":
-            v16["aagcn_folded_serve"]["gcn_fwd_round_agg"]}
+            v16["aagcn_folded_serve"]["gcn_fwd_round_agg"],
+        "agcn_ddp_train": v20["gcn_fwd_round_agg"]}
     bwd_launches = {"agcn_train": train_launches["gcn_bwd"],
                     "aagcn_train": aagcn_train_launches["gcn_bwd"],
-                    "agcn_sam_train": sam_launches["gcn_bwd"]}
+                    "agcn_sam_train": sam_launches["gcn_bwd"],
+                    "agcn_ddp_train": v20["gcn_bwd"]}
     kernels = [
         fwd_entry(rows, True, "bfloat16", sum(fwd_launches.values()),
                   "gcn_fwd (aggregate rounded to x's type)",
@@ -4362,6 +4729,7 @@ def main(argv=None):
         entry["launches_by_path"]["sgn_options"] = v17[key]
         entry["launches_by_path"]["sgn_transformer"] = v18[key]
         entry["launches_by_path"]["sgn_temporal"] = v19[key]
+        entry["launches_by_path"].setdefault("agcn_ddp_train", v20[key])
     # the fp32 routes' numbers beside the bf16 ones (gcn_fwd: served
     # forward and, for gcn_fused, dx per step; gcn_bwd: per step)
     same = ("name", "route", "source", "replaces", "launches")

@@ -143,7 +143,9 @@ def test_state_dict_names_are_the_reference_names(jax_agcn):
 
 def test_train_mode_and_unported_options_raise():
     """Train mode runs (the training forward, batch statistics); the
-    options the port does not have yet raise."""
+    options the port does not have yet raise; an `edge_mesh` that is no
+    mesh raises at the forward, as in the JAX model (AttributeError on its
+    `shape`)."""
     adj = build_adjacency("ntu_rgb_d")
     model = AGCN(num_class=NUM_CLASS, adj=adj, device="cpu")
     assert model.training  # torch's default; serving calls .eval()
@@ -153,8 +155,13 @@ def test_train_mode_and_unported_options_raise():
     assert int(model.data_bn.num_batches_tracked) == 1
     with pytest.raises(NotImplementedError, match="scan_blocks"):
         AGCN(adj=adj, device="cpu", scan_blocks=True)
-    with pytest.raises(NotImplementedError, match="edge_mesh"):
-        AGCN(adj=adj, device="cpu", edge_mesh=object())
+    jax_model = JaxAGCN(num_class=NUM_CLASS, adj=jax_build_adjacency(
+        "ntu_rgb_d"), edge_mesh=object())
+    with pytest.raises(AttributeError, match="shape"):
+        jax_model.init(jax.random.PRNGKey(0), jnp.asarray(x.numpy()),
+                       train=False)
+    with pytest.raises(AttributeError, match="shape"):
+        AGCN(adj=adj, device="cpu", edge_mesh=object())(x)
     # every model of the JAX registry builds (SGN's transformer last)
     assert build_model("sgn_transformer", {}, device="cpu") is not None
 
@@ -305,7 +312,8 @@ _REQUIRED_MODULES = tuple(f"agcn_tpu_torch.{m}" for m in (
     "data.gen.streams", "data.gen.kinetics", "data.gen.openpose",
     "data.gen.explore", "data.gen.sgn_raw", "data.gen.sgn",
     "utils.parallel_map", "ops.attention", "ops.blocks",
-    "models.aagcn_transformer"))
+    "models.aagcn_transformer", "parallel.mesh", "parallel.collectives",
+    "parallel.edge_partition"))
 
 
 def _imports(path):

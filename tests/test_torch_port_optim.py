@@ -104,8 +104,22 @@ def test_batchnorm_train_grads_match_jax():
 
 
 def test_batchnorm_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Parallel"):
-        BatchNorm(8, axis_name="data")
+    # SyncBN outside a mapped axis: eval mode normalizes with the running
+    # statistics, train mode raises JAX's NameError for an unbound axis
+    x = np.random.default_rng(0).standard_normal((3, 4, 8)).astype(
+        np.float32)
+    jbn = jops.BatchNorm(axis_name="data")
+    variables = jbn.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+    with pytest.raises(NameError, match="unbound axis name: data"):
+        jbn.apply(variables, jnp.asarray(x), train=True,
+                  mutable=["batch_stats"])
+    bn = BatchNorm(8, axis_name="data")
+    np.testing.assert_allclose(
+        bn.eval()(torch.from_numpy(x)).detach().numpy(),
+        np.asarray(jbn.apply(variables, jnp.asarray(x), train=False)),
+        atol=1e-6)
+    with pytest.raises(NameError, match="unbound axis name: data"):
+        bn.train()(torch.from_numpy(x))
     # Ghost BN: the batch must divide into the splits
     with pytest.raises(ValueError, match="divisible"):
         BatchNorm(8, splits=2).train()(torch.zeros(3, 4, 8))
