@@ -91,7 +91,8 @@
 //   gcn_da1_fp32_kernel<V, CC>: one block of 256 threads per (group of
 //     frames, subset k, sample b). A group is a range of whole tiles of
 //     the sample, a tile TT = 128 / V frames (5 at V = 25: 125 rows t V +
-//     v; 7 at V = 18: 126 rows); the group count is chosen from the shapes
+//     v; 7 at V = 18: 126 rows; 8 at V = 15: 120 rows); the group count
+//     is chosen from the shapes
 //     so that about 2,112 blocks run (8 per SM). Per tile and 64-channel o
 //     chunk:
 //       1. p = x_tile . W_k[:, chunk] over C in chunks of CC (16; 4 for
@@ -114,7 +115,9 @@
 //          32-channel half) = 250 threads, per o quad five float4 of p
 //          and five of g for 100 FMAs; at V = 18, 9 tiles of 6 x 6 x 28
 //          slices (a frame x a 16-channel quarter) = 252 threads, 144 FMAs
-//          for 12 loads. The accumulators live for the whole block.
+//          for 12 loads; at V = 15, 9 tiles of 5 x 5 x 16 slices (a frame
+//          x a 32-channel half) = 144 threads, V = 25's 100 FMAs for 10
+//          loads (Da32Tile). The accumulators live for the whole block.
 //     At the end the slices are summed in slice order through shared
 //     memory (p_s and g_s reused) into the block's fp32 (V, V) partial
 //     of a (B, K, G, V, V) buffer. Rows past T and channels past C or
@@ -701,21 +704,27 @@ constexpr int D32_NARROW_C = 8;   // C up to this takes CC = 4
 
 // The tiling of gcn_da1_fp32_kernel for V joints. A tile is TT whole
 // frames, TT V of the 128 projection rows (5 frames, 125 rows at V = 25;
-// 7 frames, 126 rows at V = 18). p g^T: VT x VT register tiles of (v, w),
-// NT x NT of them over the V x V output, each worked by SLICES threads, a
-// slice being one frame x one of PARTS channel parts of the 64-channel
-// chunk: at V = 25, 5 x 5 tiles x (5 frames x 2 halves) = 250 threads; at
-// V = 18, 6 x 6 tiles x (7 frames x 4 quarters) = 252 threads. Per o quad
-// a thread loads VT float4 of p and VT of g for 4 VT^2 FMAs: 10 FMAs a
-// load at V = 25, 12 at V = 18.
+// 7 frames, 126 rows at V = 18; 8 frames, 120 rows at V = 15). p g^T: VT
+// x VT register tiles of (v, w), NT x NT of them over the V x V output,
+// each worked by SLICES threads, a slice being one frame x one of PARTS
+// channel parts of the 64-channel chunk: at V = 25, 5 x 5 tiles x (5
+// frames x 2 halves) = 250 threads; at V = 18, 6 x 6 tiles x (7 frames x
+// 4 quarters) = 252 threads; at V = 15, 3 x 3 tiles of 5 x 5 x (8 frames
+// x 2 halves) = 144 threads. Per o quad a thread loads VT float4 of p and
+// VT of g for 4 VT^2 FMAs: 10 FMAs a load at V = 25 and 15, 12 at V = 18.
+// V = 15 takes VT = 5 over VT = 3 (5 x 5 tiles of 3 x 3 x 8 frames x 1
+// part = 200 threads, 6 FMAs a load): VT = 5 issues 40% fewer
+// shared-memory loads for the same FMAs, with the 25 accumulators and
+// register use of V = 25's tile (no new spill risk), at the cost of 112
+// threads idle in this stage (they work in the projection).
 template <int V>
 struct Da32Tile {
   static constexpr int TT = D32_ROWS_P / V;
   static constexpr int ROWS = TT * V;
-  static constexpr int VT = V == 25 ? 5 : 6;
+  static constexpr int VT = V == 18 ? 6 : 5;
   static constexpr int NT = V / VT;
   static constexpr int TILES = NT * NT;
-  static constexpr int PARTS = V == 25 ? 2 : 4;
+  static constexpr int PARTS = V == 18 ? 4 : 2;
   static constexpr int PQ = D32_OT / 4 / PARTS;  // o quads of a part
   static constexpr int SLICES = TT * PARTS;
   static constexpr int WORKERS = TILES * SLICES;
@@ -1077,13 +1086,18 @@ __device__ __forceinline__ void stage8(__nv_bfloat16* dst,
 // part[b, k, grp, v, w] = sum over the group's frames t and all o of
 // bf16(x[b,t,v,:] . W_k[:,o]) * g[b,t,w,o]. Two blocks an SM (~71 KB of
 // shared memory each at CC = 64): the bound caps the registers at 128.
+// `g_rows` is V once more, as a run-time value: it bounds the rows of g
+// that a warp loads, where the compile-time V = 15 let ptxas fold the
+// bounds of the unrolled loads and spill 20 bytes at CC = 64 (V = 25 and
+// 18 did not).
 template <int V, int CC>
 __global__ void __launch_bounds__(DM_THREADS, 2)
 gcn_da1_mma_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ w,
                    const __nv_bfloat16* __restrict__ g,
                    float* __restrict__ part, int Tn, int C, int Co,
-                   int groups, bool x_vec, bool w_vec, bool g_vec) {
+                   int groups, bool x_vec, bool w_vec, bool g_vec,
+                   int g_rows) {
   using L = DaMmaLayout<CC>;
   static_assert(V <= DM_VP, "joints fit one 32-row slot");
   extern __shared__ __align__(128) unsigned char smem_da[];
@@ -1196,8 +1210,8 @@ gcn_da1_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int vi = lane + 32 * j;
-        g_r[j] = load8(g, row_b + (size_t)(t0 + f) * V + vi / 4, vi / 4 < V,
-                       o0 + wo + (vi % 4) * 8, Co, g_vec);
+        g_r[j] = load8(g, row_b + (size_t)(t0 + f) * V + vi / 4,
+                       vi / 4 < g_rows, o0 + wo + (vi % 4) * 8, Co, g_vec);
       }
       // p rounded to bf16 (RN) once, through the warp's scratch tile;
       // lane: row lane / 2 of a tile, columns 8 * (lane % 2) .. +7
@@ -1440,7 +1454,7 @@ cudaError_t launch_da1_mma(const void* x, const void* w, const void* g,
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const bf16*>(g), static_cast<float*>(part), Tn, C, Co,
       groups, C % 8 == 0 && aligned(x, 16), Co % 8 == 0 && aligned(w, 16),
-      Co % 8 == 0 && aligned(g, 16));
+      Co % 8 == 0 && aligned(g, 16), V);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_da1_reduce<bf16>(part, da1, B, V, groups, stream);
@@ -1466,7 +1480,8 @@ cudaError_t dispatch_da1(const void* x, const void* w, const void* g,
                          void* da1, void* part, int B, int Tn, int V, int C,
                          int Co, int groups, int bf16, cudaStream_t stream,
                          Da1Tiling* tiling) {
-  switch (V) {  // the joint counts of the AGCN skeletons (NTU, Kinetics)
+  switch (V) {  // the joint counts of the skeletons (NTU, Kinetics,
+                // OpenPose 15)
     case 25:
       return bf16 ? launch_da1_bf16<25>(x, w, g, da1, part, B, Tn, C, Co,
                                         groups, stream, tiling)
@@ -1476,6 +1491,11 @@ cudaError_t dispatch_da1(const void* x, const void* w, const void* g,
       return bf16 ? launch_da1_bf16<18>(x, w, g, da1, part, B, Tn, C, Co,
                                         groups, stream, tiling)
                   : launch_da1_fp32<18>(x, w, g, da1, part, B, Tn, C, Co,
+                                        groups, stream, tiling);
+    case 15:
+      return bf16 ? launch_da1_bf16<15>(x, w, g, da1, part, B, Tn, C, Co,
+                                        groups, stream, tiling)
+                  : launch_da1_fp32<15>(x, w, g, da1, part, B, Tn, C, Co,
                                         groups, stream, tiling);
     default:
       return cudaErrorInvalidValue;
@@ -1497,7 +1517,8 @@ extern "C" int agcn_gcn_bwd_dw(const void* x, const void* a1, const void* g,
   if (groups < 1 || groups > most || (long long)K * groups > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  switch (V) {  // the joint counts of the AGCN skeletons (NTU, Kinetics)
+  switch (V) {  // the joint counts of the skeletons (NTU, Kinetics,
+                // OpenPose 15)
     case 25:
       return (int)(bf16 ? launch_dw_bf16<25>(x, a1, g, dw, part, u, B, Tn,
                                               C, Co, groups, s)
@@ -1507,6 +1528,11 @@ extern "C" int agcn_gcn_bwd_dw(const void* x, const void* a1, const void* g,
       return (int)(bf16 ? launch_dw_bf16<18>(x, a1, g, dw, part, u, B, Tn,
                                               C, Co, groups, s)
                         : launch_dw_fp32<18>(x, a1, g, dw, part, u, B, Tn,
+                                             C, Co, groups, s));
+    case 15:
+      return (int)(bf16 ? launch_dw_bf16<15>(x, a1, g, dw, part, u, B, Tn,
+                                              C, Co, groups, s)
+                        : launch_dw_fp32<15>(x, a1, g, dw, part, u, B, Tn,
                                              C, Co, groups, s));
     default:
       return (int)cudaErrorInvalidValue;
@@ -1520,8 +1546,9 @@ extern "C" int agcn_gcn_bwd_da1(const void* x, const void* w, const void* g,
   // `groups` splits each sample's frame tiles (agcn_gcn_bwd_da1_tiling's
   // frames; at most their count) and `part` is the (B, K, groups, V, V)
   // fp32 partials
-  if (V != 25 && V != 18) return (int)cudaErrorInvalidValue;
-  const int tt = bf16 ? TT : V == 25 ? Da32Tile<25>::TT : Da32Tile<18>::TT;
+  if (V != 25 && V != 18 && V != 15) return (int)cudaErrorInvalidValue;
+  // a tile's frames: TT in bf16, Da32Tile<V>::TT in fp32
+  const int tt = bf16 ? TT : D32_ROWS_P / V;
   if (groups < 1 || groups > (Tn + tt - 1) / tt ||
       (long long)K * groups > 65535 || B > 65535) {
     return (int)cudaErrorInvalidValue;

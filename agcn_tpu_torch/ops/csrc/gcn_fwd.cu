@@ -63,7 +63,10 @@
 // and keeps the projection's loop over k rolled.
 //
 // Rows of w >= V come out zero (aT's pad rows are zero); a warp whose
-// tile lies past T or Co skips its MMAs. Every sum runs in an order fixed
+// tile lies past T or Co skips its MMAs. Every V up to 32 takes the same
+// 32-row slot a frame (25, 18 and 15 are built): at V = 15 more than
+// half of each slot is padding, so a frame costs about what it costs at
+// V = 25. Every sum runs in an order fixed
 // by the shapes, with no atomics, so two calls are bitwise equal.
 //
 // gcn_fwd_fp32_kernel<T, V, OT, CC>: the aggregate never goes to device
@@ -71,9 +74,11 @@
 // per block for all OT output channels. One block of 256 threads owns
 // (sample b, TT whole frames, OT output channels); its rows are (t, w)
 // flattened without padding w. OT = 64 when Co <= 64 (256 rows: 10
-// frames at V = 25, 14 at V = 18), OT = 128 above (128 rows: 5 or 7
-// frames), OT = 8 when Co <= 8 (the dx of the C = 3 entry layer, Co = 3;
-// 1,024 rows: 40 or 56 frames). It stages a1[b] once, then walks C in
+// frames at V = 25, 14 at V = 18, 17 at V = 15), OT = 128 above (128
+// rows: 5, 7 or 8 frames), OT = 8 when Co <= 8 (the dx of the C = 3
+// entry layer, Co = 3; 1,024 rows: 40, 56 or 68 frames). At V = 15 a
+// frame's a1 row is padded to 16 (four float4), as V = 25's is to 28 and
+// V = 18's to 20. It stages a1[b] once, then walks C in
 // chunks of CC (16; 4 when C <= 8 or Co <= 8), per chunk:
 //   1. the aggregate aggT_k[c][t V + w] = sum_v x[t][v][c] a1_k[v][w],
 //      transposed in shared memory, for every k and row of the tile:
@@ -477,11 +482,14 @@ template <bool SPLIT>
 cudaError_t launch_mma_v(const void* x, const void* a1, const void* w,
                          void* y, int B, int Tn, int V, int C, int Co,
                          cudaStream_t stream) {
-  switch (V) {
+  switch (V) {  // the joint counts of the skeletons (NTU, Kinetics,
+                // OpenPose 15), each padded to the 32-row tile
     case 25:
       return launch_mma_cc<25, SPLIT>(x, a1, w, y, B, Tn, C, Co, stream);
     case 18:
       return launch_mma_cc<18, SPLIT>(x, a1, w, y, B, Tn, C, Co, stream);
+    case 15:
+      return launch_mma_cc<15, SPLIT>(x, a1, w, y, B, Tn, C, Co, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -868,12 +876,16 @@ template <typename T>
 cudaError_t launch_fp32_v(const void* x, const void* a1, const void* w,
                           void* y, int B, int Tn, int V, int C, int Co,
                           int round_agg, cudaStream_t stream) {
-  switch (V) {  // the joint counts of the AGCN skeletons (NTU, Kinetics)
+  switch (V) {  // the joint counts of the skeletons (NTU, Kinetics,
+                // OpenPose 15)
     case 25:
       return launch_fp32_tile<T, 25>(x, a1, w, y, B, Tn, C, Co, round_agg,
                                      stream);
     case 18:
       return launch_fp32_tile<T, 18>(x, a1, w, y, B, Tn, C, Co, round_agg,
+                                     stream);
+    case 15:
+      return launch_fp32_tile<T, 15>(x, a1, w, y, B, Tn, C, Co, round_agg,
                                      stream);
     default:
       return cudaErrorInvalidValue;

@@ -68,7 +68,8 @@ from agcn_tpu_torch.ops import gcn as gcn_ops
 from agcn_tpu_torch.ops.kernels import build
 
 K = 3  # subset count is structural in this architecture (reference A/B/C)
-SUPPORTED_JOINTS = (18, 25)  # V of the AGCN skeletons (Kinetics, NTU)
+# V of the skeletons of graph/skeletons.py (OpenPose 15, Kinetics, NTU)
+SUPPORTED_JOINTS = (15, 18, 25)
 # gcn_bwd's bf16 dW tensor-core kernel: blocks of (64 x 64 channels, one
 # subset, one group of 32-row chunks), about this many (8 per SM)
 _MMA_TILE, _MMA_ROWS, _MMA_TARGET_BLOCKS = 64, 32, 1056
@@ -220,8 +221,9 @@ def dw_fp32_groups(rows: int, c: int, co: int) -> int:
 
 def da1_groups(b: int, t: int, tile: int = _DA1_TILE) -> int:
     """Frame groups of gcn_bwd's da1 kernels: ranges of whole tiles of
-    `tile` frames of a sample (the library's, `da1_tiling`: 4 in bf16, 5
-    or 7 in fp32), one fp32 (V, V) partial per (sample, subset, group),
+    `tile` frames of a sample (the library's, `da1_tiling`: 4 in bf16, 5,
+    7 or 8 in fp32 at V = 25, 18 or 15), one fp32 (V, V) partial per
+    (sample, subset, group),
     fixed by the shapes alone."""
     tiles = math.ceil(t / tile)
     return max(1, min(tiles, math.ceil(_DA1_TARGET_BLOCKS / (K * b))))

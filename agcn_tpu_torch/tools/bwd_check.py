@@ -4,7 +4,8 @@
 
 The quick card check of `ops/csrc/gcn_bwd.cu`, about a minute: it builds
 that source alone, then at each AGCN layer shape of a training step
-(batch 64 x 2 persons = 128 samples, T=300), fp32 and bf16, holds
+(batch 64 x 2 persons = 128 samples, T=300), at V = 25 (the NTU
+skeleton) and 15 (the OpenPose one), fp32 and bf16, holds
 gcn_bwd against its plain version (`gcn_bwd_plain`) and two calls against
 each other (bitwise), times dW and da1 apart, each beside its library
 yardstick (the einsums of `ops.gcn.adaptive_gcn_bwd`) and its bound, and
@@ -65,6 +66,11 @@ LAYERS = sum(n for _, n in LAYER_SHAPES)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 SOURCE = "agcn_tpu_torch/ops/csrc/gcn_bwd.cu"
+# the joint counts of the skeletons, each of which the kernels are built
+# for (graph/skeletons.py: NTU, Kinetics, OpenPose 15), and those the
+# checks run at: NTU's and OpenPose's (18 shares 25's code paths)
+JOINTS = (25, 18, 15)
+JOINTS_CHECKED = (25, 15)
 # the CUDA kernels of gcn_bwd's route in each dtype: (dW, da1)
 ROUTE_KERNELS = {
     "bfloat16": (["gcn_u_kernel", "gcn_dw_mma_kernel",
@@ -225,13 +231,13 @@ def report_da1_fp32_build(ptxas_log):
 
 def check_da1_tiling(gcn_fused):
     """What each da1 launch takes, from the library (`da1_tiling`) at
-    V = 25 and 18, the C = 3 entry layer's chunk and the wide one, in
+    every V of JOINTS, the C = 3 entry layer's chunk and the wide one, in
     both types, logged: an SM must hold the two blocks that both da1
     kernels are built for (`__launch_bounds__(256, 2)`). Returns the
     answers as dicts."""
     out = []
     for bf16 in (False, True):
-        for v in (25, 18):
+        for v in JOINTS:
             for c in (3, 64):
                 frames, smem, blocks = gcn_fused.da1_tiling(v, c, bf16)
                 name = "gcn_da1_mma_kernel" if bf16 else DA1_FP32_KERNEL
@@ -252,67 +258,73 @@ def exact_dw_batch(t, v=25, batch=TRAIN_BATCH * PERSONS):
     return min(batch, (2 ** 24 - 1) // (t * v * 2 * 2 * v))
 
 
-def check_dw_fp32_exact(torch, np, gcn_fused, t, c, co):
-    """fp32 integer inputs whose every dW sum is exact in fp32 in any
-    order (sum |x| |u| < 2^24, checked): gcn_bwd's fp32 dW must equal its
-    plain version bit for bit. Returns the batch."""
-    b = exact_dw_batch(t)
+def check_dw_fp32_exact(torch, np, gcn_fused, t, c, co, v=25):
+    """fp32 integer inputs at V joints whose every dW sum is exact in fp32
+    in any order (sum |x| |u| < 2^24, checked): gcn_bwd's fp32 dW must
+    equal its plain version bit for bit. Returns the batch."""
+    b = exact_dw_batch(t, v)
     rng = np.random.default_rng(SEED + 11)
     x, a1, g = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (
-        rng.integers(-2, 3, (b, t, 25, c)),
-        rng.integers(-1, 2, (b, 3, 25, 25)),
-        rng.integers(-2, 3, (b, t, 25, co))))
+        rng.integers(-2, 3, (b, t, v, c)),
+        rng.integers(-1, 2, (b, 3, v, v)),
+        rng.integers(-2, 3, (b, t, v, co))))
     w = torch.zeros(3, c, co, device="cuda")
     terms = gcn_fused.gcn_dw_plain(x.abs(), a1.abs(), g.abs())
     check(terms.max().item() < 2 ** 24,
-          f"fp32 dW T={t} C={c} Co={co}: sum |terms| {terms.max().item()} "
+          f"fp32 dW V={v} T={t} C={c} Co={co}: sum |terms| "
+          f"{terms.max().item()} "
           f"reaches 2^24")
     dw = gcn_fused.launch_gcn_bwd_dw(x, a1, w, g)
     check(torch.equal(dw, gcn_fused.gcn_dw_plain(x, a1, g)),
-          f"fp32 dW T={t} C={c} Co={co} batch {b}: integer inputs differ "
+          f"fp32 dW V={v} T={t} C={c} Co={co} batch {b}: integer inputs "
+          f"differ "
           f"from the plain version")
     return b
 
 
 def check_da1_fp32_exact(torch, gcn_fused, t, c, co,
-                         b=TRAIN_BATCH * PERSONS):
-    """fp32 x, W and g integers in [-1, 1] (a1 anything): every |p| <= C
-    and every da1 sum of |p| |g| stays below 2^24 (checked), so the sums
-    are exact in fp32 in any order and gcn_bwd's fp32 da1 must equal its
-    plain version bit for bit."""
+                         b=TRAIN_BATCH * PERSONS, v=25):
+    """fp32 x, W and g integers in [-1, 1] (a1 anything) at V joints:
+    every |p| <= C and every da1 sum of |p| |g| stays below 2^24
+    (checked), so the sums are exact in fp32 in any order and gcn_bwd's
+    fp32 da1 must equal its plain version bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     x, g = (torch.randint(-1, 2, shape, device="cuda",
                           generator=gen).float()
-            for shape in ((b, t, 25, c), (b, t, 25, co)))
+            for shape in ((b, t, v, c), (b, t, v, co)))
     w = torch.randint(-1, 2, (3, c, co), device="cuda",
                       generator=gen).float()
-    a1 = torch.randn(b, 3, 25, 25, device="cuda", generator=gen)
+    a1 = torch.randn(b, 3, v, v, device="cuda", generator=gen)
     terms = gcn_fused.gcn_da1_plain(x.abs(), w.abs(), g.abs())
     check(terms.max().item() < 2 ** 24,
-          f"fp32 da1 T={t} C={c} Co={co}: sum |terms| {terms.max().item()} "
+          f"fp32 da1 V={v} T={t} C={c} Co={co}: sum |terms| "
+          f"{terms.max().item()} "
           f"reaches 2^24")
     del terms
     da1 = gcn_fused.launch_gcn_bwd_da1(x, a1, w, g)
     check(torch.equal(da1, gcn_fused.gcn_da1_plain(x, w, g)),
-          f"fp32 da1 T={t} C={c} Co={co} batch {b}: integer inputs differ "
+          f"fp32 da1 V={v} T={t} C={c} Co={co} batch {b}: integer inputs "
+          f"differ "
           f"from the plain version")
 
 
-def check_bwd_rounding(torch, np, gcn_fused, c, co):
-    """bf16 integer inputs whose every sum is exact in fp32 in any order:
-    gcn_bwd must equal its plain version bit for bit, and the same sums
-    without the rounding of u (for dW) or of p (for da1) must differ."""
+def check_bwd_rounding(torch, np, gcn_fused, c, co, v=25):
+    """bf16 integer inputs at V joints whose every sum is exact in fp32
+    in any order: gcn_bwd must equal its plain version bit for bit, and
+    the same sums without the rounding of u (for dW) or of p (for da1)
+    must differ."""
     rng = np.random.default_rng(SEED + 5)
     x, a1, w, g = (torch.from_numpy(a.astype(np.float32)).to(
         "cuda", torch.bfloat16) for a in (
-        rng.integers(-4, 5, (2, 8, 25, c)),
-        rng.integers(-32, 33, (2, 3, 25, 25)),
+        rng.integers(-4, 5, (2, 8, v, c)),
+        rng.integers(-32, 33, (2, 3, v, v)),
         rng.integers(-32, 33, (3, c, co)),
-        rng.integers(-32, 33, (2, 8, 25, co))))
+        rng.integers(-32, 33, (2, 8, v, co))))
     dw, da1 = gcn_fused.launch_gcn_bwd(x, a1, w, g)
     want = gcn_fused.gcn_bwd_plain(x, a1, w, g)
     check(torch.equal(dw, want[0]) and torch.equal(da1, want[1]),
-          f"gcn_bwd C={c} Co={co}: integer inputs differ from the plain "
+          f"gcn_bwd V={v} C={c} Co={co}: integer inputs differ from the "
+          f"plain "
           f"version")
     xf, gf = x.float(), g.float()
     dw_u = torch.stack([torch.einsum(
@@ -323,12 +335,14 @@ def check_bwd_rounding(torch, np, gcn_fused, c, co):
                                       gf)
                          for k in range(3)], dim=1).to(torch.bfloat16)
     check(not torch.equal(dw, dw_u) and not torch.equal(da1, da1_p),
-          f"gcn_bwd C={c} Co={co}: the rounding of u or p has no effect")
+          f"gcn_bwd V={v} C={c} Co={co}: the rounding of u or p has no "
+          f"effect")
 
 
-def phase_bwd_kernels(torch, np, gcn_fused):
+def phase_bwd_kernels(torch, np, gcn_fused, v=25):
     """gcn_bwd against its plain version at the training shapes (batch
-    128 after folding the persons). Returns the rows."""
+    128 after folding the persons) with V joints, after the library's
+    da1 tiling at every V (`check_da1_tiling`). Returns the rows."""
     b = TRAIN_BATCH * PERSONS
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     check_da1_tiling(gcn_fused)
@@ -337,33 +351,34 @@ def phase_bwd_kernels(torch, np, gcn_fused):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             frames, smem, _ = gcn_fused.da1_tiling(
-                25, c, dtype == torch.bfloat16)
-            x = torch.randn(b, t, 25, c, device="cuda", generator=gen)
-            a1 = torch.softmax(torch.randn(b, 3, 25, 25, device="cuda",
+                v, c, dtype == torch.bfloat16)
+            x = torch.randn(b, t, v, c, device="cuda", generator=gen)
+            a1 = torch.softmax(torch.randn(b, 3, v, v, device="cuda",
                                            generator=gen), dim=-2)
-            a1 = a1 + 0.2 * torch.rand(3, 25, 25, device="cuda",
+            a1 = a1 + 0.2 * torch.rand(3, v, v, device="cuda",
                                        generator=gen)
             w = torch.randn(3, c, co, device="cuda",
                             generator=gen) / math.sqrt(3 * c)
-            g = torch.randn(b, t, 25, co, device="cuda", generator=gen)
+            g = torch.randn(b, t, v, co, device="cuda", generator=gen)
             x, a1, w, g = (a.to(dtype) for a in (x, a1, w, g))
             dw, da1 = gcn_fused.gcn_backward(x, a1, w, g)
             again = gcn_fused.gcn_backward(x, a1, w, g)
             torch.cuda.synchronize()
             check(torch.equal(dw, again[0]) and torch.equal(da1, again[1]),
-                  f"gcn_bwd {dname} T={t} C={c} Co={co}: two calls differ")
+                  f"gcn_bwd {dname} V={v} T={t} C={c} Co={co}: two calls "
+                  f"differ")
             want = gcn_fused.gcn_bwd_plain(x, a1, w, g)
             (ok_w, err_w, scale_w), (ok_a, err_a, scale_a) = (
                 within_tol(dw, want[0]), within_tol(da1, want[1]))
             check(ok_w and ok_a,
-                  f"gcn_bwd {dname} T={t} C={c} Co={co}: dW max err "
+                  f"gcn_bwd {dname} V={v} T={t} C={c} Co={co}: dW max err "
                   f"{err_w:.3e} (scale {scale_w:.3e}), da1 max err "
                   f"{err_a:.3e} (scale {scale_a:.3e})")
             del dw, da1, again, want
-            flops, nbytes = gcn_bwd_work(b, t, c, co, dname)
-            half = bound_ms(*gcn_bwd_half_work(b, t, c, co, dname), dname)
+            flops, nbytes = gcn_bwd_work(b, t, c, co, dname, v)
+            half = bound_ms(*gcn_bwd_half_work(b, t, c, co, dname, v), dname)
             row = dict(
-                t=t, c=c, co=co, layers=mult, dtype=dname,
+                v=v, t=t, c=c, co=co, layers=mult, dtype=dname,
                 max_abs_err=max(err_w, err_a), err_dw=err_w, err_da1=err_a,
                 scale_dw=scale_w, scale_da1=scale_a,
                 ms=cuda_time_ms(lambda: gcn_fused.gcn_backward(x, a1, w, g),
@@ -391,7 +406,7 @@ def phase_bwd_kernels(torch, np, gcn_fused):
                 byte_ms=nbytes / PEAK_BYTES * 1e3)
             row["library_ms"] = row["dw_library_ms"] + row["da1_library_ms"]
             rows.append(row)
-            log(f"  gcn_bwd T={t:3d} C={c:3d} Co={co:3d} {dname:8s} "
+            log(f"  gcn_bwd V={v} T={t:3d} C={c:3d} Co={co:3d} {dname:8s} "
                 f"err={row['max_abs_err']:.2e} kernel={row['ms']:.4f} ms "
                 f"plain={row['plain_ms']:.4f} ms einsum="
                 f"{row['library_ms']:.4f} ms bound="
@@ -405,16 +420,17 @@ def phase_bwd_kernels(torch, np, gcn_fused):
             del x, a1, w, g
         if c >= 8:
             # at C=3, p = x W has too few bits for its rounding to show
-            check_bwd_rounding(torch, np, gcn_fused, c, co)
-            log(f"  gcn_bwd C={c:3d} Co={co:3d} bfloat16 integer inputs: "
+            check_bwd_rounding(torch, np, gcn_fused, c, co, v)
+            log(f"  gcn_bwd V={v} C={c:3d} Co={co:3d} bfloat16 integer "
+                f"inputs: "
                 f"equal to the plain version; without the rounding of u or "
                 f"p the result differs")
-        exact_b = check_dw_fp32_exact(torch, np, gcn_fused, t, c, co)
-        log(f"  gcn_bwd T={t:3d} C={c:3d} Co={co:3d} float32 dW on integer "
-            f"inputs (batch {exact_b}): equal to the plain version")
-        check_da1_fp32_exact(torch, gcn_fused, t, c, co)
-        log(f"  gcn_bwd T={t:3d} C={c:3d} Co={co:3d} float32 da1 on integer "
-            f"inputs (batch {b}): equal to the plain version")
+        exact_b = check_dw_fp32_exact(torch, np, gcn_fused, t, c, co, v)
+        log(f"  gcn_bwd V={v} T={t:3d} C={c:3d} Co={co:3d} float32 dW on "
+            f"integer inputs (batch {exact_b}): equal to the plain version")
+        check_da1_fp32_exact(torch, gcn_fused, t, c, co, v=v)
+        log(f"  gcn_bwd V={v} T={t:3d} C={c:3d} Co={co:3d} float32 da1 on "
+            f"integer inputs (batch {b}): equal to the plain version")
     return rows
 
 
@@ -441,17 +457,18 @@ def da1_fp32_layers(rows):
     return out
 
 
-def bwd_entry(rows, launches, dname="bfloat16"):
+def bwd_entry(rows, launches, dname="bfloat16", v=25):
     """The `kernels` entry of gcn_bwd: per training step, the sum over the
-    ten layers at batch 128 in `dname`, with dW and da1 apart."""
+    ten layers at batch 128 and V joints in `dname`, with dW and da1
+    apart."""
     sel = [r for r in rows if r["dtype"] == dname]
     tot = lambda key: sum(r[key] * r["layers"] for r in sel)  # noqa: E731
     whole = bound_ms(tot("flops"), tot("bytes"), dname)
     b = TRAIN_BATCH * PERSONS
     half = bound_ms(
-        sum(gcn_bwd_half_work(b, r["t"], r["c"], r["co"], dname)[0]
+        sum(gcn_bwd_half_work(b, r["t"], r["c"], r["co"], dname, v)[0]
             * r["layers"] for r in sel),
-        sum(gcn_bwd_half_work(b, r["t"], r["c"], r["co"], dname)[1]
+        sum(gcn_bwd_half_work(b, r["t"], r["c"], r["co"], dname, v)[1]
             * r["layers"] for r in sel), dname)
     parts = {p: {"ms": tot(f"{p}_ms"), "library_ms": tot(f"{p}_library_ms"),
                  "plain_ms": tot(f"{p}_plain_ms"),
@@ -493,20 +510,27 @@ def main(argv=None) -> int:
         if "registers" in ln or "spill" in ln or "smem" in ln:
             log(f"  {ln.strip()}")
     da1_build = report_da1_fp32_build(built.log)
-    log("gcn_bwd vs its plain version at the training shapes (batch 128)")
+    rows = {}
     try:
         spills = bwd_spills(built.log)
         check(not spills, f"gcn_bwd kernels spill: {spills}")
         with torch.inference_mode():
-            rows = phase_bwd_kernels(torch, np, gcn_fused)
+            for v in JOINTS_CHECKED:
+                log(f"gcn_bwd vs its plain version at the training shapes "
+                    f"(batch 128), V={v}")
+                rows[v] = phase_bwd_kernels(torch, np, gcn_fused, v)
     except SmokeFailure as e:
         print(f"bwd_check: FAILED: {e}", file=sys.stderr)
         return 1
-    log("fp32 da1 per layer (gcn_da1_fp32_kernel, ms)")
-    da1_layers = da1_fp32_layers(rows)
-    entries = [bwd_entry(rows, 0, d) for d in ("float32", "bfloat16")]
+    da1_layers, entries = {}, []
+    for v in JOINTS_CHECKED:
+        log(f"fp32 da1 per layer (gcn_da1_fp32_kernel, ms), V={v}")
+        da1_layers[v] = da1_fp32_layers(rows[v])
+        entries += [dict(bwd_entry(rows[v], 0, d, v), v=v)
+                    for d in ("float32", "bfloat16")]
     for e in entries:
-        log(f"per step ({e['dtype']}): gcn_bwd {e['ms']:.3f} ms (plain "
+        log(f"per step ({e['dtype']}, V={e['v']}): gcn_bwd {e['ms']:.3f} ms "
+            f"(plain "
             f"{e['plain_ms']:.3f}, einsums {e['library_ms']:.3f}, bound "
             f"{e['bound_ms']:.3f} {e['bound_by']}); "
             + "; ".join(f"{p} {e[p]['ms']:.3f} ms (einsums "
@@ -518,7 +542,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"device": torch.cuda.get_device_name(0),
                        "nvidia_smi": smi, "ptxas": built.log,
-                       "da1_fp32_build": da1_build, "rows": rows,
+                       "da1_fp32_build": da1_build,
+                       "rows": [r for v in JOINTS_CHECKED for r in rows[v]],
                        "da1_fp32_layers": da1_layers, "per_step": entries},
                       f, indent=1)
     log(smi)

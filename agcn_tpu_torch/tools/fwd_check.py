@@ -8,7 +8,8 @@ instantiation of `gcn_fwd_mma_kernel` or `gcn_fwd_fp32_kernel`, and
 prints each one's registers, spills and shared memory), then
 
 1. at each AGCN layer shape of the served batch (16 streams x 2 persons =
-   32 samples, T=300), fp32 and bf16, both aggregate-rounding modes,
+   32 samples, T=300), at V = 25 (the NTU skeleton) and 15 (the OpenPose
+   one), fp32 and bf16, both aggregate-rounding modes,
    holds the kernel against its plain version (`gcn_fwd_plain`) and times
    it beside its library yardstick (one `torch.einsum`) and its bound. At
    each shape, on bf16 integer inputs where the two modes differ, each
@@ -36,7 +37,7 @@ cores (exact fp32 FMAs; its tiles are `fp32_tiling`'s).
 Tolerances (`bwd_check.within_tol`): fp32 (TF32 off) max err <= 1e-4 of
 the output's scale; bf16 per element <= 2^-7 |ref| + 2^-10 of the scale.
 Bit-exact inputs: x and a1 integers in [-8, 8], W in [-2, 2], all exact in
-bf16. Every aggregate (|agg| <= 25 * 64 = 1,600) and every fp32 sum of
+bf16. Every aggregate (|agg| <= V * 64 <= 1,600) and every fp32 sum of
 the projection (< 2^22) is an integer below 2^24, so it is exact in fp32
 in any summation order; only the rounding points (the aggregate to bf16
 with round_agg=1, y to bf16) decide the result, and in fp32 there are
@@ -55,8 +56,8 @@ import sys
 import time
 
 from agcn_tpu_torch.tools.bwd_check import (
-    LAYER_SHAPES, PEAK_BYTES, PEAK_FLOPS, PERSONS, SEED, TRAIN_BATCH,
-    SmokeFailure, bound_ms, check, cuda_time_ms, gcn_work, log,
+    JOINTS_CHECKED, LAYER_SHAPES, PEAK_BYTES, PEAK_FLOPS, PERSONS, SEED,
+    TRAIN_BATCH, SmokeFailure, bound_ms, check, cuda_time_ms, gcn_work, log,
     nvidia_smi_line, within_tol)
 
 SERVE_BATCH = 32  # 16 streams x 2 persons
@@ -167,34 +168,35 @@ def library_fwd(torch, x, a1, w):
     return torch.einsum("btvc,bkvw,kco->btwo", x, a1, w)
 
 
-def exact_inputs(torch, np, b, t, c, co, seed, dtype=None):
-    """x, a1 and W on the card in `dtype` (bf16 by default), small
-    integers: every sum of the kernel is exact in fp32 in any order
+def exact_inputs(torch, np, b, t, c, co, seed, dtype=None, v=25):
+    """x, a1 and W on the card in `dtype` (bf16 by default) at V joints,
+    small integers: every sum of the kernel is exact in fp32 in any order
     (module docstring)."""
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(a.astype(np.float32)).to(
         "cuda", dtype or torch.bfloat16) for a in (
-        rng.integers(-8, 9, (b, t, 25, c)),
-        rng.integers(-8, 9, (b, 3, 25, 25)),
+        rng.integers(-8, 9, (b, t, v, c)),
+        rng.integers(-8, 9, (b, 3, v, v)),
         rng.integers(-2, 3, (3, c, co))))
 
 
 def check_exact(torch, np, gcn_fused, b, t, c, co, label, modes,
-                dtype=None):
+                dtype=None, v=25):
     """On integer inputs in `dtype` (bf16 by default), each round_agg mode
     of `modes` equals the plain version bit for bit, and two calls are
     bitwise equal; with both modes, their results differ in bf16 and
     agree in fp32 (where the aggregate's rounding is the identity)."""
     dtype = dtype or torch.bfloat16
     dname = "bf16" if dtype == torch.bfloat16 else "fp32"
-    x, a1, w = exact_inputs(torch, np, b, t, c, co, SEED + 11, dtype)
+    x, a1, w = exact_inputs(torch, np, b, t, c, co, SEED + 11, dtype, v)
     got = {}
     for r in modes:
         got[r] = gcn_fused.launch_gcn_fwd(x, a1, w, r)
         again = gcn_fused.launch_gcn_fwd(x, a1, w, r)
         torch.cuda.synchronize()
         want = gcn_fused.gcn_fwd_plain(x, a1, w, r)
-        what = f"{label} T={t} C={c} Co={co} {dname} round_agg={int(r)}"
+        what = (f"{label} V={v} T={t} C={c} Co={co} {dname} "
+                f"round_agg={int(r)}")
         check(torch.equal(got[r], again), f"{what}: two calls differ")
         check(torch.equal(got[r], want),
               f"{what}: integer inputs differ from the plain version "
@@ -203,11 +205,13 @@ def check_exact(torch, np, gcn_fused, b, t, c, co, label, modes,
     if len(got) == 2:
         differ = not torch.equal(got[True], got[False])
         check(differ == (dtype == torch.bfloat16),
-              f"{label} T={t} C={c} Co={co} {dname}: the round_agg modes "
+              f"{label} V={v} T={t} C={c} Co={co} {dname}: the round_agg "
+              f"modes "
               f"{'agree' if not differ else 'differ'} on integer inputs")
 
 
-def check_rounding_modes(torch, np, wrappers, gcn_fused, b, t, c, co):
+def check_rounding_modes(torch, np, wrappers, gcn_fused, b, t, c, co,
+                         v=25):
     """bf16 inputs on which the two rounding modes differ beyond the
     tolerance: x and a1 signed integers in [-64, 64], exact in bf16, whose
     aggregates (17 significant bits, exact in fp32 in any order) lose 9
@@ -217,17 +221,18 @@ def check_rounding_modes(torch, np, wrappers, gcn_fused, b, t, c, co):
     rng = np.random.default_rng(SEED + 2)
     x, a1, w = (torch.from_numpy(a.astype(np.float32)).to(
         "cuda", torch.bfloat16) for a in (
-        rng.integers(-64, 65, (b, t, 25, c)),
-        rng.integers(-64, 65, (b, 3, 25, 25)),
+        rng.integers(-64, 65, (b, t, v, c)),
+        rng.integers(-64, 65, (b, 3, v, v)),
         rng.standard_normal((3, c, co)) / np.sqrt(3 * c)))
     got = {r: wrappers[r](x, a1, w) for r in (True, False)}
     check(not torch.equal(got[True], got[False]),
-          f"T={t} C={c} Co={co}: round_agg has no effect in bf16")
+          f"V={v} T={t} C={c} Co={co}: round_agg has no effect in bf16")
     for r in (True, False):
         own = within_tol(got[r], gcn_fused.gcn_fwd_plain(x, a1, w, r))
         other = within_tol(got[r], gcn_fused.gcn_fwd_plain(x, a1, w, not r))
         check(own[0] and not other[0],
-              f"T={t} C={c} Co={co} round_agg={r}: max err {own[1]:.3e} "
+              f"V={v} T={t} C={c} Co={co} round_agg={r}: max err "
+              f"{own[1]:.3e} "
               f"against its own mode, {other[1]:.3e} against the other "
               f"(tolerance must pass the first and fail the second)")
     return own[2]
@@ -238,15 +243,15 @@ def _row(torch, kernel, plain, x, a1, w, label, t, c, co, mult, dname,
     """Hold one call against its plain version and time it (`iters`
     calls; the plain version and the einsum `slow_iters`); returns the
     row."""
-    b = x.shape[0]
+    b, v = x.shape[0], x.shape[2]
     got = kernel()
     torch.cuda.synchronize()
     ok, err, scale = within_tol(got, plain())
-    check(ok, f"{label} {dname} round_agg={round_agg} T={t} C={c} Co={co}: "
-              f"max err {err:.3e} (scale {scale:.3e})")
+    check(ok, f"{label} {dname} round_agg={round_agg} V={v} T={t} C={c} "
+              f"Co={co}: max err {err:.3e} (scale {scale:.3e})")
     del got
-    flops, nbytes = gcn_work(b, t, c, co, dname)
-    row = dict(t=t, c=c, co=co, layers=mult, dtype=dname,
+    flops, nbytes = gcn_work(b, t, c, co, dname, v)
+    row = dict(v=v, t=t, c=c, co=co, layers=mult, dtype=dname,
                round_agg=round_agg, max_abs_err=err, scale=scale,
                ms=cuda_time_ms(kernel, iters),
                plain_ms=cuda_time_ms(plain, slow_iters),
@@ -255,7 +260,7 @@ def _row(torch, kernel, plain, x, a1, w, label, t, c, co, mult, dname,
                flops=flops, bytes=nbytes,
                flop_ms=flops / PEAK_FLOPS[dname] * 1e3,
                byte_ms=nbytes / PEAK_BYTES * 1e3)
-    log(f"  {label:7s} T={t:3d} C={c:3d} Co={co:3d} {dname:8s} "
+    log(f"  {label:7s} V={v} T={t:3d} C={c:3d} Co={co:3d} {dname:8s} "
         f"round_agg={int(round_agg)} err={err:.2e} kernel={row['ms']:.4f} "
         f"ms plain={row['plain_ms']:.4f} ms einsum={row['library_ms']:.4f} "
         f"ms bound={max(row['flop_ms'], row['byte_ms']):.4f} ms "
@@ -263,10 +268,10 @@ def _row(torch, kernel, plain, x, a1, w, label, t, c, co, mult, dname,
     return row
 
 
-def phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel):
+def phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel, v=25):
     """Each forward wrapper against its plain version at the served layer
-    shapes (the wrappers' launch counts are reset before the main
-    path)."""
+    shapes with V joints (the wrappers' launch counts are reset before
+    the main path)."""
     wrappers = {True: gcn_fused.adaptive_gcn_pallas,
                 False: gcn_kernel.fused_gcn}
     b = SERVE_BATCH
@@ -275,10 +280,10 @@ def phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel):
     for (t, c, co), mult in LAYER_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
-            x = torch.randn(b, t, 25, c, device="cuda", generator=gen)
-            a1 = torch.softmax(torch.randn(b, 3, 25, 25, device="cuda",
+            x = torch.randn(b, t, v, c, device="cuda", generator=gen)
+            a1 = torch.softmax(torch.randn(b, 3, v, v, device="cuda",
                                            generator=gen), dim=-2)
-            a1 = a1 + 0.2 * torch.rand(3, 25, 25, device="cuda",
+            a1 = a1 + 0.2 * torch.rand(3, v, v, device="cuda",
                                        generator=gen)
             w = torch.randn(3, c, co, device="cuda",
                             generator=gen) / math.sqrt(3 * c)
@@ -292,37 +297,38 @@ def phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel):
                     20, 5))
             del x, a1, w
         scale = check_rounding_modes(torch, np, wrappers, gcn_fused, b, t,
-                                     c, co)
-        log(f"  T={t:3d} C={c:3d} Co={co:3d} bfloat16 integer inputs "
+                                     c, co, v)
+        log(f"  V={v} T={t:3d} C={c:3d} Co={co:3d} bfloat16 integer inputs "
             f"(scale {scale:.3e}): each round_agg mode matches its own "
             f"plain version and fails the other's")
         check_exact(torch, np, gcn_fused, b, t, c, co, "served",
-                    (True, False))
+                    (True, False), v=v)
         check_exact(torch, np, gcn_fused, b, t, c, co, "served",
-                    (True, False), torch.float32)
-        log(f"  T={t:3d} C={c:3d} Co={co:3d} round_agg=1 and 0 on integer "
+                    (True, False), torch.float32, v)
+        log(f"  V={v} T={t:3d} C={c:3d} Co={co:3d} round_agg=1 and 0 on "
+            f"integer "
             f"inputs: each equal to its plain version bit for bit in "
             f"bfloat16 (the two apart) and float32 (the two equal); two "
             f"calls bitwise equal")
     return rows
 
 
-def phase_dx(torch, np, gcn_fused):
-    """The dx calls of a training step at batch 128: gcn_fwd on
-    (g, a1^T, W^T), the input and output channels swapped."""
+def phase_dx(torch, np, gcn_fused, v=25):
+    """The dx calls of a training step at batch 128 with V joints:
+    gcn_fwd on (g, a1^T, W^T), the input and output channels swapped."""
     b = TRAIN_BATCH * PERSONS
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = []
     for (t, c, co), mult in LAYER_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
-            a1 = torch.softmax(torch.randn(b, 3, 25, 25, device="cuda",
+            a1 = torch.softmax(torch.randn(b, 3, v, v, device="cuda",
                                            generator=gen), dim=-2)
-            a1 = a1 + 0.2 * torch.rand(3, 25, 25, device="cuda",
+            a1 = a1 + 0.2 * torch.rand(3, v, v, device="cuda",
                                        generator=gen)
             w = torch.randn(3, c, co, device="cuda",
                             generator=gen) / math.sqrt(3 * c)
-            g = torch.randn(b, t, 25, co, device="cuda", generator=gen)
+            g = torch.randn(b, t, v, co, device="cuda", generator=gen)
             g, a1, w = g.to(dtype), a1.to(dtype), w.to(dtype)
             at = a1.transpose(2, 3).contiguous()
             wt = w.transpose(1, 2).contiguous()
@@ -333,8 +339,9 @@ def phase_dx(torch, np, gcn_fused):
             del g, a1, w, at, wt
         for dtype in (torch.bfloat16, torch.float32):
             check_exact(torch, np, gcn_fused, b, t, co, c, "dx", (True,),
-                        dtype)
-        log(f"  dx T={t:3d} C={co:3d} Co={c:3d} bfloat16 and float32 on "
+                        dtype, v)
+        log(f"  dx V={v} T={t:3d} C={co:3d} Co={c:3d} bfloat16 and float32 "
+            f"on "
             f"integer inputs: equal to the plain version bit for bit; two "
             f"calls bitwise equal")
     return rows
@@ -426,36 +433,47 @@ def main(argv=None) -> int:
         if "registers" in ln or "spill" in ln or "smem" in ln:
             log(f"  {ln.strip()}")
     fp32_build = report_fp32_build(built.log)
+    rows, dx_rows = {}, {}
     try:
         spills = spilling(built.log)
         check(not spills, f"gcn_fwd kernels spill: {spills}")
         with torch.inference_mode():
-            log("gcn_fwd vs its plain version at the served shapes "
-                "(batch 32)")
-            rows = phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel)
-            log("dx vs its plain version at the training shapes "
-                "(batch 128)")
-            dx_rows = phase_dx(torch, np, gcn_fused)
+            for v in JOINTS_CHECKED:
+                log(f"gcn_fwd vs its plain version at the served shapes "
+                    f"(batch 32), V={v}")
+                rows[v] = phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel,
+                                            v)
+                log(f"dx vs its plain version at the training shapes "
+                    f"(batch 128), V={v}")
+                dx_rows[v] = phase_dx(torch, np, gcn_fused, v)
     except SmokeFailure as e:
         print(f"fwd_check: FAILED: {e}", file=sys.stderr)
         return 1
-    log("fp32 per layer (ms)")
-    layers = fp32_layers(rows, dx_rows)
+    layers = {}
+    for v in JOINTS_CHECKED:
+        log(f"fp32 per layer (ms), V={v}")
+        layers[v] = fp32_layers(rows[v], dx_rows[v])
     sums = {}
-    for dname in ("bfloat16", "float32"):
-        for round_agg in (True, False):
-            key = f"served {dname} round_agg={int(round_agg)} per forward"
-            sums[key] = _sums(rows, round_agg, dname)
+    for v in JOINTS_CHECKED:
+        for dname in ("bfloat16", "float32"):
+            for round_agg in (True, False):
+                key = (f"V={v} served {dname} round_agg={int(round_agg)} "
+                       f"per forward")
+                sums[key] = _sums(rows[v], round_agg, dname)
+                _report(key, sums[key])
+            key = f"V={v} dx {dname} per training step"
+            sums[key] = _sums(dx_rows[v], True, dname)
             _report(key, sums[key])
-        key = f"dx {dname} per training step"
-        sums[key] = _sums(dx_rows, True, dname)
-        _report(key, sums[key])
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": torch.cuda.get_device_name(0),
                        "nvidia_smi": smi, "ptxas": built.log,
-                       "fp32_build": fp32_build, "rows": rows,
-                       "dx_rows": dx_rows, "fp32_layers": layers,
+                       "fp32_build": fp32_build,
+                       "rows": [r for v in JOINTS_CHECKED
+                                for r in rows[v]],
+                       "dx_rows": [r for v in JOINTS_CHECKED
+                                   for r in dx_rows[v]],
+                       "fp32_layers": layers,
                        "sums": sums},
                       f, indent=1)
     log(smi)

@@ -8,8 +8,10 @@ instantiation of `logits_mma_kernel` (bf16, the tensor cores),
 `logits_fp32_kernel` (fp32, the CUDA cores) or `logits_reduce_kernel`,
 printing each one's registers and spills; then, at the ten layer shapes
 of a served AAGCN forward (batch 32: 16 streams x 2 persons) and of a
-training batch (128), fp32 and bf16, theta and phi as the strided views
-of the fused (B, T, V, 2 K Ce) embedding that the models produce:
+training batch (128), at V = 25 (the NTU skeleton) and 15 (the OpenPose
+one, whose V the kernel's general tile takes), fp32 and bf16, theta and
+phi as the strided views of the fused (B, T, V, 2 K Ce) embedding that
+the models produce:
 
 1. random inputs: within 1e-5 of the output's scale of the plain version
    (`attention_logits_plain`, the packed 128 x 128 product; fp32 sums of
@@ -56,8 +58,8 @@ import sys
 import time
 
 from agcn_tpu_torch.tools.bwd_check import (
-    PEAK_BYTES, PEAK_FLOPS, PERSONS, SEED, TRAIN_BATCH, SmokeFailure,
-    bound_ms, check, cuda_time_ms, log, nvidia_smi_line)
+    JOINTS_CHECKED, PEAK_BYTES, PEAK_FLOPS, PERSONS, SEED, TRAIN_BATCH,
+    SmokeFailure, bound_ms, check, cuda_time_ms, log, nvidia_smi_line)
 from agcn_tpu_torch.tools.fwd_check import (SERVE_BATCH, ptxas_kernels,
                                             spilling)
 
@@ -130,23 +132,24 @@ def queued_time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters, host
 
 
-def embedding(torch, gen, b, t, ce, dtype, integers=False):
+def embedding(torch, gen, b, t, ce, dtype, integers=False, v=JOINTS):
     """A fused (B, T, V, 2 K Ce) embedding on the card and its theta/phi
     views (B, T, V, K, Ce): normal, or integers in [-2, 2]."""
-    shape = (b, t, JOINTS, 2 * SUBSETS * ce)
+    shape = (b, t, v, 2 * SUBSETS * ce)
     if integers:
         emb = torch.randint(-2, 3, shape, device="cuda", generator=gen)
     else:
         emb = torch.randn(shape, device="cuda", generator=gen)
     emb = emb.to(dtype)
-    e = emb.view(b, t, JOINTS, 2, SUBSETS, ce)
+    e = emb.view(b, t, v, 2, SUBSETS, ce)
     return emb, e[..., 0, :, :], e[..., 1, :, :]
 
 
-def check_exact(torch, logits_kernel, gen, b, t, ce, dtype, label):
+def check_exact(torch, logits_kernel, gen, b, t, ce, dtype, label,
+                v=JOINTS):
     """Integer inputs: the kernel's sums equal the plain version's bit for
     bit, and its logits are those sums each divided once."""
-    _, th, ph = embedding(torch, gen, b, t, ce, dtype, integers=True)
+    _, th, ph = embedding(torch, gen, b, t, ce, dtype, integers=True, v=v)
     sums = logits_kernel.attention_logits_pallas(th, ph, 1.0)
     want = logits_kernel.attention_logits_plain(th, ph, 1.0)
     check(torch.equal(sums, want),
@@ -158,13 +161,13 @@ def check_exact(torch, logits_kernel, gen, b, t, ce, dtype, label):
           f"{label}: the logits are not the sums divided once")
 
 
-def phase_logits(torch, np, logits_kernel, times_only=False):
+def phase_logits(torch, np, logits_kernel, times_only=False, v=JOINTS):
     """The attention-logits kernel against its plain version at the ten
     layer shapes of the served batch (32) and of the training batch
-    (128), fp32 and bf16 inputs, theta/phi as the strided views of the
-    fused embedding that the models produce; two calls bitwise equal;
-    integer inputs bit for bit (not with `times_only`). Returns the
-    rows."""
+    (128) with V joints, fp32 and bf16 inputs, theta/phi as the strided
+    views of the fused embedding that the models produce; two calls
+    bitwise equal; integer inputs bit for bit (not with `times_only`).
+    Returns the rows."""
     from agcn_tpu_torch.ops import gcn as gcn_ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -174,8 +177,8 @@ def phase_logits(torch, np, logits_kernel, times_only=False):
         for (t, ce), mult in LOGITS_SHAPES:
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype).split(".")[-1]
-                label = f"logits B={b} T={t} Ce={ce} {dname}"
-                emb, th, ph = embedding(torch, gen, b, t, ce, dtype)
+                label = f"logits V={v} B={b} T={t} Ce={ce} {dname}"
+                emb, th, ph = embedding(torch, gen, b, t, ce, dtype, v=v)
                 div = ce * t
                 got = kernel(th, ph, div)
                 again = kernel(th, ph, div)
@@ -187,14 +190,14 @@ def phase_logits(torch, np, logits_kernel, times_only=False):
                           f"{scale:.3e})")
                 if not times_only:
                     check_exact(torch, logits_kernel, gen, b, t, ce, dtype,
-                                label)
-                flops, nbytes = logits_work(b, t, ce, dname)
+                                label, v)
+                flops, nbytes = logits_work(b, t, ce, dname, v)
                 bound, by = bound_ms(flops, nbytes, dname)
                 emb32 = emb.float()
                 device_ms, host_ms = queued_time_ms(
                     lambda: kernel(th, ph, div), 20)
                 row = dict(
-                    b=b, t=t, ce=ce, layers=mult, dtype=dname,
+                    v=v, b=b, t=t, ce=ce, layers=mult, dtype=dname,
                     max_abs_err=err, scale=scale,
                     ms=cuda_time_ms(lambda: kernel(th, ph, div), 20),
                     device_ms=device_ms, host_ms=host_ms,
@@ -219,7 +222,7 @@ def phase_logits(torch, np, logits_kernel, times_only=False):
                             f"chunks of {p['frames']} frames ({p['width']} "
                             f"columns)")
                 rows.append(row)
-                log(f"  {label:32s} err/scale={err / scale:.2e} "
+                log(f"  {label:37s} err/scale={err / scale:.2e} "
                     f"kernel={row['ms']:.4f} ms ({100 * bound / row['ms']:.1f}"
                     f"% of bound), device={device_ms:.4f} ms ("
                     f"{100 * bound / device_ms:.1f}%), host={host_ms:.4f} "
@@ -305,17 +308,23 @@ def main(argv=None) -> int:
         spills = [] if args.times_only else logits_spills(built.log)
         check(not spills, f"logits kernels spill: {spills}")
         with torch.inference_mode():
-            rows = phase_logits(torch, np, logits_kernel, args.times_only)
+            rows = {v: phase_logits(torch, np, logits_kernel,
+                                    args.times_only, v)
+                    for v in JOINTS_CHECKED}
     except SmokeFailure as e:
         print(f"logits_check: FAILED: {e}", file=sys.stderr)
         return 1
-    log("per ten layers")
-    sums = report_sums(rows)
+    sums = {}
+    for v in JOINTS_CHECKED:
+        log(f"per ten layers, V={v}")
+        sums.update((f"V={v} {k}", s) for k, s in report_sums(rows[v]).items())
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": torch.cuda.get_device_name(0),
                        "nvidia_smi": smi, "ptxas": built.log,
-                       "build": ptxas, "rows": rows, "sums": sums}, f,
+                       "build": ptxas,
+                       "rows": [r for v in JOINTS_CHECKED for r in rows[v]],
+                       "sums": sums}, f,
                       indent=1)
     log(smi)
     return 0

@@ -27,7 +27,8 @@ fails:
    (gcn_fwd_fp32_kernel, the CUDA cores) equal their plain version bit
    for bit in both modes at every served shape and with round_agg=1 at
    every dx shape, and two calls are bitwise equal; the fp32 rows are
-   printed layer by layer (served and dx). The code is
+   printed layer by layer (served and dx). All of it at V = 25 (NTU),
+   then again at V = 15 (the OpenPose skeleton). The code is
    agcn_tpu_torch/tools/fwd_check.py, which runs it alone in about a
    minute: `python -m agcn_tpu_torch.tools.fwd_check`.
 4. gcn_bwd (dW, da1) at the training batch, fp32 and bf16: first the
@@ -44,7 +45,8 @@ fails:
    gcn_da1_fp32_kernel in fp32, each over frame groups summed by
    gcn_da1_reduce_kernel; dW in both types is gcn_u_kernel, then
    gcn_dw_mma_kernel in bf16 or the CUDA-core GEMM gcn_dw_fp32_kernel in
-   fp32), and the fp32 da1 rows layer by layer. The code
+   fp32), and the fp32 da1 rows layer by layer; at V = 25, then at V = 15
+   (the tiling asked at V = 25, 18 and 15). The code
    is agcn_tpu_torch/tools/bwd_check.py, which runs it alone in about a
    minute: `python -m agcn_tpu_torch.tools.bwd_check`.
 5. the attention-logits kernel against its plain version (the packed
@@ -56,7 +58,9 @@ fails:
    bit, each divided once; kernel / plain / library (the 'transposed'
    form's torch.matmul in fp32) time back to back, the kernel's device
    time alone (the calls queued ahead of the card) and the host's time a
-   call, the bound and its share, and the launch plan. The code is agcn_tpu_torch/tools/logits_check.py, which runs it
+   call, the bound and its share, and the launch plan; at V = 25, then at
+   V = 15 (the kernel's general tile). The code is
+   agcn_tpu_torch/tools/logits_check.py, which runs it
    alone in about a minute: `python -m agcn_tpu_torch.tools.logits_check`.
 6. host data path: builds the C++ host kernels
    (agcn_tpu_torch/native/skelio.cpp) with g++ and prints the build time;
@@ -285,21 +289,38 @@ fails:
    group, model_edge_gcn with its gradients, edge_partitioned_aggregate
    (an NCCL all-reduce) and SyncBN forward and backward, card against CPU
    in fp32 within 1e-5 of each output's scale.
+21. The 15-joint OpenPose recipes through the GCN kernels at V = 15:
+   configs/openpose_b25_j15_xview/train_joint.yaml (AGCN) and
+   train_joint_aagcn.yaml (AAGCN: adaptive, attention, 10 blocks), full
+   width, T = 300, `formulation: pallas` (AAGCN also `eval_formulation`),
+   seeded weights and 15-joint synthetic data. (a) 16 streams served in
+   fp32 and bf16 (10 gcn_fwd launches a forward, card against CPU as in
+   7, one C++ pre_normalize a tick), the device time of one bf16 served
+   forward by kernel group, and for AAGCN the logits kernel's entry point
+   on each layer's theta/phi (10 launches a forward); (b) one step at
+   batch 4 card against CPU as in 9 (a), 10 bf16 steps at batch 64 (20
+   gcn_fwd and 10 gcn_bwd launches a step, the loss falling) and 5 more
+   timed; (c) the entry point `main` in this process trains and evaluates
+   one epoch of 2 steps (bf16, as shipped; its launches 20 + 10 a step),
+   `--phase test` reproduces its top-1, and `python -m
+   agcn_tpu_torch.infer --serve 16` serves the checkpoint.
 
 `python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
 minute), `--phase 15` phases 1, 2 (the build) and 15, `--phase 16`
 phases 1, 2 and 16, `--phase 17` phases 1 and 17, `--phase 18` phases 1
-and 18, `--phase 19` phases 1 and 19, `--phase 20` phases 1, 2 and 20;
-none prints a result line (details of 15 in
-build/chip_smoke_knobs.json, of 16 in build/chip_smoke_versions.json, of
-17 in build/chip_smoke_sgn_options.json, of 18 in
+and 18, `--phase 19` phases 1 and 19, `--phase 20` phases 1, 2 and 20,
+`--phase 21` phases 1, 2 and 21; none prints a result line (details of
+15 in build/chip_smoke_knobs.json, of 16 in
+build/chip_smoke_versions.json, of 17 in
+build/chip_smoke_sgn_options.json, of 18 in
 build/chip_smoke_sgn_transformer.json, of 19 in
 build/chip_smoke_sgn_temporal.json, of 20 in
-build/chip_smoke_parallel.json).
+build/chip_smoke_parallel.json, of 21 in build/chip_smoke_openpose.json).
 
-The last lines of standard output are the `kernels` JSON line, the
-card's `nvidia-smi` name and power limit, and
-{"ok": true, "device": {...}}. Details go to build/chip_smoke.json.
+The last lines of standard output are the `kernels` JSON line (each
+kernel's V = 15 sums and launches under "v15"), the card's `nvidia-smi`
+name and power limit, and {"ok": true, "device": {...}}. Details go to
+build/chip_smoke.json.
 """
 
 import contextlib
@@ -323,10 +344,10 @@ try:
         cuda_time_ms, da1_fp32_layers, log, nvidia_smi_line,
         phase_bwd_kernels, report_da1_fp32_build)
     from agcn_tpu_torch.tools.fwd_check import (
-        fp32_layers, fwd_entry, phase_dx, phase_fwd_kernels,
+        SERVE_BATCH, fp32_layers, fwd_entry, phase_dx, phase_fwd_kernels,
         report_fp32_build, spilling)
     from agcn_tpu_torch.tools.logits_check import (
-        logits_close, logits_entry, logits_spills, phase_logits,
+        logits_close, logits_entry, logits_spills, logits_sums, phase_logits,
         report_build)
 except ImportError as e:
     print(f"chip_smoke: the port is not importable here ({e}); run from a "
@@ -358,16 +379,17 @@ SEQ = 300
 TICK_FRAMES = 10
 
 
-def make_streams(np):
-    """Seeded synthetic skeleton streams: (S, frames, M, 1, V, C)."""
+def make_streams(np, v=25):
+    """Seeded synthetic skeleton streams of V joints: (S, frames, M, 1, V,
+    C)."""
     rng = np.random.default_rng(SEED)
     frames = SEQ + 12 * TICK_FRAMES
-    base = rng.standard_normal((STREAMS, 1, PERSONS, 1, 25, 3)) * 0.3
+    base = rng.standard_normal((STREAMS, 1, PERSONS, 1, v, 3)) * 0.3
     base[:, :, 1] += np.array([1.0, 0.0, 0.5])  # second body beside
-    phase = rng.uniform(0, 2 * np.pi, (STREAMS, 1, PERSONS, 1, 25, 3))
+    phase = rng.uniform(0, 2 * np.pi, (STREAMS, 1, PERSONS, 1, v, 3))
     tt = np.arange(frames)[None, :, None, None, None, None]
     motion = 0.1 * np.sin(tt * 0.15 + phase)
-    noise = rng.standard_normal((STREAMS, frames, PERSONS, 1, 25, 3)) * 0.01
+    noise = rng.standard_normal((STREAMS, frames, PERSONS, 1, v, 3)) * 0.01
     return (base + motion + noise).astype(np.float32)
 
 
@@ -420,10 +442,10 @@ def check_answers(np, answers, num_class):
                   and 0 <= label < num_class, "malformed answer")
 
 
-def serve_streams(torch, np, models, summary, label, num_class):
-    """Serve the 16 streams with each model (fp32, bf16) through
-    BatchedStreamServer: a warm-up tick, 4 sync and 4 pipelined ticks,
-    then the last tick's input through the model directly, whose
+def serve_streams(torch, np, models, summary, label, num_class, v=25):
+    """Serve the 16 streams of V joints with each model (fp32, bf16)
+    through BatchedStreamServer: a warm-up tick, 4 sync and 4 pipelined
+    ticks, then the last tick's input through the model directly, whose
     probabilities the served ones must equal. Every batched tick must run
     pre_normalization in C++ (one `native.pre_normalize` call a tick).
     Returns the forwards run, the card's logits per dtype, and that
@@ -432,17 +454,18 @@ def serve_streams(torch, np, models, summary, label, num_class):
     from agcn_tpu_torch.infer.preprocess import InferencePreprocessor
     from agcn_tpu_torch.infer.serving import BatchedStreamServer
 
-    seq = make_streams(np)
+    seq = make_streams(np, v)
     forwards = 0
     x_check = None
     card_logits = {}
     for dname, model in models.items():
         server = BatchedStreamServer(model, max_streams=STREAMS,
-                                     max_seq_length=SEQ)
+                                     num_joint=v, max_seq_length=SEQ)
         shadows = []
         for sid in range(STREAMS):
             check(server.add_stream() == sid, "stream ids")
-            shadows.append(InferencePreprocessor(max_seq_length=SEQ))
+            shadows.append(InferencePreprocessor(num_joint=v,
+                                                 max_seq_length=SEQ))
         for i in range(SEQ):
             for sid in range(STREAMS):
                 server.append_frame(sid, seq[sid, i])
@@ -479,7 +502,9 @@ def serve_streams(torch, np, models, summary, label, num_class):
                            f"{perr:.2e}")
         tick_ms = {"sync": sync_s / 4 * 1e3, "pipelined": pipe_s / 4 * 1e3}
         prep_ms = {"sync": sync_prep, "pipelined": pipe_prep}
-        numpy_ms = summary["host_data"]["pre_normalization_ms"]["numpy"]
+        # phase 6's figure (absent when a phase runs alone)
+        numpy_ms = summary.get("host_data", {}).get(
+            "pre_normalization_ms", {}).get("numpy", float("nan"))
         summary[f"{label}_serve_{dname}"] = dict(
             tick_ms=tick_ms, prep_ms=prep_ms, cpp_pre_normalize=cpp_calls,
             numpy_pre_normalization_ms=numpy_ms,
@@ -776,15 +801,15 @@ def phase_main_path(torch, np, summary):
     return launches, state, args, models, x_check
 
 
-def dense_streams(np, frames):
-    """The model input of the first `frames` frames of every stream, as
-    the server prepares it."""
+def dense_streams(np, frames, v=25):
+    """The model input of the first `frames` frames of every stream (V
+    joints), as the server prepares it."""
     from agcn_tpu_torch.infer.preprocess import InferencePreprocessor
 
-    seq = make_streams(np)
+    seq = make_streams(np, v)
     out = []
     for sid in range(STREAMS):
-        pp = InferencePreprocessor(max_seq_length=SEQ)
+        pp = InferencePreprocessor(num_joint=v, max_seq_length=SEQ)
         for f in seq[sid, :frames]:
             pp.append(f)
         out.append(pp.dense_input())
@@ -855,9 +880,7 @@ def phase_aagcn_serving(torch, np, summary):
     entry point on the theta/phi each layer of a served forward produces,
     against attention_logits(emb, 'transposed') in fp32."""
     from agcn_tpu_torch.models.registry import build_model
-    from agcn_tpu_torch.ops import gcn as gcn_ops
     from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel
-    from agcn_tpu_torch.ops.kernels import logits_kernel
     from agcn_tpu_torch.utils.config import load_config
 
     cfg = load_config(AAGCN_CONFIG)
@@ -891,8 +914,22 @@ def phase_aagcn_serving(torch, np, summary):
           f"aagcn launch counts {launches} != {LAYERS} layers x {forwards}")
     check_against_cpu(torch, np, cfg.model, args, state, x_check,
                       card_logits, summary, "aagcn")
+    logits_launches, worst = logits_on_served_embeddings(torch, models,
+                                                         x_check)
+    summary.update(aagcn_launches=launches, aagcn_forwards=forwards,
+                   logits_served=dict(launches=logits_launches,
+                                      max_err_over_scale=worst))
+    return launches, logits_launches, state, args, models, x_check
 
-    # the logits kernel's entry point on the served forward's embeddings
+
+def logits_on_served_embeddings(torch, models, x_check):
+    """The logits kernel's entry point on the theta/phi that each layer of
+    one served forward of each model produces, against
+    attention_logits(emb, 'transposed') in fp32 at 1e-5 of the scale:
+    LAYERS launches a forward. Returns (launches, worst err / scale)."""
+    from agcn_tpu_torch.ops import gcn as gcn_ops
+    from agcn_tpu_torch.ops.kernels import logits_kernel
+
     x = torch.from_numpy(x_check).cuda()
     embs = {d: capture_embeddings(torch, m, x) for d, m in models.items()}
     logits_kernel.attention_logits_pallas.launches = 0
@@ -908,8 +945,8 @@ def phase_aagcn_serving(torch, np, summary):
                 want = gcn_ops.attention_logits(emb.float(), k, ce,
                                                 "transposed")
             ok, err, scale = logits_close(got, want)
-            check(ok, f"served {dname} T={t} Ce={ce}: logits kernel off "
-                      f"the transposed form by {err:.3e} (scale "
+            check(ok, f"served {dname} V={v} T={t} Ce={ce}: logits kernel "
+                      f"off the transposed form by {err:.3e} (scale "
                       f"{scale:.3e})")
             worst = max(worst, err / scale)
     logits_launches = logits_kernel.attention_logits_pallas.launches
@@ -917,10 +954,7 @@ def phase_aagcn_serving(torch, np, summary):
         f"{logits_launches} launches, max err {worst:.2e} of the scale")
     check(logits_launches == LAYERS * len(embs),
           f"logits launches {logits_launches} != {LAYERS} x {len(embs)}")
-    summary.update(aagcn_launches=launches, aagcn_forwards=forwards,
-                   logits_served=dict(launches=logits_launches,
-                                      max_err_over_scale=worst))
-    return launches, logits_launches, state, args, models, x_check
+    return logits_launches, worst
 
 
 # kernel-name substrings -> group of the device-time breakdown, first
@@ -1065,10 +1099,16 @@ def train_model(torch, cfg, form, dname, device="cuda"):
                        generator=torch.Generator().manual_seed(SEED))
 
 
-def train_batch(np, n, seed, num_class=60):
+def train_batch(np, n, seed, num_class=60, v=25):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((n, 3, SEQ, 25, PERSONS)).astype(np.float32)
+    x = rng.standard_normal((n, 3, SEQ, v, PERSONS)).astype(np.float32)
     return x, rng.integers(0, num_class, n)
+
+
+def joints(cfg):
+    """The recipe's joint count (the NTU skeleton's 25 unless it names
+    another)."""
+    return cfg.model_args.get("num_point", 25)
 
 
 def make_step(torch, cfg, model, steps_per_epoch=1, keep=None, sam_rho=0.0,
@@ -1124,7 +1164,7 @@ def phase_train_vs_cpu(torch, np, cfg, summary, label):
         ReluProbe, condition_bn, grad_errors, plain_versions_on_the_card,
         relu_probe)
 
-    x, y = train_batch(np, 4, SEED + 4)
+    x, y = train_batch(np, 4, SEED + 4, v=joints(cfg))
     ref = train_model(torch, cfg, "pallas", "float32")
     condition_bn(ref, SEED + 6)
     liven_attention(torch, ref, SEED + 12)
@@ -1198,15 +1238,16 @@ def phase_train_vs_cpu(torch, np, cfg, summary, label):
         card_vs_cpu=[list(r) for r in cpu[:5]])
 
 
-def phase_train_main_path(torch, np, cfg, summary, label):
+def phase_train_main_path(torch, np, cfg, summary, label, time_steps=0):
     """(c) Ten bf16 steps of the recipe's `pallas` model at batch 64 on
     one repeated batch: the loss must fall, and each step must launch
-    gcn_fwd 20 times (10 forwards, 10 dx) and gcn_bwd 10 times."""
+    gcn_fwd 20 times (10 forwards, 10 dx) and gcn_bwd 10 times. Then
+    `time_steps` more, timed (ms a step, seq/s, peak memory)."""
     from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel
 
     model = train_model(torch, cfg, "pallas", "bfloat16")
     step = make_step(torch, cfg, model)
-    x, y = train_batch(np, TRAIN_BATCH, SEED + 7)
+    x, y = train_batch(np, TRAIN_BATCH, SEED + 7, v=joints(cfg))
     x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
     gcn_fused.adaptive_gcn_pallas.launches = 0
     gcn_kernel.fused_gcn.launches = 0
@@ -1227,6 +1268,20 @@ def phase_train_main_path(torch, np, cfg, summary, label):
           f"{label}: launch counts {launches} for {TRAIN_STEPS} steps")
     summary[f"{label}_train_losses"] = losses
     summary[f"{label}_train_launches"] = launches
+    if time_steps:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(time_steps):
+            step(x, y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / time_steps
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        summary[f"{label}_train_speed"] = dict(
+            ms_per_step=ms, seq_per_s=TRAIN_BATCH / ms * 1e3, peak_gib=peak,
+            timed_steps=time_steps)
+        log(f"  {label} (c) {time_steps} more steps: {ms:.2f} ms/step, "
+            f"{TRAIN_BATCH / ms * 1e3:.1f} seq/s, peak {peak:.2f} GiB")
     return launches
 
 
@@ -1343,15 +1398,15 @@ def run_entry_point(args, timeout=600, module="agcn_tpu_torch.main",
 
 
 def serve_checkpoint(np, tmp, cfg_path, weights, max_frame=SEQ,
-                     normalize_calls=1):
+                     normalize_calls=1, v=25):
     """`python -m agcn_tpu_torch.infer --serve 16 --pipeline --max-frame
-    <max_frame>` on 16 recordings of 4 ticks with the trainer's checkpoint
-    `weights`: every stream answered at every tick, `normalize_calls` C++
-    pre_normalize calls a tick (one for the batched dense prep, one a
-    stream for SGN's per-stream rows)."""
+    <max_frame>` on 16 recordings (V joints) of 4 ticks with the trainer's
+    checkpoint `weights`: every stream answered at every tick,
+    `normalize_calls` C++ pre_normalize calls a tick (one for the batched
+    dense prep, one a stream for SGN's per-stream rows)."""
     rec = os.path.join(tmp, "recordings")
     os.makedirs(rec)
-    seq = make_streams(np)[:, :4 * TICK_FRAMES]
+    seq = make_streams(np, v)[:, :4 * TICK_FRAMES]
     for sid in range(STREAMS):
         np.save(os.path.join(rec, f"cam{sid:02d}.npy"),
                 np.transpose(seq[sid, :, :, 0], (3, 0, 2, 1)))
@@ -1381,7 +1436,7 @@ def phase_train_cli(np, summary, config, label, resume=True,
                     formulation="pallas", launches_per_step=(2 * LAYERS,
                                                              LAYERS),
                     serve=False, max_frame=SEQ, test_config=None, steps=2,
-                    **model_args):
+                    in_process=False, **model_args):
     """(b) The entry point on a config derived from the recipe `config`:
     synthetic data, batch 64, T=300, bf16, `formulation` (none for a model
     without one) and `model_args`. Train and evaluate one epoch of `steps`
@@ -1393,7 +1448,9 @@ def phase_train_cli(np, summary, config, label, resume=True,
     agcn_tpu_torch.infer --serve 16 --max-frame <max_frame>` serves that
     checkpoint to 16 recordings, 4 ticks each. With `test_config`,
     `--phase test` runs that recipe (its test feeder pointed at the
-    data), else the training config."""
+    data), else the training config. With `in_process`, the training
+    epochs run through the entry point's `main` in this process too (no
+    interpreter start). The data has the recipe's joint count."""
     import pickle
 
     import yaml
@@ -1402,12 +1459,20 @@ def phase_train_cli(np, summary, config, label, resume=True,
 
     with open(config) as f:
         recipe = yaml.safe_load(f)
+    v = recipe["model_args"].get("num_point", 25)
     epochs = 2 if resume else 1
+
+    def train(args):
+        if not in_process:
+            return run_entry_point(args)
+        with contextlib.redirect_stdout(io.StringIO()):
+            entry_point(args)
+
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
         for split, n in (("train", steps * TRAIN_BATCH),
                          ("val", TRAIN_BATCH)):
-            x, y = train_batch(np, n, SEED + 9 + n)
+            x, y = train_batch(np, n, SEED + 9 + n, v=v)
             paths[split] = (os.path.join(tmp, f"{split}_data.npy"),
                             os.path.join(tmp, f"{split}_label.pkl"))
             np.save(paths[split][0], x)
@@ -1434,12 +1499,12 @@ def phase_train_cli(np, summary, config, label, resume=True,
             yaml.safe_dump(recipe, f)
         ckpt = os.path.join(work, "checkpoints")
         log(f"  {label} (b) train + eval + save, epoch 1")
-        run_entry_point(["--config", cfg_path])
+        train(["--config", cfg_path])
         if resume:
             log("      resume from epoch_1 for epoch 2")
-            run_entry_point(["--config", cfg_path, "--weights",
-                             os.path.join(ckpt, "epoch_1.pt"),
-                             "--start-epoch", "1", "--num-epoch", "2"])
+            train(["--config", cfg_path, "--weights",
+                   os.path.join(ckpt, "epoch_1.pt"), "--start-epoch", "1",
+                   "--num-epoch", "2"])
         test_path = cfg_path
         if test_config:
             with open(test_config) as f:
@@ -1466,7 +1531,7 @@ def phase_train_cli(np, summary, config, label, resume=True,
             right = len(f.readlines())
         if serve:
             served = serve_checkpoint(np, tmp, cfg_path, os.path.join(
-                ckpt, f"epoch_{epochs}.pt"), max_frame=max_frame)
+                ckpt, f"epoch_{epochs}.pt"), max_frame=max_frame, v=v)
             summary[f"{label}_cli_served"] = served
     trains = [m for m in metrics if m["kind"] == "train"]
     evals = [m for m in metrics if m["kind"] == "eval"]
@@ -4392,14 +4457,122 @@ def phase_parallel(torch, np, smi, summary):
     return {k: cli.get(k, 0) + steps[k] for k in steps}
 
 
+# -- phase 21: the 15-joint OpenPose recipes on the V = 15 kernels --
+
+OPENPOSE_DIR = os.path.join(REPO, "configs", "openpose_b25_j15_xview")
+OPENPOSE_CONFIGS = {
+    "agcn": os.path.join(OPENPOSE_DIR, "train_joint.yaml"),
+    "aagcn": os.path.join(OPENPOSE_DIR, "train_joint_aagcn.yaml")}
+
+
+def openpose_serving(torch, np, cfg, label, summary):
+    """(a) The recipe's model at full width with `formulation: pallas`
+    (AAGCN also `eval_formulation`), seeded weights (AGCN's BN and PA as
+    phase 7's, AAGCN's as phase 10's: a live attention branch, BN
+    statistics from a train-mode forward), serving 16 streams of the
+    recipe's joints in fp32 and bf16: LAYERS gcn_fwd launches a forward,
+    card against CPU at phase 7's bars, and the device time of one bf16
+    served forward by kernel group; AAGCN's served embeddings through the
+    logits kernel's entry point (LAYERS launches a forward). Returns
+    (gcn_fwd launches, logits launches)."""
+    from agcn_tpu_torch.models.registry import build_model
+    from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel
+
+    v = joints(cfg)
+    args = dict(cfg.model_args, formulation="pallas")
+    if cfg.model == "aagcn":
+        args["eval_formulation"] = "pallas"
+    ref = build_model(cfg.model, args, device="cuda",
+                      generator=torch.Generator().manual_seed(SEED))
+    if cfg.model == "aagcn":
+        prepare_aagcn_eval(torch, np, ref, dense_streams(np, SEQ, v),
+                           SEED + 1)
+    else:
+        randomize_eval_state(torch, ref, SEED + 1)
+    state = {k: t.detach().clone() for k, t in ref.state_dict().items()}
+    del ref
+    models = {}
+    for dname in ("float32", "bfloat16"):
+        m = build_model(cfg.model, args, device="cuda",
+                        dtype=getattr(torch, dname))
+        m.load_state_dict(state, strict=True)
+        models[dname] = m.eval()
+    reset_launches()
+    forwards, card_logits, x_check = serve_streams(
+        torch, np, models, summary, label, args["num_class"], v)
+    launches = {"adaptive_gcn_pallas": gcn_fused.adaptive_gcn_pallas.launches,
+                "fused_gcn": gcn_kernel.fused_gcn.launches}
+    log(f"  {label} launches {launches} for {forwards} forwards")
+    check(launches == {"adaptive_gcn_pallas": LAYERS * forwards,
+                       "fused_gcn": 0},
+          f"{label} launch counts {launches} != {LAYERS} layers x "
+          f"{forwards}")
+    check_against_cpu(torch, np, cfg.model, args, state, x_check,
+                      card_logits, summary, label)
+    phase_profile(torch, {"bfloat16": models["bfloat16"]}, x_check, summary,
+                  label)
+    logits = 0
+    if cfg.model == "aagcn":
+        logits, worst = logits_on_served_embeddings(torch, models, x_check)
+        summary[f"{label}_logits_served"] = dict(launches=logits,
+                                                 max_err_over_scale=worst)
+    summary[f"{label}_serve_launches"] = dict(launches, forwards=forwards,
+                                              logits=logits)
+    return launches["adaptive_gcn_pallas"], logits
+
+
+def phase_openpose(torch, np, smi, summary):
+    """Phase 21: the 15-joint OpenPose recipes, configs/
+    openpose_b25_j15_xview/train_joint.yaml (AGCN) and
+    train_joint_aagcn.yaml (AAGCN: adaptive, attention, 10 blocks), at
+    full width and T = 300 with `formulation: pallas`, through the GCN
+    kernels at V = 15: (a) serving (`openpose_serving`); (b) one step at
+    batch 4 card against CPU (phase 9 (a)'s bars, the CPU's ReLU masks
+    replayed), 10 bf16 steps at batch 64 with 20 gcn_fwd and 10 gcn_bwd
+    launches a step, 5 more timed; (c) the entry point `main` (in this
+    process) trains and evaluates one epoch of 2 steps on synthetic 15-joint
+    data, bf16 as shipped (20 gcn_fwd and 10 gcn_bwd launches a step),
+    `--phase test` reproduces its top-1, and `python -m
+    agcn_tpu_torch.infer --serve 16` serves the checkpoint. Returns the
+    launch counts by path."""
+    from agcn_tpu_torch.utils.config import load_config
+
+    t21 = time.perf_counter()
+    out = {}
+    for family, path in OPENPOSE_CONFIGS.items():
+        label = f"openpose_{family}"
+        cfg = load_config(path)
+        check(joints(cfg) == 15 and cfg.model == family,
+              f"{path}: {cfg.model} with {joints(cfg)} joints")
+        log(f"  {label}: {os.path.relpath(path, REPO)}")
+        serve, logits = openpose_serving(torch, np, cfg, label, summary)
+        phase_train_vs_cpu(torch, np, cfg, summary, label)
+        train = phase_train_main_path(torch, np, cfg, summary, label,
+                                      time_steps=5)
+        phase_train_cli(np, summary, path, label, resume=False, serve=True,
+                        in_process=True,
+                        **({"eval_formulation": "pallas"}
+                           if family == "aagcn" else {}))
+        cli = {k: sum(m["launches"][k]
+                      for m in summary[f"{label}_train_cli"]["train"])
+               for k in train}
+        out[label] = dict(serve=serve, logits=logits, train=train, cli=cli)
+    summary["openpose_launches"] = out
+    summary["openpose_phase_s"] = time.perf_counter() - t21
+    summary["openpose_smi"] = smi
+    log(f"  phase 21 in {summary['openpose_phase_s']:.1f} s ({smi})")
+    return out
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only not in ("14", "15", "16", "17", "18", "19", "20"):
+    if argv and only not in ("14", "15", "16", "17", "18", "19", "20",
+                             "21"):
         print("usage: python3 chip_smoke.py "
-              "[--phase 14|15|16|17|18|19|20]", file=sys.stderr)
+              "[--phase 14|15|16|17|18|19|20|21]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -4416,14 +4589,14 @@ def main(argv=None):
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/20] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/21] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     if only == "14":
-        log("[14/20] the SGN recipe alone (phase 14)")
+        log("[14/21] the SGN recipe alone (phase 14)")
         phase_sgn(torch, np, summary)
         return 0
     if only == "17":
-        log("[17/20] SGN's v11-v13 options, the MMD loss and sgn_original "
+        log("[17/21] SGN's v11-v13 options, the MMD loss and sgn_original "
             "alone (phase 17)")
         phase_sgn_options(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4433,7 +4606,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "18":
-        log("[18/20] SGN's transformer (train_sgn_transformer.yaml, "
+        log("[18/21] SGN's transformer (train_sgn_transformer.yaml, "
             "train_sgn_v15.yaml) and SGN serving alone (phase 18)")
         phase_sgn_transformer(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4443,7 +4616,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "19":
-        log("[19/20] SGN raw generation (sgn-raw) and SGN's temporal-branch "
+        log("[19/21] SGN raw generation (sgn-raw) and SGN's temporal-branch "
             "options alone (phase 19)")
         phase_sgn_temporal(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4455,9 +4628,9 @@ def main(argv=None):
     if only == "15":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/20] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/21] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[15/20] the trainer's run knobs alone (phase 15)")
+        log("[15/21] the trainer's run knobs alone (phase 15)")
         phase_knobs(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
@@ -4467,9 +4640,9 @@ def main(argv=None):
     if only == "20":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/20] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/21] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[20/20] data-parallel training and the edge partition alone "
+        log("[20/21] data-parallel training and the edge partition alone "
             "(phase 20)")
         summary["phase20_launches"] = phase_parallel(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4478,12 +4651,26 @@ def main(argv=None):
                   "w") as f:
             json.dump(summary, f, indent=1)
         return 0
+    if only == "21":
+        t0 = time.perf_counter()
+        built = build.build_all()
+        log(f"[2/21] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+            "s")
+        log("[21/21] the 15-joint OpenPose recipes (AGCN, AAGCN) on the "
+            "V = 15 kernels alone (phase 21)")
+        phase_openpose(torch, np, smi, summary)
+        out_dir = os.path.join(REPO, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_openpose.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=1)
+        return 0
     if only == "16":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/20] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/21] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[16/20] BN folding, the apply_gcn forms, the AAGCN versions "
+        log("[16/21] BN folding, the apply_gcn forms, the AAGCN versions "
             "alone (phase 16)")
         summary["phase16_launches"] = phase_versions(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4496,7 +4683,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/20] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/21] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -4512,7 +4699,7 @@ def main(argv=None):
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/20] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/21] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -4527,16 +4714,29 @@ def main(argv=None):
     log("  fp32 per layer (gcn_fwd_fp32_kernel, ms)")
     summary.update(kernel_rows=rows, dx_rows=dx_rows,
                    fp32_fwd_layers=fp32_layers(rows, dx_rows))
+    log("  the same at V = 15 (the OpenPose skeleton)")
+    with torch.inference_mode():
+        rows15 = phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel, 15)
+        dx_rows15 = phase_dx(torch, np, gcn_fused, 15)
+    log("  fp32 per layer at V = 15 (gcn_fwd_fp32_kernel, ms)")
+    summary.update(kernel_rows_v15=rows15, dx_rows_v15=dx_rows15,
+                   fp32_fwd_layers_v15=fp32_layers(rows15, dx_rows15))
 
-    log("[4/20] gcn_bwd vs its plain version at the training shapes "
+    log("[4/21] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
     log("  fp32 da1 per layer (gcn_da1_fp32_kernel, ms)")
     summary.update(bwd_rows=bwd_rows,
                    fp32_da1_layers=da1_fp32_layers(bwd_rows))
+    log("  the same at V = 15 (the OpenPose skeleton)")
+    with torch.inference_mode():
+        bwd_rows15 = phase_bwd_kernels(torch, np, gcn_fused, 15)
+    log("  fp32 da1 per layer at V = 15 (gcn_da1_fp32_kernel, ms)")
+    summary.update(bwd_rows_v15=bwd_rows15,
+                   fp32_da1_layers_v15=da1_fp32_layers(bwd_rows15))
 
-    log("[5/20] attention-logits kernel vs plain version at the served "
+    log("[5/21] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -4544,9 +4744,12 @@ def main(argv=None):
         "device time alone with the calls queued ahead of the card")
     with torch.inference_mode():
         logits_rows = phase_logits(torch, np, logits_kernel)
-    summary["logits_rows"] = logits_rows
+        log("  the same at V = 15 (the OpenPose skeleton; the kernel's "
+            "general tile)")
+        logits_rows15 = phase_logits(torch, np, logits_kernel, v=15)
+    summary.update(logits_rows=logits_rows, logits_rows_v15=logits_rows15)
 
-    log("[6/20] host data path: the C++ host kernels "
+    log("[6/21] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -4554,11 +4757,11 @@ def main(argv=None):
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/20] AGCN serving main path: 16 streams through "
+    log("[7/21] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/20] AGCN: device time of one served forward by kernel group; "
+    log("[8/21] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -4566,7 +4769,7 @@ def main(argv=None):
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/20] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/21] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -4575,19 +4778,19 @@ def main(argv=None):
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/20] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/21] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/20] AAGCN: device time of one served forward by kernel group; "
+    log("[11/21] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/20] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/21] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -4597,7 +4800,7 @@ def main(argv=None):
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/20] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/21] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -4615,34 +4818,34 @@ def main(argv=None):
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
-    log("[14/20] SGN recipe (no port kernel on its path, as in the JAX "
+    log("[14/21] SGN recipe (no port kernel on its path, as in the JAX "
         "package): train_sgn.yaml at full width on synthetic SGN pickles "
         "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
         "the entry points with 5-crop eval")
     phase_sgn(torch, np, summary)
 
-    log("[15/20] the trainer's run knobs: one fp32 SAM step of the pallas "
+    log("[15/21] the trainer's run knobs: one fp32 SAM step of the pallas "
         "AGCN, kernels against plain versions; the entry point on "
         "train_joint.yaml with SAM, the profiler, async checkpoints, then "
         "auto-resume; train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml "
         "through the entry point")
     sam_launches = phase_knobs(torch, np, smi, summary)
 
-    log("[16/20] BN folding on the served pallas AGCN and AAGCN forwards "
+    log("[16/21] BN folding on the served pallas AGCN and AAGCN forwards "
         "(gcn_fwd and the logits kernel counted); the apply_gcn forms "
         "against 'agg'; the AAGCN v31 recipe (train_joint_aagcn_v31.yaml, "
         "T=60: card against CPU, 10 SGD steps, speed, the entry points); "
         "v17, v24, v30, v32 and v34 against the CPU")
     v16 = phase_versions(torch, np, smi, summary)
 
-    log("[17/20] SGN's v11-v13 options, the MMD loss and sgn_original (no "
+    log("[17/21] SGN's v11-v13 options, the MMD loss and sgn_original (no "
         "port kernel on their path, as in the JAX package): v11, v12, "
         "v13_gt4 and sgn_original card against CPU; one v12 step with the "
         "MMD loss card against CPU; 10 Adam steps of v12 (batch 128) and "
         "v13_gt4 (64), speed; train_sgn_v12.yaml through the entry points")
     v17 = phase_sgn_options(torch, np, summary)
 
-    log("[18/20] SGN's transformer (no port kernel on its path, as in the "
+    log("[18/21] SGN's transformer (no port kernel on its path, as in the "
         "JAX package): train_sgn_transformer.yaml and train_sgn_v15.yaml "
         "card against CPU, one v15 step card against CPU, 10 Adam steps "
         "each, speed, the entry points (train, --phase test, --serve 16); "
@@ -4650,7 +4853,7 @@ def main(argv=None):
         "card against CPU")
     v18 = phase_sgn_transformer(torch, np, summary)
 
-    log("[19/20] SGN raw generation and SGN's temporal-branch options (no "
+    log("[19/21] SGN raw generation and SGN's temporal-branch options (no "
         "port kernel on their path, as in the JAX package): python -m "
         "agcn_tpu_torch.data.gen sgn-raw on a synthetic raw tree, its "
         "NTU_CV pickles through the entry points; t_mode 2-5, t_mha_kwargs, "
@@ -4658,7 +4861,7 @@ def main(argv=None):
         "widths card against CPU, one Adam step each")
     v19 = phase_sgn_temporal(torch, np, summary)
 
-    log("[20/20] data-parallel training: train_joint.yaml's pallas AGCN "
+    log("[20/21] data-parallel training: train_joint.yaml's pallas AGCN "
         "through torchrun (one rank: an NCCL group, DDP, SyncBN) against the "
         "plain entry point, --phase test on the DDP checkpoint; the DDP "
         "step's ms and NCCL kernels; model_edge_gcn, the edge aggregate and "
@@ -4670,6 +4873,13 @@ def main(argv=None):
         json.dump({k: summary[k] for k in (
             "parallel_cli", "parallel_steps", "parallel_phase_s",
             "parallel_smi")}, f, indent=1)
+
+    log("[21/21] the 15-joint OpenPose recipes on the V = 15 kernels: "
+        "openpose_b25_j15_xview/train_joint.yaml (AGCN) and "
+        "train_joint_aagcn.yaml (AAGCN), formulation pallas: 16 streams "
+        "card against CPU, one step card against CPU, 10 bf16 steps, the "
+        "entry points (train, --phase test, --serve 16)")
+    v21 = phase_openpose(torch, np, smi, summary)
 
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
@@ -4686,6 +4896,14 @@ def main(argv=None):
                     "aagcn_train": aagcn_train_launches["gcn_bwd"],
                     "agcn_sam_train": sam_launches["gcn_bwd"],
                     "agcn_ddp_train": v20["gcn_bwd"]}
+    # the V = 15 paths of phase 21: served forwards, the ten steps, the
+    # entry point's epoch
+    for label, n in v21.items():
+        fwd_launches[f"{label}_serve"] = n["serve"]
+        fwd_launches[f"{label}_train"] = (n["train"]["gcn_fwd_round_agg"]
+                                          + n["cli"]["gcn_fwd_round_agg"])
+        bwd_launches[f"{label}_train"] = (n["train"]["gcn_bwd"]
+                                          + n["cli"]["gcn_bwd"])
     kernels = [
         fwd_entry(rows, True, "bfloat16", sum(fwd_launches.values()),
                   "gcn_fwd (aggregate rounded to x's type)",
@@ -4695,7 +4913,8 @@ def main(argv=None):
                   "agcn_tpu/ops/pallas/gcn_kernel.py:27"),
         bwd_entry(bwd_rows, sum(bwd_launches.values())),
         logits_entry(logits_rows, logits_launches
-                     + v16["aagcn_folded_serve"]["logits"]),
+                     + v16["aagcn_folded_serve"]["logits"]
+                     + v21["openpose_aagcn"]["logits"]),
     ]
     kernels[0]["launches_by_path"] = fwd_launches
     kernels[1]["launches_by_path"] = {
@@ -4704,7 +4923,8 @@ def main(argv=None):
     kernels[2]["launches_by_path"] = bwd_launches
     kernels[3]["launches_by_path"] = {
         "aagcn_serve": logits_launches,
-        "aagcn_folded_serve": v16["aagcn_folded_serve"]["logits"]}
+        "aagcn_folded_serve": v16["aagcn_folded_serve"]["logits"],
+        "openpose_aagcn_serve": v21["openpose_aagcn"]["logits"]}
     # each kernel's count on the transformer's paths, as phase 13 read it:
     # the served ticks; the ten steps and the entry point's epoch (whose
     # log counts the three GCN kernels)
@@ -4740,6 +4960,27 @@ def main(argv=None):
     kernels[2]["float32"] = {
         k: v for k, v in bwd_entry(bwd_rows, 0, "float32").items()
         if k not in same}
+    # and at V = 15 (the OpenPose skeleton), both types: the same sums
+    # over phases 3-5's V = 15 rows, the launches of phase 21's paths
+    v15_launches = (
+        sum(n for p, n in fwd_launches.items() if p.startswith("openpose")),
+        0,
+        sum(n for p, n in bwd_launches.items() if p.startswith("openpose")),
+        v21["openpose_aagcn"]["logits"])
+    for i, (round_agg, dx) in enumerate(((True, dx_rows15), (False, None))):
+        kernels[i]["v15"] = {d: {
+            k: v for k, v in fwd_entry(rows15, round_agg, d, 0, "", "",
+                                       dx).items() if k not in same}
+            for d in ("bfloat16", "float32")}
+    kernels[2]["v15"] = {d: {
+        k: v for k, v in bwd_entry(bwd_rows15, 0, d, 15).items()
+        if k not in same} for d in ("bfloat16", "float32")}
+    kernels[3]["v15"] = {d: dict(logits_sums(logits_rows15, SERVE_BATCH, d),
+                                 per="one served forward (10 layers, 32 "
+                                     "samples, T=300, V=15)")
+                         for d in ("bfloat16", "float32")}
+    for entry, n in zip(kernels, v15_launches):
+        entry["v15"]["launches"] = n
     summary.update(kernels=kernels, device=kind, nvidia_smi=smi,
                    seconds=time.perf_counter() - t_start)
     log(f"  all phases in {summary['seconds']:.1f} s")

@@ -87,7 +87,8 @@ def _close(got, want):
 @pytest.mark.parametrize("t,c,co,v", [(48, 16, 32, 25), (50, 64, 64, 25),
                                       (24, 128, 128, 25), (20, 3, 64, 25),
                                       (7, 200, 72, 25), (30, 64, 128, 18),
-                                      (20, 3, 64, 18)])
+                                      (20, 3, 64, 18), (30, 64, 128, 15),
+                                      (20, 3, 64, 15), (75, 256, 256, 15)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("round_agg", [True, False])
 def test_kernel_matches_plain(cuda, t, c, co, v, dtype, round_agg):
@@ -133,7 +134,8 @@ def _exact_inputs(dev, b, t, c, co, v=25, seed=4, dtype=torch.bfloat16):
 _MMA_SHAPES = [(48, 16, 32, 25), (50, 64, 64, 25), (24, 128, 128, 25),
                (20, 3, 64, 25), (7, 200, 72, 25), (30, 64, 128, 18),
                (20, 3, 64, 18), (30, 64, 3, 25), (75, 64, 64, 25),
-               (11, 20, 37, 25)]
+               (11, 20, 37, 25), (30, 64, 128, 15), (20, 3, 64, 15),
+               (30, 64, 3, 15), (11, 20, 37, 15)]
 
 
 @pytest.mark.parametrize("round_agg", [True, False])
@@ -184,13 +186,15 @@ def test_bf16_runs_on_the_tensor_cores_kernel(cuda, round_agg):
 
 
 # ragged fp32 shapes (t, c, co, v) for gcn_fwd_fp32_kernel: T off its
-# frame tile (10 or 5 at V = 25, 14 or 7 at V = 18, 40 or 56 at Co <= 8),
+# frame tile (10 or 5 at V = 25, 14 or 7 at V = 18, 17 or 8 at V = 15,
+# 40, 56 or 68 at Co <= 8),
 # C off its 16-channel chunk and C = 3, Co = 3 (the 8-channel tile), 37,
 # 64, 96 and 256 (the 64- and 128-channel tiles, off the 4-wide stores)
 _FP32_SHAPES = [(23, 3, 64, 25), (23, 20, 37, 25), (31, 64, 3, 25),
                 (17, 36, 96, 25), (13, 200, 256, 25), (30, 3, 37, 18),
                 (45, 20, 64, 18), (61, 64, 3, 18), (9, 36, 96, 18),
-                (16, 128, 256, 18)]
+                (16, 128, 256, 18), (35, 3, 37, 15), (19, 20, 64, 15),
+                (71, 64, 3, 15), (9, 36, 96, 15), (17, 128, 256, 15)]
 
 
 @pytest.mark.parametrize("t,c,co,v", _FP32_SHAPES)
@@ -217,7 +221,8 @@ def test_fp32_path_is_deterministic(cuda, t, c, co):
 
 @pytest.mark.parametrize("round_agg", [True, False])
 @pytest.mark.parametrize("t,c,co,v", [(23, 20, 37, 25), (30, 3, 64, 18),
-                                      (31, 64, 3, 25), (17, 36, 96, 25)])
+                                      (31, 64, 3, 25), (17, 36, 96, 25),
+                                      (19, 20, 37, 15)])
 def test_bf16_x_with_fp32_a1_matches_plain(cuda, t, c, co, v, round_agg):
     """bf16 x and W with fp32 a1 (no model builds it; the entry point
     takes it): within the bf16 bar of the plain version of each mode."""
@@ -304,7 +309,9 @@ def _cotangent(dev, b, t, co, dtype, v=25, seed=3):
 @pytest.mark.parametrize("t,c,co,v", [(48, 16, 32, 25), (50, 64, 64, 25),
                                       (24, 128, 128, 25), (20, 3, 64, 25),
                                       (7, 200, 72, 25), (30, 64, 128, 18),
-                                      (37, 64, 96, 25), (37, 3, 64, 18)])
+                                      (37, 64, 96, 25), (37, 3, 64, 18),
+                                      (37, 64, 96, 15), (37, 3, 64, 15),
+                                      (75, 256, 256, 15)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gcn_bwd_matches_plain(cuda, t, c, co, v, dtype):
     x, a1, w = _inputs(cuda, 3, t, c, co, dtype, v=v)
@@ -371,7 +378,9 @@ def test_gcn_bwd_spans_row_groups(cuda, b, t, c, co, dtype):
 @pytest.mark.parametrize("b,t,c,co,v", [(3, 37, 3, 64, 25),
                                         (3, 13, 20, 37, 18),
                                         (2, 20, 64, 64, 25),
-                                        (2, 11, 128, 96, 25)])
+                                        (2, 11, 128, 96, 25),
+                                        (3, 37, 3, 64, 15),
+                                        (2, 17, 20, 37, 15)])
 def test_gcn_bwd_fp32_dw_bit_for_bit_on_integers(cuda, b, t, c, co, v):
     """fp32 integer inputs whose every dW sum is exact in fp32 in any
     order (sum |x| |u| < 2^24, checked): the CUDA-core GEMM over u formed
@@ -431,7 +440,9 @@ def _unrounded_bwd(x, a1, w, g, round_u, round_p):
 # entry layer (sums over more terms, whose rounding errors may cancel)
 @pytest.mark.parametrize("b,t,c,co,v,shows", [(2, 8, 64, 16, 25, True),
                                               (2, 37, 96, 72, 18, False),
-                                              (3, 37, 3, 64, 25, False)])
+                                              (3, 37, 3, 64, 25, False),
+                                              (2, 8, 64, 16, 15, True),
+                                              (2, 37, 96, 72, 15, False)])
 def test_gcn_bwd_rounding_points_in_bf16(cuda, b, t, c, co, v, shows):
     """Integer inputs whose every sum is exact in fp32 in any order: the
     kernel equals the plain version bit for bit, and dropping the
@@ -455,13 +466,14 @@ def test_gcn_bwd_rounding_points_in_bf16(cuda, b, t, c, co, v, shows):
         assert (no_p[1] != da1).float().mean() > 0.2
 
 
-# (b, t, c, co, v): T off the 5- and 7-frame tiles, the C = 3 entry
+# (b, t, c, co, v): T off the 5-, 7- and 8-frame tiles, the C = 3 entry
 # layer (4-channel chunks), C = 20 (a ragged 16-channel chunk), Co = 37
 # (off the 64-channel chunk and the 4-wide copies) and 96 (two chunks,
-# the second ragged), V = 18
+# the second ragged), V = 18 and 15
 _DA1_FP32_SHAPES = [(3, 37, 3, 64, 25), (3, 13, 20, 37, 18),
                     (2, 23, 20, 96, 25), (2, 30, 64, 96, 18),
-                    (4, 11, 128, 37, 25)]
+                    (4, 11, 128, 37, 25), (3, 37, 3, 64, 15),
+                    (2, 23, 20, 96, 15), (4, 11, 128, 37, 15)]
 
 
 @pytest.mark.parametrize("b,t,c,co,v", _DA1_FP32_SHAPES)
@@ -495,10 +507,10 @@ def test_gcn_bwd_fp32_da1_bit_for_bit_on_integers(cuda, b, t, c, co, v):
     assert torch.equal(da1, gcn_fused.gcn_da1_plain(x, w, g))
 
 
-@pytest.mark.parametrize("v", [25, 18])
+@pytest.mark.parametrize("v", [25, 18, 15])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_da1_tiling_fits_two_blocks_an_sm(cuda, dtype, v):
-    """The library's da1 tiling: 5- or 7-frame tiles in fp32 (128 rows of
+    """The library's da1 tiling: 5-, 7- or 8-frame tiles in fp32 (128 rows of
     (t, v) at most), 4 in bf16, and an SM of this card holds two blocks
     at both C chunks (the kernels' __launch_bounds__(256, 2))."""
     bf16 = dtype == torch.bfloat16
@@ -613,6 +625,77 @@ def test_agcn_train_step_on_card_matches_cpu(cuda, form):
     for name, want in ref_after.items():
         torch.testing.assert_close(after[name], want, atol=2e-4, rtol=0,
                                    msg=name)
+
+
+@pytest.mark.parametrize("family", ["agcn", "aagcn"])
+def test_openpose_models_on_card_match_cpu(cuda, family):
+    """The models of the 15-joint OpenPose recipes (graph
+    openpose_b25_j15, `formulation: pallas`; AAGCN also `eval_formulation`
+    and cut to 3 blocks) on the card against the CPU, with BN statistics
+    from a train-mode forward: eval logits within 1e-4 of the logit scale;
+    one step's loss 1e-4 relative and every gradient within
+    `grad_errors`' bar at 1e-3, the card replaying the CPU's ReLU masks
+    (its ReLU inputs within 1e-3 of their layer's mean |input|)."""
+    from agcn_tpu_torch.models.registry import build_model
+    from agcn_tpu_torch.ops.norm import BatchNorm
+    from agcn_tpu_torch.tools.grad_parity import (ReluProbe, grad_errors,
+                                                  relu_probe)
+    from agcn_tpu_torch.train import losses, optim
+    from agcn_tpu_torch.train.steps import make_train_step
+
+    args = dict(num_class=7, num_point=15, graph="openpose_b25_j15",
+                formulation="pallas")
+    if family == "aagcn":
+        args.update(eval_formulation="pallas", model_layers=3)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 40, 15, 2)).astype(
+        np.float32))
+    y = torch.from_numpy(np.array([1, 5]))
+    ref = build_model(family, args, device="cpu",
+                      generator=torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(2)
+    norms = [m for m in ref.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        for name, p in ref.named_parameters():
+            if name.endswith(".alpha") or name.endswith("bn.weight"):
+                p.copy_(torch.rand(p.shape, generator=g) + 0.5)
+            elif ".conv_ta." in name or ".fc2c." in name:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        for m in norms:
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        ref.train()(x)
+        for m in norms:  # the batch statistics of that forward
+            m.running_mean.div_(0.1)
+            m.running_var.sub_(0.9).div_(0.1).clamp_(min=1e-3)
+    state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    out, cpu_probe = {}, None
+    for dev in (torch.device("cpu"), cuda):
+        model = build_model(family, args, device=dev)
+        model.load_state_dict(state, strict=True)
+        with torch.no_grad():
+            logits = model.eval()(x.to(dev)).cpu()
+        raw = {}
+        opt = optim.SGDNesterov(model.parameters(),
+                                optim.warmup_step_schedule(0.1, 1, []))
+        step = make_train_step(
+            model.train(), losses.cross_entropy, opt,
+            grad_transform=lambda m: raw.update(
+                (n, p.grad.double().cpu().clone())
+                for n, p in m.named_parameters()))
+        probe = ReluProbe(ref=cpu_probe, keep_inputs=cpu_probe is None)
+        with relu_probe(probe):
+            loss = step(x.to(dev), y.to(dev))["loss"].item()
+        cpu_probe = cpu_probe or probe
+        out[dev.type] = (logits, loss, raw)
+    (logits, loss, grads), (want, ref_loss, ref_grads) = (out["cuda"],
+                                                          out["cpu"])
+    assert logits.shape == (2, 7)
+    assert (logits - want).abs().max() <= 1e-4 * want.abs().max()
+    assert probe.input_diff <= 1e-3
+    assert loss == pytest.approx(ref_loss, rel=1e-4)
+    worst = grad_errors(grads, ref_grads, 1e-3)[0]
+    assert worst[0] <= 1.0, worst
 
 
 def _logits_views(dev, b, t, v, ce, dtype, seed, integers=False):

@@ -3,7 +3,8 @@
 On the card, gcn_bwd's fp32 da1 is `gcn_da1_fp32_kernel`
 (agcn_tpu_torch/ops/csrc/gcn_bwd.cu), which sums in an order of its own:
 each sample's frames in groups of whole tiles of 128 // V frames (5 at
-V = 25, 7 at V = 18; the library's `Da32Tile<V>::TT`); per tile and 64-channel o chunk, p =
+V = 25, 7 at V = 18, 8 at V = 15; the library's `Da32Tile<V>::TT`); per
+tile and 64-channel o chunk, p =
 x W_k over input-channel chunks (16, or 4 for C <= 8), each of 256
 threads adding into a 4 x 8 register tile (four rows 32 apart x two
 column quads 32 channels apart), c in order; p stored into p_s, g staged
@@ -46,15 +47,17 @@ THREADS, ROWS_P, CHUNK = 256, 128, 64
 # (B, T, C, Co, V): T off the tile at every shape; C = 20 (a ragged
 # 16-channel chunk), C = 3 (4-channel chunks), C = 36 (three chunks);
 # Co = 37 (off the chunk and the 4-wide copies) and 96 (two chunks, the
-# second ragged); V = 25 and 18
+# second ragged); V = 25, 18 and 15 (the 5 x 5 tile over 3 x 3 tiles,
+# 144 of the 256 threads)
 SHAPES = [(2, 13, 20, 37, 25), (2, 12, 3, 64, 25), (1, 11, 36, 96, 25),
-          (2, 15, 20, 37, 18), (1, 16, 3, 96, 18)]
+          (2, 15, 20, 37, 18), (1, 16, 3, 96, 18), (2, 17, 20, 37, 15),
+          (1, 12, 3, 96, 15)]
 
 
 def _tiling(v):
     """Da32Tile<V> of gcn_bwd.cu: (frames of a tile, register-tile side,
     tiles along v, channel parts of a chunk)."""
-    vt, parts = (5, 2) if v == 25 else (6, 4)
+    vt, parts = (6, 4) if v == 18 else (5, 2)
     return ROWS_P // v, vt, v // vt, parts
 
 
@@ -228,7 +231,8 @@ def test_da1_fp32_groups_fill_the_card_within_the_tiles():
 
 
 @pytest.mark.parametrize("b,t,v", [(128, 300, 25), (128, 75, 25),
-                                   (2, 37, 18), (48, 13, 25), (1, 3, 18)])
+                                   (2, 37, 18), (48, 13, 25), (1, 3, 18),
+                                   (128, 300, 15), (2, 9, 15)])
 def test_da1_fp32_groups_are_whole_tiles_within_t(b, t, v):
     """Each group is a non-empty range of whole tiles that starts inside
     T, and the groups cover every frame once, in order."""
@@ -254,9 +258,9 @@ class _Tiling:
         return frames, 1000 * v + c, self.blocks if v == self.short_v else 2
 
 
-@pytest.mark.parametrize("short_v", [None, 25, 18])
+@pytest.mark.parametrize("short_v", [None, 25, 18, 15])
 def test_bwd_check_holds_the_library_tiling_to_two_blocks_an_sm(short_v):
-    """`check_da1_tiling` asks the library at V = 25 and 18, the narrow
+    """`check_da1_tiling` asks the library at V = 25, 18 and 15, the narrow
     and the wide C chunk, in both types, reports its answers, and fails
     where an SM holds fewer than the two blocks both da1 kernels are
     built for."""
@@ -264,11 +268,11 @@ def test_bwd_check_holds_the_library_tiling_to_two_blocks_an_sm(short_v):
     if short_v is None:
         got = bwd_check.check_da1_tiling(lib)
         assert sorted(lib.asked) == sorted(
-            (v, c, bf16) for v in (25, 18) for c in (3, 64)
+            (v, c, bf16) for v in (25, 18, 15) for c in (3, 64)
             for bf16 in (False, True))
         assert {(r["kernel"], r["frames"]) for r in got} == {
             ("gcn_da1_fp32_kernel", 5), ("gcn_da1_fp32_kernel", 7),
-            ("gcn_da1_mma_kernel", 4)}
+            ("gcn_da1_fp32_kernel", 8), ("gcn_da1_mma_kernel", 4)}
         assert all(r["blocks_per_sm"] == 2 and r["smem"] ==
                    1000 * r["v"] + r["c"] for r in got)
     else:

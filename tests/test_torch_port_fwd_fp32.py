@@ -40,11 +40,13 @@ THREADS = 256
 SMEM_SM = 233472  # shared memory of an H100 SM, bytes (1 KB a block reserved)
 
 # (B, T, C, Co, V): every tile of the kernel (OT = 64, 128 and the
-# 8-channel one; CC = 16 and 4; V = 25 and 18) with ragged frame tiles,
-# a ragged last C chunk and Co off the tile and off the 4-wide stores
+# 8-channel one; CC = 16 and 4; V = 25, 18 and 15) with ragged frame
+# tiles, a ragged last C chunk and Co off the tile and off the 4-wide
+# stores
 SHAPES = [(2, 8, 16, 32, 25), (2, 23, 3, 64, 25), (2, 45, 64, 3, 25),
           (1, 15, 20, 37, 18), (1, 11, 36, 96, 25), (1, 9, 24, 200, 18),
-          (1, 60, 7, 5, 18)]
+          (1, 60, 7, 5, 18), (1, 19, 20, 37, 15), (1, 9, 24, 200, 15),
+          (1, 70, 7, 5, 15)]
 
 
 def _emulated(x, a1, w, round_agg=True, bf16=False):
@@ -177,7 +179,7 @@ def test_emulation_of_bf16_x_with_fp32_a1(b, t, c, co, v, round_agg):
     assert torch.equal(torch.from_numpy(got).to(torch.bfloat16), want)
 
 
-@pytest.mark.parametrize("v", [25, 18])
+@pytest.mark.parametrize("v", [25, 18, 15])
 def test_fp32_tiles_fill_two_blocks_an_sm(v):
     """Every tile launch_fp32_tile takes, in both x types, leaves room for
     two blocks an SM (the kernel's __launch_bounds__(256, 2)); rows fill
