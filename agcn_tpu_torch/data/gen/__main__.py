@@ -18,10 +18,10 @@ data_gen/openpose/openpose_b25_j15_ntu_gendata.py):
     python -m agcn_tpu_torch.data.gen openpose --data-path raw/ \
         --out-path out/ --benchmark xview --part train
     python -m agcn_tpu_torch.data.gen explore --data-path raw/ --classes 7 8 \
-        --read-frames   # reference data_gen/ntu_explore.py
+        --read-frames --render-sample S001C001P001R001A008.skeleton \
+        --save sample.gif   # reference data_gen/ntu_explore.py
 
-Not ported yet, raising a message that names its ROADMAP item:
-`explore --render-sample` (item 9, utils/visualization.py).
+`--render-sample` draws with matplotlib (utils/visualization.py).
 """
 
 import argparse

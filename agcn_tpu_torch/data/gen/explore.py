@@ -6,9 +6,8 @@ that walks the raw-skeleton corpus, filters by split and class subset,
 and animates chosen samples (pre-normalized) in matplotlib. This version
 is a library function + `python -m agcn_tpu_torch.data.gen explore`
 subcommand that works on either a raw `.skeleton` directory or a
-generated `(N, C, T, V, M)` .npy dataset. Rendering needs
-utils/visualization.py (matplotlib), which the port has not copied yet
-(ROADMAP Queue 1 item 9).
+generated `(N, C, T, V, M)` .npy dataset. Rendering draws with
+utils/visualization.py, which needs matplotlib.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from agcn_tpu_torch.data.gen.ntu import (TRAINING_CAMERAS,
+from agcn_tpu_torch.data.gen.ntu import (MAX_FRAME, TRAINING_CAMERAS,
                                          TRAINING_SUBJECTS,
                                          parse_sample_name, read_xyz)
 
@@ -126,9 +125,21 @@ def render_sample(data_path: str,
                   sample: str,
                   save_path: str,
                   pre_normalize: bool = True) -> str:
-    """Animate one raw sample (agcn_tpu/data/gen/explore.py render_sample):
-    not ported, since it draws with utils/visualization.py (matplotlib)."""
-    raise NotImplementedError(
-        "render_sample draws with utils/visualization.py (matplotlib), "
-        "which the port has not copied yet (ROADMAP Queue 1 item 9: Other "
-        "leftovers)")
+    """Animate one raw sample like the reference explorer: parse, pad to
+    the canonical (1, 3, T <= 300, 25, 2), optionally pre-normalize, save
+    (agcn_tpu/data/gen/explore.py:122-142).
+
+    `sample` is a `.skeleton` filename inside data_path.
+    """
+    from agcn_tpu_torch.data.gen.preprocess import pre_normalization
+    from agcn_tpu_torch.utils.visualization import visualize_skeleton
+
+    xyz = read_xyz(os.path.join(data_path, sample))  # (3, T, V, M)
+    t = min(xyz.shape[1], MAX_FRAME)
+    batch = np.zeros((1, 3, t, 25, 2), dtype=np.float32)
+    batch[0, :, :t] = xyz[:, :t]
+    if pre_normalize:
+        batch = pre_normalization(batch, pad=False)
+    visualize_skeleton(batch, skeleton_name="ntu_rgb_d",
+                       save_path=save_path)
+    return save_path

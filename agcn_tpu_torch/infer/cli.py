@@ -1,28 +1,45 @@
 """Streaming inference CLI of the port (port of the root infer.py).
 
+    # the live demo: one recognizer, the recordings one after another
+    python -m agcn_tpu_torch.infer --config configs/ntu60_xview/test_joint.yaml \
+        --weights agcn_joint.pt --input recordings/ --timing \
+        --save-attention attn/
+    # multi-stream serving
     python -m agcn_tpu_torch.infer --config configs/ntu60_xview/test_joint.yaml \
         --weights agcn_joint.pt --input recordings/ --serve 16 --pipeline \
         --timing
 
-Each file in --input (a directory of `.npy` or `.skeleton` recordings) is
-one live stream; all streams advance in lock-step and every --interval
-frames ONE batched forward answers all of them (infer/serving.py). A model
-whose name holds "sgn" is served as the SGN family (`kind="sgn"`, as the
-root infer.py decides): the recipe's `test_dataloader_args` set its
-segments, `seg` sizes its frame table, and each stream takes
+Without `--serve` (the root infer.py's default mode, infer.py:353-406)
+--input is one `.npy` / `.skeleton` recording or a directory of them,
+streamed in mtime order (with `--follow`, new files as they appear) frame
+by frame through one `ActionRecognition`, whose buffer runs on from one
+file into the next; every --interval frames of a file it predicts and
+prints `frame {i}: class {name} p={p:.3f}` (and ` ({ms:.1f} ms)` with
+--timing), writes `{i},{label},{p:.6f}` to `--out-folder`/results.txt,
+and with `--save-attention DIR` draws the first block's graph of the
+prediction (`last_attention[0]`) into `DIR/{file}_f{i}_g0.png`
+(utils/visualization.py; matplotlib, checked when the arguments are).
+
+With `--serve N` each file in --input (a directory) is one live stream;
+all streams advance in lock-step and every --interval frames ONE batched
+forward answers all of them (infer/serving.py).
+
+A model whose name holds "sgn" runs as the SGN family (`kind="sgn"`, as
+the root infer.py decides): the recipe's `test_dataloader_args` set its
+segments, `seg` sizes its frame table, and each prediction takes
 `--multi-test` crops (the recipe's `multi_test` by default), whose logits
-are averaged. The single-stream mode of the root infer.py is not ported
-yet (ROADMAP).
-Weights are a reference `.pt` state dict or the JAX package's npz/pickle
-checkpoints (utils/weights.py). The model runs on `--device`, `cuda`
-unless named.
+are averaged. Weights are a reference `.pt` state dict or the JAX
+package's npz/pickle checkpoints (utils/weights.py). The model runs on
+`--device`, `cuda` unless named.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -56,6 +73,31 @@ def discover_weights(work_dir: str) -> str:
     if not cands:
         raise FileNotFoundError(f"no checkpoints under {work_dir}")
     return sorted(cands)[-1][1]
+
+
+def iter_stream_files(path: str, follow: bool, poll_s: float = 0.5,
+                      max_idle_s: Optional[float] = None):
+    """Yield input files: a single file, or every recording in a
+    directory in mtime order; with `follow`, keep polling for new ones
+    (the live demo loop), until `max_idle_s` seconds pass without one
+    (None: forever)."""
+    if os.path.isfile(path):
+        yield path
+        return
+    seen = set()
+    idle = 0.0
+    while True:
+        fresh = scan_new_files(path, seen)
+        for e in fresh:
+            idle = 0.0
+            yield e
+        if not follow:
+            return
+        if not fresh:
+            idle += poll_s
+            if max_idle_s is not None and idle >= max_idle_s:
+                return
+            time.sleep(poll_s)
 
 
 def scan_new_files(path: str, seen: set):
@@ -216,6 +258,63 @@ def _serve(args, model, kind="dense", sgn_dataloader_args=None,
             f.close()
 
 
+def _single_stream(args, model, kind="dense", sgn_dataloader_args=None,
+                   labels=None):
+    """The live demo loop (see the module docstring)."""
+    from agcn_tpu_torch.infer.realtime import ActionRecognition
+
+    rec = ActionRecognition(
+        model, kind=kind, num_joint=args.num_joint,
+        max_seq_length=args.max_frame, moving_avg=args.moving_avg,
+        max_person=args.max_num_skeleton,
+        num_skels=args.max_num_skeleton_true,
+        normalize=args.aagcn_normalize, multi_test=args.multi_test,
+        allowed_classes=args.allowed_classes,
+        sgn_dataloader_args=sgn_dataloader_args,
+        expose_attention=bool(args.save_attention))
+    out_f = None
+    if args.out_folder:
+        os.makedirs(args.out_folder, exist_ok=True)
+        out_f = open(os.path.join(args.out_folder, "results.txt"), "w")
+    if args.save_attention:
+        from agcn_tpu_torch.utils.visualization import plot_attention
+
+        os.makedirs(args.save_attention, exist_ok=True)
+    try:
+        for src in iter_stream_files(args.input, args.follow,
+                                     max_idle_s=args.max_idle):
+            tag = os.path.splitext(os.path.basename(src))[0]
+            if os.path.isdir(args.input):
+                print(f"== {src}", flush=True)
+            for i, frame in enumerate(load_frames(src)):
+                rec.append_frame(frame.astype(np.float32))
+                if (i + 1) % args.interval:
+                    continue
+                label, probs = rec.predict()
+                name = labels[label] if labels and label < len(labels) \
+                    else str(label)
+                line = f"frame {i + 1}: class {name} p={probs[label]:.3f}"
+                if args.timing:
+                    line += f" ({rec.last_latency_ms:.1f} ms)"
+                print(line, flush=True)
+                if out_f:
+                    out_f.write(f"{i + 1},{label},{probs[label]:.6f}\n")
+                if args.save_attention:
+                    if not rec.last_attention:
+                        raise RuntimeError(
+                            f"--save-attention: {type(model).__name__} "
+                            "exposes no graph to draw (no unit records "
+                            "one, and no SGN G list)")
+                    # the reference live demo's G heatmap
+                    # (inference_220802.py:518-560)
+                    plot_attention(rec.last_attention[0], save_path=(
+                        os.path.join(args.save_attention,
+                                     f"{tag}_f{i + 1}_g0.png")))
+    finally:
+        if out_f:
+            out_f.close()
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m agcn_tpu_torch.infer")
     p.add_argument("--config", required=True)
@@ -225,12 +324,18 @@ def main(argv=None):
                    help="auto-discover the newest checkpoint under this "
                         "work dir")
     p.add_argument("--input", required=True,
-                   help="a directory of .skeleton/.npy recordings")
+                   help="a .skeleton/.npy recording, or a directory of "
+                        "them")
     p.add_argument("--follow", action="store_true",
-                   help="keep watching --input for new files")
+                   help="keep watching --input (a directory) for new "
+                        "files")
     p.add_argument("--max-idle", type=float, default=None,
                    help="with --follow: exit after this many seconds "
                         "without new files (default: poll forever)")
+    p.add_argument("--save-attention", type=str, default=None,
+                   help="without --serve: draw each prediction's first "
+                        "block graph as a png heatmap into this "
+                        "directory (needs matplotlib)")
     p.add_argument("--interval", type=int, default=10,
                    help="predict every N frames")
     p.add_argument("--timing", action="store_true")
@@ -251,7 +356,8 @@ def main(argv=None):
     p.add_argument("--label-mapping-file", type=str, default=None,
                    help="text file: one class name per line")
     p.add_argument("--out-folder", type=str, default=None,
-                   help="write per-frame predictions into this directory")
+                   help="write per-frame predictions into this directory "
+                        "(results.txt, or with --serve results_<stream>.txt)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
@@ -267,10 +373,15 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not args.weights and not args.weights_dir:
         p.error("--weights or --weights-dir required")
-    if args.serve < 1:
-        p.error("--serve N is required: the port serves multi-stream only")
-    if not os.path.isdir(args.input):
+    if args.serve and not os.path.isdir(args.input):
         p.error("--serve requires --input to be a directory")
+    if args.save_attention:
+        if args.serve:
+            p.error("--save-attention draws the single-stream mode's "
+                    "predictions; drop --serve")
+        if importlib.util.find_spec("matplotlib") is None:
+            p.error("--save-attention draws with matplotlib, which is not "
+                    "installed")
 
     from agcn_tpu_torch.models.registry import build_model
     from agcn_tpu_torch.train.checkpoint import load_checkpoint
@@ -301,5 +412,6 @@ def main(argv=None):
     if args.label_mapping_file:
         with open(args.label_mapping_file) as f:
             labels = [ln.strip() for ln in f if ln.strip()]
-    return _serve(args, model, kind=kind, sgn_dataloader_args=sgn_args,
-                  labels=labels)
+    run = _serve if args.serve else _single_stream
+    return run(args, model, kind=kind, sgn_dataloader_args=sgn_args,
+               labels=labels)

@@ -6,20 +6,24 @@ Parity target: reference infer/inference.py (ActionRecognition :47-113,
 class-subset logit filtering :24-44, multi-crop averaging :103-106): a
 streaming wrapper that appends per-frame skeletons, prepares model input,
 runs the forward on the model's device, and emits (label,
-probabilities). The attention output of the JAX recognizer
-(`expose_attention`) waits in ROADMAP Queue 1 item 9.
+probabilities); with `expose_attention` it also keeps each block's graph
+of the last predict (`last_attention`, the reference live demo's G
+heatmaps, infer/inference_220802.py:518-560).
 """
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from agcn_tpu_torch.data.sgn_collate import SegmentSampler
 from agcn_tpu_torch.infer.preprocess import InferencePreprocessor
+from agcn_tpu_torch.models.exposure import recording_graphs
 
 
 def filter_logits(logits: np.ndarray,
@@ -48,7 +52,17 @@ class ActionRecognition:
     SGN model (`kind="sgn"`) takes `multi_test` crops of the segments the
     recipe's `sgn_dataloader_args` set (their own `multi_test` yields to
     the argument), drawn from `default_rng(0)`, and averages their
-    logits."""
+    logits.
+
+    `last_attention` is what the JAX recognizer keeps
+    (agcn_tpu/infer/realtime.py:86-114), as float32 numpy: with
+    `expose_attention`, the (K, V, V) graph a1 of each block that records
+    one (models/exposure.py), of sample 0, in the order of JAX's sorted
+    intermediates (l1, l10, l2, ..., l9 for the unrolled blocks; block
+    order for `scan_blocks`); and for an SGN model, whether or not
+    `expose_attention` is set, its G list (`aux["g"]`), each entry the
+    whole batch's (B, T, V, V), as JAX takes `g[0]` of each (G, aux) pair
+    of its list. `last_latency_ms` includes these host copies."""
 
     def __init__(self,
                  model: torch.nn.Module,
@@ -61,7 +75,8 @@ class ActionRecognition:
                  normalize: bool = True,
                  multi_test: int = 1,
                  allowed_classes: Optional[Sequence[int]] = None,
-                 sgn_dataloader_args: Optional[Dict] = None):
+                 sgn_dataloader_args: Optional[Dict] = None,
+                 expose_attention: bool = False):
         if kind not in ("dense", "sgn"):
             raise ValueError(f"kind {kind!r}: 'dense' or 'sgn'")
         self.model = model.eval()
@@ -81,7 +96,13 @@ class ActionRecognition:
             max_person=max_person, moving_avg=moving_avg,
             sgn_sampler=sampler)
         self.rng = np.random.default_rng(0)
+        self.expose_attention = expose_attention
+        # JAX's SGN always returns (logits, aux); the port's returns its
+        # aux only when asked
+        params = inspect.signature(model.forward).parameters
+        self._aux = {"return_aux": True} if "return_aux" in params else {}
         self.last_latency_ms = 0.0
+        self.last_attention: Optional[List[np.ndarray]] = None
 
     def append_frame(self, frame: np.ndarray):
         """frame: (M, 1, V, C) joints for the current timestep."""
@@ -98,10 +119,20 @@ class ActionRecognition:
         else:
             x = self.preproc.dense_input(self.num_skels,
                                          normalize=self.normalize)
+        record = (recording_graphs(self.model) if self.expose_attention
+                  else contextlib.nullcontext([]))
         with torch.inference_mode():
-            out = self.model(torch.from_numpy(x).to(self.device))
+            with record as graphs:
+                out = self.model(torch.from_numpy(x).to(self.device),
+                                 **self._aux)
+            if graphs:  # one (B, K, V, V) a block -> sample 0's
+                self.last_attention = list(torch.stack(
+                    [g[0] for g in graphs]).float().cpu().numpy())
         if isinstance(out, tuple):  # (logits, aux)
-            out = out[0]
+            out, aux = out[0], out[1]
+            if isinstance(aux, dict) and aux.get("g"):
+                self.last_attention = [g.float().cpu().numpy()
+                                       for g in aux["g"]]
         logits = out.float().cpu().numpy()
         if self.multi_test > 1:
             logits = logits.reshape(-1, self.multi_test,

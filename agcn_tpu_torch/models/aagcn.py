@@ -25,7 +25,7 @@ the training `formulation` (agcn_tpu aagcn.py:160-162): unlike AGCN, a
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -127,7 +127,10 @@ class AdaptiveGCN(nn.Module):
     reference does. With an `edge_mesh` whose 'edge' axis has more than
     one rank the aggregation is edge-partitioned over it
     (parallel/edge_partition.model_edge_gcn; aagcn.py:147-155), in train
-    and eval mode."""
+    and eval mode. Inside `models.exposure.recording_graphs` it records
+    its a1 (the JAX unit's sown 'g')."""
+
+    graph_record: Optional[List[torch.Tensor]] = None
 
     def __init__(self, in_channels: int, inter_channels: int,
                  adj: np.ndarray, conv_d: nn.ModuleList,
@@ -176,6 +179,8 @@ class AdaptiveGCN(nn.Module):
         # softmax over the source joint in fp32, back to the compute dtype
         att = torch.softmax(logits.float(), dim=-2).to(compute.dtype)
         a1 = self.PA[None].to(att.dtype) + att * self.alpha.to(att.dtype)
+        if self.graph_record is not None:
+            self.graph_record.append(a1)
 
         w_stack = _cast(torch.stack([m.weight.view(-1, in_c).t()
                                      for m in self.conv_d]), self.dtype)

@@ -22,7 +22,7 @@ updating the BN running statistics a second time.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,8 +45,11 @@ class UnitGCN(nn.Module):
     """Adaptive graph convolution over K spatial subsets.
 
     y = BN( sum_k W_k ( x @ (A_k + PA_k + C_k(x)) ) ) + down(x), then ReLU.
-    Parity: reference agcn.py:53-109.
+    Parity: reference agcn.py:53-109. Inside `models.exposure.
+    recording_graphs` it records its a1 (the JAX unit's sown 'g').
     """
+
+    graph_record: Optional[List[torch.Tensor]] = None
 
     def __init__(self, in_channels: int, out_channels: int, adj: np.ndarray,
                  coff_embedding: int = 4,
@@ -107,6 +110,8 @@ class UnitGCN(nn.Module):
         # softmax over the source joint in fp32, back to the compute dtype
         att = torch.softmax(logits.float(), dim=-2).to(compute.dtype)
         a1 = att + (self.A + self.PA)[None].to(att.dtype)  # (B, K, V, V)
+        if self.graph_record is not None:
+            self.graph_record.append(a1)
 
         w_stack = _cast(torch.stack([m.weight.view(-1, in_c).t()
                                      for m in self.conv_d]), self.dtype)
@@ -194,6 +199,15 @@ BACKBONE_PLAN: Tuple[Tuple[int, int, bool], ...] = (
     (256, 2, True), (256, 1, True), (256, 1, True),
 )
 
+# the JAX model's `scan_blocks` groups (agcn_tpu/models/agcn.py:326-340):
+# homogeneous blocks scanned by nn.scan, their parameters stacked on a
+# leading axis under `<group>.block`, to cut XLA's compile time. The
+# port's eager model has no compile to cut and builds the unrolled
+# blocks; utils/weights.py unstacks such a checkpoint into them.
+SCAN_GROUPS: Dict[str, Tuple[str, ...]] = {
+    "l2_4": ("l2", "l3", "l4"), "l6_7": ("l6", "l7"),
+    "l9_10": ("l9", "l10")}
+
 
 class AGCN(nn.Module):
     """The full AGCN classifier. Parity: reference agcn.py:132-183.
@@ -208,6 +222,7 @@ class AGCN(nn.Module):
     whose 'edge' axis has more than one rank, each unit's aggregation is
     partitioned over it (parallel/edge_partition.model_edge_gcn), unless
     `use_pallas` takes the unit first, as in the JAX model.
+    `scan_blocks=True` builds the same ten blocks (see `SCAN_GROUPS`).
     """
 
     def __init__(self, num_class: int = 60, num_point: int = 25,
@@ -224,15 +239,15 @@ class AGCN(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        if scan_blocks:
-            raise NotImplementedError(
-                "scan_blocks stacks the block parameters on a leading axis "
-                "(a layout the reference state dict does not have); the "
-                "port runs the unrolled model only")
         if adj is None:
             raise ValueError("adj: the (K, V, V) adjacency stack is required")
         self.remat = remat
         self.dtype = dtype
+        # scan_blocks: the same ten blocks; only the order of the graphs
+        # the units record follows the JAX model's scanned groups
+        self.scan_groups: Dict[str, Tuple[str, int]] = (
+            {block: (group, i) for group, blocks in SCAN_GROUPS.items()
+             for i, block in enumerate(blocks)} if scan_blocks else {})
         self.data_bn = BatchNorm(num_person * num_point * in_channels)
         common = dict(dtype=self.dtype, use_pallas=use_pallas,
                       formulation=formulation, attn_form=attn_form,

@@ -6,8 +6,12 @@ builds.
 Models are selected by short name; the reference's dotted paths for the
 ported models are aliased so its config files work unchanged. Graph
 construction (the `graph`/`graph_args` model args) resolves through
-agcn_tpu_torch.graph. A name the JAX package does not build raises
-KeyError, as in the JAX package; `_WAITING` would list a JAX model that
+agcn_tpu_torch.graph. Any other dotted path that does not start with
+`model.` is a user plug-in: the torch `nn.Module` class (or factory) it
+names is imported and built with `cls(**model_args)`, as the JAX package
+builds a flax one (`import_class`, agcn_tpu/models/registry.py:80-87,
+210-212). A name the JAX package does not build raises KeyError, as in
+the JAX package; `_WAITING` would list a JAX model that
 the port lacked, with the ROADMAP item it waits in (none is left).
 `edge_mesh` (a parallel.Mesh) reaches AGCN and AAGCN only; the other
 models, the SGN names and unaliased dotted paths raise JAX's ValueError.
@@ -28,7 +32,7 @@ from agcn_tpu_torch.models.agcn import AGCN
 from agcn_tpu_torch.models.sgn import SGN
 from agcn_tpu_torch.models.sgn_original import SGNOriginal
 from agcn_tpu_torch.models.sgn_transformer import SGNTransformer
-from agcn_tpu_torch.utils.device import DEFAULT_DEVICE
+from agcn_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 _SGN_VERSIONS = ("v11", "v12", "v13", "v14")
 _ALIASES = {
@@ -157,6 +161,15 @@ def sgn_transformer_args(model_args: Dict[str, Any]) -> Dict[str, Any]:
     return args
 
 
+def import_class(name: str):
+    """Dotted-path class loader (reference utils/utils.py:79-84): the
+    plug-in mechanism for user-defined models."""
+    import importlib
+
+    module, _, attr = name.rpartition(".")
+    return getattr(importlib.import_module(module), attr)
+
+
 def build_model(name: str, model_args: Dict[str, Any],
                 device: Union[str, torch.device, None] = DEFAULT_DEVICE,
                 dtype: Optional[torch.dtype] = None,
@@ -170,7 +183,9 @@ def build_model(name: str, model_args: Dict[str, Any],
     positions, the spatial tokens of the AAGCN versions) and SGN's one-hot
     frames (the loader's `seg`, also the original SGN's and SGN's
     transformer's); the others take any T. `edge_mesh` partitions the
-    GCN aggregation of AGCN and AAGCN over its 'edge' axis."""
+    GCN aggregation of AGCN and AAGCN over its 'edge' axis. A plug-in
+    (a dotted path outside `model.`) is built with `cls(**model_args)`
+    and moved to `device`."""
     key = model_key(name)
     if edge_mesh is not None and (key.startswith("sgn") or "." in key):
         # fail loudly instead of silently replicating compute over the
@@ -185,6 +200,10 @@ def build_model(name: str, model_args: Dict[str, Any],
             raise NotImplementedError(
                 f"model {name!r} is not ported yet: it waits in "
                 f"ROADMAP {item}")
+        if "." in name and not name.startswith("model."):
+            # user plug-in: a dotted path to a torch module class/factory
+            return import_class(name)(**model_args).to(
+                resolve_device(device))
         raise unknown_model(name)
     if cls is SGN:
         args = sgn_args(model_args)

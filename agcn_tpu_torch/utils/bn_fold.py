@@ -20,10 +20,13 @@ training from folded weights trains another model.
 
 The functions take the port's state dict (the reference torch names, as
 `model.state_dict()` gives it) and return a new one; the input is left as
-it is. AAGCN registers a unit's `conv_d` twice, as `gcn1.conv_d.k` and
-`gcn1.agcn.conv_d.k` (the reference's double registration), so its state
-dict holds two keys for each of those tensors: each is folded once, from
-the unit's key, and written under both.
+it is. A `scan_blocks` AGCN has the unrolled model's state dict (its JAX
+checkpoint is unstacked on loading), so it folds as any other, as in
+agcn_tpu/utils/bn_fold.py:77. AAGCN registers a unit's `conv_d` twice, as
+`gcn1.conv_d.k` and `gcn1.agcn.conv_d.k` (the reference's double
+registration), so its state dict holds two keys for each of those
+tensors: each is folded once, from the unit's key, and written under
+both.
 """
 
 from __future__ import annotations
@@ -73,10 +76,13 @@ def _fold_conv(out: Dict[str, torch.Tensor], sd: Mapping[str, torch.Tensor],
 def _blocks(sd: Mapping[str, torch.Tensor]):
     scan = next((key for key in sd if _SCAN.match(key)), None)
     if scan is not None:
-        raise NotImplementedError(
-            f"{scan}: a scan_blocks group (block parameters stacked on a "
-            "leading axis); the port builds the unrolled model only, and "
-            "scan_blocks waits in ROADMAP Queue 1 item 9")
+        # a JAX scan_blocks tree flattened as it is: its leaves are
+        # stacked on a leading axis, and no port model has these names
+        raise ValueError(
+            f"{scan}: a JAX scan_blocks group (block parameters stacked on "
+            "a leading axis); convert the checkpoint with "
+            "utils.weights.agcn_state_dict_from_variables, which unstacks "
+            "it into the blocks of the port's model, and fold that")
     return sorted({m.group(1) for m in map(_BLOCK.match, sd) if m},
                   key=lambda b: int(b[1:]))
 

@@ -107,10 +107,39 @@ def _torch_tensors(out: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
+_SCANNED = re.compile(r"l(\d+)_(\d+)")
+
+
+def _leaf(tree: Any, i: int) -> Any:
+    """Entry i of every leaf's leading axis."""
+    if isinstance(tree, Mapping):
+        return {k: _leaf(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def unstack_scanned_blocks(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A `scan_blocks` AGCN's params or batch_stats with each scanned
+    group (`l2_4`: {"block": ...}, every leaf stacked on a leading axis,
+    agcn_tpu/models/agcn.py:258-283) split into the unrolled model's
+    blocks l2, l3, l4; other entries as they are."""
+    out: Dict[str, Any] = {}
+    for name, sub in tree.items():
+        m = _SCANNED.fullmatch(name)
+        if m is None:
+            out[name] = sub
+            continue
+        for i, block in enumerate(range(int(m[1]), int(m[2]) + 1)):
+            out[f"l{block}"] = _leaf(sub["block"], i)
+    return out
+
+
 def agcn_state_dict_from_variables(variables: Mapping[str, Any],
                                    num_subset: int = 3
                                    ) -> Dict[str, torch.Tensor]:
-    """JAX AGCN variables -> the port's (reference-named) state dict."""
+    """JAX AGCN variables -> the port's (reference-named) state dict. A
+    `scan_blocks` model's stacked groups go into the blocks they stack."""
+    variables = {k: unstack_scanned_blocks(v) if isinstance(v, Mapping)
+                 else v for k, v in variables.items()}
     params = variables["params"]
     stats = _stats(variables)
     out: Dict[str, np.ndarray] = {}

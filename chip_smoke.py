@@ -304,18 +304,39 @@ fails:
    one epoch of 2 steps (bf16, as shipped; its launches 20 + 10 a step),
    `--phase test` reproduces its top-1, and `python -m
    agcn_tpu_torch.infer --serve 16` serves the checkpoint.
+22. The single-stream live demo. (a) `python -m agcn_tpu_torch.infer`
+   without --serve, in its own process on the card, for test_joint.yaml's
+   AGCN and test_joint_aagcn.yaml's AAGCN at full width with
+   `formulation: pallas` (AAGCN also `eval_formulation`), seeded weights
+   as phases 7 and 10 make them, on a directory of two seeded 300-frame
+   recordings (V = 25, M = 2) with --interval 50 --timing --out-folder
+   --max-frame 300 (the CLI computes in fp32, as the root infer.py does):
+   a `== file` line a recording, 12 timed `frame` lines, results.txt's
+   classes those of the CPU on the same inputs and its probabilities
+   within 1e-3 of the logit scale; (b) 10 gcn_fwd (round_agg=1) launches
+   a prediction in that process and no other kernel; the use_pallas AGCN
+   (10 round_agg=0 launches a prediction) and train_sgn.yaml's SGN (no
+   kernel) through the CLI's single-stream mode in this process; (c)
+   ActionRecognition(expose_attention=True) on the card (fp32 and bf16;
+   SGN fp32) against the CPU: the same graphs in length, order and
+   shape, within 1e-3 / 5e-2 of their scale; (d) whether matplotlib is
+   installed, and --save-attention's PNGs or its argument error naming
+   matplotlib; (e) the median predict ms on the card after the first,
+   with and without exposure.
 
 `python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
 minute), `--phase 15` phases 1, 2 (the build) and 15, `--phase 16`
 phases 1, 2 and 16, `--phase 17` phases 1 and 17, `--phase 18` phases 1
 and 18, `--phase 19` phases 1 and 19, `--phase 20` phases 1, 2 and 20,
-`--phase 21` phases 1, 2 and 21; none prints a result line (details of
+`--phase 21` phases 1, 2 and 21, `--phase 22` phases 1, 2 and 22; none
+prints a result line (details of
 15 in build/chip_smoke_knobs.json, of 16 in
 build/chip_smoke_versions.json, of 17 in
 build/chip_smoke_sgn_options.json, of 18 in
 build/chip_smoke_sgn_transformer.json, of 19 in
 build/chip_smoke_sgn_temporal.json, of 20 in
-build/chip_smoke_parallel.json, of 21 in build/chip_smoke_openpose.json).
+build/chip_smoke_parallel.json, of 21 in build/chip_smoke_openpose.json,
+of 22 in build/chip_smoke_single_stream.json).
 
 The last lines of standard output are the `kernels` JSON line (each
 kernel's V = 15 sums and launches under "v15"), the card's `nvidia-smi`
@@ -325,6 +346,7 @@ build/chip_smoke.json.
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -1371,20 +1393,31 @@ def phase_train_speed(torch, np, cfg, summary, label, iters=5,
 
 
 def run_entry_point(args, timeout=600, module="agcn_tpu_torch.main",
-                    stdout=False):
+                    stdout=False, kernels=False):
     """`python -m <module> <args>` in a subprocess, run through runpy as
     `-m` runs it, which then prints the calls of the port's C host kernels
-    (agcn_tpu_torch/native) as its last line; the rest of its output goes
-    to this run's log, and a failure fails the phase. Returns those
-    counts (with `stdout`, and the lines printed before them)."""
+    (agcn_tpu_torch/native) as its last line, with `kernels` also the
+    launch counts of the port's CUDA kernels in that process; the rest of
+    its output goes to this run's log, and a failure fails the phase.
+    Returns those counts (with `stdout`, and the lines printed before
+    them)."""
+    launches = ("from agcn_tpu_torch.ops.kernels import gcn_fused, "
+                "gcn_kernel, logits_kernel\n"
+                "counts.update(gcn_fwd_round_agg="
+                "gcn_fused.adaptive_gcn_pallas.launches, gcn_fwd_fp32_agg="
+                "gcn_kernel.fused_gcn.launches, gcn_bwd="
+                "gcn_fused.gcn_backward.launches, logits="
+                "logits_kernel.attention_logits_pallas.launches)\n"
+                if kernels else "")
     code = ("import json, runpy, sys\n"
             f"sys.argv = [{module!r}] + {list(args)!r}\n"
             f"runpy.run_module({module!r}, run_name='__main__', "
             "alter_sys=True)\n"
             "from agcn_tpu_torch import native\n"
-            "print(json.dumps({'parse_skeleton': native.parse_skeleton.calls,"
+            "counts = {'parse_skeleton': native.parse_skeleton.calls,"
             " 'pre_normalize': native.pre_normalize.calls,"
-            " 'flatten_persons': native.flatten_persons.calls}))\n")
+            " 'flatten_persons': native.flatten_persons.calls}\n"
+            + launches + "print(json.dumps(counts))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=timeout)
     lines = proc.stdout.splitlines()
@@ -4564,15 +4597,377 @@ def phase_openpose(torch, np, smi, summary):
     return out
 
 
+# -- phase 22: the single-stream live demo ---------------------------------
+
+SINGLE_INTERVAL = 50   # (a): frames between predictions, 6 a recording
+SINGLE_TIMED = 20      # (e): timed predictions after the first
+
+
+def single_stream_recordings(np, tmp):
+    """Two seeded 300-frame recordings (V = 25, M = 2), streams 0 and 1 of
+    `make_streams`, as (C, T, V, M) .npy files in a directory, cam0 the
+    older. Returns the directory and the frames, (2, T, M, 1, V, C)."""
+    rec = os.path.join(tmp, "recordings")
+    os.makedirs(rec)
+    seq = make_streams(np)[:2, :SEQ]
+    for i in range(2):
+        path = os.path.join(rec, f"cam{i}.npy")
+        np.save(path, np.transpose(seq[i, :, :, 0], (3, 0, 2, 1)))
+        os.utime(path, (100 + i, 100 + i))
+    return rec, seq
+
+
+def single_stream_state(torch, np, family):
+    """The recipe (test_joint.yaml's AGCN or test_joint_aagcn.yaml's
+    AAGCN) at full width with `formulation: pallas` (AAGCN also
+    `eval_formulation`), seeded weights as phases 7 and 10 make them.
+    Returns (model name, model args, the state dict on the CPU)."""
+    from agcn_tpu_torch.models.registry import build_model
+    from agcn_tpu_torch.utils.config import load_config
+
+    cfg = load_config(CONFIG if family == "agcn" else AAGCN_CONFIG)
+    args = dict(cfg.model_args, formulation="pallas")
+    if family == "aagcn":
+        args["eval_formulation"] = "pallas"
+    ref = build_model(cfg.model, args, device="cuda",
+                      generator=torch.Generator().manual_seed(SEED))
+    if family == "aagcn":
+        prepare_aagcn_eval(torch, np, ref, dense_streams(np, SEQ), SEED + 1)
+    else:
+        randomize_eval_state(torch, ref, SEED + 1)
+    state = {k: v.detach().cpu().clone() for k, v in ref.state_dict().items()}
+    return cfg.model, args, state
+
+
+def single_stream_cpu_answers(torch, np, model_name, args, state, seq):
+    """The CPU's answers at the CLI's predictions: one recognizer buffer
+    through both recordings (the CLI's runs on from one file into the
+    next), the model input at every SINGLE_INTERVAL-th frame of a file,
+    all of them through the plain versions in one CPU forward. Returns
+    (labels, probabilities, logit scale, the CPU model)."""
+    from agcn_tpu_torch.infer.preprocess import InferencePreprocessor
+    from agcn_tpu_torch.models.registry import build_model
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = build_model(model_name, args, device="cpu", num_frame=SEQ)
+    cpu.load_state_dict(state, strict=True)
+    cpu.eval()
+    pp = InferencePreprocessor(max_seq_length=SEQ)
+    xs = []
+    for rec in seq:
+        for i, frame in enumerate(rec):
+            pp.append(frame)
+            if (i + 1) % SINGLE_INTERVAL == 0:
+                xs.append(pp.dense_input())
+    with torch.inference_mode():
+        logits = cpu(torch.from_numpy(np.concatenate(xs))).numpy()
+    probs = torch.softmax(torch.from_numpy(logits), -1).numpy()
+    return probs.argmax(-1), probs, float(np.abs(logits).max()), cpu
+
+
+def single_stream_cli(torch, np, tmp, rec, seq, family, summary):
+    """(a) `python -m agcn_tpu_torch.infer` without --serve, in its own
+    process on the card (the CLI computes in fp32, as the root infer.py
+    does: neither reads the recipe's compute_dtype), on the directory of
+    two recordings with --interval 50 --timing --out-folder: a `== file`
+    line a recording, 6 `frame` lines each with its ms, results.txt's
+    classes those of the CPU and its probabilities within the serving
+    phases' fp32 bar (1e-3 of the logit scale), and (b) 10 gcn_fwd
+    (round_agg=1) launches a prediction and no other kernel. Returns the
+    state (model name, args, state dict, CPU model) and the launches."""
+    import yaml
+
+    model_name, args, state = single_stream_state(torch, np, family)
+    weights = os.path.join(tmp, f"{family}.pt")
+    torch.save(state, weights)
+    cfg_path = os.path.join(tmp, f"{family}.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({"model": model_name, "model_args": args}, f)
+    out_dir = os.path.join(tmp, f"{family}_out")
+    t0 = time.perf_counter()
+    counts, lines = run_entry_point(
+        ["--config", cfg_path, "--weights", weights, "--input", rec,
+         "--interval", str(SINGLE_INTERVAL), "--timing", "--out-folder",
+         out_dir, "--max-frame", str(SEQ)],
+        module="agcn_tpu_torch.infer", stdout=True, kernels=True)
+    cli_s = time.perf_counter() - t0
+    predicts = 2 * SEQ // SINGLE_INTERVAL
+    frames = [ln for ln in lines if ln.startswith("frame ")]
+    heads = [ln for ln in lines if ln.startswith("== ")]
+    check(heads == [f"== {os.path.join(rec, f'cam{i}.npy')}"
+                    for i in range(2)]
+          and len(frames) == predicts
+          and all(re.fullmatch(r"frame \d+: class \d+ p=[0-9.]+ "
+                               r"\([0-9.]+ ms\)", ln) for ln in frames),
+          f"{family} single-stream CLI printed {heads} and {frames}")
+    with open(os.path.join(out_dir, "results.txt")) as f:
+        rows = [ln.strip().split(",") for ln in f if ln.strip()]
+    card_labels = np.array([int(r[1]) for r in rows])
+    card_p = np.array([float(r[2]) for r in rows])
+    check([int(r[0]) for r in rows] == [SINGLE_INTERVAL * (i + 1) for i in
+                                        range(SEQ // SINGLE_INTERVAL)] * 2,
+          f"{family} results.txt frames {[r[0] for r in rows]}")
+    t0 = time.perf_counter()
+    labels, probs, scale, cpu = single_stream_cpu_answers(
+        torch, np, model_name, args, state, seq)
+    cpu_s = time.perf_counter() - t0
+    bar = 1e-3 * max(scale, 1.0)
+    perr = float(np.abs(card_p - probs[np.arange(predicts),
+                                       card_labels]).max())
+    top2 = np.sort(probs, -1)[:, -2:]
+    flips = [i for i in range(predicts) if card_labels[i] != labels[i]
+             and top2[i, 1] - top2[i, 0] > bar]
+    log(f"  {family} (a) CLI: {len(frames)} predictions in {cli_s:.1f} s "
+        f"(the process, the model's build and the load included); card "
+        f"against CPU: probability err {perr:.2e} (bar {bar:.2e}, logit "
+        f"scale {scale:.3f}), classes {card_labels.tolist()} vs "
+        f"{labels.tolist()}; CPU forward of the {predicts} inputs "
+        f"{cpu_s:.1f} s")
+    check(perr <= bar and not flips,
+          f"{family} single-stream CLI answers off the CPU's: probability "
+          f"err {perr:.3e}, classes differ at {flips}")
+    launches = {k: counts[k] for k in ("gcn_fwd_round_agg",
+                                       "gcn_fwd_fp32_agg", "gcn_bwd",
+                                       "logits")}
+    log(f"  {family} (b) launches in the CLI's process: {launches} for "
+        f"{predicts} predictions")
+    check(launches == {"gcn_fwd_round_agg": LAYERS * predicts,
+                       "gcn_fwd_fp32_agg": 0, "gcn_bwd": 0, "logits": 0},
+          f"{family} single-stream launches {launches} != {LAYERS} x "
+          f"{predicts} gcn_fwd (round_agg=1) and nothing else")
+    ms = [float(re.search(r"\(([0-9.]+) ms\)", ln)[1]) for ln in frames]
+    summary[f"single_stream_{family}_cli"] = dict(
+        predictions=len(frames), seconds=cli_s, prob_err=perr, bar=bar,
+        logit_scale=scale, card_labels=card_labels.tolist(),
+        cpu_labels=labels.tolist(), printed_ms=ms, launches=launches,
+        cpu_forward_s=cpu_s)
+    return (model_name, args, state, cpu), launches
+
+
+def run_cli_in_process(argv):
+    """The CLI's `main` in this process; its printed lines."""
+    from agcn_tpu_torch.infer import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return out.getvalue().splitlines()
+
+
+def single_stream_extra_runs(torch, np, tmp, rec, agcn, summary):
+    """(b) The AGCN with `use_pallas: true` (gcn_kernel's fused_gcn, the
+    fp32 aggregate: 10 gcn_fwd round_agg=0 launches a prediction), and
+    train_sgn.yaml's SGN (no port kernel, as in the JAX package), each
+    through the CLI's single-stream mode in this process on cam0 (6
+    predictions); (d) --save-attention: with matplotlib, the PNG of each
+    prediction's first block graph; without, the CLI's argument error
+    naming it. Returns the launches of each run."""
+    import yaml
+
+    from agcn_tpu_torch.infer import cli
+    from agcn_tpu_torch.utils.config import load_config
+
+    model_name, args, state, _ = agcn
+    cam0 = os.path.join(rec, "cam0.npy")
+    predicts = SEQ // SINGLE_INTERVAL
+    weights = os.path.join(tmp, "agcn.pt")
+    up_path = os.path.join(tmp, "agcn_use_pallas.yaml")
+    with open(up_path, "w") as f:
+        yaml.safe_dump({"model": model_name,
+                        "model_args": dict(args, use_pallas=True)}, f)
+    out = {}
+    reset_launches()
+    lines = run_cli_in_process(["--config", up_path, "--weights", weights,
+                                "--input", cam0, "--interval",
+                                str(SINGLE_INTERVAL)])
+    out["agcn_use_pallas"] = all_launches()
+    check(sum(ln.startswith("frame ") for ln in lines) == predicts
+          and out["agcn_use_pallas"] == {
+              "gcn_fwd_round_agg": 0, "gcn_fwd_fp32_agg": LAYERS * predicts,
+              "gcn_bwd": 0, "logits": 0},
+          f"use_pallas single stream: {len(lines)} lines, launches "
+          f"{out['agcn_use_pallas']}")
+
+    sgn_cfg = load_config(SGN_CONFIG)
+    sgn = sgn_model(torch, sgn_cfg)
+    liven_sgn(torch, sgn, sgn_sequences(np, 64, SEED + 40)[0][:, :20],
+              SEED + 41)
+    sgn_weights = os.path.join(tmp, "sgn.pt")
+    torch.save({k: v.cpu() for k, v in sgn.state_dict().items()},
+               sgn_weights)
+    del sgn
+    reset_launches()
+    lines = run_cli_in_process(["--config", SGN_CONFIG, "--weights",
+                                sgn_weights, "--input", cam0, "--interval",
+                                str(SINGLE_INTERVAL)])
+    out["sgn"] = all_launches()
+    check(sum(ln.startswith("frame ") for ln in lines) == predicts
+          and not any(out["sgn"].values()),
+          f"SGN single stream: {len(lines)} lines, launches {out['sgn']}")
+    log(f"  (b) in-process single-stream runs on cam0 ({predicts} "
+        f"predictions each): {out}")
+
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    attn = os.path.join(tmp, "attention")
+    argv = ["--config", os.path.join(tmp, "agcn.yaml"), "--weights",
+            weights, "--input", cam0, "--interval", str(SEQ // 2),
+            "--save-attention", attn]
+    if have_mpl:
+        run_cli_in_process(argv)
+        pngs = sorted(os.listdir(attn))
+        check(pngs == [f"cam0_f{SEQ // 2}_g0.png", f"cam0_f{SEQ}_g0.png"],
+              f"--save-attention wrote {pngs}")
+        said = f"wrote {pngs}"
+    else:
+        err = io.StringIO()
+        refused = False
+        with contextlib.redirect_stderr(err):
+            try:
+                cli.main(argv)
+            except SystemExit:
+                refused = True
+        said = (err.getvalue().strip().splitlines() or [""])[-1]
+        check(refused and "matplotlib" in said and not os.path.exists(attn),
+              f"--save-attention without matplotlib: refused {refused}, "
+              f"said {said!r}")
+    log(f"  (d) matplotlib {'is' if have_mpl else 'is not'} installed: "
+        f"--save-attention {said}")
+    summary["single_stream_save_attention"] = dict(matplotlib=have_mpl,
+                                                   said=said)
+    summary["single_stream_extra_launches"] = out
+    return out
+
+
+def single_stream_attention(torch, np, family, state_of, seq, summary):
+    """(c) The recognizer's `last_attention` on the card, fp32 and bf16,
+    against the CPU's on the same frames (cam0's 300): the same length,
+    order and shapes, each graph within 1e-3 (fp32) / 5e-2 (bf16) of the
+    CPU's scale, the card's probabilities the CPU's within the same bars
+    of 1; and (e) the median predict latency on the card after the first,
+    with and without exposure (host copies included), and for the dense
+    models the device time of the predict's forward alone
+    (`profile_forward`)."""
+    from agcn_tpu_torch.infer.realtime import ActionRecognition
+    from agcn_tpu_torch.models.registry import build_model
+
+    model_name, args, state, cpu, kw = state_of
+    num_frame = kw.get("sgn_dataloader_args", {}).get("seg", SEQ)
+
+    def fed(model, expose):
+        rec = ActionRecognition(model, expose_attention=expose, **kw)
+        for f in seq[0]:
+            rec.append_frame(f)
+        return rec
+
+    ref = fed(cpu, True)
+    _, want_p = ref.predict()
+    want = ref.last_attention
+    scale = max(float(np.abs(g).max()) for g in want)
+    rows = {}
+    for dname in ("float32", "bfloat16"):
+        if family == "sgn" and dname == "bfloat16":
+            continue  # SGN computes in fp32 (the trainer's rule)
+        model = build_model(model_name, args, device="cuda",
+                            dtype=getattr(torch, dname), num_frame=num_frame)
+        model.load_state_dict(state, strict=True)
+        bar = 1e-3 if dname == "float32" else 5e-2
+        times = {}
+        for expose in (True, False):
+            rec = fed(model.eval(), expose)
+            _, got_p = rec.predict()
+            if expose:
+                got = rec.last_attention
+                check(len(got) == len(want) and all(
+                    g.shape == w.shape for g, w in zip(got, want)),
+                    f"{family} {dname}: {len(got)} graphs "
+                    f"{[g.shape for g in got]} against the CPU's "
+                    f"{[w.shape for w in want]}")
+                err = max(float(np.abs(g - w).max())
+                          for g, w in zip(got, want))
+                perr = float(np.abs(got_p - want_p).max())
+                check(err <= bar * max(scale, 1.0) and perr <= bar,
+                      f"{family} {dname}: graphs {err:.3e} off the CPU's "
+                      f"(scale {scale:.3f}), probabilities {perr:.3e}")
+            ms = []
+            for _ in range(SINGLE_TIMED):
+                rec.predict()
+                ms.append(rec.last_latency_ms)
+            times["exposed" if expose else "plain"] = float(np.median(ms))
+        rows[dname] = dict(graphs=len(got), graph_err=err,
+                           graph_scale=scale, prob_err=perr,
+                           predict_ms_median=times)
+        log(f"  {family} {dname} (c) {len(got)} graphs {got[0].shape}, "
+            f"max err {err:.2e} of scale {scale:.3f}, probabilities "
+            f"{perr:.2e}; (e) predict {times['plain']:.3f} ms, "
+            f"{times['exposed']:.3f} ms with exposure (median of "
+            f"{SINGLE_TIMED} after the first)")
+        if family != "sgn":
+            # the predict's forward alone: its device time and busy share
+            prof = profile_forward(torch, model, torch.from_numpy(
+                rec.preproc.dense_input()).cuda())
+            rows[dname]["forward_profile"] = prof
+            busy = 100 * prof["device_ms"] / prof["wall_ms"]
+            log(f"      its forward: wall {prof['wall_ms']:.3f} ms, device "
+                f"{prof['device_ms']:.3f} ms ({busy:.1f}% busy) in "
+                f"{sum(prof['kernels'].values()):.0f} kernels")
+        del model
+    summary[f"single_stream_{family}_recognizer"] = rows
+
+
+def phase_single_stream(torch, np, smi, summary):
+    """Phase 22: the single-stream live demo (`python -m
+    agcn_tpu_torch.infer` without --serve, ActionRecognition with
+    `expose_attention`): (a) the CLI in its own process for
+    test_joint.yaml's AGCN and test_joint_aagcn.yaml's AAGCN against the
+    CPU (`single_stream_cli`), (b) its launches, and those of the
+    use_pallas AGCN and train_sgn.yaml's SGN, (d) --save-attention
+    (`single_stream_extra_runs`), (c) the recognizer's graphs card
+    against CPU and (e) its latency (`single_stream_attention`). Returns
+    the launch counts by path."""
+    from agcn_tpu_torch.utils.config import load_config
+
+    t22 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, seq = single_stream_recordings(np, tmp)
+        states = {}
+        for family in ("agcn", "aagcn"):
+            states[family], out[f"{family}_single_stream"] = \
+                single_stream_cli(torch, np, tmp, rec, seq, family, summary)
+        extra = single_stream_extra_runs(torch, np, tmp, rec,
+                                         states["agcn"], summary)
+        out["agcn_single_stream_use_pallas"] = extra["agcn_use_pallas"]
+        out["sgn_single_stream"] = extra["sgn"]
+    for family in ("agcn", "aagcn"):
+        single_stream_attention(torch, np, family,
+                                (*states[family], {}), seq, summary)
+    sgn_cfg = load_config(SGN_CONFIG)
+    sgn = sgn_model(torch, sgn_cfg, device="cpu")
+    liven_sgn(torch, sgn, sgn_sequences(np, 64, SEED + 40)[0][:, :20],
+              SEED + 41)
+    sgn_args = sgn_cfg.test_dataloader_args
+    single_stream_attention(
+        torch, np, "sgn",
+        (sgn_cfg.model, sgn_cfg.model_args,
+         {k: v.clone() for k, v in sgn.state_dict().items()}, sgn,
+         dict(kind="sgn", multi_test=sgn_args["multi_test"],
+              sgn_dataloader_args=sgn_args)), seq, summary)
+    summary["single_stream_launches"] = out
+    summary["single_stream_phase_s"] = time.perf_counter() - t22
+    summary["single_stream_smi"] = smi
+    log(f"  phase 22 in {summary['single_stream_phase_s']:.1f} s ({smi})")
+    return out
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
     if argv and only not in ("14", "15", "16", "17", "18", "19", "20",
-                             "21"):
+                             "21", "22"):
         print("usage: python3 chip_smoke.py "
-              "[--phase 14|15|16|17|18|19|20|21]", file=sys.stderr)
+              "[--phase 14|15|16|17|18|19|20|21|22]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -4589,14 +4984,14 @@ def main(argv=None):
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/21] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/22] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     if only == "14":
-        log("[14/21] the SGN recipe alone (phase 14)")
+        log("[14/22] the SGN recipe alone (phase 14)")
         phase_sgn(torch, np, summary)
         return 0
     if only == "17":
-        log("[17/21] SGN's v11-v13 options, the MMD loss and sgn_original "
+        log("[17/22] SGN's v11-v13 options, the MMD loss and sgn_original "
             "alone (phase 17)")
         phase_sgn_options(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4606,7 +5001,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "18":
-        log("[18/21] SGN's transformer (train_sgn_transformer.yaml, "
+        log("[18/22] SGN's transformer (train_sgn_transformer.yaml, "
             "train_sgn_v15.yaml) and SGN serving alone (phase 18)")
         phase_sgn_transformer(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4616,7 +5011,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "19":
-        log("[19/21] SGN raw generation (sgn-raw) and SGN's temporal-branch "
+        log("[19/22] SGN raw generation (sgn-raw) and SGN's temporal-branch "
             "options alone (phase 19)")
         phase_sgn_temporal(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4628,9 +5023,9 @@ def main(argv=None):
     if only == "15":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/21] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/22] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[15/21] the trainer's run knobs alone (phase 15)")
+        log("[15/22] the trainer's run knobs alone (phase 15)")
         phase_knobs(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
@@ -4640,9 +5035,9 @@ def main(argv=None):
     if only == "20":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/21] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/22] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[20/21] data-parallel training and the edge partition alone "
+        log("[20/22] data-parallel training and the edge partition alone "
             "(phase 20)")
         summary["phase20_launches"] = phase_parallel(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4654,9 +5049,9 @@ def main(argv=None):
     if only == "21":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/21] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/22] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[21/21] the 15-joint OpenPose recipes (AGCN, AAGCN) on the "
+        log("[21/22] the 15-joint OpenPose recipes (AGCN, AAGCN) on the "
             "V = 15 kernels alone (phase 21)")
         phase_openpose(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4665,12 +5060,27 @@ def main(argv=None):
                   "w") as f:
             json.dump(summary, f, indent=1)
         return 0
+    if only == "22":
+        t0 = time.perf_counter()
+        built = build.build_all()
+        log(f"[2/22] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+            "s")
+        log("[22/22] the single-stream live demo (python -m "
+            "agcn_tpu_torch.infer without --serve, expose_attention) alone "
+            "(phase 22)")
+        phase_single_stream(torch, np, smi, summary)
+        out_dir = os.path.join(REPO, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_single_stream.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=1)
+        return 0
     if only == "16":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/21] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/22] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[16/21] BN folding, the apply_gcn forms, the AAGCN versions "
+        log("[16/22] BN folding, the apply_gcn forms, the AAGCN versions "
             "alone (phase 16)")
         summary["phase16_launches"] = phase_versions(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -4683,7 +5093,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/21] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/22] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -4699,7 +5109,7 @@ def main(argv=None):
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/21] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/22] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -4722,7 +5132,7 @@ def main(argv=None):
     summary.update(kernel_rows_v15=rows15, dx_rows_v15=dx_rows15,
                    fp32_fwd_layers_v15=fp32_layers(rows15, dx_rows15))
 
-    log("[4/21] gcn_bwd vs its plain version at the training shapes "
+    log("[4/22] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -4736,7 +5146,7 @@ def main(argv=None):
     summary.update(bwd_rows_v15=bwd_rows15,
                    fp32_da1_layers_v15=da1_fp32_layers(bwd_rows15))
 
-    log("[5/21] attention-logits kernel vs plain version at the served "
+    log("[5/22] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -4749,7 +5159,7 @@ def main(argv=None):
         logits_rows15 = phase_logits(torch, np, logits_kernel, v=15)
     summary.update(logits_rows=logits_rows, logits_rows_v15=logits_rows15)
 
-    log("[6/21] host data path: the C++ host kernels "
+    log("[6/22] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -4757,11 +5167,11 @@ def main(argv=None):
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/21] AGCN serving main path: 16 streams through "
+    log("[7/22] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/21] AGCN: device time of one served forward by kernel group; "
+    log("[8/22] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -4769,7 +5179,7 @@ def main(argv=None):
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/21] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/22] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -4778,19 +5188,19 @@ def main(argv=None):
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/21] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/22] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/21] AAGCN: device time of one served forward by kernel group; "
+    log("[11/22] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/21] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/22] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -4800,7 +5210,7 @@ def main(argv=None):
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/21] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/22] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -4818,34 +5228,34 @@ def main(argv=None):
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
-    log("[14/21] SGN recipe (no port kernel on its path, as in the JAX "
+    log("[14/22] SGN recipe (no port kernel on its path, as in the JAX "
         "package): train_sgn.yaml at full width on synthetic SGN pickles "
         "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
         "the entry points with 5-crop eval")
     phase_sgn(torch, np, summary)
 
-    log("[15/21] the trainer's run knobs: one fp32 SAM step of the pallas "
+    log("[15/22] the trainer's run knobs: one fp32 SAM step of the pallas "
         "AGCN, kernels against plain versions; the entry point on "
         "train_joint.yaml with SAM, the profiler, async checkpoints, then "
         "auto-resume; train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml "
         "through the entry point")
     sam_launches = phase_knobs(torch, np, smi, summary)
 
-    log("[16/21] BN folding on the served pallas AGCN and AAGCN forwards "
+    log("[16/22] BN folding on the served pallas AGCN and AAGCN forwards "
         "(gcn_fwd and the logits kernel counted); the apply_gcn forms "
         "against 'agg'; the AAGCN v31 recipe (train_joint_aagcn_v31.yaml, "
         "T=60: card against CPU, 10 SGD steps, speed, the entry points); "
         "v17, v24, v30, v32 and v34 against the CPU")
     v16 = phase_versions(torch, np, smi, summary)
 
-    log("[17/21] SGN's v11-v13 options, the MMD loss and sgn_original (no "
+    log("[17/22] SGN's v11-v13 options, the MMD loss and sgn_original (no "
         "port kernel on their path, as in the JAX package): v11, v12, "
         "v13_gt4 and sgn_original card against CPU; one v12 step with the "
         "MMD loss card against CPU; 10 Adam steps of v12 (batch 128) and "
         "v13_gt4 (64), speed; train_sgn_v12.yaml through the entry points")
     v17 = phase_sgn_options(torch, np, summary)
 
-    log("[18/21] SGN's transformer (no port kernel on its path, as in the "
+    log("[18/22] SGN's transformer (no port kernel on its path, as in the "
         "JAX package): train_sgn_transformer.yaml and train_sgn_v15.yaml "
         "card against CPU, one v15 step card against CPU, 10 Adam steps "
         "each, speed, the entry points (train, --phase test, --serve 16); "
@@ -4853,7 +5263,7 @@ def main(argv=None):
         "card against CPU")
     v18 = phase_sgn_transformer(torch, np, summary)
 
-    log("[19/21] SGN raw generation and SGN's temporal-branch options (no "
+    log("[19/22] SGN raw generation and SGN's temporal-branch options (no "
         "port kernel on their path, as in the JAX package): python -m "
         "agcn_tpu_torch.data.gen sgn-raw on a synthetic raw tree, its "
         "NTU_CV pickles through the entry points; t_mode 2-5, t_mha_kwargs, "
@@ -4861,7 +5271,7 @@ def main(argv=None):
         "widths card against CPU, one Adam step each")
     v19 = phase_sgn_temporal(torch, np, summary)
 
-    log("[20/21] data-parallel training: train_joint.yaml's pallas AGCN "
+    log("[20/22] data-parallel training: train_joint.yaml's pallas AGCN "
         "through torchrun (one rank: an NCCL group, DDP, SyncBN) against the "
         "plain entry point, --phase test on the DDP checkpoint; the DDP "
         "step's ms and NCCL kernels; model_edge_gcn, the edge aggregate and "
@@ -4874,12 +5284,19 @@ def main(argv=None):
             "parallel_cli", "parallel_steps", "parallel_phase_s",
             "parallel_smi")}, f, indent=1)
 
-    log("[21/21] the 15-joint OpenPose recipes on the V = 15 kernels: "
+    log("[21/22] the 15-joint OpenPose recipes on the V = 15 kernels: "
         "openpose_b25_j15_xview/train_joint.yaml (AGCN) and "
         "train_joint_aagcn.yaml (AAGCN), formulation pallas: 16 streams "
         "card against CPU, one step card against CPU, 10 bf16 steps, the "
         "entry points (train, --phase test, --serve 16)")
     v21 = phase_openpose(torch, np, smi, summary)
+
+    log("[22/22] the single-stream live demo: python -m agcn_tpu_torch.infer "
+        "without --serve (test_joint.yaml's AGCN and test_joint_aagcn.yaml's "
+        "AAGCN, formulation pallas, card against CPU; the use_pallas AGCN "
+        "and train_sgn.yaml's SGN; --save-attention), the recognizer's "
+        "exposed graphs card against CPU and its predict latency")
+    v22 = phase_single_stream(torch, np, smi, summary)
 
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
@@ -4891,7 +5308,11 @@ def main(argv=None):
             v16["agcn_folded_serve"]["gcn_fwd_round_agg"],
         "aagcn_folded_serve":
             v16["aagcn_folded_serve"]["gcn_fwd_round_agg"],
-        "agcn_ddp_train": v20["gcn_fwd_round_agg"]}
+        "agcn_ddp_train": v20["gcn_fwd_round_agg"],
+        "agcn_single_stream":
+            v22["agcn_single_stream"]["gcn_fwd_round_agg"],
+        "aagcn_single_stream":
+            v22["aagcn_single_stream"]["gcn_fwd_round_agg"]}
     bwd_launches = {"agcn_train": train_launches["gcn_bwd"],
                     "aagcn_train": aagcn_train_launches["gcn_bwd"],
                     "agcn_sam_train": sam_launches["gcn_bwd"],
@@ -4908,7 +5329,9 @@ def main(argv=None):
         fwd_entry(rows, True, "bfloat16", sum(fwd_launches.values()),
                   "gcn_fwd (aggregate rounded to x's type)",
                   "agcn_tpu/ops/pallas/gcn_fused.py:52", dx_rows),
-        fwd_entry(rows, False, "bfloat16", sum(launches["fused_gcn"].values()),
+        fwd_entry(rows, False, "bfloat16",
+                  sum(launches["fused_gcn"].values())
+                  + v22["agcn_single_stream_use_pallas"]["gcn_fwd_fp32_agg"],
                   "gcn_fwd (fp32 aggregate)",
                   "agcn_tpu/ops/pallas/gcn_kernel.py:27"),
         bwd_entry(bwd_rows, sum(bwd_launches.values())),
@@ -4920,6 +5343,8 @@ def main(argv=None):
     kernels[1]["launches_by_path"] = {
         f"agcn_serve_use_pallas_{d}": n
         for d, n in launches["fused_gcn"].items()}
+    kernels[1]["launches_by_path"]["agcn_single_stream_use_pallas"] = (
+        v22["agcn_single_stream_use_pallas"]["gcn_fwd_fp32_agg"])
     kernels[2]["launches_by_path"] = bwd_launches
     kernels[3]["launches_by_path"] = {
         "aagcn_serve": logits_launches,
@@ -4950,6 +5375,9 @@ def main(argv=None):
         entry["launches_by_path"]["sgn_transformer"] = v18[key]
         entry["launches_by_path"]["sgn_temporal"] = v19[key]
         entry["launches_by_path"].setdefault("agcn_ddp_train", v20[key])
+        # phase 22: each single-stream run's count of every kernel
+        for path, n in v22.items():
+            entry["launches_by_path"].setdefault(path, n[key])
     # the fp32 routes' numbers beside the bf16 ones (gcn_fwd: served
     # forward and, for gcn_fused, dx per step; gcn_bwd: per step)
     same = ("name", "route", "source", "replaces", "launches")

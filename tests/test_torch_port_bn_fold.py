@@ -166,9 +166,19 @@ def test_jax_fold_loads_strict_and_equals_the_port_fold(family, kw):
 
 
 def test_scan_blocks_state_dicts_are_refused():
+    """A JAX scan_blocks tree flattened as it is (stacked leaves under
+    group names no port model has) is refused, naming the map that
+    unstacks it; the state dict of the port's scan_blocks AGCN (the
+    unrolled blocks) folds as the unrolled model's does."""
     sd = {"l2_4.gcn1.bn.weight": torch.ones(64)}
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="agcn_state_dict_from_variables"):
         bn_fold.fold_agcn_bn_eval(sd)
+    scanned = _model("agcn", scan_blocks=True)
+    scanned.load_state_dict(_live_state("agcn"), strict=True)
+    got = bn_fold.fold_agcn_bn_eval(scanned.state_dict())
+    want = bn_fold.fold_agcn_bn_eval(_live_state("agcn"))
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 # -- the apply_gcn forms ----------------------------------------------------

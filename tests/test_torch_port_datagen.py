@@ -217,12 +217,17 @@ def test_explore_npy_prints_as_jax(capsys, ntu_out, classes):
         ln.startswith("frames: ") for ln in out["port"])
 
 
-def test_unported_subcommands_name_their_roadmap_items(tmp_path, raw_tree):
+def test_unported_subcommands_name_their_roadmap_items(tmp_path, raw_tree,
+                                                      capsys):
+    """No subcommand is left unported: `explore --render-sample` draws
+    its animation (matplotlib), and without --save it is refused."""
     raw, _ = raw_tree
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        port_main(["explore", "--data-path", raw, "--render-sample",
-                   "S001C001P001R001A001.skeleton", "--save",
-                   str(tmp_path / "s.gif")])
+    port_main(["explore", "--data-path", raw, "--render-sample",
+               "S001C001P001R001A001.skeleton", "--save",
+               str(tmp_path / "s.gif")])
+    assert capsys.readouterr().out.splitlines()[-1] == (
+        f"saved {tmp_path / 's.gif'}")
+    assert (tmp_path / "s.gif").stat().st_size > 0
     with pytest.raises(SystemExit):  # --render-sample without --save
         port_main(["explore", "--data-path", raw, "--render-sample",
                    "S001C001P001R001A001.skeleton"])

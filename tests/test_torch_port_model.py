@@ -153,8 +153,10 @@ def test_train_mode_and_unported_options_raise():
         (2, 3, 8, 25, 2)).astype(np.float32))
     assert model(x).shape == (2, NUM_CLASS)
     assert int(model.data_bn.num_batches_tracked) == 1
-    with pytest.raises(NotImplementedError, match="scan_blocks"):
-        AGCN(adj=adj, device="cpu", scan_blocks=True)
+    # scan_blocks builds the unrolled blocks (the JAX layout's stacked
+    # groups are unstacked on loading, utils/weights.py)
+    assert AGCN(adj=adj, device="cpu", scan_blocks=True).state_dict().keys() \
+        == AGCN(adj=adj, device="cpu").state_dict().keys()
     jax_model = JaxAGCN(num_class=NUM_CLASS, adj=jax_build_adjacency(
         "ntu_rgb_d"), edge_mesh=object())
     with pytest.raises(AttributeError, match="shape"):

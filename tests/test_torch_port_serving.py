@@ -250,9 +250,10 @@ def test_cli_serves_a_directory_on_cpu(models, tmp_path, capsys):
     assert sum(ln.startswith("tick:") for ln in lines) == 2
     assert len((tmp_path / "out" / "results_cam0.txt").read_text()
                .splitlines()) == 2
-    with pytest.raises(SystemExit):  # --serve N is required
+    with pytest.raises(SystemExit):  # --serve N needs a directory
         cli_main(["--config", str(cfg), "--weights", str(tmp_path / "w.pt"),
-                  "--input", str(rec), "--device", "cpu"])
+                  "--input", str(rec / "cam0.npy"), "--serve", "3",
+                  "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flag", ["--weights", "--weights-dir"])
