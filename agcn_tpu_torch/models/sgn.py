@@ -1,7 +1,5 @@
-"""SGN — Semantics-Guided Network (port of agcn_tpu/models/sgn.py, the
-options of the base recipe `configs/*/train_sgn.yaml`, of
-`train_sgn_v11/v12/v13/v13_gt4.yaml`, and the temporal-branch and BiFPN
-options).
+"""SGN — Semantics-Guided Network (port of agcn_tpu/models/sgn.py: every
+option of the JAX model but the input-side ones `_refuse` names).
 
 Parity target: reference model/architecture/sgn/sgn_v14.py (sgn_v12.py for
 the InfoGCN head) and blocks/{feature_extractor,semantic,spatial,temporal}.py.
@@ -13,66 +11,85 @@ into time by the collate). In order:
   velocity is x[t] - x[t-1] with a leading zero frame;
 - the one-hot joint embedding, fused by concatenation or sum, and the
   one-hot frame embedding, added after the GCN stack (location 0);
-- the GCN stack (`GCNSpatialBlock`): G from the GT module, shared by
-  every unit when `sgcn_g_proj_dim` is an int (one per unit for a list):
-  gt_mode 1 (per-frame g1 g2^T mixed by a frame-to-frame softmax of the
-  joint-max descriptors g3, g4, then a softmax or sigmoid) or gt modes
-  2-4 (`GCNSpatialGTScalar`: G = act(g1 g2^T) and a per-frame scalar of
-  the flattened joints, which scales G (2, 3) or gates the unit's input
-  (4)); units norm(w1(G x) + res_alpha w2(x)) -> relu -> dropout2d
-  (attn_mode 0; `sgcn_g_res_alpha` fixed, or learnable with -1 / -2);
+- the GCN stack (`GCNSpatialBlock`): G from the G module, shared by every
+  unit when `sgcn_g_proj_dim` is an int (one per unit for a list, each
+  blended with the previous unit's G under `sgcn_g_weighted`): gt_mode 0
+  (`GCNSpatialG`: act(g1 g2^T)), 1 (`GCNSpatialGT`: per-frame g1 g2^T
+  mixed by a frame-to-frame softmax of the joint-max descriptors g3, g4,
+  then a softmax or sigmoid), 2-4 (`GCNSpatialGTScalar`: G = act(g1 g2^T)
+  and a per-frame scalar of the flattened joints, which scales G (2, 3)
+  or gates the unit's input (4)) or 5-6 (`GCNSpatialGTMap`: G and the
+  frames' flattened maps plus a one-hot frame embedding, through GT5's
+  head `g3`), its projections convs over T of `sgcn_g_kernel`; units
+  (`GCNSpatialUnit`) by `sgcn_attn_mode`: 0 w1(G x) + res_alpha w2(x), 1
+  without G, 2 a squeeze-excite gate, 3 w2 alone, 10 mode 0 with w2 on an
+  injected level; `sgcn_v_kernel`'s conv w0 before the aggregation,
+  w2's `sgcn_kernel` / `sgcn_padding`; then BN (before the unit under
+  `sgcn_prenorm`) -> relu -> dropout2d, the residual `sgcn_residual`
+  and the FFN `sgcn_ffn` (`GCNSpatialFFN`, `ffn_variant`);
 - the GCN-FPN, the levels that feed the temporal module: the last unit's
   output (`gcn_fpn: -1`), every unit's (0), the projections
   `fpn_proj{i}[_k{k}]` of every unit's output (1-7, 9: summed from level
-  i upward, kept apart, or concatenated after the spatial pool), or the
+  i upward, kept apart, or concatenated after the spatial pool), the
   BiFPN `bifpn` over every unit's output (8, `ops/blocks.BiFPN` of
-  `bifpn_dim`, which the frame embedding then takes), each plus the frame
-  embedding where the widths agree;
-- the spatial max-pool, the temporal branches of `multi_t` on those
-  levels (`TemporalBranch`: an optional `ASPP` (`aspp_rates`), then
+  `bifpn_dim`, which the frame embedding then takes), or the last output
+  of a second stack `sgcn2` (10: the `sgcn2_*` options, G fixed to the
+  first stack's last, the injected levels the first stack's input and
+  outputs), each plus the frame embedding where the widths agree;
+- the spatial pool (`spatial_maxpool`: 0 none, 1 the max, 3-5 VALID convs
+  over the joints `smp{i}_k_*` and 1x1 convs `smp{i}_1x1_*`), GT6's
+  maps as a level of their own, the temporal branches of `multi_t` on
+  those levels (`TemporalBranch`: an optional `ASPP` (`aspp_rates`), then
   t_mode 0 (the feature itself), 1 (conv k -> BN -> relu -> dropout2d,
-  then 1x1 -> BN -> relu), 2 (the same with residuals), 3 (a transformer
-  encoder over the frames, `t_mha_kwargs`), 4 (a series decomposition and
-  three t_mode-2 MLPs) or 5 (t_mode-2 MLPs over moving averages of
-  `pool_kernel_sizes`); `t_maxpool_kwargs` max-pools time before a t_mode
-  1 / 2 MLP; with `multi_t_shared: 2` one branch a (slot, kernel) pair,
-  named after the first level that declares it, applied to every level),
-  the mean of all their outputs, the temporal max-pool, the class
-  embedding (`semantic_class`), the InfoGCN head (`infogcn_*`: z = mu +
-  eps * std in training, mu in eval, and the fixed prior `z_prior`),
-  dropout and `fc`, whose input is the branches' width (c4, or the
-  level's own under t_mode 0 and 3).
+  then 1x1 -> BN -> relu; BN first under `sgcn_prenorm`), 2 (the same
+  with residuals), 3 (a transformer encoder over the frames,
+  `t_mha_kwargs`), 4 (a series decomposition and three t_mode-2 MLPs) or
+  5 (t_mode-2 MLPs over moving averages of `pool_kernel_sizes`);
+  `t_maxpool_kwargs` max-pools time before a t_mode 1 / 2 MLP; with
+  `multi_t_shared: 2` one branch a (slot, kernel) pair, named after the
+  first level that declares it, applied to every level), GT5's head
+  beside their outputs, the mean of all of them (each apart under
+  `gcn_fpn_output_merge: 2`), the temporal pool (`temporal_maxpool`: 0
+  none, 1 the max, 2 the max plus `tmp_ind_projection` of the argmax
+  frame, 3-5 the VALID conv over the frames `tmp_k_*` and the 1x1
+  `tmp_1x1_*`), the class embedding (`semantic_class`), the InfoGCN head
+  (`infogcn_*`: z = mu + eps * std in training, mu in eval, and the fixed
+  prior `z_prior`), dropout and `fc` (merge 2: a head `fc{i}` an output,
+  the logits averaged), whose input is what the pools leave.
 
 `forward(x, return_aux=True)` also returns the JAX model's aux outputs
-(agcn_tpu sgn.py:1226-1261): `g` (the list of G), `branch_outputs` (each
-temporal branch output in the reference's (N, C, T') layout, for the
+(agcn_tpu sgn.py:1226-1261): `g` (the list of G: the first of each of
+JAX's (G, aux) pairs), `branch_outputs` (each temporal output, GT5's
+head's too, in the reference's (N, C, T') layout, for the
 feature-similarity loss), `z` (the classifier's input before its
-dropout: the latent under the InfoGCN head) and, with the head,
-`z_prior`.
+dropout: the latent under the InfoGCN head, the first output's under
+merge 2) and, with the head, `z_prior`.
 
 Layout is channels-last (B, T, V, C); every 1xk kernel keeps the
 reference's (out, in, 1, k) layout over its (N, C, V, T) grid, and the
 module and parameter names are the reference's (the names
 `utils/weights.sgn_state_dict_from_variables` writes), so a reference
 state dict loads strictly; the blocks the JAX export has no names for
-(`ops/blocks.py`, a branch's `res2`, `mha`, `cnn_raw` ...) carry the JAX
-modules' names. The one-hot tables are the reference's
-buffers (`semantic_embedding.spa_onehot.onehot` (1, V, V, seg),
-`tem_onehot.onehot` (1, seg, V, seg) and `cls_onehot.onehot` (1, 1, 1,
-1)), so the model is built for the loader's `seg` (`num_segment`). The
-max-pools call `torch.amax`, the ReLUs `torch.relu` and the head's eps
-`latent_noise` (the calls that tools/grad_parity.py's probes replay).
+(`ops/blocks.py`, a branch's `res2`, `mha`, `cnn_raw` ..., the pools'
+convs) carry the JAX modules' names. The one-hot tables are the
+reference's buffers (`semantic_embedding.spa_onehot.onehot` (1, V, V,
+seg), `tem_onehot.onehot` (1, seg, V, seg), `cls_onehot.onehot` (1, 1, 1,
+1) and GT5 / GT6's `tem_onehot.onehot` (1, seg, 1, seg)), so the model is
+built for the loader's `seg` (`num_segment`). The max-pools call
+`torch.amax`, the ReLUs `torch.relu` and the head's eps `latent_noise`
+(the calls that tools/grad_parity.py's probes replay).
 
-Every other option value of the JAX model raises NotImplementedError
-naming ROADMAP Queue 1 item 7 (the SGN family's later steps): gt modes 0,
-5 and 6, `gcn_fpn` 10, the attn modes, and the options `_refuse` lists.
-SGN runs in fp32, as in the JAX package.
+The input-side option values (`_refuse`: `semantic_jdiff`,
+`semantic_joint_smp`, `semantic_frame_location: 1`, `xem_projection`,
+the segment embeddings) raise NotImplementedError naming ROADMAP Queue 1
+item 7 (the SGN family's later steps). SGN runs in fp32, as in the JAX
+package.
 """
 
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -133,40 +150,76 @@ class Conv1xN(nn.Module):
         return y.permute(0, 3, 2, 1)
 
 
-class _Block(nn.Module):
-    """The reference Conv's `block`: `conv` [+ `norm`]."""
+class LinearLayer(nn.Module):
+    """The reference LinearLayer (block.py:120-125): `linear`, an
+    nn.Linear over the channels, numerically a 1x1 `Conv1xN`."""
 
-    def __init__(self, conv: Conv1xN, norm: Optional[BatchNorm]):
+    def __init__(self, in_features: int, features: int,
+                 use_bias: bool = False):
         super().__init__()
-        self.conv = conv
+        self.linear = nn.utils.skip_init(nn.Linear, in_features, features,
+                                         bias=use_bias)
+
+    def reset_parameters(self, generator: torch.Generator,
+                         kernel=init.kaiming_normal_fan_out) -> None:
+        kernel(self.linear.weight, generator)
+        if self.linear.bias is not None:
+            init.torch_default(self.linear.in_features)(self.linear.bias,
+                                                        generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x)
+
+
+class _Block(nn.Module):
+    """The reference Conv's `block`: `conv` [+ `norm`] (the LinearLayer's:
+    `linear` [+ `norm`])."""
+
+    def __init__(self, layer: nn.Module, norm: Optional[BatchNorm]):
+        super().__init__()
+        self.add_module("linear" if isinstance(layer, LinearLayer)
+                        else "conv", layer)
         if norm is not None:
             self.norm = norm
 
 
 class ConvNormAct(nn.Module):
     """conv -> [norm] -> [relu] -> [dropout2d] (reference Conv,
-    block.py:192-227; agcn_tpu sgn.py:102-128). Dropout2d drops whole
-    channels of a sample (flax broadcast_dims (1, 2))."""
+    block.py:192-227; agcn_tpu sgn.py:102-128); `prenorm` moves the norm
+    before the conv, at the input's width; `linear` makes the conv a
+    `LinearLayer` (kernel 1). Dropout2d drops whole channels of a sample
+    (flax broadcast_dims (1, 2))."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: int = 1, padding: int = 0,
                  use_bias: bool = False, use_norm: bool = False,
-                 use_act: bool = True, dropout: float = 0.0):
+                 use_act: bool = True, dropout: float = 0.0,
+                 prenorm: bool = False, linear: bool = False):
         super().__init__()
-        self.block = _Block(
-            Conv1xN(in_features, features, kernel_size, padding, use_bias),
-            BatchNorm(features) if use_norm else None)
+        layer = (LinearLayer(in_features, features, use_bias) if linear
+                 else Conv1xN(in_features, features, kernel_size, padding,
+                              use_bias))
+        self.block = _Block(layer, BatchNorm(
+            in_features if prenorm else features) if use_norm else None)
         self.use_norm = use_norm
+        self.prenorm = prenorm
         self.use_act = use_act
         self.drop = Dropout(dropout, (1, 2)) if dropout > 0.0 else None
 
+    @property
+    def layer(self) -> nn.Module:
+        return (self.block.linear if hasattr(self.block, "linear")
+                else self.block.conv)
+
     def reset_parameters(self, generator: torch.Generator,
                          kernel=init.kaiming_normal_fan_out) -> None:
-        self.block.conv.reset_parameters(generator, kernel)
+        self.layer.reset_parameters(generator, kernel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.block.conv(x)
-        if self.use_norm:
+        if self.use_norm and self.prenorm:
+            x = self.block.norm(x)
+        x = self.layer(x)
+        if self.use_norm and not self.prenorm:
             x = self.block.norm(x)
         if self.use_act:
             x = torch.relu(x)
@@ -259,27 +312,40 @@ class OneHot(nn.Module):
         return self.onehot.permute(0, 3, 2, 1)
 
 
-class GCNSpatialGT(nn.Module):
-    """G mixed through a T x T temporal attention (blocks/spatial.py:243-322,
-    gt_mode 1; agcn_tpu sgn.py:238-279): g12 = g1 g2^T per frame, the frame
-    descriptors are the joint-max of g3 and g4, g34 = softmax_j(g3p g4p^T)
-    mixes the frames' g12, then a softmax over the source joint (or a
-    sigmoid, gt_activation 2). `alpha` exists as in the reference and is
-    not used without a prior G. Returns (G, None): this mode gives the
-    unit no per-frame gate."""
+def _blend(g: torch.Tensor, g_prior: Optional[torch.Tensor],
+           alpha: torch.Tensor) -> torch.Tensor:
+    """The previous unit's G blended in (`sgcn_g_weighted`, agcn_tpu
+    sgn.py:229-231): (g_prior alpha + g) / (alpha + 1)."""
+    return g if g_prior is None else (g_prior * alpha + g) / (alpha + 1)
+
+
+def _g_projections(module: nn.Module, in_features: int, proj_dim: int,
+                   names: Sequence[str], use_bias: bool,
+                   g_kernel: int) -> None:
+    """The G module's projections, each a conv over T of `g_kernel`
+    (`sgcn_g_kernel`, padding g_kernel // 2) without norm or relu."""
+    module.names = tuple(names)
+    for name in names:
+        module.add_module(name, ConvNormAct(
+            in_features, proj_dim, g_kernel, g_kernel // 2,
+            use_bias=use_bias, use_act=False))
+
+
+class GCNSpatialG(nn.Module):
+    """Per-frame attention G = act(g1 g2^T) (blocks/spatial.py:193-240,
+    gt_mode 0; agcn_tpu sgn.py:203-235): a softmax over the source joint,
+    a sigmoid, or (any other `activation`) the logits themselves; with a
+    prior G, blended in through `alpha`. Returns (G, None)."""
 
     def __init__(self, in_features: int, proj_dim: int,
                  use_bias: bool = True, proj_shared: bool = False,
-                 gt_activation: int = 1):
+                 activation: str = "softmax", g_kernel: int = 1):
         super().__init__()
-        self.proj_shared = proj_shared
-        self.gt_activation = gt_activation
-        names = ("g1", "g3") if proj_shared else ("g1", "g2", "g3", "g4")
-        for name in names:
-            self.add_module(name, ConvNormAct(in_features, proj_dim,
-                                              use_bias=use_bias,
-                                              use_act=False))
-        self.names = names
+        _g_projections(self, in_features, proj_dim,
+                       ("g1",) if proj_shared else ("g1", "g2"), use_bias,
+                       g_kernel)
+        self.activation = (activation if activation in ("softmax", "sigmoid")
+                           else "identity")
         self.alpha = nn.Parameter(torch.zeros(1))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -288,7 +354,44 @@ class GCNSpatialGT(nn.Module):
         with torch.no_grad():
             self.alpha.zero_()
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, None]:
+    def forward(self, x: torch.Tensor,
+                g_prior: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, None]:
+        g1 = self.g1(x)
+        g2 = g1 if len(self.names) == 1 else self.g2(x)
+        return _blend(frame_attention(g1, g2, self.activation), g_prior,
+                      self.alpha), None
+
+
+class GCNSpatialGT(nn.Module):
+    """G mixed through a T x T temporal attention (blocks/spatial.py:243-322,
+    gt_mode 1; agcn_tpu sgn.py:238-279): g12 = g1 g2^T per frame, the frame
+    descriptors are the joint-max of g3 and g4, g34 = softmax_j(g3p g4p^T)
+    mixes the frames' g12, then a softmax over the source joint (or a
+    sigmoid, gt_activation 2); with a prior G, blended in through
+    `alpha`. Returns (G, None): this mode gives the unit no per-frame
+    gate."""
+
+    def __init__(self, in_features: int, proj_dim: int,
+                 use_bias: bool = True, proj_shared: bool = False,
+                 gt_activation: int = 1, g_kernel: int = 1):
+        super().__init__()
+        self.proj_shared = proj_shared
+        self.gt_activation = gt_activation
+        _g_projections(self, in_features, proj_dim,
+                       ("g1", "g3") if proj_shared
+                       else ("g1", "g2", "g3", "g4"), use_bias, g_kernel)
+        self.alpha = nn.Parameter(torch.zeros(1))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name in self.names:
+            getattr(self, name).reset_parameters(generator)
+        with torch.no_grad():
+            self.alpha.zero_()
+
+    def forward(self, x: torch.Tensor,
+                g_prior: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, None]:
         b, t, v, _ = x.shape
         g1, g3 = self.g1(x), self.g3(x)
         g2, g4 = (g1, g3) if self.proj_shared else (self.g2(x), self.g4(x))
@@ -297,9 +400,9 @@ class GCNSpatialGT(nn.Module):
         g4p = torch.amax(g4, dim=2)
         g34 = torch.softmax(torch.matmul(g3p, g4p.transpose(1, 2)), dim=-1)
         g12 = torch.matmul(g34, g12.reshape(b, t, v * v)).reshape(b, t, v, v)
-        if self.gt_activation == 1:
-            return torch.softmax(g12, dim=-1), None
-        return torch.sigmoid(g12), None
+        g12 = (torch.softmax(g12, dim=-1) if self.gt_activation == 1
+               else torch.sigmoid(g12))
+        return _blend(g12, g_prior, self.alpha), None
 
 
 class FrameScalarMLP(nn.Module):
@@ -333,29 +436,27 @@ class FrameScalarMLP(nn.Module):
 
 class GCNSpatialGTScalar(nn.Module):
     """GT modes 2, 3 and 4 (blocks/spatial.py GCNSpatialGT2 :325-388, GT3
-    :391-467, GT4 :470-545; agcn_tpu sgn.py:306-365): G = act(g1 g2^T) per
+    :391-467, GT4 :470-545; agcn_tpu sgn.py:311-365): G = act(g1 g2^T) per
     frame (a softmax over the source joint for `activation` 'softmax',
     else a sigmoid), and a per-frame scalar s of the frame's flattened
     joint features: GT2 the Linear `g3`, GT3 / GT4 the MLP `g3` (C*V or C
     hidden channels, `g3_idx` layers), then a softmax over the frames (a
-    sigmoid for gt_activation 2). GT2 and GT3 return (s G, s), GT4 (G, s)
-    for the unit to gate its input. `g3` reads the features in the
-    reference's (c, v) order, so its weights are the reference's. `alpha`
-    exists as in the reference and is not used without a prior G."""
+    sigmoid for gt_activation 2). GT2 and GT3 return (s G, s), with a
+    prior G blended in through `alpha`; GT4 (G, s) for the unit to gate
+    its input. `g3` reads the features in the reference's (c, v) order,
+    so its weights are the reference's."""
 
     def __init__(self, in_features: int, num_point: int, proj_dim: int,
                  gt_mode: int = 2, use_bias: bool = True,
                  proj_shared: bool = False, activation: str = "softmax",
-                 gt_activation: int = 1, g3_idx: int = 2):
+                 gt_activation: int = 1, g3_idx: int = 2, g_kernel: int = 1):
         super().__init__()
         self.gt_mode = gt_mode
         self.activation = "softmax" if activation == "softmax" else "sigmoid"
         self.gt_activation = gt_activation
-        self.names = ("g1",) if proj_shared else ("g1", "g2")
-        for name in self.names:
-            self.add_module(name, ConvNormAct(in_features, proj_dim,
-                                              use_bias=use_bias,
-                                              use_act=False))
+        _g_projections(self, in_features, proj_dim,
+                       ("g1",) if proj_shared else ("g1", "g2"), use_bias,
+                       g_kernel)
         flat = in_features * num_point
         if gt_mode == 2:
             self.g3 = nn.utils.skip_init(nn.Linear, flat, 1, bias=use_bias)
@@ -378,7 +479,8 @@ class GCNSpatialGTScalar(nn.Module):
         with torch.no_grad():
             self.alpha.zero_()
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor,
+                g_prior: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         b, t, v, c = x.shape
         g1 = self.g1(x)
@@ -390,27 +492,138 @@ class GCNSpatialGTScalar(nn.Module):
             s = s[..., 0, 0]
         s = (torch.softmax(s, dim=-1) if self.gt_activation == 1
              else torch.sigmoid(s))[:, :, None, None]  # (B, T, 1, 1)
-        return (g12, s) if self.gt_mode == 4 else (s * g12, s)
+        if self.gt_mode == 4:
+            return g12, s
+        return _blend(s * g12, g_prior, self.alpha), s
+
+
+class MLPTemporal(nn.Module):
+    """GT5's head `g3` (the reference MLPTemporal, blocks/temporal.py:
+    99-161; agcn_tpu sgn.py:408-418): `depth` layers conv -> BN -> relu of
+    `features` channels, kernel 3 (the last 1), with Dropout2d 0.5 after
+    the first."""
+
+    def __init__(self, in_features: int, features: int, depth: int = 2,
+                 use_bias: bool = True):
+        super().__init__()
+        self.depth = depth
+        c = in_features
+        for i in range(depth):
+            k = 3 if i < depth - 1 else 1
+            self.add_module(f"cnn{i + 1}", ConvNormAct(
+                c, features, k, k // 2, use_bias=use_bias, use_norm=True,
+                dropout=0.5 if i == 0 else 0.0))
+            c = features
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for i in range(self.depth):
+            getattr(self, f"cnn{i + 1}").reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.depth):
+            x = getattr(self, f"cnn{i + 1}")(x)
+        return x
+
+
+class GCNSpatialGTMap(nn.Module):
+    """GT modes 5 and 6 (blocks/spatial.py GCNSpatialGT5 :547-632, GT6
+    :633-700; agcn_tpu sgn.py:368-420): G = act(g1 g2^T) per frame (a
+    softmax over the source joint for `activation` 'softmax', else a
+    sigmoid), and a second output, each frame's flattened V x V map plus
+    the one-hot frame embedding `tem_embedding` (of the buffer
+    `tem_onehot`, (1, T, 1, T)), (B, T, 1, V*V); GT5 puts it through the
+    head `g3` (`MLPTemporal` of `out_channels2`, `g3_idx` layers). A
+    prior G is not read, as in JAX; `alpha` exists and is not used."""
+
+    def __init__(self, in_features: int, num_point: int, num_segment: int,
+                 proj_dim: int, gt_mode: int = 5, out_channels2: int = 512,
+                 use_bias: bool = True, proj_shared: bool = False,
+                 activation: str = "softmax", g3_idx: int = 2,
+                 g_kernel: int = 1):
+        super().__init__()
+        self.activation = "softmax" if activation == "softmax" else "sigmoid"
+        _g_projections(self, in_features, proj_dim,
+                       ("g1",) if proj_shared else ("g1", "g2"), use_bias,
+                       g_kernel)
+        vv = num_point * num_point
+        self.tem_embedding = SGNEmbedding(num_segment, vv, 1, use_bias)
+        self.tem_onehot = OneHot(num_segment, 1, mode=1)
+        if gt_mode == 5:
+            self.g3 = MLPTemporal(vv, out_channels2, g3_idx, use_bias)
+        self.out_features = out_channels2 if gt_mode == 5 else vv
+        self.alpha = nn.Parameter(torch.zeros(1))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name in self.names:
+            getattr(self, name).reset_parameters(generator)
+        self.tem_embedding.reset_parameters(generator)
+        if hasattr(self, "g3"):
+            self.g3.reset_parameters(generator)
+        with torch.no_grad():
+            self.alpha.zero_()
+
+    def forward(self, x: torch.Tensor,
+                g_prior: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        del g_prior
+        b, t, v, _ = x.shape
+        g1 = self.g1(x)
+        g2 = g1 if len(self.names) == 1 else self.g2(x)
+        g12 = frame_attention(g1, g2, self.activation)
+        # channel (i, j) of a frame's map: the reference's rearrange
+        # 'n t i j -> n (i j) t' (spatial.py:624-626)
+        y = g12.reshape(b, t, 1, v * v) + self.tem_embedding(
+            self.tem_onehot.table())
+        return g12, (self.g3(y) if hasattr(self, "g3") else y)
+
+
+# the attn modes of a unit (agcn_tpu sgn.py:475-499): 0 G-aggregate, 1 no
+# G, 2 squeeze-excite, 3 w2 alone, 10 mode 0 with w2 on the injected level
+ATTN_MODES = (0, 1, 2, 3, 10)
 
 
 class GCNSpatialUnit(nn.Module):
-    """One SGN graph conv, x -> norm(w1(G x) + res_alpha w2(x)) -> relu ->
-    dropout2d (blocks/spatial.py:702-843, attn_mode 0; agcn_tpu
-    sgn.py:423-506). w1's kernel starts at zero (the reference's
-    init_weight, sgn_v14.py:817-827), so a fresh model's G path adds
-    exactly zero. `res_alpha` is a fixed float, or the learnable
-    `res_alpha` for -1 (starting at one) and -2 (at zero). Under gt_mode 4
-    the G module's per-frame scalar gates x before both paths."""
+    """One SGN graph conv (blocks/spatial.py:702-843; agcn_tpu
+    sgn.py:423-506): by `attn_mode`, 0 w1(G x0) + res_alpha w2(x); 1
+    w1(x0) + res_alpha w2(x); 2 sigmoid(w1(relu(w3(mean_v x0)))) +
+    res_alpha w2(x) (`w3` of out / 2 channels); 3 w2(x); 10 mode 0 with
+    w2 reading the injected level `y` where one is given (the second
+    stack); then norm (none under `prenorm`) -> relu -> dropout2d. x0 is x,
+    or `w0(x)`, a conv over T of `v_kernel` (> 0); w2 is a conv over T of
+    `kernel_size` and `padding`. w1's kernel starts at zero (the
+    reference's init_weight, sgn_v14.py:817-827), so a fresh model's G
+    path adds exactly zero. `res_alpha` is a fixed float, or the
+    learnable `res_alpha` for -1 (starting at one) and -2 (at zero). Under
+    gt_mode 4 the G module's per-frame scalar gates x before both paths.
+    `y_features`: the injected level's width (w2's input under mode 10)."""
 
     def __init__(self, in_features: int, out_channels: int,
                  use_bias: bool = True, dropout: float = 0.0,
-                 res_alpha: float = 1.0, gt_mode: int = 1):
+                 prenorm: bool = False, res_alpha: float = 1.0,
+                 gt_mode: int = 1, attn_mode: int = 0, kernel_size: int = 1,
+                 padding: int = 0, v_kernel: int = 0,
+                 y_features: Optional[int] = None):
         super().__init__()
-        self.w1 = ConvNormAct(in_features, out_channels, use_bias=use_bias,
-                              use_act=False)
-        self.w2 = ConvNormAct(in_features, out_channels, use_bias=use_bias,
-                              use_act=False)
-        self.norm = BatchNorm(out_channels)
+        if attn_mode not in ATTN_MODES:
+            raise NotImplementedError(f"attn_mode {attn_mode}")
+        self.attn_mode = attn_mode
+        if v_kernel > 0:
+            self.w0 = ConvNormAct(in_features, in_features, v_kernel,
+                                  v_kernel // 2, use_bias=use_bias,
+                                  use_act=False)
+        if attn_mode != 3:
+            self.w1 = ConvNormAct(
+                out_channels // 2 if attn_mode == 2 else in_features,
+                out_channels, use_bias=use_bias, use_act=False)
+        if attn_mode == 2:
+            self.w3 = ConvNormAct(in_features, out_channels // 2,
+                                  use_bias=use_bias, use_act=False)
+        self.reads_y = attn_mode == 10 and y_features is not None
+        self.w2 = ConvNormAct(y_features if self.reads_y else in_features,
+                              out_channels, kernel_size, padding,
+                              use_bias=use_bias, use_act=False)
+        if not prenorm:
+            self.norm = BatchNorm(out_channels)
         self.drop = Dropout(dropout, (1, 2)) if dropout > 0.0 else None
         self.gate = gt_mode == 4
         self.alpha_init = {-1: 1.0, -2: 0.0}.get(res_alpha)
@@ -420,73 +633,206 @@ class GCNSpatialUnit(nn.Module):
             self.fixed_alpha = float(res_alpha)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        self.w1.reset_parameters(generator, kernel=init.constant(0.0))
+        if hasattr(self, "w0"):
+            self.w0.reset_parameters(generator)
+        if hasattr(self, "w1"):
+            self.w1.reset_parameters(generator, kernel=init.constant(0.0))
         self.w2.reset_parameters(generator)
+        if hasattr(self, "w3"):
+            self.w3.reset_parameters(generator)
         if self.alpha_init is not None:
             with torch.no_grad():
                 self.res_alpha.fill_(self.alpha_init)
 
-    def forward(self, x: torch.Tensor, g: torch.Tensor,
-                s: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.gate and s is not None:
-            x = s * x
+    def _w2(self, x: torch.Tensor) -> torch.Tensor:
         y2 = self.w2(x)
         if self.alpha_init is not None:
-            y2 = y2 * self.res_alpha
-        elif self.fixed_alpha != 1.0:
-            y2 = y2 * self.fixed_alpha
-        y = torch.relu(self.norm(self.w1(frame_aggregate(x, g)) + y2))
-        return y if self.drop is None else self.drop(y)
+            return y2 * self.res_alpha
+        return y2 if self.fixed_alpha == 1.0 else y2 * self.fixed_alpha
+
+    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor],
+                s: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.gate and s is not None:
+            x = s * x
+        x0 = self.w0(x) if hasattr(self, "w0") else x
+        mode = self.attn_mode
+        if mode in (0, 10):
+            z = self.w1(frame_aggregate(x0, g)) + self._w2(
+                y if self.reads_y and y is not None else x)
+        elif mode == 1:
+            z = self.w1(x0) + self._w2(x)
+        elif mode == 2:
+            se = torch.relu(self.w3(x0.mean(dim=2, keepdim=True)))
+            z = torch.sigmoid(self.w1(se)) + self._w2(x)
+        else:
+            z = self.w2(x)
+        if hasattr(self, "norm"):
+            z = self.norm(z)
+        z = torch.relu(z)
+        return z if self.drop is None else self.drop(z)
+
+
+def ffn_variant(ffn: float) -> Tuple[int, float]:
+    """`sgcn_ffn` -> (variant, multiplier): divmod(ffn, 100), the whole
+    value the multiplier of variant 0 (agcn_tpu sgn.py:623-627); variants
+    1 and 3 are post-norm, 2 and 3 the reference's "Linear" FFNs."""
+    variant, multiplier = divmod(float(ffn), 100.0)
+    return int(variant), float(ffn) if int(variant) == 0 else multiplier
+
+
+def linear_ffn_stacks(model_args: Dict[str, Any]) -> Tuple[str, ...]:
+    """The stacks ("sgcn", "sgcn2") of these SGN `model_args` whose FFN is
+    a "Linear" variant: the weight map's `linear_ffn`."""
+    return tuple(s for s in ("sgcn", "sgcn2")
+                 if model_args.get(f"{s}_ffn") is not None
+                 and ffn_variant(model_args[f"{s}_ffn"])[0] in (2, 3))
+
+
+class GCNSpatialFFN(nn.Module):
+    """The unit's FFN with its residual (blocks/spatial.py:36-117; agcn_tpu
+    sgn.py:509-533): x + ffn2(ffn1(x)), each conv -> [BN] -> relu, ffn1 to
+    int(C multiplier) channels; post-norm moves the BN to `norm`, after the
+    residual. The "Linear" variants (2xx, 3xx) hold `LinearLayer`s, which
+    compute what the 1x1 convs do, under the reference's names."""
+
+    def __init__(self, features: int, multiplier: float = 4.0,
+                 use_bias: bool = True, postnorm: bool = False,
+                 linear: bool = False):
+        super().__init__()
+        inter = int(features * multiplier)
+        self.ffn1 = ConvNormAct(features, inter, use_bias=use_bias,
+                                use_norm=not postnorm, linear=linear)
+        self.ffn2 = ConvNormAct(inter, features, use_bias=use_bias,
+                                use_norm=not postnorm, linear=linear)
+        if postnorm:
+            self.norm = BatchNorm(features)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.ffn1.reset_parameters(generator)
+        self.ffn2.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.ffn2(self.ffn1(x)) + x
+        return self.norm(y) if hasattr(self, "norm") else y
 
 
 class GCNSpatialBlock(nn.Module):
-    """The GCN units `gcn1..N`, with one G (`gcn_g1`) shared by all of them
-    when `g_proj_dim` is an int, or one per unit (`gcn_g{i}`) for a list
-    (blocks/spatial.py:846-1013; agcn_tpu sgn.py:536-633). The G module
-    is GT1's (`gt_mode` 1) or GT2-4's (`GCNSpatialGTScalar`)."""
+    """The GCN units `gcn1..N` (blocks/spatial.py:846-1013; agcn_tpu
+    sgn.py:536-633), each after its BN `gcn_prenorm{i}` (`prenorm`: the G
+    module and the unit read the normalized input, the residual the raw
+    one), and followed by `residual[i]` (the input added, through the 1x1
+    conv `gcn_res{i}` where the widths differ) and the FFN `gcn_ffn{i}`
+    (`ffn`, see `ffn_variant`). G comes from one G module `gcn_g1` shared
+    by every unit when `g_proj_dim` is an int, or one `gcn_g{i}` a unit
+    for a list (with `g_weighted` each blended with the previous unit's
+    G): `GCNSpatialG` (gt_mode 0), `GCNSpatialGT` (1), `GCNSpatialGTScalar`
+    (2-4) or `GCNSpatialGTMap` (5, 6), its projections convs over T of
+    `g_kernel`. Given `y_features` (the second stack, GCNSpatialBlock2,
+    spatial.py:1017+) the block builds no G module: its forward takes
+    `g_fixed` for every unit and the injected levels `inject`, of these
+    widths, which attn_mode 10's w2 reads."""
 
     def __init__(self, in_features: int, dims: Sequence[int],
                  g_proj_dim: Union[int, Sequence[int]] = 256,
-                 g_proj_shared: bool = False, gt_act: int = 1,
+                 g_proj_shared: bool = False, g_kernel: int = 1,
+                 kernel_size: int = 1, padding: int = 0, v_kernel: int = 0,
+                 g_activation: str = "softmax", g_weighted: bool = False,
+                 gt_mode: int = 1, gt_act: int = 1, res_alpha: float = 1.0,
+                 residual: Optional[Sequence[int]] = None,
+                 prenorm: bool = False, ffn: Optional[float] = None,
                  dropout: float = 0.0, use_bias: bool = True,
-                 num_point: int = 25, gt_mode: int = 1,
-                 g_activation: str = "softmax", g3_idx: int = 2,
-                 res_alpha: float = 1.0):
+                 attn_mode: int = 0, gt_out_channels2: int = 512,
+                 g3_idx: int = 2, num_point: int = 25,
+                 num_segment: int = 20,
+                 y_features: Optional[Sequence[int]] = None):
         super().__init__()
+        if gt_mode not in (0, 1, 2, 3, 4, 5, 6):
+            raise NotImplementedError(f"gt_mode {gt_mode}")
         self.dims = tuple(dims)
         self.g_shared = isinstance(g_proj_dim, int)
+        self.g_weighted = g_weighted and not self.g_shared
+        self.fixed_g = y_features is not None
+        self.residual = (tuple(int(r) for r in residual)
+                         if residual is not None else (0,) * len(self.dims))
+        self.prenorm = prenorm
+        ffn_mode = None if ffn is None else ffn_variant(ffn)
+        self.g_out_features = None
         c = in_features
         for i, dim in enumerate(self.dims):
-            if i == 0 or not self.g_shared:
+            if prenorm:
+                self.add_module(f"gcn_prenorm{i + 1}", BatchNorm(c))
+            if not self.fixed_g and (i == 0 or not self.g_shared):
                 proj = g_proj_dim if self.g_shared else g_proj_dim[i]
-                self.add_module(f"gcn_g{i + 1}", GCNSpatialGT(
-                    c, proj, use_bias=use_bias, proj_shared=g_proj_shared,
-                    gt_activation=gt_act) if gt_mode == 1 else
-                    GCNSpatialGTScalar(
-                        c, num_point, proj, gt_mode, use_bias=use_bias,
-                        proj_shared=g_proj_shared, activation=g_activation,
-                        gt_activation=gt_act, g3_idx=g3_idx))
+                common = dict(use_bias=use_bias, proj_shared=g_proj_shared,
+                              g_kernel=g_kernel)
+                if gt_mode == 0:
+                    g_mod = GCNSpatialG(c, proj, activation=g_activation,
+                                        **common)
+                elif gt_mode == 1:
+                    g_mod = GCNSpatialGT(c, proj, gt_activation=gt_act,
+                                         **common)
+                elif gt_mode in (2, 3, 4):
+                    g_mod = GCNSpatialGTScalar(
+                        c, num_point, proj, gt_mode,
+                        activation=g_activation, gt_activation=gt_act,
+                        g3_idx=g3_idx, **common)
+                else:
+                    g_mod = GCNSpatialGTMap(
+                        c, num_point, num_segment, proj, gt_mode,
+                        gt_out_channels2, activation=g_activation,
+                        g3_idx=g3_idx, **common)
+                    if i == 0:
+                        self.g_out_features = g_mod.out_features
+                self.add_module(f"gcn_g{i + 1}", g_mod)
             self.add_module(f"gcn{i + 1}", GCNSpatialUnit(
-                c, dim, use_bias=use_bias, dropout=dropout,
-                res_alpha=res_alpha, gt_mode=gt_mode))
+                c, dim, use_bias=use_bias, dropout=dropout, prenorm=prenorm,
+                res_alpha=res_alpha, gt_mode=gt_mode, attn_mode=attn_mode,
+                kernel_size=kernel_size, padding=padding, v_kernel=v_kernel,
+                y_features=None if y_features is None else y_features[i]))
+            if self.residual[i] == 1 and c != dim:
+                self.add_module(f"gcn_res{i + 1}", ConvNormAct(
+                    c, dim, use_bias=use_bias, use_act=False))
+            if ffn_mode is not None:
+                self.add_module(f"gcn_ffn{i + 1}", GCNSpatialFFN(
+                    dim, ffn_mode[1], use_bias, postnorm=ffn_mode[0] in (1, 3),
+                    linear=ffn_mode[0] in (2, 3)))
             c = dim
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for i in range(len(self.dims)):
-            if i == 0 or not self.g_shared:
-                getattr(self, f"gcn_g{i + 1}").reset_parameters(generator)
-            getattr(self, f"gcn{i + 1}").reset_parameters(generator)
+            for name in (f"gcn_g{i + 1}", f"gcn{i + 1}", f"gcn_res{i + 1}",
+                         f"gcn_ffn{i + 1}"):
+                if hasattr(self, name):
+                    getattr(self, name).reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor):
-        """(the last unit's output, the list of G, every unit's output)."""
-        g_list: List[torch.Tensor] = []
+    def forward(self, x: torch.Tensor,
+                inject: Optional[Sequence[torch.Tensor]] = None,
+                g_fixed: Optional[torch.Tensor] = None):
+        """(the last unit's output, the list of (G, the G module's second
+        output), every unit's output)."""
+        g_list: List[Tuple[torch.Tensor, Optional[torch.Tensor]]] = []
         x_list: List[torch.Tensor] = []
-        s = None
         for i in range(len(self.dims)):
-            if i == 0 or not self.g_shared:
-                g, s = getattr(self, f"gcn_g{i + 1}")(x)
-                g_list.append(g)
-            x = getattr(self, f"gcn{i + 1}")(x, g_list[-1], s)
+            x1 = getattr(self, f"gcn_prenorm{i + 1}")(x) if self.prenorm \
+                else x
+            if self.fixed_g:
+                if not g_list:
+                    g_list.append((g_fixed, None))
+            elif i == 0 or not self.g_shared:
+                g_prior = g_list[-1][0] if self.g_weighted and g_list \
+                    else None
+                g_list.append(getattr(self, f"gcn_g{i + 1}")(x1, g_prior))
+            g, s = g_list[-1]
+            z = getattr(self, f"gcn{i + 1}")(
+                x1, g, s, None if inject is None else inject[i])
+            if self.residual[i] == 1:
+                res = getattr(self, f"gcn_res{i + 1}", None)
+                z = z + (x if res is None else res(x))
+            x = z
+            ffn = getattr(self, f"gcn_ffn{i + 1}", None)
+            if ffn is not None:
+                x = ffn(x)
             x_list.append(x)
         return x, g_list, x_list
 
@@ -495,14 +841,15 @@ class TemporalBranchMLP(nn.Module):
     """Two-layer temporal conv MLP (blocks/temporal.py:99-160; agcn_tpu
     sgn.py:636-676): [a VALID max pool over time, `maxpool_kwargs`' last
     kernel and stride elements], conv k -> BN -> relu -> dropout2d
-    (`cnn1`), then 1x1 -> BN -> relu (`cnn2`); t_mode 2 adds each layer's
-    input to its output, through the 1x1 conv `res2` where cnn2 changes
-    the width."""
+    (`cnn1`), then 1x1 -> BN -> relu (`cnn2`), each BN before its conv
+    under `prenorm`; t_mode 2 adds each layer's input to its output,
+    through the 1x1 conv `res2` where cnn2 changes the width."""
 
     def __init__(self, in_features: int, out_channels: int,
                  kernel_size: int = 3, dropout: float = 0.0,
                  use_bias: bool = True, t_mode: int = 1,
-                 maxpool_kwargs: Optional[dict] = None):
+                 maxpool_kwargs: Optional[dict] = None,
+                 prenorm: bool = False):
         super().__init__()
         self.residual = t_mode == 2
         self.pool = None
@@ -513,9 +860,11 @@ class TemporalBranchMLP(nn.Module):
                                   else v) for v in (ks, st))
         self.cnn1 = ConvNormAct(in_features, in_features, kernel_size,
                                 kernel_size // 2, use_bias=use_bias,
-                                use_norm=True, dropout=dropout)
+                                use_norm=True, dropout=dropout,
+                                prenorm=prenorm)
         self.cnn2 = ConvNormAct(in_features, out_channels,
-                                use_bias=use_bias, use_norm=True)
+                                use_bias=use_bias, use_norm=True,
+                                prenorm=prenorm)
         if self.residual and in_features != out_channels:
             self.res2 = Conv1xN(in_features, out_channels,
                                 use_bias=use_bias)
@@ -548,9 +897,10 @@ class TemporalBranch(nn.Module):
     4 `SeriesDecomposition`, then t_mode-2 MLPs `cnn_raw`, `cnn_season`
     and `cnn_trend` over x, its seasonal part and its trend; 5 a t_mode-2
     MLP of kernel 1 `cnn_p{k}` over each replicate-padded moving average of
-    `pool_kernel_sizes`. Returns the list of outputs, of width
-    `out_features`. `in_features` is the input's V C: the port's levels
-    reach the branches spatially max-pooled (V = 1)."""
+    `pool_kernel_sizes`; every MLP's BNs before their convs under
+    `prenorm`. Returns the list of outputs, each of `out_shape`.
+    `in_features` is the input's channels and `joints` its V: 1 for a
+    spatially pooled level."""
 
     def __init__(self, in_features: int, out_channels: int,
                  kernel_size: int = 3, dropout: float = 0.0,
@@ -560,26 +910,25 @@ class TemporalBranch(nn.Module):
                  maxpool_kwargs: Optional[dict] = None,
                  decomp_kernel_size: int = 3,
                  pool_kernel_sizes: Sequence[int] = (3, 5, 7, 9),
-                 num_segment: int = 20):
+                 num_segment: int = 20, prenorm: bool = False,
+                 joints: int = 1):
         super().__init__()
         if t_mode not in (0, 1, 2, 3, 4, 5):
             raise NotImplementedError(f"t_mode {t_mode}")
         self.in_features = in_features
         self.t_mode = t_mode
-        self.out_features = (in_features if t_mode in (0, 3)
-                             else out_channels)
         if aspp_rates:
             self.aspp = ASPP(in_features, in_features, tuple(aspp_rates),
                              use_bias=bool(use_bias))
         if t_mode in (1, 2):
             self.cnn = TemporalBranchMLP(in_features, out_channels,
                                          kernel_size, dropout, use_bias,
-                                         t_mode, maxpool_kwargs)
+                                         t_mode, maxpool_kwargs, prenorm)
         elif t_mode == 3:
             kw = dict(mha_kwargs or {})
             nhead, dff = kw.get("nhead", 1), kw.get("dim_feedforward", 256)
             self.mha = TransformerEncoder(
-                in_features, kw.get("num_layers", 1),
+                in_features * joints, kw.get("num_layers", 1),
                 nhead[0] if isinstance(nhead, (list, tuple)) else nhead,
                 dff[0] if isinstance(dff, (list, tuple)) else dff,
                 dropout=kw.get("dropout", 0.1),
@@ -590,13 +939,20 @@ class TemporalBranch(nn.Module):
             for part in ("raw", "season", "trend"):
                 self.add_module(f"cnn_{part}", TemporalBranchMLP(
                     in_features, out_channels, kernel_size, dropout,
-                    use_bias, t_mode=2))
+                    use_bias, t_mode=2, prenorm=prenorm))
         elif t_mode == 5:
             self.pool_kernel_sizes = tuple(int(k) for k in pool_kernel_sizes)
             for k in self.pool_kernel_sizes:
                 self.add_module(f"cnn_p{k}", TemporalBranchMLP(
                     in_features, out_channels, 1, dropout, use_bias,
-                    t_mode=2))
+                    t_mode=2, prenorm=prenorm))
+        frames = num_segment
+        if t_mode in (1, 2) and self.cnn.pool is not None:  # VALID
+            frames = (num_segment - self.cnn.pool[0]) // self.cnn.pool[1] + 1
+        # (T', V', C') of each output
+        self.out_shape = ((frames, joints, in_features) if t_mode == 0
+                          else (frames, 1, in_features * joints)
+                          if t_mode == 3 else (frames, joints, out_channels))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for mod in self.children():
@@ -622,13 +978,6 @@ class TemporalBranch(nn.Module):
                 for k in self.pool_kernel_sizes]
 
 
-# options of the JAX model that only a refused mode reads (gcn_fpn 10):
-# accepted and unused, as that mode is refused
-_READ_BY_REFUSED_MODES = frozenset({
-    "sgcn2_dims", "sgcn2_kernel", "sgcn2_padding", "sgcn2_dropout",
-    "sgcn2_residual", "sgcn2_prenorm", "sgcn2_ffn", "sgcn2_v_kernel",
-    "sgcn2_attn_mode"})
-
 # the GCN-FPN's projection modes (agcn_tpu sgn.py:964-1007): mode -> the
 # projections' width from sgcn_dims (mode 6: 64) and whether level i sums
 # the projections of levels i.. (1, 2, 6, 7, 9), keeps its own (3), or the
@@ -638,6 +987,14 @@ _FPN_WIDTH = {1: lambda d: d[-1], 2: lambda d: d[0], 3: lambda d: d[-1],
               7: lambda d: d[-1], 9: lambda d: d[-1]}
 _FPN_SUM = (1, 2, 6, 7, 9)
 _FPN_CONCAT = (4, 5)
+
+# the pooling modes (agcn_tpu sgn.py:1056-1097, 1177-1216): 0 none, 1 the
+# max, 2 (temporal) the max plus `tmp_ind_projection` of the argmax, 3-5
+# conv -> BN -> relu layers in this order: "k" a VALID conv over every
+# joint (spatial) or every frame (temporal), "1x1" a 1x1 conv
+SPATIAL_POOLS = (0, 1, 3, 4, 5)
+TEMPORAL_POOLS = (0, 1, 2, 3, 4, 5)
+_POOL_LAYERS = {3: ("k",), 4: ("1x1", "k"), 5: ("k", "1x1")}
 
 
 def _refuse(**options: bool) -> None:
@@ -655,21 +1012,29 @@ def latent_noise(shape: Sequence[int], generator: Optional[torch.Generator],
     return torch.randn(tuple(shape), generator=generator, device=device)
 
 
+def _pool_conv(in_features: int, features: int, kernel: Tuple[int, int],
+               use_bias: bool) -> nn.Conv2d:
+    """A pooling conv over the (T, V) grid, the JAX module's kernel as
+    torch's (out, in, kT, kV)."""
+    return nn.utils.skip_init(nn.Conv2d, in_features, features, kernel,
+                              bias=use_bias)
+
+
 class SGN(nn.Module):
-    """The SGN classifier (agcn_tpu sgn.py:758-1283) at the options of the
-    base, v11, v12, v13 and v13_gt4 recipes and the temporal-branch and
-    BiFPN options. `forward(x)` takes (B, num_segment, V*C) and returns
-    the logits; `forward(x, return_g=True)` returns (logits, the list of
-    G, each (B, T, V, V)).
+    """The SGN classifier (agcn_tpu sgn.py:758-1283) at every option of
+    the JAX model but the input-side ones `_refuse` names.
+    `forward(x)` takes (B, num_segment, V*C) and returns the logits;
+    `forward(x, return_g=True)` returns (logits, the list of G, each
+    (B, T, V, V)).
 
     Built on the CPU, initialized from `generator` (seed 0 when None) and
     moved to `device`, `cuda` unless the caller names another. The
-    dropouts (dropout2d in the temporal branches, `sgcn_dropout` in the
-    units, the temporal encoder's under t_mode 3, `dropout` before fc)
-    and the InfoGCN head's eps draw from one
-    generator on that device, seeded from `generator` (`dropout_seed`; the
-    train step reseeds it for each update, `train/steps.seed_dropout`).
-    Parameters and compute are fp32.
+    dropouts (dropout2d in the temporal branches, `sgcn_dropout` and
+    `sgcn2_dropout` in the units, GT5's head's 0.5, the temporal
+    encoder's under t_mode 3, `dropout` before fc) and the InfoGCN head's
+    eps draw from one generator on that device, seeded from `generator`
+    (`dropout_seed`; the train step reseeds it for each update,
+    `train/steps.seed_dropout`). Parameters and compute are fp32.
 
     `has_aux`: the train and eval steps call `forward(x, return_aux=True)`
     for an aux loss (only models that set it take the argument)."""
@@ -700,6 +1065,13 @@ class SGN(nn.Module):
                  sgcn_gt_g3_idx: int = 2, sgcn_gt_out_channels2: int = 512,
                  sgcn_attn_mode: int = 0, gcn_fpn_output_merge: int = 1,
                  gcn_fpn_shared: int = 0, gcn_fpn: int = -1,
+                 sgcn2_dims: Optional[Sequence[int]] = None,
+                 sgcn2_kernel: int = 1, sgcn2_padding: int = 0,
+                 sgcn2_dropout: float = 0.0,
+                 sgcn2_residual: Optional[Sequence[int]] = None,
+                 sgcn2_prenorm: bool = False,
+                 sgcn2_ffn: Optional[float] = None, sgcn2_v_kernel: int = 0,
+                 sgcn2_attn_mode: int = 0,
                  gcn_fpn_kernel: int = 1, bifpn_dim: int = 256,
                  bifpn_layers: int = 1,
                  spatial_maxpool: int = 1, temporal_maxpool: int = 1,
@@ -714,15 +1086,8 @@ class SGN(nn.Module):
                  pool_kernel_sizes: Sequence[int] = (3, 5, 7, 9),
                  dtype: Optional[torch.dtype] = None,
                  device: Union[str, torch.device, None] = DEFAULT_DEVICE,
-                 generator: Optional[torch.Generator] = None,
-                 **refused_modes_only: Any):
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        unknown = sorted(set(refused_modes_only) - _READ_BY_REFUSED_MODES)
-        if unknown:
-            raise TypeError(f"SGN got unexpected options {unknown}")
-        # read only by gt modes 5 / 6 or the unit's w2 kernel (k = 1
-        # ignores its padding, as in JAX)
-        del sgcn_gt_out_channels2, sgcn_padding
         device = resolve_device(device)
         if dtype not in (None, torch.float32):
             raise NotImplementedError(
@@ -733,26 +1098,17 @@ class SGN(nn.Module):
                 "gcn_fpn_output_merge=2 has per-branch classifier heads "
                 "and cannot host the InfoGCN latent head")
         _refuse(**{
-            "sgcn_gt_mode 0, 5 or 6": sgcn_gt_mode not in (1, 2, 3, 4),
-            "sgcn_attn_mode != 0": sgcn_attn_mode != 0,
-            "gcn_fpn 10 (a second GCN stack)": gcn_fpn == 10,
-            "gcn_fpn_output_merge = 2": gcn_fpn_output_merge == 2,
             "semantic_jdiff": semantic_jdiff > 0,
             "semantic_joint_smp": semantic_joint_smp > 0,
             "semantic_frame_location = 1": semantic_frame_location == 1,
             "xem_projection": xem_projection > 0,
             "segment embeddings (input_position/velocity > 1000)":
                 input_position > 1000 or input_velocity > 1000,
-            "sgcn_ffn": sgcn_ffn is not None,
-            "sgcn_residual": any(int(r) for r in sgcn_residual),
-            "sgcn_prenorm": bool(sgcn_prenorm),
-            "sgcn_g_weighted": bool(sgcn_g_weighted),
-            "sgcn_v_kernel": sgcn_v_kernel > 0,
-            "sgcn_kernel != 1": sgcn_kernel != 1,
-            "sgcn_g_kernel != 1": sgcn_g_kernel != 1,
-            "spatial_maxpool != 1": spatial_maxpool != 1,
-            "temporal_maxpool != 1": temporal_maxpool != 1,
         })
+        if spatial_maxpool not in SPATIAL_POOLS:
+            raise NotImplementedError("spatial_maxpool mode")
+        if temporal_maxpool not in TEMPORAL_POOLS:
+            raise NotImplementedError("temporal_maxpool mode")
         if input_position <= 0 and input_velocity <= 0:
             raise ValueError("SGN needs input_position or input_velocity")
         m = (tuple(c_multiplier) if isinstance(c_multiplier, (list, tuple))
@@ -795,18 +1151,25 @@ class SGN(nn.Module):
         g_proj = sgcn_g_proj_dim if sgcn_g_proj_dim is not None else c3
         if isinstance(g_proj, (list, tuple)):
             g_proj = tuple(g_proj)
+        self.gt_mode = sgcn_gt_mode
         self.sgcn = GCNSpatialBlock(
-            width, dims, g_proj, bool(sgcn_g_proj_shared), sgcn_gt_act,
-            sgcn_dropout, use_bias, num_point=v, gt_mode=sgcn_gt_mode,
-            g_activation=sgcn_g_activation, g3_idx=sgcn_gt_g3_idx,
-            res_alpha=sgcn_g_res_alpha)
+            width, dims, g_proj, bool(sgcn_g_proj_shared),
+            g_kernel=sgcn_g_kernel, kernel_size=sgcn_kernel,
+            padding=sgcn_padding, v_kernel=sgcn_v_kernel,
+            g_activation=sgcn_g_activation, g_weighted=bool(sgcn_g_weighted),
+            gt_mode=sgcn_gt_mode, gt_act=sgcn_gt_act,
+            res_alpha=sgcn_g_res_alpha, residual=sgcn_residual,
+            prenorm=bool(sgcn_prenorm), ffn=sgcn_ffn, dropout=sgcn_dropout,
+            use_bias=use_bias, attn_mode=sgcn_attn_mode,
+            gt_out_channels2=sgcn_gt_out_channels2, g3_idx=sgcn_gt_g3_idx,
+            num_point=v, num_segment=t)
 
         # the GCN-FPN: the levels that feed the temporal branches, the last
         # unit's output (gcn_fpn -1), every unit's (0), the projections
         # fpn_proj{i}[_k{k}] of every unit's output (one, fpn_proj1, for
-        # all levels with gcn_fpn_shared), or the BiFPN `bifpn` over every
-        # unit's output (8); widths[i] is level i's width at its branches
-        # (None: no feature)
+        # all levels with gcn_fpn_shared), the BiFPN `bifpn` over every
+        # unit's output (8), or the last output of the second stack
+        # `sgcn2` (10); widths[i] is level i's width (None: no feature)
         last = len(dims) - 1
         self.fpn_mode = gcn_fpn if gcn_fpn in _FPN_WIDTH else None
         self.every_level = gcn_fpn == 0
@@ -827,15 +1190,49 @@ class SGN(nn.Module):
                             use_act=False))
                 self.fpn_projections.append(names)
             widths = [proj_dim] * (last + 1)
-            if gcn_fpn in _FPN_CONCAT:
-                widths = [None] * last + [proj_dim * (last + 1)]
         elif gcn_fpn == 8:
             self.bifpn = BiFPN(dims, bifpn_dim, bifpn_layers)
             widths = [bifpn_dim] * (last + 1)
         elif gcn_fpn == 0:
             widths = list(dims)
+        elif gcn_fpn == 10:
+            # the units of the second stack read G fixed to the first's
+            # last and (attn_mode 10) the injected levels, high to low:
+            # the outputs before the last, then the first stack's input
+            # (agcn_tpu sgn.py:1013-1042)
+            dims2 = tuple(sgcn2_dims or dims)
+            self.sgcn2 = GCNSpatialBlock(
+                dims[-1], dims2, g_proj, bool(sgcn_g_proj_shared),
+                kernel_size=sgcn2_kernel, padding=sgcn2_padding,
+                v_kernel=sgcn2_v_kernel, g_activation=sgcn_g_activation,
+                gt_mode=0, residual=sgcn2_residual,
+                prenorm=bool(sgcn2_prenorm), ffn=sgcn2_ffn,
+                dropout=sgcn2_dropout, use_bias=use_bias,
+                attn_mode=sgcn2_attn_mode, num_point=v, num_segment=t,
+                y_features=([width] + list(dims[:-1]))[::-1])
+            widths = [None] * last + [dims2[-1]]
         else:
             widths = [None] * last + [dims[-1]]
+        # the spatial pool of each level with a feature: the conv pools'
+        # smp{i}_{k,1x1}_{conv,bn} of c3 channels (agcn_tpu
+        # sgn.py:1056-1097); the pooled levels concatenated under gcn_fpn
+        # 4 and 5; the GT6 maps a level of their own, after both
+        self.spatial_maxpool = spatial_maxpool
+        self.smp_layers = _POOL_LAYERS.get(spatial_maxpool, ())
+        for i, c in enumerate(widths):
+            if c is None:
+                continue
+            for layer in self.smp_layers:
+                self.add_module(f"smp{i}_{layer}_conv", _pool_conv(
+                    c, c3, (1, v if layer == "k" else 1), use_bias))
+                self.add_module(f"smp{i}_{layer}_bn", BatchNorm(c3))
+                widths[i] = c = c3
+        if gcn_fpn in _FPN_CONCAT:
+            widths = [None] * last + [sum(widths)]
+        joints = [v if spatial_maxpool == 0 else 1] * len(widths)
+        if sgcn_gt_mode == 6:
+            widths.append(self.sgcn.g_out_features)
+            joints.append(1)
         # multi_t[i] lists level i's kernels; with multi_t_shared 2 one
         # branch a (slot, kernel) pair, named after the first level that
         # declares the pair (agcn_tpu sgn.py:1117-1150); each branch is of
@@ -856,7 +1253,8 @@ class SGN(nn.Module):
                         widths[i], c4, k, dropout2d, use_bias, t_mode,
                         aspp_rates, t_mha_kwargs, t_maxpool_kwargs,
                         decomp_kernel_size, pool_kernel_sizes,
-                        num_segment=t))
+                        num_segment=t, prenorm=bool(sgcn_prenorm),
+                        joints=joints[i]))
                 elif getattr(self, name).in_features != widths[i]:
                     raise ValueError(
                         f"multi_t_shared: {name} is shared by levels of "
@@ -865,15 +1263,34 @@ class SGN(nn.Module):
         if not self.branches:
             raise ValueError(f"multi_t {multi_t!r} gives the levels of "
                              f"widths {widths} no temporal branch")
-        # the classifier's width: the branches' outputs (c4; the level's
-        # own width under t_mode 0 and 3), averaged, so equal
-        out_widths = {getattr(self, name).out_features
-                      for _, name in self.branches}
-        if len(out_widths) > 1:
-            raise ValueError(f"t_mode {t_mode}: the temporal branches give "
-                             f"outputs of widths {sorted(out_widths)}, "
-                             "which cannot be averaged")
-        width = out_widths.pop()
+        # every output (T', V', C'), the GT5 head's among them (agcn_tpu
+        # sgn.py:1151-1161), averaged, so equal
+        shapes = [getattr(self, name).out_shape for _, name in self.branches
+                  for _ in range(len(pool_kernel_sizes) if t_mode == 5
+                                 else 3 if t_mode == 4 else 1)]
+        if sgcn_gt_mode == 5:
+            head = self.sgcn.g_out_features
+            if head != shapes[0][-1]:
+                raise ValueError(
+                    f"gt_mode 5 needs sgcn_gt_out_channels2 == temporal "
+                    f"output width ({head} vs {shapes[0][-1]})")
+            shapes.append((t, 1, head))
+        if len(set(shapes)) > 1:
+            raise ValueError(f"t_mode {t_mode}: the temporal outputs are of "
+                             f"(T', V', C') {sorted(set(shapes))}, which "
+                             "cannot be averaged")
+        frames, out_joints, ch = shapes[0]
+        # the temporal pool's modules, one set for every branch under
+        # gcn_fpn_output_merge 2 (agcn_tpu sgn.py:1171-1193)
+        self.temporal_maxpool = temporal_maxpool
+        self.tmp_layers = _POOL_LAYERS.get(temporal_maxpool, ())
+        if temporal_maxpool == 2:
+            self.tmp_ind_projection = ConvNormAct(ch, ch, use_bias=use_bias)
+        for layer in self.tmp_layers:
+            self.add_module(f"tmp_{layer}_conv", _pool_conv(
+                ch, ch, (frames if layer == "k" else 1, 1), use_bias))
+            self.add_module(f"tmp_{layer}_bn", BatchNorm(ch))
+        width = (frames if temporal_maxpool == 0 else 1) * out_joints * ch
         # the InfoGCN latent head (agcn_tpu sgn.py:1233-1261): the
         # classifier takes z = mu + eps * std in training, mu in eval;
         # z_prior, the MMD loss's class prior, is a fixed buffer
@@ -885,7 +1302,14 @@ class SGN(nn.Module):
             self.register_buffer("z_prior", torch.empty(num_class, width))
             self.prior_gain = float(infogcn_gain)
         self.fc_drop = Dropout(dropout)
-        self.fc = nn.utils.skip_init(nn.Linear, width, num_class)
+        # gcn_fpn_output_merge 2: a head fc{i} an output, the logits
+        # averaged (agcn_tpu sgn.py:1264-1276); else one `fc`
+        self.merge2 = gcn_fpn_output_merge == 2
+        self.heads = ([f"fc{i + 1}" for i in range(len(shapes))]
+                      if self.merge2 else ["fc"])
+        for name in self.heads:
+            self.add_module(name, nn.utils.skip_init(nn.Linear, width,
+                                                     num_class))
 
         generator = (generator if generator is not None
                      else torch.Generator().manual_seed(0))
@@ -897,7 +1321,8 @@ class SGN(nn.Module):
         mha_dropout = t_mode == 3 and (t_mha_kwargs or {}).get("dropout",
                                                                0.1)
         if (dropout or dropout2d or sgcn_dropout or mha_dropout
-                or self.noise_ratio is not None):
+                or self.noise_ratio is not None or sgcn_gt_mode == 5
+                or (gcn_fpn == 10 and sgcn2_dropout)):
             self.dropout_seed = int(torch.randint(2 ** 62, (1,),
                                                   generator=generator))
             self.dropout_generator = torch.Generator(
@@ -913,13 +1338,22 @@ class SGN(nn.Module):
             if isinstance(emb, SGNEmbedding):
                 emb.reset_parameters(generator)
         self.sgcn.reset_parameters(generator)
-        if hasattr(self, "bifpn"):
-            self.bifpn.reset_parameters(generator)
+        for name in ("sgcn2", "bifpn"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters(generator)
         for name in dict.fromkeys(n for names in self.fpn_projections
                                   for n in names):
             getattr(self, name).reset_parameters(generator)
         for name in dict.fromkeys(name for _, name in self.branches):
             getattr(self, name).reset_parameters(generator)
+        for name, mod in self.named_children():
+            if isinstance(mod, nn.Conv2d):  # the conv pools (bias 0)
+                init.kaiming_normal_fan_out(mod.weight, generator)
+                if mod.bias is not None:
+                    with torch.no_grad():
+                        mod.bias.zero_()
+        if hasattr(self, "tmp_ind_projection"):
+            self.tmp_ind_projection.reset_parameters(generator)
         if self.noise_ratio is not None:
             for fc in (self.fc_mu, self.fc_logvar):
                 init.torch_default(fc.in_features)(fc.weight, generator)
@@ -927,14 +1361,21 @@ class SGN(nn.Module):
             with torch.no_grad():
                 nn.init.orthogonal_(self.z_prior, gain=self.prior_gain,
                                     generator=generator)
-        init.torch_default(self.fc.in_features)(self.fc.weight, generator)
-        init.torch_default(self.fc.in_features)(self.fc.bias, generator)
+        for name in self.heads:
+            fc = getattr(self, name)
+            init.torch_default(fc.in_features)(fc.weight, generator)
+            init.torch_default(fc.in_features)(fc.bias, generator)
 
-    def _levels(self, x_list: List[torch.Tensor]
-                ) -> List[Optional[torch.Tensor]]:
+    def _levels(self, feat: torch.Tensor,
+                g_list: List[Tuple[torch.Tensor, Any]],
+                x_list: List[torch.Tensor]) -> List[Optional[torch.Tensor]]:
         """The GCN-FPN's features, one a level (None: no feature)."""
         if hasattr(self, "bifpn"):
             return self.bifpn(list(x_list))
+        if hasattr(self, "sgcn2"):
+            inject = ([feat] + list(x_list[:-1]))[::-1]
+            _, _, x2 = self.sgcn2(x_list[-1], inject, g_list[-1][0])
+            return [None] * (len(x_list) - 1) + [x2[-1]]
         if self.fpn_mode is None:
             return (list(x_list) if self.every_level
                     else [None] * (len(x_list) - 1) + [x_list[-1]])
@@ -945,6 +1386,34 @@ class SGN(nn.Module):
         if self.fpn_mode in _FPN_SUM:
             return [sum(proj[i:]) for i in range(len(proj))]
         return proj
+
+    def _conv_pool(self, prefix: str, layers: Sequence[str],
+                   x: torch.Tensor) -> torch.Tensor:
+        for layer in layers:
+            y = getattr(self, f"{prefix}_{layer}_conv")(
+                x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            x = torch.relu(getattr(self, f"{prefix}_{layer}_bn")(y))
+        return x
+
+    def _spatial_pool(self, i: int, f: torch.Tensor) -> torch.Tensor:
+        if self.spatial_maxpool == 0:
+            return f
+        if self.spatial_maxpool == 1:
+            return torch.amax(f, dim=2, keepdim=True)
+        return self._conv_pool(f"smp{i}", self.smp_layers, f)
+
+    def _temporal_pool(self, y: torch.Tensor) -> torch.Tensor:
+        if self.temporal_maxpool == 0:
+            return y
+        if self.temporal_maxpool == 1:
+            return torch.amax(y, dim=1, keepdim=True)
+        if self.temporal_maxpool == 2:
+            # the max plus the projection of its frame (the first of a
+            # tie, in both frameworks; agcn_tpu sgn.py:1199-1205)
+            idx = torch.argmax(y, dim=1, keepdim=True).to(y.dtype)
+            return (torch.amax(y, dim=1, keepdim=True)
+                    + self.tmp_ind_projection(idx))
+        return self._conv_pool("tmp", self.tmp_layers, y)
 
     def forward(self, x: torch.Tensor, return_g: bool = False,
                 return_aux: bool = False):
@@ -975,23 +1444,30 @@ class SGN(nn.Module):
                if "tem_embedding" in se else None)
         _, g_list, x_list = self.sgcn(feat)
         pooled = []
-        for f in self._levels(x_list):
+        for i, f in enumerate(self._levels(feat, g_list, x_list)):
             if f is not None:
                 if tem is not None and f.shape[-1] == tem.shape[-1]:
                     f = f + tem
-                f = torch.amax(f, dim=2, keepdim=True)  # spatial max-pool
+                f = self._spatial_pool(i, f)
             pooled.append(f)
         if self.fpn_mode in _FPN_CONCAT:
             pooled = [None] * (len(pooled) - 1) + [torch.cat(pooled, -1)]
+        if self.gt_mode == 6:  # the maps' level (agcn_tpu sgn.py:1106-1111)
+            pooled.append(g_list[0][1])
         # level, then branch slot, then the mode's outputs (agcn_tpu
-        # sgn.py:1113-1150)
+        # sgn.py:1113-1150), then GT5's head
         outs = [o for i, name in self.branches
                 for o in getattr(self, name)(pooled[i])]
-        y = outs[0] if len(outs) == 1 else torch.stack(outs).mean(dim=0)
-        y = torch.amax(y, dim=1, keepdim=True)  # temporal max-pool
+        if self.gt_mode == 5:
+            outs.append(g_list[0][1])
+        ys = outs if self.merge2 else [
+            outs[0] if len(outs) == 1 else torch.stack(outs).mean(dim=0)]
+        ys = [self._temporal_pool(y) for y in ys]
         if "cls_embedding" in se:
-            y = y + se["cls_embedding"](se["cls_onehot"].table())
-        z = y.reshape(b, -1)
+            cls = se["cls_embedding"](se["cls_onehot"].table())
+            ys = [y + cls for y in ys]
+        zs = [y.reshape(b, -1) for y in ys]
+        z = zs[0]
         if self.noise_ratio is not None:
             mu = self.fc_mu(z)
             if self.training:
@@ -1003,14 +1479,19 @@ class SGN(nn.Module):
                 z = eps * std + mu
             else:
                 z = mu
-        logits = self.fc(self.fc_drop(z))
+            zs = [z]
+        logits = [getattr(self, name)(self.fc_drop(zi))
+                  for name, zi in zip(self.heads, zs)]
+        logits = (logits[0] if len(logits) == 1
+                  else torch.stack(logits).mean(dim=0))
+        g_maps = [g for g, _ in g_list]
         if return_aux:
-            # each branch (B, T', 1, C) as (N, C, T'): the reference's
+            # each output (B, T', V', C) as (N, V' C, T'): the reference's
             # CosineLoss takes dim 1 as the channels
             branch_outputs = [o.reshape(b, o.shape[1], -1).transpose(1, 2)
                               for o in outs]
-            aux = {"g": g_list, "branch_outputs": branch_outputs, "z": z}
+            aux = {"g": g_maps, "branch_outputs": branch_outputs, "z": z}
             if self.noise_ratio is not None:
                 aux["z_prior"] = self.z_prior
             return logits, aux
-        return (logits, g_list) if return_g else logits
+        return (logits, g_maps) if return_g else logits

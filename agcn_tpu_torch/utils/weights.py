@@ -23,13 +23,14 @@ from __future__ import annotations
 import os
 import pickle
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from agcn_tpu_torch.models.registry import (model_key, unknown_model,
                                             waiting_item)
+from agcn_tpu_torch.models.sgn import linear_ffn_stacks
 
 
 def _np(x) -> np.ndarray:
@@ -511,7 +512,9 @@ def _sgn_g_module_out(out: Dict[str, np.ndarray], p: str,
                        num_point: int) -> None:
     """A G module: its projections g1-g4, GT2's Linear `g3` or GT3 /
     GT4's MLP `g3` (the first layer of either reads the (c, v)-flattened
-    joint features), and `alpha` (torch_export.py:337-403)."""
+    joint features), GT5 / GT6's `tem_embedding` with its one-hot buffer
+    and GT5's head `g3_cnn{i}` as `g3.cnn{i}`, and `alpha`
+    (torch_export.py:365-415)."""
     for name in ("g1", "g2", "g3", "g4"):
         if name in g and "conv" in g[name]:
             _sgn_conv_out(out, f"{p}.{name}", g[name]["conv"])
@@ -531,17 +534,78 @@ def _sgn_g_module_out(out: Dict[str, np.ndarray], p: str,
             _bn_out(out, f"{p}.g3.cnn{li}.block.norm", node["norm"],
                     gs["g3"][f"cnn{li}"]["norm"])
         li += 1
+    if "tem_embedding" in g:
+        emb = g["tem_embedding"]
+        _sgn_embedding_out(out, f"{p}.tem_embedding", emb,
+                           gs.get("tem_embedding", {}))
+        out[f"{p}.tem_onehot.onehot"] = _onehot_buffer(
+            int(np.shape(emb["cnn1"]["cnn"]["conv"]["kernel"])[-2]), 1,
+            mode=1)
+    li = 1
+    while f"g3_cnn{li}" in g:
+        _sgn_block_out(out, f"{p}.g3.cnn{li}", g[f"g3_cnn{li}"],
+                       gs[f"g3_cnn{li}"])
+        li += 1
     out[f"{p}.alpha"] = _np(g["alpha"])
+
+
+def _sgn_block_out(out: Dict[str, np.ndarray], p: str,
+                   node: Mapping[str, Any], snode: Mapping[str, Any],
+                   linear: bool = False) -> None:
+    """A ConvNormAct: its conv [as a `LinearLayer`] and its BN."""
+    conv = node["cnn"]["conv"]
+    if linear:
+        _linear_out(out, f"{p}.block.linear.linear", conv)
+    else:
+        _sgn_conv_out(out, p, conv)
+    if "norm" in node:
+        _bn_out(out, f"{p}.block.norm", node["norm"], snode["norm"])
+
+
+def _sgn_stack_out(out: Dict[str, np.ndarray], p: str,
+                   sg: Mapping[str, Any], sgs: Mapping[str, Any],
+                   num_point: int, linear_ffn: bool) -> None:
+    """A GCN stack (`sgcn`, `sgcn2`; torch_export.py:359-470): its G
+    modules `gcn_g{i}`, units `gcn{i}` (w0-w3, res_alpha, norm), and
+    `gcn_prenorm{i}`, `gcn_ffn{i}` (the "Linear" variants' keys with
+    `linear_ffn`) and `gcn_res{i}`."""
+    i = 1
+    while f"g{i}" in sg:
+        _sgn_g_module_out(out, f"{p}.gcn_g{i}", sg[f"g{i}"],
+                          sgs.get(f"g{i}", {}), num_point)
+        i += 1
+    i = 1
+    while f"gcn{i}" in sg:
+        n, u = sg[f"gcn{i}"], f"{p}.gcn{i}"
+        for name in ("w0", "w1", "w2", "w3"):
+            if name in n:
+                _sgn_conv_out(out, f"{u}.{name}", n[name].get("conv", n[name]))
+        if "res_alpha" in n:
+            out[f"{u}.res_alpha"] = _np(n["res_alpha"])
+        if "norm" in n:
+            _bn_out(out, f"{u}.norm", n["norm"], sgs[f"gcn{i}"]["norm"])
+        if f"prenorm{i}" in sg:
+            _bn_out(out, f"{p}.gcn_prenorm{i}", sg[f"prenorm{i}"],
+                    sgs[f"prenorm{i}"])
+        if f"ffn{i}" in sg:
+            fn, fns, fp = sg[f"ffn{i}"], sgs[f"ffn{i}"], f"{p}.gcn_ffn{i}"
+            for name in ("ffn1", "ffn2"):
+                _sgn_block_out(out, f"{fp}.{name}", fn[name],
+                               fns.get(name, {}), linear_ffn)
+            if "norm" in fn:
+                _bn_out(out, f"{fp}.norm", fn["norm"], fns["norm"])
+        if f"res{i}" in sg:
+            _sgn_conv_out(out, f"{p}.gcn_res{i}", sg[f"res{i}"]["conv"])
+        i += 1
 
 
 def _sgn_mlp_out(out: Dict[str, np.ndarray], p: str,
                  node: Mapping[str, Any], snode: Mapping[str, Any]) -> None:
-    """A temporal MLP: `cnn1`, `cnn2` and (t_mode 2 across widths, the
-    JAX module's name) the 1x1 conv `res2`."""
+    """A temporal MLP: `cnn1`, `cnn2` (each BN before its conv under
+    prenorm, under the same key) and (t_mode 2 across widths, the JAX
+    module's name) the 1x1 conv `res2`."""
     for layer in ("cnn1", "cnn2"):
-        _sgn_conv_out(out, f"{p}.{layer}", node[layer]["cnn"]["conv"])
-        _bn_out(out, f"{p}.{layer}.block.norm", node[layer]["norm"],
-                snode[layer]["norm"])
+        _sgn_block_out(out, f"{p}.{layer}", node[layer], snode[layer])
     if "res2" in node:
         conv = node["res2"]["conv"]
         out[f"{p}.res2.conv.weight"] = _torch_conv_weight(conv["kernel"])
@@ -587,7 +651,8 @@ def _bifpn_out(out: Dict[str, np.ndarray], p: str, node: Mapping[str, Any],
 
 def sgn_state_dict_from_variables(variables: Mapping[str, Any],
                                   num_point: int = 25,
-                                  num_segment: int = 20
+                                  num_segment: int = 20,
+                                  linear_ffn: Sequence[str] = ()
                                   ) -> Dict[str, torch.Tensor]:
     """JAX SGN variables -> the port's (reference sgn_v14-named) state
     dict, for the options the port builds (torch_export.py:260-500). The
@@ -598,8 +663,12 @@ def sgn_state_dict_from_variables(variables: Mapping[str, Any],
     its buffer `z_prior`, which the JAX export leaves out, and, under the
     JAX module names (the JAX export has none), the temporal branches'
     `aspp`, `mha` (`layerN` as the AAGCN transformer's),
-    `cnn_{raw,season,trend}`, `cnn_p{k}` and `res2`, and the BiFPN
-    `bifpn`."""
+    `cnn_{raw,season,trend}`, `cnn_p{k}` and `res2`, the BiFPN `bifpn`,
+    the pools' `smp{i}_{k,1x1}_{conv,bn}`, `tmp_{k,1x1}_{conv,bn}` and
+    `tmp_ind_projection`. `linear_ffn` (the JAX map's flag, a stack at a
+    time): the stacks ("sgcn", "sgcn2") whose FFN is a "Linear" variant
+    (`models/sgn.linear_ffn_stacks`), whose layers the map writes as
+    `.block.linear.linear.*`."""
     params = variables["params"]
     stats = _stats(variables)
     out: Dict[str, np.ndarray] = {}
@@ -630,21 +699,10 @@ def sgn_state_dict_from_variables(variables: Mapping[str, Any],
         out["semantic_embedding.cls_onehot.onehot"] = _onehot_buffer(
             in_dim(params["class_embed"]), 1, mode=2)
 
-    sg, sgs = params["sgcn"], stats.get("sgcn", {})
-    i = 1
-    while f"g{i}" in sg:  # the G modules
-        _sgn_g_module_out(out, f"sgcn.gcn_g{i}", sg[f"g{i}"],
-                           sgs.get(f"g{i}", {}), num_point)
-        i += 1
-    i = 1
-    while f"gcn{i}" in sg:  # the units
-        n, p = sg[f"gcn{i}"], f"sgcn.gcn{i}"
-        _sgn_conv_out(out, f"{p}.w1", n["w1"])
-        _sgn_conv_out(out, f"{p}.w2", n["w2"]["conv"])
-        if "res_alpha" in n:
-            out[f"{p}.res_alpha"] = _np(n["res_alpha"])
-        _bn_out(out, f"{p}.norm", n["norm"], sgs[f"gcn{i}"]["norm"])
-        i += 1
+    for stack in ("sgcn", "sgcn2"):
+        if stack in params:
+            _sgn_stack_out(out, stack, params[stack], stats.get(stack, {}),
+                           num_point, stack in linear_ffn)
 
     for name in params:
         m = re.fullmatch(r"tem(\d+)_(\d+)_k(\d+)", name)
@@ -662,6 +720,16 @@ def sgn_state_dict_from_variables(variables: Mapping[str, Any],
             _sgn_conv_out(out, name, params[name]["conv"])
         elif name == "bifpn":
             _bifpn_out(out, name, params[name], stats["bifpn"])
+        elif re.fullmatch(r"(smp\d+|tmp)_(k|1x1)_conv", name):
+            out[f"{name}.weight"] = conv_to_torch(params[name]["kernel"])
+            if "bias" in params[name]:
+                out[f"{name}.bias"] = _np(params[name]["bias"])
+        elif re.fullmatch(r"(smp\d+|tmp)_(k|1x1)_bn", name):
+            _bn_out(out, name, params[name], stats[name])
+        elif name == "tmp_ind_projection":
+            _sgn_block_out(out, name, params[name], {})
+        elif re.fullmatch(r"fc\d+", name):
+            _linear_out(out, name, params[name])
     for name in ("fc_mu", "fc_logvar", "fc"):
         if name in params:
             _linear_out(out, name, params[name])
@@ -852,7 +920,8 @@ def model_state_dict(checkpoint: Mapping[str, Any], model: str = "agcn",
             return aagcn_transformer_state_dict_from_variables(
                 checkpoint, adaptive=adaptive)
         if key == "sgn":
-            return sgn_state_dict_from_variables(checkpoint)
+            return sgn_state_dict_from_variables(
+                checkpoint, linear_ffn=linear_ffn_stacks(model_args or {}))
         if key == "sgn_original":
             return sgn_original_state_dict_from_variables(checkpoint)
         if key == "sgn_transformer":

@@ -323,20 +323,37 @@ fails:
    installed, and --save-attention's PNGs or its argument error naming
    matplotlib; (e) the median predict ms on the card after the first,
    with and without exposure.
+23. The rest of SGN's GCN stack and head, whose paths run no port kernel,
+   as in the JAX package. (a) argmax over the frames on the card takes
+   the first frame of a tie (temporal_maxpool 2 embeds it; a ReLU leaves
+   ties at 0), against numpy on a (64, 20, 1, 512) tensor of integers;
+   (b) each case of STACK_CASES (gt modes 0, 5, 6; attn modes 1-3, 10;
+   gcn_fpn 10 with every sgcn2 option; gcn_fpn_output_merge 2; the FFN
+   variants 0xx-3xx, residuals, prenorm, g_weighted, the unit's and G's
+   kernels; spatial pools 0, 3-5, temporal pools 0, 2-5) on
+   train_sgn.yaml's SGN at full width, seg 20, fp32 with TF32 off: with
+   every w1 random and the BN statistics of a train-mode forward, the
+   card's eval logits of 4 samples x 5 crops within 2e-4 of the CPU
+   port's; then Adam steps at batch 64: the median ms, the device ms by
+   kernel group, the busy share and the parameter count; no port kernel
+   launches; (c) gcn_fpn 10 with merge 2 through the entry point's
+   `main` in this process: one epoch on phase 14's synthetic pickles,
+   then `--phase test` on its checkpoint reproduces its top-1.
 
 `python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
 minute), `--phase 15` phases 1, 2 (the build) and 15, `--phase 16`
 phases 1, 2 and 16, `--phase 17` phases 1 and 17, `--phase 18` phases 1
 and 18, `--phase 19` phases 1 and 19, `--phase 20` phases 1, 2 and 20,
-`--phase 21` phases 1, 2 and 21, `--phase 22` phases 1, 2 and 22; none
-prints a result line (details of
+`--phase 21` phases 1, 2 and 21, `--phase 22` phases 1, 2 and 22,
+`--phase 23` phases 1 and 23; none prints a result line (details of
 15 in build/chip_smoke_knobs.json, of 16 in
 build/chip_smoke_versions.json, of 17 in
 build/chip_smoke_sgn_options.json, of 18 in
 build/chip_smoke_sgn_transformer.json, of 19 in
 build/chip_smoke_sgn_temporal.json, of 20 in
 build/chip_smoke_parallel.json, of 21 in build/chip_smoke_openpose.json,
-of 22 in build/chip_smoke_single_stream.json).
+of 22 in build/chip_smoke_single_stream.json, of 23 in
+build/chip_smoke_sgn_stack.json).
 
 The last lines of standard output are the `kernels` JSON line (each
 kernel's V = 15 sums and launches under "v15"), the card's `nvidia-smi`
@@ -4959,15 +4976,228 @@ def phase_single_stream(torch, np, smi, summary):
     return out
 
 
+# -- phase 23: the rest of SGN's GCN stack and head (no TPU kernel) --------
+
+# (b): each case at train_sgn.yaml's widths; together every option value
+# of the GCN stack and head (gt modes 0, 5, 6; attn modes 1-3, 10;
+# gcn_fpn 10 and every sgcn2_* option; gcn_fpn_output_merge 2; the FFN
+# variants 0xx-3xx, residual, prenorm, g_weighted, v_kernel, the unit's
+# and G's kernels; spatial pools 0, 3-5, temporal pools 0, 2-5)
+STACK_CASES = (
+    ("fpn10_merge2", dict(gcn_fpn=10, gcn_fpn_output_merge=2,
+                          temporal_maxpool=2, multi_t=[[], [], [3, 5]])),
+    ("fpn10_sgcn2", dict(gcn_fpn=10, sgcn2_dims=[256, 128, 256],
+                         sgcn2_attn_mode=10, sgcn2_kernel=3, sgcn2_padding=1,
+                         sgcn2_v_kernel=3, sgcn2_residual=[1, 1, 1],
+                         sgcn2_prenorm=True, sgcn2_ffn=304.0,
+                         sgcn2_dropout=0.2, sgcn_attn_mode=10,
+                         sgcn_ffn=4.0)),
+    ("gt0_unit", dict(sgcn_gt_mode=0, sgcn_g_proj_dim=[256, 128, 256],
+                      sgcn_g_weighted=True, sgcn_g_kernel=3, sgcn_kernel=3,
+                      sgcn_padding=1, sgcn_v_kernel=3,
+                      sgcn_residual=[1, 1, 1], sgcn_prenorm=True,
+                      sgcn_ffn=104.0, sgcn_attn_mode=2, spatial_maxpool=4,
+                      temporal_maxpool=3)),
+    ("gt5", dict(sgcn_gt_mode=5, sgcn_attn_mode=1, spatial_maxpool=5,
+                 temporal_maxpool=4)),
+    ("gt6", dict(sgcn_gt_mode=6, multi_t=[[], [], [3], [3]],
+                 sgcn_attn_mode=3, spatial_maxpool=3, temporal_maxpool=5)),
+    ("pools0", dict(spatial_maxpool=0, temporal_maxpool=0,
+                    gcn_fpn_output_merge=2, sgcn_ffn=204.0)),
+)
+STACK_CLI_CASE = "fpn10_merge2"   # (c): through the entry point
+
+
+def argmax_ties_on_card(torch, np):
+    """(a) temporal_maxpool 2 embeds the argmax over the frames, and a
+    ReLU leaves channels tied at 0: on the card, as on the CPU and in
+    JAX, the first frame of a tie wins. A (64, 20, 1, 512) tensor of
+    integers in [0, 2] (ties everywhere) on the card against numpy's
+    argmax, which takes the first."""
+    y = np.random.default_rng(SEED + 80).integers(
+        0, 3, (64, 20, 1, 512)).astype(np.float32)
+    want = np.argmax(y, axis=1)
+    got = torch.argmax(torch.from_numpy(y).cuda(), dim=1).cpu().numpy()
+    check(np.array_equal(got, want),
+          f"argmax on the card left the first frame of a tie in "
+          f"{int((got != want).sum())} of {want.size} channels")
+    log(f"  sgn stack (a) argmax over {want.size} channels with ties on "
+        "the card: the first frame, as numpy and JAX take it")
+
+
+def phase_sgn_stack_options(torch, np, x_eval, train_ds, summary):
+    """(b) Each of STACK_CASES on train_sgn.yaml's SGN (full width, seg
+    20, fp32, TF32 off): with every unit's w1 random and the BN
+    statistics of a train-mode forward (`liven_sgn`), the card's eval
+    logits of the 4 x 5-crop batch within 2e-4 (of the logit scale where
+    it exceeds 1) of the CPU port's at the same weights; then Adam steps
+    at the recipe's batch of 64 and dropout: one step's median ms (5
+    timed after 2), one step's device time by kernel group
+    (torch.profiler) and its busy share, the parameter count; no port
+    kernel launches."""
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+    from agcn_tpu_torch.utils.config import load_config
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20)
+    x, _, y, _ = sampler.collate([train_ds[i] for i in range(64)],
+                                 np.random.default_rng(SEED + 81),
+                                 train=True)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    base = load_config(SGN_CONFIG)
+    rows = {}
+    for name, opts in STACK_CASES:
+        cfg = load_config(SGN_CONFIG, {
+            "model_args": dict(base.model_args, **opts)})
+        ref = sgn_model(torch, cfg, device="cpu", dropout2d=0.0)
+        liven_sgn(torch, ref, x_eval, SEED + 82)
+        state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+        with torch.inference_mode():
+            want = ref(torch.from_numpy(x_eval)).numpy()
+        del ref
+        card = sgn_model(torch, cfg, dropout2d=0.0)
+        card.load_state_dict(state, strict=True)
+        with torch.inference_mode():
+            got = card.eval()(torch.from_numpy(x_eval).cuda()).cpu().numpy()
+        del card
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        check(np.isfinite(got).all() and err <= 2e-4 * max(scale, 1.0),
+              f"{name}: card logits off the CPU's by {err:.3e} (scale "
+              f"{scale:.3f})")
+        model = sgn_model(torch, cfg)
+        step = make_step(torch, cfg, model, recipe_loss=True)
+        before = all_launches()
+        times = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(x, y)["loss"]
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms = sorted(times)[len(times) // 2]
+        check(math.isfinite(loss.item()), f"{name}: loss {loss.item()}")
+        groups, kernels = step_profile(torch, step, x, y)
+        launches = {k: n - before[k] for k, n in all_launches().items()}
+        check(not any(launches.values()),
+              f"{name}: the training path launched {launches}")
+        device_ms = sum(groups.values())
+        rows[name] = dict(options=opts, logit_err=err, logit_scale=scale,
+                          params=sum(p.numel() for p in model.parameters()),
+                          ms_per_step=ms, seq_per_s=64 / ms * 1e3,
+                          device_ms=device_ms, busy=device_ms / ms,
+                          kernels=kernels, groups=groups, launches=launches)
+        log(f"  sgn stack (b) {name}: logits card vs cpu {err:.3e} of "
+            f"{scale:.3f}; {rows[name]['params']:,} parameters; Adam step "
+            f"at batch 64: median {ms:.3f} ms, device {device_ms:.3f} ms in "
+            f"{kernels} kernels ({100 * device_ms / ms:.1f}% busy); "
+            f"launches {launches}")
+        for g, gms in sorted(groups.items(), key=lambda kv: -kv[1])[:4]:
+            log(f"    {gms:9.3f} ms {100 * gms / device_ms:5.1f}%  {g}")
+        del model, step
+    summary["sgn_stack"] = rows
+
+
+def phase_sgn_stack_cli(np, paths, tmp, summary):
+    """(c) The entry point's `main`, in this process, on a copy of
+    train_sgn.yaml with STACK_CLI_CASE's options pointed at phase 14's
+    pickles: one epoch (batch 64), eval with multi_test 5 and a
+    checkpoint; `--phase test` on the checkpoint must reproduce the run's
+    top-1; finite loss, no port kernel launches."""
+    import yaml
+
+    from agcn_tpu_torch.main import main as entry_point
+
+    with open(SGN_CONFIG) as f:
+        recipe = yaml.safe_load(f)
+    work = os.path.join(tmp, "stack")
+    recipe.update(
+        work_dir=work, num_epoch=1, num_worker=2, log_interval=1,
+        save_interval=1, eval_interval=1, show_topk=[1, 5],
+        model_args=dict(recipe["model_args"],
+                        **dict(STACK_CASES)[STACK_CLI_CASE]),
+        train_feeder_args=dict(recipe["train_feeder_args"],
+                               data_path=paths["train"][0],
+                               label_path=paths["train"][1]),
+        test_feeder_args=dict(recipe["test_feeder_args"],
+                              data_path=paths["test"][0],
+                              label_path=paths["test"][1]))
+    cfg_path = os.path.join(tmp, "sgn_stack.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(recipe, f)
+    log(f"  sgn stack (c) the entry point's main on train_sgn.yaml with "
+        f"{STACK_CLI_CASE}: train + eval (multi_test 5) + save, one epoch; "
+        "then --phase test")
+    with contextlib.redirect_stdout(io.StringIO()):
+        entry_point(["--config", cfg_path])
+        entry_point(["--config", cfg_path, "--phase", "test", "--weights",
+                     os.path.join(work, "checkpoints", "epoch_1.pt"),
+                     "--work-dir", os.path.join(tmp, "stack_test")])
+    metrics = read_metrics(os.path.join(work, "metrics.jsonl"))
+    test = read_metrics(os.path.join(tmp, "stack_test", "metrics.jsonl"))
+    trains = [m for m in metrics if m["kind"] == "train"]
+    evals = [m for m in metrics if m["kind"] == "eval"]
+    check(len(trains) == 1 and len(evals) == 1
+          and math.isfinite(trains[0]["loss"]),
+          f"{STACK_CLI_CASE} entry point: {metrics}")
+    check(not any(trains[0]["launches"].values()),
+          f"{STACK_CLI_CASE} entry point launched {trains[0]['launches']}")
+    check(test[-1]["top1"] == evals[-1]["top1"],
+          f"--phase test top-1 {test[-1]['top1']} != the run's "
+          f"{evals[-1]['top1']}")
+    log(f"      loss {trains[0]['loss']:.4f} over {trains[0]['steps']} "
+        f"steps, {trains[0]['seq_per_sec']:.1f} seq/s; eval top-1 "
+        f"{evals[-1]['top1']:.4f}, --phase test top-1 "
+        f"{test[-1]['top1']:.4f}")
+    summary["sgn_stack_cli"] = dict(train=trains, eval=evals, test=test)
+
+
+def phase_sgn_stack(torch, np, smi, summary):
+    """Phase 23: (a)-(c) above on phase 14's synthetic pickles, in one
+    temporary directory; the launch counts of all of it must stay 0."""
+    from agcn_tpu_torch.data.feeder import SGNDataset
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+
+    t23 = time.perf_counter()
+    reset_launches()
+    part_s = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        argmax_ties_on_card(torch, np)
+        paths = write_sgn_pickles(np, tmp)
+        train = SGNDataset(*paths["train"], dataset="NTU60-CV-SGN")
+        test = SGNDataset(*paths["test"], dataset="NTU60-CV-SGN")
+        sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20,
+                                 multi_test=SGN_CROPS)
+        x_eval, _, _, _ = sampler.collate([test[i] for i in range(4)],
+                                          np.random.default_rng(SEED),
+                                          multi_crop=True)
+        phase_sgn_stack_options(torch, np, x_eval, train, summary)
+        part_s["ab"], t0 = time.perf_counter() - t0, time.perf_counter()
+        phase_sgn_stack_cli(np, paths, tmp, summary)
+        part_s["c"] = time.perf_counter() - t0
+    launches = all_launches()
+    check(not any(launches.values()), f"phase 23 launched {launches}")
+    summary["sgn_stack_launches"] = launches
+    summary["sgn_stack_phase_s"] = time.perf_counter() - t23
+    summary["sgn_stack_part_s"] = part_s
+    summary["sgn_stack_smi"] = smi
+    log(f"  phase 23 in {summary['sgn_stack_phase_s']:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in part_s.items())
+        + f"; {smi})")
+    return launches
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
     if argv and only not in ("14", "15", "16", "17", "18", "19", "20",
-                             "21", "22"):
+                             "21", "22", "23"):
         print("usage: python3 chip_smoke.py "
-              "[--phase 14|15|16|17|18|19|20|21|22]", file=sys.stderr)
+              "[--phase 14|15|16|17|18|19|20|21|22|23]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -4984,14 +5214,14 @@ def main(argv=None):
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/22] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/23] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     if only == "14":
-        log("[14/22] the SGN recipe alone (phase 14)")
+        log("[14/23] the SGN recipe alone (phase 14)")
         phase_sgn(torch, np, summary)
         return 0
     if only == "17":
-        log("[17/22] SGN's v11-v13 options, the MMD loss and sgn_original "
+        log("[17/23] SGN's v11-v13 options, the MMD loss and sgn_original "
             "alone (phase 17)")
         phase_sgn_options(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5001,7 +5231,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "18":
-        log("[18/22] SGN's transformer (train_sgn_transformer.yaml, "
+        log("[18/23] SGN's transformer (train_sgn_transformer.yaml, "
             "train_sgn_v15.yaml) and SGN serving alone (phase 18)")
         phase_sgn_transformer(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5011,7 +5241,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "19":
-        log("[19/22] SGN raw generation (sgn-raw) and SGN's temporal-branch "
+        log("[19/23] SGN raw generation (sgn-raw) and SGN's temporal-branch "
             "options alone (phase 19)")
         phase_sgn_temporal(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5020,12 +5250,21 @@ def main(argv=None):
                   "w") as f:
             json.dump(summary, f, indent=1)
         return 0
+    if only == "23":
+        log("[23/23] the rest of SGN's GCN stack and head alone (phase 23)")
+        phase_sgn_stack(torch, np, smi, summary)
+        out_dir = os.path.join(REPO, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_sgn_stack.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=1)
+        return 0
     if only == "15":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/22] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/23] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[15/22] the trainer's run knobs alone (phase 15)")
+        log("[15/23] the trainer's run knobs alone (phase 15)")
         phase_knobs(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
@@ -5035,9 +5274,9 @@ def main(argv=None):
     if only == "20":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/22] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/23] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[20/22] data-parallel training and the edge partition alone "
+        log("[20/23] data-parallel training and the edge partition alone "
             "(phase 20)")
         summary["phase20_launches"] = phase_parallel(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5049,9 +5288,9 @@ def main(argv=None):
     if only == "21":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/22] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/23] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[21/22] the 15-joint OpenPose recipes (AGCN, AAGCN) on the "
+        log("[21/23] the 15-joint OpenPose recipes (AGCN, AAGCN) on the "
             "V = 15 kernels alone (phase 21)")
         phase_openpose(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5063,9 +5302,9 @@ def main(argv=None):
     if only == "22":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/22] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/23] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[22/22] the single-stream live demo (python -m "
+        log("[22/23] the single-stream live demo (python -m "
             "agcn_tpu_torch.infer without --serve, expose_attention) alone "
             "(phase 22)")
         phase_single_stream(torch, np, smi, summary)
@@ -5078,9 +5317,9 @@ def main(argv=None):
     if only == "16":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/22] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/23] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[16/22] BN folding, the apply_gcn forms, the AAGCN versions "
+        log("[16/23] BN folding, the apply_gcn forms, the AAGCN versions "
             "alone (phase 16)")
         summary["phase16_launches"] = phase_versions(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5093,7 +5332,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/22] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/23] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -5109,7 +5348,7 @@ def main(argv=None):
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/22] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/23] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -5132,7 +5371,7 @@ def main(argv=None):
     summary.update(kernel_rows_v15=rows15, dx_rows_v15=dx_rows15,
                    fp32_fwd_layers_v15=fp32_layers(rows15, dx_rows15))
 
-    log("[4/22] gcn_bwd vs its plain version at the training shapes "
+    log("[4/23] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -5146,7 +5385,7 @@ def main(argv=None):
     summary.update(bwd_rows_v15=bwd_rows15,
                    fp32_da1_layers_v15=da1_fp32_layers(bwd_rows15))
 
-    log("[5/22] attention-logits kernel vs plain version at the served "
+    log("[5/23] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -5159,7 +5398,7 @@ def main(argv=None):
         logits_rows15 = phase_logits(torch, np, logits_kernel, v=15)
     summary.update(logits_rows=logits_rows, logits_rows_v15=logits_rows15)
 
-    log("[6/22] host data path: the C++ host kernels "
+    log("[6/23] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -5167,11 +5406,11 @@ def main(argv=None):
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/22] AGCN serving main path: 16 streams through "
+    log("[7/23] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/22] AGCN: device time of one served forward by kernel group; "
+    log("[8/23] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -5179,7 +5418,7 @@ def main(argv=None):
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/22] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/23] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -5188,19 +5427,19 @@ def main(argv=None):
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/22] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/23] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/22] AAGCN: device time of one served forward by kernel group; "
+    log("[11/23] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/22] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/23] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -5210,7 +5449,7 @@ def main(argv=None):
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/22] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/23] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -5228,34 +5467,34 @@ def main(argv=None):
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
-    log("[14/22] SGN recipe (no port kernel on its path, as in the JAX "
+    log("[14/23] SGN recipe (no port kernel on its path, as in the JAX "
         "package): train_sgn.yaml at full width on synthetic SGN pickles "
         "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
         "the entry points with 5-crop eval")
     phase_sgn(torch, np, summary)
 
-    log("[15/22] the trainer's run knobs: one fp32 SAM step of the pallas "
+    log("[15/23] the trainer's run knobs: one fp32 SAM step of the pallas "
         "AGCN, kernels against plain versions; the entry point on "
         "train_joint.yaml with SAM, the profiler, async checkpoints, then "
         "auto-resume; train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml "
         "through the entry point")
     sam_launches = phase_knobs(torch, np, smi, summary)
 
-    log("[16/22] BN folding on the served pallas AGCN and AAGCN forwards "
+    log("[16/23] BN folding on the served pallas AGCN and AAGCN forwards "
         "(gcn_fwd and the logits kernel counted); the apply_gcn forms "
         "against 'agg'; the AAGCN v31 recipe (train_joint_aagcn_v31.yaml, "
         "T=60: card against CPU, 10 SGD steps, speed, the entry points); "
         "v17, v24, v30, v32 and v34 against the CPU")
     v16 = phase_versions(torch, np, smi, summary)
 
-    log("[17/22] SGN's v11-v13 options, the MMD loss and sgn_original (no "
+    log("[17/23] SGN's v11-v13 options, the MMD loss and sgn_original (no "
         "port kernel on their path, as in the JAX package): v11, v12, "
         "v13_gt4 and sgn_original card against CPU; one v12 step with the "
         "MMD loss card against CPU; 10 Adam steps of v12 (batch 128) and "
         "v13_gt4 (64), speed; train_sgn_v12.yaml through the entry points")
     v17 = phase_sgn_options(torch, np, summary)
 
-    log("[18/22] SGN's transformer (no port kernel on its path, as in the "
+    log("[18/23] SGN's transformer (no port kernel on its path, as in the "
         "JAX package): train_sgn_transformer.yaml and train_sgn_v15.yaml "
         "card against CPU, one v15 step card against CPU, 10 Adam steps "
         "each, speed, the entry points (train, --phase test, --serve 16); "
@@ -5263,7 +5502,7 @@ def main(argv=None):
         "card against CPU")
     v18 = phase_sgn_transformer(torch, np, summary)
 
-    log("[19/22] SGN raw generation and SGN's temporal-branch options (no "
+    log("[19/23] SGN raw generation and SGN's temporal-branch options (no "
         "port kernel on their path, as in the JAX package): python -m "
         "agcn_tpu_torch.data.gen sgn-raw on a synthetic raw tree, its "
         "NTU_CV pickles through the entry points; t_mode 2-5, t_mha_kwargs, "
@@ -5271,7 +5510,7 @@ def main(argv=None):
         "widths card against CPU, one Adam step each")
     v19 = phase_sgn_temporal(torch, np, summary)
 
-    log("[20/22] data-parallel training: train_joint.yaml's pallas AGCN "
+    log("[20/23] data-parallel training: train_joint.yaml's pallas AGCN "
         "through torchrun (one rank: an NCCL group, DDP, SyncBN) against the "
         "plain entry point, --phase test on the DDP checkpoint; the DDP "
         "step's ms and NCCL kernels; model_edge_gcn, the edge aggregate and "
@@ -5284,19 +5523,27 @@ def main(argv=None):
             "parallel_cli", "parallel_steps", "parallel_phase_s",
             "parallel_smi")}, f, indent=1)
 
-    log("[21/22] the 15-joint OpenPose recipes on the V = 15 kernels: "
+    log("[21/23] the 15-joint OpenPose recipes on the V = 15 kernels: "
         "openpose_b25_j15_xview/train_joint.yaml (AGCN) and "
         "train_joint_aagcn.yaml (AAGCN), formulation pallas: 16 streams "
         "card against CPU, one step card against CPU, 10 bf16 steps, the "
         "entry points (train, --phase test, --serve 16)")
     v21 = phase_openpose(torch, np, smi, summary)
 
-    log("[22/22] the single-stream live demo: python -m agcn_tpu_torch.infer "
+    log("[22/23] the single-stream live demo: python -m agcn_tpu_torch.infer "
         "without --serve (test_joint.yaml's AGCN and test_joint_aagcn.yaml's "
         "AAGCN, formulation pallas, card against CPU; the use_pallas AGCN "
         "and train_sgn.yaml's SGN; --save-attention), the recognizer's "
         "exposed graphs card against CPU and its predict latency")
     v22 = phase_single_stream(torch, np, smi, summary)
+
+    log("[23/23] the rest of SGN's GCN stack and head (no port kernel on "
+        "their path, as in the JAX package): argmax ties on the card; gt "
+        "modes 0, 5, 6, attn modes 1-3 and 10, gcn_fpn 10 with the sgcn2 "
+        "options, gcn_fpn_output_merge 2, the unit and block options and "
+        "the pooling modes at train_sgn.yaml's widths, card against CPU, "
+        "Adam steps; gcn_fpn 10 with merge 2 through the entry point")
+    v23 = phase_sgn_stack(torch, np, smi, summary)
 
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
@@ -5374,6 +5621,7 @@ def main(argv=None):
         entry["launches_by_path"]["sgn_options"] = v17[key]
         entry["launches_by_path"]["sgn_transformer"] = v18[key]
         entry["launches_by_path"]["sgn_temporal"] = v19[key]
+        entry["launches_by_path"]["sgn_stack"] = v23[key]
         entry["launches_by_path"].setdefault("agcn_ddp_train", v20[key])
         # phase 22: each single-stream run's count of every kernel
         for path, n in v22.items():

@@ -910,6 +910,29 @@ def test_sgn_on_card_matches_cpu(cuda):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
 
 
+
+def test_argmax_pool_on_card_takes_the_first_frame_of_a_tie(cuda):
+    """SGN's temporal_maxpool 2 adds the projection of the argmax frame:
+    on a (64, 20, 1, 512) tensor of integers in [0, 2] (ties in every
+    channel) the card's argmax over the frames is numpy's, the first
+    frame of a tie, as on the CPU and in JAX; and the pool of an SGN with
+    temporal_maxpool 2 on that tensor is the CPU's."""
+    from agcn_tpu_torch.models import build_model
+
+    y = np.random.default_rng(2).integers(0, 3, (64, 20, 1, 512)).astype(
+        np.float32)
+    got = torch.argmax(torch.from_numpy(y).to(cuda), dim=1).cpu().numpy()
+    np.testing.assert_array_equal(got, np.argmax(y, axis=1))
+    args = dict(num_class=60, num_point=25, temporal_maxpool=2)
+    cpu = build_model("sgn", args, device="cpu", num_frame=20)
+    card = build_model("sgn", args, device=cuda, num_frame=20)
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    with torch.no_grad():
+        want = cpu._temporal_pool(torch.from_numpy(y))
+        pooled = card._temporal_pool(torch.from_numpy(y).to(cuda)).cpu()
+    torch.testing.assert_close(pooled, want, atol=1e-4 * float(
+        want.abs().max()), rtol=0)
+
 def test_sam_step_on_card_matches_plain_and_keeps_pass_one_statistics(cuda):
     """One fp32 SAM step (rho 0.05) of a `pallas` AGCN on the card against
     the same step with the kernels' plain versions on the card, the

@@ -258,19 +258,9 @@ def test_frame_ops_match_jax():
 
 
 @pytest.mark.parametrize("option", [
-    dict(sgcn_gt_mode=0), dict(sgcn_gt_mode=5), dict(sgcn_attn_mode=2),
-    dict(gcn_fpn_output_merge=2),
-    dict(gcn_fpn=10), dict(sgcn_gt_mode=6), dict(semantic_jdiff=1),
-    dict(semantic_joint_smp=1), dict(semantic_frame_location=1),
-    dict(xem_projection=1),
-    dict(input_position=1001, input_velocity=1001), dict(sgcn_ffn=4.0),
-    dict(sgcn_residual=[1, 1, 1]), dict(sgcn_prenorm=True),
-    dict(sgcn_g_weighted=True), dict(sgcn_v_kernel=3),
-    dict(sgcn_kernel=3), dict(sgcn_g_kernel=3), dict(sgcn_attn_mode=1),
-    dict(spatial_maxpool=3), dict(temporal_maxpool=2),
-    dict(spatial_maxpool=0), dict(spatial_maxpool=5),
-    dict(temporal_maxpool=0), dict(temporal_maxpool=3),
-    dict(sgcn_attn_mode=10), dict(sgcn_attn_mode=3),
+    dict(semantic_jdiff=1), dict(semantic_joint_smp=1),
+    dict(semantic_frame_location=1), dict(xem_projection=1),
+    dict(input_position=1001, input_velocity=1001),
 ])
 def test_refused_option_names_its_item(option):
     name = next(iter(option))
@@ -278,6 +268,104 @@ def test_refused_option_names_its_item(option):
                        match=rf"{name}.*ROADMAP Queue 1 item 7: SGN family"):
         registry.build_model("sgn", dict(SMALL, **option), device="cpu")
 
+
+# the GCN-stack and head option values once refused, each with what it
+# needs to build (GT5's head as wide as the branches, GT6's level its own
+# multi_t entry, per-unit G for g_weighted)
+PORTED = [
+    dict(sgcn_gt_mode=0), dict(sgcn_gt_mode=5, sgcn_gt_out_channels2=128),
+    dict(sgcn_attn_mode=2), dict(gcn_fpn_output_merge=2),
+    dict(gcn_fpn=10), dict(sgcn_gt_mode=6, multi_t=[[], [], [3], [3]]),
+    dict(sgcn_ffn=4.0), dict(sgcn_residual=[1, 1, 1]),
+    dict(sgcn_prenorm=True),
+    dict(sgcn_g_weighted=True, sgcn_g_proj_dim=[16, 8, 16]),
+    dict(sgcn_v_kernel=3), dict(sgcn_kernel=3, sgcn_padding=1),
+    dict(sgcn_g_kernel=3), dict(sgcn_attn_mode=1), dict(spatial_maxpool=3),
+    dict(temporal_maxpool=2), dict(spatial_maxpool=0),
+    dict(spatial_maxpool=5), dict(temporal_maxpool=0),
+    dict(temporal_maxpool=3), dict(sgcn_attn_mode=10),
+    dict(sgcn_attn_mode=3),
+]
+
+
+@pytest.mark.parametrize("option", PORTED)
+def test_ported_option_loads_jax_variables_strict(option):
+    """Each option value builds at small widths, the JAX model's variables
+    (from `jax.eval_shape` plus seeded values: no compiled program) load
+    strictly through the port's map, which holds every key of the JAX
+    export with its value (the JAX export of attn_mode 3, whose units have
+    no w1, raises KeyError), and an eval forward gives finite logits."""
+    from tests.test_torch_port_sgn_options import _fill
+
+    args = dict(SMALL, **option)
+    x = _x(20, 25, 7)[:2]
+    model = jax_registry.build_model("sgn", args)
+    variables = _fill(jax.eval_shape(model.init, {
+        "params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        jnp.asarray(x)), 3)
+    got = sgn_state_dict_from_variables(variables)
+    if option.get("sgcn_attn_mode") == 3:
+        with pytest.raises(KeyError, match="w1"):
+            jax_export(variables)
+    else:
+        for k, w in jax_export(variables).items():
+            np.testing.assert_array_equal(got[k].numpy(), w, err_msg=k)
+    port = registry.build_model("sgn", args, device="cpu", num_frame=20)
+    port.load_state_dict(got, strict=True)
+    with torch.no_grad():
+        out = port.eval()(torch.from_numpy(x))
+    assert out.shape == (2, 5) and bool(torch.isfinite(out).all())
+
+
+def test_reference_files_with_dead_modules_load_as_in_jax(tmp_path):
+    """A reference `.pt` of gcn_fpn 10 carries the second stack's unused G
+    modules (`sgcn2.gcn_g*`), one of gcn_fpn_output_merge 2 more `fc{i}`
+    heads than outputs (torch_export.py:318-322): neither loads strictly,
+    as in JAX; `--weights` (`load_model_weights`) skips those keys,
+    logging each, and loads every other."""
+    from agcn_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                 load_model_weights)
+
+    args = dict(SMALL, gcn_fpn=10, gcn_fpn_output_merge=2)
+    port = registry.build_model("sgn", args, device="cpu")
+    state = {k: torch.randn(v.shape) if v.is_floating_point() else v
+             for k, v in port.state_dict().items()}
+    dead = {"sgcn2.gcn_g1.g1.block.conv.conv.weight": torch.ones(16, 32, 1,
+                                                                 1),
+            "sgcn2.gcn_g1.alpha": torch.zeros(1),
+            "fc2.weight": torch.ones(5, 128), "fc2.bias": torch.ones(5)}
+    torch.save(dict(state, **dead), tmp_path / "ref.pt")
+    sd = load_checkpoint(str(tmp_path / "ref.pt"), "sgn", args)["model"]
+    with pytest.raises(RuntimeError, match="Unexpected key"):
+        port.load_state_dict(sd, strict=True)
+    lines = []
+    load_model_weights(port, sd, log=lines.append)
+    assert sorted(lines) == sorted(f"unexpected weight skipped: {k}"
+                                   for k in dead)
+    for k, v in port.state_dict().items():
+        assert torch.equal(v, state[k]), k
+
+
+def test_argmax_pool_takes_the_first_frame_of_a_tie():
+    """temporal_maxpool 2 adds the projection of the argmax frame to the
+    max over the frames: after a ReLU a channel may be 0 on every frame,
+    and both frameworks then take frame 0 (torch documents the first
+    index on the CPU and on CUDA; chip_smoke's phase 23 checks the card);
+    a tie of two frames takes the first of them. The port's pool on such
+    a tensor equals the max plus the projection of JAX's argmax."""
+    port = registry.build_model("sgn", dict(SMALL, temporal_maxpool=2),
+                                device="cpu")
+    y = np.zeros((2, 6, 1, 128), np.float32)
+    y[0, 4, 0, 1] = 0.5
+    y[1, 2, 0, 2] = y[1, 5, 0, 2] = 0.5
+    idx = np.asarray(jnp.argmax(jnp.asarray(y), axis=1, keepdims=True))
+    assert idx[0, 0, 0, :3].tolist() == [0, 4, 0]
+    assert idx[1, 0, 0, :3].tolist() == [0, 0, 2]
+    with torch.no_grad():
+        got = port._temporal_pool(torch.from_numpy(y))
+        want = torch.from_numpy(y.max(axis=1, keepdims=True)) \
+            + port.tmp_ind_projection(torch.from_numpy(idx).float())
+    assert torch.equal(got, want)
 
 def test_every_alias_builds_sgn():
     names = ["sgn", "SGN"] + [f"{p}sgn_{v}.SGN" for v in
