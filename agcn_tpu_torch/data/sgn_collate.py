@@ -3,12 +3,12 @@
 Parity target: reference feeders/loader.py (NTUDataLoaders :33-358):
 flatten persons into the time axis (turn_two_to_one :339-358), drop
 all-zero frames, pad to `seg` frames, then sample one frame per segment
-under one of the interval policies (equal / motion-AUC / center /
-tempshift, :234-320). Test mode draws `multi_test` independent crops per
-sequence; train mode applies a batch 3D rotation. Every draw comes from
-the caller's numpy Generator in the JAX package's order, so both packages
-give the same batches bit for bit. The k-means policy (`midvel_sampler`)
-needs scikit-learn and waits (ROADMAP Queue 1 item 7: SGN family).
+under one of five interval policies (equal / motion-AUC / kmeans-midvel /
+center / tempshift, :234-320; the k-means one without scikit-learn,
+`transforms.kmeans_labels`). Test mode draws `multi_test` independent
+crops per sequence; train mode applies a batch 3D rotation. Every draw
+comes from the caller's numpy Generator in the JAX package's order, so
+both packages give the same batches bit for bit.
 """
 
 from __future__ import annotations
@@ -32,17 +32,13 @@ class SegmentSampler:
                  midvel_sampler: int = 0,
                  tempshift_sampler: float = 0.0,
                  **_):
-        if midvel_sampler == 1:
-            raise NotImplementedError(
-                "midvel_sampler: the k-means segment split needs "
-                "scikit-learn; not in the port yet, waits in ROADMAP Queue "
-                "1 item 7: SGN family")
         self.dataset = dataset
         self.seg = seg
         self.multi_test = multi_test
         self.motion_sampler = motion_sampler
         self.motion_norm = motion_norm
         self.center_sampler = center_sampler
+        self.midvel_sampler = midvel_sampler
         self.tempshift_sampler = tempshift_sampler
 
     # -- per-sequence pieces ------------------------------------------------
@@ -81,6 +77,8 @@ class SegmentSampler:
     def intervals(self, seq: np.ndarray,
                   rng: np.random.Generator) -> np.ndarray:
         n = seq.shape[0]
+        if self.midvel_sampler == 1:
+            return T.split_idx_using_kmeans(seq, self.seg)
         if self.motion_sampler == 1:
             return T.split_idx_using_auc(seq, self.seg)
         if self.center_sampler > 0:

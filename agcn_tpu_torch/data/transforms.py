@@ -1,18 +1,17 @@
 """Skeleton sequence augmentations (host-side numpy; copy of
 agcn_tpu/data/transforms.py: the functions SkeletonDataset uses, :22-194,
 the SGN batch rotation and segment splits, :142 and :199-275, and
-openpose_match, :277).
+openpose_match, :277; the k-means split without scikit-learn).
 
 Functional parity targets: reference feeders/tools.py (auto_pading :36-44,
 random_choose :93-105, random_move :108-152, random_rotation :181-193,
 random_shift :196-208, random_subsample :212-218, flips/scales :47-90,
 stretch_to_maximum_length :221-231, openpose_match :234-275, the batch
-rotation :278-314, the AUC segment split :317-379). Every op takes an
-explicit numpy Generator, so the pipeline is reproducible without global
-RNG state and draws the same numbers as the JAX package's. Layout is the
-on-disk contract (C, T, V, M) per sample; the SGN batch ops act on
-(N, T, M*V*C). The k-means segment split (`midvel_sampler`) needs
-scikit-learn and waits (ROADMAP Queue 1 item 7: SGN family).
+rotation :278-314, the AUC and k-means segment splits :317-398). Every op
+takes an explicit numpy Generator, so the pipeline is reproducible without
+global RNG state and draws the same numbers as the JAX package's. Layout
+is the on-disk contract (C, T, V, M) per sample; the SGN batch ops act on
+(N, T, M*V*C).
 """
 
 from __future__ import annotations
@@ -239,6 +238,172 @@ def split_idx_using_auc(x: np.ndarray, num_segments: int) -> np.ndarray:
             if bounds[i] <= bounds[i - 1]:
                 bounds[i] = bounds[i - 1] + 1
     return bounds
+
+
+# scikit-learn's k-means, step by step (sklearn/cluster/_kmeans.py and
+# _k_means_{lloyd,common}.pyx of scikit-learn 1.9): KMeans(n_clusters,
+# n_init=10, random_state=seed).fit(X).labels_ for X of one feature in
+# float32 (float64 for any other type), the same sums in the same types
+
+_KMEANS_INITS = 10
+_KMEANS_MAX_ITER = 300
+_KMEANS_CHUNK = 256  # the samples of one E/M chunk (CHUNK_SIZE)
+
+
+def _sq_distances(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Squared distances of a's rows to b's: -2 a.b + |a|^2 + |b|^2 summed
+    in float64 and stored in a's type, clipped at 0
+    (_euclidean_distances / _euclidean_distances_upcast)."""
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    d = -2 * (a64 @ b64.T)
+    d += np.einsum("ij,ij->i", a64, a64)[:, None]
+    d += np.einsum("ij,ij->i", b64, b64)[None, :]
+    d = d.astype(a.dtype)
+    return np.maximum(d, 0, out=d)
+
+
+def _kmeans_plusplus(x: np.ndarray, k: int,
+                     rs: np.random.RandomState) -> np.ndarray:
+    """Greedy k-means++ seeding (_kmeans_plusplus): the first centre drawn
+    uniformly, each next one the best of 2 + log(k) candidates drawn in
+    proportion to the squared distance to the nearest centre."""
+    n = x.shape[0]
+    w = np.ones(n, x.dtype)
+    trials = 2 + int(np.log(k))
+    centers = np.empty((k, x.shape[1]), x.dtype)
+    centers[0] = x[rs.choice(n, p=w / w.sum())]
+    closest = _sq_distances(centers[0, np.newaxis], x)
+    pot = closest @ w
+    for c in range(1, k):
+        cand = np.searchsorted(np.cumsum(w * closest),
+                               rs.uniform(size=trials) * pot)
+        np.clip(cand, None, closest.size - 1, out=cand)
+        dist = _sq_distances(x[cand], x)
+        np.minimum(closest, dist, out=dist)
+        cand_pot = dist @ w.reshape(-1, 1)
+        best = np.argmin(cand_pot)
+        pot, closest = cand_pot[best], dist[best]
+        centers[c] = x[cand[best]]
+    return centers
+
+
+def _nearest(x: np.ndarray, centers: np.ndarray) -> np.ndarray:
+    """The E step: each sample's nearest centre (the first of a tie), by
+    |c|^2 - 2 x.c in the samples' type."""
+    norms = np.einsum("ij,ij->i", centers, centers)
+    d = norms[None, :] + x.dtype.type(-2) * (x @ centers.T)
+    return np.argmin(d, axis=1).astype(np.int32)
+
+
+def _lloyd_step(x: np.ndarray, centers: np.ndarray
+                ) -> "tuple[np.ndarray, np.ndarray, np.ndarray]":
+    """One Lloyd iteration (lloyd_iter_chunked_dense): the labels, then
+    each cluster's sum, chunk by chunk in sample order and the chunks'
+    sums in chunk order (one thread a chunk), empty clusters taking the
+    samples farthest from their centres (_relocate_empty_clusters_dense),
+    the means as sum * float(1 / count) (_average_centers: an empty
+    cluster at the heaviest one's place) and each centre's shift."""
+    k = centers.shape[0]
+    labels = _nearest(x, centers)
+    sums = np.zeros_like(centers)
+    for start in range(0, x.shape[0], _KMEANS_CHUNK):
+        part = np.zeros_like(centers)
+        np.add.at(part, labels[start:start + _KMEANS_CHUNK],
+                  x[start:start + _KMEANS_CHUNK])
+        sums += part
+    counts = np.bincount(labels, minlength=k).astype(x.dtype)
+    empty = np.where(counts == 0)[0]
+    if empty.size:
+        dist = ((x - centers[labels]) ** 2).sum(axis=1)
+        if np.max(dist) != 0:
+            far = np.argpartition(dist, -empty.size)[:-empty.size - 1:-1]
+            for new, i in zip(empty, far):
+                old = labels[i]
+                sums[old] -= x[i]
+                sums[new] = x[i]
+                counts[new] = 1
+                counts[old] -= 1
+    heaviest = np.argmax(counts)
+    for j in range(k):
+        if counts[j] > 0:
+            sums[j] *= x.dtype.type(1.0 / float(counts[j]))
+        else:
+            sums[j] = sums[heaviest]
+    shift = np.sqrt(((sums - centers) ** 2).sum(axis=1))
+    return labels, sums, shift
+
+
+def _kmeans_single(x: np.ndarray, centers: np.ndarray, tol
+                   ) -> "tuple[np.ndarray, float]":
+    """One Lloyd run (_kmeans_single_lloyd): until the labels repeat (then
+    as they are), the squared shift is within `tol` or 300 iterations
+    (then the labels of the last centres); its labels and inertia."""
+    labels_old = np.full(x.shape[0], -1, np.int32)
+    strict = False
+    for _ in range(_KMEANS_MAX_ITER):
+        labels, centers, shift = _lloyd_step(x, centers)
+        if np.array_equal(labels, labels_old):
+            strict = True
+            break
+        if (shift ** 2).sum() <= tol:
+            break
+        labels_old = labels
+    if not strict:
+        labels = _nearest(x, centers)
+    inertia = float(((x - centers[labels]).astype(np.float64) ** 2).sum())
+    return labels, inertia
+
+
+def _same_clustering(a: np.ndarray, b: np.ndarray, k: int) -> bool:
+    """a's labels are b's up to a renaming (_is_same_clustering)."""
+    mapping = np.full(k, -1)
+    for la, lb in zip(a, b):
+        if mapping[la] == -1:
+            mapping[la] = lb
+        elif mapping[la] != lb:
+            return False
+    return True
+
+
+def kmeans_labels(x: np.ndarray, k: int, seed: int = 0) -> np.ndarray:
+    """scikit-learn's KMeans(n_clusters=k, n_init=10, random_state=seed)
+    .fit(x).labels_ (KMeans.fit) for x (n, features): the features
+    centred on their mean, one RandomState for all ten k-means++ inits,
+    the tolerance 1e-4 of the mean variance, and the run of least inertia
+    kept unless it is a relabelling of the best so far. Fewer than k
+    samples raise ValueError, as there."""
+    if x.dtype not in (np.float32, np.float64):
+        x = x.astype(np.float64)
+    if x.shape[0] < k:
+        raise ValueError(f"n_samples={x.shape[0]} should be >= "
+                         f"n_clusters={k}.")
+    tol = np.mean(np.var(x, axis=0)) * 1e-4
+    x = x - x.mean(axis=0)
+    rs = np.random.RandomState(seed)
+    best_labels, best_inertia = None, None
+    for _ in range(_KMEANS_INITS):
+        labels, inertia = _kmeans_single(x, _kmeans_plusplus(x, k, rs), tol)
+        if best_inertia is None or (
+                inertia < best_inertia
+                and not _same_clustering(labels, best_labels, k)):
+            best_labels, best_inertia = labels, inertia
+    return best_labels
+
+
+def split_idx_using_kmeans(x: np.ndarray, num_segments: int,
+                           seed: int = 0) -> np.ndarray:
+    """Mid-velocity k-means segmentation (reference tools.py:382-398;
+    agcn_tpu transforms.py:239-251): the frames' cumulative distance from
+    the middle speed clustered into num_segments groups by `kmeans_labels`
+    (scikit-learn's KMeans, which the JAX function calls); the bounds are
+    each group's first frame, and the length."""
+    vel = np.linalg.norm(x[1:] - x[:-1], axis=1)
+    vel = np.abs(vel - (vel.max() - vel.min()) / 2)
+    feat = np.cumsum(vel)[:, None]
+    _, idxs = np.unique(kmeans_labels(feat, num_segments, seed),
+                        return_index=True)
+    idxs.sort()
+    return np.append(idxs, x.shape[0])
 
 
 def split_idx_center(length: int, num_segments: int,

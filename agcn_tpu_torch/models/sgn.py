@@ -1,5 +1,5 @@
-"""SGN — Semantics-Guided Network (port of agcn_tpu/models/sgn.py: every
-option of the JAX model but the input-side ones `_refuse` names).
+"""SGN — Semantics-Guided Network (port of agcn_tpu/models/sgn.py, every
+option of the JAX model).
 
 Parity target: reference model/architecture/sgn/sgn_v14.py (sgn_v12.py for
 the InfoGCN head) and blocks/{feature_extractor,semantic,spatial,temporal}.py.
@@ -8,9 +8,17 @@ into time by the collate). In order:
 
 - position and velocity embeddings (`SGNEmbedding`, every mode of
   `EMB_MODES`), each behind a DataNorm over the (c, v)-ordered features;
-  velocity is x[t] - x[t-1] with a leading zero frame;
-- the one-hot joint embedding, fused by concatenation or sum, and the
-  one-hot frame embedding, added after the GCN stack (location 0);
+  velocity is x[t] - x[t-1] with a leading zero frame; with both modes
+  above 1000 the body-part segment embeddings instead (`SegmentEmbedding`:
+  the 8 part groups of `SEGMENTS` over windows of `SEGMENT_PERIOD`
+  frames, both streams of x, as in the reference), after which the graph
+  has 8 nodes and seg // 4 frames;
+- the one-hot joint embedding, fused by concatenation or sum
+  (`semantic_jdiff`: fused into the position stream, and a second one,
+  `jdiff_embedding`, into the velocity stream), the projection
+  `x_emb_projection` (`xem_projection`), and the one-hot frame
+  embedding, added after the GCN stack (location 0) or before it at the
+  stack's input width (location 1);
 - the GCN stack (`GCNSpatialBlock`): G from the G module, shared by every
   unit when `sgcn_g_proj_dim` is an int (one per unit for a list, each
   blended with the previous unit's G under `sgcn_g_weighted`): gt_mode 0
@@ -36,6 +44,8 @@ into time by the collate). In order:
   of a second stack `sgcn2` (10: the `sgcn2_*` options, G fixed to the
   first stack's last, the injected levels the first stack's input and
   outputs), each plus the frame embedding where the widths agree;
+- under `semantic_joint_smp` a one-hot joint embedding of `sgcn_dims[-1]`
+  concatenated on the channels of every level;
 - the spatial pool (`spatial_maxpool`: 0 none, 1 the max, 3-5 VALID convs
   over the joints `smp{i}_k_*` and 1x1 convs `smp{i}_1x1_*`), GT6's
   maps as a level of their own, the temporal branches of `multi_t` on
@@ -71,7 +81,9 @@ module and parameter names are the reference's (the names
 `utils/weights.sgn_state_dict_from_variables` writes), so a reference
 state dict loads strictly; the blocks the JAX export has no names for
 (`ops/blocks.py`, a branch's `res2`, `mha`, `cnn_raw` ..., the pools'
-convs) carry the JAX modules' names. The one-hot tables are the
+convs) carry the JAX modules' names, and so do, near them, the input-side
+embeddings (`semantic_embedding.jdiff_embedding`, `x_emb_projection`,
+`semantic_embedding.joint_smp_embedding`). The one-hot tables are the
 reference's buffers (`semantic_embedding.spa_onehot.onehot` (1, V, V,
 seg), `tem_onehot.onehot` (1, seg, V, seg), `cls_onehot.onehot` (1, 1, 1,
 1) and GT5 / GT6's `tem_onehot.onehot` (1, seg, 1, seg)), so the model is
@@ -79,11 +91,7 @@ built for the loader's `seg` (`num_segment`). The max-pools call
 `torch.amax`, the ReLUs `torch.relu` and the head's eps `latent_noise`
 (the calls that tools/grad_parity.py's probes replay).
 
-The input-side option values (`_refuse`: `semantic_jdiff`,
-`semantic_joint_smp`, `semantic_frame_location: 1`, `xem_projection`,
-the segment embeddings) raise NotImplementedError naming ROADMAP Queue 1
-item 7 (the SGN family's later steps). SGN runs in fp32, as in the JAX
-package.
+SGN runs in fp32, as in the JAX package.
 """
 
 
@@ -103,8 +111,6 @@ from agcn_tpu_torch.ops.blocks import (ASPP, BiFPN, SeriesDecomposition,
                                        moving_average)
 from agcn_tpu_torch.ops.gcn import frame_aggregate, frame_attention
 from agcn_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
-
-_ITEM = "ROADMAP Queue 1 item 7: SGN family"
 
 # channel constants c1..c4 (reference model/resource/common_ntu.py:1-6)
 C1, C2, C3, C4 = 64, 128, 256, 512
@@ -251,9 +257,9 @@ class SGNEmbedding(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, mode: int = 1,
                  use_bias: bool = True, in_norm_features: int = 0):
         super().__init__()
-        if mode not in EMB_MODES:
-            raise ValueError(f"unknown embedding mode {mode} "
-                             f"(modes: {sorted(EMB_MODES)})")
+        if mode not in EMB_MODES:  # JAX's lookup raises KeyError
+            raise KeyError(f"unknown embedding mode {mode} "
+                           f"(modes: {sorted(EMB_MODES)})")
         if in_norm_features:
             self.norm = DataNorm(in_norm_features)
         num_layers, kernels, residual = EMB_MODES[mode]
@@ -295,9 +301,11 @@ class OneHot(nn.Module):
     """The reference's one-hot constant (blocks/semantic.py:128-146):
     eye(E) tiled to (1, L, E, E), then permuted to its (N, C, V, T)
     layout by `mode` (0: joints, 1: frames; 2, the class table, as
-    tiled); `table()` gives it channels-last, (1, T, V, E)."""
+    tiled); `table()` gives it channels-last, (1, T, V, E). A table the
+    reference has no buffer for is not `persistent` (no state-dict key)."""
 
-    def __init__(self, dim_eye: int, dim_length: int, mode: int):
+    def __init__(self, dim_eye: int, dim_length: int, mode: int,
+                 persistent: bool = True):
         super().__init__()
         oh = np.broadcast_to(np.eye(dim_eye, dtype=np.float32),
                              (1, dim_length, dim_eye, dim_eye))
@@ -306,10 +314,54 @@ class OneHot(nn.Module):
         elif mode == 1:
             oh = oh.transpose(0, 3, 1, 2)
         self.register_buffer("onehot", torch.from_numpy(
-            np.array(oh, order="C")))
+            np.array(oh, order="C")), persistent=persistent)
 
     def table(self) -> torch.Tensor:
         return self.onehot.permute(0, 3, 2, 1)
+
+
+#: NTU-25 body-part groups of the segment embedding (reference
+#: blocks/feature_extractor.py:11-19; agcn_tpu sgn.py:165-169)
+SEGMENTS = ((2, 3), (0, 1, 20), (4, 5, 6), (8, 9, 10),
+            (16, 17, 18, 19), (12, 13, 14, 15), (7, 21, 22), (11, 23, 24))
+SEGMENT_PERIOD = 4
+
+
+class SegmentEmbedding(nn.ModuleList):
+    """Body-part segment embedding (reference blocks/feature_extractor.py:
+    23-70, engaged when input_position and input_velocity exceed 1000;
+    agcn_tpu sgn.py:172-200): each (part, window of SEGMENT_PERIOD frames)
+    token flattens (window position, joint, channel) into one vector,
+    embedded by its part's own `SGNEmbedding` (mode % 1000, a DataNorm of
+    the part's width first); the frames past the last whole window are
+    dropped. Takes (B, T, 25, C), gives (B, T // 4, 8, out_channels). A
+    ModuleList, so the parts' keys are the reference's `<name>.{i}.*`."""
+
+    def __init__(self, in_channels: int, out_channels: int, mode: int,
+                 use_bias: bool = True):
+        super().__init__(
+            SGNEmbedding(SEGMENT_PERIOD * len(seg) * in_channels,
+                         out_channels, mode % 1000, use_bias,
+                         in_norm_features=SEGMENT_PERIOD * len(seg)
+                         * in_channels)
+            for seg in SEGMENTS)
+        for i, seg in enumerate(SEGMENTS):
+            self.register_buffer(f"joints{i}", torch.tensor(seg),
+                                 persistent=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for emb in self:
+            emb.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, _, c = x.shape
+        tw = t // SEGMENT_PERIOD
+        outs = []
+        for i, emb in enumerate(self):
+            xs = x[:, :tw * SEGMENT_PERIOD].index_select(
+                2, getattr(self, f"joints{i}"))
+            outs.append(emb(xs.reshape(b, tw, 1, -1)))
+        return torch.cat(outs, dim=2)
 
 
 def _blend(g: torch.Tensor, g_prior: Optional[torch.Tensor],
@@ -997,13 +1049,6 @@ TEMPORAL_POOLS = (0, 1, 2, 3, 4, 5)
 _POOL_LAYERS = {3: ("k",), 4: ("1x1", "k"), 5: ("k", "1x1")}
 
 
-def _refuse(**options: bool) -> None:
-    for name, on in options.items():
-        if on:
-            raise NotImplementedError(
-                f"SGN option {name}: not in the port yet; waits in {_ITEM}")
-
-
 def latent_noise(shape: Sequence[int], generator: Optional[torch.Generator],
                  device: torch.device) -> torch.Tensor:
     """eps of the InfoGCN head's train-time draw: a standard normal from
@@ -1022,8 +1067,8 @@ def _pool_conv(in_features: int, features: int, kernel: Tuple[int, int],
 
 class SGN(nn.Module):
     """The SGN classifier (agcn_tpu sgn.py:758-1283) at every option of
-    the JAX model but the input-side ones `_refuse` names.
-    `forward(x)` takes (B, num_segment, V*C) and returns the logits;
+    the JAX model. `forward(x)` takes (B, num_segment, V*C) and returns
+    the logits;
     `forward(x, return_g=True)` returns (logits, the list of G, each
     (B, T, V, V)).
 
@@ -1097,14 +1142,6 @@ class SGN(nn.Module):
             raise ValueError(
                 "gcn_fpn_output_merge=2 has per-branch classifier heads "
                 "and cannot host the InfoGCN latent head")
-        _refuse(**{
-            "semantic_jdiff": semantic_jdiff > 0,
-            "semantic_joint_smp": semantic_joint_smp > 0,
-            "semantic_frame_location = 1": semantic_frame_location == 1,
-            "xem_projection": xem_projection > 0,
-            "segment embeddings (input_position/velocity > 1000)":
-                input_position > 1000 or input_velocity > 1000,
-        })
         if spatial_maxpool not in SPATIAL_POOLS:
             raise NotImplementedError("spatial_maxpool mode")
         if temporal_maxpool not in TEMPORAL_POOLS:
@@ -1119,29 +1156,54 @@ class SGN(nn.Module):
         self.num_point = num_point
         self.num_segment = num_segment
         self.in_channels = in_channels
-        v, t = num_point, num_segment
         self.fusion = semantic_joint_fusion
+        # the body-part segment embeddings: from there on the graph has
+        # the 8 part nodes over seg // 4 windows (agcn_tpu sgn.py:860-876)
+        self.segments = input_position > 1000 and input_velocity > 1000
+        if self.segments and num_point != 25:
+            raise ValueError(
+                f"the segment embeddings group the 25 NTU joints; "
+                f"num_point is {num_point}")
+        v, t = ((len(SEGMENTS), num_segment // SEGMENT_PERIOD)
+                if self.segments else (num_point, num_segment))
 
         self.feature_extractor = nn.ModuleDict()
         for name, mode in (("pos_embed", input_position),
                            ("vel_embed", input_velocity)):
-            if mode > 0:
+            if self.segments:
+                self.feature_extractor[name] = SegmentEmbedding(
+                    in_channels, c1, mode, use_bias)
+            elif mode > 0:
                 self.feature_extractor[name] = SGNEmbedding(
                     in_channels, c1, mode, use_bias,
                     in_norm_features=in_channels * v)
         self.semantic_embedding = nn.ModuleDict()
         width = c1
+        # semantic_jdiff: the joint embedding fused into the position
+        # stream and `jdiff_embedding` into the velocity stream, each by
+        # the fusion (agcn_tpu sgn.py:894-903)
+        self.jdiff = (semantic_jdiff > 0 and semantic_joint > 0
+                      and input_position > 0 and input_velocity > 0)
         if semantic_joint > 0:
             self.semantic_embedding["spa_embedding"] = SGNEmbedding(
                 v, c1, semantic_joint, use_bias)
             self.semantic_embedding["spa_onehot"] = OneHot(v, t, mode=0)
             width = 2 * c1 if semantic_joint_fusion == 0 else c1
+        if self.jdiff:
+            self.semantic_embedding["jdiff_embedding"] = SGNEmbedding(
+                v, c1, semantic_jdiff, use_bias)
+        if xem_projection > 0:  # before the stack (agcn_tpu sgn.py:914-918)
+            self.x_emb_projection = SGNEmbedding(width, width,
+                                                 xem_projection, use_bias)
         dims = self.sgcn_dims = tuple(sgcn_dims or (c2, c3, c3))
+        self.frame_first = semantic_frame_location == 1
         if semantic_frame > 0:
-            # of the BiFPN's width under gcn_fpn 8 (agcn_tpu sgn.py:920-925)
+            # of the stack's input width when added before it, else of the
+            # BiFPN's under gcn_fpn 8 (agcn_tpu sgn.py:920-936)
             self.semantic_embedding["tem_embedding"] = SGNEmbedding(
-                t, bifpn_dim if gcn_fpn == 8 else dims[-1], semantic_frame,
-                use_bias)
+                t, width if self.frame_first
+                else bifpn_dim if gcn_fpn == 8 else dims[-1],
+                semantic_frame, use_bias)
             self.semantic_embedding["tem_onehot"] = OneHot(t, v, mode=1)
         if semantic_class > 0:
             # added to the pooled feature (agcn_tpu sgn.py:1218-1223)
@@ -1213,6 +1275,15 @@ class SGN(nn.Module):
             widths = [None] * last + [dims2[-1]]
         else:
             widths = [None] * last + [dims[-1]]
+        # semantic_joint_smp: a one-hot joint embedding of dims[-1]
+        # concatenated on every level's channels before the spatial pool
+        # (agcn_tpu sgn.py:1083-1095); its table has no reference buffer
+        if semantic_joint_smp > 0:
+            self.semantic_embedding["joint_smp_embedding"] = SGNEmbedding(
+                v, dims[-1], semantic_joint_smp, use_bias)
+            self.semantic_embedding["joint_smp_onehot"] = OneHot(
+                v, t, mode=0, persistent=False)
+            widths = [c if c is None else c + dims[-1] for c in widths]
         # the spatial pool of each level with a feature: the conv pools'
         # smp{i}_{k,1x1}_{conv,bn} of c3 channels (agcn_tpu
         # sgn.py:1056-1097); the pooled levels concatenated under gcn_fpn
@@ -1337,6 +1408,8 @@ class SGN(nn.Module):
         for emb in self.semantic_embedding.values():
             if isinstance(emb, SGNEmbedding):
                 emb.reset_parameters(generator)
+        if hasattr(self, "x_emb_projection"):
+            self.x_emb_projection.reset_parameters(generator)
         self.sgcn.reset_parameters(generator)
         for name in ("sgcn2", "bifpn"):
             if hasattr(self, name):
@@ -1426,28 +1499,49 @@ class SGN(nn.Module):
                 f"num_segment={t}")
         x = x.reshape(b, t, v, dim // v)[..., :self.in_channels]
         # velocity: the difference padded with a leading zero frame
-        # (blocks/feature_extractor.py:75-79)
-        dif = torch.cat([torch.zeros_like(x[:, :1]), x[:, 1:] - x[:, :-1]],
-                        dim=1)
+        # (blocks/feature_extractor.py:75-79); the segment embeddings
+        # embed x in both streams, as the reference does
+        dif = (x if self.segments else torch.cat(
+            [torch.zeros_like(x[:, :1]), x[:, 1:] - x[:, :-1]], dim=1))
         fe, se = self.feature_extractor, self.semantic_embedding
         streams = [fe[name](inp) for name, inp in (("pos_embed", x),
                                                    ("vel_embed", dif))
                    if name in fe]
-        feat = streams[0] if len(streams) == 1 else streams[0] + streams[1]
-        if "spa_embedding" in se:
-            spa = se["spa_embedding"](se["spa_onehot"].table())
-            spa = spa.expand(b, -1, -1, -1)
-            feat = (torch.cat([feat, spa], dim=-1) if self.fusion == 0
-                    else feat + spa)
+
+        def joint_table(name: str, table: str) -> torch.Tensor:
+            return se[name](se[table].table()).expand(b, -1, -1, -1)
+
+        def fuse(a: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+            return torch.cat([a, e], dim=-1) if self.fusion == 0 else a + e
+
+        if self.jdiff:
+            feat = (fuse(streams[0], joint_table("spa_embedding",
+                                                 "spa_onehot"))
+                    + fuse(streams[1], joint_table("jdiff_embedding",
+                                                   "spa_onehot")))
+        else:
+            feat = (streams[0] if len(streams) == 1
+                    else streams[0] + streams[1])
+            if "spa_embedding" in se:
+                feat = fuse(feat, joint_table("spa_embedding",
+                                              "spa_onehot"))
+        if hasattr(self, "x_emb_projection"):
+            feat = self.x_emb_projection(feat)
         # the frame embedding before the GCN stack, as JAX orders its calls
         tem = (se["tem_embedding"](se["tem_onehot"].table())
                if "tem_embedding" in se else None)
+        if tem is not None and self.frame_first:
+            feat, tem = feat + tem, None
         _, g_list, x_list = self.sgcn(feat)
+        smp = (joint_table("joint_smp_embedding", "joint_smp_onehot")
+               if "joint_smp_embedding" in se else None)
         pooled = []
         for i, f in enumerate(self._levels(feat, g_list, x_list)):
             if f is not None:
                 if tem is not None and f.shape[-1] == tem.shape[-1]:
                     f = f + tem
+                if smp is not None:
+                    f = torch.cat([f, smp], dim=-1)
                 f = self._spatial_pool(i, f)
             pooled.append(f)
         if self.fpn_mode in _FPN_CONCAT:

@@ -17,12 +17,52 @@ hand-ordered backward of `adaptive_gcn_bwd` (the JAX `custom_vjp`).
 
 SGN's per-frame graph step (`frame_attention`, `frame_aggregate`,
 ops/gcn.py:60-87) is a pair of batched einsums on cuBLAS: the JAX package
-gives it no Pallas kernel either.
+gives it no Pallas kernel either. So are the plain graph primitives
+`aggregate` (y = x @ A over the joints, for a static, per-sample or
+per-frame A) and `embedding_attention` (ops/gcn.py:24-57), which no model
+calls.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def aggregate(x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    """Graph aggregation y = x @ A over the joint axis (agcn_tpu
+    ops/gcn.py:24-40).
+
+    Args:
+      x: (..., V, C) joint features (typically (B, T, V, C)).
+      adj: (V, V) static, (B, V, V) per-sample, or (B, T, V, V) per-frame
+        adjacency with A[source, dest] layout.
+    Returns:
+      Same shape as x, with joint axis aggregated.
+    """
+    if adj.dim() == 2:
+        return einsum("...vc,vw->...wc", x, adj)
+    if adj.dim() == 3:
+        return einsum("btvc,bvw->btwc", x, adj)
+    if adj.dim() == 4:
+        return einsum("btvc,btvw->btwc", x, adj)
+    raise ValueError(f"bad adjacency rank {adj.dim()}")
+
+
+def embedding_attention(theta: torch.Tensor,
+                        phi: torch.Tensor) -> torch.Tensor:
+    """Per-sample data-dependent adjacency C = softmax(theta^T phi / d)
+    (agcn_tpu ops/gcn.py:43-57): the contraction over (time, channel)
+    jointly, divided by Ce * T, and the softmax over the *source* joint
+    axis (reference agcn.py:99-101, softmax dim=-2).
+
+    Args:
+      theta, phi: (B, T, V, Ce) embedded features.
+    Returns:
+      (B, V, V) attention adjacency, columns summing to 1.
+    """
+    _, t, _, ce = theta.shape
+    logits = einsum("btvc,btwc->bvw", theta, phi) / (ce * t)
+    return torch.softmax(logits, dim=-2)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ import torch
 
 from agcn_tpu_torch.models.registry import (model_key, unknown_model,
                                             waiting_item)
-from agcn_tpu_torch.models.sgn import linear_ffn_stacks
+from agcn_tpu_torch.models.sgn import SEGMENT_PERIOD, linear_ffn_stacks
 
 
 def _np(x) -> np.ndarray:
@@ -657,8 +657,13 @@ def sgn_state_dict_from_variables(variables: Mapping[str, Any],
     """JAX SGN variables -> the port's (reference sgn_v14-named) state
     dict, for the options the port builds (torch_export.py:260-500). The
     one-hot buffers' sizes, and the joints of the (c, v) reorders, come
-    from the joint and frame embeddings' input widths, as in the JAX map.
-    Beyond the JAX map's keys it writes the GCN-FPN's projections
+    from the joint and frame embeddings' input widths, as in the JAX map
+    (the 8 part nodes under the segment embeddings, whose parts `seg{i}`
+    go to `feature_extractor.{pos,vel}_embed.{i}`, torch_export.py:
+    330-341). Beyond the JAX map's keys it writes the input side's
+    `semantic_embedding.jdiff_embedding` (JAX `jdiff_embed`),
+    `x_emb_projection` and `semantic_embedding.joint_smp_embedding`
+    (`joint_smp_embed`), the GCN-FPN's projections
     `fpn_proj{i}[_k{k}]`, the InfoGCN head's `fc_mu` and `fc_logvar` and
     its buffer `z_prior`, which the JAX export leaves out, and, under the
     JAX module names (the JAX export has none), the temporal branches'
@@ -672,15 +677,24 @@ def sgn_state_dict_from_variables(variables: Mapping[str, Any],
     params = variables["params"]
     stats = _stats(variables)
     out: Dict[str, np.ndarray] = {}
+    segments = False
     for flax_name, prefix in (
             ("pos_embed", "feature_extractor.pos_embed"),
             ("vel_embed", "feature_extractor.vel_embed"),
             ("joint_embed", "semantic_embedding.spa_embedding"),
+            ("jdiff_embed", "semantic_embedding.jdiff_embedding"),
+            ("x_emb_projection", "x_emb_projection"),
             ("frame_embed", "semantic_embedding.tem_embedding"),
-            ("class_embed", "semantic_embedding.cls_embedding")):
-        if flax_name in params:
-            _sgn_embedding_out(out, prefix, params[flax_name],
-                               stats.get(flax_name, {}))
+            ("class_embed", "semantic_embedding.cls_embedding"),
+            ("joint_smp_embed", "semantic_embedding.joint_smp_embedding")):
+        node, snode = params.get(flax_name), stats.get(flax_name, {})
+        if node is not None and "seg0" in node:  # the segment embeddings
+            for i in range(len(node)):
+                _sgn_embedding_out(out, f"{prefix}.{i}", node[f"seg{i}"],
+                                   snode[f"seg{i}"])
+            num_point, segments = len(node), True
+        elif node is not None:
+            _sgn_embedding_out(out, prefix, node, snode)
 
     def in_dim(node):
         return int(np.shape(node["cnn1"]["cnn"]["conv"]["kernel"])[-2])
@@ -689,6 +703,8 @@ def sgn_state_dict_from_variables(variables: Mapping[str, Any],
         num_point = in_dim(params["joint_embed"])
     if "frame_embed" in params:
         num_segment = in_dim(params["frame_embed"])
+    elif segments:  # the windows of the loader's num_segment frames
+        num_segment //= SEGMENT_PERIOD
     if "joint_embed" in params:
         out["semantic_embedding.spa_onehot.onehot"] = _onehot_buffer(
             num_point, num_segment, mode=0)

@@ -339,13 +339,28 @@ fails:
    launches; (c) gcn_fpn 10 with merge 2 through the entry point's
    `main` in this process: one epoch on phase 14's synthetic pickles,
    then `--phase test` on its checkpoint reproduces its top-1.
+24. SGN's input side, whose paths run no port kernel, as in the JAX
+   package. (a) each case of INPUT_CASES (semantic_jdiff,
+   xem_projection, semantic_frame_location 1, semantic_joint_smp, the
+   body-part segment embeddings alone and with jdiff) on train_sgn.yaml's
+   SGN at full width, seg 20, fp32 with TF32 off, as phase 23 (b): card
+   against CPU logits within 2e-4, Adam steps at batch 64 (median ms,
+   device ms by kernel group, busy share, kernel count), no port kernel
+   launches; (b) the host ms of a 64-row training collate and a 4 x
+   5-crop test collate under `midvel_sampler: 1` (the k-means segment
+   split, numpy only), beside the equal split's, and every sequence's
+   bounds well formed; (c) the segment embeddings with `midvel_sampler:
+   1` through the entry point's `main` in this process: one epoch on
+   phase 14's synthetic pickles, then `--phase test` on its checkpoint
+   reproduces its top-1.
 
 `python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
 minute), `--phase 15` phases 1, 2 (the build) and 15, `--phase 16`
 phases 1, 2 and 16, `--phase 17` phases 1 and 17, `--phase 18` phases 1
 and 18, `--phase 19` phases 1 and 19, `--phase 20` phases 1, 2 and 20,
 `--phase 21` phases 1, 2 and 21, `--phase 22` phases 1, 2 and 22,
-`--phase 23` phases 1 and 23; none prints a result line (details of
+`--phase 23` phases 1 and 23, `--phase 24` phases 1 and 24; none
+prints a result line (details of
 15 in build/chip_smoke_knobs.json, of 16 in
 build/chip_smoke_versions.json, of 17 in
 build/chip_smoke_sgn_options.json, of 18 in
@@ -353,7 +368,8 @@ build/chip_smoke_sgn_transformer.json, of 19 in
 build/chip_smoke_sgn_temporal.json, of 20 in
 build/chip_smoke_parallel.json, of 21 in build/chip_smoke_openpose.json,
 of 22 in build/chip_smoke_single_stream.json, of 23 in
-build/chip_smoke_sgn_stack.json).
+build/chip_smoke_sgn_stack.json, of 24 in
+build/chip_smoke_sgn_input.json).
 
 The last lines of standard output are the `kernels` JSON line (each
 kernel's V = 15 sums and launches under "v15"), the card's `nvidia-smi`
@@ -5025,32 +5041,32 @@ def argmax_ties_on_card(torch, np):
         "the card: the first frame, as numpy and JAX take it")
 
 
-def phase_sgn_stack_options(torch, np, x_eval, train_ds, summary):
-    """(b) Each of STACK_CASES on train_sgn.yaml's SGN (full width, seg
-    20, fp32, TF32 off): with every unit's w1 random and the BN
-    statistics of a train-mode forward (`liven_sgn`), the card's eval
-    logits of the 4 x 5-crop batch within 2e-4 (of the logit scale where
-    it exceeds 1) of the CPU port's at the same weights; then Adam steps
-    at the recipe's batch of 64 and dropout: one step's median ms (5
-    timed after 2), one step's device time by kernel group
-    (torch.profiler) and its busy share, the parameter count; no port
-    kernel launches."""
+def phase_sgn_cases(torch, np, cases, x_eval, train_ds, seed, label):
+    """Each of `cases` ((name, options) over train_sgn.yaml's
+    `model_args`) on the recipe's SGN (full width, seg 20, fp32, TF32
+    off): with every unit's w1 random and the BN statistics of a
+    train-mode forward (`liven_sgn`), the card's eval logits of the 4 x
+    5-crop batch within 2e-4 (of the logit scale where it exceeds 1) of
+    the CPU port's at the same weights; then Adam steps at the recipe's
+    batch of 64 and dropout: one step's median ms (5 timed after 2), one
+    step's device time by kernel group (torch.profiler) and its busy
+    share, the parameter count; no port kernel launches. Returns the
+    rows by case."""
     from agcn_tpu_torch.data.sgn_collate import SegmentSampler
     from agcn_tpu_torch.utils.config import load_config
 
     torch.set_num_threads(os.cpu_count() or 1)
     sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20)
     x, _, y, _ = sampler.collate([train_ds[i] for i in range(64)],
-                                 np.random.default_rng(SEED + 81),
-                                 train=True)
+                                 np.random.default_rng(seed), train=True)
     x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
     base = load_config(SGN_CONFIG)
     rows = {}
-    for name, opts in STACK_CASES:
+    for name, opts in cases:
         cfg = load_config(SGN_CONFIG, {
             "model_args": dict(base.model_args, **opts)})
         ref = sgn_model(torch, cfg, device="cpu", dropout2d=0.0)
-        liven_sgn(torch, ref, x_eval, SEED + 82)
+        liven_sgn(torch, ref, x_eval, seed + 1)
         state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
         with torch.inference_mode():
             want = ref(torch.from_numpy(x_eval)).numpy()
@@ -5088,7 +5104,7 @@ def phase_sgn_stack_options(torch, np, x_eval, train_ds, summary):
                           ms_per_step=ms, seq_per_s=64 / ms * 1e3,
                           device_ms=device_ms, busy=device_ms / ms,
                           kernels=kernels, groups=groups, launches=launches)
-        log(f"  sgn stack (b) {name}: logits card vs cpu {err:.3e} of "
+        log(f"  {label} {name}: logits card vs cpu {err:.3e} of "
             f"{scale:.3f}; {rows[name]['params']:,} parameters; Adam step "
             f"at batch 64: median {ms:.3f} ms, device {device_ms:.3f} ms in "
             f"{kernels} kernels ({100 * device_ms / ms:.1f}% busy); "
@@ -5096,53 +5112,58 @@ def phase_sgn_stack_options(torch, np, x_eval, train_ds, summary):
         for g, gms in sorted(groups.items(), key=lambda kv: -kv[1])[:4]:
             log(f"    {gms:9.3f} ms {100 * gms / device_ms:5.1f}%  {g}")
         del model, step
-    summary["sgn_stack"] = rows
+    return rows
 
 
-def phase_sgn_stack_cli(np, paths, tmp, summary):
-    """(c) The entry point's `main`, in this process, on a copy of
-    train_sgn.yaml with STACK_CLI_CASE's options pointed at phase 14's
-    pickles: one epoch (batch 64), eval with multi_test 5 and a
-    checkpoint; `--phase test` on the checkpoint must reproduce the run's
-    top-1; finite loss, no port kernel launches."""
+def phase_sgn_case_cli(np, paths, tmp, name, opts, label, loader_args=()):
+    """The entry point's `main`, in this process, on a copy of
+    train_sgn.yaml with `opts` over its `model_args` (and `loader_args`
+    over both loaders' arguments) pointed at phase 14's pickles: one
+    epoch (batch 64), eval with multi_test 5 and a checkpoint; `--phase
+    test` on the checkpoint must reproduce the run's top-1; finite loss,
+    no port kernel launches. Returns the metrics of both runs."""
     import yaml
 
     from agcn_tpu_torch.main import main as entry_point
 
     with open(SGN_CONFIG) as f:
         recipe = yaml.safe_load(f)
-    work = os.path.join(tmp, "stack")
+    work = os.path.join(tmp, name)
     recipe.update(
         work_dir=work, num_epoch=1, num_worker=2, log_interval=1,
         save_interval=1, eval_interval=1, show_topk=[1, 5],
-        model_args=dict(recipe["model_args"],
-                        **dict(STACK_CASES)[STACK_CLI_CASE]),
+        model_args=dict(recipe["model_args"], **opts),
         train_feeder_args=dict(recipe["train_feeder_args"],
                                data_path=paths["train"][0],
                                label_path=paths["train"][1]),
         test_feeder_args=dict(recipe["test_feeder_args"],
                               data_path=paths["test"][0],
-                              label_path=paths["test"][1]))
-    cfg_path = os.path.join(tmp, "sgn_stack.yaml")
+                              label_path=paths["test"][1]),
+        train_dataloader_args=dict(recipe["train_dataloader_args"],
+                                   **dict(loader_args)),
+        test_dataloader_args=dict(recipe["test_dataloader_args"],
+                                  **dict(loader_args)))
+    cfg_path = os.path.join(tmp, f"{name}.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(recipe, f)
-    log(f"  sgn stack (c) the entry point's main on train_sgn.yaml with "
-        f"{STACK_CLI_CASE}: train + eval (multi_test 5) + save, one epoch; "
-        "then --phase test")
+    log(f"  {label} the entry point's main on train_sgn.yaml with {name}"
+        + "".join(f" and {k} {v}" for k, v in dict(loader_args).items())
+        + ": train + eval (multi_test 5) + save, one epoch; then --phase "
+        "test")
     with contextlib.redirect_stdout(io.StringIO()):
         entry_point(["--config", cfg_path])
         entry_point(["--config", cfg_path, "--phase", "test", "--weights",
                      os.path.join(work, "checkpoints", "epoch_1.pt"),
-                     "--work-dir", os.path.join(tmp, "stack_test")])
+                     "--work-dir", f"{work}_test"])
     metrics = read_metrics(os.path.join(work, "metrics.jsonl"))
-    test = read_metrics(os.path.join(tmp, "stack_test", "metrics.jsonl"))
+    test = read_metrics(os.path.join(f"{work}_test", "metrics.jsonl"))
     trains = [m for m in metrics if m["kind"] == "train"]
     evals = [m for m in metrics if m["kind"] == "eval"]
     check(len(trains) == 1 and len(evals) == 1
           and math.isfinite(trains[0]["loss"]),
-          f"{STACK_CLI_CASE} entry point: {metrics}")
+          f"{name} entry point: {metrics}")
     check(not any(trains[0]["launches"].values()),
-          f"{STACK_CLI_CASE} entry point launched {trains[0]['launches']}")
+          f"{name} entry point launched {trains[0]['launches']}")
     check(test[-1]["top1"] == evals[-1]["top1"],
           f"--phase test top-1 {test[-1]['top1']} != the run's "
           f"{evals[-1]['top1']}")
@@ -5150,7 +5171,7 @@ def phase_sgn_stack_cli(np, paths, tmp, summary):
         f"steps, {trains[0]['seq_per_sec']:.1f} seq/s; eval top-1 "
         f"{evals[-1]['top1']:.4f}, --phase test top-1 "
         f"{test[-1]['top1']:.4f}")
-    summary["sgn_stack_cli"] = dict(train=trains, eval=evals, test=test)
+    return dict(train=trains, eval=evals, test=test)
 
 
 def phase_sgn_stack(torch, np, smi, summary):
@@ -5173,9 +5194,13 @@ def phase_sgn_stack(torch, np, smi, summary):
         x_eval, _, _, _ = sampler.collate([test[i] for i in range(4)],
                                           np.random.default_rng(SEED),
                                           multi_crop=True)
-        phase_sgn_stack_options(torch, np, x_eval, train, summary)
+        summary["sgn_stack"] = phase_sgn_cases(
+            torch, np, STACK_CASES, x_eval, train, SEED + 81,
+            "sgn stack (b)")
         part_s["ab"], t0 = time.perf_counter() - t0, time.perf_counter()
-        phase_sgn_stack_cli(np, paths, tmp, summary)
+        summary["sgn_stack_cli"] = phase_sgn_case_cli(
+            np, paths, tmp, STACK_CLI_CASE, dict(STACK_CASES)[STACK_CLI_CASE],
+            "sgn stack (c)")
         part_s["c"] = time.perf_counter() - t0
     launches = all_launches()
     check(not any(launches.values()), f"phase 23 launched {launches}")
@@ -5189,15 +5214,117 @@ def phase_sgn_stack(torch, np, smi, summary):
     return launches
 
 
+INPUT_SEGMENTS = dict(input_position=1001, input_velocity=1001)
+INPUT_CASES = (
+    ("jdiff", dict(semantic_jdiff=1)),
+    ("xem_projection", dict(xem_projection=1)),
+    ("frame_first", dict(semantic_frame_location=1)),
+    ("joint_smp", dict(semantic_joint_smp=1)),
+    ("segments", INPUT_SEGMENTS),
+    ("segments_jdiff", dict(INPUT_SEGMENTS, semantic_jdiff=1)),
+)
+INPUT_CLI_CASE = "segments"        # (c): with midvel_sampler 1
+INPUT_COLLATE_TIMED = 3            # (b): timed collates of each kind
+
+
+def phase_sgn_input_collate(np, train_ds, test_ds, summary):
+    """(b) `midvel_sampler: 1` (the k-means segment split, numpy only, no
+    scikit-learn on this machine) on phase 14's pickles: the host ms of a
+    64-row training collate and a 4 x 5-crop test collate (median of
+    INPUT_COLLATE_TIMED), beside the equal split's; every sequence's
+    bounds start at 0, rise strictly and end at its frame count, 21 of
+    them for 20 segments; the batches' shapes."""
+    from agcn_tpu_torch import native
+    from agcn_tpu_torch.data import transforms
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+
+    batch = [train_ds[i] for i in range(64)]
+    crops = [test_ds[i] for i in range(4)]
+    times = {}
+    for policy, kw in (("midvel", {"midvel_sampler": 1}), ("equal", {})):
+        sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20,
+                                 multi_test=SGN_CROPS, **kw)
+        rng = np.random.default_rng(SEED + 93)
+        times[policy], shapes = {}, []
+        for kind, items, train in (("train_ms", batch, True),
+                                   ("test_ms", crops, False)):
+            ms = []
+            for _ in range(INPUT_COLLATE_TIMED):
+                t0 = time.perf_counter()
+                x = sampler.collate(items, rng, train=train,
+                                    multi_crop=not train)[0]
+                ms.append((time.perf_counter() - t0) * 1e3)
+            times[policy][kind] = sorted(ms)[len(ms) // 2]
+            shapes.append(x.shape)
+        check(shapes == [(64, 20, 75), (4 * SGN_CROPS, 20, 75)],
+              f"{policy}: collated shapes {shapes}")
+    for seq, _, _ in batch + crops:
+        frames = sampler.pad(native.flatten_persons(seq)[0])
+        bounds = transforms.split_idx_using_kmeans(frames, 20)
+        check(len(bounds) == 21 and bounds[0] == 0
+              and bounds[-1] == len(frames)
+              and bool(np.all(np.diff(bounds) > 0)),
+              f"k-means bounds {bounds} for {len(frames)} frames")
+    log(f"  sgn input (b) host collate, midvel_sampler 1 (k-means): train "
+        f"64 rows {times['midvel']['train_ms']:.2f} ms, test 4 x "
+        f"{SGN_CROPS} crops {times['midvel']['test_ms']:.2f} ms; the equal "
+        f"split: {times['equal']['train_ms']:.2f} ms, "
+        f"{times['equal']['test_ms']:.2f} ms (median of "
+        f"{INPUT_COLLATE_TIMED}); the bounds of {len(batch) + len(crops)} "
+        "sequences well formed")
+    summary["sgn_input_collate"] = times
+
+
+def phase_sgn_input(torch, np, smi, summary):
+    """Phase 24: (a)-(c) above on phase 14's synthetic pickles, in one
+    temporary directory; the launch counts of all of it must stay 0."""
+    from agcn_tpu_torch.data.feeder import SGNDataset
+    from agcn_tpu_torch.data.sgn_collate import SegmentSampler
+
+    t24 = time.perf_counter()
+    reset_launches()
+    part_s = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = write_sgn_pickles(np, tmp)
+        train = SGNDataset(*paths["train"], dataset="NTU60-CV-SGN")
+        test = SGNDataset(*paths["test"], dataset="NTU60-CV-SGN")
+        sampler = SegmentSampler(dataset="NTU60-CV-SGN", seg=20,
+                                 multi_test=SGN_CROPS)
+        x_eval, _, _, _ = sampler.collate([test[i] for i in range(4)],
+                                          np.random.default_rng(SEED),
+                                          multi_crop=True)
+        summary["sgn_input"] = phase_sgn_cases(
+            torch, np, INPUT_CASES, x_eval, train, SEED + 91,
+            "sgn input (a)")
+        part_s["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+        phase_sgn_input_collate(np, train, test, summary)
+        part_s["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+        summary["sgn_input_cli"] = phase_sgn_case_cli(
+            np, paths, tmp, INPUT_CLI_CASE, dict(INPUT_CASES)[INPUT_CLI_CASE],
+            "sgn input (c)", {"midvel_sampler": 1})
+        part_s["c"] = time.perf_counter() - t0
+    launches = all_launches()
+    check(not any(launches.values()), f"phase 24 launched {launches}")
+    summary["sgn_input_launches"] = launches
+    summary["sgn_input_phase_s"] = time.perf_counter() - t24
+    summary["sgn_input_part_s"] = part_s
+    summary["sgn_input_smi"] = smi
+    log(f"  phase 24 in {summary['sgn_input_phase_s']:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in part_s.items())
+        + f"; {smi})")
+    return launches
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
     if argv and only not in ("14", "15", "16", "17", "18", "19", "20",
-                             "21", "22", "23"):
+                             "21", "22", "23", "24"):
         print("usage: python3 chip_smoke.py "
-              "[--phase 14|15|16|17|18|19|20|21|22|23]", file=sys.stderr)
+              "[--phase 14|15|16|17|18|19|20|21|22|23|24]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -5214,14 +5341,14 @@ def main(argv=None):
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/23] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/24] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     if only == "14":
-        log("[14/23] the SGN recipe alone (phase 14)")
+        log("[14/24] the SGN recipe alone (phase 14)")
         phase_sgn(torch, np, summary)
         return 0
     if only == "17":
-        log("[17/23] SGN's v11-v13 options, the MMD loss and sgn_original "
+        log("[17/24] SGN's v11-v13 options, the MMD loss and sgn_original "
             "alone (phase 17)")
         phase_sgn_options(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5231,7 +5358,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "18":
-        log("[18/23] SGN's transformer (train_sgn_transformer.yaml, "
+        log("[18/24] SGN's transformer (train_sgn_transformer.yaml, "
             "train_sgn_v15.yaml) and SGN serving alone (phase 18)")
         phase_sgn_transformer(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5241,7 +5368,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "19":
-        log("[19/23] SGN raw generation (sgn-raw) and SGN's temporal-branch "
+        log("[19/24] SGN raw generation (sgn-raw) and SGN's temporal-branch "
             "options alone (phase 19)")
         phase_sgn_temporal(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5251,7 +5378,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "23":
-        log("[23/23] the rest of SGN's GCN stack and head alone (phase 23)")
+        log("[23/24] the rest of SGN's GCN stack and head alone (phase 23)")
         phase_sgn_stack(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
@@ -5259,12 +5386,22 @@ def main(argv=None):
                   "w") as f:
             json.dump(summary, f, indent=1)
         return 0
+    if only == "24":
+        log("[24/24] SGN's input side and the k-means segment split alone "
+            "(phase 24)")
+        phase_sgn_input(torch, np, smi, summary)
+        out_dir = os.path.join(REPO, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_sgn_input.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=1)
+        return 0
     if only == "15":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/23] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/24] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[15/23] the trainer's run knobs alone (phase 15)")
+        log("[15/24] the trainer's run knobs alone (phase 15)")
         phase_knobs(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
@@ -5274,9 +5411,9 @@ def main(argv=None):
     if only == "20":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/23] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/24] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[20/23] data-parallel training and the edge partition alone "
+        log("[20/24] data-parallel training and the edge partition alone "
             "(phase 20)")
         summary["phase20_launches"] = phase_parallel(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5288,9 +5425,9 @@ def main(argv=None):
     if only == "21":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/23] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/24] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[21/23] the 15-joint OpenPose recipes (AGCN, AAGCN) on the "
+        log("[21/24] the 15-joint OpenPose recipes (AGCN, AAGCN) on the "
             "V = 15 kernels alone (phase 21)")
         phase_openpose(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5302,9 +5439,9 @@ def main(argv=None):
     if only == "22":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/23] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/24] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[22/23] the single-stream live demo (python -m "
+        log("[22/24] the single-stream live demo (python -m "
             "agcn_tpu_torch.infer without --serve, expose_attention) alone "
             "(phase 22)")
         phase_single_stream(torch, np, smi, summary)
@@ -5317,9 +5454,9 @@ def main(argv=None):
     if only == "16":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/23] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/24] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[16/23] BN folding, the apply_gcn forms, the AAGCN versions "
+        log("[16/24] BN folding, the apply_gcn forms, the AAGCN versions "
             "alone (phase 16)")
         summary["phase16_launches"] = phase_versions(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5332,7 +5469,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/23] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/24] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -5348,7 +5485,7 @@ def main(argv=None):
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/23] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/24] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -5371,7 +5508,7 @@ def main(argv=None):
     summary.update(kernel_rows_v15=rows15, dx_rows_v15=dx_rows15,
                    fp32_fwd_layers_v15=fp32_layers(rows15, dx_rows15))
 
-    log("[4/23] gcn_bwd vs its plain version at the training shapes "
+    log("[4/24] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -5385,7 +5522,7 @@ def main(argv=None):
     summary.update(bwd_rows_v15=bwd_rows15,
                    fp32_da1_layers_v15=da1_fp32_layers(bwd_rows15))
 
-    log("[5/23] attention-logits kernel vs plain version at the served "
+    log("[5/24] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -5398,7 +5535,7 @@ def main(argv=None):
         logits_rows15 = phase_logits(torch, np, logits_kernel, v=15)
     summary.update(logits_rows=logits_rows, logits_rows_v15=logits_rows15)
 
-    log("[6/23] host data path: the C++ host kernels "
+    log("[6/24] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -5406,11 +5543,11 @@ def main(argv=None):
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/23] AGCN serving main path: 16 streams through "
+    log("[7/24] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/23] AGCN: device time of one served forward by kernel group; "
+    log("[8/24] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -5418,7 +5555,7 @@ def main(argv=None):
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/23] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/24] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -5427,19 +5564,19 @@ def main(argv=None):
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/23] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/24] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/23] AAGCN: device time of one served forward by kernel group; "
+    log("[11/24] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/23] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/24] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -5449,7 +5586,7 @@ def main(argv=None):
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/23] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/24] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -5467,34 +5604,34 @@ def main(argv=None):
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
-    log("[14/23] SGN recipe (no port kernel on its path, as in the JAX "
+    log("[14/24] SGN recipe (no port kernel on its path, as in the JAX "
         "package): train_sgn.yaml at full width on synthetic SGN pickles "
         "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
         "the entry points with 5-crop eval")
     phase_sgn(torch, np, summary)
 
-    log("[15/23] the trainer's run knobs: one fp32 SAM step of the pallas "
+    log("[15/24] the trainer's run knobs: one fp32 SAM step of the pallas "
         "AGCN, kernels against plain versions; the entry point on "
         "train_joint.yaml with SAM, the profiler, async checkpoints, then "
         "auto-resume; train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml "
         "through the entry point")
     sam_launches = phase_knobs(torch, np, smi, summary)
 
-    log("[16/23] BN folding on the served pallas AGCN and AAGCN forwards "
+    log("[16/24] BN folding on the served pallas AGCN and AAGCN forwards "
         "(gcn_fwd and the logits kernel counted); the apply_gcn forms "
         "against 'agg'; the AAGCN v31 recipe (train_joint_aagcn_v31.yaml, "
         "T=60: card against CPU, 10 SGD steps, speed, the entry points); "
         "v17, v24, v30, v32 and v34 against the CPU")
     v16 = phase_versions(torch, np, smi, summary)
 
-    log("[17/23] SGN's v11-v13 options, the MMD loss and sgn_original (no "
+    log("[17/24] SGN's v11-v13 options, the MMD loss and sgn_original (no "
         "port kernel on their path, as in the JAX package): v11, v12, "
         "v13_gt4 and sgn_original card against CPU; one v12 step with the "
         "MMD loss card against CPU; 10 Adam steps of v12 (batch 128) and "
         "v13_gt4 (64), speed; train_sgn_v12.yaml through the entry points")
     v17 = phase_sgn_options(torch, np, summary)
 
-    log("[18/23] SGN's transformer (no port kernel on its path, as in the "
+    log("[18/24] SGN's transformer (no port kernel on its path, as in the "
         "JAX package): train_sgn_transformer.yaml and train_sgn_v15.yaml "
         "card against CPU, one v15 step card against CPU, 10 Adam steps "
         "each, speed, the entry points (train, --phase test, --serve 16); "
@@ -5502,7 +5639,7 @@ def main(argv=None):
         "card against CPU")
     v18 = phase_sgn_transformer(torch, np, summary)
 
-    log("[19/23] SGN raw generation and SGN's temporal-branch options (no "
+    log("[19/24] SGN raw generation and SGN's temporal-branch options (no "
         "port kernel on their path, as in the JAX package): python -m "
         "agcn_tpu_torch.data.gen sgn-raw on a synthetic raw tree, its "
         "NTU_CV pickles through the entry points; t_mode 2-5, t_mha_kwargs, "
@@ -5510,7 +5647,7 @@ def main(argv=None):
         "widths card against CPU, one Adam step each")
     v19 = phase_sgn_temporal(torch, np, summary)
 
-    log("[20/23] data-parallel training: train_joint.yaml's pallas AGCN "
+    log("[20/24] data-parallel training: train_joint.yaml's pallas AGCN "
         "through torchrun (one rank: an NCCL group, DDP, SyncBN) against the "
         "plain entry point, --phase test on the DDP checkpoint; the DDP "
         "step's ms and NCCL kernels; model_edge_gcn, the edge aggregate and "
@@ -5523,27 +5660,35 @@ def main(argv=None):
             "parallel_cli", "parallel_steps", "parallel_phase_s",
             "parallel_smi")}, f, indent=1)
 
-    log("[21/23] the 15-joint OpenPose recipes on the V = 15 kernels: "
+    log("[21/24] the 15-joint OpenPose recipes on the V = 15 kernels: "
         "openpose_b25_j15_xview/train_joint.yaml (AGCN) and "
         "train_joint_aagcn.yaml (AAGCN), formulation pallas: 16 streams "
         "card against CPU, one step card against CPU, 10 bf16 steps, the "
         "entry points (train, --phase test, --serve 16)")
     v21 = phase_openpose(torch, np, smi, summary)
 
-    log("[22/23] the single-stream live demo: python -m agcn_tpu_torch.infer "
+    log("[22/24] the single-stream live demo: python -m agcn_tpu_torch.infer "
         "without --serve (test_joint.yaml's AGCN and test_joint_aagcn.yaml's "
         "AAGCN, formulation pallas, card against CPU; the use_pallas AGCN "
         "and train_sgn.yaml's SGN; --save-attention), the recognizer's "
         "exposed graphs card against CPU and its predict latency")
     v22 = phase_single_stream(torch, np, smi, summary)
 
-    log("[23/23] the rest of SGN's GCN stack and head (no port kernel on "
+    log("[23/24] the rest of SGN's GCN stack and head (no port kernel on "
         "their path, as in the JAX package): argmax ties on the card; gt "
         "modes 0, 5, 6, attn modes 1-3 and 10, gcn_fpn 10 with the sgcn2 "
         "options, gcn_fpn_output_merge 2, the unit and block options and "
         "the pooling modes at train_sgn.yaml's widths, card against CPU, "
         "Adam steps; gcn_fpn 10 with merge 2 through the entry point")
     v23 = phase_sgn_stack(torch, np, smi, summary)
+
+    log("[24/24] SGN's input side (no port kernel on its path, as in the "
+        "JAX package): semantic_jdiff, xem_projection, "
+        "semantic_frame_location 1, semantic_joint_smp and the segment "
+        "embeddings at train_sgn.yaml's widths, card against CPU, Adam "
+        "steps; the k-means segment split's collates; the segment "
+        "embeddings with midvel_sampler 1 through the entry point")
+    v24 = phase_sgn_input(torch, np, smi, summary)
 
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
@@ -5622,6 +5767,7 @@ def main(argv=None):
         entry["launches_by_path"]["sgn_transformer"] = v18[key]
         entry["launches_by_path"]["sgn_temporal"] = v19[key]
         entry["launches_by_path"]["sgn_stack"] = v23[key]
+        entry["launches_by_path"]["sgn_input"] = v24[key]
         entry["launches_by_path"].setdefault("agcn_ddp_train", v20[key])
         # phase 22: each single-stream run's count of every kernel
         for path, n in v22.items():

@@ -1,8 +1,8 @@
 """The port's SGN (agcn_tpu_torch/models/sgn.py) against agcn_tpu's on the
 CPU: `train_sgn.yaml`'s model at full width (batch 4), at the Kinetics
 shape (V = 18, 400 classes) and at seg 30; small-width option cases; the
-per-frame ops; the refused option values; the registry against the JAX
-registry; the dropout2d generator.
+per-frame ops; strict loads of every option value once refused; the
+registry against the JAX registry; the dropout2d generator.
 
 Weights move JAX -> port through the port's
 `sgn_state_dict_from_variables` with a strict load. Every unit's w1 is
@@ -257,21 +257,9 @@ def test_frame_ops_match_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
-@pytest.mark.parametrize("option", [
-    dict(semantic_jdiff=1), dict(semantic_joint_smp=1),
-    dict(semantic_frame_location=1), dict(xem_projection=1),
-    dict(input_position=1001, input_velocity=1001),
-])
-def test_refused_option_names_its_item(option):
-    name = next(iter(option))
-    with pytest.raises(NotImplementedError,
-                       match=rf"{name}.*ROADMAP Queue 1 item 7: SGN family"):
-        registry.build_model("sgn", dict(SMALL, **option), device="cpu")
-
-
-# the GCN-stack and head option values once refused, each with what it
-# needs to build (GT5's head as wide as the branches, GT6's level its own
-# multi_t entry, per-unit G for g_weighted)
+# the option values once refused, each with what it needs to build (GT5's
+# head as wide as the branches, GT6's level its own multi_t entry, per-unit
+# G for g_weighted): the GCN stack's and head's, then the input side's
 PORTED = [
     dict(sgcn_gt_mode=0), dict(sgcn_gt_mode=5, sgcn_gt_out_channels2=128),
     dict(sgcn_attn_mode=2), dict(gcn_fpn_output_merge=2),
@@ -285,6 +273,9 @@ PORTED = [
     dict(spatial_maxpool=5), dict(temporal_maxpool=0),
     dict(temporal_maxpool=3), dict(sgcn_attn_mode=10),
     dict(sgcn_attn_mode=3),
+    dict(semantic_jdiff=1), dict(semantic_joint_smp=1),
+    dict(semantic_frame_location=1), dict(xem_projection=1),
+    dict(input_position=1001, input_velocity=1001),
 ]
 
 
@@ -294,7 +285,9 @@ def test_ported_option_loads_jax_variables_strict(option):
     (from `jax.eval_shape` plus seeded values: no compiled program) load
     strictly through the port's map, which holds every key of the JAX
     export with its value (the JAX export of attn_mode 3, whose units have
-    no w1, raises KeyError), and an eval forward gives finite logits."""
+    no w1, raises KeyError; it has no key for jdiff's, xem_projection's
+    and joint_smp's embeddings, which the port's map names), and an eval
+    forward gives finite logits."""
     from tests.test_torch_port_sgn_options import _fill
 
     args = dict(SMALL, **option)

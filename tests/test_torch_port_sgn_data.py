@@ -161,9 +161,32 @@ def test_collate_matches_jax(monkeypatch, flatten, mode):
         np.testing.assert_array_equal(g, w)
 
 
-def test_midvel_sampler_waits():
-    with pytest.raises(NotImplementedError, match="item 7: SGN family"):
-        SegmentSampler(midvel_sampler=1)
+def test_midvel_sampler_matches_jax():
+    """`midvel_sampler: 1` (the k-means segment split, here without
+    scikit-learn): the train collate (one crop, the batch rotation) and
+    the 5-crop test collate give the JAX collate's arrays bit for bit; a
+    sequence of no more frames than segments raises ValueError in both
+    (scikit-learn's, for fewer samples than clusters)."""
+    data, labels = _sequences(6, 9, t_max=120)
+    batch = [(data[i], int(labels[i]), i) for i in range(len(data))]
+    ours = SegmentSampler(dataset="NTU60-CV-SGN", seg=20, midvel_sampler=1)
+    theirs = JaxSegmentSampler(dataset="NTU60-CV-SGN", seg=20,
+                               midvel_sampler=1)
+    for train in (True, False):
+        a, b = np.random.default_rng(12), np.random.default_rng(12)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # sklearn's ConvergenceWarning
+            got = ours.collate(batch, a, train=train, multi_crop=not train)
+            want = theirs.collate(batch, b, train=train,
+                                  multi_crop=not train)
+        assert got[0].shape == ((6, 20, 75) if train else (30, 20, 75))
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    short = [(data[0][:10], 0, 0)]
+    for sampler in (ours, theirs):
+        with pytest.raises(ValueError, match="n_samples=19"):
+            sampler.collate(short, np.random.default_rng(0), train=True)
 
 
 def test_sgn_dataset_matches_jax(splits, tmp_path):
