@@ -173,6 +173,18 @@
 // are masked: staged values beyond the edge are zero and stores beyond it
 // are skipped.
 //
+// The kernels above are built for the tuned joint counts V = 15, 18 and
+// 25. Every other V >= 1 (the JAX Pallas kernels take any V) runs two
+// general kernels with V a run-time argument and fixed 32-joint tiles, so
+// that shared memory does not grow with V, in exact fp32 FMAs on the
+// CUDA cores in both types (each described where it is defined):
+//   gcn_u_gen_kernel<T>: u, then the same dW GEMMs (gcn_dw_mma_kernel,
+//     gcn_dw_fp32_kernel), which take V only through the B*T*V rows, and
+//     the same reduce;
+//   gcn_da1_gen_kernel<T>: the (B, K, G, V, V) partials by 32 x 32 tiles
+//     of (v, w), 4-frame tiles grouped as above, then the same reduce.
+// Same rules: no atomics, sums in an order fixed by the shapes.
+//
 // C interface, each on the given stream of the current device, returning
 // the first CUDA error (0 on success):
 //   agcn_gcn_bwd_dw launches the dW kernels (gcn_u_kernel, then
@@ -185,7 +197,11 @@
 //   agcn_gcn_bwd_da1_tiling says what agcn_gcn_bwd_da1 takes at (V, C)
 //     in either type: the frames of a tile, which the caller's frame
 //     groups split, the dynamic shared memory of a block, and the blocks
-//     an SM of the current device holds.
+//     an SM of the current device holds (at an untuned V the general
+//     kernel's: 4-frame tiles, 47,360 bytes).
+// At an untuned V the only limits are the general kernels' grids: B <=
+// 65535, ceil(V / 32) * ceil(Co / 32) <= 65535 (u) and 3 ceil(V / 32)^2
+// <= 65535 (da1: V <= 4,704).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -312,6 +328,103 @@ gcn_u_kernel(const T* __restrict__ a1, const T* __restrict__ g,
           d[0] = from_f<T>(s0);
           if (two) d[1] = from_f<T>(s1);
         }
+      }
+    }
+  }
+}
+
+constexpr int UG_THREADS = 256;  // 8 warps
+constexpr int UG_TT = 2;         // frames a block
+constexpr int UG_VT = 32;        // rows v of u a block
+constexpr int UG_WS = 32;        // joints w a slice (the sum's step)
+constexpr int UG_OT = 32;        // output channels a block: one a lane
+constexpr int UG_LDA = UG_VT + 4;  // row stride of aT_s
+
+// gcn_u_kernel at any V >= 1 (V a run-time argument): the same u, the
+// same fp32 sums in the order w = 0 .. V-1, rounded to T once. One block
+// of 256 threads per (UG_TT frames, UG_VT rows v, UG_OT output channels,
+// sample); w in slices of UG_WS joints: g of the slice (g_s[t][w][o])
+// and a1 transposed (aT_s[k][w][v]) staged, zero past the edges. Lane o
+// of warp q keeps frame q / 4, rows v 8 (q % 4) .. + 7, all three k: per
+// w one load of g and six float4 of a1 for 24 FMAs. Shared memory is
+// fixed (22,016 bytes), whatever V.
+template <typename T>
+__global__ void __launch_bounds__(UG_THREADS)
+gcn_u_gen_kernel(const T* __restrict__ a1, const T* __restrict__ g,
+                 T* __restrict__ u, int B, int Tn, int V, int Co) {
+  __shared__ __align__(16) float g_s[UG_TT * UG_WS * UG_OT];
+  __shared__ __align__(16) float aT_s[K * UG_WS * UG_LDA];
+  const int nvt = (V + UG_VT - 1) / UG_VT;
+  const int t0 = blockIdx.x * UG_TT;
+  const int v0 = (blockIdx.y % nvt) * UG_VT;
+  const int o0 = (blockIdx.y / nvt) * UG_OT;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int o = tid % UG_OT;
+  const int t = tid / UG_OT / 4;
+  const int vg = (tid / UG_OT % 4) * 8;
+  const T* a_b = a1 + (size_t)b * K * V * V;
+  const size_t gb = (size_t)b * Tn * V;  // g and u as (B T V, Co)
+
+  float s[K][8];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[k][j] = 0.f;
+  }
+  for (int w0 = 0; w0 < V; w0 += UG_WS) {
+    __syncthreads();  // the previous slice is read
+    for (int i = tid; i < UG_TT * UG_WS * UG_OT; i += UG_THREADS) {
+      const int oo = i % UG_OT;
+      const int w = i / UG_OT % UG_WS;
+      const int tt = i / (UG_OT * UG_WS);
+      const bool ok = t0 + tt < Tn && w0 + w < V && o0 + oo < Co;
+      g_s[i] = ok ? to_f(g[(gb + (size_t)(t0 + tt) * V + w0 + w) * Co + o0 +
+                           oo])
+                  : 0.f;
+    }
+    for (int i = tid; i < K * UG_VT * UG_WS; i += UG_THREADS) {
+      const int w = i % UG_WS;  // fastest: the reads of a1 coalesce
+      const int v = i / UG_WS % UG_VT;
+      const int k = i / (UG_WS * UG_VT);
+      const bool ok = v0 + v < V && w0 + w < V;
+      aT_s[(k * UG_WS + w) * UG_LDA + v] =
+          ok ? to_f(a_b[((size_t)k * V + v0 + v) * V + w0 + w]) : 0.f;
+    }
+    __syncthreads();
+    const int nw = V - w0 < UG_WS ? V - w0 : UG_WS;
+    const float* gr = g_s + t * UG_WS * UG_OT + o;
+    const float* ar = aT_s + vg;
+#pragma unroll 2
+    for (int w = 0; w < nw; ++w) {
+      const float gv = gr[w * UG_OT];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float4 lo =
+            *reinterpret_cast<const float4*>(ar + (k * UG_WS + w) * UG_LDA);
+        const float4 hi = *reinterpret_cast<const float4*>(
+            ar + (k * UG_WS + w) * UG_LDA + 4);
+        s[k][0] = fmaf(gv, lo.x, s[k][0]);
+        s[k][1] = fmaf(gv, lo.y, s[k][1]);
+        s[k][2] = fmaf(gv, lo.z, s[k][2]);
+        s[k][3] = fmaf(gv, lo.w, s[k][3]);
+        s[k][4] = fmaf(gv, hi.x, s[k][4]);
+        s[k][5] = fmaf(gv, hi.y, s[k][5]);
+        s[k][6] = fmaf(gv, hi.z, s[k][6]);
+        s[k][7] = fmaf(gv, hi.w, s[k][7]);
+      }
+    }
+  }
+  if (t0 + t >= Tn || o0 + o >= Co) return;
+  const size_t slab = (size_t)B * Tn * V * Co;  // one subset's u
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int v = v0 + vg + j;
+      if (v < V) {
+        u[k * slab + (gb + (size_t)(t0 + t) * V + v) * Co + o0 + o] =
+            from_f<T>(s[k][j]);
       }
     }
   }
@@ -1282,6 +1395,197 @@ gcn_da1_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ------------------------------------------------- da1 at any V ----
+
+constexpr int DG_THREADS = 256;
+constexpr int DG_TF = 4;     // frames a tile (the unit of the frame groups)
+constexpr int DG_VT = 32;    // source joints v a block
+constexpr int DG_WT = 32;    // destination joints w a block
+constexpr int DG_OC = 32;    // output channels a chunk
+constexpr int DG_CC = 16;    // input channels a chunk of the projection
+constexpr int DG_ROWS = DG_TF * DG_VT;  // (t, v) rows of p: 128
+constexpr int DG_LDX = DG_ROWS + 4;     // row stride of xT_s
+constexpr int DG_LD = DG_OC + 4;        // row stride of p_s and g_s
+// shared memory in floats: xT_s[DG_CC][DG_LDX], w_s[DG_CC][DG_OC],
+// p_s[DG_ROWS][DG_LD], g_s[DG_TF * DG_WT][DG_LD]; at the end
+// red_s[DG_TF][DG_VT][DG_WT] takes p_s
+constexpr int DG_W_OFF = DG_CC * DG_LDX;
+constexpr int DG_P_OFF = DG_W_OFF + DG_CC * DG_OC;
+constexpr int DG_G_OFF = DG_P_OFF + DG_ROWS * DG_LD;
+constexpr int DG_FLOATS = DG_G_OFF + DG_TF * DG_WT * DG_LD;
+constexpr int DG_BYTES = DG_FLOATS * 4;
+static_assert(DG_TF * DG_VT * DG_WT <= DG_ROWS * DG_LD, "red_s fits p_s");
+static_assert(DG_BYTES <= 48 * 1024, "no opt-in shared memory needed");
+
+// part[b, k, grp, v, w] for the block's 32 x 32 tile of (v, w): the sum
+// over the group's frames t and all o of p_k[b,t,v,o] g[b,t,w,o], p_k = x
+// W_k rounded to T (the identity in fp32), at any V >= 1, in exact fp32
+// FMAs on the CUDA cores in both types. One block of 256 threads per
+// (group of frames, (subset k, v tile, w tile), sample b); a group is a
+// range of whole DG_TF-frame tiles. Per tile and DG_OC-channel o chunk:
+//   1. p = x_tile . W_k[:, chunk] for the tile's 128 rows (t, v), C in
+//      chunks of DG_CC (x staged transposed, xT_s[c][row], and W), each
+//      thread a 4 (rows) x 4 (channels) register tile: one float4 of each
+//      operand for 16 FMAs; rounded to T into p_s[row][o];
+//   2. g of the tile's frames and w tile staged into g_s[(t, w)][o];
+//   3. da[v][w] += sum over the chunk's o of p[t][v][o] g[t][w][o]: the
+//      256 threads are 64 tiles of 4 x 4 (v, w) x 4 frames, each a float4
+//      of p and of g per four rows for 64 FMAs.
+// At the end the four frames' sums are added in frame order through
+// shared memory. Rows past T or V and channels past C or Co are zero in
+// shared memory; stores past V are skipped. Shared memory is fixed
+// (47,360 bytes, dynamic), whatever V. p is formed once per w tile: at
+// V > 32 again for each.
+template <typename T>
+__global__ void __launch_bounds__(DG_THREADS, 2)
+gcn_da1_gen_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ g, float* __restrict__ part,
+                   int Tn, int V, int C, int Co, int groups) {
+  extern __shared__ __align__(16) float smem_dg[];
+  float* xT_s = smem_dg;
+  float* w_s = smem_dg + DG_W_OFF;
+  float* p_s = smem_dg + DG_P_OFF;
+  float* g_s = smem_dg + DG_G_OFF;
+
+  const int nvt = (V + DG_VT - 1) / DG_VT;
+  const int grp = blockIdx.x;
+  const int k = blockIdx.y % K;
+  const int v0 = (blockIdx.y / K / nvt) * DG_VT;
+  const int w0 = (blockIdx.y / K % nvt) * DG_WT;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  // the projection: rows 4 ty .. 4 ty + 3, channels 4 tx .. 4 tx + 3
+  const int tx = tid % 8;
+  const int ty = tid / 8;
+  // p g^T: the (v, w) quads 4 (tile / 8) and 4 (tile % 8) of frame f
+  const int tile = tid % 64;
+  const int f = tid / 64;
+  const int vq = (tile / 8) * 4;
+  const int wq = (tile % 8) * 4;
+
+  // the group's frames: whole tiles [tiles*grp/groups, tiles*(grp+1)/groups)
+  const long long tiles = (Tn + DG_TF - 1) / DG_TF;
+  const int tile_begin = (int)(tiles * grp / groups);
+  const int tile_end = (int)(tiles * (grp + 1) / groups);
+  const size_t row_b = (size_t)b * Tn * V;  // x, g as (B*T*V, C or Co)
+  const T* w_k = w + (size_t)k * C * Co;
+
+  float da[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) da[i][j] = 0.f;
+  }
+
+  for (int tl = tile_begin; tl < tile_end; ++tl) {
+    const int t0 = tl * DG_TF;
+    for (int o0 = 0; o0 < Co; o0 += DG_OC) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      }
+      for (int c0 = 0; c0 < C; c0 += DG_CC) {
+        __syncthreads();  // the previous readers of xT_s, w_s, p_s, g_s
+        for (int i = tid; i < DG_CC * DG_ROWS; i += DG_THREADS) {
+          const int c = i % DG_CC;  // fastest: the reads of x coalesce
+          const int r = i / DG_CC;
+          const int t = t0 + r / DG_VT;
+          const int v = v0 + r % DG_VT;
+          const bool ok = t < Tn && v < V && c0 + c < C;
+          xT_s[c * DG_LDX + r] =
+              ok ? to_f(x[(row_b + (size_t)t * V + v) * C + c0 + c]) : 0.f;
+        }
+        for (int i = tid; i < DG_CC * DG_OC; i += DG_THREADS) {
+          const int o = i % DG_OC;
+          const int c = i / DG_OC;
+          const bool ok = c0 + c < C && o0 + o < Co;
+          w_s[i] = ok ? to_f(w_k[(size_t)(c0 + c) * Co + o0 + o]) : 0.f;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int c = 0; c < DG_CC; ++c) {
+          const float4 a4 =
+              *reinterpret_cast<const float4*>(xT_s + c * DG_LDX + 4 * ty);
+          const float4 w4 =
+              *reinterpret_cast<const float4*>(w_s + c * DG_OC + 4 * tx);
+          const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+          }
+        }
+      }
+      // p rounded to x's type (from_f<float>: the identity) into p_s; the
+      // C loop's barriers have kept the previous chunk's readers out
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        *reinterpret_cast<float4*>(p_s + (4 * ty + i) * DG_LD + 4 * tx) =
+            make_float4(to_f(from_f<T>(acc[i][0])),
+                        to_f(from_f<T>(acc[i][1])),
+                        to_f(from_f<T>(acc[i][2])),
+                        to_f(from_f<T>(acc[i][3])));
+      }
+      for (int i = tid; i < DG_TF * DG_WT * DG_OC; i += DG_THREADS) {
+        const int o = i % DG_OC;
+        const int r = i / DG_OC;  // (frame, w)
+        const int t = t0 + r / DG_WT;
+        const int wd = w0 + r % DG_WT;
+        const bool ok = t < Tn && wd < V && o0 + o < Co;
+        g_s[r * DG_LD + o] =
+            ok ? to_f(g[(row_b + (size_t)t * V + wd) * Co + o0 + o]) : 0.f;
+      }
+      __syncthreads();
+      // da[v][w] += p[f][v][o] g[f][w][o] over the chunk's o, in order
+      const float* pr = p_s + (f * DG_VT + vq) * DG_LD;
+      const float* gr = g_s + (f * DG_WT + wq) * DG_LD;
+#pragma unroll 2
+      for (int q = 0; q < DG_OC; q += 4) {
+        float4 pq[4], gq[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pq[i] = *reinterpret_cast<const float4*>(pr + i * DG_LD + q);
+          gq[i] = *reinterpret_cast<const float4*>(gr + i * DG_LD + q);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            da[i][j] = fmaf(pq[i].x, gq[j].x, da[i][j]);
+            da[i][j] = fmaf(pq[i].y, gq[j].y, da[i][j]);
+            da[i][j] = fmaf(pq[i].z, gq[j].z, da[i][j]);
+            da[i][j] = fmaf(pq[i].w, gq[j].w, da[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // every frame's sums are done with p_s: red_s takes it
+  float* red_s = p_s;  // [f][v][w]
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      red_s[(f * DG_VT + vq + i) * DG_WT + wq + j] = da[i][j];
+    }
+  }
+  __syncthreads();
+  float* dst = part + (((size_t)b * K + k) * groups + grp) * V * V;
+  for (int i = tid; i < DG_VT * DG_WT; i += DG_THREADS) {
+    const int v = v0 + i / DG_WT;
+    const int wd = w0 + i % DG_WT;
+    if (v >= V || wd >= V) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int ff = 0; ff < DG_TF; ++ff) sum += red_s[ff * DG_VT * DG_WT + i];
+    dst[(size_t)v * V + wd] = sum;
+  }
+}
+
 // da1[bk, i] = sum over the groups of part[bk, grp, i], in group order,
 // rounded to T once
 template <typename T>
@@ -1327,6 +1631,40 @@ cudaError_t launch_dw_gemm_fp32(const float* x, const float* u, float* part,
   return cudaGetLastError();
 }
 
+// dW_k = x^T u_k over the B*T*V rows, then the ordered reduce: V enters
+// only through the row count, so the tuned and the general u share it
+cudaError_t launch_dw_after_u_fp32(const void* x, void* dw, void* part,
+                                   const void* u, int rows, int C, int Co,
+                                   int groups, cudaStream_t stream) {
+  const float* xf = static_cast<const float*>(x);
+  const float* uf = static_cast<const float*>(u);
+  float* pf = static_cast<float*>(part);
+  // the C <= 8 entry layer takes an 8-channel C tile instead of 64
+  cudaError_t err =
+      C <= F_NARROW_C
+          ? launch_dw_gemm_fp32<F_NARROW_C, 4>(xf, uf, pf, rows, C, Co,
+                                               groups, stream)
+          : launch_dw_gemm_fp32<64, 8>(xf, uf, pf, rows, C, Co, groups,
+                                       stream);
+  if (err != cudaSuccess) return err;
+  return launch_reduce<float>(pf, dw, C, Co, groups, stream);
+}
+
+cudaError_t launch_dw_after_u_bf16(const void* x, void* dw, void* part,
+                                   const void* u, int rows, int C, int Co,
+                                   int groups, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  dim3 grid((Co + MM_OT - 1) / MM_OT, (C + MM_CT - 1) / MM_CT, K * groups);
+  gcn_dw_mma_kernel<<<grid, MM_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(u),
+      static_cast<float*>(part), rows, C, Co, groups,
+      C % 8 == 0 && aligned(x, 16));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<bf16>(static_cast<const float*>(part), dw, C, Co,
+                             groups, stream);
+}
+
 template <int V>
 cudaError_t launch_dw_fp32(const void* x, const void* a1, const void* g,
                            void* dw, void* part, void* u, int B, int Tn,
@@ -1337,17 +1675,8 @@ cudaError_t launch_dw_fp32(const void* x, const void* a1, const void* g,
       static_cast<float*>(u), B, Tn, Co, Co % 2 == 0 && aligned(g, 8));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const float* xf = static_cast<const float*>(x);
-  const float* uf = static_cast<const float*>(u);
-  float* pf = static_cast<float*>(part);
-  // the C <= 8 entry layer takes an 8-channel C tile instead of 64
-  err = C <= F_NARROW_C
-            ? launch_dw_gemm_fp32<F_NARROW_C, 4>(xf, uf, pf, B * Tn * V, C,
-                                                 Co, groups, stream)
-            : launch_dw_gemm_fp32<64, 8>(xf, uf, pf, B * Tn * V, C, Co,
-                                         groups, stream);
-  if (err != cudaSuccess) return err;
-  return launch_reduce<float>(pf, dw, C, Co, groups, stream);
+  return launch_dw_after_u_fp32(x, dw, part, u, B * Tn * V, C, Co, groups,
+                                stream);
 }
 
 template <int V>
@@ -1361,15 +1690,30 @@ cudaError_t launch_dw_bf16(const void* x, const void* a1, const void* g,
       static_cast<bf16*>(u), B, Tn, Co, Co % 2 == 0 && aligned(g, 4));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid((Co + MM_OT - 1) / MM_OT, (C + MM_CT - 1) / MM_CT, K * groups);
-  gcn_dw_mma_kernel<<<grid, MM_THREADS, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(u),
-      static_cast<float*>(part), B * Tn * V, C, Co, groups,
-      C % 8 == 0 && aligned(x, 16));
-  err = cudaGetLastError();
+  return launch_dw_after_u_bf16(x, dw, part, u, B * Tn * V, C, Co, groups,
+                                stream);
+}
+
+// dW at any other V: gcn_u_gen_kernel, then the GEMM of the type
+template <typename T>
+cudaError_t launch_dw_gen(const void* x, const void* a1, const void* g,
+                          void* dw, void* part, void* u, int B, int Tn,
+                          int V, int C, int Co, int groups,
+                          cudaStream_t stream) {
+  const long long tiles =
+      (long long)((V + UG_VT - 1) / UG_VT) * ((Co + UG_OT - 1) / UG_OT);
+  if (B > 65535 || tiles > 65535) return cudaErrorInvalidValue;
+  gcn_u_gen_kernel<T><<<dim3((Tn + UG_TT - 1) / UG_TT, (unsigned)tiles, B),
+                        UG_THREADS, 0, stream>>>(
+      static_cast<const T*>(a1), static_cast<const T*>(g),
+      static_cast<T*>(u), B, Tn, V, Co);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_reduce<bf16>(static_cast<const float*>(part), dw, C, Co,
-                             groups, stream);
+  return sizeof(T) == 4
+             ? launch_dw_after_u_fp32(x, dw, part, u, B * Tn * V, C, Co,
+                                      groups, stream)
+             : launch_dw_after_u_bf16(x, dw, part, u, B * Tn * V, C, Co,
+                                      groups, stream);
 }
 
 template <typename T>
@@ -1474,6 +1818,26 @@ cudaError_t launch_da1_bf16(const void* x, const void* w, const void* g,
                                stream, tiling);
 }
 
+// da1 at any other V, both types: gcn_da1_gen_kernel, then the reduce
+template <typename T>
+cudaError_t launch_da1_gen(const void* x, const void* w, const void* g,
+                           void* da1, void* part, int B, int Tn, int V, int C,
+                           int Co, int groups, cudaStream_t stream,
+                           Da1Tiling* tiling) {
+  auto kern = gcn_da1_gen_kernel<T>;
+  cudaError_t err = prepare_da1(kern, DG_THREADS, DG_TF, DG_BYTES, tiling);
+  if (err != cudaSuccess || tiling != nullptr) return err;
+  const int nvt = (V + DG_VT - 1) / DG_VT;
+  if ((long long)K * nvt * nvt > 65535) return cudaErrorInvalidValue;
+  kern<<<dim3(groups, K * nvt * nvt, B), DG_THREADS, DG_BYTES, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(g), static_cast<float*>(part), Tn, V, C, Co,
+      groups);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_da1_reduce<T>(part, da1, B, V, groups, stream);
+}
+
 // da1 at V joints in fp32 or bf16, launched, or with `tiling` set only
 // described
 cudaError_t dispatch_da1(const void* x, const void* w, const void* g,
@@ -1497,8 +1861,12 @@ cudaError_t dispatch_da1(const void* x, const void* w, const void* g,
                                         groups, stream, tiling)
                   : launch_da1_fp32<15>(x, w, g, da1, part, B, Tn, C, Co,
                                         groups, stream, tiling);
-    default:
-      return cudaErrorInvalidValue;
+    default:  // any other V: the general kernel
+      return bf16 ? launch_da1_gen<__nv_bfloat16>(x, w, g, da1, part, B, Tn,
+                                                  V, C, Co, groups, stream,
+                                                  tiling)
+                  : launch_da1_gen<float>(x, w, g, da1, part, B, Tn, V, C,
+                                          Co, groups, stream, tiling);
   }
 }
 
@@ -1514,7 +1882,8 @@ extern "C" int agcn_gcn_bwd_dw(const void* x, const void* a1, const void* g,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long most = ((long long)B * Tn * V + MM_RK - 1) / MM_RK;
   static_assert(MM_RK == F_RK, "both dW kernels take 32-row chunks");
-  if (groups < 1 || groups > most || (long long)K * groups > 65535) {
+  if (V < 1 || groups < 1 || groups > most ||
+      (long long)K * groups > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   switch (V) {  // the joint counts of the skeletons (NTU, Kinetics,
@@ -1534,8 +1903,12 @@ extern "C" int agcn_gcn_bwd_dw(const void* x, const void* a1, const void* g,
                                               C, Co, groups, s)
                         : launch_dw_fp32<15>(x, a1, g, dw, part, u, B, Tn,
                                              C, Co, groups, s));
-    default:
-      return (int)cudaErrorInvalidValue;
+    default:  // any other V: the general u, then the same GEMMs
+      return (int)(bf16 ? launch_dw_gen<__nv_bfloat16>(x, a1, g, dw, part, u,
+                                                       B, Tn, V, C, Co,
+                                                       groups, s)
+                        : launch_dw_gen<float>(x, a1, g, dw, part, u, B, Tn,
+                                               V, C, Co, groups, s));
   }
 }
 
@@ -1546,9 +1919,11 @@ extern "C" int agcn_gcn_bwd_da1(const void* x, const void* w, const void* g,
   // `groups` splits each sample's frame tiles (agcn_gcn_bwd_da1_tiling's
   // frames; at most their count) and `part` is the (B, K, groups, V, V)
   // fp32 partials
-  if (V != 25 && V != 18 && V != 15) return (int)cudaErrorInvalidValue;
-  // a tile's frames: TT in bf16, Da32Tile<V>::TT in fp32
-  const int tt = bf16 ? TT : D32_ROWS_P / V;
+  if (V < 1) return (int)cudaErrorInvalidValue;
+  // a tile's frames: at the tuned V TT in bf16 and Da32Tile<V>::TT in
+  // fp32, at any other V the general kernel's DG_TF
+  const bool tuned = V == 25 || V == 18 || V == 15;
+  const int tt = !tuned ? DG_TF : bf16 ? TT : D32_ROWS_P / V;
   if (groups < 1 || groups > (Tn + tt - 1) / tt ||
       (long long)K * groups > 65535 || B > 65535) {
     return (int)cudaErrorInvalidValue;
@@ -1561,6 +1936,7 @@ extern "C" int agcn_gcn_bwd_da1(const void* x, const void* w, const void* g,
 // the current device: out[0] the frames of a tile, out[1] the dynamic
 // shared memory of a block in bytes, out[2] the blocks an SM holds.
 extern "C" int agcn_gcn_bwd_da1_tiling(int V, int C, int bf16, int* out) {
+  if (V < 1) return (int)cudaErrorInvalidValue;
   Da1Tiling tiling{};
   const cudaError_t err = dispatch_da1(nullptr, nullptr, nullptr, nullptr,
                                        nullptr, 0, 0, V, C, 0, 0, bf16,

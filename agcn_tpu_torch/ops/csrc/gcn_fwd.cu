@@ -25,13 +25,19 @@
 // halve and the peak is the tensor cores' 989 TFLOP/s (ridge 295 flops
 // per byte): bytes bound the C = 64 layers, operations the C = 256 ones.
 //
-// Two kernels:
+// Three kernels. At the tuned joint counts V = 15, 18 and 25 (the
+// skeletons of graph/skeletons.py, each a template instance):
 //   gcn_fwd_mma_kernel: bf16 x and a1, both round_agg modes, on the tensor
 //     cores: round_agg = 1 (the served forward and the dx of training) as
 //     SPLIT = false, round_agg = 0 (gcn_kernel's fused_gcn) as SPLIT = true;
 //   gcn_fwd_fp32_kernel: every other combination (fp32, bf16 x with fp32
 //     a1), all math in exact fp32 FMAs on the CUDA cores, so its ceiling
 //     is the fp32 rate for both types.
+// At every other V >= 1 (the JAX Pallas kernels take any V):
+//   gcn_fwd_gen_kernel<T, A>: all three type combinations, both round_agg
+//     modes, V a run-time argument, in exact fp32 FMAs on the CUDA cores;
+//     fixed tiles of 32 destination x 32 source joints, so its shared
+//     memory does not grow with V (below, before the tensor-core section).
 //
 // gcn_fwd_mma_kernel: in bf16 the function is two chained products of
 // bf16 operands with fp32 sums, which nvcuda::wmma bf16 16x16x16 does
@@ -107,7 +113,9 @@
 // equal.
 //
 // C interface: agcn_gcn_fwd(...) launches on the given stream of the
-// current device and returns cudaGetLastError() (0 on success).
+// current device and returns cudaGetLastError() (0 on success). At an
+// untuned V the only limits are the general kernel's grid: B <= 65535
+// and ceil(V / 32) * ceil(Co / 64) <= 65535.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -133,6 +141,195 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// ---- any other V: the general kernel on the CUDA cores ----
+
+constexpr int G_THREADS = 256;
+constexpr int G_TT = 4;     // frames a block
+constexpr int G_WT = 32;    // destination joints w a block
+constexpr int G_VS = 32;    // source joints v a slice (the aggregate's step)
+constexpr int G_OT = 64;    // output channels a block
+constexpr int G_CC = 16;    // input channels a chunk
+constexpr int G_ROWS = G_TT * G_WT;  // (t, w) rows of a block: 128
+constexpr int G_LDA = G_ROWS + 4;    // row stride of agg_s
+// shared memory in floats: agg_s[K][G_CC][G_LDA], then one staging
+// region that holds x_s[G_TT][G_VS][G_CC] and a_s[K][G_VS][G_WT] during
+// the aggregate and w_s[K][G_CC][G_OT] during the projection
+constexpr int G_AGG = K * G_CC * G_LDA;
+constexpr int G_XS = G_TT * G_VS * G_CC;
+constexpr int G_AS = K * G_VS * G_WT;
+constexpr int G_WS = K * G_CC * G_OT;
+constexpr int G_STAGE = G_XS + G_AS > G_WS ? G_XS + G_AS : G_WS;
+static_assert((G_AGG + G_STAGE) * 4 <= 48 * 1024, "static shared memory");
+
+// y = sum_k round(x a1_k) W_k at any V >= 1, every sum in exact fp32 FMAs
+// (the identity rounding in fp32). One block of 256 threads owns (sample
+// b, G_TT frames, G_WT destination joints, G_OT output channels): 128
+// rows (t, w) x 64 channels. Per chunk of G_CC input channels:
+//   1. the aggregate agg_k[t][w][c] = sum_v x[t][v][c] a1_k[v][w] for the
+//      block's rows, v in slices of G_VS source joints (x and a1 of a
+//      slice staged, zero past the edges), v in order from 0; a thread
+//      owns channel c = tid % 16 of eight rows (one frame, eight w) of
+//      agg_s[k][c][row], summed one k at a time, one load of x and two
+//      float4 of a1 for 8 FMAs, its running sums carried in agg_s from
+//      slice to slice; after the last, rounded to T with round_agg.
+//   2. the projection acc[row][o] += agg_s[k][c][row] W_k[c][o], (k, c)
+//      in order: each thread an 8 (rows) x 4 (channels) register tile,
+//      two float4 of agg_s and one of W for 32 FMAs.
+// Shared memory is fixed (45,824 bytes), whatever V: no V is refused.
+// Bound: the same work as the tuned kernels (header), which this
+// simple kernel does not approach (PERF.md section 6).
+template <typename T, typename A>
+__global__ void __launch_bounds__(G_THREADS, 2)
+gcn_fwd_gen_kernel(const T* __restrict__ x, const A* __restrict__ a1,
+                   const T* __restrict__ w, T* __restrict__ y, int Tn, int V,
+                   int C, int Co, int round_agg) {
+  __shared__ __align__(16) float smem_gen[G_AGG + G_STAGE];
+  float* agg_s = smem_gen;
+  float* x_s = smem_gen + G_AGG;
+  float* a_s = x_s + G_XS;
+  float* w_s = smem_gen + G_AGG;  // the same region, after the aggregate
+
+  const int nwt = (V + G_WT - 1) / G_WT;
+  const int t0 = blockIdx.x * G_TT;
+  const int w0 = (blockIdx.y % nwt) * G_WT;
+  const int o0 = (blockIdx.y / nwt) * G_OT;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  // the aggregate: channel ac of the rows 8 arg .. 8 arg + 7 (frame
+  // arg / 4, joints 8 (arg % 4) ..)
+  const int ac = tid % G_CC;
+  const int arg = tid / G_CC;
+  const int at = arg / 4;
+  const int aw = (arg % 4) * 8;
+  // the projection: rows 8 ty .. 8 ty + 7, channels 4 tx .. 4 tx + 3
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const size_t xb = (size_t)b * Tn * V;  // x and y as (B T V, .)
+  const A* a_b = a1 + (size_t)b * K * V * V;
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int c0 = 0; c0 < C; c0 += G_CC) {
+    for (int v0 = 0; v0 < V; v0 += G_VS) {
+      __syncthreads();  // the previous readers of the staging region (and
+                        // of agg_s: the previous chunk's projection)
+      for (int i = tid; i < G_XS; i += G_THREADS) {
+        const int c = i % G_CC;
+        const int v = i / G_CC % G_VS;
+        const int t = i / (G_CC * G_VS);
+        const bool ok = t0 + t < Tn && v0 + v < V && c0 + c < C;
+        x_s[i] = ok ? to_f(x[(xb + (size_t)(t0 + t) * V + v0 + v) * C + c0 +
+                             c])
+                    : 0.f;
+      }
+      for (int i = tid; i < G_AS; i += G_THREADS) {
+        const int wd = i % G_WT;
+        const int v = i / G_WT % G_VS;
+        const int k = i / (G_WT * G_VS);
+        const bool ok = v0 + v < V && w0 + wd < V;
+        a_s[i] = ok ? to_f(a_b[((size_t)k * V + v0 + v) * V + w0 + wd]) : 0.f;
+      }
+      __syncthreads();
+      const int nv = V - v0 < G_VS ? V - v0 : G_VS;
+      const bool last = v0 + G_VS >= V;
+      const float* xr = x_s + at * G_VS * G_CC + ac;
+      // one k at a time, the thread's own eight sums carried from slice
+      // to slice in agg_s (fp32, so the order stays v = 0 .. V-1): three
+      // k's sums in registers beside the 32 accumulators spilled
+#pragma unroll 1
+      for (int k = 0; k < K; ++k) {
+        float* dst = agg_s + (k * G_CC + ac) * G_LDA + arg * 8;
+        float s[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[j] = v0 == 0 ? 0.f : dst[j];
+        const float* ar = a_s + k * G_VS * G_WT + aw;
+#pragma unroll 2
+        for (int v = 0; v < nv; ++v) {
+          const float xv = xr[v * G_CC];
+          const float4 lo = *reinterpret_cast<const float4*>(ar + v * G_WT);
+          const float4 hi =
+              *reinterpret_cast<const float4*>(ar + v * G_WT + 4);
+          s[0] = fmaf(xv, lo.x, s[0]);
+          s[1] = fmaf(xv, lo.y, s[1]);
+          s[2] = fmaf(xv, lo.z, s[2]);
+          s[3] = fmaf(xv, lo.w, s[3]);
+          s[4] = fmaf(xv, hi.x, s[4]);
+          s[5] = fmaf(xv, hi.y, s[5]);
+          s[6] = fmaf(xv, hi.z, s[6]);
+          s[7] = fmaf(xv, hi.w, s[7]);
+        }
+        // gcn_fused semantics: after the last slice the aggregate is
+        // rounded to x's type (the identity in fp32)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          dst[j] = last && round_agg ? to_f(from_f<T>(s[j])) : s[j];
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with x_s and a_s: W takes them
+    for (int i = tid; i < G_WS; i += G_THREADS) {
+      const int o = i % G_OT;
+      const int c = i / G_OT % G_CC;
+      const int k = i / (G_OT * G_CC);
+      const bool ok = c0 + c < C && o0 + o < Co;
+      w_s[i] = ok ? to_f(w[((size_t)k * C + c0 + c) * Co + o0 + o]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+#pragma unroll 2
+      for (int c = 0; c < G_CC; ++c) {
+        const float* ar = agg_s + (k * G_CC + c) * G_LDA + 8 * ty;
+        const float4 lo = *reinterpret_cast<const float4*>(ar);
+        const float4 hi = *reinterpret_cast<const float4*>(ar + 4);
+        const float4 wv =
+            *reinterpret_cast<const float4*>(w_s + (k * G_CC + c) * G_OT +
+                                             4 * tx);
+        const float av[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        const float wq[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wq[j], acc[i][j]);
+        }
+      }
+    }
+  }
+
+  // y rows (t, w) inside T and V, channels o < Co
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * ty + i;
+    const int t = t0 + r / G_WT;
+    const int wd = w0 + r % G_WT;
+    if (t >= Tn || wd >= V) continue;
+    T* dst = y + (xb + (size_t)t * V + wd) * Co + o0 + 4 * tx;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (o0 + 4 * tx + j < Co) dst[j] = from_f<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T, typename A>
+cudaError_t launch_gen(const void* x, const void* a1, const void* w, void* y,
+                       int B, int Tn, int V, int C, int Co, int round_agg,
+                       cudaStream_t stream) {
+  const long long tiles =
+      (long long)((V + G_WT - 1) / G_WT) * ((Co + G_OT - 1) / G_OT);
+  if (V < 1 || B > 65535 || tiles > 65535) return cudaErrorInvalidValue;
+  dim3 grid((Tn + G_TT - 1) / G_TT, (unsigned)tiles, B);
+  gcn_fwd_gen_kernel<T, A><<<grid, G_THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const A*>(a1),
+      static_cast<const T*>(w), static_cast<T*>(y), Tn, V, C, Co, round_agg);
+  return cudaGetLastError();
 }
 
 // ---- bf16 x and a1 on the tensor cores (round_agg = 0 as SPLIT) ----
@@ -490,8 +687,9 @@ cudaError_t launch_mma_v(const void* x, const void* a1, const void* w,
       return launch_mma_cc<18, SPLIT>(x, a1, w, y, B, Tn, C, Co, stream);
     case 15:
       return launch_mma_cc<15, SPLIT>(x, a1, w, y, B, Tn, C, Co, stream);
-    default:
-      return cudaErrorInvalidValue;
+    default:  // any other V: the general kernel, on the CUDA cores
+      return launch_gen<__nv_bfloat16, __nv_bfloat16>(
+          x, a1, w, y, B, Tn, V, C, Co, SPLIT ? 0 : 1, stream);
   }
 }
 
@@ -887,8 +1085,9 @@ cudaError_t launch_fp32_v(const void* x, const void* a1, const void* w,
     case 15:
       return launch_fp32_tile<T, 15>(x, a1, w, y, B, Tn, C, Co, round_agg,
                                      stream);
-    default:
-      return cudaErrorInvalidValue;
+    default:  // any other V: the general kernel
+      return launch_gen<T, float>(x, a1, w, y, B, Tn, V, C, Co, round_agg,
+                                  stream);
   }
 }
 

@@ -41,6 +41,19 @@ Backward of `adaptive_gcn_pallas` (the JAX `_vjp_bwd`, gcn_fused.py:222):
 `adaptive_gcn_pallas_hybrid` runs the same kernel forward with the
 einsum cotangents of `ops.gcn.adaptive_gcn_bwd` (the JAX `_hyb_bwd`).
 
+Which kernels run at which V. The kernels above are templates built for
+the tuned joint counts `TUNED_JOINTS` (15, 18, 25: the skeletons of
+graph/skeletons.py). Every other V >= 1, which the JAX Pallas kernels
+take as well (AGCN and AAGCN on any `adj`, the 31-node STGAT expanded
+graph among them), goes to the general kernels of the same sources,
+with V a run-time argument and fixed 32-joint tiles, all math in exact
+fp32 FMAs on the CUDA cores in both types: `gcn_fwd_gen_kernel` (the
+forward of both round_agg modes and every type combination, so also dx
+and `fused_gcn`), `gcn_u_gen_kernel` (u, then the same dW GEMMs, which
+take V only through the B*T*V rows) and `gcn_da1_gen_kernel` (da1 by
+32 x 32 (v, w) tiles over 4-frame tiles, then the same reduce). Their
+only limits are the grid's (`_check` says them).
+
 The TPU layout artefacts are not carried over: no zero-padding of the
 contractions to 128, no time tiles in multiples of 8 with T padded up,
 no routing of C < 8 elsewhere — the kernels mask their ragged edges and
@@ -68,8 +81,13 @@ from agcn_tpu_torch.ops import gcn as gcn_ops
 from agcn_tpu_torch.ops.kernels import build
 
 K = 3  # subset count is structural in this architecture (reference A/B/C)
-# V of the skeletons of graph/skeletons.py (OpenPose 15, Kinetics, NTU)
-SUPPORTED_JOINTS = (15, 18, 25)
+# the joint counts with tuned kernel templates: the skeletons of
+# graph/skeletons.py (OpenPose 15, Kinetics, NTU); any other V >= 1 runs
+# the general kernels
+TUNED_JOINTS = (15, 18, 25)
+# the general kernels' tiles of joints (gcn_fwd.cu G_WT, gcn_bwd.cu
+# UG_VT and DG_VT) and the grid's limit on a y or z dimension
+_GEN_JOINT_TILE, _GRID_YZ = 32, 65535
 # gcn_bwd's bf16 dW tensor-core kernel: blocks of (64 x 64 channels, one
 # subset, one group of 32-row chunks), about this many (8 per SM)
 _MMA_TILE, _MMA_ROWS, _MMA_TARGET_BLOCKS = 64, 32, 1056
@@ -148,9 +166,15 @@ def _check(x: torch.Tensor, a1: torch.Tensor, w: torch.Tensor) -> None:
     if tuple(a1.shape) != (b, K, v, v) or tuple(w.shape[:2]) != (K, c):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, "
                          f"a1 {tuple(a1.shape)}, w {tuple(w.shape)}")
-    if v not in SUPPORTED_JOINTS:
-        raise ValueError(f"V={v} joints: the kernel is built for "
-                         f"{SUPPORTED_JOINTS}")
+    vt = math.ceil(v / _GEN_JOINT_TILE)
+    tiles = vt * math.ceil(max(c, w.shape[-1]) / _GEN_JOINT_TILE)
+    if v < 1 or b > _GRID_YZ or (v not in TUNED_JOINTS and (
+            K * vt * vt > _GRID_YZ or tiles > _GRID_YZ)):
+        raise ValueError(
+            f"B={b}, V={v}, C={c}, Co={w.shape[-1]}: the kernels take any "
+            f"V >= 1 (tuned at {TUNED_JOINTS}) within their grids' limits: "
+            f"B <= {_GRID_YZ} and, at an untuned V, 3 ceil(V/32)^2 <= "
+            f"{_GRID_YZ} and ceil(V/32) ceil(max(C, Co)/32) <= {_GRID_YZ}")
     if not (x.is_contiguous() and a1.is_contiguous() and w.is_contiguous()):
         raise ValueError("x, a1 and w must be contiguous")
 
@@ -222,9 +246,9 @@ def dw_fp32_groups(rows: int, c: int, co: int) -> int:
 def da1_groups(b: int, t: int, tile: int = _DA1_TILE) -> int:
     """Frame groups of gcn_bwd's da1 kernels: ranges of whole tiles of
     `tile` frames of a sample (the library's, `da1_tiling`: 4 in bf16, 5,
-    7 or 8 in fp32 at V = 25, 18 or 15), one fp32 (V, V) partial per
-    (sample, subset, group),
-    fixed by the shapes alone."""
+    7 or 8 in fp32 at V = 25, 18 or 15, 4 in both types at any other V),
+    one fp32 (V, V) partial per (sample, subset, group), fixed by the
+    shapes alone."""
     tiles = math.ceil(t / tile)
     return max(1, min(tiles, math.ceil(_DA1_TARGET_BLOCKS / (K * b))))
 

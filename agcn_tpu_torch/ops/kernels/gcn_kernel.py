@@ -7,10 +7,13 @@ The TPU kernel works on joint-major (B, V, T, C) blocks and keeps the
 three subsets' aggregates in fp32 for one (V*Tt, 3C) @ (3C, Co)
 projection. Here it runs on the same Hopper kernels as `gcn_fused`
 (`csrc/gcn_fwd.cu`) with `round_agg=False`, in the model's own
-(B, T, V, C) layout: no host transpose, no padded time tiles. In bf16
-that is `gcn_fwd_mma_kernel` on the tensor cores, with each fp32
-aggregate projected as two bf16 parts (hi + lo, within 2^-16 of it);
-in fp32 `gcn_fwd_fp32_kernel` on the CUDA cores. Its
+(B, T, V, C) layout: no host transpose, no padded time tiles. At the
+tuned joint counts (`gcn_fused.TUNED_JOINTS`: 15, 18, 25) that is, in
+bf16, `gcn_fwd_mma_kernel` on the tensor cores, with each fp32
+aggregate projected as two bf16 parts (hi + lo, within 2^-16 of it),
+and in fp32 `gcn_fwd_fp32_kernel` on the CUDA cores; at any other V >= 1
+(the TPU kernel takes any V too) `gcn_fwd_gen_kernel`, whose fp32
+aggregate is exact fp32 FMAs on the CUDA cores in both types. Its
 backward is the JAX package's einsum `_bwd` (gcn_kernel.py:107-117): the
 TPU package has no backward kernel here, so neither has the port.
 """

@@ -257,7 +257,9 @@ def attention_logits_pallas(theta: torch.Tensor, phi: torch.Tensor,
                             divisor: float) -> torch.Tensor:
     """The transposed-logits computation on the kernel:
     (B, T, V, K, Ce) theta/phi -> (B, K, V, V) fp32 logits, divided by
-    `divisor`. CPU tensors take the plain version."""
+    `divisor`. CPU tensors take the plain version, after the kernel's
+    own checks: V > 32 raises there too, as in the JAX package."""
+    _check(theta, phi)
     if _device_kind("attention_logits_pallas", theta, phi) == "cpu":
         return attention_logits_plain(theta, phi, divisor)
     out = launch_logits(theta, phi, divisor)

@@ -1,11 +1,15 @@
 """gcn_bwd on the card against its plain version, dW and da1 timed apart.
 
-    python -m agcn_tpu_torch.tools.bwd_check [--out FILE]
+    python -m agcn_tpu_torch.tools.bwd_check [--out FILE] [--joints V ...]
 
-The quick card check of `ops/csrc/gcn_bwd.cu`, about a minute: it builds
-that source alone, then at each AGCN layer shape of a training step
-(batch 64 x 2 persons = 128 samples, T=300), at V = 25 (the NTU
-skeleton) and 15 (the OpenPose one), fp32 and bf16, holds
+The quick card check of `ops/csrc/gcn_bwd.cu`, a minute or two: it
+builds that source (and gcn_fwd.cu), holds the general kernels (any V
+outside the tuned 25, 18 and 15) at small shapes at 1, 7, 16, 32 and 33
+joints and at every untuned V of `--joints` (`check_general_small`), then
+at each AGCN layer shape of a training step (batch 64 x 2 persons = 128
+samples, T=300), at each V of `--joints`
+(25, the NTU skeleton; 15, the OpenPose one; 31, the STGAT expanded
+graph; 67, OpenPose BODY_25 with both hands), fp32 and bf16, holds
 gcn_bwd against its plain version (`gcn_bwd_plain`) and two calls against
 each other (bitwise), times dW and da1 apart, each beside its library
 yardstick (the einsums of `ops.gcn.adaptive_gcn_bwd`) and its bound, and
@@ -16,7 +20,8 @@ where needed) it holds fp32 dW bit for bit, and fp32 da1 at the full
 batch (x, W and g in [-1, 1]). It fails if ptxas reports a spill in
 `gcn_da1_mma_kernel` (bf16 da1 on the tensor cores),
 `gcn_da1_fp32_kernel` (fp32 da1 on the CUDA cores), `gcn_dw_fp32_kernel`
-(the fp32 dW GEMM) or `gcn_u_kernel` (u, both types), and prints each
+(the fp32 dW GEMM), `gcn_u_kernel` (u, both types) or the general
+`gcn_u_gen_kernel` and `gcn_da1_gen_kernel`, and prints each
 `gcn_da1_fp32_kernel` instantiation's registers and spills (ptxas). It
 asks the library what each da1 launch takes (`gcn_fused.da1_tiling`:
 frames of a tile, dynamic shared memory, blocks an SM holds) and fails
@@ -66,11 +71,22 @@ LAYERS = sum(n for _, n in LAYER_SHAPES)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 SOURCE = "agcn_tpu_torch/ops/csrc/gcn_bwd.cu"
-# the joint counts of the skeletons, each of which the kernels are built
-# for (graph/skeletons.py: NTU, Kinetics, OpenPose 15), and those the
-# checks run at: NTU's and OpenPose's (18 shares 25's code paths)
+# the joint counts of the skeletons, each of which the kernels have tuned
+# templates for (graph/skeletons.py: NTU, Kinetics, OpenPose 15), and
+# those the checks run at: NTU's and OpenPose's (18 shares 25's code
+# paths)
 JOINTS = (25, 18, 15)
 JOINTS_CHECKED = (25, 15)
+# any other V runs the general kernels: the layer shapes are checked at
+# V = 31 (the STGAT expanded graph: NTU's 25 and 6 part nodes) and 67
+# (OpenPose BODY_25 with both 21-point hands), small shapes
+# (`check_general_small`) at those and at one joint, below, at and just
+# past the 32-joint tile
+JOINTS_GENERAL = (31, 67)
+JOINTS_SMALL = (1, 7, 16, 32, 33)
+# (b, t, c, co) of the small checks: a ragged frame tile with C and Co
+# off every chunk and tile, the C = 3 entry layer, and its dx's Co = 3
+SMALL_SHAPES = ((3, 13, 20, 37), (2, 9, 3, 64), (2, 11, 64, 3))
 # the CUDA kernels of gcn_bwd's route in each dtype: (dW, da1)
 ROUTE_KERNELS = {
     "bfloat16": (["gcn_u_kernel", "gcn_dw_mma_kernel",
@@ -79,10 +95,18 @@ ROUTE_KERNELS = {
     "float32": (["gcn_u_kernel", "gcn_dw_fp32_kernel",
                  "gcn_dw_reduce_kernel"],
                 ["gcn_da1_fp32_kernel", "gcn_da1_reduce_kernel"])}
+# and at any other V: the general u and da1 in both types
+GEN_ROUTE_KERNELS = {
+    "bfloat16": (["gcn_u_gen_kernel", "gcn_dw_mma_kernel",
+                  "gcn_dw_reduce_kernel"],
+                 ["gcn_da1_gen_kernel", "gcn_da1_reduce_kernel"]),
+    "float32": (["gcn_u_gen_kernel", "gcn_dw_fp32_kernel",
+                 "gcn_dw_reduce_kernel"],
+                ["gcn_da1_gen_kernel", "gcn_da1_reduce_kernel"])}
 DA1_FP32_KERNEL = "gcn_da1_fp32_kernel"
 # the kernels of the source whose ptxas spills fail the card checks
 SPILL_CHECKED = ("gcn_da1_mma_kernel", DA1_FP32_KERNEL, "gcn_dw_fp32_kernel",
-                 "gcn_u_kernel")
+                 "gcn_u_kernel", "gcn_u_gen_kernel", "gcn_da1_gen_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -229,18 +253,26 @@ def report_da1_fp32_build(ptxas_log):
     return out
 
 
-def check_da1_tiling(gcn_fused):
+def da1_kernel(v, bf16):
+    """The da1 kernel that a call at V joints launches."""
+    if v not in JOINTS:
+        return "gcn_da1_gen_kernel"
+    return "gcn_da1_mma_kernel" if bf16 else DA1_FP32_KERNEL
+
+
+def check_da1_tiling(gcn_fused, v=None):
     """What each da1 launch takes, from the library (`da1_tiling`) at
-    every V of JOINTS, the C = 3 entry layer's chunk and the wide one, in
-    both types, logged: an SM must hold the two blocks that both da1
-    kernels are built for (`__launch_bounds__(256, 2)`). Returns the
-    answers as dicts."""
+    every V of JOINTS (and `v`), the C = 3 entry layer's chunk and the
+    wide one, in both types, logged: an SM must hold the two blocks that
+    every da1 kernel is built for (`__launch_bounds__(256, 2)`). Returns
+    the answers as dicts."""
     out = []
     for bf16 in (False, True):
-        for v in JOINTS:
+        for v in JOINTS + ((v,) if v is not None and v not in JOINTS
+                           else ()):
             for c in (3, 64):
                 frames, smem, blocks = gcn_fused.da1_tiling(v, c, bf16)
-                name = "gcn_da1_mma_kernel" if bf16 else DA1_FP32_KERNEL
+                name = da1_kernel(v, bf16)
                 out.append(dict(kernel=name, v=v, c=c, frames=frames,
                                 smem=smem, blocks_per_sm=blocks))
                 log(f"  {name} V={v} C={c}: {frames}-frame tiles, {smem} B "
@@ -339,13 +371,83 @@ def check_bwd_rounding(torch, np, gcn_fused, c, co, v=25):
           f"effect")
 
 
-def phase_bwd_kernels(torch, np, gcn_fused, v=25):
+def check_general_small(torch, np, gcn_fused, gcn_kernel, v):
+    """The general kernels at V joints on SMALL_SHAPES, fp32 and bf16:
+    gcn_fwd through both wrappers (round_agg 1 and 0), with bf16 x and
+    fp32 a1 too, dx (gcn_fwd on g, a1^T, W^T), dW and da1, each within
+    `within_tol` of its plain version and two calls bitwise equal; on
+    integer inputs the forward (both types, both modes), fp32 dW and fp32
+    da1 equal to their plain versions bit for bit (`check_exact`,
+    `check_dw_fp32_exact`, `check_da1_fp32_exact`). Returns the number of
+    kernel calls held against a plain version."""
+    from agcn_tpu_torch.tools.fwd_check import check_exact
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    fwd = {True: gcn_fused.adaptive_gcn_pallas, False: gcn_kernel.fused_gcn}
+    held = 0
+
+    def hold(what, got, want, again=None):
+        nonlocal held
+        torch.cuda.synchronize()
+        ok, err, scale = within_tol(got, want)
+        check(ok, f"V={v} {what}: max err {err:.3e} (scale {scale:.3e})")
+        if again is not None:
+            check(torch.equal(got, again), f"V={v} {what}: two calls differ")
+        held += 1
+
+    for b, t, c, co in SMALL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x = torch.randn(b, t, v, c, device="cuda", generator=gen)
+            a1 = torch.randn(b, 3, v, v, device="cuda", generator=gen)
+            w = torch.randn(3, c, co, device="cuda",
+                            generator=gen) / math.sqrt(3 * c)
+            g = torch.randn(b, t, v, co, device="cuda", generator=gen)
+            x, a1, w, g = (a.to(dtype) for a in (x, a1, w, g))
+            shape = f"B={b} T={t} C={c} Co={co} {dname}"
+            for r in (True, False):
+                hold(f"gcn_fwd {shape} round_agg={int(r)}", fwd[r](x, a1, w),
+                     gcn_fused.gcn_fwd_plain(x, a1, w, r), fwd[r](x, a1, w))
+                if dtype == torch.bfloat16:
+                    af = a1.float()
+                    hold(f"gcn_fwd {shape} fp32 a1 round_agg={int(r)}",
+                         gcn_fused.launch_gcn_fwd(x, af, w, r),
+                         gcn_fused.gcn_fwd_plain(x, af, w, r))
+            at = a1.transpose(2, 3).contiguous()
+            wt = w.transpose(1, 2).contiguous()
+            hold(f"dx {shape}", fwd[True](g, at, wt),
+                 gcn_fused.gcn_fwd_plain(g, at, wt, True))
+            dw, da1 = gcn_fused.gcn_backward(x, a1, w, g)
+            again = gcn_fused.gcn_backward(x, a1, w, g)
+            want = gcn_fused.gcn_bwd_plain(x, a1, w, g)
+            hold(f"dW {shape}", dw, want[0], again[0])
+            hold(f"da1 {shape}", da1, want[1], again[1])
+        # each mode alone: at few joints the integer aggregates may all be
+        # exact in bf16, and the modes then agree (check_rounding_modes
+        # tells them apart at the layer shapes)
+        for r in (True, False):
+            for dtype in (torch.bfloat16, torch.float32):
+                check_exact(torch, np, gcn_fused, b, t, c, co, "general",
+                            (r,), dtype, v)
+        check_dw_fp32_exact(torch, np, gcn_fused, t, c, co, v)
+        check_da1_fp32_exact(torch, gcn_fused, t, c, co, b, v)
+    log(f"  V={v}: gcn_fwd (round_agg 1 and 0, bf16 x with fp32 a1), dx, "
+        f"dW and da1 within the bars of their plain versions at "
+        f"{len(SMALL_SHAPES)} small shapes in fp32 and bf16 ({held} calls), "
+        f"two calls bitwise equal; on integer inputs the forward, fp32 dW "
+        f"and fp32 da1 equal to the plain versions bit for bit")
+    return held
+
+
+def phase_bwd_kernels(torch, np, gcn_fused, v=25, iters=10, slow_iters=3):
     """gcn_bwd against its plain version at the training shapes (batch
     128 after folding the persons) with V joints, after the library's
-    da1 tiling at every V (`check_da1_tiling`). Returns the rows."""
+    da1 tiling at every V (`check_da1_tiling`); the kernel timed over
+    `iters` calls, the plain version and the einsums over `slow_iters`.
+    Returns the rows."""
     b = TRAIN_BATCH * PERSONS
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    check_da1_tiling(gcn_fused)
+    check_da1_tiling(gcn_fused, v)
     rows = []
     for (t, c, co), mult in LAYER_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -382,21 +484,24 @@ def phase_bwd_kernels(torch, np, gcn_fused, v=25):
                 max_abs_err=max(err_w, err_a), err_dw=err_w, err_da1=err_a,
                 scale_dw=scale_w, scale_da1=scale_a,
                 ms=cuda_time_ms(lambda: gcn_fused.gcn_backward(x, a1, w, g),
-                                10),
+                                iters),
                 dw_ms=cuda_time_ms(
-                    lambda: gcn_fused.launch_gcn_bwd_dw(x, a1, w, g), 10),
+                    lambda: gcn_fused.launch_gcn_bwd_dw(x, a1, w, g), iters),
                 da1_ms=cuda_time_ms(
-                    lambda: gcn_fused.launch_gcn_bwd_da1(x, a1, w, g), 10),
+                    lambda: gcn_fused.launch_gcn_bwd_da1(x, a1, w, g), iters),
                 plain_ms=cuda_time_ms(
-                    lambda: gcn_fused.gcn_bwd_plain(x, a1, w, g), 3),
+                    lambda: gcn_fused.gcn_bwd_plain(x, a1, w, g),
+                    slow_iters),
                 dw_plain_ms=cuda_time_ms(
-                    lambda: gcn_fused.gcn_dw_plain(x, a1, g).to(dtype), 3),
+                    lambda: gcn_fused.gcn_dw_plain(x, a1, g).to(dtype),
+                    slow_iters),
                 da1_plain_ms=cuda_time_ms(
-                    lambda: gcn_fused.gcn_da1_plain(x, w, g).to(dtype), 3),
+                    lambda: gcn_fused.gcn_da1_plain(x, w, g).to(dtype),
+                    slow_iters),
                 dw_library_ms=cuda_time_ms(
-                    lambda: library_dw(torch, x, a1, g), 3),
+                    lambda: library_dw(torch, x, a1, g), slow_iters),
                 da1_library_ms=cuda_time_ms(
-                    lambda: library_da1(torch, x, w, g), 3),
+                    lambda: library_da1(torch, x, w, g), slow_iters),
                 half_bound_ms=half[0],  # of dW alone, and of da1 alone
                 half_bound_by=half[1],
                 da1_groups=gcn_fused.da1_groups(b, t, frames),
@@ -475,7 +580,8 @@ def bwd_entry(rows, launches, dname="bfloat16", v=25):
                  "bound_ms": half[0], "bound_by": half[1],
                  "max_abs_err": max(r[f"err_{p}"] for r in sel)}
              for p in ("dw", "da1")}
-    parts["dw"]["kernels"], parts["da1"]["kernels"] = ROUTE_KERNELS[dname]
+    parts["dw"]["kernels"], parts["da1"]["kernels"] = (
+        ROUTE_KERNELS if v in JOINTS else GEN_ROUTE_KERNELS)[dname]
     return {"name": "gcn_bwd (dW, da1)", "route": "cuda", "source": SOURCE,
             "replaces": "agcn_tpu/ops/pallas/gcn_fused.py:72",
             "launches": launches,
@@ -491,11 +597,15 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from agcn_tpu_torch.ops.kernels import build, gcn_fused
+    from agcn_tpu_torch.ops.kernels import build, gcn_fused, gcn_kernel
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the rows as JSON")
+    ap.add_argument("--joints", type=int, nargs="+",
+                    default=list(JOINTS_CHECKED + JOINTS_GENERAL),
+                    help="V of the layer-shape checks (any V >= 1)")
     args = ap.parse_args(argv)
+    joints = tuple(args.joints)
     if not torch.cuda.is_available():
         print("bwd_check: no CUDA GPU available", file=sys.stderr)
         return 1
@@ -504,7 +614,8 @@ def main(argv=None) -> int:
     log(f"{torch.cuda.get_device_name(0)}: {smi}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    built = build.build_all(["gcn_bwd"])["gcn_bwd"]
+    # the small checks' dx calls launch gcn_fwd too
+    built = build.build_all(["gcn_bwd", "gcn_fwd"])["gcn_bwd"]
     log(f"built gcn_bwd in {time.perf_counter() - t0:.1f} s")
     for ln in built.log.splitlines():
         if "registers" in ln or "spill" in ln or "smem" in ln:
@@ -515,7 +626,12 @@ def main(argv=None) -> int:
         spills = bwd_spills(built.log)
         check(not spills, f"gcn_bwd kernels spill: {spills}")
         with torch.inference_mode():
-            for v in JOINTS_CHECKED:
+            general = [v for v in JOINTS_SMALL + joints
+                       if v not in JOINTS]
+            for v in dict.fromkeys(general):
+                log(f"the general kernels at small shapes, V={v}")
+                check_general_small(torch, np, gcn_fused, gcn_kernel, v)
+            for v in joints:
                 log(f"gcn_bwd vs its plain version at the training shapes "
                     f"(batch 128), V={v}")
                 rows[v] = phase_bwd_kernels(torch, np, gcn_fused, v)
@@ -523,8 +639,8 @@ def main(argv=None) -> int:
         print(f"bwd_check: FAILED: {e}", file=sys.stderr)
         return 1
     da1_layers, entries = {}, []
-    for v in JOINTS_CHECKED:
-        log(f"fp32 da1 per layer (gcn_da1_fp32_kernel, ms), V={v}")
+    for v in joints:
+        log(f"fp32 da1 per layer ({da1_kernel(v, False)}, ms), V={v}")
         da1_layers[v] = da1_fp32_layers(rows[v])
         entries += [dict(bwd_entry(rows[v], 0, d, v), v=v)
                     for d in ("float32", "bfloat16")]
@@ -543,7 +659,7 @@ def main(argv=None) -> int:
             json.dump({"device": torch.cuda.get_device_name(0),
                        "nvidia_smi": smi, "ptxas": built.log,
                        "da1_fp32_build": da1_build,
-                       "rows": [r for v in JOINTS_CHECKED for r in rows[v]],
+                       "rows": [r for v in joints for r in rows[v]],
                        "da1_fp32_layers": da1_layers, "per_step": entries},
                       f, indent=1)
     log(smi)

@@ -1,15 +1,18 @@
 """gcn_fwd on the card against its plain version, served and as dx.
 
-    python -m agcn_tpu_torch.tools.fwd_check [--out FILE]
+    python -m agcn_tpu_torch.tools.fwd_check [--out FILE] [--joints V ...]
 
-The quick card check of `ops/csrc/gcn_fwd.cu`, about a minute: it builds
-that source alone (and fails if ptxas reports a spill in any
-instantiation of `gcn_fwd_mma_kernel` or `gcn_fwd_fp32_kernel`, and
-prints each one's registers, spills and shared memory), then
+The quick card check of `ops/csrc/gcn_fwd.cu`, a minute or two: it
+builds that source alone (and fails if ptxas reports a spill in any
+instantiation of `gcn_fwd_mma_kernel`, `gcn_fwd_fp32_kernel` or the
+general `gcn_fwd_gen_kernel`, and prints each fp32 one's registers,
+spills and shared memory), then
 
 1. at each AGCN layer shape of the served batch (16 streams x 2 persons =
-   32 samples, T=300), at V = 25 (the NTU skeleton) and 15 (the OpenPose
-   one), fp32 and bf16, both aggregate-rounding modes,
+   32 samples, T=300), at each V of `--joints` (25, the NTU skeleton; 15,
+   the OpenPose one; 31, the STGAT expanded graph, and 67, OpenPose
+   BODY_25 with both hands, on the general kernel), fp32 and bf16, both
+   aggregate-rounding modes,
    holds the kernel against its plain version (`gcn_fwd_plain`) and times
    it beside its library yardstick (one `torch.einsum`) and its bound. At
    each shape, on bf16 integer inputs where the two modes differ, each
@@ -32,7 +35,9 @@ aggregate rounded to bf16, `gcn_fused`'s `_fwd_kernel`) as it is,
 round_agg=0 (the aggregate kept in fp32, `gcn_kernel`'s `_kernel`) with
 each aggregate split into two bf16 parts, hi + lo, both projected; fp32
 calls, and bf16 x with fp32 a1, go to `gcn_fwd_fp32_kernel` on the CUDA
-cores (exact fp32 FMAs; its tiles are `fp32_tiling`'s).
+cores (exact fp32 FMAs; its tiles are `fp32_tiling`'s). That is at the
+tuned V = 15, 18 and 25; every other V goes to `gcn_fwd_gen_kernel`,
+exact fp32 FMAs on the CUDA cores in every type combination.
 
 Tolerances (`bwd_check.within_tol`): fp32 (TF32 off) max err <= 1e-4 of
 the output's scale; bf16 per element <= 2^-7 |ref| + 2^-10 of the scale.
@@ -56,15 +61,21 @@ import sys
 import time
 
 from agcn_tpu_torch.tools.bwd_check import (
-    JOINTS_CHECKED, LAYER_SHAPES, PEAK_BYTES, PEAK_FLOPS, PERSONS, SEED,
-    TRAIN_BATCH, SmokeFailure, bound_ms, check, cuda_time_ms, gcn_work, log,
-    nvidia_smi_line, within_tol)
+    JOINTS, JOINTS_CHECKED, JOINTS_GENERAL, LAYER_SHAPES, PEAK_BYTES,
+    PEAK_FLOPS, PERSONS, SEED, TRAIN_BATCH, SmokeFailure, bound_ms, check,
+    cuda_time_ms, gcn_work, log, nvidia_smi_line, within_tol)
 
 SERVE_BATCH = 32  # 16 streams x 2 persons
 SOURCE = "agcn_tpu_torch/ops/csrc/gcn_fwd.cu"
 # the kernels of gcn_fwd.cu whose spills fail the build checks
-SPILL_CHECKED = ("gcn_fwd_mma_kernel", "gcn_fwd_fp32_kernel")
+SPILL_CHECKED = ("gcn_fwd_mma_kernel", "gcn_fwd_fp32_kernel",
+                 "gcn_fwd_gen_kernel")
 FP32_KERNEL = "gcn_fwd_fp32_kernel"
+GEN_KERNEL = "gcn_fwd_gen_kernel"
+# the general kernel's tile (gcn_fwd.cu G_*): frames, destination joints,
+# source joints a slice, output and input channels, static shared memory
+GEN_TILE = dict(tt=4, wt=32, vs=32, ot=64, cc=16,
+                smem=(3 * 16 * (4 * 32 + 4) + 4 * 32 * 16 + 3 * 32 * 32) * 4)
 
 
 def spilling(ptxas_log, kernel=SPILL_CHECKED):
@@ -126,9 +137,13 @@ def fp32_smem(itemsize, v, ot, cc):
 
 
 def fp32_tiling(v, c, co):
-    """The tile `launch_fp32_tile` of gcn_fwd.cu picks for a call: 8
-    output channels a block when Co <= 8, else 64 when Co <= 64, else
-    128; input-channel chunks of 4 when C <= 8 or Co <= 8, else 16."""
+    """The tile `launch_fp32_tile` of gcn_fwd.cu picks for a call at a
+    tuned V (15, 18, 25): 8 output channels a block when Co <= 8, else 64
+    when Co <= 64, else 128; input-channel chunks of 4 when C <= 8 or Co
+    <= 8, else 16. At any other V, `gcn_fwd_gen_kernel`'s one tile
+    (`GEN_TILE`, whatever C and Co), with the kernel's name."""
+    if v not in JOINTS:
+        return dict(GEN_TILE, kernel=GEN_KERNEL)
     ot = 8 if co <= 8 else 64 if co <= 64 else 128
     return fp32_tile(v, ot, 4 if c <= 8 or co <= 8 else 16)
 
@@ -159,6 +174,27 @@ def report_fp32_build(ptxas_log):
         log(f"  {label}: {r['registers']} registers, "
             f"{r['spill_stores']} + {r['spill_loads']} spill bytes, "
             f"{smem} B dynamic shared memory")
+    return out
+
+
+def report_gen_build(ptxas_log):
+    """Log the registers and spills of each general kernel (any V outside
+    the tuned ones: `gcn_fwd_gen_kernel`, `gcn_u_gen_kernel`,
+    `gcn_da1_gen_kernel`) in one source's ptxas log; returns them as
+    dicts."""
+    out = ptxas_kernels(ptxas_log, ("_gen_kernel",))
+    for r in out:
+        name = re.search(r"gcn_[a-z0-9]+_gen_kernel", r["name"]).group(0)
+        # the template arguments, T (and A): float, bf16, or a
+        # substitution of the bf16 named before (S1_)
+        args = r["name"].split("_gen_kernelI", 1)[1].split("EE", 1)[0]
+        kinds = []
+        for k in re.findall(r"13__nv_bfloat16|S\d*_|f", args):
+            kinds.append(kinds[-1] if k.startswith("S") else
+                         "bf16" if k.startswith("13") else "float")
+        r["label"] = f"{name}<{', '.join(kinds)}>"
+        log(f"  {r['label']}: {r['registers']} registers, "
+            f"{r['spill_stores']} + {r['spill_loads']} spill bytes")
     return out
 
 
@@ -268,10 +304,12 @@ def _row(torch, kernel, plain, x, a1, w, label, t, c, co, mult, dname,
     return row
 
 
-def phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel, v=25):
+def phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel, v=25, iters=20,
+                      slow_iters=5):
     """Each forward wrapper against its plain version at the served layer
     shapes with V joints (the wrappers' launch counts are reset before
-    the main path)."""
+    the main path); the kernel timed over `iters` calls, the plain
+    version and the einsum over `slow_iters`."""
     wrappers = {True: gcn_fused.adaptive_gcn_pallas,
                 False: gcn_kernel.fused_gcn}
     b = SERVE_BATCH
@@ -294,7 +332,7 @@ def phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel, v=25):
                     torch, lambda: kernel(x, a1, w),
                     lambda: gcn_fused.gcn_fwd_plain(x, a1, w, round_agg),
                     x, a1, w, "served", t, c, co, mult, dname, round_agg,
-                    20, 5))
+                    iters, slow_iters))
             del x, a1, w
         scale = check_rounding_modes(torch, np, wrappers, gcn_fused, b, t,
                                      c, co, v)
@@ -313,7 +351,7 @@ def phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel, v=25):
     return rows
 
 
-def phase_dx(torch, np, gcn_fused, v=25):
+def phase_dx(torch, np, gcn_fused, v=25, iters=10, slow_iters=3):
     """The dx calls of a training step at batch 128 with V joints:
     gcn_fwd on (g, a1^T, W^T), the input and output channels swapped."""
     b = TRAIN_BATCH * PERSONS
@@ -335,7 +373,8 @@ def phase_dx(torch, np, gcn_fused, v=25):
             rows.append(_row(
                 torch, lambda: gcn_fused.adaptive_gcn_pallas(g, at, wt),
                 lambda: gcn_fused.gcn_fwd_plain(g, at, wt, True),
-                g, at, wt, "dx", t, co, c, mult, dname, True, 10, 3))
+                g, at, wt, "dx", t, co, c, mult, dname, True, iters,
+                slow_iters))
             del g, a1, w, at, wt
         for dtype in (torch.bfloat16, torch.float32):
             check_exact(torch, np, gcn_fused, b, t, co, c, "dx", (True,),
@@ -418,7 +457,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the rows as JSON")
+    ap.add_argument("--joints", type=int, nargs="+",
+                    default=list(JOINTS_CHECKED + JOINTS_GENERAL),
+                    help="V of the checks (any V >= 1)")
     args = ap.parse_args(argv)
+    joints = tuple(args.joints)
     if not torch.cuda.is_available():
         print("fwd_check: no CUDA GPU available", file=sys.stderr)
         return 1
@@ -438,7 +481,7 @@ def main(argv=None) -> int:
         spills = spilling(built.log)
         check(not spills, f"gcn_fwd kernels spill: {spills}")
         with torch.inference_mode():
-            for v in JOINTS_CHECKED:
+            for v in joints:
                 log(f"gcn_fwd vs its plain version at the served shapes "
                     f"(batch 32), V={v}")
                 rows[v] = phase_fwd_kernels(torch, np, gcn_fused, gcn_kernel,
@@ -450,11 +493,11 @@ def main(argv=None) -> int:
         print(f"fwd_check: FAILED: {e}", file=sys.stderr)
         return 1
     layers = {}
-    for v in JOINTS_CHECKED:
+    for v in joints:
         log(f"fp32 per layer (ms), V={v}")
         layers[v] = fp32_layers(rows[v], dx_rows[v])
     sums = {}
-    for v in JOINTS_CHECKED:
+    for v in joints:
         for dname in ("bfloat16", "float32"):
             for round_agg in (True, False):
                 key = (f"V={v} served {dname} round_agg={int(round_agg)} "
@@ -469,10 +512,8 @@ def main(argv=None) -> int:
             json.dump({"device": torch.cuda.get_device_name(0),
                        "nvidia_smi": smi, "ptxas": built.log,
                        "fp32_build": fp32_build,
-                       "rows": [r for v in JOINTS_CHECKED
-                                for r in rows[v]],
-                       "dx_rows": [r for v in JOINTS_CHECKED
-                                   for r in dx_rows[v]],
+                       "rows": [r for v in joints for r in rows[v]],
+                       "dx_rows": [r for v in joints for r in dx_rows[v]],
                        "fp32_layers": layers,
                        "sums": sums},
                       f, indent=1)

@@ -11,10 +11,11 @@ fails:
 2. build: compiles every CUDA source of the port with nvcc (sm_90a), all
    started together, and prints the build time and ptxas' report (for
    each gcn_fwd_fp32_kernel instantiation its registers, spills and
-   dynamic shared memory, for each gcn_da1_fp32_kernel and each logits
-   kernel its registers and spills); a spill in
+   dynamic shared memory, for each gcn_da1_fp32_kernel, each general
+   kernel and each logits kernel its registers and spills); a spill in
    gcn_fwd_mma_kernel, gcn_fwd_fp32_kernel, gcn_da1_mma_kernel,
-   gcn_da1_fp32_kernel, gcn_dw_fp32_kernel, gcn_u_kernel or any kernel
+   gcn_da1_fp32_kernel, gcn_dw_fp32_kernel, gcn_u_kernel, the general
+   gcn_fwd_gen_kernel, gcn_u_gen_kernel, gcn_da1_gen_kernel or any kernel
    of logits.cu fails it.
 3. gcn_fwd against its plain version, on the card, at every AGCN layer
    shape of the served batch (16 streams x 2 persons = 32 samples), fp32
@@ -353,13 +354,31 @@ fails:
    1` through the entry point's `main` in this process: one epoch on
    phase 14's synthetic pickles, then `--phase test` on its checkpoint
    reproduces its top-1.
+25. the GCN kernels at any joint count (the general kernels,
+   `gcn_fwd_gen_kernel`, `gcn_u_gen_kernel`, `gcn_da1_gen_kernel`, every
+   V outside the tuned 15, 18 and 25): (a) each against its plain
+   version at V = 1, 7, 16, 31, 32, 33 and 67 on small shapes (forward in
+   both round_agg modes and all three type combinations, dx, dW, da1;
+   integer inputs bit for bit, two calls bitwise equal), then at V = 31
+   and 67 the served and training layer shapes as phases 3 and 4 (kernel,
+   plain and einsum ms beside the bound), and the logits kernel at V =
+   31 as phase 5; (b) AGCN at full width on the 31-node STGAT expanded
+   graph (`[I, N, N^T]`), `formulation: pallas`: a served forward (batch
+   32, T = 300) in fp32 and bf16 and in bf16 with `use_pallas`, card
+   against CPU at phase 7's bars, 10 launches a forward, then 3 bf16 SGD
+   steps at batch 64 (the first untimed) with 20 gcn_fwd and 10 gcn_bwd
+   launches a step, ms a step and peak memory; (c) AAGCN on the same
+   graph (`eval_formulation: pallas`) served in fp32 and bf16 card
+   against CPU, its embeddings through the logits kernel (10 launches a
+   forward).
 
 `python3 chip_smoke.py --phase 14` runs phases 1 and 14 alone (about a
 minute), `--phase 15` phases 1, 2 (the build) and 15, `--phase 16`
 phases 1, 2 and 16, `--phase 17` phases 1 and 17, `--phase 18` phases 1
 and 18, `--phase 19` phases 1 and 19, `--phase 20` phases 1, 2 and 20,
 `--phase 21` phases 1, 2 and 21, `--phase 22` phases 1, 2 and 22,
-`--phase 23` phases 1 and 23, `--phase 24` phases 1 and 24; none
+`--phase 23` phases 1 and 23, `--phase 24` phases 1 and 24, `--phase
+25` phases 1, 2 and 25; none
 prints a result line (details of
 15 in build/chip_smoke_knobs.json, of 16 in
 build/chip_smoke_versions.json, of 17 in
@@ -369,10 +388,12 @@ build/chip_smoke_sgn_temporal.json, of 20 in
 build/chip_smoke_parallel.json, of 21 in build/chip_smoke_openpose.json,
 of 22 in build/chip_smoke_single_stream.json, of 23 in
 build/chip_smoke_sgn_stack.json, of 24 in
-build/chip_smoke_sgn_input.json).
+build/chip_smoke_sgn_input.json, of 25 in
+build/chip_smoke_any_joints.json).
 
 The last lines of standard output are the `kernels` JSON line (each
-kernel's V = 15 sums and launches under "v15"), the card's `nvidia-smi`
+kernel's V = 15 sums and launches under "v15", phase 25's sums at V = 31
+and 67 and its launches under "vgen"), the card's `nvidia-smi`
 name and power limit, and {"ok": true, "device": {...}}. Details go to
 build/chip_smoke.json.
 """
@@ -395,12 +416,13 @@ sys.path.insert(0, REPO)
 try:
     # phases 3, 4 and 5 and the card-check helpers shared with them
     from agcn_tpu_torch.tools.bwd_check import (
-        LAYERS, PERSONS, SEED, TRAIN_BATCH, bwd_entry, bwd_spills, check,
-        cuda_time_ms, da1_fp32_layers, log, nvidia_smi_line,
-        phase_bwd_kernels, report_da1_fp32_build)
+        JOINTS_GENERAL, JOINTS_SMALL, LAYERS, PERSONS, SEED, TRAIN_BATCH,
+        bwd_entry, bwd_spills, check, check_general_small, cuda_time_ms,
+        da1_fp32_layers, log, nvidia_smi_line, phase_bwd_kernels,
+        report_da1_fp32_build)
     from agcn_tpu_torch.tools.fwd_check import (
         SERVE_BATCH, fp32_layers, fwd_entry, phase_dx, phase_fwd_kernels,
-        report_fp32_build, spilling)
+        report_fp32_build, report_gen_build, spilling)
     from agcn_tpu_torch.tools.logits_check import (
         logits_close, logits_entry, logits_spills, logits_sums, phase_logits,
         report_build)
@@ -5316,15 +5338,303 @@ def phase_sgn_input(torch, np, smi, summary):
     return launches
 
 
+# -- phase 25: the GCN kernels at any joint count --------------------------
+
+STGAT_JOINTS = 31      # (b), (c): NTU's 25 joints and STGAT's 6 part nodes
+STGAT_STEPS = 3        # (b): SGD steps at batch 64, the first untimed
+GEN_ITERS = (3, 1)     # (a): timed calls of a kernel, of a plain / einsum
+
+
+def stgat_adj(np):
+    """The (3, 31, 31) adjacency of the STGAT expanded graph of NTU-25:
+    [I, N, N^T], N the in-degree normalized graph without its self
+    links."""
+    from agcn_tpu_torch.graph.build import (expanded_graph,
+                                            normalize_in_degree)
+    from agcn_tpu_torch.graph.skeletons import get_skeleton
+
+    a = expanded_graph(get_skeleton("ntu_rgb_d"), 1)
+    eye = np.eye(a.shape[0])
+    n = normalize_in_degree(a - eye)
+    return np.stack([eye, n, n.T]).astype(np.float32)
+
+
+def stgat_model(torch, np, family, dname, device="cuda", generator=None,
+                **kw):
+    """AGCN or AAGCN at full width (10 blocks, 60 classes, M = 2) on the
+    STGAT graph with `formulation: pallas` (AAGCN also `eval_formulation`),
+    computing in `dname`."""
+    from agcn_tpu_torch.models import AAGCN, AGCN
+
+    extra = {"eval_formulation": "pallas"} if family == "aagcn" else {}
+    cls = AAGCN if family == "aagcn" else AGCN
+    return cls(num_class=60, num_point=STGAT_JOINTS, adj=stgat_adj(np),
+               formulation="pallas", device=device,
+               dtype=None if dname == "float32" else torch.bfloat16,
+               generator=generator, **extra, **kw)
+
+
+def stgat_vs_cpu(torch, np, family, state, x, card_logits, label, summary,
+                 **kw):
+    """The same weights and input on device="cpu" (the kernels' plain
+    versions): fp32 card logits within 1e-3 of the logit scale, bf16
+    within 5e-2 (check_against_cpu's bars)."""
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = stgat_model(torch, np, family, "float32", device="cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in state.items()}, strict=True)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cpu.eval()(torch.from_numpy(x))
+    ref = (ref[0] if isinstance(ref, tuple) else ref).numpy()
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(ref).max())
+    errs = {d: float(np.abs(card_logits[d] - ref).max()) for d in card_logits}
+    log(f"  {label} card vs cpu logits: max err {errs} (logit scale "
+        f"{scale:.3f}), cpu forward {cpu_s:.1f} s")
+    for name, err in errs.items():
+        bar = 1e-3 if name.startswith("float32") else 5e-2
+        check(err <= bar * max(scale, 1.0),
+              f"{label} {name} card logits off the CPU reference by "
+              f"{err:.3e}")
+    summary[f"{label}_card_vs_cpu"] = dict(logit_err=errs, logit_scale=scale)
+
+
+def stgat_served(torch, np, family, summary):
+    """One served forward (16 sequences x 2 persons = 32 samples, T = 300,
+    V = 31) of `family` in fp32 and bf16 with seeded weights (AGCN's BN
+    and PA as phase 7's, AAGCN's as phase 10's), timed first (CUDA
+    events, 3 calls after 2), then with the launch counts reset: LAYERS
+    gcn_fwd launches a forward, card against CPU. AGCN: also a
+    bf16 forward with `use_pallas` (gcn_kernel's fused_gcn, the fp32
+    aggregate), LAYERS fused_gcn launches. AAGCN: the served embeddings
+    through the logits kernel's entry point (`logits_on_served_embeddings`,
+    LAYERS launches a forward). Returns the launch counts."""
+    from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel
+
+    label = f"{family}_stgat"
+    x, _ = train_batch(np, STREAMS, SEED + 31, v=STGAT_JOINTS)
+    ref = stgat_model(torch, np, family, "float32",
+                      generator=torch.Generator().manual_seed(SEED))
+    if family == "aagcn":
+        prepare_aagcn_eval(torch, np, ref, x, SEED + 1)
+    else:
+        randomize_eval_state(torch, ref, SEED + 1)
+    state = {k: t.detach().clone() for k, t in ref.state_dict().items()}
+    del ref
+    models = {}
+    for dname in ("float32", "bfloat16"):
+        models[dname] = stgat_model(torch, np, family, dname)
+        models[dname].load_state_dict(state, strict=True)
+        models[dname].eval()
+    xc = torch.from_numpy(x).cuda()
+    with torch.inference_mode():
+        ms = {d: cuda_time_ms(lambda: m(xc), 3) for d, m in models.items()}
+    reset_launches()
+    card = {}
+    with torch.inference_mode():
+        for dname, m in models.items():
+            out = m(xc)
+            card[dname] = (out[0] if isinstance(out, tuple) else out
+                           ).float().cpu().numpy()
+            check(card[dname].shape == (STREAMS, 60)
+                  and np.isfinite(card[dname]).all(),
+                  f"{label} {dname}: logits {card[dname].shape}, finite "
+                  f"{np.isfinite(card[dname]).all()}")
+    launches = {"gcn_fwd_round_agg": gcn_fused.adaptive_gcn_pallas.launches,
+                "gcn_fwd_fp32_agg": gcn_kernel.fused_gcn.launches}
+    check(launches == {"gcn_fwd_round_agg": 2 * LAYERS,
+                       "gcn_fwd_fp32_agg": 0},
+          f"{label}: launches {launches} for two served forwards")
+    log(f"  {label} (V={STGAT_JOINTS}) served forward of 32 samples, T=300: "
+        f"{ms['float32']:.2f} ms fp32, {ms['bfloat16']:.2f} ms bf16; "
+        f"launches {launches} in the two checked forwards")
+    if family == "agcn":
+        models["bfloat16 use_pallas"] = stgat_model(torch, np, family,
+                                                     "bfloat16",
+                                                     use_pallas=True)
+        models["bfloat16 use_pallas"].load_state_dict(state, strict=True)
+        reset_launches()
+        with torch.inference_mode():
+            card["bfloat16 use_pallas"] = models["bfloat16 use_pallas"].eval(
+                )(xc).float().cpu().numpy()
+        launches["gcn_fwd_fp32_agg"] = gcn_kernel.fused_gcn.launches
+        check(launches["gcn_fwd_fp32_agg"] == LAYERS
+              and gcn_fused.adaptive_gcn_pallas.launches == 0,
+              f"{label} use_pallas: {launches['gcn_fwd_fp32_agg']} fused_gcn "
+              f"and {gcn_fused.adaptive_gcn_pallas.launches} gcn_fwd "
+              "launches in a forward")
+    stgat_vs_cpu(torch, np, family, state, x, card, label, summary)
+    launches["logits"] = 0
+    if family == "aagcn":
+        launches["logits"], worst = logits_on_served_embeddings(torch,
+                                                                models, x)
+        summary[f"{label}_logits_served"] = dict(launches=launches["logits"],
+                                                 max_err_over_scale=worst)
+        # the embeddings' two capture forwards launched gcn_fwd too
+        launches["gcn_fwd_round_agg"] = gcn_fused.adaptive_gcn_pallas.launches
+        check(launches["gcn_fwd_round_agg"] == 4 * LAYERS,
+              f"{label}: {launches['gcn_fwd_round_agg']} gcn_fwd launches in "
+              "four forwards")
+    summary[f"{label}_serve"] = dict(ms=ms, launches=launches)
+    return launches
+
+
+def stgat_train(torch, np, summary):
+    """(b) STGAT_STEPS SGD steps (train_joint.yaml's loss and optimizer:
+    clip, decay, nesterov) of the bf16 pallas AGCN on the STGAT graph at
+    batch 64 on one batch, the first untimed: finite losses, 2 LAYERS
+    gcn_fwd (forward and dx) and LAYERS gcn_bwd launches a step; ms a
+    step (host clock, synchronized) and peak memory of the timed ones.
+    Returns the launch counts."""
+    from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel
+    from agcn_tpu_torch.utils.config import load_config
+
+    model = stgat_model(torch, np, "agcn", "bfloat16",
+                        generator=torch.Generator().manual_seed(SEED))
+    step = make_step(torch, load_config(TRAIN_CONFIG), model)
+    x, y = train_batch(np, TRAIN_BATCH, SEED + 7, v=STGAT_JOINTS)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    reset_launches()
+    losses = [step(x, y)["loss"].item()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses += [step(x, y)["loss"] for _ in range(STGAT_STEPS - 1)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (STGAT_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    launches = {"gcn_fwd_round_agg": gcn_fused.adaptive_gcn_pallas.launches,
+                "gcn_fwd_fp32_agg": gcn_kernel.fused_gcn.launches,
+                "gcn_bwd": gcn_fused.gcn_backward.launches}
+    log(f"  agcn_stgat (b) {STGAT_STEPS} bf16 SGD steps at batch "
+        f"{TRAIN_BATCH}: loss {' '.join(f'{v:.4f}' for v in losses)}; "
+        f"{ms:.2f} ms/step, {TRAIN_BATCH / ms * 1e3:.1f} seq/s, peak "
+        f"{peak:.2f} GiB (the last {STGAT_STEPS - 1}); launches {launches}")
+    check(all(math.isfinite(v) for v in losses),
+          f"agcn_stgat: non-finite loss {losses}")
+    check(launches == {"gcn_fwd_round_agg": 2 * LAYERS * STGAT_STEPS,
+                       "gcn_fwd_fp32_agg": 0,
+                       "gcn_bwd": LAYERS * STGAT_STEPS},
+          f"agcn_stgat: launch counts {launches} for {STGAT_STEPS} steps")
+    summary["agcn_stgat_train"] = dict(
+        losses=losses, ms_per_step=ms, seq_per_s=TRAIN_BATCH / ms * 1e3,
+        peak_gib=peak, timed_steps=STGAT_STEPS - 1, launches=launches)
+    return launches
+
+
+def phase_any_joints(torch, np, smi, summary):
+    """Phase 25: the GCN kernels at joint counts outside the tuned 15, 18
+    and 25 (the general kernels). (a) each general kernel against its
+    plain version at V = 1, 7, 16, 32, 33, 31 and 67 on small shapes
+    (`check_general_small`), then at V = 31 and 67 the layer shapes of a
+    served forward (batch 32) and of a training step (batch 128), as
+    phases 3 and 4 (CUDA events: kernel, plain and einsum times beside the
+    bound; integer inputs bit for bit), and the logits kernel's general
+    tile at V = 31 (phase 5's checks); (b) AGCN at full width on the
+    31-node STGAT graph, `formulation: pallas`: a served forward in fp32
+    and bf16 (and bf16 with `use_pallas`) card against CPU, then
+    STGAT_STEPS bf16 SGD steps at batch 64; (c) AAGCN on the same graph,
+    served in fp32 and bf16 card against CPU, its embeddings through the
+    logits kernel. Returns the kernels' rows and the launch counts."""
+    from agcn_tpu_torch.ops.kernels import gcn_fused, gcn_kernel, logits_kernel
+
+    t25 = time.perf_counter()
+    out = dict(rows={}, dx_rows={}, bwd_rows={})
+    with torch.inference_mode():
+        for v in JOINTS_SMALL + JOINTS_GENERAL:
+            check_general_small(torch, np, gcn_fused, gcn_kernel, v)
+        for v in JOINTS_GENERAL:
+            log(f"  V={v}: gcn_fwd at the served layer shapes (batch 32), "
+                f"dx and gcn_bwd at the training ones (batch 128)")
+            out["rows"][v] = phase_fwd_kernels(torch, np, gcn_fused,
+                                               gcn_kernel, v, *GEN_ITERS)
+            out["dx_rows"][v] = phase_dx(torch, np, gcn_fused, v, *GEN_ITERS)
+            out["bwd_rows"][v] = phase_bwd_kernels(torch, np, gcn_fused, v,
+                                                   *GEN_ITERS)
+        log(f"  the logits kernel at V = {STGAT_JOINTS} (its general tile)")
+        out["logits_rows"] = phase_logits(torch, np, logits_kernel,
+                                          v=STGAT_JOINTS)
+    ta = time.perf_counter() - t25
+    for v in JOINTS_GENERAL:
+        for d in ("bfloat16", "float32"):
+            f = fwd_entry(out["rows"][v], True, d, 0, "", "",
+                          out["dx_rows"][v])
+            b = bwd_entry(out["bwd_rows"][v], 0, d, v)
+            log(f"  V={v} {d}: served forward {f['ms']:.3f} ms (plain "
+                f"{f['plain_ms']:.3f}, einsum {f['library_ms']:.3f}, bound "
+                f"{f['bound_ms']:.3f}); dx a step {f['dx']['ms']:.3f} ms "
+                f"(einsum {f['dx']['library_ms']:.3f}, bound "
+                f"{f['dx']['bound_ms']:.3f}); dW {b['dw']['ms']:.3f} ms "
+                f"(einsums {b['dw']['library_ms']:.3f}, bound "
+                f"{b['dw']['bound_ms']:.3f}), da1 {b['da1']['ms']:.3f} ms "
+                f"(einsums {b['da1']['library_ms']:.3f}, bound "
+                f"{b['da1']['bound_ms']:.3f})")
+    t0 = time.perf_counter()
+    out["launches"] = {"agcn_stgat_serve": stgat_served(torch, np, "agcn",
+                                                        summary),
+                       "agcn_stgat_train": stgat_train(torch, np, summary)}
+    tb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["launches"]["aagcn_stgat_serve"] = stgat_served(torch, np, "aagcn",
+                                                        summary)
+    tc = time.perf_counter() - t0
+    summary["any_joints_phase_s"] = time.perf_counter() - t25
+    summary["any_joints_launches"] = out["launches"]
+    summary["any_joints_rows"] = {k: out[k] for k in (
+        "rows", "dx_rows", "bwd_rows", "logits_rows")}
+    summary["any_joints_smi"] = smi
+    log(f"  phase 25 in {summary['any_joints_phase_s']:.1f} s ((a) {ta:.1f}, "
+        f"(b) {tb:.1f}, (c) {tc:.1f}; {smi})")
+    return out
+
+
+def vgen_entries(out, kernels):
+    """Each `kernels` row's "vgen" entry: phase 25's sums at V = 31 and 67
+    in both types (the logits kernel at V = 31), and its launches on
+    phase 25's paths."""
+    same = ("name", "route", "source", "replaces", "launches")
+    n = {k: 0 for k in ("gcn_fwd_round_agg", "gcn_fwd_fp32_agg", "gcn_bwd",
+                        "logits")}
+    for counts in out["launches"].values():
+        for k, c in counts.items():
+            n[k] += c
+    for i, (round_agg, key) in enumerate(((True, "gcn_fwd_round_agg"),
+                                          (False, "gcn_fwd_fp32_agg"))):
+        kernels[i]["vgen"] = {f"v{v}": {d: {
+            k: x for k, x in fwd_entry(
+                out["rows"][v], round_agg, d, 0, "", "",
+                out["dx_rows"][v] if round_agg else None).items()
+            if k not in same} for d in ("bfloat16", "float32")}
+            for v in JOINTS_GENERAL}
+        kernels[i]["vgen"]["launches"] = n[key]
+    kernels[2]["vgen"] = {f"v{v}": {d: {
+        k: x for k, x in bwd_entry(out["bwd_rows"][v], 0, d, v).items()
+        if k not in same} for d in ("bfloat16", "float32")}
+        for v in JOINTS_GENERAL}
+    kernels[2]["vgen"]["launches"] = n["gcn_bwd"]
+    kernels[3]["vgen"] = {f"v{STGAT_JOINTS}": {
+        d: dict(logits_sums(out["logits_rows"], SERVE_BATCH, d),
+                per=f"one served forward (10 layers, 32 samples, T=300, "
+                    f"V={STGAT_JOINTS})") for d in ("bfloat16", "float32")},
+        "launches": n["logits"]}
+    for entry, key in zip(kernels, n):
+        entry["launches"] += n[key]
+        entry["launches_by_path"].update(
+            {path: c[key] for path, c in out["launches"].items()
+             if c.get(key)})
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
     if argv and only not in ("14", "15", "16", "17", "18", "19", "20",
-                             "21", "22", "23", "24"):
+                             "21", "22", "23", "24", "25"):
         print("usage: python3 chip_smoke.py "
-              "[--phase 14|15|16|17|18|19|20|21|22|23|24]", file=sys.stderr)
+              "[--phase 14|15|16|17|18|19|20|21|22|23|24|25]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -5341,14 +5651,14 @@ def main(argv=None):
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    log(f"[1/24] {kind}: {smi}; torch {torch.__version__}, "
+    log(f"[1/25] {kind}: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     if only == "14":
-        log("[14/24] the SGN recipe alone (phase 14)")
+        log("[14/25] the SGN recipe alone (phase 14)")
         phase_sgn(torch, np, summary)
         return 0
     if only == "17":
-        log("[17/24] SGN's v11-v13 options, the MMD loss and sgn_original "
+        log("[17/25] SGN's v11-v13 options, the MMD loss and sgn_original "
             "alone (phase 17)")
         phase_sgn_options(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5358,7 +5668,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "18":
-        log("[18/24] SGN's transformer (train_sgn_transformer.yaml, "
+        log("[18/25] SGN's transformer (train_sgn_transformer.yaml, "
             "train_sgn_v15.yaml) and SGN serving alone (phase 18)")
         phase_sgn_transformer(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5368,7 +5678,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "19":
-        log("[19/24] SGN raw generation (sgn-raw) and SGN's temporal-branch "
+        log("[19/25] SGN raw generation (sgn-raw) and SGN's temporal-branch "
             "options alone (phase 19)")
         phase_sgn_temporal(torch, np, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5378,7 +5688,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "23":
-        log("[23/24] the rest of SGN's GCN stack and head alone (phase 23)")
+        log("[23/25] the rest of SGN's GCN stack and head alone (phase 23)")
         phase_sgn_stack(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
@@ -5387,7 +5697,7 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
         return 0
     if only == "24":
-        log("[24/24] SGN's input side and the k-means segment split alone "
+        log("[24/25] SGN's input side and the k-means segment split alone "
             "(phase 24)")
         phase_sgn_input(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5399,9 +5709,9 @@ def main(argv=None):
     if only == "15":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/24] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/25] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[15/24] the trainer's run knobs alone (phase 15)")
+        log("[15/25] the trainer's run knobs alone (phase 15)")
         phase_knobs(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
         os.makedirs(out_dir, exist_ok=True)
@@ -5411,9 +5721,9 @@ def main(argv=None):
     if only == "20":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/24] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/25] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[20/24] data-parallel training and the edge partition alone "
+        log("[20/25] data-parallel training and the edge partition alone "
             "(phase 20)")
         summary["phase20_launches"] = phase_parallel(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5425,9 +5735,9 @@ def main(argv=None):
     if only == "21":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/24] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/25] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[21/24] the 15-joint OpenPose recipes (AGCN, AAGCN) on the "
+        log("[21/25] the 15-joint OpenPose recipes (AGCN, AAGCN) on the "
             "V = 15 kernels alone (phase 21)")
         phase_openpose(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5439,9 +5749,9 @@ def main(argv=None):
     if only == "22":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/24] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/25] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[22/24] the single-stream live demo (python -m "
+        log("[22/25] the single-stream live demo (python -m "
             "agcn_tpu_torch.infer without --serve, expose_attention) alone "
             "(phase 22)")
         phase_single_stream(torch, np, smi, summary)
@@ -5451,12 +5761,29 @@ def main(argv=None):
                   "w") as f:
             json.dump(summary, f, indent=1)
         return 0
+    if only == "25":
+        t0 = time.perf_counter()
+        built = build.build_all()
+        log(f"[2/25] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+            "s")
+        for name in ("gcn_fwd", "gcn_bwd"):
+            summary[f"{name}_gen_build"] = report_gen_build(built[name].log)
+        check(not spilling(built["gcn_fwd"].log)
+              and not bwd_spills(built["gcn_bwd"].log), "a GCN kernel spills")
+        log("[25/25] the GCN kernels at any joint count alone (phase 25)")
+        phase_any_joints(torch, np, smi, summary)
+        out_dir = os.path.join(REPO, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_any_joints.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=1)
+        return 0
     if only == "16":
         t0 = time.perf_counter()
         built = build.build_all()
-        log(f"[2/24] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+        log(f"[2/25] built {sorted(built)} in {time.perf_counter() - t0:.1f} "
             "s")
-        log("[16/24] BN folding, the apply_gcn forms, the AAGCN versions "
+        log("[16/25] BN folding, the apply_gcn forms, the AAGCN versions "
             "alone (phase 16)")
         summary["phase16_launches"] = phase_versions(torch, np, smi, summary)
         out_dir = os.path.join(REPO, "build")
@@ -5469,12 +5796,14 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[2/24] built {sorted(built)} in {build_s:.1f} s")
+    log(f"[2/25] built {sorted(built)} in {build_s:.1f} s")
     for res in built.values():
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
                 log(f"  {ln.strip()}")
     summary["fp32_fwd_build"] = report_fp32_build(built["gcn_fwd"].log)
+    for name in ("gcn_fwd", "gcn_bwd"):
+        summary[f"{name}_gen_build"] = report_gen_build(built[name].log)
     summary["fp32_da1_build"] = report_da1_fp32_build(built["gcn_bwd"].log)
     summary["logits_build"] = report_build(built["logits"].log)
     spills = spilling(built["gcn_fwd"].log)
@@ -5485,7 +5814,7 @@ def main(argv=None):
     check(not spills, f"logits kernels spill: {spills}")
     summary["build_s"] = build_s
 
-    log("[3/24] gcn_fwd kernel vs plain version at the served shapes "
+    log("[3/25] gcn_fwd kernel vs plain version at the served shapes "
         "(batch 32) and as dx at the training shapes (batch 128). "
         "Tolerances: fp32 (TF32 off) max err <= 1e-4 x output scale "
         "(another summation order over up to 19,200 products); bf16 per "
@@ -5508,7 +5837,7 @@ def main(argv=None):
     summary.update(kernel_rows_v15=rows15, dx_rows_v15=dx_rows15,
                    fp32_fwd_layers_v15=fp32_layers(rows15, dx_rows15))
 
-    log("[4/24] gcn_bwd vs its plain version at the training shapes "
+    log("[4/25] gcn_bwd vs its plain version at the training shapes "
         "(batch 128), same tolerances")
     with torch.inference_mode():
         bwd_rows = phase_bwd_kernels(torch, np, gcn_fused)
@@ -5522,7 +5851,7 @@ def main(argv=None):
     summary.update(bwd_rows_v15=bwd_rows15,
                    fp32_da1_layers_v15=da1_fp32_layers(bwd_rows15))
 
-    log("[5/24] attention-logits kernel vs plain version at the served "
+    log("[5/25] attention-logits kernel vs plain version at the served "
         "(32) and training (128) batch shapes. Tolerance: max err <= 1e-5 "
         "x output scale (fp32 sums of up to 9,600 products in another "
         "order); two calls bitwise equal; on integer inputs the sums bit "
@@ -5535,7 +5864,7 @@ def main(argv=None):
         logits_rows15 = phase_logits(torch, np, logits_kernel, v=15)
     summary.update(logits_rows=logits_rows, logits_rows_v15=logits_rows15)
 
-    log("[6/24] host data path: the C++ host kernels "
+    log("[6/25] host data path: the C++ host kernels "
         "(agcn_tpu_torch/native/skelio.cpp) built by g++; pre_normalization "
         "of a served tick's batch, C++ against numpy (tolerance 1e-4 x "
         "output scale, the serving bar); python -m "
@@ -5543,11 +5872,11 @@ def main(argv=None):
         "files through the Feeder and a pallas AGCN forward")
     phase_host_data(torch, np, smi, summary)
 
-    log("[7/24] AGCN serving main path: 16 streams through "
+    log("[7/25] AGCN serving main path: 16 streams through "
         "BatchedStreamServer")
     launches, state, args, models, x_check = phase_main_path(torch, np,
                                                              summary)
-    log("[8/24] AGCN: device time of one served forward by kernel group; "
+    log("[8/25] AGCN: device time of one served forward by kernel group; "
         "the serving CLI (python -m agcn_tpu_torch.infer --serve 16 "
         "--pipeline)")
     phase_profile(torch, models, x_check, summary, "agcn")
@@ -5555,7 +5884,7 @@ def main(argv=None):
     summary["agcn_cli_launches"] = phase_cli(torch, np, state, "agcn", args,
                                              trainer_checkpoint=True)
 
-    log("[9/24] AGCN training main path: train_joint.yaml, formulation "
+    log("[9/25] AGCN training main path: train_joint.yaml, formulation "
         "pallas, T=300")
     train_cfg = load_config(TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, train_cfg, summary, "agcn")
@@ -5564,19 +5893,19 @@ def main(argv=None):
     phase_train_speed(torch, np, train_cfg, summary, "agcn", fp32=True)
     phase_train_cli(np, summary, TRAIN_CONFIG, "agcn")
 
-    log("[10/24] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
+    log("[10/25] AAGCN serving main path: test_joint_aagcn.yaml, formulation "
         "and eval_formulation pallas, 16 streams; the logits kernel's entry "
         "point on the served forward's theta/phi")
     (aagcn_launches, logits_launches, aagcn_state, aagcn_args, aagcn_models,
      aagcn_x) = phase_aagcn_serving(torch, np, summary)
-    log("[11/24] AAGCN: device time of one served forward by kernel group; "
+    log("[11/25] AAGCN: device time of one served forward by kernel group; "
         "the serving CLI")
     phase_profile(torch, aagcn_models, aagcn_x, summary, "aagcn")
     del aagcn_models
     summary["aagcn_cli_launches"] = phase_cli(torch, np, aagcn_state, "aagcn",
                                               aagcn_args)
 
-    log("[12/24] AAGCN training main path: train_joint_aagcn.yaml, "
+    log("[12/25] AAGCN training main path: train_joint_aagcn.yaml, "
         "formulation pallas, T=300")
     aagcn_cfg = load_config(AAGCN_TRAIN_CONFIG)
     phase_train_vs_cpu(torch, np, aagcn_cfg, summary, "aagcn")
@@ -5586,7 +5915,7 @@ def main(argv=None):
     phase_train_cli(np, summary, AAGCN_TRAIN_CONFIG, "aagcn", resume=False,
                     eval_formulation="pallas")
 
-    log("[13/24] AAGCN-transformer recipe (no port kernel on its path, as "
+    log("[13/25] AAGCN-transformer recipe (no port kernel on its path, as "
         "in the JAX package): test_joint_aagcn_transformer.yaml serving 16 "
         "streams; train_joint_aagcn_transformer.yaml (AdamW, onecycle), "
         "T=300")
@@ -5604,34 +5933,34 @@ def main(argv=None):
     summary["transformer_phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 in {summary['transformer_phase_s']:.1f} s")
 
-    log("[14/24] SGN recipe (no port kernel on its path, as in the JAX "
+    log("[14/25] SGN recipe (no port kernel on its path, as in the JAX "
         "package): train_sgn.yaml at full width on synthetic SGN pickles "
         "(the C++ flatten_persons), card against CPU, 10 Adam steps, speed, "
         "the entry points with 5-crop eval")
     phase_sgn(torch, np, summary)
 
-    log("[15/24] the trainer's run knobs: one fp32 SAM step of the pallas "
+    log("[15/25] the trainer's run knobs: one fp32 SAM step of the pallas "
         "AGCN, kernels against plain versions; the entry point on "
         "train_joint.yaml with SAM, the profiler, async checkpoints, then "
         "auto-resume; train_sgn_fsim_sam.yaml and train_sgn_scan8.yaml "
         "through the entry point")
     sam_launches = phase_knobs(torch, np, smi, summary)
 
-    log("[16/24] BN folding on the served pallas AGCN and AAGCN forwards "
+    log("[16/25] BN folding on the served pallas AGCN and AAGCN forwards "
         "(gcn_fwd and the logits kernel counted); the apply_gcn forms "
         "against 'agg'; the AAGCN v31 recipe (train_joint_aagcn_v31.yaml, "
         "T=60: card against CPU, 10 SGD steps, speed, the entry points); "
         "v17, v24, v30, v32 and v34 against the CPU")
     v16 = phase_versions(torch, np, smi, summary)
 
-    log("[17/24] SGN's v11-v13 options, the MMD loss and sgn_original (no "
+    log("[17/25] SGN's v11-v13 options, the MMD loss and sgn_original (no "
         "port kernel on their path, as in the JAX package): v11, v12, "
         "v13_gt4 and sgn_original card against CPU; one v12 step with the "
         "MMD loss card against CPU; 10 Adam steps of v12 (batch 128) and "
         "v13_gt4 (64), speed; train_sgn_v12.yaml through the entry points")
     v17 = phase_sgn_options(torch, np, summary)
 
-    log("[18/24] SGN's transformer (no port kernel on its path, as in the "
+    log("[18/25] SGN's transformer (no port kernel on its path, as in the "
         "JAX package): train_sgn_transformer.yaml and train_sgn_v15.yaml "
         "card against CPU, one v15 step card against CPU, 10 Adam steps "
         "each, speed, the entry points (train, --phase test, --serve 16); "
@@ -5639,7 +5968,7 @@ def main(argv=None):
         "card against CPU")
     v18 = phase_sgn_transformer(torch, np, summary)
 
-    log("[19/24] SGN raw generation and SGN's temporal-branch options (no "
+    log("[19/25] SGN raw generation and SGN's temporal-branch options (no "
         "port kernel on their path, as in the JAX package): python -m "
         "agcn_tpu_torch.data.gen sgn-raw on a synthetic raw tree, its "
         "NTU_CV pickles through the entry points; t_mode 2-5, t_mha_kwargs, "
@@ -5647,7 +5976,7 @@ def main(argv=None):
         "widths card against CPU, one Adam step each")
     v19 = phase_sgn_temporal(torch, np, summary)
 
-    log("[20/24] data-parallel training: train_joint.yaml's pallas AGCN "
+    log("[20/25] data-parallel training: train_joint.yaml's pallas AGCN "
         "through torchrun (one rank: an NCCL group, DDP, SyncBN) against the "
         "plain entry point, --phase test on the DDP checkpoint; the DDP "
         "step's ms and NCCL kernels; model_edge_gcn, the edge aggregate and "
@@ -5660,21 +5989,21 @@ def main(argv=None):
             "parallel_cli", "parallel_steps", "parallel_phase_s",
             "parallel_smi")}, f, indent=1)
 
-    log("[21/24] the 15-joint OpenPose recipes on the V = 15 kernels: "
+    log("[21/25] the 15-joint OpenPose recipes on the V = 15 kernels: "
         "openpose_b25_j15_xview/train_joint.yaml (AGCN) and "
         "train_joint_aagcn.yaml (AAGCN), formulation pallas: 16 streams "
         "card against CPU, one step card against CPU, 10 bf16 steps, the "
         "entry points (train, --phase test, --serve 16)")
     v21 = phase_openpose(torch, np, smi, summary)
 
-    log("[22/24] the single-stream live demo: python -m agcn_tpu_torch.infer "
+    log("[22/25] the single-stream live demo: python -m agcn_tpu_torch.infer "
         "without --serve (test_joint.yaml's AGCN and test_joint_aagcn.yaml's "
         "AAGCN, formulation pallas, card against CPU; the use_pallas AGCN "
         "and train_sgn.yaml's SGN; --save-attention), the recognizer's "
         "exposed graphs card against CPU and its predict latency")
     v22 = phase_single_stream(torch, np, smi, summary)
 
-    log("[23/24] the rest of SGN's GCN stack and head (no port kernel on "
+    log("[23/25] the rest of SGN's GCN stack and head (no port kernel on "
         "their path, as in the JAX package): argmax ties on the card; gt "
         "modes 0, 5, 6, attn modes 1-3 and 10, gcn_fpn 10 with the sgcn2 "
         "options, gcn_fpn_output_merge 2, the unit and block options and "
@@ -5682,13 +6011,21 @@ def main(argv=None):
         "Adam steps; gcn_fpn 10 with merge 2 through the entry point")
     v23 = phase_sgn_stack(torch, np, smi, summary)
 
-    log("[24/24] SGN's input side (no port kernel on its path, as in the "
+    log("[24/25] SGN's input side (no port kernel on its path, as in the "
         "JAX package): semantic_jdiff, xem_projection, "
         "semantic_frame_location 1, semantic_joint_smp and the segment "
         "embeddings at train_sgn.yaml's widths, card against CPU, Adam "
         "steps; the k-means segment split's collates; the segment "
         "embeddings with midvel_sampler 1 through the entry point")
     v24 = phase_sgn_input(torch, np, smi, summary)
+
+    log("[25/25] the GCN kernels at any joint count (the general kernels): "
+        "each against its plain version at V = 1, 7, 16, 31, 32, 33 and 67 "
+        "(small shapes), at V = 31 and 67 the served and training layer "
+        "shapes, the logits kernel at V = 31; AGCN and AAGCN on the 31-node "
+        "STGAT expanded graph, formulation pallas: a served forward in fp32 "
+        "and bf16 card against CPU, 3 bf16 SGD steps of AGCN at batch 64")
+    v25 = phase_any_joints(torch, np, smi, summary)
 
     fwd_launches = {
         "agcn_serve": launches["adaptive_gcn_pallas"],
@@ -5803,6 +6140,8 @@ def main(argv=None):
                          for d in ("bfloat16", "float32")}
     for entry, n in zip(kernels, v15_launches):
         entry["v15"]["launches"] = n
+    # and at any other V (the general kernels): phase 25's sums and paths
+    vgen_entries(v25, kernels)
     summary.update(kernels=kernels, device=kind, nvidia_smi=smi,
                    seconds=time.perf_counter() - t_start)
     log(f"  all phases in {summary['seconds']:.1f} s")

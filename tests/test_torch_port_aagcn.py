@@ -432,18 +432,16 @@ def test_one_train_step_matches_jax(form):
     state = TrainState.create(jmodel.apply, variables["params"],
                               variables["batch_stats"], tx)
 
-    def loss_of(params):
-        (logits, _), _ = jmodel.apply(
-            {"params": params, "batch_stats": state.batch_stats},
-            jnp.asarray(x), train=True, mutable=["batch_stats"])
-        return jlosses.cross_entropy(logits, jnp.asarray(y))
-
-    jstep = make_train_step(jlosses.cross_entropy)
-
     @jax.jit
     def grads_and_step(state):
-        return jax.grad(loss_of)(state.params), jstep(
-            state, jnp.asarray(x), jnp.asarray(y), jax.random.PRNGKey(0))
+        # the step, and the raw gradients it hands its optimizer (the
+        # step's own grad_transform hook)
+        raw = []
+        jstep = make_train_step(jlosses.cross_entropy,
+                                grad_transform=lambda g: raw.append(g) or g)
+        out = jstep(state, jnp.asarray(x), jnp.asarray(y),
+                    jax.random.PRNGKey(0))
+        return raw[0], out
 
     jgrads, (new_state, jm) = grads_and_step(state)
 

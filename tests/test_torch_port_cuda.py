@@ -544,6 +544,40 @@ def test_bf16_da1_runs_on_the_tensor_cores_kernel(cuda, dtype):
     assert found == want, names
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_general_v_runs_the_general_kernels(cuda, dtype):
+    """At V = 31 the forward launches gcn_fwd_gen_kernel, dW
+    gcn_u_gen_kernel and the GEMM of its type, da1 gcn_da1_gen_kernel
+    and the reduce, and none of the tuned templates of u, da1 or the
+    forward. One profile a wrapper, as the tuned route's tests take
+    them, and beside them: after the trainer's profiler window (below)
+    this card's later profiles saw no kernels (ROADMAP Queue 3, PR 11's
+    fault)."""
+    x, a1, w = _inputs(cuda, 2, 12, 64, 64, dtype, v=31)
+    g = _cotangent(cuda, 2, 12, 64, dtype, v=31)
+    gemm = ("gcn_dw_mma_kernel" if dtype == torch.bfloat16
+            else "gcn_dw_fp32_kernel")
+    tuned = ("gcn_fwd_mma_kernel", "gcn_fwd_fp32_kernel", "gcn_u_kernel",
+             "gcn_da1_mma_kernel", "gcn_da1_fp32_kernel")
+    for call, wanted in (
+            (lambda: gcn_fused.launch_gcn_fwd(x, a1, w, True),
+             {"gcn_fwd_gen_kernel"}),
+            (lambda: gcn_fused.launch_gcn_bwd_dw(x, a1, w, g),
+             {"gcn_u_gen_kernel", gemm, "gcn_dw_reduce_kernel"}),
+            (lambda: gcn_fused.launch_gcn_bwd_da1(x, a1, w, g),
+             {"gcn_da1_gen_kernel", "gcn_da1_reduce_kernel"})):
+        call()  # built and warm
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if "gcn_" in e.name]
+        found = {k for k in wanted if any(k in n for n in names)}
+        assert found == wanted, names
+        assert not any(t in n for t in tuned for n in names), names
+
+
 _FORMS = {"pallas": gcn_fused.adaptive_gcn_pallas,
           "pallas_hybrid": gcn_fused.adaptive_gcn_pallas_hybrid,
           "fused_gcn": gcn_kernel.fused_gcn}
@@ -1189,3 +1223,123 @@ def test_aagcn_versions_on_card_match_cpu(cuda, name, t, kw):
         want = cpu(x)
     assert _launches() == before
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# -- the general kernels: any V outside the tuned 15, 18 and 25 ----------
+
+# one joint, below, at and just past the 32-joint tile, the STGAT graph
+# (31) and OpenPose BODY_25 with both hands (67: its fp32 (3, 67, 67) a1
+# is more than a block's default 48 KB of shared memory)
+_ANY_V = [1, 7, 16, 31, 32, 33, 67]
+# (b, t, c, co): a ragged 4-frame tile, C and Co off every chunk and tile
+_GEN_SHAPE = (3, 13, 20, 37)
+
+
+@pytest.mark.parametrize("v", _ANY_V)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("round_agg", [True, False])
+def test_general_fwd_matches_plain(cuda, v, dtype, round_agg):
+    """gcn_fwd_gen_kernel with random a1, and in bf16 also with fp32 a1:
+    within the bar of the plain version of its mode, and as dx (the
+    forward on g, a1^T, W^T, the channels swapped)."""
+    b, t, c, co = _GEN_SHAPE
+    gen = torch.Generator(device=cuda).manual_seed(v)
+    x, a1, w = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+                for s in ((b, t, v, c), (b, 3, v, v), (3, c, co)))
+    got = gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, t, v, co)
+    assert _close(got, gcn_fused.gcn_fwd_plain(x, a1, w, round_agg))
+    if dtype == torch.bfloat16:
+        af = a1.float()
+        assert _close(gcn_fused.launch_gcn_fwd(x, af, w, round_agg),
+                      gcn_fused.gcn_fwd_plain(x, af, w, round_agg))
+    g = _cotangent(cuda, b, t, co, dtype, v=v)
+    at, wt = a1.transpose(2, 3).contiguous(), w.transpose(1, 2).contiguous()
+    assert _close(gcn_fused.launch_gcn_fwd(g, at, wt, round_agg),
+                  gcn_fused.gcn_fwd_plain(g, at, wt, round_agg))
+
+
+@pytest.mark.parametrize("v", _ANY_V)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_general_fwd_bit_exact_and_deterministic(cuda, v, dtype):
+    """Integer inputs whose every sum is exact in fp32 (x and a1 in
+    [-8, 8], W in [-2, 2]): each round_agg mode equals the plain version of
+    its mode bit for bit (in fp32 the two are one function), and two calls
+    are bitwise equal."""
+    x, a1, w = _exact_inputs(cuda, *_GEN_SHAPE, v=v, dtype=dtype)
+    for round_agg in (True, False):
+        got = gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)
+        again = gcn_fused.launch_gcn_fwd(x, a1, w, round_agg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.equal(got, gcn_fused.gcn_fwd_plain(x, a1, w, round_agg))
+
+
+@pytest.mark.parametrize("v", _ANY_V)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_general_bwd_matches_plain(cuda, v, dtype):
+    """gcn_u_gen_kernel with the dW GEMM, and gcn_da1_gen_kernel, with
+    random a1: dW and da1 within the bar of gcn_dw_plain and gcn_da1_plain
+    (da1 over several frame groups), launched alone equal to the pair,
+    and two calls bitwise equal."""
+    b, t, c, co = _GEN_SHAPE
+    gen = torch.Generator(device=cuda).manual_seed(v + 1)
+    x, a1, w, g = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+                   for s in ((b, t, v, c), (b, 3, v, v), (3, c, co),
+                             (b, t, v, co)))
+    assert _da1_groups(b, t, c, dtype, v) > 1
+    dw, da1 = gcn_fused.launch_gcn_bwd(x, a1, w, g)
+    again = gcn_fused.launch_gcn_bwd(x, a1, w, g)
+    torch.cuda.synchronize()
+    assert dw.dtype == dtype and da1.dtype == dtype
+    assert torch.equal(dw, again[0]) and torch.equal(da1, again[1])
+    assert _close(dw, gcn_fused.gcn_dw_plain(x, a1, g).to(dtype))
+    assert _close(da1, gcn_fused.gcn_da1_plain(x, w, g).to(dtype))
+    assert torch.equal(gcn_fused.launch_gcn_bwd_dw(x, a1, w, g), dw)
+    assert torch.equal(gcn_fused.launch_gcn_bwd_da1(x, a1, w, g), da1)
+
+
+@pytest.mark.parametrize("v", _ANY_V)
+def test_general_bwd_fp32_bit_for_bit_on_integers(cuda, v):
+    """fp32 integer inputs whose every sum is exact in fp32 in any order
+    (checked): dW (x in [-4, 4], a1 and g in [-8, 8]) and da1 (x, W and g
+    in [-1, 1]) equal gcn_dw_plain and gcn_da1_plain bit for bit."""
+    b, t, c, co = _GEN_SHAPE
+    rng = np.random.default_rng(v)
+    x, a1, g = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.integers(-4, 5, (b, t, v, c)),
+        rng.integers(-8, 9, (b, 3, v, v)),
+        rng.integers(-8, 9, (b, t, v, co))))
+    assert gcn_fused.gcn_dw_plain(x.abs(), a1.abs(), g.abs()).max() < 2 ** 24
+    dw = gcn_fused.launch_gcn_bwd_dw(x, a1, torch.zeros(3, c, co,
+                                                        device=cuda), g)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, gcn_fused.gcn_dw_plain(x, a1, g))
+    x, w, g = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.integers(-1, 2, (b, t, v, c)), rng.integers(-1, 2, (3, c, co)),
+        rng.integers(-1, 2, (b, t, v, co))))
+    assert gcn_fused.gcn_da1_plain(x.abs(), w.abs(), g.abs()).max() < 2 ** 24
+    da1 = gcn_fused.launch_gcn_bwd_da1(x, a1, w, g)
+    torch.cuda.synchronize()
+    assert torch.equal(da1, gcn_fused.gcn_da1_plain(x, w, g))
+
+
+@pytest.mark.parametrize("v", _ANY_V)
+def test_general_kernels_count_launches(cuda, v):
+    """The wrappers count the general kernels' launches as the tuned
+    ones': a forward each, the dx forward and one gcn_bwd with grad; the
+    library's da1 tiling at this V is the general kernel's 4-frame tiles,
+    two blocks an SM in both types."""
+    x, a1, w = _inputs(cuda, 2, 9, 16, 24, torch.float32, v=v)
+    before = _launches()
+    with torch.no_grad():
+        gcn_fused.adaptive_gcn_pallas(x, a1, w)
+        gcn_kernel.fused_gcn(x, a1, w)
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2])
+    gcn_fused.adaptive_gcn_pallas(x.requires_grad_(True), a1,
+                                  w.requires_grad_(True)).sum().backward()
+    assert _launches() == (before[0] + 3, before[1] + 1, before[2] + 1)
+    for bf16 in (False, True):
+        frames, smem, blocks = gcn_fused.da1_tiling(v, 64, bf16)
+        assert frames == 4 and blocks >= 2 and 0 < 2 * smem <= 227 * 1024

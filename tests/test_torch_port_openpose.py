@@ -5,8 +5,8 @@ port against the JAX package on the CPU.
    which take their plain versions on CPU tensors, against JAX's Pallas
    kernels in interpret mode (gcn_fused's forward and backward, gcn_kernel's
    `fused_gcn`, `attention_logits_pallas`), at small shapes (tests/
-   test_torch_port_ops.py's). A joint count outside the skeletons' raises
-   naming the supported set.
+   test_torch_port_ops.py's). Any other joint count V >= 1 passes the
+   wrappers' checks (the general kernels take it).
 2. The AGCN of configs/openpose_b25_j15_xview/train_joint.yaml (full
    depth: the model has no depth option) and the AAGCN of
    train_joint_aagcn.yaml (cut to 3 blocks), both with `formulation:
@@ -152,14 +152,16 @@ def test_kernels_at_15_joints_match_jax_pallas():
             tfused.gcn_backward.launches,
             tlk.attention_logits_pallas.launches) == (0, 0, 0, 0)
 
-    # the supported joint counts are the skeletons'; another V raises
-    # before any CUDA call
-    assert tfused.SUPPORTED_JOINTS == (15, 18, 25)
-    for v in (16, 24):
-        with pytest.raises(ValueError, match=r"\(15, 18, 25\)"):
-            tfused.launch_gcn_fwd(torch.zeros(1, 2, v, 4),
-                                  torch.zeros(1, 3, v, v),
-                                  torch.zeros(3, 4, 8), True)
+    # the tuned joint counts are the skeletons'; every other V >= 1 takes
+    # the general kernels, and the wrappers' checks pass it (no CUDA call
+    # needed to show it); no joints at all raise, naming the tuned set
+    assert tfused.TUNED_JOINTS == (15, 18, 25)
+    for v in (1, 16, 24, 31, 40, 67):
+        tfused._check(torch.zeros(1, 2, v, 4), torch.zeros(1, 3, v, v),
+                      torch.zeros(3, 4, 8))
+    with pytest.raises(ValueError, match=r"\(15, 18, 25\)"):
+        tfused._check(torch.zeros(1, 2, 0, 4), torch.zeros(1, 3, 0, 0),
+                      torch.zeros(3, 4, 8))
 
 
 def _recipe(name, **overrides):

@@ -124,21 +124,18 @@ def check_one_step(adj, variables, form):
     """One train step of `form` against the JAX step: loss, accuracy, the
     raw gradients, the updated parameters and BN running statistics."""
     x, y = _batch(1)
-    jmodel, state = _jax_state(adj, variables, form)
-
-    def loss_of(params):
-        logits, _ = jmodel.apply(
-            {"params": params, "batch_stats": state.batch_stats},
-            jnp.asarray(x), train=True, mutable=["batch_stats"])
-        return jlosses.cross_entropy(logits, jnp.asarray(y))
-
-    jax_step = make_train_step(jlosses.cross_entropy)
+    _, state = _jax_state(adj, variables, form)
 
     @jax.jit
     def grads_and_step(state):
-        # one program: the raw gradients beside the step that clips them
-        return jax.grad(loss_of)(state.params), jax_step(
-            state, jnp.asarray(x), jnp.asarray(y), jax.random.PRNGKey(0))
+        # one program: the step, and the raw gradients it hands its
+        # optimizer (the step's own grad_transform hook) before clipping
+        raw = []
+        jstep = make_train_step(jlosses.cross_entropy,
+                                grad_transform=lambda g: raw.append(g) or g)
+        out = jstep(state, jnp.asarray(x), jnp.asarray(y),
+                    jax.random.PRNGKey(0))
+        return raw[0], out
 
     jgrads, (new_state, jm) = grads_and_step(state)
 
